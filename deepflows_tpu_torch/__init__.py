@@ -1,0 +1,25 @@
+"""deepflows_tpu_torch — the PyTorch and CUDA port of ``deepflows_tpu``.
+
+The package keeps the JAX package's module paths, public names and
+state_dict layout (``(in, out)`` Linear weights, ``(1, out)`` biases), so a
+checkpoint of one loads into the other (``utils.convert.load_jax_state_dict``).
+It imports ``torch`` and never ``jax``.
+
+Entry points place their tensors on the CUDA card unless the caller passes
+``device="cpu"``; without a card they raise rather than fall back.  Every
+TPU kernel on a ported path is a hand-written CUDA kernel under ``csrc/``:
+its wrapper launches it for a CUDA tensor and calls its plain PyTorch twin
+for a CPU tensor (``ops/quant.py``).
+
+Ported so far: the serving slice — ``models.TransformerLM`` and the
+KV-cache decoder ``models.KVCacheDecoder`` in its dense, ``"int8"`` and
+``"w8a8"`` modes.
+"""
+
+from __future__ import annotations
+
+from .config import config
+from .device import Device, default_accelerator
+from .random import manual_seed
+
+__all__ = ["Device", "config", "default_accelerator", "manual_seed"]

@@ -1,0 +1,5 @@
+from .decoding import KVCacheDecoder
+from .transformer_lm import TransformerLM
+from .vit import EncoderBlock
+
+__all__ = ["EncoderBlock", "KVCacheDecoder", "TransformerLM"]

@@ -1,0 +1,95 @@
+"""Decoder-only transformer language model (counterpart of
+``deepflows_tpu/models/transformer_lm.py``): token Embedding plus a learned
+position Parameter, causal ``EncoderBlock`` × depth, a final LayerNorm and
+a Linear head.  ``trunk()`` and ``pipeline_partition()`` serve training and
+come with the training slice."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import nn
+from ..config import config
+from ..device import Device
+from .vit import EncoderBlock
+
+
+def _pad_greedy_generate(model, idx, new_tokens: int):
+    """Greedy decoding by full forwards: append ``new_tokens`` tokens to the
+    (B, L) int prompt, right-padding each context to ``max_len`` as the JAX
+    package does (causal masking makes the pad inert)."""
+    was_training = model.training
+    model.eval()
+    try:
+        idx = np.asarray(idx)
+        for _ in range(new_tokens):
+            L = idx.shape[1]
+            if L >= model.max_len:
+                ctx = idx[:, -model.max_len:]
+                pos = model.max_len - 1
+            else:
+                pad = np.zeros((idx.shape[0], model.max_len - L), idx.dtype)
+                ctx = np.concatenate([idx, pad], 1)
+                pos = L - 1
+            with torch.no_grad():
+                logits = model(torch.as_tensor(ctx, dtype=torch.long))
+            nxt = logits[:, pos].argmax(-1).cpu().numpy()
+            idx = np.concatenate([idx, nxt[:, None].astype(idx.dtype)], 1)
+        return idx
+    finally:
+        if was_training:
+            model.train()
+
+
+class TransformerLM(nn.Module):
+    def __init__(
+        self,
+        vocab_size: int,
+        max_len: int = 128,
+        dim: int = 128,
+        depth: int = 4,
+        num_heads: int = 4,
+        mlp_ratio: float = 4.0,
+        dropout: float = 0.0,
+        device=None,
+        remat: bool = False,
+        flash=None,
+        ring=None,
+    ):
+        super().__init__()
+        dev = Device(device)
+        self.vocab_size = vocab_size
+        self.max_len = max_len
+        self.tok_embed = nn.Embedding(vocab_size, dim, device=dev)
+        self.pos_embed = torch.nn.Parameter(
+            torch.zeros((1, max_len, dim), device=dev, dtype=config.default_dtype)
+        )
+        self.blocks = nn.Sequential(
+            *[
+                EncoderBlock(
+                    dim, num_heads, mlp_ratio, dropout, device=dev,
+                    remat=remat, causal=True, flash=flash, ring=ring,
+                )
+                for _ in range(depth)
+            ]
+        )
+        self.norm = nn.LayerNorm(dim, device=dev)
+        self.head = nn.Linear(dim, vocab_size, device=dev)
+
+    def forward(self, idx):
+        # idx: (B, L) int tokens -> (B, L, vocab) logits
+        x = self.tok_embed(idx)
+        L = x.shape[1]
+        if L > self.max_len:
+            raise ValueError(f"sequence length {L} > max_len {self.max_len}")
+        x = x + self.pos_embed[:, :L]
+        x = self.blocks(x)
+        x = self.norm(x)
+        return self.head(x)
+
+    def generate(self, idx, new_tokens: int):
+        """Greedy autoregressive decoding by full forwards: append
+        ``new_tokens`` tokens to the (B, L) int prompt (a numpy array).
+        ``models.KVCacheDecoder`` is the serving path."""
+        return _pad_greedy_generate(self, idx, new_tokens)

@@ -1,0 +1,50 @@
+"""LayerNorm (counterpart of ``deepflows_tpu/nn/modules/normalization.py``;
+RMSNorm and GroupNorm come with later slices).  The statistics are taken
+in the input's dtype, op for op as in the JAX package."""
+
+from __future__ import annotations
+
+import torch
+
+from ...config import config
+from ...device import Device
+from .module import Module
+
+
+class LayerNorm(Module):
+    def __init__(
+        self,
+        normalized_shape,
+        eps: float = 1e-5,
+        elementwise_affine: bool = True,
+        device=None,
+        dtype=None,
+    ) -> None:
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = (normalized_shape,)
+        self.normalized_shape = tuple(normalized_shape)
+        self.eps = float(eps)
+        self.elementwise_affine = elementwise_affine
+        if elementwise_affine:
+            kw = dict(device=Device(device), dtype=dtype or config.default_dtype)
+            self.weight = torch.nn.Parameter(torch.ones(self.normalized_shape, **kw))
+            self.bias = torch.nn.Parameter(torch.zeros(self.normalized_shape, **kw))
+        else:
+            self.register_parameter("weight", None)
+            self.register_parameter("bias", None)
+
+    def forward(self, x):
+        axes = tuple(range(x.dim() - len(self.normalized_shape), x.dim()))
+        xc = x - x.mean(axes, keepdim=True)
+        var = (xc * xc).mean(axes, keepdim=True)  # biased, like torch
+        y = xc / (var + self.eps).sqrt()
+        if self.weight is not None:
+            y = y * self.weight + self.bias
+        return y
+
+    def extra_repr(self) -> str:
+        return (
+            f"{self.normalized_shape}, eps={self.eps}, "
+            f"elementwise_affine={self.elementwise_affine}"
+        )

@@ -1,0 +1,172 @@
+"""The port's int8 kernels' plain twins (deepflows_tpu_torch/ops/quant.py)
+against the JAX package's Pallas kernels, run in interpret mode on the CPU.
+
+Inputs are numpy arrays from a seed, handed to both packages.  Tolerances:
+quantisation and w8a8 are bit-exact (integer sums, then the same f32 ops in
+the same order); int8_matmul uses tests/test_pallas.py's rtol 1e-4 and atol
+1e-3, since the f32 sums run in another order.  On CPU tensors the wrappers
+take the plain twins and never count a launch.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepflows_tpu.ops import pallas_kernels as pk
+from deepflows_tpu_torch import ops
+from deepflows_tpu_torch.ops import quant
+
+RNG = np.random.default_rng(21)
+
+
+@pytest.fixture(autouse=True)
+def _zero_counts():
+    ops.reset_launch_counts()
+    yield
+    assert [k.launches for k in ops.KERNELS] == [0, 0]  # CPU never launches
+
+
+@pytest.mark.parametrize("shape", [(64, 48), (512, 512), (70, 50), (16, 4)])
+def test_quantize_int8_bit_exact(shape):
+    w = RNG.standard_normal(shape).astype(np.float32) * 0.3
+    if shape == (16, 4):
+        w[:, 1] = 0.0  # a zero column takes scale 1
+    jq, js = pk.quantize_int8(jnp.asarray(w))
+    tq, ts = quant.quantize_int8(torch.from_numpy(w))
+    assert tq.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_int8_rows_bit_exact(dtype):
+    x = RNG.standard_normal((33, 300)).astype(np.float32)
+    x[5] = 0.0  # a zero row takes scale 1
+    jx = jnp.asarray(x).astype(dtype)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    jq, js = pk.quantize_int8_rows(jx)
+    tq, ts = quant.quantize_int8_rows(tx)
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+@pytest.mark.parametrize("m,k,n", [(16, 512, 512), (100, 70, 50), (129, 256, 300)])
+def test_int8_matmul_plain_matches_jax(m, k, n):
+    x = RNG.standard_normal((m, k)).astype(np.float32)
+    w = RNG.standard_normal((k, n)).astype(np.float32) * 0.1
+    jq, js = pk.quantize_int8(jnp.asarray(w))
+    want = np.asarray(pk.int8_matmul(jnp.asarray(x), jq, js))
+    tq, ts = quant.quantize_int8(torch.from_numpy(w))
+    got = ops.int8_matmul(torch.from_numpy(x), tq, ts)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("out", [None, "float32"])
+def test_int8_matmul_plain_bf16_activations(out):
+    x = RNG.standard_normal((16, 256)).astype(np.float32)
+    w = RNG.standard_normal((256, 128)).astype(np.float32) * 0.1
+    jq, js = pk.quantize_int8(jnp.asarray(w))
+    tq, ts = quant.quantize_int8(torch.from_numpy(w))
+    want = pk.int8_matmul(
+        jnp.asarray(x).astype(jnp.bfloat16), jq, js,
+        out_dtype=None if out is None else jnp.float32,
+    )
+    got = ops.int8_matmul(
+        torch.from_numpy(x).bfloat16(), tq, ts,
+        out_dtype=None if out is None else torch.float32,
+    )
+    assert str(got.dtype).endswith(str(want.dtype))
+    # f32 out: the JAX tests' bound; bf16 out: one bf16 ulp (<= 2^-7 |v|)
+    rtol = 1e-4 if out else 2**-7
+    np.testing.assert_allclose(
+        got.float().numpy(), np.asarray(want, np.float32), rtol=rtol, atol=1e-3
+    )
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 96, 80), (5, 256, 128), (33, 512, 300)])
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+def test_w8a8_matmul_plain_exact_against_jax(m, k, n, out):
+    x = RNG.standard_normal((m, k)).astype(np.float32)
+    w = RNG.standard_normal((k, n)).astype(np.float32)
+    jxq, jsx = pk.quantize_int8_rows(jnp.asarray(x))
+    jwq, jsw = pk.quantize_int8(jnp.asarray(w))
+    want = pk.w8a8_matmul(jxq, jsx, jwq, jsw, out_dtype=getattr(jnp, out))
+    txq, tsx = quant.quantize_int8_rows(torch.from_numpy(x))
+    twq, tsw = quant.quantize_int8(torch.from_numpy(w))
+    got = ops.w8a8_matmul(txq, tsx, twq, tsw, out_dtype=getattr(torch, out))
+    np.testing.assert_array_equal(
+        got.float().numpy(), np.asarray(want, np.float32)
+    )
+
+
+def test_w8a8_k_overflow_guard():
+    k = 133_632  # k * 127^2 = 2.155e9 >= 2^31
+    xq = torch.zeros((8, k), dtype=torch.int8)
+    wq = torch.zeros((k, 8), dtype=torch.int8)
+    ones = torch.ones(8)
+    with pytest.raises(ValueError, match="overflow"):
+        ops.w8a8_matmul(xq, ones, wq, ones)
+
+
+def _int8_args():
+    x = torch.from_numpy(RNG.standard_normal((4, 32)).astype(np.float32))
+    wq, s = quant.quantize_int8(torch.from_numpy(RNG.standard_normal((32, 16)).astype(np.float32)))
+    return x, wq, s
+
+
+@pytest.mark.parametrize(
+    "bad",
+    ["x_not_contiguous", "x_int", "w_float", "k_mismatch", "scale_f64",
+     "scale_len", "out_int", "empty"],
+)
+def test_int8_matmul_rejects_what_the_kernel_does_not_take(bad):
+    x, wq, s = _int8_args()
+    kw = {}
+    if bad == "x_not_contiguous":
+        x = torch.cat([x, x], 1)[:, ::2]
+    elif bad == "x_int":
+        x = x.to(torch.int32)
+    elif bad == "w_float":
+        wq = wq.float()
+    elif bad == "k_mismatch":
+        wq = wq[:31].contiguous()
+    elif bad == "scale_f64":
+        s = s.double()
+    elif bad == "scale_len":
+        s = s[:15]
+    elif bad == "out_int":
+        kw["out_dtype"] = torch.int32
+    elif bad == "empty":
+        x = x[:0]
+    with pytest.raises((ValueError, TypeError)):
+        ops.int8_matmul(x, wq, s, **kw)
+
+
+@pytest.mark.parametrize("bad", ["xq_float", "sx_len", "sw_bf16", "k_mismatch"])
+def test_w8a8_matmul_rejects_what_the_kernel_does_not_take(bad):
+    x, wq, sw = _int8_args()
+    xq, sx = quant.quantize_int8_rows(x)
+    if bad == "xq_float":
+        xq = x
+    elif bad == "sx_len":
+        sx = sx[:3]
+    elif bad == "sw_bf16":
+        sw = sw.bfloat16()
+    elif bad == "k_mismatch":
+        wq = wq[:16].contiguous()
+    with pytest.raises((ValueError, TypeError)):
+        ops.w8a8_matmul(xq, sx, wq, sw)
+
+
+def test_cpu_calls_take_the_plain_twins():
+    x, wq, s = _int8_args()
+    torch.testing.assert_close(
+        ops.int8_matmul(x, wq, s), quant.int8_matmul_plain(x, wq, s), rtol=0, atol=0
+    )
+    xq, sx = quant.quantize_int8_rows(x)
+    torch.testing.assert_close(
+        ops.w8a8_matmul(xq, sx, wq, s), quant.w8a8_matmul_plain(xq, sx, wq, s),
+        rtol=0, atol=0,
+    )
