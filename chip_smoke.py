@@ -31,17 +31,58 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
    throughput of each mode, the device busy share of a decode step (its
    device time, timed with its launches queued in advance, over its wall
    time), and the number of aten ops a step dispatches from the host.
+4. Training kernel phase: flash_attention (forward and backward),
+   fused_linear_ce (forward and backward) and fused_adam against their
+   plain twins on the card, in f32 and bf16, at the training slice's shapes
+   (flash (8, 8, 1024, 128) causal; CE N 8192, D 1024, V 8192; Adam over the
+   model's 198 tensors) and at ragged ones (flash: Lq != Lk, L not a tile
+   multiple, D 64 and 100, non-causal, a window, rows that see no key; CE: N
+   and V not tile multiples, an f32 bias beside bf16 x and w; Adam: sizes
+   that are not a block multiple, weight decay 0 and not), and the slice's
+   bf16 flash case again on (B, L, H, D) tensors seen as (B, H, L, D), as
+   MultiheadAttention passes them.  Tolerances: flash's out, dq, dk and dv
+   by row (row_err: max |kernel - plain| of a row over that row's max
+   |plain| plus 1e-2 of the tensor's), below 1e-4 in f32 and 2e-2 in bf16
+   (the two round P and dS to bf16 at the same places but sum in other
+   orders, and the kernel's P is relative to a running maximum); lse
+   elementwise below 1e-4 of max(1, |lse|) in both dtypes; the plain
+   backward starts from the plain forward's out and lse.  CE: max |kernel
+   - plain| / max |plain| below 1e-4 (loss and lse, and f32 gradients) and
+   2e-2 (bf16 gradients); Adam below 1e-6.  Rows that see no key must give
+   exactly 0 and lse -1e30.  Two planted faults must fail the flash check:
+   the kernel run with window L - 64 (up to a key tile dropped from the
+   longest rows) and its backward fed lse + 0.1.
+   Times each kernel at the slice's bf16 shapes beside its plain twin, one
+   library call (scaled_dot_product_attention; torch.matmul +
+   F.cross_entropy; torch.optim.Adam(fused=True)) and its bound.
+5. Training phase, the main path: TransformerLM(vocab 8192, max_len 1024,
+   dim 1024, depth 12, heads 8, flash=True) with random weights from a seed,
+   trained by CompiledTrainStep(lm.trunk(), Adam(lr 5e-3, weight decay
+   5e-4, fused=True), LMHeadCrossEntropy(lm.head), compute_dtype=bf16) on
+   the fixed B 8 x L 1024 batch of bench.py (numpy default_rng(0)), 3
+   warm-up and 10 timed steps.  Launch counts are zeroed just before and read
+   just after; every step must launch flash forward and backward 12 times
+   each, the CE forward and backward and fused Adam once each.  Every loss
+   must be finite, the first within 1.0 of ln 8192, the last below the
+   first.  Prints step ms (CUDA events and wall clock), tokens/s, the
+   device busy share, the MFU of the analytic 9.071e12 FLOPs a step, and
+   (torch.profiler) the device time of a step by kernel.
+6. Card against CPU: the same step in f32 at full width but depth 2 and
+   B 2, on the card and on a CPU copy (plain twins), 3 steps; the losses
+   must agree within 1e-3 relative, and each parameter's change over the
+   3 steps within 1e-3 of its norm (PARAM_TOL).
 
 Prints the card's name and power limit, one {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}.  With ``--report PATH`` it also
-writes every measurement (each shape's times, the throughput of each mode)
-to PATH as JSON.
+writes every measurement (each shape's times, the throughput of each mode,
+the training step's numbers) to PATH as JSON.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -427,6 +468,437 @@ def slice_phase(torch, dt, report):
     return counts
 
 
+# ---------------------------------------------------------------- training
+TRAIN = dict(vocab_size=8192, max_len=1024, dim=1024, depth=12, num_heads=8)
+TRAIN_B, TRAIN_L, WARMUP, TIMED = 8, 1024, 3, 10
+ADAM = dict(lr=5e-3, weight_decay=5e-4)
+PER_STEP = {  # kernel launches per training step
+    "flash_attention_fwd": TRAIN["depth"], "flash_attention_bwd": TRAIN["depth"],
+    "fused_linear_ce_fwd": 1, "fused_linear_ce_bwd": 1, "fused_adam": 1,
+}
+FLASH_RAGGED = (  # (B, H, Lq, Lk, D, causal, window)
+    (2, 3, 100, 100, 64, True, None), (1, 2, 70, 130, 128, False, None),
+    (1, 2, 130, 70, 64, True, None), (2, 2, 200, 200, 128, True, 37),
+    (1, 2, 96, 8, 64, True, 9), (1, 1, 33, 47, 100, True, None),
+    (2, 2, 64, 64, 64, False, None),
+)
+CE_RAGGED = ((37, 64, 513), (100, 200, 300), (1000, 1024, 8000), (130, 1000, 97))
+ADAM_RAGGED = (1, 3, 4095, 4096, 4097, 10000, 12345)
+TOL = {"f32": 1e-4, "bf16": 2e-2}  # see scaled_err and row_err
+FAULT_SHIFT = 0.1  # added to lse in the planted backward fault
+# |card change - CPU change| / |CPU change| of the worst parameter after 3 f32 steps
+PARAM_TOL = 1e-3
+
+
+def step_flops(B, L, D, depth, V):
+    """Analytic FLOPs of one training step, bench.py's lm_analytic_flops:
+    3 x (matmuls + head + full L^2 attention)."""
+    T = B * L
+    return 3.0 * (2 * T * depth * 12 * D * D + 2 * T * D * V + depth * 4 * B * L * L * D)
+
+
+def scaled_err(got, want):
+    """(max |got - want| / max |want|, max |got - want|) in f32."""
+    d = (got.float() - want.float()).abs().max().item()
+    return d / max(want.float().abs().max().item(), 1e-30), d
+
+
+def row_err(got, want):
+    """(max over rows of max |got - want| / (max |want| + floor), max
+    |got - want|), a row being the last axis and floor 1e-2 of the largest
+    |want| of the tensor: each row is held to its own scale, so a row of
+    small values (a causal row that sees many keys) is held as tightly as
+    one of large values, and a row that is only rounding noise (the dq of a
+    query that sees one key) is not held to its noise."""
+    got, want = got.float(), want.float()
+    d = (got - want).abs()
+    scale = want.abs().amax(-1)
+    floor = max(1e-2 * scale.max().item(), 1e-30)
+    return (d.amax(-1) / (scale + floor)).max().item(), d.max().item()
+
+
+def flash_errs(fwd, ref_fwd, grads, ref_grads, live):
+    """{name: (relative error, max abs error)} of out, lse, dq, dk and dv
+    against their references: out and the gradients by row_err, lse
+    elementwise against max(1, |lse|); rows that see no key (``live``
+    False) are left out of out and lse."""
+    (o, lse), (po, plse) = fwd, ref_fwd
+    B, H, Lq = o.shape[:3]
+    lse, plse = lse.view(B, H, Lq)[:, :, live], plse.view(B, H, Lq)[:, :, live]
+    errs = {"out": row_err(o[:, :, live], po[:, :, live]),
+            "lse": (rel_err(lse, plse), (lse - plse).abs().max().item())}
+    errs.update((n, row_err(g, r)) for n, g, r in zip(("dq", "dk", "dv"), grads, ref_grads))
+    return errs
+
+
+def flash_case(torch, ops, g, B, H, Lq, Lk, D, causal, window, dt, label, heads_view=False):
+    """Forward and backward kernel against the plain twins on one case: the
+    plain backward starts from the plain forward's out and lse.  Fails past
+    the limits (lse at TOL["f32"] in both dtypes, the rest at the dtype's
+    TOL), or unless every row without a visible key gives output 0 and lse
+    -1e30.  With ``heads_view`` the operands are (B, L, H, D) tensors seen
+    as (B, H, L, D), as MultiheadAttention passes them.  Returns the
+    operands, the plain results and the errors."""
+    dev = torch.device("cuda")
+    if heads_view:
+        q, k, v, do = (torch.randn((B, n, H, D), generator=g, device=dev).to(dt).transpose(1, 2)
+                       for n in (Lq, Lk, Lk, Lq))
+    else:
+        q, k, v, do = (torch.randn((B, H, n, D), generator=g, device=dev).to(dt)
+                       for n in (Lq, Lk, Lk, Lq))
+    o, lse = ops.flash_attention_fwd(q, k, v, causal, None, window)
+    po, plse = ops.flash_attention_plain(q, k, v, causal, None, window)
+    grads = ops.flash_attention_bwd(q, k, v, o, lse, do, causal, None, window)
+    want = ops.flash_attention_bwd_plain(q, k, v, po, plse, do, causal, None, window)
+    kpos, qpos = torch.arange(Lk, device=dev), torch.arange(Lq, device=dev)[:, None]
+    seen = (kpos <= qpos) & (kpos > qpos - window) if window else kpos <= qpos
+    blind = ~seen.any(1) if causal else torch.zeros(Lq, dtype=torch.bool, device=dev)
+    if blind.any():
+        if not (o[:, :, blind] == 0).all() or not (lse.view(B, H, Lq)[:, :, blind] == -1e30).all():
+            fail(f"flash {label}: a row that sees no key is not 0 with lse -1e30")
+    lim = TOL["bf16" if dt == torch.bfloat16 else "f32"]
+    errs = flash_errs((o, lse), (po, plse), grads, want, ~blind)
+    for name, (rel, _) in errs.items():
+        if not rel < (TOL["f32"] if name == "lse" else lim):
+            fail(f"flash {label}: {name} differs from the plain twin by {rel} (limit "
+                 f"{TOL['f32'] if name == 'lse' else lim})")
+    return (q, k, v, o, lse, do), (po, plse, want), errs
+
+
+def flash_planted_faults(ops, operands, refs):
+    """Shows that the bf16 check of the causal slice case catches two
+    faults: a forward that drops up to one key tile (64 keys) from the
+    longest rows (the kernel run with window L - 64), and a backward fed an
+    lse off by FAULT_SHIFT.  Fails unless the limits of flash_case flag
+    both; returns each fault's errors beside the global measure max |d| /
+    max |plain|, which holds every row to the tensor's largest value."""
+    q, k, v, o, lse, do = operands
+    po, plse, want = refs
+    fo, flse = ops.flash_attention_fwd(q, k, v, True, None, q.shape[2] - 64)
+    dropped = {"out": row_err(fo, po)[0], "lse": rel_err(flse, plse),
+               "out_global_scaled": scaled_err(fo, po)[0]}
+    if not (dropped["out"] >= TOL["bf16"] and dropped["lse"] >= TOL["f32"]):
+        fail(f"flash planted fault (a dropped key tile) passed the check: {dropped}")
+    grads = ops.flash_attention_bwd(q, k, v, o, lse + FAULT_SHIFT, do, True)
+    shifted = {n: row_err(a, b)[0] for n, a, b in zip(("dq", "dk", "dv"), grads, want)}
+    shifted["global_scaled"] = max(scaled_err(a, b)[0] for a, b in zip(grads, want))
+    if not max(shifted[n] for n in ("dq", "dk", "dv")) >= TOL["bf16"]:
+        fail(f"flash planted fault (lse + {FAULT_SHIFT} in the backward) passed: {shifted}")
+    return {"dropped_key_tile": dropped, "lse_shift": shifted}
+
+
+def ce_case(torch, ops, g, N, D, V, dt, bdt, label):
+    dev = torch.device("cuda")
+    x = (torch.randn((N, D), generator=g, device=dev) * 0.5).to(dt)
+    w = (torch.randn((D, V), generator=g, device=dev) * 0.05).to(dt)
+    b = (torch.randn((V,), generator=g, device=dev) * 0.1).to(bdt)
+    t = torch.randint(0, V, (N,), generator=g, device=dev)
+    gr = torch.rand((N,), generator=g, device=dev) / N
+    loss, lse = ops.fused_linear_ce_fwd(x, w, b, t)
+    ploss, plse = ops.fused_linear_ce_plain(x, w, b, t)
+    dx, dw, db = ops.fused_linear_ce_bwd(x, w, b, t, lse, gr)
+    want = ops.fused_linear_ce_bwd_plain(x, w, b, t, lse, gr)
+    lim = TOL["bf16" if dt == torch.bfloat16 else "f32"]
+    errs = {}
+    for name, got, ref in (("loss", loss, ploss), ("lse", lse, plse), ("dx", dx, want[0]),
+                           ("dw", dw, want[1]), ("db", db, want[2])):
+        rel, errs[name] = scaled_err(got, ref)
+        if not rel < (TOL["f32"] if name in ("loss", "lse") else lim):
+            fail(f"fused_linear_ce {label}: {name} differs from the plain twin by {rel}")
+    return (x, w, b, t, lse, gr), max(errs["loss"], errs["lse"]), max(
+        errs["dx"], errs["dw"], errs["db"])
+
+
+def adam_case(torch, ops, g, shapes, wd, label):
+    dev = torch.device("cuda")
+    ps = [torch.randn(s, generator=g, device=dev) * 0.02 for s in shapes]
+    gs = [torch.randn(s, generator=g, device=dev) * 1e-3 for s in shapes]
+    vs = [torch.randn(s, generator=g, device=dev) * 1e-4 for s in shapes]
+    ss = [torch.rand(s, generator=g, device=dev) * 1e-6 for s in shapes]
+    hyper = torch.tensor([ADAM["lr"], 0.9, 0.999, 1e-8, wd, 1 - 0.9**7, 1 - 0.999**7],
+                         dtype=torch.float32, device=dev)
+    want = [[t.clone() for t in lst] for lst in (ps, vs, ss)]
+    ops.fused_adam_plain(want[0], gs, want[1], want[2], hyper)
+    ops.fused_adam(ps, gs, vs, ss, hyper)
+    err = 0.0
+    for got, ref in zip(ps + vs + ss, want[0] + want[1] + want[2]):
+        rel, absd = scaled_err(got, ref)
+        err = max(err, absd)
+        if not rel < 1e-6:
+            fail(f"fused_adam {label}: differs from the plain twin by {rel}")
+    return (ps, gs, vs, ss, hyper), err
+
+
+def train_kernel_phase(torch, ops, report):
+    """The training kernels against their plain twins, then their times at
+    the slice's bf16 shapes.  Returns {kernel: JSON fields but launches}."""
+    import torch.nn.functional as F
+
+    from deepflows_tpu_torch.models import TransformerLM
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    B, H, L = TRAIN_B, TRAIN["num_heads"], TRAIN_L
+    D = TRAIN["dim"] // H
+    N, E, V = TRAIN_B * TRAIN_L, TRAIN["dim"], TRAIN["vocab_size"]
+    shapes = [tuple(p.shape) for p in TransformerLM(**TRAIN, device="cuda").parameters()]
+    err = {}
+    for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        flash_ops, flash_refs, fe = flash_case(torch, ops, g, B, H, L, L, D, True, None, dt,
+                                               f"slice {name}")
+        ce_ops, cfe, cbe = ce_case(torch, ops, g, N, E, V, dt, dt, f"slice {name}")
+        if dt == torch.bfloat16:  # the main path's dtype: the JSON line's errors
+            err = {"flash_attention_fwd": max(fe["out"][1], fe["lse"][1]),
+                   "flash_attention_bwd": max(fe[n][1] for n in ("dq", "dk", "dv")),
+                   "fused_linear_ce_fwd": cfe, "fused_linear_ce_bwd": cbe}
+            report["flash_slice_bf16_errs"] = fe
+        for case in FLASH_RAGGED:
+            flash_case(torch, ops, g, *case, dt, f"{case} {name}")
+        for n, d, v in CE_RAGGED:
+            ce_case(torch, ops, g, n, d, v, dt, dt, f"{(n, d, v)} {name}")
+    _, _, hv = flash_case(torch, ops, g, B, H, L, L, D, True, None, torch.bfloat16,
+                          "slice bf16 (B, L, H, D) views", heads_view=True)
+    faults = flash_planted_faults(ops, flash_ops, flash_refs)
+    report["flash_heads_view_errs"], report["flash_planted_faults"] = hv, faults
+    ce_case(torch, ops, g, 130, 1000, 97, torch.bfloat16, torch.float32, "f32 bias")
+    adam_ops, err["fused_adam"] = adam_case(torch, ops, g, shapes, ADAM["weight_decay"], "slice")
+    for wd in (0.0, 0.01):
+        adam_case(torch, ops, g, [(n,) for n in ADAM_RAGGED], wd, f"ragged wd={wd}")
+    print(f"  flash {len(FLASH_RAGGED) + 2} shapes, CE {len(CE_RAGGED) + 2} shapes, Adam "
+          f"{len(shapes)} + {len(ADAM_RAGGED)} tensors agree with their plain twins in f32 "
+          f"and bf16; max abs err (slice, bf16): {err}")
+    def fmt(e):
+        return ", ".join(f"{n} {r:.3g}" for n, (r, _) in e.items())
+
+    print(f"  flash slice bf16, relative errors (limits: lse {TOL['f32']}, the rest "
+          f"{TOL['bf16']}): {fmt(fe)}; as (B, L, H, D) views: {fmt(hv)}")
+    print(f"  planted faults, flagged: a dropped key tile gives out {faults['dropped_key_tile']['out']:.3g}"
+          f" and lse {faults['dropped_key_tile']['lse']:.3g} (the global measure reads "
+          f"{faults['dropped_key_tile']['out_global_scaled']:.3g}); lse + {FAULT_SHIFT} in the "
+          f"backward gives " + ", ".join(f"{n} {v:.3g}" for n, v in faults["lse_shift"].items()))
+
+    # times at the slice's bf16 shapes, flushed L2 between timed launches
+    q, k, v, o, lse, do = flash_ops
+    x, w, b, t, clse, gr = ce_ops
+    ps, gs, vs, ss, hyper = adam_ops
+    qr, kr, vr = (a.detach().requires_grad_() for a in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+    xr, wr, br = (a.detach().requires_grad_() for a in (x, w, b))
+    lib_loss = F.cross_entropy((torch.matmul(xr, wr) + br).float(), t, reduction="none")
+    lib_params = [p.clone().requires_grad_() for p in ps]
+    for p, gg in zip(lib_params, gs):
+        p.grad = gg.clone()
+    lib_adam = torch.optim.Adam(lib_params, **ADAM, fused=True)
+    runs = {
+        "flash_attention_fwd": (
+            lambda: ops.flash_attention_fwd(q, k, v, True),
+            lambda: ops.flash_attention_plain(q, k, v, True),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)),
+        "flash_attention_bwd": (
+            lambda: ops.flash_attention_bwd(q, k, v, o, lse, do, True),
+            lambda: ops.flash_attention_bwd_plain(q, k, v, o, lse, do, True),
+            lambda: torch.autograd.grad(sdpa, (qr, kr, vr), do, retain_graph=True)),
+        "fused_linear_ce_fwd": (
+            lambda: ops.fused_linear_ce_fwd(x, w, b, t),
+            lambda: ops.fused_linear_ce_plain(x, w, b, t),
+            lambda: F.cross_entropy((torch.matmul(x, w) + b).float(), t, reduction="none")),
+        "fused_linear_ce_bwd": (
+            lambda: ops.fused_linear_ce_bwd(x, w, b, t, clse, gr),
+            lambda: ops.fused_linear_ce_bwd_plain(x, w, b, t, clse, gr),
+            lambda: torch.autograd.grad(lib_loss, (xr, wr, br), gr, retain_graph=True)),
+        "fused_adam": (
+            lambda: ops.fused_adam(ps, gs, vs, ss, hyper),
+            lambda: ops.fused_adam_plain(ps, gs, vs, ss, hyper),
+            lib_adam.step),
+    }
+    pairs = B * H * L * (L + 1) // 2  # (query, key) pairs the causal mask keeps
+    one_product = 2 * pairs * D  # FLOPs of one causal (L, L, D) product
+    qkv = B * H * L * D * 2  # bytes of one bf16 (B, H, L, D) tensor
+    n_adam = sum(p.numel() for p in ps)
+    # (bytes each input read and each output written once, FLOPs the
+    # function needs: the CE backward's three products are one logits
+    # recompute, dx and dw, though the kernel's two roles each recompute)
+    bounds = {
+        "flash_attention_fwd": (4 * qkv + 4 * B * H * L, 2 * one_product),
+        "flash_attention_bwd": (8 * qkv + 8 * B * H * L, 5 * one_product),
+        "fused_linear_ce_fwd": (2 * (N * E + E * V + V) + 4 * N + 8 * N, 2 * N * E * V),
+        "fused_linear_ce_bwd": (2 * 2 * (N * E + E * V + V) + 12 * N, 3 * 2 * N * E * V),
+        "fused_adam": (28 * n_adam + 28, 0),
+    }
+    out = {}
+    for name, (kern, plain, lib) in runs.items():
+        reps = 3 if name == "fused_linear_ce_bwd" else 10
+        r = dict(ms=event_ms(kern, reps, flush), plain_ms=event_ms(plain, reps, flush),
+                 library_ms=event_ms(lib, reps, flush), max_abs_err=err[name])
+        r["bound_ms"], r["bound_by"] = bound_ms(*bounds[name], "bf16")
+        out[name] = r
+    del lib_adam, lib_params
+    report["train_kernels"] = out
+    return out
+
+
+def step_profile(torch, step, x, y, steps=2):
+    """Device time of ``steps`` training steps by kernel, from
+    torch.profiler, in ms a step: each of the port's kernels, the matrix
+    products (cuBLAS), and everything else PyTorch runs (elementwise ops,
+    reductions, copies)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step(x, y)
+        torch.cuda.synchronize()
+    ours = {"flash_fwd": "flash_attention_fwd", "flash_bwd": "flash_attention_bwd",
+            "ce_fwd": "fused_linear_ce_fwd", "ce_bwd": "fused_linear_ce_bwd",
+            "fused_adam": "fused_adam"}
+    groups = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue  # CPU-side ops; their kernels appear as CUDA events
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        name = next((v for k, v in ours.items() if k in e.key), None)
+        if name is None:
+            name = ("matrix products (cuBLAS)" if any(k in e.key for k in ("nvjet", "gemm", "xmma"))
+                    else "other PyTorch kernels")
+        groups[name] = groups.get(name, 0.0) + us / 1e3 / steps
+    return groups
+
+
+def train_phase(torch, dt, report):
+    """The main path: train the full-width, full-depth bench row.  Returns
+    the launch counts of the run and the step's numbers."""
+    import numpy as np
+
+    from deepflows_tpu_torch import nn, ops, optim
+    from deepflows_tpu_torch.jit import CompiledTrainStep
+    from deepflows_tpu_torch.models import TransformerLM
+
+    dt.manual_seed(0)
+    lm = TransformerLM(**TRAIN, device="cuda", flash=True)
+    opt = optim.Adam(lm.parameters(), **ADAM, fused=True)
+    step = CompiledTrainStep(lm.trunk(), opt, nn.LMHeadCrossEntropy(lm.head),
+                             compute_dtype=torch.bfloat16)
+    params = list(lm.parameters())
+    print(f"model: TransformerLM {TRAIN}, {sum(p.numel() for p in params)} parameters in "
+          f"{len(params)} tensors; B {TRAIN_B}, L {TRAIN_L}, bf16 compute, fused Adam")
+    rng = np.random.default_rng(0)  # the batch of bench.py
+    V = TRAIN["vocab_size"]
+    x = torch.as_tensor(rng.integers(0, V, (TRAIN_B, TRAIN_L)).astype(np.int32), device="cuda")
+    y = torch.as_tensor(rng.integers(0, V, (TRAIN_B, TRAIN_L)).astype(np.int32), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    losses, wall_ms, event_step_ms = [], [], []
+    ops.reset_launch_counts()  # the main path starts here
+    for i in range(WARMUP + TIMED):
+        before = {k.__name__: k.launches for k in ops.KERNELS}
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.record()
+        loss = step(x, y)
+        b.record()
+        torch.cuda.synchronize()
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+        event_step_ms.append(a.elapsed_time(b))
+        losses.append(float(loss))
+        for k in ops.KERNELS:
+            want = PER_STEP.get(k.__name__, 0)
+            if k.launches - before[k.__name__] != want:
+                fail(f"training step {i}: {k.__name__} launched "
+                     f"{k.launches - before[k.__name__]} times, expected {want}")
+    counts = {k.__name__: k.launches for k in ops.KERNELS}  # the main path ends here
+    print(f"main-path launches (training): {counts}")
+    print(f"  losses: {[round(v, 4) for v in losses]}")
+    if not all(math.isfinite(v) for v in losses):
+        fail("a training loss is not finite")
+    if not abs(losses[0] - math.log(V)) < 1.0:
+        fail(f"step-1 loss {losses[0]} is not within 1.0 of ln {V} = {math.log(V):.3f}")
+    if not losses[-1] < losses[0]:
+        fail(f"the loss did not fall on the repeated batch: {losses[0]} -> {losses[-1]}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the device time of a step with its launches queued behind a spin,
+    # against its wall time: the device busy share
+    device_ms = event_ms(lambda: step(x, y), 3)
+    timed_wall = statistics.median(wall_ms[WARMUP:])
+    flops = step_flops(TRAIN_B, TRAIN_L, TRAIN["dim"], TRAIN["depth"], V)
+    r = dict(
+        losses=losses, step_wall_ms=timed_wall,
+        step_event_ms=statistics.median(event_step_ms[WARMUP:]),
+        step_device_ms=device_ms, tokens_per_s=TRAIN_B * TRAIN_L / timed_wall * 1e3,
+        device_busy_share=device_ms / timed_wall, step_flops=flops,
+        mfu=flops / (timed_wall * 1e-3 * PEAK_OPS["bf16"]),
+        step_bound_ms=flops / PEAK_OPS["bf16"] * 1e3, peak_memory_gb=peak_gb,
+    )
+    print(f"  step {r['step_wall_ms']:.3f} ms wall, {r['step_event_ms']:.3f} ms between CUDA "
+          f"events, {r['step_device_ms']:.3f} ms device (busy {100 * r['device_busy_share']:.1f}%);"
+          f" {r['tokens_per_s']:.1f} tokens/s; MFU {100 * r['mfu']:.2f}% of {flops:.4g} FLOPs "
+          f"(bound {r['step_bound_ms']:.3f} ms); peak memory {peak_gb:.2f} GB")
+    r["profile_ms"] = prof = step_profile(torch, step, x, y)
+    if prof:
+        print(f"  device time of a step by kernel (torch.profiler, 2 steps): "
+              f"{sum(prof.values()):.3f} ms: " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in sorted(prof.items(), key=lambda kv: -kv[1])))
+    else:
+        print("  device time of a step by kernel: not measured (the profiler saw no kernel)")
+    report["train"] = r
+    return counts, r
+
+
+def train_cpu_check(torch, dt, report):
+    """The f32 step on the card against the same step on a CPU copy."""
+    import numpy as np
+
+    from deepflows_tpu_torch import nn, optim
+    from deepflows_tpu_torch.jit import CompiledTrainStep
+    from deepflows_tpu_torch.models import TransformerLM
+
+    cfg = dict(TRAIN, depth=2)
+    dt.manual_seed(1)
+    lms = {"cuda": TransformerLM(**cfg, device="cuda", flash=True)}
+    lms["cpu"] = TransformerLM(**cfg, device="cpu", flash=True)
+    lms["cpu"].load_state_dict(lms["cuda"].state_dict())
+    steps = {d: CompiledTrainStep(lm.trunk(), optim.Adam(lm.parameters(), **ADAM, fused=True),
+                                  nn.LMHeadCrossEntropy(lm.head)) for d, lm in lms.items()}
+    start = {n: p.detach().clone() for n, p in lms["cpu"].named_parameters()}
+    rng = np.random.default_rng(1)
+    got = {"cuda": [], "cpu": []}
+    t0 = time.perf_counter()
+    for _ in range(3):
+        x = rng.integers(0, cfg["vocab_size"], (2, TRAIN_L)).astype(np.int32)
+        y = rng.integers(0, cfg["vocab_size"], (2, TRAIN_L)).astype(np.int32)
+        for d, step in steps.items():
+            got[d].append(float(step(x, y)))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got["cuda"], got["cpu"]))
+    # each parameter's change over the 3 steps, card against CPU: the worst
+    # leaf by norm and by largest element
+    card = dict(lms["cuda"].named_parameters())
+    moved = {}
+    for n, p in lms["cpu"].named_parameters():
+        want = p.detach() - start[n]
+        d = card[n].detach().cpu() - start[n] - want
+        moved[n] = ((d.norm() / want.norm().clamp_min(1e-30)).item(),
+                    (d.abs().max() / want.abs().max().clamp_min(1e-30)).item())
+    worst_norm = max(moved.items(), key=lambda kv: kv[1][0])
+    worst_max = max(moved.items(), key=lambda kv: kv[1][1])
+    print(f"  f32, depth 2, B 2: card losses {got['cuda']}, CPU {got['cpu']}; max rel diff "
+          f"{rel:.3g} (limit 1e-3); parameter change after 3 steps, card against CPU: worst "
+          f"leaf by norm {worst_norm[0]} {worst_norm[1][0]:.3g} (limit {PARAM_TOL}), by largest "
+          f"element {worst_max[0]} {worst_max[1][1]:.3g}; {time.perf_counter() - t0:.1f} s")
+    if not rel < 1e-3:
+        fail(f"the card's f32 losses differ from the CPU's by {rel}")
+    if not worst_norm[1][0] < PARAM_TOL:
+        fail(f"the card's parameter change in {worst_norm[0]} differs from the CPU's by "
+             f"{worst_norm[1][0]} of its norm")
+    report["train_vs_cpu"] = dict(cuda=got["cuda"], cpu=got["cpu"], max_rel=rel,
+                                  param_change_rel=moved)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", metavar="PATH",
@@ -488,6 +960,37 @@ def main(argv=None) -> int:
              ms=step_ms["w8a8_matmul"], plain_ms=step_ms["w8a8_matmul_plain"],
              bound_ms=b_w8a8[0], bound_by=b_w8a8[1], library_ms=None, at=at),
     ]
+
+    print("training kernel phase (kernel vs plain twin; times at the slice's bf16 shapes, "
+          "L2 flushed between timed launches):")
+    tk = train_kernel_phase(torch, ops, report)
+    print("training phase (main path):")
+    tcounts, tr = train_phase(torch, dt, report)
+    print("card against CPU (f32 training step):")
+    train_cpu_check(torch, dt, report)
+    replaces = {  # the Pallas kernel body each kernel replaces
+        "flash_attention_fwd": ("flash_attention.cu", 807),
+        "flash_attention_bwd": ("flash_attention.cu", 869),
+        "fused_linear_ce_fwd": ("fused_linear_ce.cu", 445),
+        "fused_linear_ce_bwd": ("fused_linear_ce.cu", 484),
+        "fused_adam": ("fused_adam.cu", 167),
+    }
+    at = (f"training step: TransformerLM d{TRAIN['dim']} x {TRAIN['depth']}, B {TRAIN_B}, "
+          f"L {TRAIN_L}, V {TRAIN['vocab_size']}, bf16; ms and bounds per call")
+    for name, r in tk.items():
+        n = PER_STEP[name]
+        print(f"  {name}: {r['ms']:.4f} ms a call, {n * r['ms']:.3f} ms a step ({n} calls); "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
+              f"library {r['library_ms']:.4f} ms; {card}")
+        src, line = replaces[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=f"deepflows_tpu_torch/csrc/{src}",
+            replaces=f"deepflows_tpu/ops/pallas_kernels.py:{line}", launches=tcounts[name],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"], at=at))
+    print(f"training step: {tr['step_wall_ms']:.3f} ms wall, {tr['step_event_ms']:.3f} ms CUDA "
+          f"events, {tr['tokens_per_s']:.1f} tokens/s, busy {100 * tr['device_busy_share']:.1f}%, "
+          f"MFU {100 * tr['mfu']:.2f}%; {card}")
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"{k['name']} was not launched on the main path")

@@ -9,11 +9,15 @@ Entry points place their tensors on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise rather than fall back.  Every
 TPU kernel on a ported path is a hand-written CUDA kernel under ``csrc/``:
 its wrapper launches it for a CUDA tensor and calls its plain PyTorch twin
-for a CPU tensor (``ops/quant.py``).
+for a CPU tensor (``ops/``).
 
 Ported so far: the serving slice — ``models.TransformerLM`` and the
 KV-cache decoder ``models.KVCacheDecoder`` in its dense, ``"int8"`` and
-``"w8a8"`` modes.
+``"w8a8"`` modes — and the training slice — ``jit.CompiledTrainStep`` with
+``optim.Adam`` (``fused=True``: ``ops.fused_adam``),
+``nn.LMHeadCrossEntropy`` (``ops.fused_linear_ce``) and the flash route of
+``nn.MultiheadAttention`` (``ops.flash_attention``), on
+``TransformerLM.trunk()``.
 """
 
 from __future__ import annotations

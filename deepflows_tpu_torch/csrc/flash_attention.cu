@@ -1,0 +1,1008 @@
+// flash_attention: softmax(q k^T * scale + mask) v, forward and backward.
+//
+// Replaces the TPU kernels of deepflows_tpu/ops/pallas_kernels.py
+// flash_attention: _flash_fwd_kernel (forward), _flash_dq_kernel and
+// _flash_dkv_kernel (backward), and the head-packed single-block kernels
+// _flash_packed_fwd_kernel / _flash_packed_bwd_kernel, whose semantics these
+// kernels cover at every length.  q (B, H, Lq, D), k and v (B, H, Lk, D) in
+// f32 or bf16, D <= 128, each given by pointer and element strides of its
+// B, H and L axes (D contiguous), so the transposed head views of
+// MultiheadAttention need no copy.
+//
+// Semantics, as in the TPU kernels: scores s = (q . k) * scale accumulate in
+// f32; masked positions are the padded key tail (kpos >= Lk) and, when
+// causal, kpos > qpos (top-left: both counted from 0 even when Lq != Lk) and,
+// with a window, kpos <= qpos - window.  A masked score takes -1e30 and a
+// probability of exactly 0, so a row without any visible key gives output 0
+// and lse -1e30.  P is rounded to v's dtype before the P.V product, dS to
+// k's (q's) dtype before the dq (dk) product; every sum is f32.  The forward
+// saves lse = m + log(l) in f32, (B*H, Lq); the backward takes delta =
+// rowsum(dO * O), computed by the caller.
+//
+// What bounds it on an H100: at the training slice's shape (B 8, H 8,
+// L 1024, D 128, causal, bf16) the forward does 17.2 GFLOP of products
+// (17.4 us at the bf16 tensor-core rate) against 67 MB of operands (20 us
+// at 3.35 TB/s); the backward 43 GFLOP against 135 MB.  So both sit near
+// the ridge, and only tensor cores can approach either bound.
+//
+// bf16 operands take the tensor cores: mma.sync m16n8k16 (bf16 in, f32
+// accumulate) fed by ldmatrix from shared memory, FlashAttention-2 style.
+// A block of 4 warps owns 64 query rows (16 a warp) and loops over key
+// tiles of 64; K and V tiles are staged in shared memory as bf16 rows with
+// 16 bytes of padding, so every ldmatrix phase hits 8 distinct bank groups;
+// V, K, Q and dO serve as the "k-major" operand through ldmatrix.trans, so
+// no transposed copy is staged.  The score tile stays in registers: its
+// accumulator layout is the A operand's layout of the next product, so P
+// (and dS) go from one mma to the next without shared memory, rounded to
+// bf16 on the way as the TPU kernel rounds them.
+//
+// f32 operands run on the CUDA cores in f32 FMA (tensor cores would round
+// them to TF32): tiles of 64 x 64 staged as f32 with an odd row stride
+// (D + 1), each thread owning 4 rows x 4 columns of a score tile.
+//
+// Both paths skip whole key tiles above the causal diagonal or below the
+// window's band.  The backward is ONE launch of two block roles, as the
+// TPU's two kernels are: blockIdx.z 0 is a dq block that loops over key
+// tiles for one query tile; blockIdx.z 1 is a dk/dv block that loops over
+// query tiles for one key tile.  Each output tile has one owner, so the
+// backward is deterministic and needs no atomics.  cp.async/TMA staging,
+// wgmma and a persistent schedule are later work; PERF.md holds the
+// measured times.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "mma_bf16.cuh"
+
+namespace {
+
+constexpr int BQ = 64, BK = 64, THREADS = 256;
+constexpr int PLD = BK + 1;  // row stride of the P / dS tiles
+constexpr float NEG_INF = -1e30f;
+
+struct View {  // element strides of the B, H and L axes; D is contiguous
+  long long sb, sh, sl;
+};
+
+struct Shape {
+  int B, H, Lq, Lk, D, causal, window;
+  int vec;  // every row starts 16-byte aligned and D % 8 == 0: 16-byte loads
+  float scale;
+};
+
+__device__ __forceinline__ bool masked(const Shape& sh, int qpos, int kpos) {
+  if (kpos >= sh.Lk) return true;
+  if (!sh.causal) return false;
+  return kpos > qpos || (sh.window > 0 && kpos <= qpos - sh.window);
+}
+
+// Key tiles [begin, end) that hold a visible key for some query in
+// [q0, q0 + BQ): causal skips tiles above the diagonal, a window those
+// below the band (the TPU kernels' `needed` predicate).
+__device__ __forceinline__ void key_range(const Shape& sh, int q0, int& begin, int& end) {
+  begin = 0;
+  end = (sh.Lk + BK - 1) / BK;
+  if (sh.causal) {
+    const int last = (q0 + BQ - 1) / BK + 1;
+    end = end < last ? end : last;
+    if (sh.window > 0) {
+      const int lo = q0 - sh.window + 1;  // first visible key of the tile's first row
+      begin = lo > 0 ? lo / BK : 0;
+    }
+  }
+}
+
+// Query tiles [begin, end) that see some key in [k0, k0 + BK).
+__device__ __forceinline__ void query_range(const Shape& sh, int k0, int& begin, int& end) {
+  begin = 0;
+  end = (sh.Lq + BQ - 1) / BQ;
+  if (sh.causal) {
+    begin = k0 / BQ;
+    if (sh.window > 0) {
+      const int last = (k0 + BK - 1 + sh.window - 1) / BQ + 1;
+      end = end < last ? end : last;
+    }
+  }
+}
+
+// rows [row0, row0 + 64) of a (L, D) matrix into dst[64][DP + 1] as f32,
+// zero beyond L and D
+template <int DP>
+__device__ __forceinline__ void stage(float* dst, const float* src, long long sl, int row0, int L,
+                                      int D) {
+  constexpr int LD = DP + 1;
+  for (int e = threadIdx.x; e < 64 * DP; e += THREADS) {
+    const int r = e / DP, c = e % DP, gr = row0 + r;
+    dst[r * LD + c] = (gr < L && c < D) ? src[(long long)gr * sl + c] : 0.f;
+  }
+}
+
+__device__ __forceinline__ float group_max(float v) {  // over the 16 lanes of a row group
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <typename T>
+struct FwdArgs {
+  Shape sh;
+  const T *q, *k, *v;
+  T* o;
+  float* lse;
+  View vq, vk, vv, vo;
+};
+
+template <int DP>
+__global__ void __launch_bounds__(THREADS) flash_fwd_f32(const __grid_constant__ FwdArgs<float> a) {
+  constexpr int LD = DP + 1, NC = DP / 16;
+  extern __shared__ float smem[];
+  float* qs = smem;          // [BQ][LD]
+  float* ks = qs + BQ * LD;  // [BK][LD]
+  float* vs = ks + BK * LD;  // [BK][LD]
+  float* ps = vs + BK * LD;  // [BQ][PLD]
+  const Shape sh = a.sh;
+  const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
+  const int bh = blockIdx.y, b = bh / sh.H, h = bh % sh.H, q0 = blockIdx.x * BQ;
+  const float* q = a.q + b * a.vq.sb + h * a.vq.sh;
+  const float* k = a.k + b * a.vk.sb + h * a.vk.sh;
+  const float* v = a.v + b * a.vv.sb + h * a.vv.sh;
+
+  stage<DP>(qs, q, a.vq.sl, q0, sh.Lq, sh.D);
+  float m[4], l[4], acc[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+  }
+  int kt0, kt1;
+  key_range(sh, q0, kt0, kt1);
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();  // the previous tile's K, V and P are consumed
+    stage<DP>(ks, k, a.vk.sl, k0, sh.Lk, sh.D);
+    stage<DP>(vs, v, a.vv.sl, k0, sh.Lk, sh.D);
+    __syncthreads();
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < DP; ++d) {
+      float x[4], y[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[i] = qs[(tr * 4 + i) * LD + d];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) y[j] = ks[(tc + 16 * j) * LD + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(x[i], y[j], s[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qpos = q0 + tr * 4 + i;
+      bool mk[4];
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        mk[j] = masked(sh, qpos, k0 + tc + 16 * j);
+        s[i][j] = mk[j] ? NEG_INF : s[i][j] * sh.scale;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], group_max(mx));
+      const float alpha = expf(m[i] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = mk[j] ? 0.f : expf(s[i][j] - m_new);
+        ps[(tr * 4 + i) * PLD + tc + 16 * j] = p;
+        rs += p;
+      }
+      l[i] = l[i] * alpha + group_sum(rs);
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
+    }
+    __syncwarp();  // a row's P is written and read by the 16 lanes of one warp
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      float p[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[i] = ps[(tr * 4 + i) * PLD + kk];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const float y = vs[kk * LD + tc + 16 * c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], y, acc[i][c]);
+      }
+    }
+  }
+  float* o = a.o + b * a.vo.sb + h * a.vo.sh;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + tr * 4 + i;
+    if (row >= sh.Lq) continue;
+    const float ls = l[i] == 0.f ? 1.f : l[i];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = tc + 16 * c;
+      if (col < sh.D) o[(long long)row * a.vo.sl + col] = acc[i][c] / ls;
+    }
+    if (tc == 0) a.lse[(long long)bh * sh.Lq + row] = m[i] + logf(ls);
+  }
+}
+
+template <typename T>
+struct BwdArgs {
+  Shape sh;
+  const T *q, *k, *v, *dout;
+  const float *lse, *delta;
+  T *dq, *dk, *dv;
+  View vq, vk, vv, vdo, vdq, vdk, vdv;
+};
+
+// blockIdx.z == 0: dq of one query tile, over its key tiles
+template <int DP>
+__device__ __forceinline__ void dq_block(const BwdArgs<float>& a, float* smem) {
+  constexpr int LD = DP + 1, NC = DP / 16;
+  const Shape sh = a.sh;
+  const int q0 = blockIdx.x * BQ;
+  if (q0 >= sh.Lq) return;
+  float* qs = smem;            // [BQ][LD]
+  float* dos = qs + BQ * LD;   // [BQ][LD]
+  float* ks = dos + BQ * LD;   // [BK][LD]
+  float* vs = ks + BK * LD;    // [BK][LD]
+  float* dss = vs + BK * LD;   // [BQ][PLD]
+  const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
+  const int bh = blockIdx.y, b = bh / sh.H, h = bh % sh.H;
+  const float* k = a.k + b * a.vk.sb + h * a.vk.sh;
+  const float* v = a.v + b * a.vv.sb + h * a.vv.sh;
+  stage<DP>(qs, a.q + b * a.vq.sb + h * a.vq.sh, a.vq.sl, q0, sh.Lq, sh.D);
+  stage<DP>(dos, a.dout + b * a.vdo.sb + h * a.vdo.sh, a.vdo.sl, q0, sh.Lq, sh.D);
+  float lse[4], delta[4], acc[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + tr * 4 + i;
+    lse[i] = row < sh.Lq ? a.lse[(long long)bh * sh.Lq + row] : 0.f;
+    delta[i] = row < sh.Lq ? a.delta[(long long)bh * sh.Lq + row] : 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+  }
+  int kt0, kt1;
+  key_range(sh, q0, kt0, kt1);
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();
+    stage<DP>(ks, k, a.vk.sl, k0, sh.Lk, sh.D);
+    stage<DP>(vs, v, a.vv.sl, k0, sh.Lk, sh.D);
+    __syncthreads();
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < DP; ++d) {
+      float x[4], g[4], y[4], z[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        x[i] = qs[(tr * 4 + i) * LD + d];
+        g[i] = dos[(tr * 4 + i) * LD + d];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        y[j] = ks[(tc + 16 * j) * LD + d];
+        z[j] = vs[(tc + 16 * j) * LD + d];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(x[i], y[j], s[i][j]);
+          dp[i][j] = fmaf(g[i], z[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qpos = q0 + tr * 4 + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p =
+            masked(sh, qpos, k0 + tc + 16 * j) ? 0.f : expf(s[i][j] * sh.scale - lse[i]);
+        const float ds = p * (dp[i][j] - delta[i]) * sh.scale;
+        dss[(tr * 4 + i) * PLD + tc + 16 * j] = ds;
+      }
+    }
+    __syncwarp();
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      float ds[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ds[i] = dss[(tr * 4 + i) * PLD + kk];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const float y = ks[kk * LD + tc + 16 * c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(ds[i], y, acc[i][c]);
+      }
+    }
+  }
+  float* dq = a.dq + b * a.vdq.sb + h * a.vdq.sh;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + tr * 4 + i;
+    if (row >= sh.Lq) continue;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = tc + 16 * c;
+      if (col < sh.D) dq[(long long)row * a.vdq.sl + col] = acc[i][c];
+    }
+  }
+}
+
+// blockIdx.z == 1: dk and dv of one key tile, over its query tiles.  A
+// thread owns 4 key rows x 4 query columns of the transposed score tile.
+template <int DP>
+__device__ __forceinline__ void dkv_block(const BwdArgs<float>& a, float* smem) {
+  constexpr int LD = DP + 1, NC = DP / 16;
+  const Shape sh = a.sh;
+  const int k0 = blockIdx.x * BK;
+  if (k0 >= sh.Lk) return;
+  float* ks = smem;            // [BK][LD]
+  float* vs = ks + BK * LD;    // [BK][LD]
+  float* qs = vs + BK * LD;    // [BQ][LD]
+  float* dos = qs + BQ * LD;   // [BQ][LD]
+  float* pts = dos + BQ * LD;  // [BK][PLD]: P^T
+  float* dst = pts + BK * PLD; // [BK][PLD]: dS^T
+  float* lse_s = dst + BK * PLD;  // [BQ]
+  float* delta_s = lse_s + BQ;    // [BQ]
+  const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
+  const int bh = blockIdx.y, b = bh / sh.H, h = bh % sh.H;
+  const float* q = a.q + b * a.vq.sb + h * a.vq.sh;
+  const float* dout = a.dout + b * a.vdo.sb + h * a.vdo.sh;
+  stage<DP>(ks, a.k + b * a.vk.sb + h * a.vk.sh, a.vk.sl, k0, sh.Lk, sh.D);
+  stage<DP>(vs, a.v + b * a.vv.sb + h * a.vv.sh, a.vv.sl, k0, sh.Lk, sh.D);
+  float dk[4][NC], dv[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) dk[i][c] = dv[i][c] = 0.f;
+  int qt0, qt1;
+  query_range(sh, k0, qt0, qt1);
+  for (int qt = qt0; qt < qt1; ++qt) {
+    const int q0 = qt * BQ;
+    __syncthreads();
+    stage<DP>(qs, q, a.vq.sl, q0, sh.Lq, sh.D);
+    stage<DP>(dos, dout, a.vdo.sl, q0, sh.Lq, sh.D);
+    if (tid < BQ) {
+      const int row = q0 + tid;
+      lse_s[tid] = row < sh.Lq ? a.lse[(long long)bh * sh.Lq + row] : 0.f;
+      delta_s[tid] = row < sh.Lq ? a.delta[(long long)bh * sh.Lq + row] : 0.f;
+    }
+    __syncthreads();
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < DP; ++d) {
+      float x[4], z[4], y[4], g[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        x[i] = ks[(tr * 4 + i) * LD + d];
+        z[i] = vs[(tr * 4 + i) * LD + d];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        y[j] = qs[(tc + 16 * j) * LD + d];
+        g[j] = dos[(tc + 16 * j) * LD + d];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(x[i], y[j], s[i][j]);
+          dp[i][j] = fmaf(z[i], g[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int kpos = k0 + tr * 4 + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int qj = tc + 16 * j, qpos = q0 + qj;
+        const float p = (qpos >= sh.Lq || masked(sh, qpos, kpos))
+                            ? 0.f
+                            : expf(s[i][j] * sh.scale - lse_s[qj]);
+        const float ds = p * (dp[i][j] - delta_s[qj]) * sh.scale;
+        pts[(tr * 4 + i) * PLD + qj] = p;
+        dst[(tr * 4 + i) * PLD + qj] = ds;
+      }
+    }
+    __syncwarp();
+#pragma unroll 4
+    for (int qq = 0; qq < BQ; ++qq) {
+      float p[4], ds[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        p[i] = pts[(tr * 4 + i) * PLD + qq];
+        ds[i] = dst[(tr * 4 + i) * PLD + qq];
+      }
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const float g = dos[qq * LD + tc + 16 * c];
+        const float x = qs[qq * LD + tc + 16 * c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          dv[i][c] = fmaf(p[i], g, dv[i][c]);
+          dk[i][c] = fmaf(ds[i], x, dk[i][c]);
+        }
+      }
+    }
+  }
+  float* dkp = a.dk + b * a.vdk.sb + h * a.vdk.sh;
+  float* dvp = a.dv + b * a.vdv.sb + h * a.vdv.sh;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = k0 + tr * 4 + i;
+    if (row >= sh.Lk) continue;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = tc + 16 * c;
+      if (col < sh.D) {
+        dkp[(long long)row * a.vdk.sl + col] = dk[i][c];
+        dvp[(long long)row * a.vdv.sl + col] = dv[i][c];
+      }
+    }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(THREADS) flash_bwd_f32(const __grid_constant__ BwdArgs<float> a) {
+  extern __shared__ float smem[];
+  if (blockIdx.z == 0)
+    dq_block<DP>(a, smem);
+  else
+    dkv_block<DP>(a, smem);
+}
+
+// ------------------------------------------------------------------
+// bf16 on the tensor cores: mma.sync m16n8k16 fed by ldmatrix
+namespace tc {
+
+using namespace dft::mma;
+constexpr int WARPS = 4, TC_THREADS = 32 * WARPS;
+
+// rows [row0, row0 + 64) of a (L, D) bf16 matrix into dst[64][DP + 8]
+template <int DP>
+__device__ __forceinline__ void stage(bf16* dst, const bf16* src, long long sl, int row0, int L,
+                                      int D, int vec) {
+  stage_tile<64, DP, TC_THREADS>(dst, DP + 8, src, sl, row0, 0, L, D, vec);
+}
+
+// Whether any key of [k0, k0 + BK) is hidden from some query of
+// [r0, r0 + 16): if not, a warp's score tile needs no mask.
+__device__ __forceinline__ bool tile_masked(const Shape& sh, int r0, int k0) {
+  if (k0 + BK > sh.Lk) return true;
+  if (!sh.causal) return false;
+  return k0 + BK - 1 > r0 || (sh.window > 0 && k0 <= r0 + 15 - sh.window);
+}
+
+// one accumulator pair (columns col, col + 1 of a row) to global memory
+__device__ __forceinline__ void store2(bf16* row, int col, int D, float x, float y, int vec) {
+  if (vec && col + 1 < D) {
+    *reinterpret_cast<__nv_bfloat162*>(row + col) = __floats2bfloat162_rn(x, y);
+  } else {
+    if (col < D) row[col] = __float2bfloat16_rn(x);
+    if (col + 1 < D) row[col + 1] = __float2bfloat16_rn(y);
+  }
+}
+
+template <int DP>
+constexpr int tile_bytes() {
+  return 64 * (DP + 8) * 2;
+}
+
+// Forward: warp w owns query rows q0 + 16w .. + 15; lane (g = l / 4,
+// t = l % 4) holds rows g and g + 8 and, of each 8-column n-tile, columns
+// 2t and 2t + 1 (mma's accumulator layout).
+template <int DP>
+__global__ void __launch_bounds__(TC_THREADS)
+    flash_fwd_tc(const __grid_constant__ FwdArgs<bf16> a) {
+  constexpr int LDS = DP + 8, ND = DP / 8, TILE = 64 * LDS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [64][LDS]
+  bf16* kv = qs + TILE;                           // K, V of 2 buffers: [2][2][64][LDS]
+  const Shape sh = a.sh;
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32, g = l / 4, t = l % 4;
+  const int bh = blockIdx.y, b = bh / sh.H, h = bh % sh.H, q0 = blockIdx.x * BQ;
+  const bf16* k = a.k + b * a.vk.sb + h * a.vk.sh;
+  const bf16* v = a.v + b * a.vv.sb + h * a.vv.sh;
+  int kt0, kt1;
+  key_range(sh, q0, kt0, kt1);
+  stage<DP>(qs, a.q + b * a.vq.sb + h * a.vq.sh, a.vq.sl, q0, sh.Lq, sh.D, sh.vec);
+  if (kt0 < kt1) {
+    stage<DP>(kv, k, a.vk.sl, kt0 * BK, sh.Lk, sh.D, sh.vec);
+    stage<DP>(kv + TILE, v, a.vv.sl, kt0 * BK, sh.Lk, sh.D, sh.vec);
+  }
+  cp_async_commit();
+  float o[ND][4], m[2] = {NEG_INF, NEG_INF}, lsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int d = 0; d < ND; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int k0 = kt * BK, cur = (kt - kt0) & 1;
+    if (kt + 1 < kt1) {  // the next tile streams in while this one computes
+      bf16* nxt = kv + (cur ^ 1) * 2 * TILE;
+      stage<DP>(nxt, k, a.vk.sl, k0 + BK, sh.Lk, sh.D, sh.vec);
+      stage<DP>(nxt + TILE, v, a.vv.sl, k0 + BK, sh.Lk, sh.D, sh.vec);
+    }
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    const bf16* ks = kv + cur * 2 * TILE;
+    const bf16* vs = ks + TILE;
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      uint32_t af[4];
+      load_a(af, qs, LDS, w * 16, kk * 16);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bf[4];
+        load_b_nk(bf, ks, LDS, np * 16, kk * 16);
+        mma(s[2 * np], af, bf[0], bf[1]);
+        mma(s[2 * np + 1], af, bf[2], bf[3]);
+      }
+    }
+    const bool mask = tile_masked(sh, q0 + w * 16, k0);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qpos = q0 + w * 16 + g + 8 * r;
+      float mx = NEG_INF;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float& x = s[n][2 * r + c];
+          x = (mask && masked(sh, qpos, k0 + n * 8 + 2 * t + c)) ? NEG_INF : x * sh.scale;
+          mx = fmaxf(mx, x);
+        }
+      const float m_new = fmaxf(m[r], quad_max(mx));
+      const float alpha = expf(m[r] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float& x = s[n][2 * r + c];
+          x = (mask && masked(sh, qpos, k0 + n * 8 + 2 * t + c)) ? 0.f : expf(x - m_new);
+          rs += x;
+        }
+      lsum[r] = lsum[r] * alpha + quad_sum(rs);
+      m[r] = m_new;
+#pragma unroll
+      for (int d = 0; d < ND; ++d) {
+        o[d][2 * r] *= alpha;
+        o[d][2 * r + 1] *= alpha;
+      }
+    }
+    // O += P V: P (bf16, rounded as the TPU kernel rounds it) straight from
+    // the score accumulators; V through ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t pa[4];
+      pack_a(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int dp = 0; dp < ND / 2; ++dp) {
+        uint32_t bf[4];
+        load_b_kn(bf, vs, LDS, kk * 16, dp * 16);
+        mma(o[2 * dp], pa, bf[0], bf[1]);
+        mma(o[2 * dp + 1], pa, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();  // this buffer is refilled two tiles on
+  }
+  bf16* out = a.o + b * a.vo.sb + h * a.vo.sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + w * 16 + g + 8 * r;
+    if (row >= sh.Lq) continue;
+    const float ls = lsum[r] == 0.f ? 1.f : lsum[r];
+#pragma unroll
+    for (int d = 0; d < ND; ++d)
+      store2(out + (long long)row * a.vo.sl, d * 8 + 2 * t, sh.D, o[d][2 * r] / ls,
+             o[d][2 * r + 1] / ls, sh.vec);
+    if (t == 0) a.lse[(long long)bh * sh.Lq + row] = m[r] + logf(ls);
+  }
+}
+
+// dq of one query tile (blockIdx.z == 0)
+template <int DP>
+__device__ __forceinline__ void dq_block(const BwdArgs<bf16>& a, unsigned char* smem_raw) {
+  constexpr int LDS = DP + 8, ND = DP / 8;
+  const Shape sh = a.sh;
+  const int q0 = blockIdx.x * BQ;
+  if (q0 >= sh.Lq) return;
+  constexpr int TILE = 64 * LDS;
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dos = qs + TILE;
+  bf16* kv = dos + TILE;  // K, V of 2 buffers: [2][2][64][LDS]
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32, g = l / 4, t = l % 4;
+  const int bh = blockIdx.y, b = bh / sh.H, h = bh % sh.H;
+  const bf16* k = a.k + b * a.vk.sb + h * a.vk.sh;
+  const bf16* v = a.v + b * a.vv.sb + h * a.vv.sh;
+  int kt0, kt1;
+  key_range(sh, q0, kt0, kt1);
+  stage<DP>(qs, a.q + b * a.vq.sb + h * a.vq.sh, a.vq.sl, q0, sh.Lq, sh.D, sh.vec);
+  stage<DP>(dos, a.dout + b * a.vdo.sb + h * a.vdo.sh, a.vdo.sl, q0, sh.Lq, sh.D, sh.vec);
+  if (kt0 < kt1) {
+    stage<DP>(kv, k, a.vk.sl, kt0 * BK, sh.Lk, sh.D, sh.vec);
+    stage<DP>(kv + TILE, v, a.vv.sl, kt0 * BK, sh.Lk, sh.D, sh.vec);
+  }
+  cp_async_commit();
+  float lse[2], delta[2], dq[ND][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + w * 16 + g + 8 * r;
+    lse[r] = row < sh.Lq ? a.lse[(long long)bh * sh.Lq + row] : 0.f;
+    delta[r] = row < sh.Lq ? a.delta[(long long)bh * sh.Lq + row] : 0.f;
+  }
+#pragma unroll
+  for (int d = 0; d < ND; ++d) dq[d][0] = dq[d][1] = dq[d][2] = dq[d][3] = 0.f;
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int k0 = kt * BK, cur = (kt - kt0) & 1;
+    if (kt + 1 < kt1) {
+      bf16* nxt = kv + (cur ^ 1) * 2 * TILE;
+      stage<DP>(nxt, k, a.vk.sl, k0 + BK, sh.Lk, sh.D, sh.vec);
+      stage<DP>(nxt + TILE, v, a.vv.sl, k0 + BK, sh.Lk, sh.D, sh.vec);
+    }
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    const bf16* ks = kv + cur * 2 * TILE;
+    const bf16* vs = ks + TILE;
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[n][c] = dp[n][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      uint32_t aq[4], ad[4];
+      load_a(aq, qs, LDS, w * 16, kk * 16);
+      load_a(ad, dos, LDS, w * 16, kk * 16);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bk[4], bv[4];
+        load_b_nk(bk, ks, LDS, np * 16, kk * 16);
+        load_b_nk(bv, vs, LDS, np * 16, kk * 16);
+        mma(s[2 * np], aq, bk[0], bk[1]);
+        mma(s[2 * np + 1], aq, bk[2], bk[3]);
+        mma(dp[2 * np], ad, bv[0], bv[1]);
+        mma(dp[2 * np + 1], ad, bv[2], bv[3]);
+      }
+    }
+    const bool mask = tile_masked(sh, q0 + w * 16, k0);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qpos = q0 + w * 16 + g + 8 * r;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float& x = s[n][2 * r + c];
+          const float p = (mask && masked(sh, qpos, k0 + n * 8 + 2 * t + c))
+                              ? 0.f
+                              : expf(x * sh.scale - lse[r]);
+          x = p * (dp[n][2 * r + c] - delta[r]) * sh.scale;  // dS
+        }
+    }
+    // dq += dS K: dS rounded to bf16 from the accumulators, K through .trans
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t da[4];
+      pack_a(da, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int d2 = 0; d2 < ND / 2; ++d2) {
+        uint32_t bk[4];
+        load_b_kn(bk, ks, LDS, kk * 16, d2 * 16);
+        mma(dq[2 * d2], da, bk[0], bk[1]);
+        mma(dq[2 * d2 + 1], da, bk[2], bk[3]);
+      }
+    }
+    __syncthreads();  // this buffer is refilled two tiles on
+  }
+  bf16* out = a.dq + b * a.vdq.sb + h * a.vdq.sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + w * 16 + g + 8 * r;
+    if (row >= sh.Lq) continue;
+#pragma unroll
+    for (int d = 0; d < ND; ++d)
+      store2(out + (long long)row * a.vdq.sl, d * 8 + 2 * t, sh.D, dq[d][2 * r],
+             dq[d][2 * r + 1], sh.vec);
+  }
+}
+
+// dk and dv of one key tile (blockIdx.z == 1): warp w owns key rows
+// k0 + 16w .. + 15 of the transposed score tile S^T = K Q^T, whose columns
+// are the tile's 64 queries.
+template <int DP>
+__device__ __forceinline__ void dkv_block(const BwdArgs<bf16>& a, unsigned char* smem_raw) {
+  constexpr int LDS = DP + 8, ND = DP / 8;
+  const Shape sh = a.sh;
+  const int k0 = blockIdx.x * BK;
+  if (k0 >= sh.Lk) return;
+  constexpr int TILE = 64 * LDS;
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* vs = ks + TILE;
+  bf16* qd = vs + TILE;  // Q, dO of 2 buffers: [2][2][64][LDS]
+  float* rows_s = reinterpret_cast<float*>(qd + 4 * TILE);  // lse, delta: [2][2][64]
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32, g = l / 4, t = l % 4;
+  const int bh = blockIdx.y, b = bh / sh.H, h = bh % sh.H;
+  const bf16* q = a.q + b * a.vq.sb + h * a.vq.sh;
+  const bf16* dout = a.dout + b * a.vdo.sb + h * a.vdo.sh;
+  int qt0, qt1;
+  query_range(sh, k0, qt0, qt1);
+  // the q tile's rows of Q, dO, lse and delta into buffer `buf`
+  auto fetch = [&](int qt, int buf) {
+    const int q0 = qt * BQ;
+    stage<DP>(qd + buf * 2 * TILE, q, a.vq.sl, q0, sh.Lq, sh.D, sh.vec);
+    stage<DP>(qd + buf * 2 * TILE + TILE, dout, a.vdo.sl, q0, sh.Lq, sh.D, sh.vec);
+    if (threadIdx.x < BQ) {
+      const int row = q0 + threadIdx.x;
+      float* rs = rows_s + buf * 2 * BQ;
+      rs[threadIdx.x] = row < sh.Lq ? a.lse[(long long)bh * sh.Lq + row] : 0.f;
+      rs[BQ + threadIdx.x] = row < sh.Lq ? a.delta[(long long)bh * sh.Lq + row] : 0.f;
+    }
+  };
+  stage<DP>(ks, a.k + b * a.vk.sb + h * a.vk.sh, a.vk.sl, k0, sh.Lk, sh.D, sh.vec);
+  stage<DP>(vs, a.v + b * a.vv.sb + h * a.vv.sh, a.vv.sl, k0, sh.Lk, sh.D, sh.vec);
+  if (qt0 < qt1) fetch(qt0, 0);
+  cp_async_commit();
+  float dk[ND][4], dv[ND][4];
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dk[d][c] = dv[d][c] = 0.f;
+  for (int qt = qt0; qt < qt1; ++qt) {
+    const int q0 = qt * BQ, cur = (qt - qt0) & 1;
+    if (qt + 1 < qt1) fetch(qt + 1, cur ^ 1);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    const bf16* qs = qd + cur * 2 * TILE;
+    const bf16* dos = qs + TILE;
+    const float* lse_s = rows_s + cur * 2 * BQ;
+    const float* delta_s = lse_s + BQ;
+    float p[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) p[n][0] = p[n][1] = p[n][2] = p[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      uint32_t ak[4];
+      load_a(ak, ks, LDS, w * 16, kk * 16);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bq[4];
+        load_b_nk(bq, qs, LDS, np * 16, kk * 16);
+        mma(p[2 * np], ak, bq[0], bq[1]);
+        mma(p[2 * np + 1], ak, bq[2], bq[3]);
+      }
+    }
+    // no mask when every query of the tile sees every key of the warp's rows
+    const bool mask = q0 + BQ > sh.Lq || k0 + w * 16 + 16 > sh.Lk ||
+                      (sh.causal && (k0 + w * 16 + 15 > q0 ||
+                                     (sh.window > 0 && k0 + w * 16 <= q0 + BQ - 1 - sh.window)));
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kpos = k0 + w * 16 + g + 8 * r;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int qj = n * 8 + 2 * t + c, qpos = q0 + qj;
+          float& x = p[n][2 * r + c];
+          x = (mask && (qpos >= sh.Lq || masked(sh, qpos, kpos)))
+                  ? 0.f
+                  : expf(x * sh.scale - lse_s[qj]);
+        }
+    }
+    // dv += P^T dO, with P^T rounded to bf16; dO through .trans
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t pa[4];
+      pack_a(pa, p[2 * kk], p[2 * kk + 1]);
+#pragma unroll
+      for (int d2 = 0; d2 < ND / 2; ++d2) {
+        uint32_t bd[4];
+        load_b_kn(bd, dos, LDS, kk * 16, d2 * 16);
+        mma(dv[2 * d2], pa, bd[0], bd[1]);
+        mma(dv[2 * d2 + 1], pa, bd[2], bd[3]);
+      }
+    }
+    // dS^T = P^T (dP^T - delta) * scale, dP^T = V dO^T, 16 queries at a time
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      float dpt[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        uint32_t av[4], bd[4];
+        load_a(av, vs, LDS, w * 16, kk * 16);
+        load_b_nk(bd, dos, LDS, np * 16, kk * 16);
+        mma(dpt[0], av, bd[0], bd[1]);
+        mma(dpt[1], av, bd[2], bd[3]);
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int qj = (2 * np + half) * 8 + 2 * t + (i & 1);
+          float& x = p[2 * np + half][i];
+          x = x * (dpt[half][i] - delta_s[qj]) * sh.scale;
+        }
+    }
+    // dk += dS^T Q, with dS^T rounded to bf16; Q through .trans
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t da[4];
+      pack_a(da, p[2 * kk], p[2 * kk + 1]);
+#pragma unroll
+      for (int d2 = 0; d2 < ND / 2; ++d2) {
+        uint32_t bq[4];
+        load_b_kn(bq, qs, LDS, kk * 16, d2 * 16);
+        mma(dk[2 * d2], da, bq[0], bq[1]);
+        mma(dk[2 * d2 + 1], da, bq[2], bq[3]);
+      }
+    }
+    __syncthreads();  // this buffer is refilled two tiles on
+  }
+  bf16* dkp = a.dk + b * a.vdk.sb + h * a.vdk.sh;
+  bf16* dvp = a.dv + b * a.vdv.sb + h * a.vdv.sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = k0 + w * 16 + g + 8 * r;
+    if (row >= sh.Lk) continue;
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      store2(dkp + (long long)row * a.vdk.sl, d * 8 + 2 * t, sh.D, dk[d][2 * r],
+             dk[d][2 * r + 1], sh.vec);
+      store2(dvp + (long long)row * a.vdv.sl, d * 8 + 2 * t, sh.D, dv[d][2 * r],
+             dv[d][2 * r + 1], sh.vec);
+    }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(TC_THREADS)
+    flash_bwd_tc(const __grid_constant__ BwdArgs<bf16> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  if (blockIdx.z == 0)
+    dq_block<DP>(a, smem_raw);
+  else
+    dkv_block<DP>(a, smem_raw);
+}
+
+}  // namespace tc
+
+View view(const long long* s) { return View{s[0], s[1], s[2]}; }
+
+Shape shape(const long long* m, float scale) {
+  return Shape{(int)m[0], (int)m[1], (int)m[2], (int)m[3], (int)m[4], (int)m[5], (int)m[6],
+               (int)m[7], scale};
+}
+
+template <class Kernel, class Args>
+cudaError_t launch(Kernel kernel, const Args& a, dim3 grid, int threads, int smem,
+                   cudaStream_t st) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, threads, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t fwd_bf16(const FwdArgs<__nv_bfloat16>& a, cudaStream_t st) {
+  const dim3 grid((a.sh.Lq + BQ - 1) / BQ, a.sh.B * a.sh.H);
+  // Q and two buffers of K and V
+  return launch(tc::flash_fwd_tc<DP>, a, grid, tc::TC_THREADS, 5 * tc::tile_bytes<DP>(), st);
+}
+
+template <int DP>
+cudaError_t fwd_f32(const FwdArgs<float>& a, cudaStream_t st) {
+  const dim3 grid((a.sh.Lq + BQ - 1) / BQ, a.sh.B * a.sh.H);
+  const int smem = ((BQ + 2 * BK) * (DP + 1) + BQ * PLD) * 4;
+  return launch(flash_fwd_f32<DP>, a, grid, THREADS, smem, st);
+}
+
+template <int DP>
+cudaError_t bwd_bf16(const BwdArgs<__nv_bfloat16>& a, cudaStream_t st) {
+  const int nq = (a.sh.Lq + BQ - 1) / BQ, nk = (a.sh.Lk + BK - 1) / BK;
+  const dim3 grid(nq > nk ? nq : nk, a.sh.B * a.sh.H, 2);
+  // the dk/dv role's K and V and two buffers of Q, dO, lse and delta (the
+  // dq role's Q, dO and two buffers of K and V take less)
+  return launch(tc::flash_bwd_tc<DP>, a, grid, tc::TC_THREADS,
+                6 * tc::tile_bytes<DP>() + 4 * BQ * 4, st);
+}
+
+template <int DP>
+cudaError_t bwd_f32(const BwdArgs<float>& a, cudaStream_t st) {
+  const int nq = (a.sh.Lq + BQ - 1) / BQ, nk = (a.sh.Lk + BK - 1) / BK;
+  const dim3 grid(nq > nk ? nq : nk, a.sh.B * a.sh.H, 2);
+  // the larger of the dq role (q, dO, k, v, dS) and the dk/dv role
+  // (k, v, q, dO, P^T, dS^T, lse, delta)
+  const int smem = ((2 * BQ + 2 * BK) * (DP + 1) + 2 * BK * PLD + 2 * BQ) * 4;
+  return launch(flash_bwd_f32<DP>, a, grid, THREADS, smem, st);
+}
+
+template <typename T>
+FwdArgs<T> fwd_args(const long long* m, const void* q, const void* k, const void* v, void* o,
+                    float* lse, float scale) {
+  return FwdArgs<T>{shape(m, scale), static_cast<const T*>(q), static_cast<const T*>(k),
+                    static_cast<const T*>(v), static_cast<T*>(o), lse,
+                    view(m + 8), view(m + 11), view(m + 14), view(m + 17)};
+}
+
+template <typename T>
+BwdArgs<T> bwd_args(const long long* m, const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* delta, void* dq, void* dk,
+                    void* dv, float scale) {
+  return BwdArgs<T>{shape(m, scale),
+                    static_cast<const T*>(q), static_cast<const T*>(k),
+                    static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+                    static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv),
+                    view(m + 8), view(m + 11), view(m + 14), view(m + 17), view(m + 20),
+                    view(m + 23), view(m + 26)};
+}
+
+}  // namespace
+
+// meta: B, H, Lq, Lk, D, causal, window, vec, then the (B, H, L) element
+// strides of q, k, v, out.  bf16 takes the tensor cores, f32 the CUDA cores.
+// Returns the launch's cudaError_t; the caller raises if it is not 0.
+extern "C" int dft_flash_fwd(const long long* meta, const void* q, const void* k,
+                             const void* v, void* out, float* lse, float scale, int bf16,
+                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool small = meta[4] <= 64;
+  cudaError_t e;
+  if (bf16) {
+    const auto a = fwd_args<__nv_bfloat16>(meta, q, k, v, out, lse, scale);
+    e = small ? fwd_bf16<64>(a, s) : fwd_bf16<128>(a, s);
+  } else {
+    const auto a = fwd_args<float>(meta, q, k, v, out, lse, scale);
+    e = small ? fwd_f32<64>(a, s) : fwd_f32<128>(a, s);
+  }
+  return static_cast<int>(e);
+}
+
+// meta: B, H, Lq, Lk, D, causal, window, vec, then the strides of q, k, v,
+// dout, dq, dk, dv.
+extern "C" int dft_flash_bwd(const long long* meta, const void* q, const void* k,
+                             const void* v, const void* dout, const float* lse,
+                             const float* delta, void* dq, void* dk, void* dv, float scale,
+                             int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool small = meta[4] <= 64;
+  cudaError_t e;
+  if (bf16) {
+    const auto a = bwd_args<__nv_bfloat16>(meta, q, k, v, dout, lse, delta, dq, dk, dv, scale);
+    e = small ? bwd_bf16<64>(a, s) : bwd_bf16<128>(a, s);
+  } else {
+    const auto a = bwd_args<float>(meta, q, k, v, dout, lse, delta, dq, dk, dv, scale);
+    e = small ? bwd_f32<64>(a, s) : bwd_f32<128>(a, s);
+  }
+  return static_cast<int>(e);
+}

@@ -1,0 +1,149 @@
+"""Whole training and evaluation steps (counterpart of ``CompiledTrainStep``
+and ``CompiledEvalStep`` in ``deepflows_tpu/jit.py``).
+
+The JAX package traces a step into one XLA program.  Here the step runs
+EAGERLY, one PyTorch op (or kernel launch) at a time, with the same
+contract; capturing it in a CUDA graph is later work.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+
+def _owners(model, params):
+    """Every (module, name) slot that holds each parameter (a tied parameter
+    has several)."""
+    index = {id(p): i for i, p in enumerate(params)}
+    slots = [[] for _ in params]
+    for module in model.modules():
+        for name, p in module._parameters.items():
+            if p is not None and id(p) in index:
+                slots[index[id(p)]].append((module, name))
+    return slots
+
+
+class CompiledTrainStep:
+    def __init__(
+        self,
+        model,
+        optimizer,
+        criterion: Callable,
+        donate: bool = True,
+        metrics_fn: Optional[Callable] = None,
+        compute_dtype=None,
+        grad_transform: Optional[Callable] = None,
+        accum_steps: int = 1,
+    ):
+        """One call ``step(x, y)`` runs forward, ``criterion(model(x), y)``,
+        backward and the optimizer's update, and returns the loss.
+
+        - ``optimizer.lr`` is read at every call.
+        - The optimizer may hold a subset of the model's parameters, matched
+          by identity; the others are not updated.
+        - ``grad_transform`` maps the list of gradients (None for a
+          parameter without one) before the update.
+        - ``compute_dtype=torch.bfloat16``: forward and backward run on
+          bf16 copies of every parameter (and of a floating input); the
+          gradients come back as f32, the optimizer updates the f32 master
+          weights, and the loss returns as f32.  The copies are bound into
+          the model's modules for the call, so a criterion that holds one
+          of the model's modules (``nn.LMHeadCrossEntropy``) computes with
+          them too.
+        - ``donate`` is accepted for the JAX package's signature; the update
+          reuses the masters' memory where the optimizer works in place.
+
+        ``accum_steps > 1`` and ``metrics_fn`` are not ported yet."""
+        if int(accum_steps) < 1:
+            raise ValueError("accum_steps must be >= 1")
+        if int(accum_steps) != 1:
+            raise NotImplementedError("accum_steps > 1 is not ported yet")
+        if metrics_fn is not None:
+            raise NotImplementedError("metrics_fn is not ported yet")
+        self.model = model
+        self.optimizer = optimizer
+        self.criterion = criterion
+        self.compute_dtype = compute_dtype
+        self.grad_transform = grad_transform
+        self._params = [p for _, p in model.named_parameters()]
+        by_id = {id(p): i for i, p in enumerate(self._params)}
+        try:
+            self._opt_index = [by_id[id(p)] for p in optimizer.params]
+        except KeyError:
+            raise ValueError("optimizer holds parameters that are not in the model") from None
+        self._slots = _owners(model, self._params)
+        optimizer._ensure_state()
+        self.model.train()
+
+    def _bind(self, tensors):
+        for slots, t in zip(self._slots, tensors):
+            for module, name in slots:
+                module._parameters[name] = t
+
+    def _compute_copies(self):
+        cd = self.compute_dtype
+        copies = []
+        with torch.no_grad():
+            for p in self._params:
+                c = p.detach()
+                if cd is not None and c.is_floating_point():
+                    c = c.to(cd)
+                copies.append(c.requires_grad_(p.requires_grad))
+        return copies
+
+    def __call__(self, x, y):
+        dev = self._params[0].device
+        x = torch.as_tensor(x, device=dev)
+        y = torch.as_tensor(y, device=dev)
+        cd = self.compute_dtype
+        if cd is not None and x.is_floating_point():
+            x = x.to(cd)
+        lr = self.optimizer.lr
+        copies = self._compute_copies()
+        need = [i for i, c in enumerate(copies) if c.requires_grad]
+        self._bind(copies)
+        try:
+            with torch.enable_grad():
+                loss = self.criterion(self.model(x), y)
+                found = torch.autograd.grad(
+                    loss, [copies[i] for i in need], allow_unused=True
+                )
+        finally:
+            self._bind(self._params)
+        grads = [None] * len(copies)
+        for i, g in zip(need, found):
+            grads[i] = g if g is None or cd is None else g.float()
+        if self.grad_transform is not None:
+            grads = self.grad_transform(grads)
+        opt = self.optimizer
+        data = [self._params[i].data for i in self._opt_index]
+        with torch.no_grad():
+            new_params, opt._state = opt.pure_update(
+                data, [grads[i] for i in self._opt_index], opt._state, lr
+            )
+        for i, old, new in zip(self._opt_index, data, new_params):
+            if new is not old:
+                self._params[i].data = new
+        loss = loss.detach()
+        return loss.float() if cd is not None else loss
+
+
+class CompiledEvalStep:
+    """Inference: the model's forward in eval mode without gradients,
+    returning its raw output; the model's mode is restored afterwards."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def __call__(self, x):
+        dev = next(self.model.parameters()).device
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            with torch.no_grad():
+                return self.model(torch.as_tensor(x, device=dev))
+        finally:
+            if was_training:
+                self.model.train()

@@ -1,8 +1,8 @@
 """Decoder-only transformer language model (counterpart of
 ``deepflows_tpu/models/transformer_lm.py``): token Embedding plus a learned
 position Parameter, causal ``EncoderBlock`` × depth, a final LayerNorm and
-a Linear head.  ``trunk()`` and ``pipeline_partition()`` serve training and
-come with the training slice."""
+a Linear head.  ``trunk()`` is the model half of the fused-head training
+pair, ``pipeline_partition()`` splits the model into pipeline stages."""
 
 from __future__ import annotations
 
@@ -42,6 +42,53 @@ def _pad_greedy_generate(model, idx, new_tokens: int):
             model.train()
 
 
+def _embed(tok_embed, pos_embed, idx):
+    """Token + position embedding, (B, L) -> (B, L, D)."""
+    x = tok_embed(idx)
+    L, max_len = x.shape[1], pos_embed.shape[1]
+    if L > max_len:
+        raise ValueError(f"sequence length {L} > max_len {max_len}")
+    return x + pos_embed[:, :L]
+
+
+class _LMPre(nn.Module):
+    """Pipeline pre-stage: token + position embedding, (B, L) -> (B, L, D)."""
+
+    def __init__(self, tok_embed, pos_embed):
+        super().__init__()
+        self.tok_embed = tok_embed
+        self.pos_embed = pos_embed
+
+    def forward(self, idx):
+        return _embed(self.tok_embed, self.pos_embed, idx)
+
+
+class _LMPost(nn.Module):
+    """Pipeline post-stage: final LayerNorm + LM head, (B, L, D) -> logits."""
+
+    def __init__(self, norm, head):
+        super().__init__()
+        self.norm = norm
+        self.head = head
+
+    def forward(self, x):
+        return self.head(self.norm(x))
+
+
+class _LMTrunk(nn.Module):
+    """The LM without its head: (B, L) tokens -> (B, L, D) hidden states.
+    It wraps (shares) the parent LM, so its parameters are the LM's under
+    an ``lm.`` prefix and an optimizer built on ``lm.parameters()`` maps
+    onto it by identity; ``lm(idx)`` still gives logits."""
+
+    def __init__(self, lm):
+        super().__init__()
+        self.lm = lm
+
+    def forward(self, idx):
+        return self.lm._hidden(idx)
+
+
 class TransformerLM(nn.Module):
     def __init__(
         self,
@@ -77,19 +124,30 @@ class TransformerLM(nn.Module):
         self.norm = nn.LayerNorm(dim, device=dev)
         self.head = nn.Linear(dim, vocab_size, device=dev)
 
+    def _hidden(self, idx):
+        # idx: (B, L) int tokens -> (B, L, D) normed hidden states
+        return self.norm(self.blocks(_embed(self.tok_embed, self.pos_embed, idx)))
+
     def forward(self, idx):
         # idx: (B, L) int tokens -> (B, L, vocab) logits
-        x = self.tok_embed(idx)
-        L = x.shape[1]
-        if L > self.max_len:
-            raise ValueError(f"sequence length {L} > max_len {self.max_len}")
-        x = x + self.pos_embed[:, :L]
-        x = self.blocks(x)
-        x = self.norm(x)
-        return self.head(x)
+        return self.head(self._hidden(idx))
 
     def generate(self, idx, new_tokens: int):
         """Greedy autoregressive decoding by full forwards: append
         ``new_tokens`` tokens to the (B, L) int prompt (a numpy array).
         ``models.KVCacheDecoder`` is the serving path."""
         return _pad_greedy_generate(self, idx, new_tokens)
+
+    def trunk(self):
+        """A shared-parameter view of this LM that stops before the head:
+        ``CompiledTrainStep(lm.trunk(), opt, nn.LMHeadCrossEntropy(lm.head))``."""
+        return _LMTrunk(self)
+
+    def pipeline_partition(self):
+        """``(pre, blocks, post)``: the embeddings, the list of blocks and the
+        final LayerNorm + head, each sharing this model's parameters."""
+        return (
+            _LMPre(self.tok_embed, self.pos_embed),
+            list(self.blocks),
+            _LMPost(self.norm, self.head),
+        )

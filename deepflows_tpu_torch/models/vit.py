@@ -17,7 +17,7 @@ class EncoderBlock(nn.Module):
         super().__init__()
         if remat:
             raise NotImplementedError(
-                "remat is ported with the training slice"
+                "remat is not ported yet"
             )
         self.norm1 = nn.LayerNorm(dim, device=device)
         self.attn = nn.MultiheadAttention(

@@ -1,5 +1,5 @@
-"""nn.functional — the functions the serving slice's modules use
-(counterpart of part of ``deepflows_tpu/nn/functional.py``).
+"""nn.functional — the functions the serving and training slices' modules
+use (counterpart of part of ``deepflows_tpu/nn/functional.py``).
 
 Each follows the JAX package's arithmetic op for op, so f32 results agree
 to rounding.
@@ -45,3 +45,83 @@ def dropout(input, p: float = 0.5, training: bool = True):
         1.0 - p, generator=generator(input.device)
     )
     return input * keep / (1.0 - p)
+
+
+def log_softmax(input, dim: int = 1):
+    """``x - max - log(sum(exp(x - max)))`` along ``dim``."""
+    shifted = input - torch.amax(input, dim, keepdim=True)
+    return shifted - torch.log(torch.sum(torch.exp(shifted), dim, keepdim=True))
+
+
+def _maybe_one_hot(target, input, dim: int = 1, mask=None):
+    """Integer class targets one-hot in the input's dtype, the class axis at
+    ``dim``; a target of the input's shape is taken as is.  ``mask`` (the
+    integer target's shape, bool) zeroes whole one-hot rows: the
+    ``ignore_index`` mechanism."""
+    target = torch.as_tensor(target, device=input.device)
+    if tuple(target.shape) == tuple(input.shape):
+        return target.to(input.dtype)
+    num_classes = input.shape[dim] if input.dim() > 1 else input.shape[-1]
+    oh = torch.nn.functional.one_hot(target.long(), num_classes).to(input.dtype)
+    if mask is not None:
+        oh = oh * mask[..., None].to(oh.dtype)
+    if input.dim() > 1 and dim != input.dim() - 1:
+        oh = oh.movedim(-1, dim)
+    return oh
+
+
+def cross_entropy(
+    input, target, reduction: str = "mean", dim=None, ignore_index=None,
+    label_smoothing: float = 0.0,
+):
+    """Stable log-softmax cross-entropy against one-hot (or integer)
+    targets, with the semantics of the JAX package's ``cross_entropy``:
+
+    - class-last ``(B, L, V)`` logits (with ``dim`` unset, or naming the
+      last axis) flatten to ``(B·L, V)``; ``reduction='none'`` then returns
+      the per-token ``(B, L)`` loss;
+    - ``ignore_index`` (integer targets only): those positions contribute
+      zero loss and ``'mean'`` divides by the count of the others (at
+      least 1);
+    - ``label_smoothing``: the one-hot target becomes ``(1 - eps)·onehot +
+      eps / C``, ignored rows kept at zero;
+    - otherwise ``'mean'`` divides by the number of positions (every axis
+      but the class axis), ``'sum'`` sums, ``'none'`` sums over classes."""
+    if reduction not in ("mean", "sum", "none"):
+        raise ValueError("reduction must be 'mean', 'sum' or 'none'")
+    target = torch.as_tensor(target, device=input.device)
+    auto_ok = input.dim() == 3 if dim is None else dim in (-1, input.dim() - 1)
+    if input.dim() > 2 and auto_ok:
+        flat_int = tuple(target.shape) == tuple(input.shape[:-1])
+        flat_oh = tuple(target.shape) == tuple(input.shape)
+        if flat_int or flat_oh:
+            seq_shape = tuple(input.shape[:-1])
+            V = input.shape[-1]
+            input = input.reshape(-1, V)
+            target = target.reshape((-1, V) if flat_oh else (-1,))
+            flat = cross_entropy(input, target, reduction, 1, ignore_index, label_smoothing)
+            return flat.reshape(seq_shape) if reduction == "none" else flat
+    dim = 1 if dim is None else dim % input.dim()
+    valid = None
+    if ignore_index is not None:
+        if tuple(target.shape) == tuple(input.shape):
+            raise ValueError("ignore_index requires integer class-index targets")
+        valid = target != ignore_index
+        # ignored ids -> class 0 for the one-hot; the mask zeroes the row
+        target = _maybe_one_hot(target * valid, input, dim, mask=valid)
+    else:
+        target = _maybe_one_hot(target, input, dim)
+    if label_smoothing:
+        C = input.shape[dim]
+        target = target * (1.0 - label_smoothing) + label_smoothing / C
+        if valid is not None:
+            target = target * valid.unsqueeze(dim).to(target.dtype)
+    nll = -log_softmax(input, dim) * target
+    if reduction == "none":
+        return nll.sum(dim)
+    total = nll.sum()
+    if reduction == "sum":
+        return total
+    if valid is not None:
+        return total / valid.sum().clamp_min(1).to(total.dtype)
+    return total * (1.0 / (nll.numel() // input.shape[dim]))

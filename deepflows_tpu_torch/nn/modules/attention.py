@@ -1,13 +1,20 @@
-"""Multi-head attention (counterpart of ``deepflows_tpu/nn/modules/attention.py``),
-naive path only.
+"""Multi-head attention (counterpart of ``deepflows_tpu/nn/modules/attention.py``):
+the naive path and the flash route.
 
-Scores are one batched matmul scaled by ``1/√D``; the causal mask is an
-additive ``-1e9`` built in the scores' dtype; the softmax is the JAX tape's
-(``nn.functional.softmax``).  ``flash=None`` takes the naive path, as the
-JAX package does off the TPU.  The routes that later slices port raise
-``NotImplementedError``: ``flash=True`` (the training slice ports
-``flash_attention``), ``ring`` (the parallel slice), ``num_kv_heads !=
-num_heads``, ``rope`` and ``window`` (the Llama and Mixtral slice).
+Naive path: scores are one batched matmul scaled by ``1/√D``; the causal
+mask is an additive ``-1e9`` built in the scores' dtype; the softmax is the
+JAX tape's (``nn.functional.softmax``).
+
+Flash route (``ops.flash_attention``: the CUDA kernel on the card, its
+plain twin on the CPU), chosen as the JAX package's ``_use_flash`` chooses:
+``need_weights`` or live attention dropout in training take the naive path;
+otherwise ``flash=True`` forces the route, ``flash=False`` refuses it, and
+``flash=None`` takes it on the card from ``q_len >= 512``, the counterpart
+of the JAX package's "on a real TPU".
+
+The routes that later slices port raise ``NotImplementedError``: ``ring``
+(the parallel slice), ``num_kv_heads != num_heads``, ``rope`` and
+``window`` (the Llama and Mixtral slice).
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ import math
 
 import torch
 
+from ...ops.flash_attention import flash_attention
 from .. import functional as F
 from .dropout import Dropout
 from .linear import Linear
@@ -49,10 +57,6 @@ class MultiheadAttention(Module):
             raise ValueError(
                 f"embed_dim {embed_dim} not divisible by num_heads {num_heads}"
             )
-        if flash:
-            raise NotImplementedError(
-                "flash=True: flash_attention is ported with the training slice"
-            )
         if ring is not None:
             raise NotImplementedError(
                 "ring attention is ported with the parallel slice"
@@ -79,7 +83,20 @@ class MultiheadAttention(Module):
         self.out_proj = Linear(embed_dim, embed_dim, bias=bias, device=device)
         self.attn_drop = Dropout(dropout) if dropout > 0 else None
         self.causal = causal
+        self.flash = flash
         self._mask_cache = {}
+
+    # the JAX package's crossover of its auto mode (FLASH_AUTO_MIN_LEN)
+    FLASH_AUTO_MIN_LEN = 512
+
+    def _use_flash(self, need_weights: bool, q_len: int) -> bool:
+        if need_weights:
+            return False  # flash never materialises the weights
+        if self.attn_drop is not None and self.training:
+            return False  # attention dropout needs the materialised softmax
+        if self.flash is None:
+            return self.q_proj.weight.is_cuda and q_len >= self.FLASH_AUTO_MIN_LEN
+        return bool(self.flash)
 
     def forward(self, query, key=None, value=None, need_weights: bool = False):
         key = query if key is None else key
@@ -95,6 +112,9 @@ class MultiheadAttention(Module):
         q = split(self.q_proj(query), L)
         k = split(self.k_proj(key), Lk)
         v = split(self.v_proj(value), Lk)
+        if self._use_flash(need_weights, L):
+            out = flash_attention(q, k, v, self.causal)  # (B, H, L, D)
+            return self.out_proj(out.transpose(1, 2).reshape(B, L, E))
         scores = (q @ k.transpose(2, 3)) * (1.0 / math.sqrt(D))
         if self.causal:
             scores = scores + self._causal_mask(L, Lk, scores)

@@ -1,6 +1,21 @@
 """Kernels of the port and their plain PyTorch twins.  The CUDA sources live
 in ``deepflows_tpu_torch/csrc`` and are built at first use (``_build.py``)."""
 
+from .adam import fused_adam, fused_adam_plain
+from .flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_plain,
+    flash_attention_fwd,
+    flash_attention_plain,
+)
+from .fused_ce import (
+    fused_linear_ce,
+    fused_linear_ce_bwd,
+    fused_linear_ce_bwd_plain,
+    fused_linear_ce_fwd,
+    fused_linear_ce_plain,
+)
 from .quant import (
     int8_matmul,
     int8_matmul_plain,
@@ -11,7 +26,15 @@ from .quant import (
 )
 
 # every wrapper whose launches chip_smoke.py counts on the main path
-KERNELS = (int8_matmul, w8a8_matmul)
+KERNELS = (
+    int8_matmul,
+    w8a8_matmul,
+    flash_attention_fwd,
+    flash_attention_bwd,
+    fused_linear_ce_fwd,
+    fused_linear_ce_bwd,
+    fused_adam,
+)
 
 
 def reset_launch_counts() -> None:
@@ -21,6 +44,18 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "KERNELS",
+    "flash_attention",
+    "flash_attention_bwd",
+    "flash_attention_bwd_plain",
+    "flash_attention_fwd",
+    "flash_attention_plain",
+    "fused_adam",
+    "fused_adam_plain",
+    "fused_linear_ce",
+    "fused_linear_ce_bwd",
+    "fused_linear_ce_bwd_plain",
+    "fused_linear_ce_fwd",
+    "fused_linear_ce_plain",
     "int8_matmul",
     "int8_matmul_plain",
     "quantize_int8",

@@ -1,0 +1,204 @@
+"""Flash attention (counterpart of ``flash_attention`` in
+``deepflows_tpu/ops/pallas_kernels.py``): softmax(q·kᵀ·scale + mask)·v
+with the (L, L) scores never stored, forward and backward.
+
+- ``flash_attention(q, k, v, causal=False, sm_scale=None, window=None)``:
+  differentiable in q, k, v (an ``autograd.Function`` that saves q, k, v,
+  out and lse).
+- ``flash_attention_fwd`` / ``flash_attention_bwd``: the kernel wrappers
+  (``csrc/flash_attention.cu``); the backward is one launch that writes
+  dq, dk and dv.
+- ``flash_attention_plain`` / ``flash_attention_bwd_plain``: their plain
+  PyTorch twins, which materialise the scores.
+
+Semantics, as in the JAX kernel: q (B, H, Lq, D), k and v (B, H, Lk, D),
+f32 or bf16 (one dtype), D <= 128; scale 1/√D by default; with ``causal``
+a key is hidden when kpos > qpos (top-left, both counted from 0 even when
+Lq != Lk) and, with a ``window`` (which, as in JAX, only acts together
+with ``causal``), when kpos <= qpos - window.  A row with no visible key
+gives output 0 and lse -1e30.  The output is in q's dtype, lse (B·H, Lq)
+f32.  P is rounded to v's dtype before the P·V product and dS to k's (q's)
+dtype before the dq (dk) product; sums are f32.  delta = rowsum(dO·O) is
+computed outside the kernels, as the JAX wrapper does.
+
+On CPU tensors the wrappers call the plain twins; on CUDA tensors they
+launch the kernel on the current stream or raise, and count the launch in
+``<wrapper>.launches``.  q, k, v, out and dout may be strided views (the
+last axis contiguous), so MultiheadAttention's head views need no copy;
+the output is allocated (B, Lq, H, D) and returned as its (B, H, Lq, D)
+view.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build
+from ._common import FLOATS, F, I, P, check, on_card, on_device, stream
+
+NEG_INF = -1e30
+MAX_HEAD_DIM = 128
+
+
+def _scale(d, sm_scale):
+    return 1.0 / math.sqrt(d) if sm_scale is None else float(sm_scale)
+
+
+def _mask(lq, lk, causal, window, device):
+    """(Lq, Lk) bool, True where a key is hidden."""
+    if not causal:
+        return torch.zeros((lq, lk), dtype=torch.bool, device=device)
+    qpos = torch.arange(lq, device=device)[:, None]
+    kpos = torch.arange(lk, device=device)[None, :]
+    mask = kpos > qpos
+    if window:
+        mask = mask | (kpos <= qpos - window)
+    return mask
+
+
+def flash_attention_plain(q, k, v, causal=False, sm_scale=None, window=None):
+    """Plain twin of ``flash_attention_fwd``: returns (out, lse (B·H, Lq))."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    scale = _scale(d, sm_scale)
+    mask = _mask(lq, lk, causal, window, q.device)
+    s = (q.float() @ k.float().transpose(-1, -2)) * scale
+    s = torch.where(mask, NEG_INF, s)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(mask, 0.0, torch.exp(s - m))
+    l = p.sum(-1, keepdim=True)
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    out = (p.to(v.dtype).float() @ v.float()) / l_safe
+    lse = (m + torch.log(l_safe)).reshape(b * h, lq)
+    return out.to(q.dtype), lse
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=False, sm_scale=None,
+                              window=None):
+    """Plain twin of ``flash_attention_bwd``: returns (dq, dk, dv)."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    scale = _scale(d, sm_scale)
+    mask = _mask(lq, lk, causal, window, q.device)
+    s = (q.float() @ k.float().transpose(-1, -2)) * scale
+    p = torch.where(mask, 0.0, torch.exp(s - lse.reshape(b, h, lq, 1)))
+    delta = (dout.float() * out.float()).sum(-1, keepdim=True)
+    dp = dout.float() @ v.float().transpose(-1, -2)
+    ds = p * (dp - delta) * scale
+    dv = p.to(dout.dtype).float().transpose(-1, -2) @ dout.float()
+    dq = ds.to(k.dtype).float() @ k.float()
+    dk = ds.to(q.dtype).float().transpose(-1, -2) @ q.float()
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_qkv(q, k, v):
+    check("q", q, (None, None, None, None), FLOATS, contiguous=False)
+    b, h, lq, d = q.shape
+    check("k", k, (b, h, None, d), (q.dtype,), contiguous=False)
+    check("v", v, (b, h, k.shape[2], d), (q.dtype,), contiguous=False)
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention takes head dims up to {MAX_HEAD_DIM}, got {d}")
+
+
+def _rows(t):
+    """``t`` with a contiguous last axis."""
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def _new_like_heads(t):
+    """An empty (B, H, L, D) tensor laid out (B, L, H, D), as the projections
+    that produce and consume the head views are."""
+    b, h, l, d = t.shape
+    return torch.empty((b, l, h, d), dtype=t.dtype, device=t.device).transpose(1, 2)
+
+
+def _meta(q, k, causal, window, tensors):
+    """The kernel's int64 header: B, H, Lq, Lk, D, causal, window, whether
+    every row starts 16-byte aligned (then the bf16 kernel loads 16 bytes at
+    a time), and the (B, H, L) element strides of ``tensors``."""
+    b, h, lq, d = q.shape
+    strides = [s for t in tensors for s in t.stride()[:3]]
+    vec = d % 8 == 0 and all(s % 8 == 0 for s in strides) and all(
+        t.data_ptr() % 16 == 0 for t in tensors)
+    vals = [b, h, lq, k.shape[2], d, int(bool(causal)), int(window or 0), int(vec)] + strides
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def flash_attention_fwd(q, k, v, causal=False, sm_scale=None, window=None):
+    """Forward kernel: returns (out in q's dtype, lse f32 (B·H, Lq))."""
+    _check_qkv(q, k, v)
+    if not on_card(q, k, v):
+        return flash_attention_plain(q, k, v, causal, sm_scale, window)
+    b, h, lq, d = q.shape
+    q, k, v = _rows(q), _rows(k), _rows(v)
+    out = _new_like_heads(q)
+    lse = torch.empty((b * h, lq), dtype=torch.float32, device=q.device)
+    meta = _meta(q, k, causal, window, (q, k, v, out))
+    fn = _build.c_function(
+        "flash_attention", "dft_flash_fwd", (P, P, P, P, P, P, F, I, P)
+    )
+    with on_device(q.device):
+        rc = fn(meta, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), _scale(d, sm_scale), int(q.dtype == torch.bfloat16),
+                stream())
+    _build.check(rc, "flash_attention_fwd")
+    flash_attention_fwd.launches += 1
+    return out, lse
+
+
+flash_attention_fwd.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, causal=False, sm_scale=None, window=None):
+    """Backward kernel, one launch: returns (dq, dk, dv) in q's, k's and v's
+    dtypes."""
+    _check_qkv(q, k, v)
+    b, h, lq, d = q.shape
+    check("out", out, (b, h, lq, d), (q.dtype,), contiguous=False)
+    check("dout", dout, (b, h, lq, d), FLOATS, contiguous=False)
+    check("lse", lse, (b * h, lq), (torch.float32,))
+    if dout.dtype != q.dtype:
+        dout = dout.to(q.dtype)
+    if not on_card(q, k, v, out, lse, dout):
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal, sm_scale, window)
+    q, k, v, dout = _rows(q), _rows(k), _rows(v), _rows(dout)
+    delta = (dout.float() * out.float()).sum(-1).reshape(b * h, lq).contiguous()
+    dq, dk, dv = _new_like_heads(q), _new_like_heads(k), _new_like_heads(v)
+    meta = _meta(q, k, causal, window, (q, k, v, dout, dq, dk, dv))
+    fn = _build.c_function(
+        "flash_attention", "dft_flash_bwd", (P, P, P, P, P, P, P, P, P, P, F, I, P)
+    )
+    with on_device(q.device):
+        rc = fn(meta, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), _scale(d, sm_scale), int(q.dtype == torch.bfloat16),
+                stream())
+    _build.check(rc, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, window):
+        out, lse = flash_attention_fwd(q, k, v, causal, sm_scale, window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, sm_scale, window)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, *ctx.args)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, causal=False, sm_scale=None, window=None):
+    """softmax(q·kᵀ·scale + mask)·v, differentiable in q, k and v."""
+    return _FlashAttention.apply(q, k, v, causal, sm_scale, window)

@@ -1,0 +1,154 @@
+"""Fused LM-head cross-entropy (counterpart of ``fused_linear_ce`` in
+``deepflows_tpu/ops/pallas_kernels.py``): per-row loss of the head
+``x @ w + b`` against integer targets, with the (N, V) logits never stored,
+forward and backward.
+
+- ``fused_linear_ce(x, w, b, targets)``: per-row loss (N,) f32,
+  differentiable in x, w and b (an ``autograd.Function`` that saves x, w,
+  b, the targets and lse); targets get no gradient.
+- ``fused_linear_ce_fwd`` / ``fused_linear_ce_bwd``: the kernel wrappers
+  (``csrc/fused_linear_ce.cu``); the backward is one launch that writes dx,
+  dw and db.
+- ``fused_linear_ce_plain`` / ``fused_linear_ce_bwd_plain``: their plain
+  PyTorch twins, which materialise the logits.
+
+x (N, D) and w (D, V) share a dtype, f32 or bf16; b (V,) is f32 or bf16;
+targets (N,) are integers.  loss_i = lse_i - logit_i,t_i with logits =
+x·w in f32 plus b; a target outside [0, V) matches no class, so its loss
+is lse.  Backward: dl = (softmax - onehot)·g, rounded to w's dtype before
+dx = dl·wᵀ and to x's before dw = xᵀ·dl; db sums the f32 dl.  dx, dw and
+db come out in x's, w's and b's dtypes.  The backward kernel takes D <= 1024.
+
+On CPU tensors the wrappers call the plain twins; on CUDA tensors they
+launch the kernel on the current stream or raise, and count the launch in
+``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from ._common import FLOATS, I, P, check, on_card, on_device, stream
+
+MAX_DIM = 1024
+_INTS = (torch.int32, torch.int64)
+
+
+def _target_logit(logits, t):
+    v = logits.shape[1]
+    hit = (t >= 0) & (t < v)
+    picked = logits.gather(1, t.clamp(0, v - 1).long()[:, None])[:, 0]
+    return torch.where(hit, picked, 0.0)
+
+
+def fused_linear_ce_plain(x, w, b, targets):
+    """Plain twin of ``fused_linear_ce_fwd``: returns (loss, lse), (N,) f32."""
+    logits = x.float() @ w.float() + b.float()
+    lse = torch.logsumexp(logits, 1)
+    return lse - _target_logit(logits, targets), lse
+
+
+def fused_linear_ce_bwd_plain(x, w, b, targets, lse, g):
+    """Plain twin of ``fused_linear_ce_bwd``: returns (dx, dw, db)."""
+    logits = x.float() @ w.float() + b.float()
+    p = torch.exp(logits - lse[:, None])
+    v = logits.shape[1]
+    onehot = torch.arange(v, device=x.device)[None, :] == targets[:, None]
+    dl = (p - onehot.float()) * g.float()[:, None]
+    dx = dl.to(w.dtype).float() @ w.float().t()
+    dw = x.float().t() @ dl.to(x.dtype).float()
+    return dx.to(x.dtype), dw.to(w.dtype), dl.sum(0).to(b.dtype)
+
+
+def _check(x, w, b, targets):
+    check("x", x, (None, None), FLOATS)
+    n, d = x.shape
+    check("w", w, (d, None), (x.dtype,))
+    v = w.shape[1]
+    check("b", b, (v,), FLOATS)
+    check("targets", targets, (n,), _INTS)
+    return n, d, v
+
+
+def _flags(x, w, b):
+    """bf16 x and w, bf16 b, and whether the rows of x and of w start 16-byte
+    aligned (then the bf16 kernels stage them with 16-byte copies)."""
+    d, v = w.shape
+    return (int(x.dtype == torch.bfloat16), int(b.dtype == torch.bfloat16),
+            int(d % 8 == 0 and x.data_ptr() % 16 == 0), int(v % 8 == 0 and w.data_ptr() % 16 == 0))
+
+
+def fused_linear_ce_fwd(x, w, b, targets):
+    """Forward kernel: returns (loss, lse), both (N,) f32."""
+    n, d, v = _check(x, w, b, targets)
+    if not on_card(x, w, b, targets):
+        return fused_linear_ce_plain(x, w, b, targets)
+    t = targets.to(torch.int32)
+    loss = torch.empty((n,), dtype=torch.float32, device=x.device)
+    lse = torch.empty_like(loss)
+    # the bf16 kernel's scratch: per vocab split (at most 16) and row the
+    # partial max, sum-exp and target logit; per block of 128 rows a count
+    part = torch.empty((3 * 16 * n,), dtype=torch.float32, device=x.device)
+    count = torch.zeros((-(-n // 128),), dtype=torch.int32, device=x.device)
+    fn = _build.c_function(
+        "fused_linear_ce", "dft_flce_fwd", (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P)
+    )
+    with on_device(x.device):
+        rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), t.data_ptr(), loss.data_ptr(),
+                lse.data_ptr(), part.data_ptr(), count.data_ptr(), n, d, v, *_flags(x, w, b),
+                stream())
+    _build.check(rc, "fused_linear_ce_fwd")
+    fused_linear_ce_fwd.launches += 1
+    return loss, lse
+
+
+fused_linear_ce_fwd.launches = 0
+
+
+def fused_linear_ce_bwd(x, w, b, targets, lse, g):
+    """Backward kernel, one launch: returns (dx, dw, db) in x's, w's and b's
+    dtypes.  ``g`` is the (N,) gradient of the per-row loss."""
+    n, d, v = _check(x, w, b, targets)
+    check("lse", lse, (n,), (torch.float32,))
+    check("g", g, (n,), FLOATS, contiguous=False)
+    if not on_card(x, w, b, targets, lse, g):
+        return fused_linear_ce_bwd_plain(x, w, b, targets, lse, g)
+    if d > MAX_DIM:
+        raise ValueError(f"fused_linear_ce_bwd takes D up to {MAX_DIM}, got {d}")
+    t = targets.to(torch.int32)
+    g = g.to(torch.float32).contiguous()
+    dx, dw, db = torch.empty_like(x), torch.empty_like(w), torch.empty_like(b)
+    fn = _build.c_function(
+        "fused_linear_ce", "dft_flce_bwd", (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P)
+    )
+    with on_device(x.device):
+        rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), t.data_ptr(), lse.data_ptr(),
+                g.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(), n, d, v,
+                *_flags(x, w, b), stream())
+    _build.check(rc, "fused_linear_ce_bwd")
+    fused_linear_ce_bwd.launches += 1
+    return dx, dw, db
+
+
+fused_linear_ce_bwd.launches = 0
+
+
+class _FusedLinearCE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b, targets):
+        loss, lse = fused_linear_ce_fwd(x, w, b, targets)
+        ctx.save_for_backward(x, w, b, targets, lse)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, b, targets, lse = ctx.saved_tensors
+        dx, dw, db = fused_linear_ce_bwd(x, w, b, targets, lse, g)
+        return dx, dw, db, None
+
+
+def fused_linear_ce(x, w, b, targets):
+    """Per-row cross-entropy of ``x @ w + b`` against ``targets``, (N,) f32,
+    differentiable in x, w and b."""
+    return _FusedLinearCE.apply(x, w, b, targets)

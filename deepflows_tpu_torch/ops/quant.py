@@ -17,15 +17,10 @@ or raises, and counts the launch in ``<wrapper>.launches``.
 
 from __future__ import annotations
 
-import contextlib
-import ctypes
-
 import torch
 
 from . import _build
-
-_FLOATS = (torch.float32, torch.bfloat16)
-_P, _I = ctypes.c_void_p, ctypes.c_int
+from ._common import FLOATS, I, P, check, on_card, on_device, stream
 
 
 def quantize_int8(w):
@@ -64,62 +59,30 @@ def w8a8_matmul_plain(xq, sx, wq, sw, out_dtype=torch.float32):
     return (acc.float() * sx[:, None] * sw).to(out_dtype)
 
 
-def _on_card(*tensors) -> bool:
-    dev = tensors[0].device
-    if any(t.device != dev for t in tensors[1:]):
-        raise ValueError(
-            f"operands lie on different devices: {[str(t.device) for t in tensors]}"
-        )
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev.type == "cuda"
-
-
-def _on_device(dev):
-    """The kernel launches on the current device and stream: switch to the
-    operands' card only when it is not already current."""
-    if dev.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(dev)
-
-
-def _check(name, t, shape, dtypes):
-    if t.dim() != len(shape) or any(
-        want is not None and got != want for got, want in zip(t.shape, shape)
-    ):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if t.dtype not in dtypes:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if t.numel() == 0:
-        raise ValueError(f"{name} is empty")
-
-
 def int8_matmul(x, wq, scale, out_dtype=None):
     """x @ (wq · scale[col]) with in-kernel widening of the int8 weight.
 
     x: (M, K) f32/bf16; wq: (K, N) int8; scale: (N,) f32; the output is
     ``out_dtype`` (x's dtype by default; f32 or bf16)."""
     out_dtype = x.dtype if out_dtype is None else out_dtype
-    _check("x", x, (None, None), _FLOATS)
+    check("x", x, (None, None), FLOATS)
     m, k = x.shape
-    _check("wq", wq, (k, None), (torch.int8,))
+    check("wq", wq, (k, None), (torch.int8,))
     n = wq.shape[1]
-    _check("scale", scale, (n,), (torch.float32,))
-    if out_dtype not in _FLOATS:
+    check("scale", scale, (n,), (torch.float32,))
+    if out_dtype not in FLOATS:
         raise TypeError(f"out_dtype {out_dtype} is not f32 or bf16")
-    if not _on_card(x, wq, scale):
+    if not on_card(x, wq, scale):
         return int8_matmul_plain(x, wq, scale, out_dtype)
     fn = _build.c_function(
-        "int8_matmul", "dft_int8_matmul", (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P)
+        "int8_matmul", "dft_int8_matmul", (P, I, P, P, P, I, I, I, I, P)
     )
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    with _on_device(x.device):
+    with on_device(x.device):
         rc = fn(
             x.data_ptr(), int(x.dtype == torch.bfloat16), wq.data_ptr(),
             scale.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16),
-            m, n, k, torch.cuda.current_stream().cuda_stream,
+            m, n, k, stream(),
         )
     _build.check(rc, "int8_matmul")
     int8_matmul.launches += 1
@@ -134,30 +97,30 @@ def w8a8_matmul(xq, sx, wq, sw, out_dtype=torch.float32):
 
     xq: (M, K) int8; sx: (M,) f32; wq: (K, N) int8; sw: (N,) f32; the output
     is ``out_dtype`` (f32 or bf16)."""
-    _check("xq", xq, (None, None), (torch.int8,))
+    check("xq", xq, (None, None), (torch.int8,))
     m, k = xq.shape
     if k * 127 * 127 >= 2**31:
         raise ValueError(
             f"w8a8_matmul: K={k} can overflow the int32 accumulator "
             "(K * 127^2 >= 2^31); split the contraction dimension"
         )
-    _check("sx", sx, (m,), (torch.float32,))
-    _check("wq", wq, (k, None), (torch.int8,))
+    check("sx", sx, (m,), (torch.float32,))
+    check("wq", wq, (k, None), (torch.int8,))
     n = wq.shape[1]
-    _check("sw", sw, (n,), (torch.float32,))
-    if out_dtype not in _FLOATS:
+    check("sw", sw, (n,), (torch.float32,))
+    if out_dtype not in FLOATS:
         raise TypeError(f"out_dtype {out_dtype} is not f32 or bf16")
-    if not _on_card(xq, sx, wq, sw):
+    if not on_card(xq, sx, wq, sw):
         return w8a8_matmul_plain(xq, sx, wq, sw, out_dtype)
     fn = _build.c_function(
-        "w8a8_matmul", "dft_w8a8_matmul", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
+        "w8a8_matmul", "dft_w8a8_matmul", (P, P, P, P, P, I, I, I, I, P)
     )
     out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
-    with _on_device(xq.device):
+    with on_device(xq.device):
         rc = fn(
             xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), sw.data_ptr(),
             out.data_ptr(), int(out_dtype == torch.bfloat16), m, n, k,
-            torch.cuda.current_stream().cuda_stream,
+            stream(),
         )
     _build.check(rc, "w8a8_matmul")
     w8a8_matmul.launches += 1

@@ -1,0 +1,108 @@
+"""Adam (counterpart of ``deepflows_tpu/optim/adam.py``): the reference's EMA
+order, bias correction and update sequence; t starts at 1.  The step count
+lives in the state as a device int32 scalar, so the bias corrections are
+computed on the device and a step needs no host sync."""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.adam import fused_adam
+from .optimizer import Optimizer
+
+
+class Adam(Optimizer):
+    def __init__(
+        self,
+        params,
+        lr: float = 1e-3,
+        betas=(0.9, 0.999),
+        eps: float = 1e-8,
+        weight_decay: float = 0.0,
+        fused: bool = False,
+        stochastic_round: bool = False,
+    ) -> None:
+        """``fused=True`` updates every parameter that has a gradient in one
+        launch of the hand-written kernel ``ops.fused_adam`` (its plain twin
+        for CPU tensors); the parameters must be f32.  The JAX package's
+        ``stochastic_round=True`` (bf16 parameters, stochastically rounded
+        updates) comes with the next slice and raises here."""
+        if stochastic_round:
+            raise NotImplementedError(
+                "stochastic_round=True: fused_adam_sr is ported with the next slice"
+            )
+        super().__init__(params)
+        self.lr = lr
+        self.beta1, self.beta2 = betas
+        self.eps = eps
+        self.weight_decay = weight_decay
+        self.fused = fused
+        self.stochastic_round = stochastic_round
+        self._consts = {}  # (device, b1, b2, eps, wd) -> f32[4] on the device
+
+    def init_state(self):
+        dev = self.params[0].device if self.params else torch.device("cpu")
+        return {
+            "v": self._zeros_like_params(),
+            "s": self._zeros_like_params(),
+            "t": torch.zeros((), dtype=torch.int32, device=dev),
+        }
+
+    def _hyper(self, lr, bc1, bc2):
+        """The kernel's f32[7] on the state's device, built by device ops."""
+        dev = bc1.device
+        vals = (self.beta1, self.beta2, self.eps, self.weight_decay)
+        consts = self._consts.get((dev, *vals))
+        if consts is None:
+            consts = torch.tensor(vals, dtype=torch.float32).to(dev)
+            self._consts = {(dev, *vals): consts}
+        lr_t = torch.full((1,), lr, dtype=torch.float32, device=dev)
+        return torch.cat([lr_t, consts, bc1.reshape(1), bc2.reshape(1)])
+
+    def pure_update(self, params, grads, state, lr):
+        t = state["t"] + 1
+        tf = t.to(torch.float32)
+        bc1 = 1.0 - self.beta1**tf
+        bc2 = 1.0 - self.beta2**tf
+        new_params, new_v, new_s = list(params), list(state["v"]), list(state["s"])
+        live = [i for i, g in enumerate(grads) if g is not None]
+        if self.fused and live:
+            for i in live:
+                if params[i].dtype != torch.float32:
+                    raise TypeError(
+                        f"Adam(fused=True) updates f32 parameters, got {params[i].dtype}"
+                    )
+            fused_adam(
+                [params[i] for i in live], [grads[i].float() for i in live],
+                [new_v[i] for i in live], [new_s[i] for i in live],
+                self._hyper(lr, bc1, bc2),
+            )
+            return new_params, {"v": new_v, "s": new_s, "t": t}
+        for i in live:
+            p, g, v, s = params[i], grads[i], new_v[i], new_s[i]
+            if self.weight_decay:
+                g = g + p * self.weight_decay
+            v = v * self.beta1 + g * (1.0 - self.beta1)
+            s = s * self.beta2 + g * g * (1.0 - self.beta2)
+            v_hat = v / bc1
+            s_hat = s / bc2
+            update = v_hat / (s_hat**0.5 + self.eps) * lr
+            new_params[i] = (p - update).to(p.dtype)
+            new_v[i], new_s[i] = v, s
+        return new_params, {"v": new_v, "s": new_s, "t": t}
+
+    @property
+    def v(self):
+        self._ensure_state()
+        return self._state["v"]
+
+    @property
+    def s(self):
+        self._ensure_state()
+        return self._state["s"]
+
+    @property
+    def t(self):
+        """The reference's step count, which starts at 1."""
+        self._ensure_state()
+        return int(self._state["t"]) + 1

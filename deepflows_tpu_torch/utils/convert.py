@@ -1,4 +1,4 @@
-"""Weights across from the JAX package.
+"""Weights and optimizer state across from the JAX package.
 
 ``load_jax_state_dict(module, state)`` takes the JAX package's
 ``module.state_dict()`` — a dict of numpy arrays keyed like
@@ -7,6 +7,13 @@ port's module, on the module's device.  The two packages share parameter
 names and layouts, so no key or array is renamed or transposed.  It is
 strict: a missing or unexpected key, a shape or a dtype that differs
 raises.  Parity tests rest on this copy, never on the two RNGs agreeing.
+
+``load_jax_optimizer_state(optimizer, state)`` takes the JAX Adam's state,
+``{"v": [...], "s": [...], "t": steps taken}`` as numpy arrays (the
+``"state"`` entry of its ``state_dict()``), and installs it in the port's
+optimizer, so a run trained in JAX resumes in the port.  The slots are
+positional, in the order of the optimizer's parameters, which is the
+order of ``parameters()`` in both packages.
 """
 
 from __future__ import annotations
@@ -42,3 +49,28 @@ def load_jax_state_dict(module: torch.nn.Module, state) -> torch.nn.Module:
                 )
             target.copy_(src)
     return module
+
+
+def load_jax_optimizer_state(optimizer, state):
+    """Install the JAX Adam's ``{"v", "s", "t"}`` in ``optimizer``: moments
+    as f32 tensors on each parameter's device, ``t`` as the int32 count of
+    steps taken.  Raises on a slot count or a shape that differs."""
+    params = optimizer.params
+    for key in ("v", "s"):
+        if len(state[key]) != len(params):
+            raise ValueError(
+                f"state[{key!r}] has {len(state[key])} slots for {len(params)} parameters"
+            )
+    new = {"v": [], "s": []}
+    for key in ("v", "s"):
+        for i, (arr, p) in enumerate(zip(state[key], params)):
+            arr = np.asarray(arr, dtype=np.float32)
+            if tuple(arr.shape) != tuple(p.shape):
+                raise ValueError(
+                    f"state[{key!r}][{i}] has shape {arr.shape}, parameter {tuple(p.shape)}"
+                )
+            new[key].append(torch.from_numpy(np.array(arr)).to(p.device))
+    dev = params[0].device if params else torch.device("cpu")
+    new["t"] = torch.tensor(int(np.asarray(state["t"])), dtype=torch.int32, device=dev)
+    optimizer._state = new
+    return optimizer

@@ -1,0 +1,201 @@
+"""The port's fused LM-head cross-entropy (deepflows_tpu_torch/ops/fused_ce.py)
+and its cross-entropy losses against the JAX package on the CPU, where the
+JAX side runs its Pallas ``fused_linear_ce`` in interpret mode and the port
+its kernels' plain twins.
+
+Inputs are numpy arrays from a seed; models cross with
+``load_jax_state_dict``.  Tolerances are tests/test_fused_ce.py's: loss
+rtol and atol 1e-5, gradients rtol 1e-4 / atol 1e-5, bf16 5e-2; the
+fused-head A/B holds losses within 1e-3 relative and head weights within
+rtol 1e-4 / atol 1e-5, as there.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import deepflows_tpu as df
+from deepflows_tpu import Graph, Tensor
+from deepflows_tpu import models as jmodels
+from deepflows_tpu import nn as jnn
+from deepflows_tpu.ops import pallas_kernels as pk
+from deepflows_tpu_torch import nn as tnn
+from deepflows_tpu_torch import ops, optim
+from deepflows_tpu_torch.jit import CompiledTrainStep
+from deepflows_tpu_torch.models import TransformerLM
+from deepflows_tpu_torch.utils import load_jax_state_dict
+
+RNG = np.random.default_rng(33)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _keep_jax_rng():
+    """Leave the JAX package's process-global RNG state as this module found
+    it: later test files in the same process build their models from it."""
+    from deepflows_tpu import config
+    from deepflows_tpu import random as jrandom
+    from deepflows_tpu.backend import jax_kernels, numpy_kernels
+
+    seed, host_key, np_rng = config.seed, jax_kernels._host_key, numpy_kernels._rng
+    np_state = np_rng.bit_generator.state
+    eager = (jrandom._eager_key, jrandom._trace_key, jrandom._trace_counter)
+    yield
+    config.seed, jax_kernels._host_key, numpy_kernels._rng = seed, host_key, np_rng
+    np_rng.bit_generator.state = np_state
+    jrandom._eager_key, jrandom._trace_key, jrandom._trace_counter = eager
+
+
+@pytest.fixture(autouse=True)
+def _clean():
+    ops.reset_launch_counts()
+    yield
+    Graph.free_graph_all()
+    df.set_grad_enabled(True)
+    assert all(k.launches == 0 for k in ops.KERNELS)  # CPU never launches
+
+
+def _operands(n, d, v):
+    x = RNG.standard_normal((n, d)).astype(np.float32) * 0.5
+    w = RNG.standard_normal((d, v)).astype(np.float32) * 0.1
+    b = RNG.standard_normal(v).astype(np.float32) * 0.1
+    t = RNG.integers(0, v, n).astype(np.int32)
+    return x, w, b, t
+
+
+@pytest.mark.parametrize("n,d,v", [(100, 64, 300), (128, 128, 1024), (37, 64, 513)])
+def test_loss_lse_and_grads_match_jax(n, d, v):
+    x, w, b, t = _operands(n, d, v)
+    jx, jw, jb, jt = (jnp.asarray(a) for a in (x, w, b, t))
+    want_loss, want_lse = pk._flce_fwd_impl(jx, jw, jb, jt, 128, 512)
+    got_loss, got_lse = ops.fused_linear_ce_fwd(*(torch.from_numpy(a) for a in (x, w, b, t)))
+    np.testing.assert_allclose(got_loss.numpy(), np.asarray(want_loss), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), rtol=1e-5, atol=1e-5)
+    want = jax.grad(lambda *a: pk.fused_linear_ce(*a, jt).mean(), argnums=(0, 1, 2))(jx, jw, jb)
+    tx, tw, tb = (torch.from_numpy(a).requires_grad_() for a in (x, w, b))
+    ops.fused_linear_ce(tx, tw, tb, torch.from_numpy(t)).mean().backward()
+    for name, got, ref in zip("xwb", (tx.grad, tw.grad, tb.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-5,
+                                   err_msg=f"d{name}")
+
+
+def test_bf16_activations_match_jax():
+    n, d, v = 64, 64, 200
+    x, w, _, t = _operands(n, d, v)
+    b = np.zeros(v, np.float32)
+    want = pk.fused_linear_ce(jnp.asarray(x).astype(jnp.bfloat16),
+                              jnp.asarray(w).astype(jnp.bfloat16), jnp.asarray(b), jnp.asarray(t))
+    tx = torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
+    tw = torch.from_numpy(w).to(torch.bfloat16).requires_grad_()
+    tb = torch.from_numpy(b).requires_grad_()
+    got = ops.fused_linear_ce(tx, tw, tb, torch.from_numpy(t))
+    assert got.dtype == torch.float32  # the loss is always f32
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=5e-2, atol=5e-2)
+    got.mean().backward()  # grads come back in each operand's dtype
+    assert (tx.grad.dtype, tw.grad.dtype, tb.grad.dtype) == (
+        torch.bfloat16, torch.bfloat16, torch.float32)
+
+
+def test_negative_target_costs_lse():
+    """A negative target matches no class in either package: its loss is
+    lse.  (A target in [V, padded V) hits a padded column of the JAX kernel
+    and costs 1e30 there; the port gives lse for every target outside
+    [0, V).)"""
+    x, w, b, t = _operands(8, 16, 40)
+    t[3] = -1
+    want, _ = pk._flce_fwd_impl(*(jnp.asarray(a) for a in (x, w, b, t)), 128, 512)
+    got, lse = ops.fused_linear_ce_fwd(*(torch.from_numpy(a) for a in (x, w, b, t)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    assert got[3] == lse[3]
+    t[5] = 40
+    got, lse = ops.fused_linear_ce_fwd(*(torch.from_numpy(a) for a in (x, w, b, t)))
+    assert got[5] == lse[5]
+
+
+CE_CASES = {
+    "int_mean": dict(shape=(12, 7), kw={}),
+    "int_sum": dict(shape=(12, 7), kw=dict(reduction="sum")),
+    "onehot_mean": dict(shape=(12, 7), kw={}, onehot=True),
+    "seq_none": dict(shape=(2, 5, 7), kw=dict(reduction="none")),
+    "seq_mean": dict(shape=(2, 5, 7), kw={}),
+    "ignore_index": dict(shape=(2, 5, 7), kw=dict(ignore_index=3)),
+    "label_smoothing": dict(shape=(12, 7), kw=dict(label_smoothing=0.1)),
+    "ignore_and_smoothing": dict(shape=(2, 5, 7), kw=dict(ignore_index=2, label_smoothing=0.2)),
+}
+
+
+@pytest.mark.parametrize("case", list(CE_CASES))
+def test_cross_entropy_loss_matches_jax(case):
+    spec = CE_CASES[case]
+    shape, kw = spec["shape"], spec["kw"]
+    logits = RNG.standard_normal(shape).astype(np.float32)
+    t = RNG.integers(0, shape[-1], shape[:-1]).astype(np.int64)
+    if "ignore_index" in kw:
+        t.reshape(-1)[::3] = kw["ignore_index"]
+    tgt = np.eye(shape[-1], dtype=np.float32)[t] if spec.get("onehot") else t
+    jl = Tensor(logits, device="tpu", requires_grad=True)
+    jloss = jnn.CrossEntropyLoss(**kw)(jl, Tensor(tgt, device="tpu"))
+    tl = torch.from_numpy(logits).requires_grad_()
+    tloss = tnn.CrossEntropyLoss(**kw)(tl, torch.from_numpy(tgt))
+    np.testing.assert_allclose(tloss.detach().numpy(), jloss.numpy(), rtol=1e-5, atol=1e-6)
+    jloss.sum().backward() if kw.get("reduction") == "none" else jloss.backward()
+    tloss.sum().backward()
+    np.testing.assert_allclose(tl.grad.numpy(), jl.grad.numpy(), rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("reduction", ["mean", "sum", "none"])
+def test_lm_head_cross_entropy_matches_jax(reduction):
+    V, L = 50, 8
+    df.manual_seed(4)
+    cfg = dict(vocab_size=V, max_len=L, dim=32, depth=1, num_heads=2)
+    jlm = jmodels.TransformerLM(**cfg, device="tpu", flash=False)
+    tlm = TransformerLM(**cfg, device="cpu")
+    load_jax_state_dict(tlm, jlm.state_dict())
+    x = RNG.integers(0, V, (2, L)).astype(np.int32)
+    y = RNG.integers(0, V, (2, L)).astype(np.int32)
+    jloss = jnn.LMHeadCrossEntropy(jlm.head, reduction)(
+        jlm.trunk()(Tensor(x, device="tpu")), Tensor(y, device="tpu"))
+    tloss = tnn.LMHeadCrossEntropy(tlm.head, reduction)(tlm.trunk()(torch.from_numpy(x)),
+                                                       torch.from_numpy(y))
+    assert tuple(tloss.shape) == tuple(jloss.shape)
+    np.testing.assert_allclose(tloss.detach().numpy(), jloss.numpy(), rtol=1e-5, atol=1e-5)
+    tloss.sum().backward()
+    jloss.sum().backward() if reduction == "none" else jloss.backward()
+    for name in ("head.weight", "head.bias", "blocks.0.mlp.0.weight", "tok_embed.weight"):
+        jp = dict(jlm.named_parameters())[name]
+        tp = dict(tlm.named_parameters())[name]
+        np.testing.assert_allclose(tp.grad.numpy(), jp.grad.numpy(), rtol=1e-4, atol=1e-5,
+                                   err_msg=name)
+    # the head is a reference, not a child: the criterion has no parameters
+    assert list(tnn.LMHeadCrossEntropy(tlm.head).parameters()) == []
+
+
+def test_fused_head_trains_like_the_unfused_head():
+    """The port alone, as tests/test_fused_ce.py does for JAX: lm ->
+    logits -> CrossEntropyLoss against lm.trunk() ->
+    LMHeadCrossEntropy(lm.head), identical init and batches, 5 Adam steps:
+    the losses and the head parameters (updated only through the fused
+    kernel's dw and db) agree, and the head moved."""
+    V, L = 97, 12
+    cfg = dict(vocab_size=V, max_len=L, dim=32, depth=2, num_heads=2, device="cpu",
+               flash=False)
+    lm_a = TransformerLM(**cfg)
+    lm_b = TransformerLM(**cfg)
+    lm_b.load_state_dict(lm_a.state_dict())
+    w0 = lm_a.head.weight.detach().clone()
+    step_a = CompiledTrainStep(lm_a, optim.Adam(lm_a.parameters(), lr=1e-3),
+                               tnn.CrossEntropyLoss())
+    step_b = CompiledTrainStep(lm_b.trunk(), optim.Adam(lm_b.parameters(), lr=1e-3),
+                               tnn.LMHeadCrossEntropy(lm_b.head))
+    for i in range(5):
+        r = np.random.default_rng(100 + i)
+        x = r.integers(0, V, (4, L)).astype(np.int32)
+        y = r.integers(0, V, (4, L)).astype(np.int32)
+        la, lb = float(step_a(x, y)), float(step_b(x, y))
+        assert abs(la - lb) / abs(la) < 1e-3, (i, la, lb)
+    for name in ("weight", "bias"):
+        np.testing.assert_allclose(getattr(lm_b.head, name).detach().numpy(),
+                                   getattr(lm_a.head, name).detach().numpy(),
+                                   rtol=1e-4, atol=1e-5)
+    assert (lm_b.head.weight.detach() - w0).abs().max() > 1e-6
