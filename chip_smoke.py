@@ -71,6 +71,38 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
    B 2, on the card and on a CPU copy (plain twins), 3 steps; the losses
    must agree within 1e-3 relative, and each parameter's change over the
    3 steps within 1e-3 of its norm (PARAM_TOL).
+7. SR kernel phase: fused_adam_sr against its plain twin, bit for bit in
+   p, v and s, with its in-kernel Philox bits and with external bits, over
+   the model's 198 tensors (bf16 g) and ragged sizes (bf16 and f32 g,
+   weight decay 0 and not, aligned and misaligned tensors); the mean SR
+   bias over 64 steps' streams of 2^20 elements below 0.01 ulp; the bf16
+   stall of tests/test_pallas.py at 2^20 elements (round to nearest stays
+   at 1.0, SR moves 0.5-1.5x lr x steps). Times the 198-tensor call beside
+   its twin and its bound (22 bytes an element); no PyTorch call rounds
+   stochastically, so no library time.
+8. bf16-weight training phase, a main path: the model of phase 5 from the
+   same seed, cast by .bfloat16(), trained by CompiledTrainStep(lm.trunk(),
+   Adam(lr 5e-3, weight decay 5e-4, stochastic_round=True),
+   LMHeadCrossEntropy(lm.head)) with no compute_dtype, 3 + 10 steps on the
+   same batch. Each step must launch fused_adam_sr once, fused_adam never,
+   flash and CE as in phase 5; the losses finite and falling, the first
+   within 1e-3 relative of phase 5's first (the same bf16 weights). Prints
+   its step ms, tokens/s, MFU, busy share and peak memory beside phase 5's.
+9. Eager f32 kernel phase: matmul and linear_fused (none, relu, tanh)
+   against their plain twins at rtol 1e-4 / atol 1e-3 (the JAX tests'
+   bound): the MLP's layers and backward products (transposed views),
+   tests/test_pallas.py's shapes and 4096^3 (both). Times matmul at 4096^3 and
+   linear_fused at the MLP's first layer beside their twins, their bounds
+   and torch.matmul / torch.addmm (TF32 off).
+10. Eager f32 phase, two main paths under config.use_pallas: models.MLP
+   (784-100-20-10) trained eagerly (forward, CrossEntropyLoss, zero_grad,
+   backward, Adam(lr 1e-3).step()) for 30 steps of B 256 of synthetic
+   MNIST-shaped data (pixels uniform in [0, 1), labels from a fixed random
+   linear teacher), exactly 3 linear_fused launches a step; then a
+   bias-free Sequential of the same widths, exactly 8 matmul launches a
+   step (3 forward, dW of the first layer, dW and dx of the other two).
+   Each loss must fall, and match the same run on a CPU copy (plain twins)
+   within 1e-4 relative.
 
 Prints the card's name and power limit, one {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}.  With ``--report PATH`` it also
@@ -476,6 +508,7 @@ PER_STEP = {  # kernel launches per training step
     "flash_attention_fwd": TRAIN["depth"], "flash_attention_bwd": TRAIN["depth"],
     "fused_linear_ce_fwd": 1, "fused_linear_ce_bwd": 1, "fused_adam": 1,
 }
+PER_STEP_SR = dict(PER_STEP, fused_adam=0, fused_adam_sr=1)  # bf16 weights, SR Adam
 FLASH_RAGGED = (  # (B, H, Lq, Lk, D, causal, window)
     (2, 3, 100, 100, 64, True, None), (1, 2, 70, 130, 128, False, None),
     (1, 2, 130, 70, 64, True, None), (2, 2, 200, 200, 128, True, 37),
@@ -742,6 +775,275 @@ def train_kernel_phase(torch, ops, report):
     return out
 
 
+def sr_case(torch, ops, g, shapes, wd, gdt, external, label, misalign=False):
+    """fused_adam_sr against its plain twin on one list of tensors, with
+    the in-kernel Philox bits or ``external`` ones: p, v and s must agree
+    bit for bit.  ``misalign`` starts every tensor one element past an
+    aligned address, which takes the kernel's narrow loads.  Returns the
+    operands."""
+    dev = torch.device("cuda")
+
+    def make(shape, dtype, scale, rand=torch.randn):
+        if not misalign:
+            return (rand(shape, generator=g, device=dev) * scale).to(dtype)
+        n = math.prod(shape)
+        buf = torch.empty(n + 4, dtype=dtype, device=dev)[1:n + 1].view(shape)
+        return buf.copy_(rand(shape, generator=g, device=dev) * scale)
+
+    ps = [make(s, torch.bfloat16, 0.02) for s in shapes]
+    gs = [make(s, gdt, 1e-3) for s in shapes]
+    vs = [make(s, torch.float32, 1e-4) for s in shapes]
+    ss = [make(s, torch.float32, 1e-6, torch.rand) for s in shapes]
+    bits = None
+    if external:
+        bits = [torch.randint(-2**31, 2**31 - 1, s, generator=g, device=dev, dtype=torch.int32)
+                for s in shapes]
+    hyper = torch.tensor([ADAM["lr"], 0.9, 0.999, 1e-8, wd, 1 - 0.9**7, 1 - 0.999**7],
+                         dtype=torch.float32, device=dev)
+    step = torch.tensor(7, dtype=torch.int32, device=dev)
+    idx = list(range(1, 2 * len(shapes), 2))  # positions in a parameter list
+    want = [[t.clone() for t in lst] for lst in (ps, vs, ss)]
+    ops.fused_adam_sr_plain(want[0], gs, want[1], want[2], hyper, step, idx, bits)
+    ops.fused_adam_sr(ps, gs, vs, ss, hyper, step, idx, bits)
+    for got, ref in zip(ps + vs + ss, want[0] + want[1] + want[2]):
+        if not torch.equal(got, ref):
+            fail(f"fused_adam_sr {label}: not bit-exact, max |d| "
+                 f"{(got.float() - ref.float()).abs().max().item()}")
+    return ps, gs, vs, ss, hyper, step, idx
+
+
+def sr_statistics(torch, ops, optim):
+    """The rounding's statistics on the card, with the in-kernel Philox
+    bits: the mean SR bias over 64 steps' streams at 2^20 elements (limit
+    0.01 ulp), and the bf16 stall of tests/test_pallas.py at 2^20 elements
+    (round to nearest never moves; SR moves 0.5-1.5x lr x steps)."""
+    dev = torch.device("cuda")
+    n = 1 << 20
+    g = torch.Generator(device=dev).manual_seed(4)
+    p = torch.randn(n, generator=g, device=dev).to(torch.bfloat16)
+    grad = torch.full((n,), 1e-4, device=dev)
+    hyper = torch.tensor([1e-3, 0.9, 0.999, 1e-8, 0.0, 0.1, 0.001], device=dev)
+    want = p.double() - 1e-3 * (0.1e-4 / 0.1) / (math.sqrt(0.001e-8 / 0.001) + 1e-8)
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
+    acc = torch.zeros(n, dtype=torch.float64, device=dev)
+    for seed in range(64):
+        q, v, s = p.clone(), torch.zeros(n, device=dev), torch.zeros(n, device=dev)
+        ops.fused_adam_sr(q, grad, v, s, hyper, torch.tensor(seed, dtype=torch.int32, device=dev))
+        acc += q.double()
+    bias = ((acc / 64 - want) / ulp).mean().item()
+    if not abs(bias) < 0.01:
+        fail(f"fused_adam_sr: mean SR bias {bias} ulp (limit 0.01)")
+    steps, lr = 120, 2e-4
+    moved = {}
+    for sr in (False, True):
+        w = torch.nn.Parameter(torch.ones(n, dtype=torch.bfloat16, device=dev))
+        opt = optim.Adam([w], lr=lr, stochastic_round=sr)
+        for _ in range(steps):
+            w.grad = torch.ones(n, dtype=torch.bfloat16, device=dev)
+            opt.step()
+        moved[sr] = 1.0 - w.detach().float().mean().item()
+        if sr is False and not (w.detach() == 1.0).all():
+            fail("round-to-nearest bf16 Adam moved below half an ulp")
+    if not 0.5 * lr * steps < moved[True] < 1.5 * lr * steps:
+        fail(f"SR Adam moved {moved[True]}, expected about {lr * steps}")
+    return dict(mean_bias_ulp=bias, stall_rtn_moved=moved[False], stall_sr_moved=moved[True],
+                stall_expected=lr * steps)
+
+
+def sr_kernel_phase(torch, ops, report):
+    """fused_adam_sr against its plain twin, bit for bit, over the
+    d1024 x 12 model's 198 tensors and ragged sizes, with both bit sources;
+    its statistics; its time at the slice's tensors."""
+    from deepflows_tpu_torch import optim
+    from deepflows_tpu_torch.models import TransformerLM
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    shapes = [tuple(p.shape) for p in TransformerLM(**TRAIN, device="cuda").parameters()]
+    sr_case(torch, ops, g, shapes, ADAM["weight_decay"], torch.bfloat16, True,
+            "slice external bits")
+    slice_ops = sr_case(torch, ops, g, shapes, ADAM["weight_decay"], torch.bfloat16, False,
+                        "slice Philox")
+    ragged = [(n,) for n in ADAM_RAGGED]
+    for gdt in (torch.bfloat16, torch.float32):
+        for wd in (0.0, 0.01):
+            for external in (False, True):
+                for misalign in (False, True):
+                    sr_case(torch, ops, g, ragged, wd, gdt, external,
+                            f"ragged g={gdt} wd={wd} external={external} misaligned={misalign}",
+                            misalign)
+    stats = sr_statistics(torch, ops, optim)
+    print(f"  fused_adam_sr bit-exact against its plain twin over {len(shapes)} + "
+          f"{len(ADAM_RAGGED)} tensors (Philox and external bits, bf16 and f32 g, aligned and "
+          f"not); mean SR bias over 64 streams of 2^20: {stats['mean_bias_ulp']:.5f} ulp (limit "
+          f"0.01); stall: RTN moved {stats['stall_rtn_moved']}, SR {stats['stall_sr_moved']:.6f}"
+          f" (expected {stats['stall_expected']})")
+    ps, gs, vs, ss, hyper, step, idx = slice_ops
+
+    def flush():
+        flush_buf.zero_()
+
+    n = sum(p.numel() for p in ps)
+    r = dict(ms=event_ms(lambda: ops.fused_adam_sr(ps, gs, vs, ss, hyper, step, idx), 10, flush),
+             plain_ms=event_ms(  # one run: the twin's Philox takes a second
+                 lambda: ops.fused_adam_sr_plain(ps, gs, vs, ss, hyper, step, idx), 1, flush),
+             library_ms=None, max_abs_err=0.0, elements=n, statistics=stats)
+    # bf16 p read and written, bf16 g read, f32 v and s read and written
+    r["bound_ms"], r["bound_by"] = bound_ms(22 * n + 28 + 4, 0, "f32")
+    report["fused_adam_sr"] = r
+    return r
+
+
+MLP_B, MLP_STEPS = 256, 30
+MLP_SHAPES = ((256, 784, 100), (256, 100, 20), (256, 20, 10))  # (M, K, N) a layer
+MM_SHAPES = ((128, 256, 128), (100, 70, 50), (257, 129, 384), (64, 100, 32))  # tests/test_pallas.py
+
+
+def mm_check(got, want, label):
+    d = (got - want).abs()
+    if (d > 1e-3 + 1e-4 * want.abs()).any():
+        fail(f"{label}: max |d| {d.max().item()} past rtol 1e-4, atol 1e-3")
+    return d.max().item()
+
+
+def linear_kernel_phase(torch, ops, report):
+    """matmul and linear_fused (every activation) against their plain twins
+    at rtol 1e-4 / atol 1e-3 (the JAX tests' bound): the MLP's layers and
+    their backward products (transposed views), tests/test_pallas.py's
+    shapes, and 4096^3; their times beside bound, twin and library call."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    err = {"matmul": 0.0, "linear_fused": 0.0}
+    for m, k, n in MLP_SHAPES + MM_SHAPES + ((1, 5, 3),):
+        a, b = (torch.randn(s, generator=g, device=dev) for s in ((m, k), (k, n)))
+        bias = torch.randn((1, n), generator=g, device=dev)
+        views = (("", a, b), (" a^T", a.t().contiguous().t(), b),
+                 (" b^T", a, b.t().contiguous().t()))
+        for lab, aa, bb in views:
+            e = mm_check(ops.matmul(aa, bb), ops.matmul_plain(aa, bb),
+                         f"matmul {(m, k, n)}{lab}")
+            err["matmul"] = max(err["matmul"], e)
+        for act in ops.linear.ACTIVATIONS:
+            e = mm_check(ops.linear_fused(a, b, bias, act), ops.linear_fused_plain(a, b, bias, act),
+                         f"linear_fused {(m, k, n)} {act}")
+            err["linear_fused"] = max(err["linear_fused"], e)
+    # the bias-free MLP's backward products: dW = x^T g, dx = g W^T
+    for m, k, n in MLP_SHAPES:
+        x, w, gy = (torch.randn(s, generator=g, device=dev) for s in ((m, k), (k, n), (m, n)))
+        mm_check(ops.matmul(x.t(), gy), ops.matmul_plain(x.t(), gy), f"dW {(k, n)}")
+        mm_check(ops.matmul(gy, w.t()), ops.matmul_plain(gy, w.t()), f"dx {(m, k)}")
+    big = 4096
+    a, b = (torch.randn((big, big), generator=g, device=dev) for _ in range(2))
+    e = mm_check(ops.matmul(a, b), ops.matmul_plain(a, b), "matmul 4096^3")
+    err["matmul"] = max(err["matmul"], e)
+    bias = torch.randn((1, big), generator=g, device=dev)
+    for act in ops.linear.ACTIVATIONS:
+        e = mm_check(ops.linear_fused(a, b, bias, act), ops.linear_fused_plain(a, b, bias, act),
+                     f"linear_fused 4096^3 {act}")
+        err["linear_fused"] = max(err["linear_fused"], e)
+    print(f"  matmul and linear_fused agree with their plain twins (rtol 1e-4, atol 1e-3) at "
+          f"{len(MLP_SHAPES) + len(MM_SHAPES) + 1} shapes, transposed views, the MLP's backward "
+          f"products and 4096^3; max abs err {err}")
+
+    def flush():
+        flush_buf.zero_()
+
+    mlp = [[torch.randn(d, generator=g, device=dev) for d in ((m, k), (k, n), (1, n))]
+           for m, k, n in MLP_SHAPES]  # (x, w, b) of each layer
+    out = {}
+    r = dict(ms=event_ms(lambda: ops.matmul(a, b), 10, flush),
+             plain_ms=event_ms(lambda: ops.matmul_plain(a, b), 10, flush),
+             library_ms=event_ms(lambda: torch.matmul(a, b), 10, flush),
+             max_abs_err=err["matmul"], at="4096^3 f32")
+    r["bound_ms"], r["bound_by"] = bound_ms(3 * 4 * big * big, 2 * big**3, "f32")
+    r["mlp_ms"] = {str(shape): event_ms(lambda o=o: ops.matmul(*o[:2]), 10, flush)
+                   for shape, o in zip(MLP_SHAPES, mlp)}
+    out["matmul"] = r
+    (x, w, bias), (m, k, n) = mlp[0], MLP_SHAPES[0]
+    r = dict(ms=event_ms(lambda: ops.linear_fused(x, w, bias), 20, flush),
+             plain_ms=event_ms(lambda: ops.linear_fused_plain(x, w, bias), 20, flush),
+             library_ms=event_ms(lambda: torch.addmm(bias, x, w), 20, flush),
+             max_abs_err=err["linear_fused"], at=f"MLP layer 1: ({m}, {k}) @ ({k}, {n}) f32")
+    r["bound_ms"], r["bound_by"] = bound_ms(4 * (m * k + k * n + n + m * n), 2 * m * k * n, "f32")
+    r["mlp_ms"] = {str(shape): event_ms(lambda o=o: ops.linear_fused(*o), 10, flush)
+                   for shape, o in zip(MLP_SHAPES, mlp)}
+    out["linear_fused"] = r
+    report["linear_kernels"] = out
+    return out
+
+
+def eager_phase(torch, dt, report):
+    """Main paths 4 and 5: models.MLP trained eagerly under
+    config.use_pallas (its three Linear layers as linear_fused), then a
+    bias-free twin of its widths (every product, forward and backward, as
+    matmul); each run against the same run on a CPU copy."""
+    import numpy as np
+
+    from deepflows_tpu_torch import config, nn, ops, optim
+    from deepflows_tpu_torch.models import MLP
+
+    rng = np.random.default_rng(3)  # synthetic MNIST: pixels in [0, 1), a linear teacher
+    teacher = rng.standard_normal((784, 10)).astype(np.float32)
+    xs = rng.random((MLP_STEPS, MLP_B, 784), dtype=np.float32)
+    ys = (xs @ teacher).argmax(-1).astype(np.int64)
+
+    def bias_free(device):
+        return nn.Sequential(nn.Linear(784, 100, bias=False, device=device), nn.ReLU(),
+                             nn.Linear(100, 20, bias=False, device=device), nn.ReLU(),
+                             nn.Linear(20, 10, bias=False, device=device))
+
+    def train(model, device, per_step=None):
+        x_all, y_all = torch.as_tensor(xs, device=device), torch.as_tensor(ys, device=device)
+        opt = optim.Adam(model.parameters(), lr=1e-3)
+        crit = nn.CrossEntropyLoss()
+        losses, wall = [], []
+        for i in range(MLP_STEPS):
+            before = {k.__name__: k.launches for k in ops.KERNELS}
+            t0 = time.perf_counter()
+            loss = crit(model(x_all[i]), y_all[i])
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            losses.append(loss.item())
+            wall.append((time.perf_counter() - t0) * 1e3)
+            for k in ops.KERNELS if per_step is not None else ():
+                want = per_step.get(k.__name__, 0)
+                if k.launches - before[k.__name__] != want:
+                    fail(f"eager step {i}: {k.__name__} launched "
+                         f"{k.launches - before[k.__name__]} times, expected {want}")
+        return losses, statistics.median(wall[3:])
+
+    saved = config.use_pallas
+    config.use_pallas = True
+    out, counts = {}, {}
+    try:
+        for name, build, per_step in (("mlp", lambda d: MLP(device=d), {"linear_fused": 3}),
+                                      ("mlp_bias_free", bias_free, {"matmul": 8})):
+            dt.manual_seed(0)
+            model = build("cuda")
+            cpu = build("cpu")
+            cpu.load_state_dict(model.state_dict())
+            ops.reset_launch_counts()  # a main path starts here
+            got, step_ms = train(model, "cuda", per_step)
+            counts[name] = {k.__name__: k.launches for k in ops.KERNELS}  # and ends here
+            want, _ = train(cpu, "cpu")
+            rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+            print(f"  {name}: {MLP_STEPS} eager steps of B {MLP_B}, launches {counts[name]}; "
+                  f"losses {got[0]:.5f} -> {got[-1]:.5f}, against a CPU copy max rel diff "
+                  f"{rel:.3g} (limit 1e-4); {step_ms:.3f} ms a step of wall time")
+            if not all(math.isfinite(v) for v in got) or not got[-1] < got[0]:
+                fail(f"{name}: the eager loss did not fall: {got[0]} -> {got[-1]}")
+            if not rel < 1e-4:
+                fail(f"{name}: the card's losses differ from the CPU's by {rel}")
+            out[name] = dict(losses=got, cpu_losses=want, max_rel=rel, step_wall_ms=step_ms)
+    finally:
+        config.use_pallas = saved
+    report["eager"] = out
+    return counts
+
+
 def step_profile(torch, step, x, y, steps=2):
     """Device time of ``steps`` training steps by kernel, from
     torch.profiler, in ms a step: each of the port's kernels, the matrix
@@ -756,7 +1058,7 @@ def step_profile(torch, step, x, y, steps=2):
         torch.cuda.synchronize()
     ours = {"flash_fwd": "flash_attention_fwd", "flash_bwd": "flash_attention_bwd",
             "ce_fwd": "fused_linear_ce_fwd", "ce_bwd": "fused_linear_ce_bwd",
-            "fused_adam": "fused_adam"}
+            "fused_adam_sr": "fused_adam_sr", "fused_adam": "fused_adam"}
     groups = {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -771,9 +1073,11 @@ def step_profile(torch, step, x, y, steps=2):
     return groups
 
 
-def train_phase(torch, dt, report):
-    """The main path: train the full-width, full-depth bench row.  Returns
-    the launch counts of the run and the step's numbers."""
+def train_phase(torch, dt, report, sr=False, ref_first_loss=None):
+    """A main path: train the full-width, full-depth bench row, with bf16
+    compute over f32 masters and fused Adam, or (``sr``) on bf16 weights
+    with stochastic-rounding Adam.  Returns the launch counts of the run
+    and the step's numbers."""
     import numpy as np
 
     from deepflows_tpu_torch import nn, ops, optim
@@ -782,16 +1086,24 @@ def train_phase(torch, dt, report):
 
     dt.manual_seed(0)
     lm = TransformerLM(**TRAIN, device="cuda", flash=True)
-    opt = optim.Adam(lm.parameters(), **ADAM, fused=True)
-    step = CompiledTrainStep(lm.trunk(), opt, nn.LMHeadCrossEntropy(lm.head),
-                             compute_dtype=torch.bfloat16)
+    if sr:  # exactly the bf16 copies the compute_dtype step computes with
+        lm.bfloat16()
+        opt = optim.Adam(lm.parameters(), **ADAM, stochastic_round=True)
+        step = CompiledTrainStep(lm.trunk(), opt, nn.LMHeadCrossEntropy(lm.head))
+        per_step, key, what = PER_STEP_SR, "train_sr", "bf16 weights, SR Adam"
+    else:
+        opt = optim.Adam(lm.parameters(), **ADAM, fused=True)
+        step = CompiledTrainStep(lm.trunk(), opt, nn.LMHeadCrossEntropy(lm.head),
+                                 compute_dtype=torch.bfloat16)
+        per_step, key, what = PER_STEP, "train", "bf16 compute, fused Adam"
     params = list(lm.parameters())
     print(f"model: TransformerLM {TRAIN}, {sum(p.numel() for p in params)} parameters in "
-          f"{len(params)} tensors; B {TRAIN_B}, L {TRAIN_L}, bf16 compute, fused Adam")
+          f"{len(params)} tensors of {params[0].dtype}; B {TRAIN_B}, L {TRAIN_L}, {what}")
     rng = np.random.default_rng(0)  # the batch of bench.py
     V = TRAIN["vocab_size"]
     x = torch.as_tensor(rng.integers(0, V, (TRAIN_B, TRAIN_L)).astype(np.int32), device="cuda")
     y = torch.as_tensor(rng.integers(0, V, (TRAIN_B, TRAIN_L)).astype(np.int32), device="cuda")
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, wall_ms, event_step_ms = [], [], []
     ops.reset_launch_counts()  # the main path starts here
@@ -808,19 +1120,25 @@ def train_phase(torch, dt, report):
         event_step_ms.append(a.elapsed_time(b))
         losses.append(float(loss))
         for k in ops.KERNELS:
-            want = PER_STEP.get(k.__name__, 0)
+            want = per_step.get(k.__name__, 0)
             if k.launches - before[k.__name__] != want:
-                fail(f"training step {i}: {k.__name__} launched "
+                fail(f"{key} step {i}: {k.__name__} launched "
                      f"{k.launches - before[k.__name__]} times, expected {want}")
     counts = {k.__name__: k.launches for k in ops.KERNELS}  # the main path ends here
-    print(f"main-path launches (training): {counts}")
+    print(f"main-path launches ({key}): {counts}")
     print(f"  losses: {[round(v, 4) for v in losses]}")
     if not all(math.isfinite(v) for v in losses):
-        fail("a training loss is not finite")
+        fail(f"a {key} loss is not finite")
     if not abs(losses[0] - math.log(V)) < 1.0:
-        fail(f"step-1 loss {losses[0]} is not within 1.0 of ln {V} = {math.log(V):.3f}")
+        fail(f"{key} step-1 loss {losses[0]} is not within 1.0 of ln {V} = {math.log(V):.3f}")
+    if ref_first_loss is not None:
+        rel = abs(losses[0] - ref_first_loss) / abs(ref_first_loss)
+        print(f"  step-1 loss {losses[0]:.6f} against the bf16-compute step's "
+              f"{ref_first_loss:.6f}: rel diff {rel:.3g} (limit 1e-3)")
+        if not rel < 1e-3:
+            fail(f"{key} step-1 loss differs from the bf16-compute step's by {rel}")
     if not losses[-1] < losses[0]:
-        fail(f"the loss did not fall on the repeated batch: {losses[0]} -> {losses[-1]}")
+        fail(f"the {key} loss did not fall on the repeated batch: {losses[0]} -> {losses[-1]}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # the device time of a step with its launches queued behind a spin,
     # against its wall time: the device busy share
@@ -846,7 +1164,7 @@ def train_phase(torch, dt, report):
                   f"{k} {v:.3f}" for k, v in sorted(prof.items(), key=lambda kv: -kv[1])))
     else:
         print("  device time of a step by kernel: not measured (the profiler saw no kernel)")
-    report["train"] = r
+    report[key] = r
     return counts, r
 
 
@@ -923,7 +1241,11 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}")
     report = {"card": card, "torch": torch.__version__}
 
-    t0 = time.perf_counter()
+    t_run = t0 = time.perf_counter()
+
+    def phase(title):
+        print(f"[{time.perf_counter() - t_run:.1f} s] {title}")
+
     _build.build_all()
     report["build_s"] = time.perf_counter() - t0
     print(f"build: {report['build_s']:.1f} s into {_build.BUILD / _build.source_hash()}")
@@ -932,7 +1254,7 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {log.stem}: {line.strip()}")
 
-    print("kernel phase (kernel vs plain twin, L2 flushed between timed launches):")
+    phase("kernel phase (kernel vs plain twin, L2 flushed between timed launches):")
     max_err = kernel_phase(torch, ops, report)
     step_ms, b_int8, b_w8a8, wbytes = decode_step_timing(torch, ops)
     report["decode_step_kernels_ms"] = step_ms
@@ -940,7 +1262,7 @@ def main(argv=None) -> int:
           + ", ".join(f"{k} {v:.4f} ms" for k, v in step_ms.items())
           + f"; bound int8 {b_int8[0]:.4f} ms, w8a8 {b_w8a8[0]:.4f} ms")
 
-    print("slice phase (main path):")
+    phase("slice phase (main path):")
     counts = slice_phase(torch, dt, report)
 
     at = (f"one decode step: {PER_FORWARD} calls, M=8, bf16 x, (K, N) of qkv/o/fc1/fc2"
@@ -961,12 +1283,12 @@ def main(argv=None) -> int:
              bound_ms=b_w8a8[0], bound_by=b_w8a8[1], library_ms=None, at=at),
     ]
 
-    print("training kernel phase (kernel vs plain twin; times at the slice's bf16 shapes, "
+    phase("training kernel phase (kernel vs plain twin; times at the slice's bf16 shapes, "
           "L2 flushed between timed launches):")
     tk = train_kernel_phase(torch, ops, report)
-    print("training phase (main path):")
+    phase("training phase (main path):")
     tcounts, tr = train_phase(torch, dt, report)
-    print("card against CPU (f32 training step):")
+    phase("card against CPU (f32 training step):")
     train_cpu_check(torch, dt, report)
     replaces = {  # the Pallas kernel body each kernel replaces
         "flash_attention_fwd": ("flash_attention.cu", 807),
@@ -974,7 +1296,19 @@ def main(argv=None) -> int:
         "fused_linear_ce_fwd": ("fused_linear_ce.cu", 445),
         "fused_linear_ce_bwd": ("fused_linear_ce.cu", 484),
         "fused_adam": ("fused_adam.cu", 167),
+        "fused_adam_sr": ("fused_adam_sr.cu", 230),
+        "matmul": ("linear_f32.cu", 50),
+        "linear_fused": ("linear_f32.cu", 104),
     }
+
+    def entry(name, r, launches, at):
+        src, line = replaces[name]
+        return dict(
+            name=name, route="cuda", source=f"deepflows_tpu_torch/csrc/{src}",
+            replaces=f"deepflows_tpu/ops/pallas_kernels.py:{line}", launches=launches,
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"], at=at)
+
     at = (f"training step: TransformerLM d{TRAIN['dim']} x {TRAIN['depth']}, B {TRAIN_B}, "
           f"L {TRAIN_L}, V {TRAIN['vocab_size']}, bf16; ms and bounds per call")
     for name, r in tk.items():
@@ -982,15 +1316,36 @@ def main(argv=None) -> int:
         print(f"  {name}: {r['ms']:.4f} ms a call, {n * r['ms']:.3f} ms a step ({n} calls); "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms']:.4f} ms; {card}")
-        src, line = replaces[name]
-        kernels.append(dict(
-            name=name, route="cuda", source=f"deepflows_tpu_torch/csrc/{src}",
-            replaces=f"deepflows_tpu/ops/pallas_kernels.py:{line}", launches=tcounts[name],
-            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"], at=at))
+        kernels.append(entry(name, r, tcounts[name], at))
     print(f"training step: {tr['step_wall_ms']:.3f} ms wall, {tr['step_event_ms']:.3f} ms CUDA "
           f"events, {tr['tokens_per_s']:.1f} tokens/s, busy {100 * tr['device_busy_share']:.1f}%, "
           f"MFU {100 * tr['mfu']:.2f}%; {card}")
+
+    phase("SR kernel phase (fused_adam_sr vs its plain twin, bit for bit):")
+    sk = sr_kernel_phase(torch, ops, report)
+    phase("bf16-weight training phase (main path):")
+    scounts, sr = train_phase(torch, dt, report, sr=True, ref_first_loss=tr["losses"][0])
+    print(f"  fused_adam_sr: {sk['ms']:.4f} ms a step over {sk['elements']} elements; bound "
+          f"{sk['bound_ms']:.4f} ms ({sk['bound_by']}), plain {sk['plain_ms']:.4f} ms; {card}")
+    kernels.append(entry("fused_adam_sr", sk, scounts["fused_adam_sr"],
+                         at + "; bf16 weights, the 198 tensors in one call"))
+    print(f"bf16-weight step: {sr['step_wall_ms']:.3f} ms wall ({tr['step_wall_ms']:.3f} with "
+          f"f32 masters), {sr['tokens_per_s']:.1f} tokens/s ({tr['tokens_per_s']:.1f}), busy "
+          f"{100 * sr['device_busy_share']:.1f}% ({100 * tr['device_busy_share']:.1f}%), MFU "
+          f"{100 * sr['mfu']:.2f}% ({100 * tr['mfu']:.2f}%), peak memory "
+          f"{sr['peak_memory_gb']:.2f} GB ({tr['peak_memory_gb']:.2f}); {card}")
+
+    phase("eager f32 kernel phase (matmul and linear_fused vs their plain twins):")
+    lk = linear_kernel_phase(torch, ops, report)
+    phase("eager f32 phase (use_pallas, main paths):")
+    ecounts = eager_phase(torch, dt, report)
+    for name, run in (("matmul", "mlp_bias_free"), ("linear_fused", "mlp")):
+        r = lk[name]
+        print(f"  {name} at {r['at']}: {r['ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms;"
+              f" at the MLP's three layers " + ", ".join(
+                  f"{v:.4f}" for v in r["mlp_ms"].values()) + f" ms; {card}")
+        kernels.append(entry(name, r, ecounts[run][name], r["at"]))
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"{k['name']} was not launched on the main path")
@@ -999,7 +1354,8 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
         with open(args.report, "w") as f:
             json.dump(report, f, indent=1)
-    print(f"card: {card}")
+    report["run_s"] = time.perf_counter() - t_run
+    print(f"card: {card}; {report['run_s']:.1f} s from the build's start")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -17,7 +17,11 @@ KV-cache decoder ``models.KVCacheDecoder`` in its dense, ``"int8"`` and
 ``optim.Adam`` (``fused=True``: ``ops.fused_adam``),
 ``nn.LMHeadCrossEntropy`` (``ops.fused_linear_ce``) and the flash route of
 ``nn.MultiheadAttention`` (``ops.flash_attention``), on
-``TransformerLM.trunk()``.
+``TransformerLM.trunk()`` — and the third slice: full-bf16 weight training
+(``Module.bfloat16()`` with ``optim.Adam(stochastic_round=True)``:
+``ops.fused_adam_sr``) and the eager f32 route behind
+``config.use_pallas`` (``nn.functional.linear``: ``ops.linear_fused`` and
+``ops.matmul``), which trains ``models.MLP``.
 """
 
 from __future__ import annotations

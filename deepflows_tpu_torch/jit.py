@@ -8,9 +8,12 @@ contract; capturing it in a CUDA graph is later work.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional
 
 import torch
+
+from .config import config
 
 
 def _owners(model, params):
@@ -23,6 +26,19 @@ def _owners(model, params):
             if p is not None and id(p) in index:
                 slots[index[id(p)]].append((module, name))
     return slots
+
+
+@contextlib.contextmanager
+def _traced_routes():
+    """``config.use_pallas`` off for the call: the JAX package's traced
+    steps never take its eager kernel routes (``nn.functional.linear``,
+    ``BackendTensor @``), so neither do the port's whole steps."""
+    saved = config.use_pallas
+    config.use_pallas = False
+    try:
+        yield
+    finally:
+        config.use_pallas = saved
 
 
 class CompiledTrainStep:
@@ -52,6 +68,12 @@ class CompiledTrainStep:
           the model's modules for the call, so a criterion that holds one
           of the model's modules (``nn.LMHeadCrossEntropy``) computes with
           them too.
+        - ``compute_dtype=None``: forward and backward run on the
+          parameters as they are; with bf16 parameters
+          (``Module.bfloat16()``) the gradients reach the optimizer in bf16
+          and the loss returns in the criterion's dtype, as in the JAX
+          package (``Adam(stochastic_round=True)`` updates such weights).
+        - ``config.use_pallas`` is off during the call.
         - ``donate`` is accepted for the JAX package's signature; the update
           reuses the masters' memory where the optimizer works in place.
 
@@ -105,7 +127,7 @@ class CompiledTrainStep:
         need = [i for i, c in enumerate(copies) if c.requires_grad]
         self._bind(copies)
         try:
-            with torch.enable_grad():
+            with torch.enable_grad(), _traced_routes():
                 loss = self.criterion(self.model(x), y)
                 found = torch.autograd.grad(
                     loss, [copies[i] for i in need], allow_unused=True
@@ -131,8 +153,9 @@ class CompiledTrainStep:
 
 
 class CompiledEvalStep:
-    """Inference: the model's forward in eval mode without gradients,
-    returning its raw output; the model's mode is restored afterwards."""
+    """Inference: the model's forward in eval mode without gradients and
+    with ``config.use_pallas`` off, returning its raw output; the model's
+    mode is restored afterwards."""
 
     def __init__(self, model):
         self.model = model
@@ -142,7 +165,7 @@ class CompiledEvalStep:
         was_training = self.model.training
         self.model.eval()
         try:
-            with torch.no_grad():
+            with torch.no_grad(), _traced_routes():
                 return self.model(torch.as_tensor(x, device=dev))
         finally:
             if was_training:

@@ -1,5 +1,6 @@
+from .cnn import MLP
 from .decoding import KVCacheDecoder
 from .transformer_lm import TransformerLM
 from .vit import EncoderBlock
 
-__all__ = ["EncoderBlock", "KVCacheDecoder", "TransformerLM"]
+__all__ = ["MLP", "EncoderBlock", "KVCacheDecoder", "TransformerLM"]

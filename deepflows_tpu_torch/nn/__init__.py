@@ -9,7 +9,9 @@ from .modules import (
     LMHeadCrossEntropy,
     Module,
     MultiheadAttention,
+    ReLU,
     Sequential,
+    Tanh,
 )
 
 __all__ = [
@@ -22,7 +24,9 @@ __all__ = [
     "Linear",
     "Module",
     "MultiheadAttention",
+    "ReLU",
     "Sequential",
+    "Tanh",
     "functional",
     "init",
 ]

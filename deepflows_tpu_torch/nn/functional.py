@@ -1,5 +1,5 @@
-"""nn.functional — the functions the serving and training slices' modules
-use (counterpart of part of ``deepflows_tpu/nn/functional.py``).
+"""nn.functional — the functions the ported slices' modules use
+(counterpart of part of ``deepflows_tpu/nn/functional.py``).
 
 Each follows the JAX package's arithmetic op for op, so f32 results agree
 to rounding.
@@ -12,16 +12,88 @@ from typing import Optional
 
 import torch
 
+from ..config import config
+from ..ops.linear import linear_fused, matmul
 from ..random import generator
+
+
+class _FusedLinear(torch.autograd.Function):
+    """``ops.linear_fused(x, w, b)`` forward; the closed-form backward of
+    the JAX package's ``_FusedLinearOp`` (gx = g·wᵀ, gw = xᵀ·g, gb = Σ₀ g),
+    its products through ``torch.matmul`` as JAX computes them outside
+    Pallas."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        ctx.b_shape = b.shape
+        return linear_fused(x, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = g @ w.t() if ctx.needs_input_grad[0] else None
+        gw = x.t() @ g if ctx.needs_input_grad[1] else None
+        gb = g.sum(0).reshape(ctx.b_shape) if ctx.needs_input_grad[2] else None
+        return gx, gw, gb
+
+
+class _Matmul(torch.autograd.Function):
+    """``ops.matmul(a, b)`` with both backward products through
+    ``ops.matmul`` too, as the JAX package's matmul op routes them through
+    ``BackendTensor @``; only the gradients asked for are computed."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return matmul(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = matmul(g, b.t()) if ctx.needs_input_grad[0] else None
+        gb = matmul(a.t(), g) if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
+def _eager_f32_route(*tensors) -> bool:
+    x, w = tensors[:2]
+    return (
+        config.use_pallas
+        and x.dim() == 2
+        and w.dim() == 2
+        and all(t.dtype == torch.float32 for t in tensors if t is not None)
+    )
 
 
 def linear(input, weight, bias: Optional[torch.Tensor] = None):
     """``x @ W (+ b)`` with the reference's ``(in_features, out_features)``
-    weight; the product is left to ``torch.matmul``."""
+    weight.  With ``config.use_pallas`` a 2-D f32 input takes the port's
+    kernels, as the JAX package's eager route takes its Pallas kernels:
+    with a bias the whole affine is one ``ops.linear_fused``, without one
+    the product is ``ops.matmul``.  Otherwise the product is left to
+    ``torch.matmul``."""
+    if _eager_f32_route(input, weight, bias):
+        if bias is not None:
+            return _FusedLinear.apply(input, weight, bias)
+        return _Matmul.apply(input, weight)
+    if input.dtype != weight.dtype:  # promote as JAX does: f32 x with bf16 W is f32
+        dt = torch.promote_types(input.dtype, weight.dtype)
+        input, weight = input.to(dt), weight.to(dt)
     out = input @ weight
     if bias is not None:
         out = out + bias
     return out
+
+
+def relu(input):
+    """``maximum(x, 0)``: a tie at 0 gives half the gradient, as the JAX
+    package's maximum splits ties (``torch.relu`` would give none)."""
+    return torch.maximum(input, input.new_zeros(()))
+
+
+def tanh(input):
+    return torch.tanh(input)
 
 
 def gelu(input):

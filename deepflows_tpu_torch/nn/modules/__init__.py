@@ -1,4 +1,4 @@
-from .activation import GELU
+from .activation import GELU, ReLU, Tanh
 from .attention import MultiheadAttention
 from .container import Sequential
 from .dropout import Dropout
@@ -18,5 +18,7 @@ __all__ = [
     "Linear",
     "Module",
     "MultiheadAttention",
+    "ReLU",
     "Sequential",
+    "Tanh",
 ]

@@ -1,5 +1,6 @@
-"""GELU (counterpart of ``GELU`` in ``deepflows_tpu/nn/modules/activation.py``;
-the tanh approximation and the other activations come with later slices)."""
+"""Activations (counterpart of ``GELU``, ``ReLU`` and ``Tanh`` in
+``deepflows_tpu/nn/modules/activation.py``; the tanh approximation of GELU
+and the other activations come with later slices)."""
 
 from __future__ import annotations
 
@@ -12,3 +13,15 @@ class GELU(Module):
 
     def forward(self, x):
         return F.gelu(x)
+
+
+class ReLU(Module):
+    """``maximum(x, 0)``, half the gradient at a tie (``F.relu``)."""
+
+    def forward(self, x):
+        return F.relu(x)
+
+
+class Tanh(Module):
+    def forward(self, x):
+        return F.tanh(x)

@@ -1,7 +1,13 @@
 """Kernels of the port and their plain PyTorch twins.  The CUDA sources live
 in ``deepflows_tpu_torch/csrc`` and are built at first use (``_build.py``)."""
 
-from .adam import fused_adam, fused_adam_plain
+from .adam import (
+    fused_adam,
+    fused_adam_plain,
+    fused_adam_sr,
+    fused_adam_sr_plain,
+    stochastic_round_bf16,
+)
 from .flash_attention import (
     flash_attention,
     flash_attention_bwd,
@@ -16,6 +22,7 @@ from .fused_ce import (
     fused_linear_ce_fwd,
     fused_linear_ce_plain,
 )
+from .linear import linear_fused, linear_fused_plain, matmul, matmul_plain
 from .quant import (
     int8_matmul,
     int8_matmul_plain,
@@ -34,6 +41,9 @@ KERNELS = (
     fused_linear_ce_fwd,
     fused_linear_ce_bwd,
     fused_adam,
+    fused_adam_sr,
+    matmul,
+    linear_fused,
 )
 
 
@@ -51,6 +61,8 @@ __all__ = [
     "flash_attention_plain",
     "fused_adam",
     "fused_adam_plain",
+    "fused_adam_sr",
+    "fused_adam_sr_plain",
     "fused_linear_ce",
     "fused_linear_ce_bwd",
     "fused_linear_ce_bwd_plain",
@@ -58,9 +70,14 @@ __all__ = [
     "fused_linear_ce_plain",
     "int8_matmul",
     "int8_matmul_plain",
+    "linear_fused",
+    "linear_fused_plain",
+    "matmul",
+    "matmul_plain",
     "quantize_int8",
     "quantize_int8_rows",
     "reset_launch_counts",
+    "stochastic_round_bf16",
     "w8a8_matmul",
     "w8a8_matmul_plain",
 ]

@@ -1,0 +1,92 @@
+"""Eager f32 products (counterparts of ``matmul`` and ``linear_fused`` in
+``deepflows_tpu/ops/pallas_kernels.py``), both served by one tiled f32
+kernel with an epilogue (``csrc/linear_f32.cu``).
+
+- ``matmul(a, b)``: a (M, K) @ b (K, N), f32.
+- ``linear_fused(x, w, b, activation)``: act(x @ w + b), x (M, K), w
+  (K, N), b (1, N) or (N,), act one of ``"none"``, ``"relu"``, ``"tanh"``.
+- ``matmul_plain`` / ``linear_fused_plain``: their plain PyTorch twins.
+
+Both products are true f32: no TF32 (the JAX kernels accumulate in f32).
+The operands may be views with any strides, such as a transpose; the
+output is a new contiguous (M, N) f32 tensor.  Neither wrapper records
+autograd history: ``nn.functional.linear`` wraps them in
+``autograd.Function``s on the ``config.use_pallas`` route.
+
+On CPU tensors the wrappers call the plain twins; on CUDA tensors they
+launch the kernel on the current stream or raise, and count the launch in
+``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from ._common import I, L, P, check, on_card, on_device, stream
+
+ACTIVATIONS = ("none", "relu", "tanh")
+_F32 = (torch.float32,)
+
+
+def matmul_plain(a, b):
+    """Plain twin of ``matmul``."""
+    return a @ b
+
+
+def linear_fused_plain(x, w, b, activation: str = "none"):
+    """Plain twin of ``linear_fused``: the JAX kernel's epilogue, y = acc +
+    b, then ``maximum(y, 0)`` or ``tanh(y)``."""
+    y = x @ w + b.reshape(1, -1)
+    if activation == "relu":
+        return torch.maximum(y, y.new_zeros(()))
+    if activation == "tanh":
+        return torch.tanh(y)
+    return y
+
+
+def _launch(a, b, bias, epi, what):
+    m, k = a.shape
+    n = b.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    fn = _build.c_function("linear_f32", "dft_linear_f32", (P, P, P, P, I, I, I, L, L, L, L, I, P))
+    with on_device(a.device):
+        rc = fn(a.data_ptr(), b.data_ptr(), 0 if bias is None else bias.data_ptr(),
+                out.data_ptr(), m, n, k, a.stride(0), a.stride(1), b.stride(0), b.stride(1),
+                epi, stream())
+    _build.check(rc, what)
+    return out
+
+
+def matmul(a, b):
+    """a (M, K) @ b (K, N) in f32 on the kernel (plain twin on the CPU)."""
+    check("a", a, (None, None), _F32, contiguous=False)
+    check("b", b, (a.shape[1], None), _F32, contiguous=False)
+    if not on_card(a, b):
+        return matmul_plain(a, b)
+    out = _launch(a, b, None, 0, "matmul")
+    matmul.launches += 1
+    return out
+
+
+matmul.launches = 0
+
+
+def linear_fused(x, w, b, activation: str = "none"):
+    """act(x @ w + b) in f32 in one kernel (plain twin on the CPU)."""
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"activation must be one of {ACTIVATIONS}, got {activation!r}")
+    check("x", x, (None, None), _F32, contiguous=False)
+    check("w", w, (x.shape[1], None), _F32, contiguous=False)
+    n = w.shape[1]
+    if b.numel() != n or b.dim() > 2 or (b.dim() == 2 and b.shape[0] != 1):
+        raise ValueError(f"b has shape {tuple(b.shape)}, expected (1, {n}) or ({n},)")
+    check("b", b.reshape(-1), (n,), _F32)
+    if not on_card(x, w, b):
+        return linear_fused_plain(x, w, b, activation)
+    out = _launch(x, w, b.contiguous(), 1 + ACTIVATIONS.index(activation), "linear_fused")
+    linear_fused.launches += 1
+    return out
+
+
+linear_fused.launches = 0

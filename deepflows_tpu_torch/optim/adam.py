@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.adam import fused_adam
+from ..ops.adam import fused_adam, fused_adam_sr
 from .optimizer import Optimizer
 
 
@@ -22,15 +22,16 @@ class Adam(Optimizer):
         fused: bool = False,
         stochastic_round: bool = False,
     ) -> None:
-        """``fused=True`` updates every parameter that has a gradient in one
-        launch of the hand-written kernel ``ops.fused_adam`` (its plain twin
-        for CPU tensors); the parameters must be f32.  The JAX package's
-        ``stochastic_round=True`` (bf16 parameters, stochastically rounded
-        updates) comes with the next slice and raises here."""
-        if stochastic_round:
-            raise NotImplementedError(
-                "stochastic_round=True: fused_adam_sr is ported with the next slice"
-            )
+        """``fused=True`` updates every f32 parameter that has a gradient in
+        one launch of the hand-written kernel ``ops.fused_adam`` (its plain
+        twin for CPU tensors).  ``stochastic_round=True`` is full-bf16
+        weight training: every bf16 parameter that has a gradient is
+        updated in one launch of ``ops.fused_adam_sr``, which computes Adam
+        in f32 and rounds the new value to bf16 stochastically, so updates
+        below half a bf16 ulp still move the weight in expectation.  As in
+        the JAX package, SR takes a bf16 parameter even when ``fused`` is
+        also set; the moments stay f32; any other parameter takes the
+        plain math, cast back to its dtype."""
         super().__init__(params)
         self.lr = lr
         self.beta1, self.beta2 = betas
@@ -66,19 +67,28 @@ class Adam(Optimizer):
         bc2 = 1.0 - self.beta2**tf
         new_params, new_v, new_s = list(params), list(state["v"]), list(state["s"])
         live = [i for i, g in enumerate(grads) if g is not None]
-        if self.fused and live:
-            for i in live:
-                if params[i].dtype != torch.float32:
-                    raise TypeError(
-                        f"Adam(fused=True) updates f32 parameters, got {params[i].dtype}"
-                    )
-            fused_adam(
-                [params[i] for i in live], [grads[i].float() for i in live],
-                [new_v[i] for i in live], [new_s[i] for i in live],
-                self._hyper(lr, bc1, bc2),
+        sr = [i for i in live
+              if self.stochastic_round and params[i].dtype == torch.bfloat16]
+        fused = [i for i in live if self.fused and i not in sr]
+        for i in fused:
+            if params[i].dtype != torch.float32:
+                raise TypeError(
+                    f"Adam(fused=True) updates f32 parameters, got {params[i].dtype}"
+                )
+        hyper = self._hyper(lr, bc1, bc2) if sr or fused else None
+        if sr:
+            fused_adam_sr(
+                [params[i] for i in sr],
+                [grads[i] if grads[i].dtype == torch.bfloat16 else grads[i].float()
+                 for i in sr],
+                [new_v[i] for i in sr], [new_s[i] for i in sr], hyper, t, indices=sr,
             )
-            return new_params, {"v": new_v, "s": new_s, "t": t}
-        for i in live:
+        if fused:
+            fused_adam(
+                [params[i] for i in fused], [grads[i].float() for i in fused],
+                [new_v[i] for i in fused], [new_s[i] for i in fused], hyper,
+            )
+        for i in sorted(set(live) - set(sr) - set(fused)):
             p, g, v, s = params[i], grads[i], new_v[i], new_s[i]
             if self.weight_decay:
                 g = g + p * self.weight_decay

@@ -22,6 +22,20 @@ import numpy as np
 import torch
 
 
+def _from_numpy(name, arr) -> torch.Tensor:
+    """A torch copy of ``arr``.  numpy has no bfloat16 of its own: a JAX bf16
+    array arrives with the ``ml_dtypes`` extension dtype, which
+    ``torch.from_numpy`` refuses, so its bits cross as int16 and are seen as
+    bfloat16 again (the dtype is recognised by name: the port does not
+    import ``ml_dtypes``)."""
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(arr).view(np.int16)).view(torch.bfloat16)
+    try:
+        return torch.from_numpy(np.array(arr))
+    except TypeError as e:
+        raise TypeError(f"{name}: unsupported dtype {arr.dtype}") from e
+
+
 def load_jax_state_dict(module: torch.nn.Module, state) -> torch.nn.Module:
     own = module.state_dict(keep_vars=True)
     missing = sorted(set(own) - set(state))
@@ -38,10 +52,7 @@ def load_jax_state_dict(module: torch.nn.Module, state) -> torch.nn.Module:
                     f"size mismatch for {name}: checkpoint {arr.shape} vs "
                     f"model {tuple(target.shape)}"
                 )
-            try:
-                src = torch.from_numpy(np.array(arr))
-            except TypeError as e:
-                raise TypeError(f"{name}: unsupported dtype {arr.dtype}") from e
+            src = _from_numpy(name, arr)
             if src.dtype != target.dtype:
                 raise TypeError(
                     f"dtype mismatch for {name}: checkpoint {src.dtype} vs "

@@ -130,8 +130,12 @@ def test_adam_skips_parameters_without_grads_and_keeps_f32_state():
         fused = optim.Adam([a], fused=True)
         a.grad = torch.ones(3, dtype=torch.bfloat16)
         fused.step()
-    with pytest.raises(NotImplementedError):
-        optim.Adam([b], stochastic_round=True)
+    sr = optim.Adam([a], lr=0.1, stochastic_round=True, fused=True)
+    before = a.detach().clone()
+    a.grad = torch.ones(3, dtype=torch.bfloat16)
+    sr.step()
+    assert a.dtype == torch.bfloat16 and (a.detach() < before).all()
+    assert sr.s[0].dtype == torch.float32
 
 
 def test_state_dict_round_trip_and_jax_state_import():
