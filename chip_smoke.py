@@ -11,15 +11,23 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
 2. Kernel phase: each kernel of the serving path (int8_matmul, w8a8_matmul)
    against its plain PyTorch twin on the card, at the decoder's shapes of the
    d1024 x 12, V8192 model — (K, N) of qkv, o, fc1, fc2 and head, at decode
-   M = 8 and prefill M = 8 * 192 — for x in bf16 and f32 and both output
-   dtypes, then at ragged shapes and on a misaligned weight, which take the
-   kernels' masked edges.  Tolerances: w8a8 exact; int8 with f32 output
-   rtol 1e-4 and atol 1e-3 (the JAX tests' bound); bf16 output that bound
-   plus one bf16 ulp.  Times each
-   shape and one whole decode step's 49 calls with CUDA events, beside the
-   plain twin, torch.matmul on the pre-dequantised weight (int8 only) and
-   the card's bound.  f32 products run without TF32
-   (torch.backends.cuda.matmul.allow_tf32 = False) in every comparison.
+   M = 1, 2, 5 and 8 (the split-K path) and prefill M = 8 * 192 — for x in
+   bf16 and f32 and both output dtypes, then at ragged shapes and on a
+   misaligned weight, which take the kernels' masked edges, among them the
+   split edges of the decode path (K not a multiple of the chunk, K 17
+   below one chunk, N not a multiple of 16, a misaligned weight with
+   splits, 16 splits at K 8192, and K 9000, past the decode path, on the
+   square tiles).  Tolerances: w8a8 exact; int8 with f32 output rtol 1e-4 and
+   atol 1e-3 (the JAX tests' bound); bf16 output that bound plus one bf16
+   ulp.  Then the same decode call twice must give the same bits (int8
+   with f32 and bf16 output, w8a8), and 200 calls of mixed decode shapes
+   queued back to back on one stream must each equal their twin.  Times each shape at M 8 and 1536 and one
+   whole decode step's 49 calls with CUDA events, beside the plain twin,
+   the library call (int8: torch.matmul on the pre-dequantised weight;
+   w8a8: torch._int_mm on the int8 operands, x padded to 32 rows, since
+   it takes more than 16) and the card's bound.  f32 products run without
+   TF32 (torch.backends.cuda.matmul.allow_tf32 = False) in every
+   comparison.
 3. Slice phase, the main path: TransformerLM(vocab 8192, max_len 192,
    dim 1024, depth 12, heads 8) with random weights from a seed, served by
    KVCacheDecoder in bf16 with quant None, "int8" and "w8a8", three requests
@@ -134,6 +142,10 @@ RAGGED = (  # (M, K, N, weight 16-byte aligned)
     (100, 70, 50, True), (129, 256, 300, True), (200, 4100, 33, True), (8, 64, 48, False),
     (70, 96, 64, False),
 )
+DECODE_RAGGED = (  # (M, K, N, weight 16-byte aligned): the split-K path's edges
+    (8, 1000, 1024, True), (8, 17, 64, True), (5, 1024, 1000, True), (8, 4100, 1024, False),
+    (3, 4100, 1030, True), (1, 8192, 32, True), (2, 9000, 48, True),  # K past the decode path
+)
 PER_FORWARD = 4 * MODEL["depth"] + 1  # kernel launches per prefill or step
 REQUESTS = (  # (batch, prompt, new tokens, sampling)
     (8, 64, 128, {}),
@@ -200,28 +212,57 @@ def bound_ms(nbytes, ops, kind):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def check_int8(torch, got, want, label):
+    """int8_matmul's output against its twin's: f32 at rtol 1e-4 and atol
+    1e-3, bf16 at that bound plus one bf16 rounding step; returns max |d|."""
+    d = (got.float() - want.float()).abs()
+    lim = 1e-3 + 1e-4 * want.float().abs()
+    if got.dtype == torch.bfloat16:
+        lim = lim + bf16_ulp(torch.maximum(got.float().abs(), want.float().abs()))
+    if (d > lim).any():
+        fail(f"int8_matmul {label} out={got.dtype}: max |d| {d.max().item()}")
+    return d.max().item()
+
+
+def check_w8a8(torch, got, want, label):
+    if not torch.equal(got, want):
+        fail(f"w8a8_matmul {label} out={got.dtype}: not exact, max |d| "
+             f"{(got.float() - want.float()).abs().max().item()}")
+
+
 def compare(torch, ops, x, wq, s, label, max_err):
     """Both kernels against their plain twins on one (x, wq, s), for f32 and
     bf16 output; fails on the first disagreement."""
     xq, sx = ops.quantize_int8_rows(x)
-    for odt, oname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        got = ops.int8_matmul(x, wq, s, out_dtype=odt)
-        want = ops.int8_matmul_plain(x, wq, s, out_dtype=odt)
-        d = (got.float() - want.float()).abs()
+    for odt in (torch.float32, torch.bfloat16):
+        e = check_int8(torch, ops.int8_matmul(x, wq, s, out_dtype=odt),
+                       ops.int8_matmul_plain(x, wq, s, out_dtype=odt), label)
         if odt == torch.float32:
-            bad = d > 1e-3 + 1e-4 * want.abs()
-            max_err["int8_matmul"] = max(max_err["int8_matmul"], d.max().item())
-        else:  # the f32 bound, then one bf16 rounding step
-            bad = d > 1e-3 + 1e-4 * want.float().abs() + bf16_ulp(
-                torch.maximum(got.float().abs(), want.float().abs()))
-        if bad.any():
-            fail(f"int8_matmul {label} out={oname}: max |d| {d.max().item()}")
-        got = ops.w8a8_matmul(xq, sx, wq, s, out_dtype=odt)
-        want = ops.w8a8_matmul_plain(xq, sx, wq, s, out_dtype=odt)
-        if not torch.equal(got, want):
-            fail(f"w8a8_matmul {label} out={oname}: not exact, max |d| "
-                 f"{(got.float() - want.float()).abs().max().item()}")
+            max_err["int8_matmul"] = max(max_err["int8_matmul"], e)
+        check_w8a8(torch, ops.w8a8_matmul(xq, sx, wq, s, out_dtype=odt),
+                   ops.w8a8_matmul_plain(xq, sx, wq, s, out_dtype=odt), label)
     return xq, sx
+
+
+def int_mm_operands(torch, xq, wq):
+    """The operands of torch._int_mm, the library's int8 x int8 -> int32
+    product and the w8a8 kernel's yardstick: xq padded with zero rows to 32
+    when it has 16 or fewer (the call refuses those), and wq as it is or,
+    if the call refuses that layout, a column-major copy, made here and not
+    in the timed call."""
+    if xq.shape[0] <= 16:
+        xq = torch.cat([xq, xq.new_zeros((32 - xq.shape[0], xq.shape[1]))])
+    try:
+        torch._int_mm(xq, wq)
+    except RuntimeError:
+        wq = wq.t().contiguous().t()
+    return xq, wq
+
+
+def misaligned(torch, wq):
+    """A copy of wq whose address is one byte past a 16-byte boundary."""
+    K, N = wq.shape
+    return torch.empty(K * N + 1, dtype=torch.int8, device=wq.device)[1:].view(K, N).copy_(wq)
 
 
 def kernel_phase(torch, ops, report):
@@ -237,13 +278,16 @@ def kernel_phase(torch, ops, report):
 
     max_err = {"int8_matmul": 0.0, "w8a8_matmul": 0.0}
     rows = []
-    for M in (8, 8 * MODEL["max_len"]):
+    for M in (1, 2, 5, 8, 8 * MODEL["max_len"]):
         for xdt, xname in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
             for name, (K, N) in SHAPES.items():
                 x = torch.randn((M, K), generator=g, device=dev).to(xdt)
                 w = torch.randn((K, N), generator=g, device=dev) * 0.02
                 wq, s = ops.quantize_int8(w)
                 xq, sx = compare(torch, ops, x, wq, s, f"M={M} {name} x={xname}", max_err)
+                if M not in (8, 8 * MODEL["max_len"]):
+                    continue  # checked, not timed
+                xl, wl = int_mm_operands(torch, xq, wq)
                 out_bytes = M * N * x.element_size()
                 wdeq = (wq.float() * s).to(xdt)
                 reps = 20
@@ -258,6 +302,7 @@ def kernel_phase(torch, ops, report):
                     lambda: ops.w8a8_matmul(xq, sx, wq, s, out_dtype=xdt), reps, flush)
                 r["w8a8_plain_ms"] = event_ms(
                     lambda: ops.w8a8_matmul_plain(xq, sx, wq, s, out_dtype=xdt), reps, flush)
+                r["w8a8_library_ms"] = event_ms(lambda: torch._int_mm(xl, wl), reps, flush)
                 r["w8a8_bound_ms"], r["w8a8_bound_by"] = bound_ms(
                     M * K + 4 * M + K * N + 4 * N + out_bytes, 2 * M * K * N, "int8")
                 rows.append(r)
@@ -265,33 +310,82 @@ def kernel_phase(torch, ops, report):
                     f"  M={M:5d} {name:4s} K={K:4d} N={N:4d} x={xname:4s} | int8 "
                     f"{r['int8_ms']:.4f} ms (plain {r['int8_plain_ms']:.4f}, matmul "
                     f"{r['int8_library_ms']:.4f}, bound {r['int8_bound_ms']:.4f}) | "
-                    f"w8a8 {r['w8a8_ms']:.4f} ms (plain {r['w8a8_plain_ms']:.4f}, "
-                    f"bound {r['w8a8_bound_ms']:.4f})"
+                    f"w8a8 {r['w8a8_ms']:.4f} ms (plain {r['w8a8_plain_ms']:.4f}, _int_mm "
+                    f"{r['w8a8_library_ms']:.4f}, bound {r['w8a8_bound_ms']:.4f})"
                 )
     # ragged M, K and N, one row (B 1 decode), and a weight whose address is
     # not 16-byte aligned, which takes the kernels' bytewise weight loads
-    for M, K, N, aligned in RAGGED:
+    for M, K, N, aligned in RAGGED + DECODE_RAGGED:
         for xdt in (torch.bfloat16, torch.float32):
             x = torch.randn((M, K), generator=g, device=dev).to(xdt)
             wq, s = ops.quantize_int8(torch.randn((K, N), generator=g, device=dev) * 0.02)
             if not aligned:
-                wq = torch.empty(K * N + 1, dtype=torch.int8, device=dev)[1:].view(K, N).copy_(wq)
+                wq = misaligned(torch, wq)
             compare(torch, ops, x, wq, s, f"ragged M={M} K={K} N={N} aligned={aligned}"
                     f" x={xdt}", max_err)
-    print(f"  ragged shapes agree: {[r[:3] for r in RAGGED]}")
+    print(f"  ragged shapes agree: {[r[:3] for r in RAGGED + DECODE_RAGGED]}")
+    report["decode_repeats"] = decode_repeat_checks(torch, ops, g)
     report["kernel_shapes"] = rows
     return max_err
+
+
+def decode_repeat_checks(torch, ops, g):
+    """The split-K decode path is deterministic and its calls independent:
+    the same call twice gives the same bits (int8 with bf16 x and f32 or
+    bf16 output, f32 x, w8a8) at the decoder's shapes at M 8, and 200 calls
+    of mixed decode shapes, both kernels and both x dtypes, queued back to
+    back on one stream, each equal their twin."""
+    dev = torch.device("cuda")
+    cases = [(M, K, N, True) for M in (1, 2, 5, 8) for K, N in SHAPES.values()]
+    cases += [c for c in RAGGED + DECODE_RAGGED if c[0] <= 8]
+    operands = []
+    for M, K, N, aligned in cases:
+        x = torch.randn((M, K), generator=g, device=dev)
+        wq, s = ops.quantize_int8(torch.randn((K, N), generator=g, device=dev) * 0.02)
+        operands.append((x, wq if aligned else misaligned(torch, wq), s,
+                         *ops.quantize_int8_rows(x)))
+    for (M, K, N, _), (x, wq, s, xq, sx) in zip(cases, operands):
+        if M != 8 or (K, N) not in SHAPES.values():
+            continue
+        for xin, odt in ((x.bfloat16(), torch.float32), (x.bfloat16(), torch.bfloat16),
+                         (x, torch.float32)):
+            a = ops.int8_matmul(xin, wq, s, out_dtype=odt)
+            if not torch.equal(a, ops.int8_matmul(xin, wq, s, out_dtype=odt)):
+                fail(f"int8_matmul M=8 K={K} N={N} x={xin.dtype} out={odt}: two calls differ")
+        if not torch.equal(ops.w8a8_matmul(xq, sx, wq, s), ops.w8a8_matmul(xq, sx, wq, s)):
+            fail(f"w8a8_matmul M=8 K={K} N={N}: two calls differ")
+    queued = []
+    for i in range(200):
+        x, wq, s, xq, sx = operands[(7 * i) % len(operands)]
+        if i % 2:
+            odt = torch.float32 if i % 4 == 1 else torch.bfloat16
+            queued.append((False, (xq, sx, wq, s, odt), ops.w8a8_matmul(xq, sx, wq, s, odt)))
+        else:
+            xin = x if i % 4 == 0 else x.bfloat16()
+            queued.append((True, (xin, wq, s), ops.int8_matmul(xin, wq, s)))
+    torch.cuda.synchronize()
+    for i, (int8, args, got) in enumerate(queued):
+        if int8:
+            check_int8(torch, got, ops.int8_matmul_plain(*args), f"back-to-back call {i}")
+        else:
+            check_w8a8(torch, got, ops.w8a8_matmul_plain(*args), f"back-to-back call {i}")
+    print(f"  decode calls deterministic (two calls bitwise equal at the 5 shapes, M 8); "
+          f"{len(queued)} mixed decode calls back to back over {len(cases)} shapes each equal "
+          f"their twin")
+    return dict(shapes=len(cases), back_to_back=len(queued))
 
 
 def decode_step_timing(torch, ops):
     """One decode step's 49 kernel calls at M = 8 with bf16 activations, over
     12 layers of distinct weights (so the weights stream from device memory
     as in the decoder): kernel, plain twin and library times beside the
-    bound, per kernel."""
+    bound, per kernel (w8a8's library call is torch._int_mm at 32 rows, the
+    integer product alone)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
     M, depth = 8, MODEL["depth"]
     calls = []  # (x, xq, sx, wq, s, wdeq, out_dtype)
+    int_mm = []  # torch._int_mm's operands of each call
     for layer in range(depth + 1):
         names = ("head",) if layer == depth else ("qkv", "o", "fc1", "fc2")
         for name in names:
@@ -301,6 +395,7 @@ def decode_step_timing(torch, ops):
             xq, sx = ops.quantize_int8_rows(x)
             odt = torch.float32 if name == "head" else torch.bfloat16
             calls.append((x, xq, sx, wq, s, (wq.float() * s).to(torch.bfloat16), odt))
+            int_mm.append(int_mm_operands(torch, xq, wq))
     assert len(calls) == PER_FORWARD
     run = {
         "int8_matmul": lambda: [ops.int8_matmul(x, wq, s, out_dtype=o)
@@ -312,6 +407,7 @@ def decode_step_timing(torch, ops):
                                 for _, xq, sx, wq, s, _, o in calls],
         "w8a8_matmul_plain": lambda: [ops.w8a8_matmul_plain(xq, sx, wq, s, out_dtype=o)
                                       for _, xq, sx, wq, s, _, o in calls],
+        "w8a8_matmul_library": lambda: [torch._int_mm(xl, wl) for xl, wl in int_mm],
     }
     ms = {k: event_ms(f, 10) for k, f in run.items()}
     nb_int8 = sum(x.numel() * 2 + wq.numel() + s.numel() * 4
@@ -1280,7 +1376,8 @@ def main(argv=None) -> int:
              replaces="deepflows_tpu/ops/pallas_kernels.py:718",
              launches=counts["w8a8_matmul"], max_abs_err=max_err["w8a8_matmul"],
              ms=step_ms["w8a8_matmul"], plain_ms=step_ms["w8a8_matmul_plain"],
-             bound_ms=b_w8a8[0], bound_by=b_w8a8[1], library_ms=None, at=at),
+             bound_ms=b_w8a8[0], bound_by=b_w8a8[1],
+             library_ms=step_ms["w8a8_matmul_library"], at=at),
     ]
 
     phase("training kernel phase (kernel vs plain twin; times at the slice's bf16 shapes, "

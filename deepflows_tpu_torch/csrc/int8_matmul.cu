@@ -5,20 +5,24 @@
 // out (M, N) f32 or bf16.  The accumulator is f32 and the per-column scale
 // multiplies it once, after the whole K sum.
 //
-// What bounds it on an H100: at decode M = 8 the work is a few FLOPs per
+// What bounds it on an H100: at decode M <= 8 the work is a few FLOPs per
 // weight byte, so the floor is the weight bytes over 3.35 TB/s (a
-// (1024, 4096) weight is 4 MiB: 1.25 us).  The design streams the weight
-// once, as int8, in 16-byte loads into shared memory and widens it there,
-// never writing a widened copy to device memory (the point of the TPU
-// kernel).  Decode M takes the Skinny tiles of int8_tile.cuh: 32-column
-// blocks with the K sum split over 32 thread slices, so that narrow weights
-// still occupy several dozen SMs.  The TPU kernel's padding of every operand
-// to its 128/256 tiles is dropped; the kernel masks ragged edges itself.
-//
-// This first kernel is simple and not yet fast: a load-then-compute loop
-// with no double buffering, FMA on the CUDA cores, no split of K across
-// blocks.  Pipelining the weight stream (cp.async or TMA) and split-K for
-// narrow N are later work; PERF.md holds its measured times.
+// (1024, 4096) weight is 4 MiB: 1.25 us); at the decoder's shapes each
+// call's fixed cost (launch, the first trip to device memory, the hand-over
+// of the K splits) is larger.  The weight streams once, as int8, and is
+// widened only on chip, never written back widened (the point of the TPU
+// kernel).  Decode M takes int8_tile.cuh's split-K stream: (32-column
+// tile, K chunk) blocks, at least 264 at every decoder shape, a tile's K
+// splits one cluster; every warp keeps its whole share of the weight in
+// flight as 16-byte cp.async copies and multiplies each 64-row step as it
+// lands on the tensor cores (int8 -> bf16 exact; bf16 x as it is, f32 x as
+// three exact bf16 parts, so the products are exact and the sums f32).
+// The splits meet in distributed shared memory and are added in split
+// order, so two calls give the same bits.  Larger M takes the Square tiles
+// (a load-then-compute loop on the CUDA cores; tensor cores there are
+// later work).  The TPU kernel's padding of every operand to its 128/256
+// tiles is dropped; the kernel masks ragged edges itself.  PERF.md holds
+// its measured times.
 #include "int8_tile.cuh"
 
 namespace {
@@ -28,35 +32,46 @@ struct ScaleColumns {
   const float* scale;
   OT* out;
   int N;
+  using Scales = float;  // loaded ahead of the sum where the kernel can
+  __device__ __forceinline__ float load(int, int n) const { return scale[n]; }
+  __device__ __forceinline__ void store(int m, int n, float acc, float s) const {
+    out[(size_t)m * N + n] = dft::from_float<OT>(acc * s);
+  }
   __device__ __forceinline__ void operator()(int m, int n, float acc) const {
-    out[(size_t)m * N + n] = dft::from_float<OT>(acc * scale[n]);
+    store(m, n, acc, load(m, n));
   }
 };
 
 template <typename XT, typename OT>
-void run(const void* x, const void* wq, const void* scale, void* out, int M, int N,
-         int K, cudaStream_t stream) {
+cudaError_t run(const void* x, const void* wq, const void* scale, void* out, int M, int N,
+                int K, const dft::DecodePlan& plan, cudaStream_t stream) {
   const ScaleColumns<OT> epi{static_cast<const float*>(scale), static_cast<OT*>(out), N};
-  dft::launch_int8_product<XT, float, float>(x, wq, M, N, K, epi, stream);
+  return dft::launch_int8_product<XT, float, float>(x, wq, M, N, K, plan, epi, stream);
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch; the caller raises if it is not 0.
+// chunk and splits are the decode plan (ops/quant.py _decode_plan); splits
+// 0 takes the square tiles.  Returns cudaErrorInvalidValue for a plan the
+// kernel does not take, else the launch's error; the caller raises if it is
+// not 0.
 extern "C" int dft_int8_matmul(const void* x, int x_bf16, const void* wq,
                                const void* scale, void* out, int out_bf16, int M,
-                               int N, int K, void* stream) {
+                               int N, int K, int chunk, int splits,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dft::DecodePlan plan{chunk, splits};
+  cudaError_t rc;
   if (x_bf16) {
     if (out_bf16)
-      run<__nv_bfloat16, __nv_bfloat16>(x, wq, scale, out, M, N, K, s);
+      rc = run<__nv_bfloat16, __nv_bfloat16>(x, wq, scale, out, M, N, K, plan, s);
     else
-      run<__nv_bfloat16, float>(x, wq, scale, out, M, N, K, s);
+      rc = run<__nv_bfloat16, float>(x, wq, scale, out, M, N, K, plan, s);
   } else {
     if (out_bf16)
-      run<float, __nv_bfloat16>(x, wq, scale, out, M, N, K, s);
+      rc = run<float, __nv_bfloat16>(x, wq, scale, out, M, N, K, plan, s);
     else
-      run<float, float>(x, wq, scale, out, M, N, K, s);
+      rc = run<float, float>(x, wq, scale, out, M, N, K, plan, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(rc != cudaSuccess ? rc : cudaGetLastError());
 }

@@ -8,18 +8,20 @@
 // reproducible bit for bit (the plain twin in ops/quant.py agrees exactly).
 // The wrapper rejects K * 127^2 >= 2^31, where int32 could overflow.
 //
-// What bounds it on an H100: at decode M = 8 the floor is the weight bytes
-// over 3.35 TB/s, as for int8_matmul; the activation bytes are 1/N of them.
-// The design shares int8_matmul's tiling (int8_tile.cuh): 16-byte int8
-// weight loads into shared memory, decode-sized M on 32-column blocks with
-// the K sum split over 32 thread slices, ragged edges masked in the kernel
-// instead of the TPU kernel's padding to 128/256/512 tiles and its
-// 128-lane row-scale pad.
-//
-// This first kernel multiplies and adds one int8 pair at a time on the CUDA
-// cores.  __dp4a (four int8 products per instruction) and mma.sync s8 tensor
-// cores with s32 accumulation are later work; PERF.md holds its measured
-// times.
+// What bounds it on an H100: at decode M <= 8 the floor is the weight bytes
+// over 3.35 TB/s, as for int8_matmul (the activation bytes are 1/N of
+// them), and at the decoder's shapes each call's fixed cost is larger.
+// Decode M shares int8_matmul's split-K stream (int8_tile.cuh): 32-column
+// tiles by K chunks, at least 264 blocks at every decoder shape, a tile's
+// K splits one cluster, every warp's share of the weight in flight at once
+// as 16-byte cp.async copies; a 4 x 4 byte transpose of each quad of K
+// rows feeds __dp4a (four int8 products an instruction, exact int32 sums,
+// 3 instructions a weight byte), and the splits' int32 sums meet in
+// distributed shared memory, so they stay exact.  Larger M takes the
+// Square tiles (one int8 pair at a time on the CUDA cores; mma.sync s8 is
+// later work).  Ragged edges are masked in the kernel instead of the TPU
+// kernel's padding to 128/256/512 tiles and its 128-lane row-scale pad.
+// PERF.md holds its measured times.
 #include "int8_tile.cuh"
 
 namespace {
@@ -30,30 +32,37 @@ struct ScaleRowsColumns {
   const float* sw;
   OT* out;
   int N;
-  __device__ __forceinline__ void operator()(int m, int n, int acc) const {
-    const float v = __fmul_rn(__fmul_rn(__int2float_rn(acc), sx[m]), sw[n]);
+  using Scales = float2;  // (sx[m], sw[n]), loaded ahead of the sum where the kernel can
+  __device__ __forceinline__ float2 load(int m, int n) const { return make_float2(sx[m], sw[n]); }
+  __device__ __forceinline__ void store(int m, int n, int acc, float2 s) const {
+    const float v = __fmul_rn(__fmul_rn(__int2float_rn(acc), s.x), s.y);
     out[(size_t)m * N + n] = dft::from_float<OT>(v);
+  }
+  __device__ __forceinline__ void operator()(int m, int n, int acc) const {
+    store(m, n, acc, load(m, n));
   }
 };
 
 template <typename OT>
-void run(const void* xq, const void* sx, const void* wq, const void* sw, void* out,
-         int M, int N, int K, cudaStream_t stream) {
+cudaError_t run(const void* xq, const void* sx, const void* wq, const void* sw, void* out,
+                int M, int N, int K, const dft::DecodePlan& plan, cudaStream_t stream) {
   const ScaleRowsColumns<OT> epi{static_cast<const float*>(sx),
                                  static_cast<const float*>(sw), static_cast<OT*>(out), N};
-  dft::launch_int8_product<int8_t, int8_t, int>(xq, wq, M, N, K, epi, stream);
+  return dft::launch_int8_product<int8_t, int8_t, int>(xq, wq, M, N, K, plan, epi, stream);
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch; the caller raises if it is not 0.
+// chunk and splits are the decode plan (ops/quant.py _decode_plan); splits
+// 0 takes the square tiles.  Returns cudaErrorInvalidValue for a plan the
+// kernel does not take, else the launch's error; the caller raises if it is
+// not 0.
 extern "C" int dft_w8a8_matmul(const void* xq, const void* sx, const void* wq,
                                const void* sw, void* out, int out_bf16, int M, int N,
-                               int K, void* stream) {
+                               int K, int chunk, int splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (out_bf16)
-    run<__nv_bfloat16>(xq, sx, wq, sw, out, M, N, K, s);
-  else
-    run<float>(xq, sx, wq, sw, out, M, N, K, s);
-  return static_cast<int>(cudaGetLastError());
+  const dft::DecodePlan plan{chunk, splits};
+  const cudaError_t rc = out_bf16 ? run<__nv_bfloat16>(xq, sx, wq, sw, out, M, N, K, plan, s)
+                                  : run<float>(xq, sx, wq, sw, out, M, N, K, plan, s);
+  return static_cast<int>(rc != cudaSuccess ? rc : cudaGetLastError());
 }

@@ -12,7 +12,10 @@ int8 part of ``deepflows_tpu/ops/pallas_kernels.py``).
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take.  On CPU tensors it calls its plain twin
 (``*_plain``); on CUDA tensors it launches the kernel on the current stream
-or raises, and counts the launch in ``<wrapper>.launches``.
+or raises, and counts the launch in ``<wrapper>.launches``.  At decode
+shapes (at most 8 rows, K up to 8192) both kernels split K across the
+blocks of a cluster as ``_decode_plan`` says, in one launch that needs no
+workspace.
 """
 
 from __future__ import annotations
@@ -59,6 +62,45 @@ def w8a8_matmul_plain(xq, sx, wq, sw, out_dtype=torch.float32):
     return (acc.float() * sx[:, None] * sw).to(out_dtype)
 
 
+DECODE_M = 8  # rows the split-K decode kernel takes
+# as csrc/int8_tile.cuh decode:: has them: columns of a block's tile, the
+# granularity and the most of a block's K rows, the most K splits (blocks
+# of one cluster)
+_TILE_N, _STEP, _CHUNK_MAX, _MAX_SPLITS = 32, 64, 512, 16
+DECODE_K = _CHUNK_MAX * _MAX_SPLITS  # longest K of the decode kernel
+_MIN_BLOCKS = 2 * 132  # twice the H100's SMs
+
+
+def _decode_plan(m, n, k):
+    """The split of a decode product (1 to 8 rows, K at most 8192) over
+    blocks: ``(column tile, K chunk, splits)``, the grid being
+    (ceil(n / tile), splits), split s taking K rows [s·chunk, min((s + 1)·
+    chunk, k)) and a tile's splits forming one cluster.
+
+    It takes the fewest splits that launch at least 264 blocks, or 16 when
+    no count does; the chunk is k over the splits rounded up to 64."""
+    if not 1 <= m <= DECODE_M or not 1 <= k <= DECODE_K:
+        raise ValueError(
+            f"the decode plan takes 1 to {DECODE_M} rows and K up to {DECODE_K}, "
+            f"not ({m}, {k})"
+        )
+    tiles = -(-n // _TILE_N)
+    for target in range(-(-k // _CHUNK_MAX), _MAX_SPLITS + 1):
+        chunk = -(-k // (target * _STEP)) * _STEP
+        splits = -(-k // chunk)
+        if tiles * splits >= _MIN_BLOCKS:
+            break
+    return _TILE_N, chunk, splits
+
+
+def _decode_args(m, n, k):
+    """The C entry's (chunk, splits): the plan at decode shapes, (0, 0)
+    (the square tiles) at any other."""
+    if m > DECODE_M or k > DECODE_K:
+        return 0, 0
+    return _decode_plan(m, n, k)[1:]
+
+
 def int8_matmul(x, wq, scale, out_dtype=None):
     """x @ (wq · scale[col]) with in-kernel widening of the int8 weight.
 
@@ -75,14 +117,14 @@ def int8_matmul(x, wq, scale, out_dtype=None):
     if not on_card(x, wq, scale):
         return int8_matmul_plain(x, wq, scale, out_dtype)
     fn = _build.c_function(
-        "int8_matmul", "dft_int8_matmul", (P, I, P, P, P, I, I, I, I, P)
+        "int8_matmul", "dft_int8_matmul", (P, I, P, P, P, I, I, I, I, I, I, P)
     )
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     with on_device(x.device):
         rc = fn(
             x.data_ptr(), int(x.dtype == torch.bfloat16), wq.data_ptr(),
             scale.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16),
-            m, n, k, stream(),
+            m, n, k, *_decode_args(m, n, k), stream(),
         )
     _build.check(rc, "int8_matmul")
     int8_matmul.launches += 1
@@ -113,14 +155,14 @@ def w8a8_matmul(xq, sx, wq, sw, out_dtype=torch.float32):
     if not on_card(xq, sx, wq, sw):
         return w8a8_matmul_plain(xq, sx, wq, sw, out_dtype)
     fn = _build.c_function(
-        "w8a8_matmul", "dft_w8a8_matmul", (P, P, P, P, P, I, I, I, I, P)
+        "w8a8_matmul", "dft_w8a8_matmul", (P, P, P, P, P, I, I, I, I, I, I, P)
     )
     out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
     with on_device(xq.device):
         rc = fn(
             xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), sw.data_ptr(),
             out.data_ptr(), int(out_dtype == torch.bfloat16), m, n, k,
-            stream(),
+            *_decode_args(m, n, k), stream(),
         )
     _build.check(rc, "w8a8_matmul")
     w8a8_matmul.launches += 1

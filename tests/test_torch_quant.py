@@ -170,3 +170,53 @@ def test_cpu_calls_take_the_plain_twins():
         ops.w8a8_matmul(xq, sx, wq, s), quant.w8a8_matmul_plain(xq, sx, wq, s),
         rtol=0, atol=0,
     )
+
+
+# (K, N) of the d1024 x 12, V8192 decoder's quantised products, and the
+# ragged decode shapes (M <= 8) that chip_smoke.py checks on the card
+DECODER = {"qkv": (1024, 3072), "o": (1024, 1024), "fc1": (1024, 4096),
+           "fc2": (4096, 1024), "head": (1024, 8192)}
+RAGGED_DECODE = [(1, 1024, 3072), (5, 70, 50), (8, 33, 17), (8, 64, 48),
+                 (8, 1000, 1024), (8, 17, 64), (5, 1024, 1000), (8, 4100, 1024),
+                 (3, 4100, 1030), (1, 8192, 32)]
+
+
+def _check_plan(m, k, n):
+    """The plan's splits cover every K row and its tiles every column
+    exactly once, in the tile and chunks the kernel takes (32 columns; K
+    rows a multiple of 64, at most 512), with at most 16 splits, the blocks
+    of one cluster, which sum their partials in shared memory: the plan
+    needs no workspace in device memory.  Returns the block count."""
+    tile, chunk, splits = quant._decode_plan(m, n, k)
+    assert tile == 32 and chunk % 64 == 0 and 64 <= chunk <= 512
+    assert 1 <= splits <= 16
+    rows = np.zeros(k, np.int64)
+    for s in range(splits):
+        rows[s * chunk:min((s + 1) * chunk, k)] += 1
+    assert (rows == 1).all() and (splits - 1) * chunk < k
+    tiles = -(-n // tile)
+    cols = np.zeros(tiles * tile, np.int64)
+    for t in range(tiles):
+        cols[t * tile:(t + 1) * tile] += 1
+    assert (cols[:n] == 1).all() and (tiles - 1) * tile < n
+    return tiles * splits
+
+
+@pytest.mark.parametrize("name", sorted(DECODER))
+@pytest.mark.parametrize("m", [1, 2, 5, 8])
+def test_decode_plan_fills_the_card_at_the_decoder_shapes(m, name):
+    k, n = DECODER[name]
+    assert _check_plan(m, k, n) >= 2 * 132
+
+
+@pytest.mark.parametrize("m,k,n", RAGGED_DECODE)
+def test_decode_plan_covers_ragged_shapes(m, k, n):
+    _check_plan(m, k, n)
+
+
+@pytest.mark.parametrize("m,k", [(0, 1024), (9, 1024), (1536, 1024), (8, 8193)])
+def test_decode_plan_takes_decode_shapes_only(m, k):
+    with pytest.raises(ValueError):
+        quant._decode_plan(m, 1024, k)
+    if m > 8 or k > 8192:
+        assert quant._decode_args(m, 1024, k) == (0, 0)  # the square tiles
