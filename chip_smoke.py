@@ -11,23 +11,29 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
 2. Kernel phase: each kernel of the serving path (int8_matmul, w8a8_matmul)
    against its plain PyTorch twin on the card, at the decoder's shapes of the
    d1024 x 12, V8192 model — (K, N) of qkv, o, fc1, fc2 and head, at decode
-   M = 1, 2, 5 and 8 (the split-K path) and prefill M = 8 * 192 — for x in
-   bf16 and f32 and both output dtypes, then at ragged shapes and on a
-   misaligned weight, which take the kernels' masked edges, among them the
-   split edges of the decode path (K not a multiple of the chunk, K 17
-   below one chunk, N not a multiple of 16, a misaligned weight with
-   splits, 16 splits at K 8192, and K 9000, past the decode path, on the
-   square tiles).  Tolerances: w8a8 exact; int8 with f32 output rtol 1e-4 and
-   atol 1e-3 (the JAX tests' bound); bf16 output that bound plus one bf16
-   ulp.  Then the same decode call twice must give the same bits (int8
-   with f32 and bf16 output, w8a8), and 200 calls of mixed decode shapes
-   queued back to back on one stream must each equal their twin.  Times each shape at M 8 and 1536 and one
-   whole decode step's 49 calls with CUDA events, beside the plain twin,
+   M = 1, 2, 5 and 8 (the split-K path) and prefill M = 8 * 192 and 192
+   (the tensor-core tile, B 8 and B 1) — for x in bf16 and f32 and both
+   output dtypes, then at ragged shapes and on a misaligned weight, which
+   take the kernels' masked edges: the split edges of the decode path (K
+   not a multiple of the chunk, K 17 below one chunk, N not a multiple of
+   16, a misaligned weight with splits, 16 splits at K 8192) and the
+   prefill tile's (M 9, 16, 100, 129, 300 and 1000 at K 4096 and N 1000 or
+   1030, a misaligned weight, bf16 x with K 70 and int8 x with K 33, whose
+   rows are not whole 16-byte chunks, and K 9000, past the decode path, at
+   M 2 and 300).  Tolerances: w8a8 exact; int8 with f32 output rtol 1e-4
+   and atol 1e-3 (the JAX tests' bound); bf16 output that bound plus one
+   bf16 ulp.  Then the same decode call (M 8) and prefill call (M 1536)
+   twice must give the same bits (int8 with f32 and bf16 output, f32 x,
+   w8a8), and 200 calls of mixed decode shapes queued back to back on one
+   stream must each equal their twin.  Times each shape at M 8 and 1536,
+   one whole decode step's 49 calls and one prefill's 49 calls (48 at
+   M 1536 and the head at M 8) with CUDA events, beside the plain twin,
    the library call (int8: torch.matmul on the pre-dequantised weight;
-   w8a8: torch._int_mm on the int8 operands, x padded to 32 rows, since
-   it takes more than 16) and the card's bound.  f32 products run without
-   TF32 (torch.backends.cuda.matmul.allow_tf32 = False) in every
-   comparison.
+   w8a8: torch._int_mm on the int8 operands, x padded to 32 rows when it
+   has 16 or fewer) and the card's bound (int8 with f32 x: the three bf16
+   products the kernel runs, 3 x 2 M K N at the bf16 rate).  f32 products
+   run without TF32 (torch.backends.cuda.matmul.allow_tf32 = False) in
+   every comparison.
 3. Slice phase, the main path: TransformerLM(vocab 8192, max_len 192,
    dim 1024, depth 12, heads 8) with random weights from a seed, served by
    KVCacheDecoder in bf16 with quant None, "int8" and "w8a8", three requests
@@ -146,6 +152,12 @@ DECODE_RAGGED = (  # (M, K, N, weight 16-byte aligned): the split-K path's edges
     (8, 1000, 1024, True), (8, 17, 64, True), (5, 1024, 1000, True), (8, 4100, 1024, False),
     (3, 4100, 1030, True), (1, 8192, 32, True), (2, 9000, 48, True),  # K past the decode path
 )
+PREFILL_RAGGED = (  # (M, K, N, weight 16-byte aligned): the prefill tile's edges
+    (9, 4096, 1000, True), (16, 4096, 1030, True), (100, 4096, 1000, True),
+    (129, 4096, 1030, True), (300, 4096, 1000, True), (1000, 4096, 1030, True),
+    (200, 4096, 1024, False), (100, 70, 64, True), (40, 33, 100, True), (300, 9000, 200, True),
+)
+PREFILL_M = 8 * MODEL["max_len"]  # rows of a B 8 prefill's products
 PER_FORWARD = 4 * MODEL["depth"] + 1  # kernel launches per prefill or step
 REQUESTS = (  # (batch, prompt, new tokens, sampling)
     (8, 64, 128, {}),
@@ -278,14 +290,14 @@ def kernel_phase(torch, ops, report):
 
     max_err = {"int8_matmul": 0.0, "w8a8_matmul": 0.0}
     rows = []
-    for M in (1, 2, 5, 8, 8 * MODEL["max_len"]):
+    for M in (1, 2, 5, 8, MODEL["max_len"], PREFILL_M):
         for xdt, xname in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
             for name, (K, N) in SHAPES.items():
                 x = torch.randn((M, K), generator=g, device=dev).to(xdt)
                 w = torch.randn((K, N), generator=g, device=dev) * 0.02
                 wq, s = ops.quantize_int8(w)
                 xq, sx = compare(torch, ops, x, wq, s, f"M={M} {name} x={xname}", max_err)
-                if M not in (8, 8 * MODEL["max_len"]):
+                if M not in (8, PREFILL_M):
                     continue  # checked, not timed
                 xl, wl = int_mm_operands(torch, xq, wq)
                 out_bytes = M * N * x.element_size()
@@ -295,9 +307,11 @@ def kernel_phase(torch, ops, report):
                 r["int8_ms"] = event_ms(lambda: ops.int8_matmul(x, wq, s), reps, flush)
                 r["int8_plain_ms"] = event_ms(lambda: ops.int8_matmul_plain(x, wq, s), reps, flush)
                 r["int8_library_ms"] = event_ms(lambda: torch.matmul(x, wdeq), reps, flush)
+                # f32 x: the three bf16 products the kernel runs
                 r["int8_bound_ms"], r["int8_bound_by"] = bound_ms(
                     M * K * x.element_size() + K * N + 4 * N + out_bytes,
-                    2 * M * K * N, xname)
+                    (3 if xname == "f32" else 1) * 2 * M * K * N, "bf16")
+                r["int8_bound_ops"] = "3 bf16 products" if xname == "f32" else "1 bf16 product"
                 r["w8a8_ms"] = event_ms(
                     lambda: ops.w8a8_matmul(xq, sx, wq, s, out_dtype=xdt), reps, flush)
                 r["w8a8_plain_ms"] = event_ms(
@@ -309,13 +323,14 @@ def kernel_phase(torch, ops, report):
                 print(
                     f"  M={M:5d} {name:4s} K={K:4d} N={N:4d} x={xname:4s} | int8 "
                     f"{r['int8_ms']:.4f} ms (plain {r['int8_plain_ms']:.4f}, matmul "
-                    f"{r['int8_library_ms']:.4f}, bound {r['int8_bound_ms']:.4f}) | "
+                    f"{r['int8_library_ms']:.4f}, bound {r['int8_bound_ms']:.4f} of "
+                    f"{r['int8_bound_ops']}) | "
                     f"w8a8 {r['w8a8_ms']:.4f} ms (plain {r['w8a8_plain_ms']:.4f}, _int_mm "
                     f"{r['w8a8_library_ms']:.4f}, bound {r['w8a8_bound_ms']:.4f})"
                 )
     # ragged M, K and N, one row (B 1 decode), and a weight whose address is
     # not 16-byte aligned, which takes the kernels' bytewise weight loads
-    for M, K, N, aligned in RAGGED + DECODE_RAGGED:
+    for M, K, N, aligned in RAGGED + DECODE_RAGGED + PREFILL_RAGGED:
         for xdt in (torch.bfloat16, torch.float32):
             x = torch.randn((M, K), generator=g, device=dev).to(xdt)
             wq, s = ops.quantize_int8(torch.randn((K, N), generator=g, device=dev) * 0.02)
@@ -323,8 +338,9 @@ def kernel_phase(torch, ops, report):
                 wq = misaligned(torch, wq)
             compare(torch, ops, x, wq, s, f"ragged M={M} K={K} N={N} aligned={aligned}"
                     f" x={xdt}", max_err)
-    print(f"  ragged shapes agree: {[r[:3] for r in RAGGED + DECODE_RAGGED]}")
+    print(f"  ragged shapes agree: {[r[:3] for r in RAGGED + DECODE_RAGGED + PREFILL_RAGGED]}")
     report["decode_repeats"] = decode_repeat_checks(torch, ops, g)
+    prefill_repeat_checks(torch, ops, g)
     report["kernel_shapes"] = rows
     return max_err
 
@@ -375,22 +391,52 @@ def decode_repeat_checks(torch, ops, g):
     return dict(shapes=len(cases), back_to_back=len(queued))
 
 
+def prefill_repeat_checks(torch, ops, g):
+    """The prefill tile is deterministic: the same M 1536 call twice gives
+    the same bits (int8 with bf16 x and f32 or bf16 output, f32 x, w8a8) at
+    the decoder's four prefill shapes."""
+    dev = torch.device("cuda")
+    for name in ("qkv", "o", "fc1", "fc2"):
+        K, N = SHAPES[name]
+        x = torch.randn((PREFILL_M, K), generator=g, device=dev)
+        wq, s = ops.quantize_int8(torch.randn((K, N), generator=g, device=dev) * 0.02)
+        xq, sx = ops.quantize_int8_rows(x)
+        for xin, odt in ((x.bfloat16(), torch.float32), (x.bfloat16(), torch.bfloat16),
+                         (x, torch.float32)):
+            a = ops.int8_matmul(xin, wq, s, out_dtype=odt)
+            if not torch.equal(a, ops.int8_matmul(xin, wq, s, out_dtype=odt)):
+                fail(f"int8_matmul M={PREFILL_M} {name} x={xin.dtype} out={odt}: two calls differ")
+        if not torch.equal(ops.w8a8_matmul(xq, sx, wq, s), ops.w8a8_matmul(xq, sx, wq, s)):
+            fail(f"w8a8_matmul M={PREFILL_M} {name}: two calls differ")
+    print(f"  prefill calls deterministic: two calls bitwise equal at the 4 shapes, M {PREFILL_M}")
+
+
 def decode_step_timing(torch, ops):
     """One decode step's 49 kernel calls at M = 8 with bf16 activations, over
     12 layers of distinct weights (so the weights stream from device memory
     as in the decoder): kernel, plain twin and library times beside the
     bound, per kernel (w8a8's library call is torch._int_mm at 32 rows, the
     integer product alone)."""
+    return forward_timing(torch, ops, 8)
+
+
+def forward_timing(torch, ops, M):
+    """The 49 calls of one forward: 12 layers of distinct weights (qkv, o,
+    fc1, fc2) at M rows and the head at M 8 (f32 out), bf16 x.  At M 1536
+    that is one B 8 prefill (the decoder takes only the last position's
+    hidden state to the head).  Returns ({kernel, plain twin and library:
+    ms}, int8 bound, w8a8 bound, weight bytes)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
-    M, depth = 8, MODEL["depth"]
+    depth = MODEL["depth"]
     calls = []  # (x, xq, sx, wq, s, wdeq, out_dtype)
     int_mm = []  # torch._int_mm's operands of each call
     for layer in range(depth + 1):
         names = ("head",) if layer == depth else ("qkv", "o", "fc1", "fc2")
         for name in names:
             K, N = SHAPES[name]
-            x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+            x = torch.randn((8 if name == "head" else M, K), generator=g,
+                            device=dev).to(torch.bfloat16)
             wq, s = ops.quantize_int8(torch.randn((K, N), generator=g, device=dev) * 0.02)
             xq, sx = ops.quantize_int8_rows(x)
             odt = torch.float32 if name == "head" else torch.bfloat16
@@ -1357,12 +1403,18 @@ def main(argv=None) -> int:
     print(f"one decode step's {PER_FORWARD} calls (M=8, bf16 x, {wbytes} weight bytes): "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in step_ms.items())
           + f"; bound int8 {b_int8[0]:.4f} ms, w8a8 {b_w8a8[0]:.4f} ms")
+    pre_ms, p_int8, p_w8a8, _ = forward_timing(torch, ops, PREFILL_M)
+    report["prefill_kernels_ms"] = dict(pre_ms, int8_bound_ms=p_int8[0], w8a8_bound_ms=p_w8a8[0])
+    print(f"one prefill's {PER_FORWARD} calls (48 at M={PREFILL_M} and the head at M=8, bf16 x): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in pre_ms.items())
+          + f"; bound int8 {p_int8[0]:.4f} ms ({p_int8[1]}), w8a8 {p_w8a8[0]:.4f} ms "
+          f"({p_w8a8[1]}); {card}")
 
     phase("slice phase (main path):")
     counts = slice_phase(torch, dt, report)
 
     at = (f"one decode step: {PER_FORWARD} calls, M=8, bf16 x, (K, N) of qkv/o/fc1/fc2"
-          " x 12 layers + head")
+          f" x 12 layers + head; prefill_*: one prefill, the 48 at M={PREFILL_M} + head")
     kernels = [
         dict(name="int8_matmul", route="cuda",
              source="deepflows_tpu_torch/csrc/int8_matmul.cu",
@@ -1370,14 +1422,18 @@ def main(argv=None) -> int:
              launches=counts["int8_matmul"], max_abs_err=max_err["int8_matmul"],
              ms=step_ms["int8_matmul"], plain_ms=step_ms["int8_matmul_plain"],
              bound_ms=b_int8[0], bound_by=b_int8[1],
-             library_ms=step_ms["int8_matmul_library"], at=at),
+             library_ms=step_ms["int8_matmul_library"], at=at,
+             prefill_ms=pre_ms["int8_matmul"], prefill_library_ms=pre_ms["int8_matmul_library"],
+             prefill_bound_ms=p_int8[0]),
         dict(name="w8a8_matmul", route="cuda",
              source="deepflows_tpu_torch/csrc/w8a8_matmul.cu",
              replaces="deepflows_tpu/ops/pallas_kernels.py:718",
              launches=counts["w8a8_matmul"], max_abs_err=max_err["w8a8_matmul"],
              ms=step_ms["w8a8_matmul"], plain_ms=step_ms["w8a8_matmul_plain"],
              bound_ms=b_w8a8[0], bound_by=b_w8a8[1],
-             library_ms=step_ms["w8a8_matmul_library"], at=at),
+             library_ms=step_ms["w8a8_matmul_library"], at=at,
+             prefill_ms=pre_ms["w8a8_matmul"], prefill_library_ms=pre_ms["w8a8_matmul_library"],
+             prefill_bound_ms=p_w8a8[0]),
     ]
 
     phase("training kernel phase (kernel vs plain twin; times at the slice's bf16 shapes, "

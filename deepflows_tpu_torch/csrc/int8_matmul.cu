@@ -9,20 +9,22 @@
 // weight byte, so the floor is the weight bytes over 3.35 TB/s (a
 // (1024, 4096) weight is 4 MiB: 1.25 us); at the decoder's shapes each
 // call's fixed cost (launch, the first trip to device memory, the hand-over
-// of the K splits) is larger.  The weight streams once, as int8, and is
-// widened only on chip, never written back widened (the point of the TPU
-// kernel).  Decode M takes int8_tile.cuh's split-K stream: (32-column
-// tile, K chunk) blocks, at least 264 at every decoder shape, a tile's K
-// splits one cluster; every warp keeps its whole share of the weight in
-// flight as 16-byte cp.async copies and multiplies each 64-row step as it
-// lands on the tensor cores (int8 -> bf16 exact; bf16 x as it is, f32 x as
-// three exact bf16 parts, so the products are exact and the sums f32).
-// The splits meet in distributed shared memory and are added in split
-// order, so two calls give the same bits.  Larger M takes the Square tiles
-// (a load-then-compute loop on the CUDA cores; tensor cores there are
-// later work).  The TPU kernel's padding of every operand to its 128/256
-// tiles is dropped; the kernel masks ragged edges itself.  PERF.md holds
-// its measured times.
+// of the K splits) is larger.  At prefill M (1536 at B 8) it is bound by
+// operations: 2 M K N over 989 TFLOP/s in bf16 (three times that for f32 x,
+// which runs three bf16 products).  The weight streams once, as int8, and
+// is widened only on chip, never written back widened (the point of the
+// TPU kernel).  Both designs are in int8_tile.cuh.  Decode M takes the
+// split-K stream: (32-column tile, K chunk) blocks, at least 264 at every
+// decoder shape, a tile's K splits one cluster; every warp keeps its whole
+// share of the weight in flight as 16-byte cp.async copies and multiplies
+// each 64-row step as it lands on the tensor cores.  Prefill M takes the
+// tensor-core tile: BM x 128 outputs a block (the plan's BM fills the 132
+// SMs), a 3-stage cp.async ring of 64-row K steps, mma.sync m16n8k16.
+// Both widen int8 -> bf16 exactly and take bf16 x as it is and f32 x as
+// three exact bf16 parts, so the products are exact and the sums f32, in a
+// fixed order: two calls give the same bits.  The TPU kernel's padding of
+// every operand to its 128/256 tiles is dropped; the kernel masks ragged
+// edges itself.  PERF.md holds its measured times.
 #include "int8_tile.cuh"
 
 namespace {
@@ -37,30 +39,35 @@ struct ScaleColumns {
   __device__ __forceinline__ void store(int m, int n, float acc, float s) const {
     out[(size_t)m * N + n] = dft::from_float<OT>(acc * s);
   }
-  __device__ __forceinline__ void operator()(int m, int n, float acc) const {
-    store(m, n, acc, load(m, n));
+  // out[m, n .. n + 7], the columns below N (prefill tile)
+  __device__ __forceinline__ void store8(int m, int n, const float (&acc)[8]) const {
+    alignas(16) OT v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      v[j] = dft::from_float<OT>(n + j < N ? acc[j] * __ldg(scale + n + j) : 0.f);
+    dft::store_row8(out + (size_t)m * N, n, N, v);
   }
 };
 
 template <typename XT, typename OT>
 cudaError_t run(const void* x, const void* wq, const void* scale, void* out, int M, int N,
-                int K, const dft::DecodePlan& plan, cudaStream_t stream) {
+                int K, const dft::Plan& plan, cudaStream_t stream) {
   const ScaleColumns<OT> epi{static_cast<const float*>(scale), static_cast<OT*>(out), N};
-  return dft::launch_int8_product<XT, float, float>(x, wq, M, N, K, plan, epi, stream);
+  return dft::launch_int8_product<XT, float>(x, wq, M, N, K, plan, epi, stream);
 }
 
 }  // namespace
 
-// chunk and splits are the decode plan (ops/quant.py _decode_plan); splits
-// 0 takes the square tiles.  Returns cudaErrorInvalidValue for a plan the
-// kernel does not take, else the launch's error; the caller raises if it is
-// not 0.
+// chunk and splits are the decode plan (ops/quant.py _decode_plan), tile_m
+// the prefill plan (_prefill_plan), the other zero.  Returns
+// cudaErrorInvalidValue for a plan the kernel does not take, else the
+// launch's error; the caller raises if it is not 0.
 extern "C" int dft_int8_matmul(const void* x, int x_bf16, const void* wq,
                                const void* scale, void* out, int out_bf16, int M,
                                int N, int K, int chunk, int splits,
-                               void* stream) {
+                               int tile_m, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dft::DecodePlan plan{chunk, splits};
+  const dft::Plan plan{chunk, splits, tile_m};
   cudaError_t rc;
   if (x_bf16) {
     if (out_bf16)

@@ -1,7 +1,9 @@
 // Shared tiling of the two int8 matrix products, int8_matmul.cu and
 // w8a8_matmul.cu: out[M, N] = epilogue(sum_k x[m, k] * w[k, n]) with an
-// int8 (K, N) row-major weight.  The int8 weight bytes are all that crosses
-// device memory: it is widened only on chip.  Two designs, chosen by M.
+// int8 (K, N) row-major weight.  It replaces the K loops of the TPU kernels
+// _int8_matmul_kernel and _w8a8_kernel (deepflows_tpu/ops/pallas_kernels.py).
+// The int8 weight bytes are all that crosses device memory: it is widened
+// only on chip.  Two designs, chosen by the shape.
 //
 // Decode (M <= 8, K <= 8192; int8_decode_kernel): a weight stream.  The
 // grid is (column tiles of 32, K splits) as the wrapper's plan
@@ -25,12 +27,38 @@
 // TB/s) but each call's fixed cost: the launch (about 1 us), the first
 // trip to device memory, and the cluster's hand-over at the end.
 //
-// Prefill and other large M (int8_tile_kernel with the Square tile): each
-// block owns a BM x BN tile of the output and loops over K in steps of BK,
-// staging the x tile (widened to XS) and the int8 weight tile into shared
-// memory in 16-byte loads per step.  Each thread owns TM x TN outputs.  The
-// epilogue functor scales, converts and stores one output.  Ragged M, N and
-// K edges are masked in both designs: out-of-range elements are zeros.
+// Prefill and every other call (M > 8, or K > 8192 at any M;
+// int8_prefill_kernel): bound by operations, not bytes.  At the decoder's
+// prefill shapes (M 1536) a call does 2 M K N = 3.2-12.9 GFLOP on 1-4 MB of
+// weight, 3.3-13 us at 989 TFLOP/s (bf16) or 1,979 TOPS (int8) against
+// 1-4 us of bytes, so only the tensor cores can approach the card's rate.
+// Each block owns a BM x 128 output tile (BM 128, 64 or 32, as the
+// wrapper's plan, ops/quant.py _prefill_plan, chooses so that the grid
+// fills the 132 SMs) and each of its warps a 64 x 32 part (BM 128: 8
+// warps; BM 64: 4) or 32 x 32 (BM 32: 4 warps).  A warp widens its B
+// fragments once for all its 16-row tiles, so its tile stays tall (8-warp
+// blocks of 32 x 32 and 16 x 32 warp tiles at BM 64 and 32 were slower per
+// call in a tile sweep on the H100, PERF.md section 6).  K goes
+// in steps of 64 rows through a 3-stage ring of 16-byte cp.async copies,
+// zero-filled past the M, N and K edges: the copies of steps s + 1 and
+// s + 2 are in flight while step s multiplies, with one block barrier a
+// step.  Only int8 weight bytes cross device memory.  The weight tile is
+// kept as it arrives, (K, N) bytes, with each row's four 32-byte segments
+// swizzled by row so that the reads below hit 32 distinct banks; a thread
+// reads one word (4 columns) from each of 4 K rows and a 4 x 4 byte
+// transpose gives it those columns' 4 K values, which is the B fragment of
+// mma.sync: as it is for int8 x (m16n8k32 s8 -> s32, exact), widened to
+// bf16 exactly (the 0x4B000000 trick) for float x (m16n8k16 bf16 -> f32,
+// exact products, f32 sums).  The 4 columns a thread reads are column g of
+// 4 n8 tiles, so its 8 sums of a row are 8 adjacent columns, stored as one
+// 16- or 32-byte write.  x is staged as it is and read with ldmatrix (bf16
+// and int8) or, for f32 x, as float pairs split into the three exact bf16
+// parts of split3, one product each, so the products are exactly f32's
+// (no TF32).  One block sums each output over all of K in a fixed order:
+// two calls give the same bits.  A weight or N that is not 16-byte aligned
+// and x rows whose bytes are not a multiple of 16 take plain loads into
+// the same ring.  Ragged M, N and K edges are masked in both designs:
+// out-of-range elements are zeros.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -45,122 +73,25 @@
 
 namespace dft {
 
-__device__ __forceinline__ float stage(float v) { return v; }
-__device__ __forceinline__ float stage(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ int8_t stage(int8_t v) { return v; }
-
 template <typename T> __device__ __forceinline__ T from_float(float v);
 template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-template <int BM_, int BN_, int BK_, int TM_, int TN_, int KS_>
-struct Tile {
-  static constexpr int BM = BM_, BN = BN_, BK = BK_, TM = TM_, TN = TN_, KS = KS_;
-  static constexpr int THREADS = (BM / TM) * (BN / TN) * KS;
-  static_assert(BN % 16 == 0, "weight rows are staged in 16-byte chunks");
-  static_assert(TN == 4, "a thread reads its weights as one 4-byte word");
-};
-
-// Prefill and other large M: 64 x 64 output tiles, 4 x 4 outputs per thread.
-using Square = Tile<64, 64, 32, 4, 4, 1>;
-
-template <class TL, typename XT, typename XS, typename ACC, class Epilogue>
-__global__ void __launch_bounds__(TL::THREADS)
-int8_tile_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
-                 int M, int N, int K, int w_vec16, Epilogue epi) {
-  constexpr int BM = TL::BM, BN = TL::BN, BK = TL::BK, TM = TL::TM, TN = TL::TN,
-                KS = TL::KS, THREADS = TL::THREADS;
-  constexpr int NT = BN / TN, MT = BM / TM, XLD = BK + 1;
-  constexpr int XS_BYTES = (BM * XLD * (int)sizeof(XS) + 15) / 16 * 16;
-  constexpr int TILE_BYTES = XS_BYTES + BK * BN;
-  constexpr int RED_BYTES = KS > 1 ? KS * BM * BN * (int)sizeof(ACC) : 0;
-  constexpr int SMEM = TILE_BYTES > RED_BYTES ? TILE_BYTES : RED_BYTES;
-  __shared__ __align__(16) unsigned char smem[SMEM];
-  XS* xs = reinterpret_cast<XS*>(smem);                     // [BM][BK + 1]
-  int8_t* ws = reinterpret_cast<int8_t*>(smem + XS_BYTES);  // [BK][BN]
-
-  const int t = threadIdx.x;
-  const int tn = t % NT, tm = (t / NT) % MT, ks = t / (NT * MT);
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-
-  ACC acc[TM][TN];
+// v[j] to row[n + j] for the columns below N: one 16-byte store per 16
+// bytes where the row's length allows (the prefill tile's epilogue; v and
+// row + n 16-byte aligned when n is a multiple of 8).
+template <typename OT>
+__device__ __forceinline__ void store_row8(OT* row, int n, int N, const OT (&v)[8]) {
+  OT* dst = row + n;
+  if (n + 8 <= N && (N * sizeof(OT)) % 16 == 0) {
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = ACC(0);
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int e = t; e < BM * BK; e += THREADS) {
-      const int r = e / BK, c = e % BK, gm = m0 + r, gk = k0 + c;
-      xs[r * XLD + c] = (gm < M && gk < K) ? stage(x[(size_t)gm * K + gk]) : XS(0);
-    }
-    constexpr int CH = BN / 16;
-    for (int e = t; e < BK * CH; e += THREADS) {
-      const int r = e / CH, c = (e % CH) * 16, gk = k0 + r, gn = n0 + c;
-      int4 v = make_int4(0, 0, 0, 0);
-      if (gk < K) {
-        const int8_t* src = w + (size_t)gk * N + gn;
-        if (w_vec16 && gn + 16 <= N) {
-          v = __ldg(reinterpret_cast<const int4*>(src));
-        } else {
-          int8_t* b = reinterpret_cast<int8_t*>(&v);
-          for (int j = 0; j < 16; ++j)
-            if (gn + j < N) b[j] = src[j];
-        }
-      }
-      *reinterpret_cast<int4*>(ws + r * BN + c) = v;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = ks; kk < BK; kk += KS) {
-      ACC a[TM];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = ACC(xs[(tm * TM + i) * XLD + kk]);
-      const char4 q = *reinterpret_cast<const char4*>(ws + kk * BN + tn * TN);
-      const ACC b[TN] = {ACC(q.x), ACC(q.y), ACC(q.z), ACC(q.w)};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] += a[i] * b[j];
-    }
-    __syncthreads();
-  }
-
-  if constexpr (KS > 1) {
-    ACC* red = reinterpret_cast<ACC*>(smem);  // [KS][BM][BN]
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j)
-        red[(ks * BM + tm * TM + i) * BN + tn * TN + j] = acc[i][j];
-    __syncthreads();
-    for (int e = t; e < BM * BN; e += THREADS) {
-      const int r = e / BN, c = e % BN;
-      ACC s = ACC(0);
-      for (int q = 0; q < KS; ++q) s += red[(q * BM + r) * BN + c];
-      if (m0 + r < M && n0 + c < N) epi(m0 + r, n0 + c, s);
-    }
+    for (int q = 0; q < (int)sizeof(v) / 16; ++q)
+      reinterpret_cast<int4*>(dst)[q] = reinterpret_cast<const int4*>(v)[q];
   } else {
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int gm = m0 + tm * TM + i, gn = n0 + tn * TN + j;
-        if (gm < M && gn < N) epi(gm, gn, acc[i][j]);
-      }
+    for (int j = 0; j < 8 && n + j < N; ++j) dst[j] = v[j];
   }
-}
-
-// Launch the tile kernel with TL's shape over an M x N output.
-template <class TL, typename XT, typename XS, typename ACC, class Epilogue>
-void launch_tiles(const void* x, const void* w, int M, int N, int K, Epilogue epi,
-                  cudaStream_t stream) {
-  const dim3 grid((N + TL::BN - 1) / TL::BN, (M + TL::BM - 1) / TL::BM);
-  const int vec = (N % 16 == 0) && (reinterpret_cast<uintptr_t>(w) % 16 == 0);
-  int8_tile_kernel<TL, XT, XS, ACC><<<grid, TL::THREADS, 0, stream>>>(
-      static_cast<const XT*>(x), static_cast<const int8_t*>(w), M, N, K, vec, epi);
 }
 
 namespace decode {
@@ -207,6 +138,21 @@ __device__ __forceinline__ void cp_async_wait(int n) {
 // gives b exactly.
 __device__ __forceinline__ float widen(uint32_t u, int j) {
   return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + j)) - 8388736.f;
+}
+
+// Column j of a 4 x 4 byte block given as 4 row words: its 4 bytes, row 0
+// lowest.
+__device__ __forceinline__ void transpose4(const uint32_t (&r)[4], uint32_t (&col)[4]) {
+  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[0], r[1], 0x7362);
+  const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140), t3 = __byte_perm(r[2], r[3], 0x7362);
+  col[0] = __byte_perm(t0, t2, 0x5410), col[1] = __byte_perm(t0, t2, 0x7632);
+  col[2] = __byte_perm(t1, t3, 0x5410), col[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+// Two bf16, the lower in the low half: the top halves of two floats that
+// bf16 holds exactly.
+__device__ __forceinline__ uint32_t top_halves(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
 }
 
 // MR values at p (16-byte aligned when MR is a multiple of 4).
@@ -376,9 +322,8 @@ int8_decode_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w, int M
       for (int col = 0; col < 4; ++col) {  // column 4 g + col: product col / 2, row g (+ 8)
         const float f0 = widen(u[0], col), f1 = widen(u[1], col);
         const float f2 = widen(u[2], col), f3 = widen(u[3], col);
-        // the bf16 of an int8 value is the top half of its float
-        a[col / 2][col % 2] = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
-        a[col / 2][2 + col % 2] = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+        a[col / 2][col % 2] = top_halves(f0, f1);
+        a[col / 2][2 + col % 2] = top_halves(f2, f3);
       }
       // B: x row g at K rows 4 q .. 4 q + 3, as pairs (4 q, 4 q + 1), (4 q + 2, 4 q + 3)
       const XT* xr = reinterpret_cast<const XT*>(xsm) + g * XLD + 4 * q;
@@ -406,17 +351,14 @@ int8_decode_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w, int M
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         r[i] = *reinterpret_cast<const uint32_t*>(wsm + q * QUAD_BYTES + 32 * i + 4 * cw);
-      // column cc's 4 K values in one word: a 4 x 4 byte transpose
-      const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[0], r[1], 0x7362);
-      const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140), t3 = __byte_perm(r[2], r[3], 0x7362);
-      const int col[4] = {(int)__byte_perm(t0, t2, 0x5410), (int)__byte_perm(t0, t2, 0x7632),
-                          (int)__byte_perm(t1, t3, 0x5410), (int)__byte_perm(t1, t3, 0x7632)};
+      uint32_t col[4];  // column cc's 4 K values in one word
+      transpose4(r, col);
       int xv[MR];
       load_rows<MR>(reinterpret_cast<const int*>(xsm) + q * MR, xv);
 #pragma unroll
       for (int m = 0; m < MR; ++m)
 #pragma unroll
-        for (int cc = 0; cc < 4; ++cc) acc[m][cc] = __dp4a(col[cc], xv[m], acc[m][cc]);
+        for (int cc = 0; cc < 4; ++cc) acc[m][cc] = __dp4a((int)col[cc], xv[m], acc[m][cc]);
     }
   }
 
@@ -495,15 +437,236 @@ int8_decode_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w, int M
   }
 }
 
-// The split the wrapper chose for M <= 8 (ops/quant.py _decode_plan): the K
-// rows a block takes and the number of K splits (0 for the Square tiles).
-struct DecodePlan {
-  int chunk, splits;
+
+namespace prefill {
+constexpr int WARPS_N = 4;
+constexpr int BN = 32 * WARPS_N;  // columns of a block's tile: a 32-byte segment a warp
+constexpr int KSTEP = 64;         // K rows of one stage of the ring
+constexpr int STAGES = 3;
+constexpr int W_BYTES = KSTEP * BN;  // a stage's weight tile, (K, N) bytes
+// bytes of a staged x row: the K step plus a pad that puts the rows one
+// ldmatrix phase reads (bf16, int8: 16-byte pad) or one 8-byte load phase
+// reads (f32: 32-byte pad) on distinct banks
+template <typename XT>
+__host__ __device__ constexpr int x_row_bytes() {
+  return KSTEP * (int)sizeof(XT) + (sizeof(XT) == 4 ? 32 : 16);
+}
+template <int BM, typename XT>
+__host__ __device__ constexpr int smem_bytes() {
+  return STAGES * (BM * x_row_bytes<XT>() + W_BYTES);
+}
+}  // namespace prefill
+
+// c += a (16 x 32, row, s8) * b (32 x 8, col, s8), exact s32 sums
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// out[m, n] for M > 8 (or K > 8192) over one BM x 128 tile; see the head of
+// this file.  The block's WM x 4 warps each take MT 16-row tiles by 32
+// columns (BM = 16 MT WM).  ACC is float
+// (x f32 or bf16) or int (int8 x).  The epilogue's store8 stores 8 adjacent
+// columns of a row.
+template <int MT, int WM, typename XT, typename ACC, class Epilogue>
+__global__ void __launch_bounds__(32 * WM * prefill::WARPS_N)
+int8_prefill_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w, int M, int N,
+                    int K, int w_vec16, int x_vec16, Epilogue epi) {
+  using namespace prefill;
+  using bf16 = __nv_bfloat16;
+  constexpr bool INT = std::is_same<XT, int8_t>::value;
+  constexpr bool F32 = std::is_same<XT, float>::value;
+  static_assert(INT == std::is_same<ACC, int>::value, "int8 x sums in int, float x in float");
+  constexpr int THREADS = 32 * WM * WARPS_N, BM = 16 * MT * WM;
+  constexpr int XLD = x_row_bytes<XT>();
+  constexpr int X_BYTES = BM * XLD, STAGE = X_BYTES + W_BYTES;
+  constexpr int V = 16 / (int)sizeof(XT);  // x elements of a 16-byte chunk
+  constexpr int XCH = KSTEP / V, WCH = BN / 16;  // chunks of a staged x and weight row
+  // The weight row r keeps its segment s at s ^ ((r >> SW) & 3): the 4 K rows
+  // a fragment read takes at once (2 apart for bf16, 4 apart for s8) then
+  // fall on 4 distinct segments, 32 distinct banks.
+  constexpr int SW = INT ? 2 : 1;
+  extern __shared__ __align__(128) unsigned char smem[];
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const int g = lane / 4, tq = lane % 4;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int steps = (K + KSTEP - 1) / KSTEP;
+
+  // One stage: x rows [m0, m0 + BM) and weight rows [k0, k0 + 64) of the
+  // tile's columns, 16 bytes a copy, zeros outside the operands.
+  auto load_stage = [&](int buf, int step) {
+    unsigned char* xs = smem + buf * STAGE;
+    unsigned char* ws = xs + X_BYTES;
+    const int k0 = step * KSTEP;
+    for (int e = tid; e < BM * XCH; e += THREADS) {
+      const int r = e / XCH, c = e % XCH, gm = m0 + r, gk = k0 + c * V;
+      unsigned char* dst = xs + r * XLD + 16 * c;
+      const XT* src = x + (size_t)gm * K + gk;
+      if (x_vec16) {
+        const bool in = gm < M && gk < K;
+        cp_async16_zfill(dst, in ? src : x, in ? 16 : 0);
+      } else {  // rows of K elements are not whole 16-byte chunks: plain loads
+        alignas(16) XT v[V] = {};
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          if (gm < M && gk + j < K) v[j] = src[j];
+        *reinterpret_cast<int4*>(dst) = *reinterpret_cast<const int4*>(v);
+      }
+    }
+    for (int e = tid; e < KSTEP * WCH; e += THREADS) {
+      const int r = e / WCH, c = e % WCH, gk = k0 + r, gn = n0 + 16 * c;
+      unsigned char* dst = ws + r * BN + 32 * ((c >> 1) ^ ((r >> SW) & 3)) + 16 * (c & 1);
+      const int8_t* src = w + (size_t)gk * N + gn;
+      if (w_vec16) {
+        const bool in = gk < K && gn < N;
+        cp_async16_zfill(dst, in ? src : w, in ? 16 : 0);
+      } else {  // N % 16 != 0 or a misaligned weight: byte loads
+        alignas(16) int8_t v[16] = {};
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          if (gk < K && gn + j < N) v[j] = src[j];
+        *reinterpret_cast<int4*>(dst) = *reinterpret_cast<const int4*>(v);
+      }
+    }
+  };
+
+  // The B fragments' word of weight row r: columns 4 g .. 4 g + 3 of the
+  // warp's segment, the sign bit flipped for widening (float x).
+  auto weight_word = [&](const unsigned char* ws, int r) {
+    const uint32_t u =
+        *reinterpret_cast<const uint32_t*>(ws + r * BN + 32 * (wn ^ ((r >> SW) & 3)) + 4 * g);
+    return INT ? u : u ^ 0x80808080u;
+  };
+
+  ACC acc[MT][4][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = ACC(0);
+  const int row0 = wm * 16 * MT;  // the warp's first row in the tile
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) load_stage(s, s);
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait(STAGES - 2);  // this thread's copies of `step` have landed
+    __syncthreads();            // everyone's have, and the buffer refilled next is free
+    if (step + STAGES - 1 < steps) load_stage((step + STAGES - 1) % STAGES, step + STAGES - 1);
+    asm volatile("cp.async.commit_group;\n" ::);
+    const unsigned char* xs = smem + (step % STAGES) * STAGE;
+    const unsigned char* ws = xs + X_BYTES;
+    if constexpr (INT) {
+      // m16n8k32: B of n8 tile j is column 4 g + j of the segment, K rows
+      // 4 tq .. 4 tq + 3 (b0) and 16 + 4 tq .. (b1)
+#pragma unroll
+      for (int kk = 0; kk < KSTEP / 32; ++kk) {
+        uint32_t b[2][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t r[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) r[i] = weight_word(ws, 32 * kk + 16 * h + 4 * tq + i);
+          transpose4(r, b[h]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          uint32_t a[4];  // int8 pairs read as b16: 16 of them are 32 K bytes
+          mma::load_a(a, reinterpret_cast<const bf16*>(xs), XLD / 2, row0 + 16 * mt, 16 * kk);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_s8(acc[mt][j], a, b[0][j], b[1][j]);
+        }
+      }
+    } else {
+      // m16n8k16: B of n8 tile j is column 4 g + j of the segment, K rows
+      // (2 tq, 2 tq + 1) (b0) and (2 tq + 8, 2 tq + 9) (b1), widened to bf16
+#pragma unroll
+      for (int kk = 0; kk < KSTEP / 16; ++kk) {
+        uint32_t b[4][2];
+        {
+          const int k = 16 * kk + 2 * tq;
+          const uint32_t r[4] = {weight_word(ws, k), weight_word(ws, k + 1),
+                                 weight_word(ws, k + 8), weight_word(ws, k + 9)};
+          uint32_t col[4];
+          transpose4(r, col);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            b[j][0] = top_halves(widen(col[j], 0), widen(col[j], 1));
+            b[j][1] = top_halves(widen(col[j], 2), widen(col[j], 3));
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          if constexpr (F32) {
+            // A: rows g, g + 8 at K 2 tq, 2 tq + 1 and 2 tq + 8, 2 tq + 9,
+            // each pair split into three exact bf16 parts
+            const float* xr = reinterpret_cast<const float*>(xs + (row0 + 16 * mt + g) * XLD) +
+                              16 * kk + 2 * tq;
+            constexpr int R8 = 8 * XLD / 4;  // floats of 8 rows
+            const float2 f[4] = {*reinterpret_cast<const float2*>(xr),
+                                 *reinterpret_cast<const float2*>(xr + R8),
+                                 *reinterpret_cast<const float2*>(xr + 8),
+                                 *reinterpret_cast<const float2*>(xr + R8 + 8)};
+            uint32_t a[3][4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              bf16 lo[3], hi[3];
+              split3(f[i].x, lo), split3(f[i].y, hi);
+#pragma unroll
+              for (int p = 0; p < 3; ++p) {
+                const __nv_bfloat162 v = __halves2bfloat162(lo[p], hi[p]);
+                a[p][i] = *reinterpret_cast<const uint32_t*>(&v);
+              }
+            }
+#pragma unroll
+            for (int p = 0; p < 3; ++p)
+#pragma unroll
+              for (int j = 0; j < 4; ++j) mma::mma(acc[mt][j], a[p], b[j][0], b[j][1]);
+          } else {
+            uint32_t a[4];
+            mma::load_a(a, reinterpret_cast<const bf16*>(xs), XLD / 2, row0 + 16 * mt, 16 * kk);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) mma::mma(acc[mt][j], a, b[j][0], b[j][1]);
+          }
+        }
+      }
+    }
+  }
+
+  // acc[mt][j][2 h + i]: row g + 8 h, column 4 (2 tq + i) + j of the
+  // segment, so a thread holds columns 8 tq .. 8 tq + 7 of its rows
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + row0 + 16 * mt + g + 8 * h;
+      if (m >= M) continue;
+      ACC v[8];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = acc[mt][j][2 * h], v[4 + j] = acc[mt][j][2 * h + 1];
+      epi.store8(m, n0 + 32 * wn + 8 * tq, v);
+    }
+}
+
+// The wrapper's plan (ops/quant.py): at decode shapes the K rows a block
+// takes and the number of K splits, tile_m 0; at every other shape the
+// prefill tile's rows, 128, 64 or 32, chunk and splits 0.
+struct Plan {
+  int chunk, splits, tile_m;
 };
 
 template <int MR, typename XT, typename ACC, class Epilogue>
 cudaError_t launch_decode(const XT* x, const int8_t* w, int M, int N, int K,
-                          const DecodePlan& p, Epilogue epi, cudaStream_t stream) {
+                          const Plan& p, Epilogue epi, cudaStream_t stream) {
   using namespace decode;
   auto kernel = int8_decode_kernel<MR, XT, ACC, Epilogue>;
   if (p.splits > 8) {  // a cluster past the portable 8 blocks, on the current card
@@ -527,21 +690,44 @@ cudaError_t launch_decode(const XT* x, const int8_t* w, int M, int N, int K,
   return cudaLaunchKernelEx(&cfg, kernel, x, w, M, N, K, p.chunk, wv, xv, epi);
 }
 
-// Decode-sized M takes the split-K stream, anything larger (or a plan of no
-// splits) the square tiles.
-template <typename XT, typename XS, typename ACC, class Epilogue>
+template <int MT, int WM, typename XT, typename ACC, class Epilogue>
+cudaError_t launch_prefill(const XT* x, const int8_t* w, int M, int N, int K, Epilogue epi,
+                           cudaStream_t stream) {
+  using namespace prefill;
+  constexpr int BM = 16 * MT * WM, THREADS = 32 * WM * WARPS_N, SMEM = smem_bytes<BM, XT>();
+  auto kernel = int8_prefill_kernel<MT, WM, XT, ACC, Epilogue>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (e != cudaSuccess) return e;
+  const int wv = (N % 16 == 0) && (reinterpret_cast<uintptr_t>(w) % 16 == 0);
+  const int xv = ((size_t)K * sizeof(XT) % 16 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  kernel<<<grid, THREADS, SMEM, stream>>>(x, w, M, N, K, wv, xv, epi);
+  return cudaGetLastError();
+}
+
+// Decode shapes (M <= 8, K <= 8192) take the split-K stream, every other
+// the prefill tile; a plan that does not fit the shape is refused.
+template <typename XT, typename ACC, class Epilogue>
 cudaError_t launch_int8_product(const void* x, const void* w, int M, int N, int K,
-                                const DecodePlan& plan, Epilogue epi, cudaStream_t stream) {
+                                const Plan& plan, Epilogue epi, cudaStream_t stream) {
   using namespace decode;
-  if (M > MAX_M || plan.splits == 0) {
-    launch_tiles<Square, XT, XS, ACC>(x, w, M, N, K, epi, stream);
-    return cudaSuccess;
-  }
-  if (M < 1 || plan.splits > MAX_SPLITS || plan.chunk < STEP || plan.chunk > CHUNK_MAX ||
-      plan.chunk % STEP || plan.splits != (K + plan.chunk - 1) / plan.chunk)
-    return cudaErrorInvalidValue;
   const XT* xp = static_cast<const XT*>(x);
   const int8_t* wp = static_cast<const int8_t*>(w);
+  if (M < 1 || N < 1 || K < 1) return cudaErrorInvalidValue;
+  if (M > MAX_M || K > CHUNK_MAX * MAX_SPLITS) {
+    if (plan.splits != 0 || plan.chunk != 0) return cudaErrorInvalidValue;
+    switch (plan.tile_m) {  // 8 warps of 64 x 32, 4 of 64 x 32, 4 of 32 x 32
+      case 128: return launch_prefill<4, 2, XT, ACC>(xp, wp, M, N, K, epi, stream);
+      case 64: return launch_prefill<4, 1, XT, ACC>(xp, wp, M, N, K, epi, stream);
+      case 32: return launch_prefill<2, 1, XT, ACC>(xp, wp, M, N, K, epi, stream);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (plan.tile_m != 0 || plan.splits < 1 || plan.splits > MAX_SPLITS || plan.chunk < STEP ||
+      plan.chunk > CHUNK_MAX || plan.chunk % STEP ||
+      plan.splits != (K + plan.chunk - 1) / plan.chunk)
+    return cudaErrorInvalidValue;
   if constexpr (std::is_same<ACC, float>::value) {  // tensor cores: 8 rows always
     return launch_decode<8, XT, ACC>(xp, wp, M, N, K, plan, epi, stream);
   } else {

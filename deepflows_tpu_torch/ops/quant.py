@@ -15,7 +15,8 @@ its kernel does not take.  On CPU tensors it calls its plain twin
 or raises, and counts the launch in ``<wrapper>.launches``.  At decode
 shapes (at most 8 rows, K up to 8192) both kernels split K across the
 blocks of a cluster as ``_decode_plan`` says, in one launch that needs no
-workspace.
+workspace; at every other shape they run a tensor-core tile whose rows
+``_prefill_plan`` chooses.
 """
 
 from __future__ import annotations
@@ -68,7 +69,8 @@ DECODE_M = 8  # rows the split-K decode kernel takes
 # of one cluster)
 _TILE_N, _STEP, _CHUNK_MAX, _MAX_SPLITS = 32, 64, 512, 16
 DECODE_K = _CHUNK_MAX * _MAX_SPLITS  # longest K of the decode kernel
-_MIN_BLOCKS = 2 * 132  # twice the H100's SMs
+_SMS = 132  # the H100's SMs
+_MIN_BLOCKS = 2 * _SMS
 
 
 def _decode_plan(m, n, k):
@@ -93,12 +95,36 @@ def _decode_plan(m, n, k):
     return _TILE_N, chunk, splits
 
 
-def _decode_args(m, n, k):
-    """The C entry's (chunk, splits): the plan at decode shapes, (0, 0)
-    (the square tiles) at any other."""
-    if m > DECODE_M or k > DECODE_K:
-        return 0, 0
-    return _decode_plan(m, n, k)[1:]
+# as csrc/int8_tile.cuh prefill:: has them: the tile's columns, and its rows
+# from the largest
+_PREFILL_N, _PREFILL_MS = 128, (128, 64, 32)
+
+
+def _prefill_plan(m, n, k):
+    """The tile of a product that is not a decode call (more than 8 rows,
+    or K above 8192): ``(tile_m, tile_n)``, the grid being (ceil(n /
+    tile_n), ceil(m / tile_m)) blocks of one tile each, over all of K.
+
+    It takes the largest tile that launches at least one block per SM
+    (132), or the smallest when none does."""
+    if m < 1 or k < 1 or (m <= DECODE_M and k <= DECODE_K):
+        raise ValueError(
+            f"the prefill plan takes more than {DECODE_M} rows or K above "
+            f"{DECODE_K}, not ({m}, {k})"
+        )
+    tiles_n = -(-n // _PREFILL_N)
+    for tile_m in _PREFILL_MS:
+        if -(-m // tile_m) * tiles_n >= _SMS:
+            break
+    return tile_m, _PREFILL_N
+
+
+def _plan_args(m, n, k):
+    """The C entry's (chunk, splits, tile_m): the decode plan's split at
+    decode shapes, the prefill plan's tile rows at any other."""
+    if m <= DECODE_M and k <= DECODE_K:
+        return (*_decode_plan(m, n, k)[1:], 0)
+    return 0, 0, _prefill_plan(m, n, k)[0]
 
 
 def int8_matmul(x, wq, scale, out_dtype=None):
@@ -117,14 +143,14 @@ def int8_matmul(x, wq, scale, out_dtype=None):
     if not on_card(x, wq, scale):
         return int8_matmul_plain(x, wq, scale, out_dtype)
     fn = _build.c_function(
-        "int8_matmul", "dft_int8_matmul", (P, I, P, P, P, I, I, I, I, I, I, P)
+        "int8_matmul", "dft_int8_matmul", (P, I, P, P, P, I, I, I, I, I, I, I, P)
     )
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     with on_device(x.device):
         rc = fn(
             x.data_ptr(), int(x.dtype == torch.bfloat16), wq.data_ptr(),
             scale.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16),
-            m, n, k, *_decode_args(m, n, k), stream(),
+            m, n, k, *_plan_args(m, n, k), stream(),
         )
     _build.check(rc, "int8_matmul")
     int8_matmul.launches += 1
@@ -155,14 +181,14 @@ def w8a8_matmul(xq, sx, wq, sw, out_dtype=torch.float32):
     if not on_card(xq, sx, wq, sw):
         return w8a8_matmul_plain(xq, sx, wq, sw, out_dtype)
     fn = _build.c_function(
-        "w8a8_matmul", "dft_w8a8_matmul", (P, P, P, P, P, I, I, I, I, I, I, P)
+        "w8a8_matmul", "dft_w8a8_matmul", (P, P, P, P, P, I, I, I, I, I, I, I, P)
     )
     out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
     with on_device(xq.device):
         rc = fn(
             xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), sw.data_ptr(),
             out.data_ptr(), int(out_dtype == torch.bfloat16), m, n, k,
-            *_decode_args(m, n, k), stream(),
+            *_plan_args(m, n, k), stream(),
         )
     _build.check(rc, "w8a8_matmul")
     w8a8_matmul.launches += 1

@@ -218,5 +218,136 @@ def test_decode_plan_covers_ragged_shapes(m, k, n):
 def test_decode_plan_takes_decode_shapes_only(m, k):
     with pytest.raises(ValueError):
         quant._decode_plan(m, 1024, k)
-    if m > 8 or k > 8192:
-        assert quant._decode_args(m, 1024, k) == (0, 0)  # the square tiles
+    if m > 8 or k > 8192:  # the prefill tile, with no K split
+        assert quant._plan_args(m, 1024, k) == (0, 0, quant._prefill_plan(m, 1024, k)[0])
+
+
+# prefill-tile shapes of chip_smoke.py: the plan's tile edges at K 4096, a
+# ragged K, and K past the decode path at M <= 8
+RAGGED_PREFILL = [(9, 4096, 1000), (16, 4096, 1030), (100, 4096, 1000),
+                  (129, 4096, 1030), (300, 4096, 1000), (1000, 4096, 1030),
+                  (100, 70, 64), (40, 33, 100), (2, 9000, 48), (300, 9000, 200)]
+TILES_M = (128, 64, 32)  # the prefill tiles' rows, csrc/int8_tile.cuh
+
+
+def _check_prefill_plan(m, k, n):
+    """The prefill tile is one the kernel has (128 columns; 128, 64 or 32
+    rows) and its grid covers every output exactly once, each block
+    summing over all of K.  Returns (blocks, the most any tile gives)."""
+    tile_m, tile_n = quant._prefill_plan(m, n, k)
+    assert tile_n == 128 and tile_m in TILES_M
+    gm, gn = -(-m // tile_m), -(-n // tile_n)
+    cover = np.zeros((gm * tile_m, gn * tile_n), np.int64)
+    for by in range(gm):
+        for bx in range(gn):
+            cover[by * tile_m:(by + 1) * tile_m, bx * tile_n:(bx + 1) * tile_n] += 1
+    assert (cover[:m, :n] == 1).all()
+    assert (gm - 1) * tile_m < m and (gn - 1) * tile_n < n  # no empty block
+    return gm * gn, max(-(-m // t) * gn for t in TILES_M)
+
+
+@pytest.mark.parametrize("name", ["qkv", "o", "fc1", "fc2"])
+@pytest.mark.parametrize("m", [1536, 192])
+def test_prefill_plan_fills_the_card_at_the_decoder_shapes(m, name):
+    k, n = DECODER[name]
+    blocks, most = _check_prefill_plan(m, k, n)
+    if m == 1536:  # B 8 x max_len 192: at least one block per SM
+        assert blocks >= 132
+    else:  # a B 1 prefill: 132 blocks or as many as the tiles allow
+        assert blocks >= 132 or blocks == most
+
+
+@pytest.mark.parametrize("m,k,n", RAGGED_PREFILL)
+def test_prefill_plan_covers_ragged_shapes(m, k, n):
+    _check_prefill_plan(m, k, n)
+    assert quant._plan_args(m, n, k)[:2] == (0, 0)
+
+
+@pytest.mark.parametrize("m,k", [(1, 1024), (8, 8192), (5, 17), (0, 9000)])
+def test_prefill_plan_refuses_decode_shapes(m, k):
+    with pytest.raises(ValueError):
+        quant._prefill_plan(m, 1024, k)
+    if m >= 1:
+        assert quant._plan_args(m, 1024, k)[2] == 0  # the decode kernel
+
+
+@pytest.mark.parametrize("out", [None, "float32"])
+def test_int8_matmul_plain_matches_jax_at_a_prefill_shape(out):
+    m, k, n = 192, 512, 384
+    x = RNG.standard_normal((m, k)).astype(np.float32)
+    w = RNG.standard_normal((k, n)).astype(np.float32) * 0.1
+    jq, js = pk.quantize_int8(jnp.asarray(w))
+    tq, ts = quant.quantize_int8(torch.from_numpy(w))
+    want = pk.int8_matmul(jnp.asarray(x).astype(jnp.bfloat16), jq, js,
+                          out_dtype=None if out is None else jnp.float32)
+    got = ops.int8_matmul(torch.from_numpy(x).bfloat16(), tq, ts,
+                          out_dtype=None if out is None else torch.float32)
+    assert got.shape == (m, n) and str(got.dtype).endswith(str(want.dtype))
+    rtol = 1e-4 if out else 2**-7  # the JAX tests' bound; bf16 out: one ulp
+    np.testing.assert_allclose(
+        got.float().numpy(), np.asarray(want, np.float32), rtol=rtol, atol=1e-3
+    )
+
+
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+def test_w8a8_matmul_plain_exact_against_jax_at_a_prefill_shape(out):
+    m, k, n = 192, 512, 384
+    x = RNG.standard_normal((m, k)).astype(np.float32)
+    w = RNG.standard_normal((k, n)).astype(np.float32)
+    jxq, jsx = pk.quantize_int8_rows(jnp.asarray(x))
+    jwq, jsw = pk.quantize_int8(jnp.asarray(w))
+    want = pk.w8a8_matmul(jxq, jsx, jwq, jsw, out_dtype=getattr(jnp, out))
+    txq, tsx = quant.quantize_int8_rows(torch.from_numpy(x))
+    twq, tsw = quant.quantize_int8(torch.from_numpy(w))
+    got = ops.w8a8_matmul(txq, tsx, twq, tsw, out_dtype=getattr(torch, out))
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))
+
+
+def _split3(x):
+    """csrc/int8_tile.cuh split3 in torch: three bf16, each rounding what
+    the ones before left of the f32 x."""
+    b0 = x.bfloat16()
+    r1 = x - b0.float()
+    b1 = r1.bfloat16()
+    return b0, b1, (r1 - b1.float()).bfloat16()
+
+
+@pytest.mark.parametrize("span", [1, 30, 100])
+def test_split3_reproduces_f32_exactly(span):
+    """The three parts add up to x exactly, for exponents over +-span,
+    wherever the third part is a normal bf16 (|x| >= 2^-100); below that it
+    rounds to bf16's subnormal step, 2^-133, and misses x by at most half
+    of it."""
+    x = RNG.standard_normal(1 << 16) * np.exp2(RNG.integers(-span, span + 1, 1 << 16))
+    x = torch.from_numpy(x.astype(np.float32))
+    parts = _split3(x)
+    total = sum(p.double() for p in parts)
+    normal = x.abs() >= 2.0**-100
+    assert torch.equal(total[normal], x.double()[normal])
+    assert ((total - x.double()).abs() <= 2.0**-134).all()
+    # each part holds what bf16 can of the rest: at most 8 significant bits
+    # each, and |b1| <= ulp(b0) / 2, |b2| <= ulp(b1) / 2
+    b0, b1, b2 = (p.float().abs() for p in parts)
+    assert (b1 <= b0 * 2.0**-8).all() and (b2 <= b1 * 2.0**-8).all()
+
+
+@pytest.mark.parametrize("span", [0, 8])
+def test_f32_x_as_three_bf16_products_within_the_int8_bound(span):
+    """The f32-x arithmetic of the prefill tile: x split into three bf16
+    parts, each multiplied by the int8 weight widened to bf16 (exact
+    products) with f32 sums, then the column scale, stays within int8's
+    bound of the plain twin (rtol 1e-4, atol 1e-3, each row taken at its
+    own scale; rows scaled by 2^-40 .. 2^40, elements by 2^+-span)."""
+    m, k, n = 48, 512, 96
+    row_exp = RNG.integers(-40, 41, (m, 1))
+    x = RNG.standard_normal((m, k)) * np.exp2(RNG.integers(-span, span + 1, (m, k)))
+    x = torch.from_numpy((x * np.exp2(row_exp)).astype(np.float32))
+    wq, s = quant.quantize_int8(torch.from_numpy(RNG.standard_normal((k, n)).astype(np.float32)))
+    wb = wq.bfloat16().float()
+    assert torch.equal(wb, wq.float())  # int8 -> bf16 is exact
+    acc = torch.zeros((m, n))
+    for p in _split3(x):
+        acc = acc + p.float() @ wb
+    got, want = acc * s, quant.int8_matmul_plain(x, wq, s)
+    row = torch.from_numpy(np.exp2(row_exp).astype(np.float32))
+    torch.testing.assert_close(got / row, want / row, rtol=1e-4, atol=1e-3)
