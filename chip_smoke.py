@@ -61,11 +61,19 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
    orders, and the kernel's P is relative to a running maximum); lse
    elementwise below 1e-4 of max(1, |lse|) in both dtypes; the plain
    backward starts from the plain forward's out and lse.  CE: max |kernel
-   - plain| / max |plain| below 1e-4 (loss and lse, and f32 gradients) and
-   2e-2 (bf16 gradients); Adam below 1e-6.  Rows that see no key must give
-   exactly 0 and lse -1e30.  Two planted faults must fail the flash check:
-   the kernel run with window L - 64 (up to a key tile dropped from the
-   longest rows) and its backward fed lse + 0.1.
+   - plain| / max |plain| below 1e-4 for loss and lse; dx by row (row_err),
+   dw by column (row_err of dw.t()) and db by element (elem_err), below
+   1e-4 in f32 and 2e-2 in bf16, at the slice's shape, the ragged ones and
+   D 200, 256, 257, 1000, 2048 and 4096 (N 300, V 1000; the bf16
+   backward's clusters of 1, 1, 2, 4, 8 and 16 blocks; f32 up to D 1024);
+   Adam below 1e-6.  Rows that see no key must give exactly 0 and lse
+   -1e30.  Two planted faults must fail the flash check: the kernel run
+   with window L - 64 (up to a key tile dropped from the longest rows) and
+   its backward fed lse + 0.1; and two the CE check: dx of the backward
+   run on the first V - 64 columns of w and b (one vocab step dropped),
+   held by row against the full reference, and the backward fed lse +
+   0.1.  Two bf16 CE backward calls at the slice's shape must give the
+   same bits.
    Times each kernel at the slice's bf16 shapes beside its plain twin, one
    library call (scaled_dot_product_attention; torch.matmul +
    F.cross_entropy; torch.optim.Adam(fused=True)) and its bound.
@@ -105,7 +113,9 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
 9. Eager f32 kernel phase: matmul and linear_fused (none, relu, tanh)
    against their plain twins at rtol 1e-4 / atol 1e-3 (the JAX tests'
    bound): the MLP's layers and backward products (transposed views),
-   tests/test_pallas.py's shapes and 4096^3 (both). Times matmul at 4096^3 and
+   tests/test_pallas.py's shapes, the linear plan's K split edges (K 8,
+   9, 16, 17, 784 and 4095 at (64, K, 48)) and 4096^3 (both); two MLP layer-1
+   linear_fused calls must give the same bits. Times matmul at 4096^3 and
    linear_fused at the MLP's first layer beside their twins, their bounds
    and torch.matmul / torch.addmm (TF32 off).
 10. Eager f32 phase, two main paths under config.use_pallas: models.MLP
@@ -118,8 +128,10 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
    Each loss must fall, and match the same run on a CPU copy (plain twins)
    within 1e-4 relative.
 
-Prints the card's name and power limit, one {"kernels": [...]} line, and as
-its last line {"ok": true, "device": {...}}.  With ``--report PATH`` it also
+Prints the card's name and power limit, one {"kernels": [...]} line (the CE
+backward's, linear_fused's and matmul's entries with the plan they ran:
+(C, BM, BV) and (tile, chunk, splits)), and as its last line {"ok": true,
+"device": {...}}.  With ``--report PATH`` it also
 writes every measurement (each shape's times, the throughput of each mode,
 the training step's numbers) to PATH as JSON.
 """
@@ -658,6 +670,10 @@ FLASH_RAGGED = (  # (B, H, Lq, Lk, D, causal, window)
     (2, 2, 64, 64, 64, False, None),
 )
 CE_RAGGED = ((37, 64, 513), (100, 200, 300), (1000, 1024, 8000), (130, 1000, 97))
+# (N, D, V) across the bf16 backward's cluster edges: C = ceil(D / 256) is 1,
+# 1, 2, 4, 8 and 16 (the f32 backward takes D <= 1024)
+CE_D_EDGES = ((300, 200, 1000), (300, 256, 1000), (300, 257, 1000), (300, 1000, 1000),
+              (300, 2048, 1000), (300, 4096, 1000))
 ADAM_RAGGED = (1, 3, 4095, 4096, 4097, 10000, 12345)
 TOL = {"f32": 1e-4, "bf16": 2e-2}  # see scaled_err and row_err
 FAULT_SHIFT = 0.1  # added to lse in the planted backward fault
@@ -762,26 +778,71 @@ def flash_planted_faults(ops, operands, refs):
     return {"dropped_key_tile": dropped, "lse_shift": shifted}
 
 
+def elem_err(got, want):
+    """(max over elements of |got - want| / (|want| + floor), max |got -
+    want|), floor 1e-2 of the largest |want|: each element held to its own
+    scale."""
+    got, want = got.float(), want.float()
+    d = (got - want).abs()
+    floor = max(1e-2 * want.abs().max().item(), 1e-30)
+    return (d / (want.abs() + floor)).max().item(), d.max().item()
+
+
+def ce_errs(fwd, ref_fwd, grads, ref_grads):
+    """{name: (relative error, max abs error)} of loss, lse, dx, dw and db:
+    loss and lse by scaled_err, dx by row_err over its rows, dw by row_err
+    over its columns (a row of dw.t() is one vocab column), db
+    elementwise."""
+    (loss, lse), (ploss, plse) = fwd, ref_fwd
+    (dx, dw, db), (pdx, pdw, pdb) = grads, ref_grads
+    return {"loss": scaled_err(loss, ploss), "lse": scaled_err(lse, plse),
+            "dx": row_err(dx, pdx), "dw": row_err(dw.t(), pdw.t()), "db": elem_err(db, pdb)}
+
+
 def ce_case(torch, ops, g, N, D, V, dt, bdt, label):
+    """Forward and backward kernel against the plain twins on one case; the
+    plain backward is fed the kernel's lse.  Fails past the limits (loss
+    and lse at TOL["f32"] in both dtypes, the gradients at the dtype's
+    TOL).  Returns the operands, the plain backward and the errors."""
     dev = torch.device("cuda")
     x = (torch.randn((N, D), generator=g, device=dev) * 0.5).to(dt)
     w = (torch.randn((D, V), generator=g, device=dev) * 0.05).to(dt)
     b = (torch.randn((V,), generator=g, device=dev) * 0.1).to(bdt)
     t = torch.randint(0, V, (N,), generator=g, device=dev)
     gr = torch.rand((N,), generator=g, device=dev) / N
-    loss, lse = ops.fused_linear_ce_fwd(x, w, b, t)
-    ploss, plse = ops.fused_linear_ce_plain(x, w, b, t)
-    dx, dw, db = ops.fused_linear_ce_bwd(x, w, b, t, lse, gr)
+    fwd = ops.fused_linear_ce_fwd(x, w, b, t)
+    ref_fwd = ops.fused_linear_ce_plain(x, w, b, t)
+    lse = fwd[1]
     want = ops.fused_linear_ce_bwd_plain(x, w, b, t, lse, gr)
+    errs = ce_errs(fwd, ref_fwd, ops.fused_linear_ce_bwd(x, w, b, t, lse, gr), want)
     lim = TOL["bf16" if dt == torch.bfloat16 else "f32"]
-    errs = {}
-    for name, got, ref in (("loss", loss, ploss), ("lse", lse, plse), ("dx", dx, want[0]),
-                           ("dw", dw, want[1]), ("db", db, want[2])):
-        rel, errs[name] = scaled_err(got, ref)
+    for name, (rel, _) in errs.items():
         if not rel < (TOL["f32"] if name in ("loss", "lse") else lim):
-            fail(f"fused_linear_ce {label}: {name} differs from the plain twin by {rel}")
-    return (x, w, b, t, lse, gr), max(errs["loss"], errs["lse"]), max(
-        errs["dx"], errs["dw"], errs["db"])
+            fail(f"fused_linear_ce {label}: {name} differs from the plain twin by {rel} (limit "
+                 f"{TOL['f32'] if name in ('loss', 'lse') else lim})")
+    return (x, w, b, t, lse, gr), want, errs
+
+
+def ce_planted_faults(ops, operands, want):
+    """Shows that the bf16 check of the slice case catches two faults of the
+    backward: dx of a run on the first V - 64 columns of w and b (one
+    vocab step fewer), held by row against the full reference, and the
+    backward fed an lse off by FAULT_SHIFT.  Fails unless ce_case's limits
+    flag both; returns each fault's errors beside the global measure."""
+    x, w, b, t, lse, gr = operands
+    V = w.shape[1]
+    dx = ops.fused_linear_ce_bwd(x, w[:, :V - 64].contiguous(), b[:V - 64].contiguous(), t,
+                                 lse, gr)[0]
+    dropped = {"dx": row_err(dx, want[0])[0], "dx_global_scaled": scaled_err(dx, want[0])[0]}
+    if not dropped["dx"] >= TOL["bf16"]:
+        fail(f"CE planted fault (a dropped vocab step) passed the check: {dropped}")
+    grads = ops.fused_linear_ce_bwd(x, w, b, t, lse + FAULT_SHIFT, gr)
+    shifted = {"dx": row_err(grads[0], want[0])[0], "dw": row_err(grads[1].t(), want[1].t())[0],
+               "db": elem_err(grads[2], want[2])[0]}
+    shifted["global_scaled"] = max(scaled_err(a, r)[0] for a, r in zip(grads, want))
+    if not max(shifted[n] for n in ("dx", "dw", "db")) >= TOL["bf16"]:
+        fail(f"CE planted fault (lse + {FAULT_SHIFT} in the backward) passed: {shifted}")
+    return {"dropped_vocab_step": dropped, "lse_shift": shifted}
 
 
 def adam_case(torch, ops, g, shapes, wd, label):
@@ -826,29 +887,51 @@ def train_kernel_phase(torch, ops, report):
     for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         flash_ops, flash_refs, fe = flash_case(torch, ops, g, B, H, L, L, D, True, None, dt,
                                                f"slice {name}")
-        ce_ops, cfe, cbe = ce_case(torch, ops, g, N, E, V, dt, dt, f"slice {name}")
+        ce_ops, ce_want, ce_e = ce_case(torch, ops, g, N, E, V, dt, dt, f"slice {name}")
         if dt == torch.bfloat16:  # the main path's dtype: the JSON line's errors
             err = {"flash_attention_fwd": max(fe["out"][1], fe["lse"][1]),
                    "flash_attention_bwd": max(fe[n][1] for n in ("dq", "dk", "dv")),
-                   "fused_linear_ce_fwd": cfe, "fused_linear_ce_bwd": cbe}
-            report["flash_slice_bf16_errs"] = fe
+                   "fused_linear_ce_fwd": max(ce_e[n][1] for n in ("loss", "lse")),
+                   "fused_linear_ce_bwd": max(ce_e[n][1] for n in ("dx", "dw", "db"))}
+            report["flash_slice_bf16_errs"], report["ce_slice_bf16_errs"] = fe, ce_e
         for case in FLASH_RAGGED:
             flash_case(torch, ops, g, *case, dt, f"{case} {name}")
-        for n, d, v in CE_RAGGED:
-            ce_case(torch, ops, g, n, d, v, dt, dt, f"{(n, d, v)} {name}")
+        ce_edges = [c for c in CE_D_EDGES if c[1] <= ops.fused_ce.MAX_DIM[dt]]
+        report[f"ce_cases_{name}"] = {
+            str(c): ce_case(torch, ops, g, *c, dt, dt, f"{c} {name}")[2]
+            for c in CE_RAGGED + tuple(ce_edges)}
     _, _, hv = flash_case(torch, ops, g, B, H, L, L, D, True, None, torch.bfloat16,
                           "slice bf16 (B, L, H, D) views", heads_view=True)
     faults = flash_planted_faults(ops, flash_ops, flash_refs)
     report["flash_heads_view_errs"], report["flash_planted_faults"] = hv, faults
     ce_case(torch, ops, g, 130, 1000, 97, torch.bfloat16, torch.float32, "f32 bias")
+    ce_faults = ce_planted_faults(ops, ce_ops, ce_want)
+    x, w, b, t, clse, gr = ce_ops  # the bf16 slice case: two calls give the same bits
+    ce_same = all(torch.equal(p, q) for p, q in zip(ops.fused_linear_ce_bwd(x, w, b, t, clse, gr),
+                                                    ops.fused_linear_ce_bwd(x, w, b, t, clse, gr)))
+    if not ce_same:
+        fail("fused_linear_ce_bwd: two calls on the slice's inputs differ")
+    report["ce_planted_faults"], report["ce_bitwise_equal"] = ce_faults, ce_same
     adam_ops, err["fused_adam"] = adam_case(torch, ops, g, shapes, ADAM["weight_decay"], "slice")
     for wd in (0.0, 0.01):
         adam_case(torch, ops, g, [(n,) for n in ADAM_RAGGED], wd, f"ragged wd={wd}")
-    print(f"  flash {len(FLASH_RAGGED) + 2} shapes, CE {len(CE_RAGGED) + 2} shapes, Adam "
-          f"{len(shapes)} + {len(ADAM_RAGGED)} tensors agree with their plain twins in f32 "
-          f"and bf16; max abs err (slice, bf16): {err}")
+    print(f"  flash {len(FLASH_RAGGED) + 2} shapes, CE {len(CE_RAGGED) + len(CE_D_EDGES) + 2} "
+          f"shapes, Adam {len(shapes)} + {len(ADAM_RAGGED)} tensors agree with their plain twins "
+          f"in f32 and bf16; max abs err (slice, bf16): {err}")
+
     def fmt(e):
         return ", ".join(f"{n} {r:.3g}" for n, (r, _) in e.items())
+
+    worst = {n: max(e[n][0] for e in report["ce_cases_bf16"].values()) for n in ce_e}
+    print(f"  CE bf16, relative errors (limits: loss and lse {TOL['f32']}, the rest "
+          f"{TOL['bf16']}; dx by row, dw by column, db by element): slice {fmt(ce_e)}; worst of "
+          f"{len(report['ce_cases_bf16'])} other shapes (D up to {CE_D_EDGES[-1][1]}) "
+          + ", ".join(f"{n} {v:.3g}" for n, v in worst.items())
+          + f"; two slice-shape backward calls bitwise equal: {ce_same}")
+    print(f"  CE planted faults, flagged: a dropped vocab step gives dx "
+          f"{ce_faults['dropped_vocab_step']['dx']:.3g} (the global measure reads "
+          f"{ce_faults['dropped_vocab_step']['dx_global_scaled']:.3g}); lse + {FAULT_SHIFT} gives "
+          + ", ".join(f"{n} {v:.3g}" for n, v in ce_faults["lse_shift"].items()))
 
     print(f"  flash slice bf16, relative errors (limits: lse {TOL['f32']}, the rest "
           f"{TOL['bf16']}): {fmt(fe)}; as (B, L, H, D) views: {fmt(hv)}")
@@ -912,6 +995,7 @@ def train_kernel_phase(torch, ops, report):
                  library_ms=event_ms(lib, reps, flush), max_abs_err=err[name])
         r["bound_ms"], r["bound_by"] = bound_ms(*bounds[name], "bf16")
         out[name] = r
+    out["fused_linear_ce_bwd"]["plan"] = list(ops.fused_ce._bwd_plan(N, E, V))  # (C, BM, BV)
     del lib_adam, lib_params
     report["train_kernels"] = out
     return out
@@ -1040,6 +1124,8 @@ def sr_kernel_phase(torch, ops, report):
 MLP_B, MLP_STEPS = 256, 30
 MLP_SHAPES = ((256, 784, 100), (256, 100, 20), (256, 20, 10))  # (M, K, N) a layer
 MM_SHAPES = ((128, 256, 128), (100, 70, 50), (257, 129, 384), (64, 100, 32))  # tests/test_pallas.py
+# the linear plan's K split edges, at an M·N that splits (ops/linear.py _linear_plan)
+SPLIT_SHAPES = tuple((64, k, 48) for k in (8, 9, 16, 17, 784, 4095))
 
 
 def mm_check(got, want, label):
@@ -1058,7 +1144,7 @@ def linear_kernel_phase(torch, ops, report):
     g = torch.Generator(device=dev).manual_seed(5)
     flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     err = {"matmul": 0.0, "linear_fused": 0.0}
-    for m, k, n in MLP_SHAPES + MM_SHAPES + ((1, 5, 3),):
+    for m, k, n in MLP_SHAPES + MM_SHAPES + SPLIT_SHAPES + ((1, 5, 3),):
         a, b = (torch.randn(s, generator=g, device=dev) for s in ((m, k), (k, n)))
         bias = torch.randn((1, n), generator=g, device=dev)
         views = (("", a, b), (" a^T", a.t().contiguous().t(), b),
@@ -1085,9 +1171,17 @@ def linear_kernel_phase(torch, ops, report):
         e = mm_check(ops.linear_fused(a, b, bias, act), ops.linear_fused_plain(a, b, bias, act),
                      f"linear_fused 4096^3 {act}")
         err["linear_fused"] = max(err["linear_fused"], e)
+    m, k, n = MLP_SHAPES[0]  # two MLP layer-1 calls give the same bits
+    x, w = (torch.randn(s, generator=g, device=dev) for s in ((m, k), (k, n)))
+    bias = torch.randn((1, n), generator=g, device=dev)
+    same = torch.equal(ops.linear_fused(x, w, bias), ops.linear_fused(x, w, bias))
+    if not same:
+        fail("linear_fused: two calls at MLP layer 1 differ")
+    report["linear_bitwise_equal"] = same
     print(f"  matmul and linear_fused agree with their plain twins (rtol 1e-4, atol 1e-3) at "
-          f"{len(MLP_SHAPES) + len(MM_SHAPES) + 1} shapes, transposed views, the MLP's backward "
-          f"products and 4096^3; max abs err {err}")
+          f"{len(MLP_SHAPES) + len(MM_SHAPES) + len(SPLIT_SHAPES) + 1} shapes (K split edges "
+          f"{[s[1] for s in SPLIT_SHAPES]}), transposed views, the MLP's backward products and "
+          f"4096^3; max abs err {err}; two MLP layer-1 calls bitwise equal: {same}")
 
     def flush():
         flush_buf.zero_()
@@ -1098,7 +1192,8 @@ def linear_kernel_phase(torch, ops, report):
     r = dict(ms=event_ms(lambda: ops.matmul(a, b), 10, flush),
              plain_ms=event_ms(lambda: ops.matmul_plain(a, b), 10, flush),
              library_ms=event_ms(lambda: torch.matmul(a, b), 10, flush),
-             max_abs_err=err["matmul"], at="4096^3 f32")
+             max_abs_err=err["matmul"], at="4096^3 f32",
+             plan=list(ops.linear._linear_plan(big, big, big)))  # (tile, chunk, splits)
     r["bound_ms"], r["bound_by"] = bound_ms(3 * 4 * big * big, 2 * big**3, "f32")
     r["mlp_ms"] = {str(shape): event_ms(lambda o=o: ops.matmul(*o[:2]), 10, flush)
                    for shape, o in zip(MLP_SHAPES, mlp)}
@@ -1107,7 +1202,8 @@ def linear_kernel_phase(torch, ops, report):
     r = dict(ms=event_ms(lambda: ops.linear_fused(x, w, bias), 20, flush),
              plain_ms=event_ms(lambda: ops.linear_fused_plain(x, w, bias), 20, flush),
              library_ms=event_ms(lambda: torch.addmm(bias, x, w), 20, flush),
-             max_abs_err=err["linear_fused"], at=f"MLP layer 1: ({m}, {k}) @ ({k}, {n}) f32")
+             max_abs_err=err["linear_fused"], at=f"MLP layer 1: ({m}, {k}) @ ({k}, {n}) f32",
+             plan=list(ops.linear._linear_plan(m, n, k)))
     r["bound_ms"], r["bound_by"] = bound_ms(4 * (m * k + k * n + n + m * n), 2 * m * k * n, "f32")
     r["mlp_ms"] = {str(shape): event_ms(lambda o=o: ops.linear_fused(*o), 10, flush)
                    for shape, o in zip(MLP_SHAPES, mlp)}
@@ -1460,7 +1556,8 @@ def main(argv=None) -> int:
             name=name, route="cuda", source=f"deepflows_tpu_torch/csrc/{src}",
             replaces=f"deepflows_tpu/ops/pallas_kernels.py:{line}", launches=launches,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"], at=at)
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"], at=at,
+            **({"plan": r["plan"]} if "plan" in r else {}))
 
     at = (f"training step: TransformerLM d{TRAIN['dim']} x {TRAIN['depth']}, B {TRAIN_B}, "
           f"L {TRAIN_L}, V {TRAIN['vocab_size']}, bf16; ms and bounds per call")

@@ -17,9 +17,10 @@
 //
 // What bounds it on an H100: at the training slice's shape (N 8192, D 1024,
 // V 8192, bf16) the forward is 137 GFLOP of products (139 us at the bf16
-// tensor-core rate) and the backward four times that (dx and dw each
-// recompute the logits), each against 34 MB of operands, so both are bound
-// by operations, and only tensor cores approach the bound.
+// tensor-core rate) and the backward three times that as the function
+// needs it (a logits recompute, dx and dw), each against 34 MB of
+// operands, so both are bound by operations, and only tensor cores
+// approach the bound.
 //
 // bf16 x and w take the tensor cores (mma.sync m16n8k16 fed by ldmatrix,
 // mma_bf16.cuh).  Forward: a block of 8 warps owns 128 rows (16 a warp) and
@@ -28,21 +29,53 @@
 // online over vocab tiles of 128 as in the TPU kernel.  The vocabulary is
 // split so that about two blocks run on each SM; the last split of a row
 // block to finish (an atomic count) combines the splits' partials in a
-// fixed order.  Backward: ONE launch of two block roles.  A dx block owns 32
-// rows and their whole (32, D) dx in registers; per vocab tile of 64 it
-// stages the (D, 64) slice of w, recomputes the logits tile from it and the
-// block's x rows, and adds dl w^T.  A dw block owns 32 vocab columns and
-// their whole (D, 32) dw and db, stages that slice of w once and streams x
-// rows 32 at a time through a double buffer: the deterministic analogue of
-// the TPU's (vocab tile, row tile) grid, with no atomics.  The backward takes
-// D <= 1024 (the shared memory of one SM).
+// fixed order.
 //
-// f32 x and w run on the CUDA cores in f32 FMA: the same decomposition with
-// 64 x 64 forward tiles and 32 x 32 backward tiles staged as f32.  Pipelined
-// w slices, wgmma and TMA are later work; PERF.md holds the measured times.
+// Backward (namespace bwd): ONE launch of two roles, each a cluster of
+// C = ceil(D / 256) blocks (D <= 4096) that split D, block r owning D
+// columns [256 r, 256 r + 256).  What held a one-block design back was how
+// often each operand crossed L2: a block that owns all of D can hold only
+// 32 rows of dx (or 32 columns of dw) in registers, so every block staged
+// all of w (or x), 8.6 GB through L2 for 67 MB of operands.  Split over C
+// blocks, a dx cluster owns BM = 128 rows (each block a (128, 256) slice of
+// dx in registers, its (128, 256) slice of x resident) and a dw cluster BV
+// = 128 vocab columns (each block a (256, 128) slice of dw, its (256, 128)
+// slice of w resident), so w and x each cross L2 about 1 GB.  A dx block
+// walks the vocabulary in steps of 64: its (256, 64) slices of w come
+// through a 3-stage cp.async ring, step i + 2's copies issued a few at a
+// time between step i's logits products and step i + 1's in flight; it
+// computes its partial logits over its 256 columns of D and stores them
+// through distributed shared memory into the slots of the blocks that
+// finish them (each block finishes 64 / C of the columns; a store costs no
+// round trip, where a remote load does).  After a cluster barrier each
+// block adds the C partials of its columns from its own slots in rank
+// order, forms dl and stores it in bf16 into every block's dl tile; after a
+// second barrier each block adds dl w_slice^T from the same staged slice.
+// A dw block is the mirror image: (64, 256) slices of x stream through the
+// ring, dw_slice += x_slice^T dl, and db is summed from the f32 dl by every
+// thread of the cluster, each block over its own columns in a fixed order.
+// Every product runs on warp tiles of 32 x 32 or larger (64 x 64 for dx
+// and dw), each loaded fragment used by every tile it serves.  The longer
+// role's clusters start first.  Both roles still recompute the logits, as
+// the TPU kernel's two pallas_calls do: four products where the function
+// needs three.  Sums run in a fixed order and without float atomics: two
+// calls give the same bits.  What bounds it now is not L2 but the step's
+// serial chain: copies, logits, the partials' exchange, a barrier, the
+// combine, a barrier, the product, with no tensor work beside the
+// exchange; overlapping them (warp-specialised halves, wgmma and TMA) is
+// later work.  The plan (C, BM, BV) is the wrapper's (ops/fused_ce.py
+// _bwd_plan); BM and BV fall to 64 when the partials of C blocks do not fit
+// an owner's slots or 128 would leave the grid under 132 blocks.
+//
+// f32 x and w run on the CUDA cores in f32 FMA: the same forward with
+// 64 x 64 tiles staged as f32, and a backward of 32 x 32 tiles whose block
+// owns all of D (D <= 1024, the shared memory of one SM).  PERF.md holds
+// the measured times.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cooperative_groups.h>
 
 #include "mma_bf16.cuh"
 
@@ -332,22 +365,15 @@ constexpr int TH = 256;                        // 8 warps
 constexpr int FM = 128, FV = 128, FD = 32;     // forward tiles: rows, vocab, D chunk
 constexpr int FXL = FD + 8, FWL = FV + 8;      // their shared row strides
 constexpr int MAX_SPLITS = 16;
-constexpr int DW = 1024;                       // the largest D of the backward
-constexpr int XL = DW + 8;                     // shared row stride of 32 x rows
-constexpr int BV = 64, WL = BV + 8;            // dx role: vocab tile and its stride
-constexpr int WL32 = 32 + 8;                   // dw role: 32 vocab columns
 
 template <typename TB>
 struct Args {
   const bf16 *x, *w;
   const TB* b;
   const int* t;
-  const float *lse, *g;  // backward inputs
-  float *loss, *lse_out;  // forward outputs
-  float* part;           // forward: (m, l, target logit) per vocab split and row
-  int* count;            // forward: finished splits per row block, zeroed by the caller
-  bf16 *dx, *dw;
-  TB* db;
+  float *loss, *lse_out;  // outputs
+  float* part;           // (m, l, target logit) per vocab split and row
+  int* count;            // finished splits per row block, zeroed by the caller
   int N, D, V, splits, vchunk, xvec, wvec;
 };
 
@@ -468,171 +494,493 @@ __global__ void __launch_bounds__(TH) ce_fwd_tc(const __grid_constant__ Args<TB>
   }
 }
 
-template <typename TB>
-__device__ __forceinline__ float dlogit(const Args<TB>& a, int row, int col, float acc) {
-  if (row >= a.N || col >= a.V) return 0.f;
-  const float p = expf(acc + to_f(a.b[col]) - a.lse[row]);
-  return (p - (col == a.t[row] ? 1.f : 0.f)) * a.g[row];
-}
-
-// dx of rows [n0, n0 + 32): warp w owns rows 16 (w & 1) .. + 15 and the
-// 256 columns from 256 (w >> 1) of the (32, D) dx.  Per vocab tile of 64
-// the (D, 64) slice of w is staged whole; the logits tile comes from it and
-// the block's x rows, then dx += dl w^T.
-template <typename TB>
-__device__ __forceinline__ void dx_block(const Args<TB>& a, int n0, unsigned char* smem_raw) {
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // [32][XL]
-  bf16* ws = xs + 32 * XL;                        // [DW][WL]
-  bf16* dls = ws + DW * WL;                       // [32][WL]
-  const int w = threadIdx.x / 32, l = threadIdx.x % 32, g = l / 4, t = l % 4;
-  const int rw = (w & 1) * 16, cw = w >> 1;
-  stage_tile<32, DW, TH>(xs, XL, a.x, a.D, n0, 0, a.N, a.D, a.xvec);
-  float acc[32][4];
-#pragma unroll
-  for (int n = 0; n < 32; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  for (int v0 = 0; v0 < a.V; v0 += BV) {
-    stage_tile<DW, BV, TH>(ws, WL, a.w, a.V, 0, v0, a.D, a.V, a.wvec);
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
-    float lg[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-    for (int kk = 0; kk < a.D; kk += 16) {
-      uint32_t af[4], bf[4];
-      load_a(af, xs, XL, rw, kk);
-      load_b_kn(bf, ws, WL, kk, cw * 16);
-      mma(lg[0], af, bf[0], bf[1]);
-      mma(lg[1], af, bf[2], bf[3]);
-    }
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = rw + g + 8 * (i >> 1), c = cw * 16 + nt * 8 + 2 * t + (i & 1);
-        dls[r * WL + c] = __float2bfloat16_rn(dlogit(a, n0 + r, v0 + c, lg[nt][i]));
-      }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BV / 16; ++kk) {
-      uint32_t af[4];
-      load_a(af, dls, WL, rw, kk * 16);
-#pragma unroll
-      for (int np = 0; np < 16; ++np) {
-        uint32_t bf[4];
-        load_b_nk(bf, ws, WL, cw * 256 + np * 16, kk * 16);
-        mma(acc[2 * np], af, bf[0], bf[1]);
-        mma(acc[2 * np + 1], af, bf[2], bf[3]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = n0 + rw + g + 8 * r;
-    if (row >= a.N) continue;
-#pragma unroll
-    for (int n = 0; n < 32; ++n) {
-      const int col = cw * 256 + n * 8 + 2 * t;
-      if (col < a.D) a.dx[(long long)row * a.D + col] = __float2bfloat16_rn(acc[n][2 * r]);
-      if (col + 1 < a.D)
-        a.dx[(long long)row * a.D + col + 1] = __float2bfloat16_rn(acc[n][2 * r + 1]);
-    }
-  }
-}
-
-// dw and db of vocab columns [v0, v0 + 32): warp w owns dw rows 128 w ..
-// + 127; threads 0..31 own db.  The (D, 32) slice of w is staged once; x
-// rows stream through a double buffer, 32 at a time.
-template <typename TB>
-__device__ __forceinline__ void dw_block(const Args<TB>& a, int v0, unsigned char* smem_raw) {
-  bf16* ws = reinterpret_cast<bf16*>(smem_raw);  // [DW][WL32]
-  bf16* xb = ws + DW * WL32;                      // [2][32][XL]
-  bf16* dls = xb + 2 * 32 * XL;                   // [32][WL32], in x's dtype
-  float* dlf = reinterpret_cast<float*>(dls + 32 * WL32);  // [32][33], f32 for db
-  const int w = threadIdx.x / 32, l = threadIdx.x % 32, g = l / 4, t = l % 4;
-  const int rw = (w & 1) * 16, cw = (w >> 1) * 8;
-  const int nrt = (a.N + 31) / 32;
-  stage_tile<DW, 32, TH>(ws, WL32, a.w, a.V, 0, v0, a.D, a.V, a.wvec);
-  stage_tile<32, DW, TH>(xb, XL, a.x, a.D, 0, 0, a.N, a.D, a.xvec);
-  cp_async_commit();
-  float acc[8][4][4], dbacc = 0.f;
-#pragma unroll
-  for (int mt = 0; mt < 8; ++mt)
-#pragma unroll
-    for (int n = 0; n < 4; ++n) acc[mt][n][0] = acc[mt][n][1] = acc[mt][n][2] = acc[mt][n][3] = 0.f;
-  for (int rt = 0; rt < nrt; ++rt) {
-    const int cur = rt & 1, n0 = rt * 32;
-    if (rt + 1 < nrt)
-      stage_tile<32, DW, TH>(xb + (cur ^ 1) * 32 * XL, XL, a.x, a.D, n0 + 32, 0, a.N, a.D,
-                             a.xvec);
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-    const bf16* xs = xb + cur * 32 * XL;
-    float lg[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int kk = 0; kk < a.D; kk += 16) {
-      uint32_t af[4], bf[4];
-      load_a(af, xs, XL, rw, kk);
-      load_b_kn(bf, ws, WL32, kk, cw);  // bf[2], bf[3]: the next 8 columns, unused
-      mma(lg, af, bf[0], bf[1]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = rw + g + 8 * (i >> 1), c = cw + 2 * t + (i & 1);
-      const float dl = dlogit(a, n0 + r, v0 + c, lg[i]);
-      dls[r * WL32 + c] = __float2bfloat16_rn(dl);
-      dlf[r * 33 + c] = dl;
-    }
-    __syncthreads();
-    if (threadIdx.x < 32)
-      for (int r = 0; r < 32; ++r) dbacc += dlf[r * 33 + threadIdx.x];
-#pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-      uint32_t b0[4], b1[4];
-      load_b_kn(b0, dls, WL32, kk * 16, 0);
-      load_b_kn(b1, dls, WL32, kk * 16, 16);
-#pragma unroll
-      for (int mt = 0; mt < 8; ++mt) {
-        uint32_t af[4];
-        load_a_t(af, xs, XL, w * 128 + mt * 16, kk * 16);
-        mma(acc[mt][0], af, b0[0], b0[1]);
-        mma(acc[mt][1], af, b0[2], b0[3]);
-        mma(acc[mt][2], af, b1[0], b1[1]);
-        mma(acc[mt][3], af, b1[2], b1[3]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int mt = 0; mt < 8; ++mt)
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int d = w * 128 + mt * 16 + g + 8 * (i >> 1), col = v0 + n * 8 + 2 * t + (i & 1);
-        if (d < a.D && col < a.V)
-          a.dw[(long long)d * a.V + col] = __float2bfloat16_rn(acc[mt][n][i]);
-      }
-  if (threadIdx.x < 32 && v0 + threadIdx.x < a.V) a.db[v0 + threadIdx.x] = from_f<TB>(dbacc);
-}
-
-template <typename TB>
-__global__ void __launch_bounds__(TH, 1) ce_bwd_tc(const __grid_constant__ Args<TB> a, int ndx) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  if ((int)blockIdx.x < ndx)
-    dx_block<TB>(a, blockIdx.x * 32, smem_raw);
-  else
-    dw_block<TB>(a, (blockIdx.x - ndx) * 32, smem_raw);
-}
-
 constexpr int fwd_smem = 2 * (FM * FXL + FD * FWL) * 2;
-// the larger of the dx role (32 x rows, a (DW, 64) slice of w, the dl tile)
-// and the dw role (a (DW, 32) slice of w, two buffers of 32 x rows, dl in
-// bf16 and f32)
-constexpr int dx_smem = (32 * XL + DW * WL + 32 * WL) * 2;
-constexpr int dw_smem = (DW * WL32 + 2 * 32 * XL + 32 * WL32) * 2 + 32 * 33 * 4;
-constexpr int bwd_smem = dx_smem > dw_smem ? dx_smem : dw_smem;
 
 }  // namespace tc
+
+// ------------------------------------------------------------------
+// The bf16 backward: one launch of clusters of C = ceil(D / 256) blocks,
+// block r of a cluster owning D columns [256 r, 256 r + 256).  dx clusters
+// own BM rows, dw clusters BV vocab columns (the wrapper's plan,
+// ops/fused_ce.py _bwd_plan).
+namespace bwd {
+
+using namespace dft::mma;
+namespace cg = cooperative_groups;
+constexpr int TH = 256;          // 8 warps
+constexpr int DS = 256;          // the D columns a block owns
+constexpr int XL = DS + 8;       // shared row stride of a (rows, 256) bf16 slice
+constexpr int STEP = 64;         // dx: vocab columns a step; dw: rows a step
+constexpr int STAGES = 3;        // the cp.async ring
+constexpr int MAX_C = 16;        // blocks of a cluster: D <= 4096
+
+struct Args {
+  const bf16 *x, *w;
+  const void* b;  // f32 or bf16, as b_bf16 says; db the same
+  const int* t;
+  const float *lse, *g;
+  bf16 *dx, *dw;
+  void* db;
+  int N, D, V, b_bf16, xvec, wvec;
+};
+
+// Copy j (of 8 a thread) of staging a (ROWS, COLS) bf16 tile: what
+// stage_tile does in one call, cut so that a ring's refill can be issued a
+// piece at a time between the products of a step.
+template <int ROWS, int COLS>
+__device__ __forceinline__ void stage_part(bf16* dst, int ldst, const bf16* src, long long lsrc,
+                                           int row0, int col0, int nrows, int ncols, int vec,
+                                           int j) {
+  static_assert(ROWS * COLS / 8 == 8 * TH, "8 copies a thread");
+  stage_chunk<COLS>(dst, ldst, src, lsrc, row0, col0, nrows, ncols, vec, threadIdx.x + j * TH);
+}
+
+// b[col] as its raw bits, then as f32: a load whose value is not needed at
+// once does not hold up the thread that issued it
+__device__ __forceinline__ uint32_t bias_bits(const Args& a, int col) {
+  return a.b_bf16 ? static_cast<uint32_t>(__ldg(static_cast<const unsigned short*>(a.b) + col))
+                  : __ldg(static_cast<const unsigned int*>(a.b) + col);
+}
+__device__ __forceinline__ float bias_of(const Args& a, uint32_t bits) {
+  return __uint_as_float(a.b_bf16 ? bits << 16 : bits);
+}
+__device__ __forceinline__ float bias(const Args& a, int col) {
+  return bias_of(a, bias_bits(a, col));
+}
+
+template <int MT, int NT>
+__device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
+}
+
+// acc (the warp's MT x NT tiles of 16 x 8, from (m0, n0)) += A B over k in
+// [0, kn): A from a row-major [m][k] tile or, with AT, the transpose of a
+// [k][m] tile; B from a row-major [k][n] tile or, with BNK, an [n][k] one.
+// Each A fragment serves NT tiles and each B fragment MT.  hook(s) runs
+// before k step s.
+struct NoHook {
+  __device__ void operator()(int) const {}
+};
+template <int MT, int NT, bool AT, bool BNK, class Hook = NoHook>
+__device__ __forceinline__ void warp_mma(float (&acc)[MT][NT][4], const bf16* A, int lda, int m0,
+                                         const bf16* B, int ldb, int n0, int kn,
+                                         Hook hook = Hook()) {
+  static_assert(NT % 2 == 0, "B fragments come in pairs of n8 tiles");
+#pragma unroll 2
+  for (int k = 0; k < kn; k += 16) {
+    hook(k / 16);  // work of the caller's, issued between this step's products
+    uint32_t af[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      if constexpr (AT) load_a_t(af[mt], A, lda, m0 + 16 * mt, k);
+      else load_a(af[mt], A, lda, m0 + 16 * mt, k);
+    }
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t bf[4];
+      if constexpr (BNK) load_b_nk(bf, B, ldb, n0 + 16 * np, k);
+      else load_b_kn(bf, B, ldb, k, n0 + 16 * np);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma(acc[mt][2 * np], af[mt], bf[0], bf[1]);
+        mma(acc[mt][2 * np + 1], af[mt], bf[2], bf[3]);
+      }
+    }
+  }
+}
+
+// The units (8 columns each) of an R x CC logits tile that block `rank`
+// finishes: [u0, u0 + nu).  The owner of unit u is the inverse.
+template <int CC>
+__device__ __forceinline__ void units(int rank, int C, int& u0, int& nu) {
+  constexpr int U = CC / 8;
+  u0 = rank * U / C;
+  nu = (rank + 1) * U / C - u0;
+}
+template <int CC>
+__device__ __forceinline__ int owner(int u, int C) {
+  return ((u + 1) * C - 1) / (CC / 8);
+}
+// The row stride of an owner's slots: its most columns, 8 ceil(U / C).
+template <int CC>
+__device__ __forceinline__ int slot_cols(int C) {
+  return 8 * ((CC / 8 + C - 1) / C);
+}
+// Where an owner's slots put column c of slot row r: rows of cs columns,
+// whose 16-byte chunks are permuted by row (an XOR with (r >> sh) & m,
+// when a row's chunks are a power of two; m = 0 otherwise), so that the 8
+// rows a warp reads or writes at once meet distinct banks.
+struct SlotMap {
+  int cs, sh, m;
+  __device__ __forceinline__ int at(int r, int c) const {
+    return r * cs + ((((c >> 2) ^ ((r >> sh) & m))) << 2) + (c & 3);
+  }
+};
+template <int CC>
+__device__ __forceinline__ SlotMap slot_map(int C) {
+  const int cs = slot_cols<CC>(C), chunks = cs / 4;
+  if (chunks & (chunks - 1)) return SlotMap{cs, 0, 0};
+  if (chunks >= 8) return SlotMap{cs, 0, 7};
+  return SlotMap{cs, 3 - (__ffs(chunks) - 1), chunks - 1};  // sh = log2(8 / chunks)
+}
+
+// Block `rank` sends its partial logits (the warp's MT x NT accumulator
+// tiles at (m0, n0) of an R x CC tile, over its 256 columns of D) to the
+// blocks that finish them: the columns of owner q's units go to q's slots,
+// row (rank R + row), through distributed shared memory.  Stores need no
+// reply, so they cost the sender no round trip; the owner reads its slots
+// in its own shared memory.
+template <int R, int CC, int MT, int NT>
+__device__ __forceinline__ void send_partial(cg::cluster_group& cluster, float* slots,
+                                             const float (&acc)[MT][NT][4], int m0, int n0,
+                                             int rank, int C) {
+  const int l = threadIdx.x % 32, g = l / 4, t = l % 4;
+  const SlotMap sm = slot_map<CC>(C);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int u = (n0 + 8 * nt) / 8, q = owner<CC>(u, C);
+    int u0, nu;
+    units<CC>(q, C, u0, nu);
+    float* dst = cluster.map_shared_rank(slots, q);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(
+            dst + sm.at(rank * R + m0 + 16 * mt + g + 8 * h, 8 * (u - u0) + 2 * t)) =
+            make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+  }
+}
+
+// One row's inputs to dl: its lse, g and target, and whether it exists.
+struct Row {
+  float lse, g;
+  int t;
+  bool live;
+};
+
+__device__ __forceinline__ Row load_row(const Args& a, int row) {
+  if (row >= a.N) return Row{0.f, 0.f, -1, false};
+  return Row{a.lse[row], a.g[row], a.t[row], true};
+}
+
+// Block `rank` finishes its units of the R x CC logits tile whose columns
+// start at c0: thread i takes row i % R (whose inputs are `row`) of the
+// units u0 + i / R, u0 + i / R + TH / R, ...  It adds the C blocks' partials
+// from its slots in rank order (so every owner's share has the same bits
+// however the cluster is scheduled), forms dl = (exp(logit - lse) -
+// onehot(t)) g with the tile's bias `sbias` (f32, CC columns), 0 outside N
+// and V, and writes dl rounded to bf16 into every block's dl tile (row
+// stride DL).  With DB it also leaves the f32 dl in its own slot, which
+// only this block reads.  The inputs were loaded a step ahead, so no load
+// from device memory waits here.
+template <int R, int CC, bool DB>
+__device__ __forceinline__ void combine(const Args& a, cg::cluster_group& cluster, float* slots,
+                                        bf16* dls, int DL, const float* sbias, const Row& row,
+                                        int c0, int rank, int C) {
+  static_assert(TH % R == 0, "a thread keeps one row");
+  int u0, nu;
+  units<CC>(rank, C, u0, nu);
+  const int r = threadIdx.x % R;
+  const SlotMap sm = slot_map<CC>(C);
+  for (int uu = threadIdx.x / R; uu < nu; uu += TH / R) {
+    const int u = u0 + uu;
+    float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int q = 0; q < C; ++q) {
+      const float4 v0 = *reinterpret_cast<const float4*>(slots + sm.at(q * R + r, 8 * uu));
+      const float4 v1 = *reinterpret_cast<const float4*>(slots + sm.at(q * R + r, 8 * uu + 4));
+      s[0] += v0.x; s[1] += v0.y; s[2] += v0.z; s[3] += v0.w;
+      s[4] += v1.x; s[5] += v1.y; s[6] += v1.z; s[7] += v1.w;
+    }
+    float dl[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = c0 + 8 * u + j;
+      dl[j] = row.live && col < a.V
+                  ? (expf(s[j] + sbias[8 * u + j] - row.lse) - (col == row.t ? 1.f : 0.f)) * row.g
+                  : 0.f;
+    }
+    const uint4 packed = make_uint4(pack(dl[0], dl[1]), pack(dl[2], dl[3]), pack(dl[4], dl[5]),
+                                    pack(dl[6], dl[7]));
+#pragma unroll 4
+    for (int q = 0; q < C; ++q)
+      *reinterpret_cast<uint4*>(cluster.map_shared_rank(dls + r * DL + 8 * u, q)) = packed;
+    if constexpr (DB) {
+      *reinterpret_cast<float4*>(slots + sm.at(rank * R + r, 8 * uu)) =
+          make_float4(dl[0], dl[1], dl[2], dl[3]);
+      *reinterpret_cast<float4*>(slots + sm.at(rank * R + r, 8 * uu + 4)) =
+          make_float4(dl[4], dl[5], dl[6], dl[7]);
+    }
+  }
+}
+
+// Whether C blocks' partials fit `capacity` floats of an owner's slots.
+template <int R, int CC>
+__host__ __device__ constexpr bool slots_fit(int C, int capacity) {
+  return C * R * 8 * ((CC / 8 + C - 1) / C) <= capacity;
+}
+
+// Shared memory of the two roles, in bytes.
+template <int BM>
+struct DxTile {
+  static constexpr int WL = STEP + 8;
+  static constexpr int SLOTS = 8192;  // floats: C in {1, 2, 4, 8} at BM 128, any at 64
+  // x rows (BM, 256), the ring of w slices (256, 64), dl (BM, 64) bf16;
+  // the slots and the step's bias (64) f32
+  static constexpr int SMEM = (BM * XL + STAGES * DS * WL + BM * WL) * 2 + (SLOTS + STEP) * 4;
+};
+template <int BV>
+struct DwTile {
+  static constexpr int WL = BV + 8;
+  static constexpr int SLOTS = BV == 128 ? 10240 : 8192;  // floats
+  // the w slice (256, BV), the ring of x slices (64, 256), dl (64, BV)
+  // bf16; the slots, the db group sums and the bias (BV) f32
+  static constexpr int SMEM =
+      (DS * WL + STAGES * STEP * XL + STEP * WL) * 2 + (SLOTS + TH + BV) * 4;
+};
+
+// dx of rows [n0, n0 + BM), columns [256 rank, + 256): the block keeps
+// that slice of dx in registers and its x slice resident; per vocab step
+// of 64 it takes its (256, 64) slice of w from the ring, computes its
+// partial logits and sends them to their owners, meets the cluster for
+// dl, and adds dl w^T.
+template <int BM>
+__device__ __forceinline__ void dx_role(const Args& a, int n0, int rank, int C,
+                                        unsigned char* smem) {
+  constexpr int WL = DxTile<BM>::WL;
+  bf16* xs = reinterpret_cast<bf16*>(smem);
+  bf16* ws = xs + BM * XL;
+  bf16* dls = ws + STAGES * DS * WL;
+  float* slots = reinterpret_cast<float*>(dls + BM * WL);
+  float* sbias = slots + DxTile<BM>::SLOTS;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, warp = tid / 32, l = tid % 32, g = l / 4, t = l % 4;
+  const int d0 = rank * DS, nv = (a.V + STEP - 1) / STEP;
+  const Row row = load_row(a, n0 + tid % BM);  // the row this thread finishes dl for
+  // the bias of the step's 64 columns goes to shared memory a step after
+  // thread tid < 64 loads it
+  uint32_t next_bias = tid < STEP && tid < a.V ? bias_bits(a, tid) : 0u;
+  // copy j of the ring's slice for step i (8 a thread)
+  auto fetch = [&](int i, int j) {
+    stage_part<DS, STEP>(ws + (i % STAGES) * DS * WL, WL, a.w, a.V, d0, i * STEP, a.D, a.V,
+                         a.wvec, j);
+  };
+  stage_tile<BM, DS, TH>(xs, XL, a.x, a.D, n0, d0, a.N, a.D, a.xvec);
+  for (int j = 0; j < 8; ++j) fetch(0, j);
+  cp_async_commit();
+  for (int j = 0; j < 8 && nv > 1; ++j) fetch(1, j);
+  cp_async_commit();
+  // logits (BM, 64): warps (BM / 32) x LWC, each 32 x (64 / LWC)
+  constexpr int LWC = 8 / (BM / 32), LNT = STEP / LWC / 8;
+  const int lm = (warp / LWC) * 32, ln = (warp % LWC) * (STEP / LWC);
+  // dx (BM, 256): warps 2 x 4, each (BM / 2) x 64
+  constexpr int MT = BM / 32;
+  const int pm = (warp / 4) * (BM / 2), pn = (warp % 4) * 64;
+  float acc[MT][8][4];
+  zero(acc);
+  for (int i = 0; i < nv; ++i) {
+    cp_async_wait_one();  // step i's slice (and, at i = 0, x) has landed
+    __syncthreads();      // ... for every thread; step i - 1's stage is free
+    if (tid < STEP) {
+      const int col = (i + 1) * STEP + tid;
+      sbias[tid] = bias_of(a, next_bias);
+      next_bias = col < a.V ? bias_bits(a, col) : 0u;
+    }
+    const bf16* wsi = ws + (i % STAGES) * DS * WL;
+    {
+      float lg[2][LNT][4];
+      zero(lg);
+      // step i + 2's slice is issued a copy at a time between the products
+      warp_mma<2, LNT, false, false>(lg, xs, XL, lm, wsi, WL, ln, DS, [&](int s) {
+        if (s % 2 == 0 && i + 2 < nv) fetch(i + 2, s / 2);
+      });
+      cp_async_commit();
+      send_partial<BM, STEP>(cluster, slots, lg, lm, ln, rank, C);
+    }
+    cluster.sync();  // every partial has reached its owner; every block is done with the last dl
+    combine<BM, STEP, false>(a, cluster, slots, dls, WL, sbias, row, i * STEP, rank, C);
+    cluster.sync();  // dl is whole in every block; every slot has been read
+    warp_mma<MT, 8, false, true>(acc, dls, WL, pm, wsi, WL, pn, STEP);
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = n0 + pm + 16 * mt + g + 8 * h;
+      if (r >= a.N) continue;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int col = d0 + pn + 8 * nt + 2 * t;
+        bf16* o = a.dx + (long long)r * a.D + col;
+        if (col < a.D) o[0] = __float2bfloat16_rn(acc[mt][nt][2 * h]);
+        if (col + 1 < a.D) o[1] = __float2bfloat16_rn(acc[mt][nt][2 * h + 1]);
+      }
+    }
+}
+
+// dw of vocab columns [v0, v0 + BV) and rows [256 rank, + 256) of D, and
+// db of this block's units of those columns: the block keeps that slice
+// of dw in registers and its w slice resident; per step of 64 rows it
+// takes its (64, 256) slice of x from the ring, computes its partial
+// logits and sends them to their owners, meets the cluster for dl, adds
+// x^T dl and sums db.
+template <int BV>
+__device__ __forceinline__ void dw_role(const Args& a, int v0, int rank, int C,
+                                        unsigned char* smem) {
+  constexpr int WL = DwTile<BV>::WL;
+  bf16* wres = reinterpret_cast<bf16*>(smem);
+  bf16* xr = wres + DS * WL;
+  bf16* dls = xr + STAGES * STEP * XL;
+  float* slots = reinterpret_cast<float*>(dls + STEP * WL);
+  float* red = slots + DwTile<BV>::SLOTS;
+  float* sbias = red + TH;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, warp = tid / 32, l = tid % 32, g = l / 4, t = l % 4;
+  const int d0 = rank * DS, nr = (a.N + STEP - 1) / STEP;
+  for (int c = tid; c < BV; c += TH) sbias[c] = v0 + c < a.V ? bias(a, v0 + c) : 0.f;
+  // the inputs of the row this thread finishes dl for, loaded a step ahead
+  Row next_row = load_row(a, tid % STEP);
+  // copy j of the ring's slice for step i (8 a thread)
+  auto fetch = [&](int i, int j) {
+    stage_part<STEP, DS>(xr + (i % STAGES) * STEP * XL, XL, a.x, a.D, i * STEP, d0, a.N, a.D,
+                         a.xvec, j);
+  };
+  stage_tile<DS, BV, TH>(wres, WL, a.w, a.V, d0, v0, a.D, a.V, a.wvec);
+  for (int j = 0; j < 8; ++j) fetch(0, j);
+  cp_async_commit();
+  for (int j = 0; j < 8 && nr > 1; ++j) fetch(1, j);
+  cp_async_commit();
+  // logits (64, BV): warps 2 x 4, each 32 x (BV / 4)
+  constexpr int LNT = BV / 32;
+  const int lm = (warp / 4) * 32, ln = (warp % 4) * (BV / 4);
+  // dw (256, BV): warps 4 x 2, each 64 x (BV / 2)
+  constexpr int NT = BV / 16;
+  const int pm = (warp / 2) * 64, pn = (warp % 2) * (BV / 2);
+  // db of this block's ncols columns: `groups` threads a column each sum a
+  // range of rows of its own slot, then thread c < ncols adds the groups
+  // in order
+  int u0, nu;
+  units<BV>(rank, C, u0, nu);
+  const SlotMap sm = slot_map<BV>(C);
+  const int ncols = 8 * nu, groups = ncols ? TH / ncols : 0;
+  const int rpg = groups ? (STEP + groups - 1) / groups : 0;
+  const int dbc = ncols ? tid % ncols : 0, dbg = ncols ? tid / ncols : groups;
+  float acc[4][NT][4], dbacc = 0.f;
+  zero(acc);
+  for (int i = 0; i < nr; ++i) {
+    cp_async_wait_one();  // step i's slice (and, at i = 0, w) has landed
+    __syncthreads();      // ... for every thread; step i - 1's stage is free
+    const Row row = next_row;
+    next_row = load_row(a, (i + 1) * STEP + tid % STEP);
+    const bf16* xsi = xr + (i % STAGES) * STEP * XL;
+    {
+      float lg[2][LNT][4];
+      zero(lg);
+      // step i + 2's slice is issued a copy at a time between the products
+      warp_mma<2, LNT, false, false>(lg, xsi, XL, lm, wres, WL, ln, DS, [&](int s) {
+        if (s % 2 == 0 && i + 2 < nr) fetch(i + 2, s / 2);
+      });
+      cp_async_commit();
+      send_partial<STEP, BV>(cluster, slots, lg, lm, ln, rank, C);
+    }
+    cluster.sync();  // every partial has reached its owner; every block is done with the last dl
+    combine<STEP, BV, true>(a, cluster, slots, dls, WL, sbias, row, v0, rank, C);
+    __syncthreads();  // this block's f32 dl is in its own slot
+    if (dbg < groups) {
+      float s = 0.f;
+      const int r1 = min(STEP, (dbg + 1) * rpg);
+      for (int r = dbg * rpg; r < r1; ++r) s += slots[sm.at(rank * STEP + r, dbc)];
+      red[dbg * ncols + dbc] = s;
+    }
+    cluster.sync();  // dl is whole in every block; every slot has been read
+    if (tid < ncols)
+      for (int q = 0; q < groups; ++q) dbacc += red[q * ncols + tid];
+    warp_mma<4, NT, true, false>(acc, xsi, XL, pm, dls, WL, pn, STEP);
+  }
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int d = d0 + pm + 16 * mt + g + 8 * h;
+      if (d >= a.D) continue;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int col = v0 + pn + 8 * nt + 2 * t;
+        bf16* o = a.dw + (long long)d * a.V + col;
+        if (col < a.V) o[0] = __float2bfloat16_rn(acc[mt][nt][2 * h]);
+        if (col + 1 < a.V) o[1] = __float2bfloat16_rn(acc[mt][nt][2 * h + 1]);
+      }
+    }
+  const int col = v0 + 8 * u0 + tid;
+  if (tid < ncols && col < a.V) {
+    if (a.b_bf16) static_cast<bf16*>(a.db)[col] = __float2bfloat16_rn(dbacc);
+    else static_cast<float*>(a.db)[col] = dbacc;
+  }
+}
+
+// Grid (C, dx clusters + dw clusters), clusters of (C, 1, 1): blockIdx.x is
+// the block's rank.  The role whose clusters run longer comes first.
+template <int BM, int BV>
+__global__ void __launch_bounds__(TH, 1)
+ce_bwd_cluster(const __grid_constant__ Args a, int ndx, int dx_first) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int rank = blockIdx.x, C = gridDim.x, ndw = gridDim.y - ndx, cl = blockIdx.y;
+  if (dx_first ? cl < ndx : cl >= ndw)
+    dx_role<BM>(a, (dx_first ? cl : cl - ndw) * BM, rank, C, smem);
+  else
+    dw_role<BV>(a, (dx_first ? cl - ndx : cl) * BV, rank, C, smem);
+}
+
+template <int BM, int BV>
+cudaError_t launch(const Args& a, int C, cudaStream_t st) {
+  constexpr int smem = DxTile<BM>::SMEM > DwTile<BV>::SMEM ? DxTile<BM>::SMEM : DwTile<BV>::SMEM;
+  auto kernel = ce_bwd_cluster<BM, BV>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess && C > 8)  // a cluster past the portable 8 blocks, on the current card
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return e;
+  const int ndx = (a.N + BM - 1) / BM, ndw = (a.V + BV - 1) / BV;
+  if (ndx + ndw > 65535) return cudaErrorInvalidValue;
+  // a dx cluster walks V in steps of 64 for BM rows, a dw cluster N for BV columns
+  const int dx_first = (long long)((a.V + STEP - 1) / STEP) * BM >=
+                       (long long)((a.N + STEP - 1) / STEP) * BV;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, ndx + ndw);
+  cfg.blockDim = dim3(TH);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, a, ndx, dx_first);
+}
+
+// The plan (C, BM, BV): C = ceil(D / 256) up to 16, BM and BV 128 or 64
+// with the C blocks' partials fitting the owners' slots; any other is
+// refused.
+cudaError_t run(const Args& a, int C, int BM, int BV, cudaStream_t st) {
+  if (a.N < 1 || a.D < 1 || a.V < 1 || C < 1 || C > MAX_C || C != (a.D + DS - 1) / DS)
+    return cudaErrorInvalidValue;
+  const bool dx_fits = BM == 128 ? slots_fit<128, STEP>(C, DxTile<128>::SLOTS)
+                                  : slots_fit<64, STEP>(C, DxTile<64>::SLOTS);
+  const bool dw_fits = BV == 128 ? slots_fit<STEP, 128>(C, DwTile<128>::SLOTS)
+                                  : slots_fit<STEP, 64>(C, DwTile<64>::SLOTS);
+  if (!dx_fits || !dw_fits) return cudaErrorInvalidValue;
+  if (BM == 128 && BV == 128) return launch<128, 128>(a, C, st);
+  if (BM == 128 && BV == 64) return launch<128, 64>(a, C, st);
+  if (BM == 64 && BV == 128) return launch<64, 128>(a, C, st);
+  if (BM == 64 && BV == 64) return launch<64, 64>(a, C, st);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace bwd
 
 template <int DW>
 constexpr int bwd_smem() {
@@ -686,12 +1034,6 @@ cudaError_t fwd_bf16(tc::Args<TB> a, cudaStream_t st) {
 }
 
 template <typename TB>
-cudaError_t bwd_bf16(const tc::Args<TB>& a, cudaStream_t st) {
-  const int ndx = (a.N + 31) / 32, ndw = (a.V + 31) / 32;
-  return launch(tc::ce_bwd_tc<TB>, dim3(ndx + ndw), tc::TH, tc::bwd_smem, st, a, ndx);
-}
-
-template <typename TB>
 Args<TB> f32_args(const void* x, const void* w, const void* b, const int* t,
                   const float* lse, const float* g, float* loss, float* lse_out, void* dx,
                   void* dw, void* db, int N, int D, int V) {
@@ -703,13 +1045,11 @@ Args<TB> f32_args(const void* x, const void* w, const void* b, const int* t,
 
 template <typename TB>
 tc::Args<TB> bf16_args(const void* x, const void* w, const void* b, const int* t,
-                       const float* lse, const float* g, float* loss, float* lse_out,
-                       float* part, int* count, void* dx, void* dw, void* db, int N, int D,
+                       float* loss, float* lse_out, float* part, int* count, int N, int D,
                        int V, int xvec, int wvec) {
   using BF = __nv_bfloat16;
   return tc::Args<TB>{static_cast<const BF*>(x), static_cast<const BF*>(w),
-                      static_cast<const TB*>(b), t, lse, g, loss, lse_out, part, count,
-                      static_cast<BF*>(dx), static_cast<BF*>(dw), static_cast<TB*>(db),
+                      static_cast<const TB*>(b), t, loss, lse_out, part, count,
                       N, D, V, 1, 0, xvec, wvec};
 }
 
@@ -727,29 +1067,33 @@ extern "C" int dft_flce_fwd(const void* x, const void* w, const void* b, const i
   using BF = __nv_bfloat16;
   cudaError_t e;
   if (x_bf16)
-    e = b_bf16 ? fwd_bf16(bf16_args<BF>(x, w, b, t, 0, 0, loss, lse, part, count, 0, 0, 0, N, D,
-                                        V, xvec, wvec), s)
-               : fwd_bf16(bf16_args<float>(x, w, b, t, 0, 0, loss, lse, part, count, 0, 0, 0, N,
-                                           D, V, xvec, wvec), s);
+    e = b_bf16 ? fwd_bf16(bf16_args<BF>(x, w, b, t, loss, lse, part, count, N, D, V, xvec, wvec), s)
+               : fwd_bf16(bf16_args<float>(x, w, b, t, loss, lse, part, count, N, D, V, xvec,
+                                           wvec), s);
   else
     e = b_bf16 ? fwd_f32(f32_args<BF>(x, w, b, t, 0, 0, loss, lse, 0, 0, 0, N, D, V), s)
                : fwd_f32(f32_args<float>(x, w, b, t, 0, 0, loss, lse, 0, 0, 0, N, D, V), s);
   return static_cast<int>(e);
 }
 
-// D <= 1024.  dx, dw and db come out in x's, w's and b's dtypes.
+// dx, dw and db come out in x's, w's and b's dtypes.  bf16 x and w take
+// the plan (C, BM, BV) of ops/fused_ce.py _bwd_plan (D <= 4096); f32 x and
+// w take D <= 1024 and the plan (0, 0, 0).  Any other plan is refused with
+// cudaErrorInvalidValue.
 extern "C" int dft_flce_bwd(const void* x, const void* w, const void* b, const int* t,
                             const float* lse, const float* g, void* dx, void* dw, void* db,
                             int N, int D, int V, int x_bf16, int b_bf16, int xvec, int wvec,
-                            void* stream) {
+                            int C, int BM, int BV, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using BF = __nv_bfloat16;
   cudaError_t e;
   if (x_bf16)
-    e = b_bf16 ? bwd_bf16(bf16_args<BF>(x, w, b, t, lse, g, 0, 0, 0, 0, dx, dw, db, N, D, V,
-                                        xvec, wvec), s)
-               : bwd_bf16(bf16_args<float>(x, w, b, t, lse, g, 0, 0, 0, 0, dx, dw, db, N, D, V,
-                                           xvec, wvec), s);
+    e = bwd::run(bwd::Args{static_cast<const BF*>(x), static_cast<const BF*>(w), b, t, lse, g,
+                           static_cast<BF*>(dx), static_cast<BF*>(dw), db, N, D, V, b_bf16, xvec,
+                           wvec},
+                 C, BM, BV, s);
+  else if (C != 0 || BM != 0 || BV != 0 || D < 1 || D > 1024)
+    e = cudaErrorInvalidValue;
   else
     e = b_bf16 ? bwd_f32(f32_args<BF>(x, w, b, t, lse, g, 0, 0, dx, dw, db, N, D, V), s)
                : bwd_f32(f32_args<float>(x, w, b, t, lse, g, 0, 0, dx, dw, db, N, D, V), s);

@@ -107,26 +107,33 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // matrix with row stride lsrc into dst (row stride ldst), zero outside the
 // matrix.  With `vec` (16-byte aligned rows) whole 8-element chunks go by
 // cp.async and land after the next commit and wait; the rest by plain loads.
+// stage_chunk stages chunk e (8 elements, COLS / 8 a row) of the tile.
+template <int COLS>
+__device__ __forceinline__ void stage_chunk(bf16* dst, int ldst, const bf16* src, long long lsrc,
+                                            int row0, int col0, int nrows, int ncols, int vec,
+                                            int e) {
+  constexpr int CH = COLS / 8;
+  const int r = e / CH, c = (e % CH) * 8, gr = row0 + r, gc = col0 + c;
+  bf16* d = dst + r * ldst + c;
+  if (vec && gr < nrows && gc + 8 <= ncols) {
+    cp_async16(d, src + (long long)gr * lsrc + gc);
+  } else {
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (gr < nrows) {
+      bf16* b = reinterpret_cast<bf16*>(&val);
+      const bf16* p = src + (long long)gr * lsrc + gc;
+      for (int j = 0; j < 8; ++j)
+        if (gc + j < ncols) b[j] = p[j];
+    }
+    *reinterpret_cast<uint4*>(d) = val;
+  }
+}
+
 template <int ROWS, int COLS, int THREADS>
 __device__ __forceinline__ void stage_tile(bf16* dst, int ldst, const bf16* src, long long lsrc,
                                            int row0, int col0, int nrows, int ncols, int vec) {
-  constexpr int CH = COLS / 8;
-  for (int e = threadIdx.x; e < ROWS * CH; e += THREADS) {
-    const int r = e / CH, c = (e % CH) * 8, gr = row0 + r, gc = col0 + c;
-    bf16* d = dst + r * ldst + c;
-    if (vec && gr < nrows && gc + 8 <= ncols) {
-      cp_async16(d, src + (long long)gr * lsrc + gc);
-    } else {
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (gr < nrows) {
-        bf16* b = reinterpret_cast<bf16*>(&val);
-        const bf16* p = src + (long long)gr * lsrc + gc;
-        for (int j = 0; j < 8; ++j)
-          if (gc + j < ncols) b[j] = p[j];
-      }
-      *reinterpret_cast<uint4*>(d) = val;
-    }
-  }
+  for (int e = threadIdx.x; e < ROWS * (COLS / 8); e += THREADS)
+    stage_chunk<COLS>(dst, ldst, src, lsrc, row0, col0, nrows, ncols, vec, e);
 }
 
 __device__ __forceinline__ float quad_max(float v) {  // over the 4 lanes of a row

@@ -8,7 +8,7 @@ forward and backward.
   b, the targets and lse); targets get no gradient.
 - ``fused_linear_ce_fwd`` / ``fused_linear_ce_bwd``: the kernel wrappers
   (``csrc/fused_linear_ce.cu``); the backward is one launch that writes dx,
-  dw and db.
+  dw and db, for bf16 x and w as clusters that split D (``_bwd_plan``).
 - ``fused_linear_ce_plain`` / ``fused_linear_ce_bwd_plain``: their plain
   PyTorch twins, which materialise the logits.
 
@@ -17,7 +17,8 @@ targets (N,) are integers.  loss_i = lse_i - logit_i,t_i with logits =
 x·w in f32 plus b; a target outside [0, V) matches no class, so its loss
 is lse.  Backward: dl = (softmax - onehot)·g, rounded to w's dtype before
 dx = dl·wᵀ and to x's before dw = xᵀ·dl; db sums the f32 dl.  dx, dw and
-db come out in x's, w's and b's dtypes.  The backward kernel takes D <= 1024.
+db come out in x's, w's and b's dtypes.  The backward kernel takes D up to
+``MAX_DIM[x.dtype]``: 4096 in bf16, 1024 in f32.
 
 On CPU tensors the wrappers call the plain twins; on CUDA tensors they
 launch the kernel on the current stream or raise, and count the launch in
@@ -31,8 +32,47 @@ import torch
 from . import _build
 from ._common import FLOATS, I, P, check, on_card, on_device, stream
 
-MAX_DIM = 1024
+# the backward kernel's largest D: bf16 in clusters of up to 16 blocks of
+# 256 columns, f32 in one block
+MAX_DIM = {torch.bfloat16: 4096, torch.float32: 1024}
 _INTS = (torch.int32, torch.int64)
+# as csrc/fused_linear_ce.cu bwd:: has them: the D columns a block owns,
+# a step's vocab columns (dx) or rows (dw), the tiles of a dx cluster's
+# rows and a dw cluster's vocab columns from the largest, and the floats of
+# an owner's slots for the partial logits by role and tile; and the SMs a
+# grid should fill
+_SLICE, _STEP, _BWD_TILES, _SMS = 256, 64, (128, 64), 132
+_SLOTS = {("dx", 128): 8192, ("dx", 64): 8192, ("dw", 128): 10240, ("dw", 64): 8192}
+
+
+def _slots_fit(c, rows, cols, capacity):
+    """Whether the partial logits of c blocks, over a rows x cols tile, fit
+    an owner's slots: c rows-high slots as wide as the most 8-column units
+    one block finishes."""
+    return c * rows * 8 * -(-(cols // 8) // c) <= capacity
+
+
+def _bwd_plan(n, d, v):
+    """The split of the bf16 backward over clusters: ``(C, BM, BV)``.  C =
+    ceil(d / 256) blocks a cluster, block r owning D columns [256 r, 256 r
+    + 256); ceil(n / BM) dx clusters of BM rows and ceil(v / BV) dw
+    clusters of BV vocab columns, each cluster over all of the other axis.
+
+    It takes the largest tiles (BM before BV) whose partial logits fit the
+    owners' slots and whose grid has at least 132 blocks, else the smallest
+    tiles that fit."""
+    if n < 1 or v < 1 or not 1 <= d <= MAX_DIM[torch.bfloat16]:
+        raise ValueError(
+            f"the backward plan takes D up to {MAX_DIM[torch.bfloat16]}, not {(n, d, v)}"
+        )
+    c = -(-d // _SLICE)
+    fits = [(bm, bv) for bm in _BWD_TILES for bv in _BWD_TILES
+            if _slots_fit(c, bm, _STEP, _SLOTS["dx", bm])
+            and _slots_fit(c, _STEP, bv, _SLOTS["dw", bv])]
+    for bm, bv in fits:
+        if c * (-(-n // bm) + -(-v // bv)) >= _SMS:
+            return c, bm, bv
+    return (c, *fits[-1])
 
 
 def _target_logit(logits, t):
@@ -114,18 +154,21 @@ def fused_linear_ce_bwd(x, w, b, targets, lse, g):
     check("g", g, (n,), FLOATS, contiguous=False)
     if not on_card(x, w, b, targets, lse, g):
         return fused_linear_ce_bwd_plain(x, w, b, targets, lse, g)
-    if d > MAX_DIM:
-        raise ValueError(f"fused_linear_ce_bwd takes D up to {MAX_DIM}, got {d}")
+    if d > MAX_DIM[x.dtype]:
+        raise ValueError(f"fused_linear_ce_bwd takes D up to {MAX_DIM[x.dtype]} in {x.dtype}, "
+                         f"got {d}")
+    plan = _bwd_plan(n, d, v) if x.dtype == torch.bfloat16 else (0, 0, 0)
     t = targets.to(torch.int32)
     g = g.to(torch.float32).contiguous()
     dx, dw, db = torch.empty_like(x), torch.empty_like(w), torch.empty_like(b)
     fn = _build.c_function(
-        "fused_linear_ce", "dft_flce_bwd", (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P)
+        "fused_linear_ce", "dft_flce_bwd",
+        (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P),
     )
     with on_device(x.device):
         rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), t.data_ptr(), lse.data_ptr(),
                 g.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(), n, d, v,
-                *_flags(x, w, b), stream())
+                *_flags(x, w, b), *plan, stream())
     _build.check(rc, "fused_linear_ce_bwd")
     fused_linear_ce_bwd.launches += 1
     return dx, dw, db

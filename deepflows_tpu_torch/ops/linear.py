@@ -1,6 +1,8 @@
 """Eager f32 products (counterparts of ``matmul`` and ``linear_fused`` in
 ``deepflows_tpu/ops/pallas_kernels.py``), both served by one tiled f32
-kernel with an epilogue (``csrc/linear_f32.cu``).
+kernel with an epilogue (``csrc/linear_f32.cu``), on the tile that
+``_linear_plan`` chooses: 128 x 128 for a product whose grid of that tile
+fills the card, else 32 x 32 with K split over the blocks of a cluster.
 
 - ``matmul(a, b)``: a (M, K) @ b (K, N), f32.
 - ``linear_fused(x, w, b, activation)``: act(x @ w + b), x (M, K), w
@@ -27,6 +29,35 @@ from ._common import I, L, P, check, on_card, on_device, stream
 
 ACTIVATIONS = ("none", "relu", "tanh")
 _F32 = (torch.float32,)
+# as csrc/linear_f32.cu has them: the large tile, the small tile, its K
+# chunks' multiple and its most splits; and the SMs a grid should fill
+_LARGE, _SMALL, _K_STEP, _MAX_SPLITS, _SMS = 128, 32, 8, 16, 132
+_MIN_CHUNK = 16  # the fewest K rows a split takes
+
+
+def _linear_plan(m, n, k):
+    """The tiling of an (m, k) @ (k, n) product: ``(tile, chunk, splits)``,
+    the grid being (ceil(n / tile), ceil(m / tile), splits) blocks, split s
+    taking K rows [s·chunk, min((s + 1)·chunk, k)).
+
+    A product whose 128 x 128 grid has at least 132 blocks keeps that tile
+    over all of K: ``(128, k, 1)``.  Every other takes the 32 x 32 tile and
+    the fewest K splits, at most 16 with chunks a multiple of 8 and at
+    least 16 rows, that bring the grid to 132 blocks, or the most such
+    splits when none does.  (A split of fewer rows saves less than the
+    cluster's hand-over of its sums costs: K 10 split 8 + 2 ran slower
+    than one block.)"""
+    if m < 1 or n < 1 or k < 1:
+        raise ValueError(f"the linear plan takes a non-empty product, not {(m, k, n)}")
+    if -(-m // _LARGE) * -(-n // _LARGE) >= _SMS:
+        return _LARGE, k, 1
+    tiles = -(-m // _SMALL) * -(-n // _SMALL)
+    for target in range(1, _MAX_SPLITS + 1):
+        chunk = max(-(-k // (target * _K_STEP)) * _K_STEP, _MIN_CHUNK)
+        splits = -(-k // chunk)
+        if tiles * splits >= _SMS:
+            break
+    return _SMALL, chunk, splits
 
 
 def matmul_plain(a, b):
@@ -49,11 +80,13 @@ def _launch(a, b, bias, epi, what):
     m, k = a.shape
     n = b.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    fn = _build.c_function("linear_f32", "dft_linear_f32", (P, P, P, P, I, I, I, L, L, L, L, I, P))
+    fn = _build.c_function(
+        "linear_f32", "dft_linear_f32", (P, P, P, P, I, I, I, L, L, L, L, I, I, I, I, P)
+    )
     with on_device(a.device):
         rc = fn(a.data_ptr(), b.data_ptr(), 0 if bias is None else bias.data_ptr(),
                 out.data_ptr(), m, n, k, a.stride(0), a.stride(1), b.stride(0), b.stride(1),
-                epi, stream())
+                epi, *_linear_plan(m, n, k), stream())
     _build.check(rc, what)
     return out
 

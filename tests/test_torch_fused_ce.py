@@ -1,13 +1,17 @@
 """The port's fused LM-head cross-entropy (deepflows_tpu_torch/ops/fused_ce.py)
 and its cross-entropy losses against the JAX package on the CPU, where the
 JAX side runs its Pallas ``fused_linear_ce`` in interpret mode and the port
-its kernels' plain twins.
+its kernels' plain twins; and the bf16 backward kernel's split over
+clusters (``_bwd_plan``) with a model of its arithmetic.
 
 Inputs are numpy arrays from a seed; models cross with
 ``load_jax_state_dict``.  Tolerances are tests/test_fused_ce.py's: loss
 rtol and atol 1e-5, gradients rtol 1e-4 / atol 1e-5, bf16 5e-2; the
 fused-head A/B holds losses within 1e-3 relative and head weights within
-rtol 1e-4 / atol 1e-5, as there.
+rtol 1e-4 / atol 1e-5, as there.  The model of the kernel's cluster
+arithmetic is held to the plain twin at 2e-2 of each gradient's largest
+value (chip_smoke.py's bf16 bound): both round dl to bf16, and their
+logits differ only in the order of f32 sums.
 """
 
 import jax
@@ -25,6 +29,7 @@ from deepflows_tpu_torch import nn as tnn
 from deepflows_tpu_torch import ops, optim
 from deepflows_tpu_torch.jit import CompiledTrainStep
 from deepflows_tpu_torch.models import TransformerLM
+from deepflows_tpu_torch.ops import fused_ce
 from deepflows_tpu_torch.utils import load_jax_state_dict
 
 RNG = np.random.default_rng(33)
@@ -199,3 +204,95 @@ def test_fused_head_trains_like_the_unfused_head():
                                    getattr(lm_a.head, name).detach().numpy(),
                                    rtol=1e-4, atol=1e-5)
     assert (lm_b.head.weight.detach() - w0).abs().max() > 1e-6
+
+
+def test_plain_backward_matches_jax_above_d_1024():
+    """The bf16 kernel takes D up to 4096 now; its twin against the JAX
+    kernel (which takes any D) at D 1536, in f32."""
+    n, d, v = 64, 1536, 300
+    x, w, b, t = _operands(n, d, v)
+    x *= 0.2
+    jx, jw, jb, jt = (jnp.asarray(a) for a in (x, w, b, t))
+    _, lse = pk._flce_fwd_impl(jx, jw, jb, jt, 128, 512)
+    want = jax.grad(lambda *a: pk.fused_linear_ce(*a, jt).mean(), argnums=(0, 1, 2))(jx, jw, jb)
+    got = ops.fused_linear_ce_bwd_plain(*(torch.from_numpy(a) for a in (x, w, b, t)),
+                                        torch.from_numpy(np.array(lse)),
+                                        torch.full((n,), 1.0 / n))
+    for name, g, ref in zip("xwb", got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-5,
+                                   err_msg=f"d{name}")
+
+
+# (N, D, V): the training slice, D across the clusters' 256-column slices
+# (C = 1, 1, 2, 3, 4, 6, 8, 16), ragged N and V
+PLAN_SHAPES = [(8192, 1024, 8192), (300, 200, 1000), (300, 256, 1000), (300, 257, 1000),
+               (100, 700, 300), (1000, 1024, 8000), (48, 1536, 200), (300, 2048, 1000),
+               (300, 4096, 1000), (37, 64, 513)]
+
+
+@pytest.mark.parametrize("n,d,v", PLAN_SHAPES)
+def test_bwd_plan_splits_d_and_covers_n_and_v_once(n, d, v):
+    """C = ceil(D / 256) blocks a cluster, each owning 256 columns of D; the
+    dx clusters' BM-row tiles cover N and the dw clusters' BV-column tiles
+    cover V exactly once; the C blocks' partial logits fit the owners'
+    slots (csrc/fused_linear_ce.cu bwd::DxTile, DwTile)."""
+    c, bm, bv = fused_ce._bwd_plan(n, d, v)
+    assert c == -(-d // 256) and bm in (128, 64) and bv in (128, 64)
+    cols = np.zeros(c * 256, np.int64)
+    for r in range(c):
+        cols[256 * r:256 * (r + 1)] += 1
+    assert (cols[:d] == 1).all() and 256 * (c - 1) < d
+    for size, tile in ((n, bm), (v, bv)):
+        cover = np.zeros(-(-size // tile) * tile, np.int64)
+        for i in range(-(-size // tile)):
+            cover[i * tile:(i + 1) * tile] += 1
+        assert (cover[:size] == 1).all()
+    assert fused_ce._slots_fit(c, bm, 64, fused_ce._SLOTS["dx", bm])
+    assert fused_ce._slots_fit(c, 64, bv, fused_ce._SLOTS["dw", bv])
+    if (n, d, v) == (8192, 1024, 8192):  # the slice: the largest tiles, 512 blocks
+        assert (c, bm, bv) == (4, 128, 128)
+
+
+@pytest.mark.parametrize("d", [0, 4097, 8192])
+def test_bwd_plan_refuses_d_past_the_clusters(d):
+    with pytest.raises(ValueError):
+        fused_ce._bwd_plan(64, d, 100)
+    assert fused_ce.MAX_DIM == {torch.bfloat16: 4096, torch.float32: 1024}
+
+
+def _cluster_model(x, w, b, t, lse, g, c):
+    """The bf16 backward kernel's arithmetic, written out with torch ops:
+    each of c blocks computes partial logits over its 256 columns of D, the
+    partials are added in block order, then bias, dl = (softmax - onehot)
+    g rounded to bf16, and each block's slice of dx = dl w_slice^T and of
+    dw = x_slice^T dl; db sums the f32 dl."""
+    xf, wf = x.float(), w.float()
+    slices = [slice(256 * r, 256 * (r + 1)) for r in range(c)]
+    logits = xf[:, slices[0]] @ wf[slices[0]]
+    for sl in slices[1:]:
+        logits = logits + xf[:, sl] @ wf[sl]
+    logits = logits + b.float()
+    v = logits.shape[1]
+    onehot = (torch.arange(v)[None, :] == t[:, None]).float()
+    dl = (torch.exp(logits - lse[:, None]) - onehot) * g[:, None]
+    dlb = dl.to(torch.bfloat16).float()
+    dx = torch.cat([dlb @ wf[sl].t() for sl in slices], 1)
+    dw = torch.cat([xf[:, sl].t() @ dlb for sl in slices], 0)
+    return dx.to(x.dtype), dw.to(w.dtype), dl.sum(0).to(b.dtype)
+
+
+@pytest.mark.parametrize("n,d,v", [(64, 600, 300), (48, 1536, 200), (40, 256, 129)])
+def test_cluster_model_matches_the_plain_backward(n, d, v):
+    x, w, b, t = _operands(n, d, v)
+    x *= 0.2
+    tx, tw = (torch.from_numpy(a).to(torch.bfloat16) for a in (x, w))
+    tb, tt = torch.from_numpy(b).to(torch.bfloat16), torch.from_numpy(t)
+    _, lse = ops.fused_linear_ce_plain(tx, tw, tb, tt)
+    g = torch.from_numpy(RNG.random(n).astype(np.float32)) / n
+    c = fused_ce._bwd_plan(n, d, v)[0]
+    got = _cluster_model(tx, tw, tb, tt, lse, g, c)
+    want = ops.fused_linear_ce_bwd_plain(tx, tw, tb, tt, lse, g)
+    for name, a, ref in zip(("dx", "dw", "db"), got, want):
+        assert a.dtype == ref.dtype, name
+        scale = ref.float().abs().max().item()
+        assert (a.float() - ref.float()).abs().max().item() <= 2e-2 * scale, name

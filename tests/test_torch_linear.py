@@ -3,8 +3,9 @@ the plain twins of ``ops.matmul`` and ``ops.linear_fused``
 (deepflows_tpu_torch/ops/linear.py) against the Pallas ``matmul`` and
 ``linear_fused`` (interpret mode on the CPU), ``nn.functional.linear``'s
 two routes against the JAX package's eager ``config.use_pallas`` path,
-``F.relu``'s tie, an eager ``models.MLP`` Adam trajectory, and the route
-switched off inside the whole steps.
+``F.relu``'s tie, an eager ``models.MLP`` Adam trajectory, the route
+switched off inside the whole steps, and the kernel's tiling plan
+(``_linear_plan``) at the MLP's products.
 
 Inputs are numpy arrays from seeds; models start from the JAX weights.
 Tolerances: the twins rtol 1e-5 / atol 1e-4 against the kernels (the same
@@ -30,6 +31,7 @@ from deepflows_tpu_torch import ops, optim
 from deepflows_tpu_torch.jit import CompiledEvalStep, CompiledTrainStep
 from deepflows_tpu_torch.models import MLP
 from deepflows_tpu_torch.nn import functional as F
+from deepflows_tpu_torch.ops import linear
 from deepflows_tpu_torch.utils import load_jax_state_dict
 
 RNG = np.random.default_rng(61)
@@ -113,6 +115,52 @@ def test_wrappers_check_their_operands():
         ops.linear_fused(a, torch.zeros(3, 2), torch.zeros(2), "gelu")
     with pytest.raises(ValueError):
         ops.linear_fused(a, torch.zeros(3, 2), torch.zeros(3))
+
+
+# every product of the eager MLP (784-100-20-10, B 256) as (M, K, N): the
+# three layers, then the bias-free twin's backward dW = x^T g and dx = g W^T
+MLP_PRODUCTS = [(256, 784, 100), (256, 100, 20), (256, 20, 10),
+                (784, 256, 100), (100, 256, 20), (20, 256, 10), (256, 20, 100), (256, 10, 20)]
+
+
+def _check_linear_plan(m, k, n):
+    """The plan's tile is one csrc/linear_f32.cu has, and its K splits cover
+    every K row exactly once: all of K on the 128 x 128 tile, chunks that
+    are multiples of 8 and at least 16 rows on the 32 x 32 tile (or all of
+    a smaller K), at most 16 splits (the blocks of one cluster).  Returns
+    (blocks, the most blocks the small tile can give: its finest split,
+    the smallest chunk over at most 16 splits)."""
+    tile, chunk, splits = linear._linear_plan(m, n, k)
+    assert tile in (128, 32) and 1 <= splits <= 16
+    rows = np.zeros(k, np.int64)
+    for s in range(splits):
+        rows[s * chunk:min((s + 1) * chunk, k)] += 1
+    assert (rows == 1).all() and (splits - 1) * chunk < k
+    if tile == 128:
+        assert (chunk, splits) == (k, 1)
+    else:
+        assert chunk % 8 == 0 and (chunk >= 16 or splits == 1)
+    finest = -(-k // max(16, 8 * -(-k // 128)))
+    return -(-m // tile) * -(-n // tile) * splits, -(-m // 32) * -(-n // 32) * finest
+
+
+@pytest.mark.parametrize("m,k,n", MLP_PRODUCTS)
+def test_linear_plan_fills_the_card_at_the_mlp_products(m, k, n):
+    """132 blocks (one an SM) wherever the 16 splits allow it; where K or
+    M·N is too small for that, the finest split."""
+    blocks, most = _check_linear_plan(m, k, n)
+    assert blocks >= 132 or blocks == most
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 8, 48), (64, 9, 48), (64, 16, 48), (64, 17, 48),
+                                   (64, 784, 48), (64, 4095, 48), (1, 5, 3), (257, 129, 384),
+                                   (4096, 4096, 4096)])
+def test_linear_plan_covers_k_once(m, k, n):
+    blocks, most = _check_linear_plan(m, k, n)
+    if m == 4096:  # a grid of 1,024 large tiles keeps the large tile
+        assert linear._linear_plan(m, n, k) == (128, k, 1)
+    else:
+        assert blocks >= 132 or blocks == most
 
 
 @pytest.mark.parametrize("bias", [True, False])
