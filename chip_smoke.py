@@ -50,7 +50,15 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
    plain twins on the card, in f32 and bf16, at the training slice's shapes
    (flash (8, 8, 1024, 128) causal; CE N 8192, D 1024, V 8192; Adam over the
    model's 198 tensors) and at ragged ones (flash: Lq != Lk, L not a tile
-   multiple, D 64 and 100, non-causal, a window, rows that see no key; CE: N
+   multiple, D 64 and 100, non-causal, a window, rows that see no key, the
+   bf16 wgmma forward's edges (L 1000, 130 x 300, 300 x 130 with rows that
+   see no key, windows of 1 and 2 and one past L, D 32 and 96), bf16 views
+   that TMA cannot read (rows of D + 4, a base 2 bytes off, at D 64 and
+   128), each case held to the forward route it must take and printed with
+   it (ops/flash_attention.py _fwd_route: wgmma, mma for D 100 and the
+   views TMA cannot read, f32; with the window of 1, dq and dk are exactly
+   0 and are held by absolute error against TOL x max |dout| x max |q or
+   k|); CE: N
    and V not tile multiples, an f32 bias beside bf16 x and w; Adam: sizes
    that are not a block multiple, weight decay 0 and not), and the slice's
    bf16 flash case again on (B, L, H, D) tensors seen as (B, H, L, D), as
@@ -72,11 +80,12 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
    its backward fed lse + 0.1; and two the CE check: dx of the backward
    run on the first V - 64 columns of w and b (one vocab step dropped),
    held by row against the full reference, and the backward fed lse +
-   0.1.  Two bf16 CE backward calls at the slice's shape must give the
-   same bits.
+   0.1.  Two bf16 CE backward calls and two bf16 flash forward calls at the
+   slice's shape must give the same bits.
    Times each kernel at the slice's bf16 shapes beside its plain twin, one
    library call (scaled_dot_product_attention; torch.matmul +
-   F.cross_entropy; torch.optim.Adam(fused=True)) and its bound.
+   F.cross_entropy; torch.optim.Adam(fused=True)) and its bound; the flash
+   forward with its route and TFLOP/s.
 5. Training phase, the main path: TransformerLM(vocab 8192, max_len 1024,
    dim 1024, depth 12, heads 8, flash=True) with random weights from a seed,
    trained by CompiledTrainStep(lm.trunk(), Adam(lr 5e-3, weight decay
@@ -117,7 +126,9 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
    9, 16, 17, 784 and 4095 at (64, K, 48)) and 4096^3 (both); two MLP layer-1
    linear_fused calls must give the same bits. Times matmul at 4096^3 and
    linear_fused at the MLP's first layer beside their twins, their bounds
-   and torch.matmul / torch.addmm (TF32 off).
+   and torch.matmul / torch.addmm (TF32 off), and the bias-free MLP's 8
+   matmul calls a step, summed, beside their summed bounds, twins and
+   torch.matmul.
 10. Eager f32 phase, two main paths under config.use_pallas: models.MLP
    (784-100-20-10) trained eagerly (forward, CrossEntropyLoss, zero_grad,
    backward, Adam(lr 1e-3).step()) for 30 steps of B 256 of synthetic
@@ -130,7 +141,8 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
 
 Prints the card's name and power limit, one {"kernels": [...]} line (the CE
 backward's, linear_fused's and matmul's entries with the plan they ran:
-(C, BM, BV) and (tile, chunk, splits)), and as its last line {"ok": true,
+(C, BM, BV) and (tile, chunk, splits); the flash forward's with its route
+and TFLOP/s), and as its last line {"ok": true,
 "device": {...}}.  With ``--report PATH`` it also
 writes every measurement (each shape's times, the throughput of each mode,
 the training step's numbers) to PATH as JSON.
@@ -668,6 +680,19 @@ FLASH_RAGGED = (  # (B, H, Lq, Lk, D, causal, window)
     (1, 2, 130, 70, 64, True, None), (2, 2, 200, 200, 128, True, 37),
     (1, 2, 96, 8, 64, True, 9), (1, 1, 33, 47, 100, True, None),
     (2, 2, 64, 64, 64, False, None),
+    # the wgmma forward's edges: L not a multiple of its 128-row or key
+    # tiles, rows 193.. that see no key, windows of 1 and 2 and one past L
+    (2, 2, 1000, 1000, 128, True, None), (1, 2, 130, 300, 64, False, None),
+    (1, 2, 300, 130, 128, True, 64), (2, 2, 256, 256, 128, True, 1),
+    (2, 2, 256, 256, 128, True, 2), (1, 2, 200, 200, 64, True, 512),
+    # D below the 64-wide TMA box and between its two boxes (D 32 and 96)
+    (2, 2, 150, 150, 32, True, None), (1, 3, 200, 90, 96, False, None),
+)
+# bf16 views that TMA cannot read, so the mma.sync route (both of its
+# instances, D 64 and D 128): rows of D + 4 elements, or a base 2 bytes off
+FLASH_MISALIGNED = (  # (B, H, Lq, Lk, D, causal, window, layout)
+    (2, 2, 100, 100, 64, True, None, "rows"), (1, 2, 130, 70, 64, False, None, "offset"),
+    (2, 2, 200, 200, 128, True, None, "rows"), (1, 2, 70, 130, 128, True, 37, "offset"),
 )
 CE_RAGGED = ((37, 64, 513), (100, 200, 300), (1000, 1024, 8000), (130, 1000, 97))
 # (N, D, V) across the bf16 backward's cluster edges: C = ceil(D / 256) is 1,
@@ -722,21 +747,46 @@ def flash_errs(fwd, ref_fwd, grads, ref_grads, live):
     return errs
 
 
-def flash_case(torch, ops, g, B, H, Lq, Lk, D, causal, window, dt, label, heads_view=False):
+def flash_route(q, k, v):
+    """The forward kernel that ops/flash_attention.py _fwd_route picks for
+    these operands: "wgmma", "mma" or "f32"."""
+    import importlib
+
+    return importlib.import_module("deepflows_tpu_torch.ops.flash_attention")._fwd_route(q, k, v)
+
+
+def flash_operand(torch, g, B, H, L, D, dt, layout):
+    """A (B, H, L, D) operand: contiguous, a (B, L, H, D) tensor seen as
+    (B, H, L, D) ("heads", as MultiheadAttention passes its heads), a view
+    into rows of D + 4 elements ("rows") or one whose base is 2 bytes off
+    ("offset")."""
+    dev = torch.device("cuda")
+    if layout == "heads":
+        return torch.randn((B, L, H, D), generator=g, device=dev).to(dt).transpose(1, 2)
+    pad, off = {"contiguous": (0, 0), "rows": (4, 0), "offset": (8, 1)}[layout]
+    return torch.randn((B, H, L, D + pad), generator=g, device=dev).to(dt)[..., off:off + D]
+
+
+def flash_case(torch, ops, g, B, H, Lq, Lk, D, causal, window, dt, label, layout="contiguous",
+               want_route=None):
     """Forward and backward kernel against the plain twins on one case: the
     plain backward starts from the plain forward's out and lse.  Fails past
     the limits (lse at TOL["f32"] in both dtypes, the rest at the dtype's
-    TOL), or unless every row without a visible key gives output 0 and lse
-    -1e30.  With ``heads_view`` the operands are (B, L, H, D) tensors seen
-    as (B, H, L, D), as MultiheadAttention passes them.  Returns the
-    operands, the plain results and the errors."""
+    TOL), unless every row without a visible key gives output 0 and lse
+    -1e30, or unless the forward takes ``want_route`` (where given).  The
+    operands are laid out as ``layout`` says (flash_operand).  With a
+    causal window of 1 every row sees one key, its softmax is constant and
+    dq and dk are exactly 0: both sides give rounding noise, which no
+    relative measure can hold, so those two are held by their absolute
+    error against TOL x max |dout| x max(max |q|, max |k|), the size one
+    key's term of each would have.  Prints the case's forward route and
+    errors; returns the operands, the plain results, the errors and the
+    route."""
     dev = torch.device("cuda")
-    if heads_view:
-        q, k, v, do = (torch.randn((B, n, H, D), generator=g, device=dev).to(dt).transpose(1, 2)
-                       for n in (Lq, Lk, Lk, Lq))
-    else:
-        q, k, v, do = (torch.randn((B, H, n, D), generator=g, device=dev).to(dt)
-                       for n in (Lq, Lk, Lk, Lq))
+    q, k, v, do = (flash_operand(torch, g, B, H, n, D, dt, layout) for n in (Lq, Lk, Lk, Lq))
+    route = flash_route(q, k, v)
+    if want_route is not None and route != want_route:
+        fail(f"flash {label}: takes the {route} route, not {want_route}")
     o, lse = ops.flash_attention_fwd(q, k, v, causal, None, window)
     po, plse = ops.flash_attention_plain(q, k, v, causal, None, window)
     grads = ops.flash_attention_bwd(q, k, v, o, lse, do, causal, None, window)
@@ -749,11 +799,21 @@ def flash_case(torch, ops, g, B, H, Lq, Lk, D, causal, window, dt, label, heads_
             fail(f"flash {label}: a row that sees no key is not 0 with lse -1e30")
     lim = TOL["bf16" if dt == torch.bfloat16 else "f32"]
     errs = flash_errs((o, lse), (po, plse), grads, want, ~blind)
-    for name, (rel, _) in errs.items():
-        if not rel < (TOL["f32"] if name == "lse" else lim):
-            fail(f"flash {label}: {name} differs from the plain twin by {rel} (limit "
-                 f"{TOL['f32'] if name == 'lse' else lim})")
-    return (q, k, v, o, lse, do), (po, plse, want), errs
+    zero = ("dq", "dk") if causal and window == 1 else ()
+    zero_lim = lim * do.float().abs().max().item() * max(
+        q.float().abs().max().item(), k.float().abs().max().item())
+    for name, (rel, absd) in errs.items():
+        if name in zero:
+            if not absd < zero_lim:
+                fail(f"flash {label} ({route} route): {name}, exactly 0, is {absd} off the plain "
+                     f"twin (limit {zero_lim:.3g})")
+        elif not rel < (TOL["f32"] if name == "lse" else lim):
+            fail(f"flash {label} ({route} route): {name} differs from the plain twin by {rel} "
+                 f"(limit {TOL['f32'] if name == 'lse' else lim})")
+    print(f"    flash {label}: {route} route; " + ", ".join(
+        f"{n} {r:.3g}" + (f" (exactly 0: abs {a:.3g}, limit {zero_lim:.3g})" if n in zero else "")
+        for n, (r, a) in errs.items()))
+    return (q, k, v, o, lse, do), (po, plse, want), errs, route
 
 
 def flash_planted_faults(ops, operands, refs):
@@ -885,8 +945,9 @@ def train_kernel_phase(torch, ops, report):
     shapes = [tuple(p.shape) for p in TransformerLM(**TRAIN, device="cuda").parameters()]
     err = {}
     for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        flash_ops, flash_refs, fe = flash_case(torch, ops, g, B, H, L, L, D, True, None, dt,
-                                               f"slice {name}")
+        flash_ops, flash_refs, fe, froute = flash_case(
+            torch, ops, g, B, H, L, L, D, True, None, dt, f"slice {name}",
+            want_route="wgmma" if name == "bf16" else "f32")
         ce_ops, ce_want, ce_e = ce_case(torch, ops, g, N, E, V, dt, dt, f"slice {name}")
         if dt == torch.bfloat16:  # the main path's dtype: the JSON line's errors
             err = {"flash_attention_fwd": max(fe["out"][1], fe["lse"][1]),
@@ -894,16 +955,26 @@ def train_kernel_phase(torch, ops, report):
                    "fused_linear_ce_fwd": max(ce_e[n][1] for n in ("loss", "lse")),
                    "fused_linear_ce_bwd": max(ce_e[n][1] for n in ("dx", "dw", "db"))}
             report["flash_slice_bf16_errs"], report["ce_slice_bf16_errs"] = fe, ce_e
-        for case in FLASH_RAGGED:
-            flash_case(torch, ops, g, *case, dt, f"{case} {name}")
+        for case in FLASH_RAGGED:  # contiguous bf16 with D % 8 == 0 is TMA's to read
+            route = "f32" if name == "f32" else "mma" if case[4] % 8 else "wgmma"
+            flash_case(torch, ops, g, *case, dt, f"{case} {name}", want_route=route)
         ce_edges = [c for c in CE_D_EDGES if c[1] <= ops.fused_ce.MAX_DIM[dt]]
         report[f"ce_cases_{name}"] = {
             str(c): ce_case(torch, ops, g, *c, dt, dt, f"{c} {name}")[2]
             for c in CE_RAGGED + tuple(ce_edges)}
-    _, _, hv = flash_case(torch, ops, g, B, H, L, L, D, True, None, torch.bfloat16,
-                          "slice bf16 (B, L, H, D) views", heads_view=True)
+    for *case, layout in FLASH_MISALIGNED:
+        flash_case(torch, ops, g, *case, torch.bfloat16, f"{tuple(case)} bf16 {layout}", layout,
+                   "mma")
+    _, _, hv, hv_route = flash_case(torch, ops, g, B, H, L, L, D, True, None, torch.bfloat16,
+                                    "slice bf16 (B, L, H, D) views", "heads", "wgmma")
     faults = flash_planted_faults(ops, flash_ops, flash_refs)
     report["flash_heads_view_errs"], report["flash_planted_faults"] = hv, faults
+    q, k, v = flash_ops[:3]  # the bf16 slice case: two forward calls give the same bits
+    fwd_same = all(torch.equal(a, b) for a, b in zip(ops.flash_attention_fwd(q, k, v, True),
+                                                     ops.flash_attention_fwd(q, k, v, True)))
+    if not fwd_same:
+        fail("flash_attention_fwd: two calls on the slice's inputs differ")
+    report["flash_fwd_bitwise_equal"], report["flash_slice_route"] = fwd_same, froute
     ce_case(torch, ops, g, 130, 1000, 97, torch.bfloat16, torch.float32, "f32 bias")
     ce_faults = ce_planted_faults(ops, ce_ops, ce_want)
     x, w, b, t, clse, gr = ce_ops  # the bf16 slice case: two calls give the same bits
@@ -915,7 +986,8 @@ def train_kernel_phase(torch, ops, report):
     adam_ops, err["fused_adam"] = adam_case(torch, ops, g, shapes, ADAM["weight_decay"], "slice")
     for wd in (0.0, 0.01):
         adam_case(torch, ops, g, [(n,) for n in ADAM_RAGGED], wd, f"ragged wd={wd}")
-    print(f"  flash {len(FLASH_RAGGED) + 2} shapes, CE {len(CE_RAGGED) + len(CE_D_EDGES) + 2} "
+    n_flash = len(FLASH_RAGGED) + len(FLASH_MISALIGNED) + 2
+    print(f"  flash {n_flash} shapes, CE {len(CE_RAGGED) + len(CE_D_EDGES) + 2} "
           f"shapes, Adam {len(shapes)} + {len(ADAM_RAGGED)} tensors agree with their plain twins "
           f"in f32 and bf16; max abs err (slice, bf16): {err}")
 
@@ -933,8 +1005,9 @@ def train_kernel_phase(torch, ops, report):
           f"{ce_faults['dropped_vocab_step']['dx_global_scaled']:.3g}); lse + {FAULT_SHIFT} gives "
           + ", ".join(f"{n} {v:.3g}" for n, v in ce_faults["lse_shift"].items()))
 
-    print(f"  flash slice bf16, relative errors (limits: lse {TOL['f32']}, the rest "
-          f"{TOL['bf16']}): {fmt(fe)}; as (B, L, H, D) views: {fmt(hv)}")
+    print(f"  flash slice bf16 ({froute} route), relative errors (limits: lse {TOL['f32']}, the "
+          f"rest {TOL['bf16']}): {fmt(fe)}; as (B, L, H, D) views ({hv_route} route): {fmt(hv)};"
+          f" two slice-shape forward calls bitwise equal: {fwd_same}")
     print(f"  planted faults, flagged: a dropped key tile gives out {faults['dropped_key_tile']['out']:.3g}"
           f" and lse {faults['dropped_key_tile']['lse']:.3g} (the global measure reads "
           f"{faults['dropped_key_tile']['out_global_scaled']:.3g}); lse + {FAULT_SHIFT} in the "
@@ -996,6 +1069,8 @@ def train_kernel_phase(torch, ops, report):
         r["bound_ms"], r["bound_by"] = bound_ms(*bounds[name], "bf16")
         out[name] = r
     out["fused_linear_ce_bwd"]["plan"] = list(ops.fused_ce._bwd_plan(N, E, V))  # (C, BM, BV)
+    fwd = out["flash_attention_fwd"]
+    fwd["fwd_route"], fwd["tflops"] = froute, bounds["flash_attention_fwd"][1] / fwd["ms"] / 1e9
     del lib_adam, lib_params
     report["train_kernels"] = out
     return out
@@ -1197,6 +1272,19 @@ def linear_kernel_phase(torch, ops, report):
     r["bound_ms"], r["bound_by"] = bound_ms(3 * 4 * big * big, 2 * big**3, "f32")
     r["mlp_ms"] = {str(shape): event_ms(lambda o=o: ops.matmul(*o[:2]), 10, flush)
                    for shape, o in zip(MLP_SHAPES, mlp)}
+    # the bias-free MLP's 8 calls a step (eager_phase): 3 forward, dW = x^T g
+    # of every layer, dx = g W^T of layers 2 and 3, as the transposed views
+    # its backward passes; each call's ms and bound, summed
+    calls = []
+    for i, (x, w, _) in enumerate(mlp):
+        gy = torch.randn((x.shape[0], w.shape[1]), generator=g, device=dev)
+        calls += [(x, w), (x.t(), gy)] + ([(gy, w.t())] if i else [])
+    r["mlp8"] = {name: sum(event_ms(lambda c=c: fn(*c), 10, flush) for c in calls)
+                 for name, fn in (("ms", ops.matmul), ("plain_ms", ops.matmul_plain),
+                                  ("library_ms", torch.matmul))}
+    r["mlp8"]["bound_ms"] = sum(
+        bound_ms(4 * (a.shape[0] * a.shape[1] + b.numel() + a.shape[0] * b.shape[1]),
+                 2 * a.shape[0] * a.shape[1] * b.shape[1], "f32")[0] for a, b in calls)
     out["matmul"] = r
     (x, w, bias), (m, k, n) = mlp[0], MLP_SHAPES[0]
     r = dict(ms=event_ms(lambda: ops.linear_fused(x, w, bias), 20, flush),
@@ -1557,13 +1645,15 @@ def main(argv=None) -> int:
             replaces=f"deepflows_tpu/ops/pallas_kernels.py:{line}", launches=launches,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"], at=at,
-            **({"plan": r["plan"]} if "plan" in r else {}))
+            **{k: r[k] for k in ("plan", "fwd_route", "tflops") if k in r})
 
     at = (f"training step: TransformerLM d{TRAIN['dim']} x {TRAIN['depth']}, B {TRAIN_B}, "
           f"L {TRAIN_L}, V {TRAIN['vocab_size']}, bf16; ms and bounds per call")
     for name, r in tk.items():
         n = PER_STEP[name]
-        print(f"  {name}: {r['ms']:.4f} ms a call, {n * r['ms']:.3f} ms a step ({n} calls); "
+        how = (f" ({r['fwd_route']} route, {r['tflops']:.1f} TFLOP/s)" if "fwd_route" in r
+               else "")
+        print(f"  {name}: {r['ms']:.4f} ms a call{how}, {n * r['ms']:.3f} ms a step ({n} calls); "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms']:.4f} ms; {card}")
         kernels.append(entry(name, r, tcounts[name], at))
@@ -1595,6 +1685,11 @@ def main(argv=None) -> int:
               f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms;"
               f" at the MLP's three layers " + ", ".join(
                   f"{v:.4f}" for v in r["mlp_ms"].values()) + f" ms; {card}")
+        if "mlp8" in r:
+            m8 = r["mlp8"]
+            print(f"  matmul, the bias-free MLP's 8 calls summed: {m8['ms']:.4f} ms; bound "
+                  f"{m8['bound_ms']:.4f} ms, plain {m8['plain_ms']:.4f} ms, library "
+                  f"{m8['library_ms']:.4f} ms; {card}")
         kernels.append(entry(name, r, ecounts[run][name], r["at"]))
     for k in kernels:
         if k["launches"] <= 0:

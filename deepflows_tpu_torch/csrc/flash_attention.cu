@@ -25,8 +25,18 @@
 // at 3.35 TB/s); the backward 43 GFLOP against 135 MB.  So both sit near
 // the ridge, and only tensor cores can approach either bound.
 //
-// bf16 operands take the tensor cores: mma.sync m16n8k16 (bf16 in, f32
-// accumulate) fed by ldmatrix from shared memory, FlashAttention-2 style.
+// The bf16 forward has two routes (ops/flash_attention.py _fwd_route).
+// Where TMA can read q, k and v (D % 8 == 0, every B, H, L stride a
+// positive multiple of 8 elements, 16-byte aligned bases) it runs
+// flash_fwd_wgmma (namespace wg): a producer warpgroup issues TMA loads
+// into an mbarrier ring and two consumer warpgroups of 64 query rows run
+// wgmma, each reading a K and V tile from shared memory once, where the
+// mma.sync kernel below reads it once per 16-row warp; the grid takes the
+// longest causal rows first.  Every other bf16 call (D 100, misaligned
+// views) and the bf16 backward run on mma.sync:
+//
+// mma.sync m16n8k16 (bf16 in, f32 accumulate) fed by ldmatrix from shared
+// memory, FlashAttention-2 style.
 // A block of 4 warps owns 64 query rows (16 a warp) and loops over key
 // tiles of 64; K and V tiles are staged in shared memory as bf16 rows with
 // 16 bytes of padding, so every ldmatrix phase hits 8 distinct bank groups;
@@ -45,13 +55,14 @@
 // TPU's two kernels are: blockIdx.z 0 is a dq block that loops over key
 // tiles for one query tile; blockIdx.z 1 is a dk/dv block that loops over
 // query tiles for one key tile.  Each output tile has one owner, so the
-// backward is deterministic and needs no atomics.  cp.async/TMA staging,
-// wgmma and a persistent schedule are later work; PERF.md holds the
-// measured times.
+// backward is deterministic and needs no atomics, as is the forward (one
+// owner a row, a fixed order of sums).  The backward on wgmma and a
+// persistent grid are later work; PERF.md holds the measured times.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -76,18 +87,19 @@ __device__ __forceinline__ bool masked(const Shape& sh, int qpos, int kpos) {
   return kpos > qpos || (sh.window > 0 && kpos <= qpos - sh.window);
 }
 
-// Key tiles [begin, end) that hold a visible key for some query in
-// [q0, q0 + BQ): causal skips tiles above the diagonal, a window those
+// Key tiles [begin, end) of TK keys that hold a visible key for some query
+// in [q0, q0 + TQ): causal skips tiles above the diagonal, a window those
 // below the band (the TPU kernels' `needed` predicate).
+template <int TQ = BQ, int TK = BK>
 __device__ __forceinline__ void key_range(const Shape& sh, int q0, int& begin, int& end) {
   begin = 0;
-  end = (sh.Lk + BK - 1) / BK;
+  end = (sh.Lk + TK - 1) / TK;
   if (sh.causal) {
-    const int last = (q0 + BQ - 1) / BK + 1;
+    const int last = (q0 + TQ - 1) / TK + 1;
     end = end < last ? end : last;
     if (sh.window > 0) {
       const int lo = q0 - sh.window + 1;  // first visible key of the tile's first row
-      begin = lo > 0 ? lo / BK : 0;
+      begin = lo > 0 ? lo / TK : 0;
     }
   }
 }
@@ -897,6 +909,337 @@ __global__ void __launch_bounds__(TC_THREADS)
 
 }  // namespace tc
 
+// ------------------------------------------------------------------
+// bf16 forward on Hopper: wgmma fed from a TMA ring.  Warpgroup 0 is the
+// producer: it gives most of its registers to the consumers, and one of
+// its threads issues every TMA load (Q once, then K and V tile by tile into
+// a ring of ST slots, each with a full and an empty mbarrier).  Warpgroups
+// 1 and 2 are consumers of 64 query rows each (a block owns 128): S = Q K^T
+// by wgmma from shared memory, the online softmax on S's accumulators, and
+// O += P V by wgmma with P from registers and V read MN-major (transpose-B
+// bit), so K and V are read from shared memory once per warpgroup and no
+// transposed copy is staged.  Within a consumer, the product P V of one
+// key tile runs on the tensor cores while the softmax of the next tile's
+// scores runs on the other units; O is rescaled once that product is done.
+namespace wg {
+
+using namespace dft::hopper;
+using dft::mma::bf16;
+using dft::mma::pack;
+using dft::mma::quad_max;
+using dft::mma::quad_sum;
+
+constexpr int BQW = 128;          // query rows a block: two consumer warpgroups of 64
+// Key tiles of 128 and a ring of three slots: the fastest of key tiles of
+// 64 or 128 and 2 or 3 slots at the training slice's shape (PERF.md,
+// tools/flash_fwd_ab.py --check, which builds the others from copies of
+// this line).
+constexpr int BKT = 128, ST = 3;
+constexpr int WG_THREADS = 384;   // the producer warpgroup and two consumers
+// 128 x 40 + 256 x 232 registers = 64,512, what 384 threads of 168 hold at launch
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
+
+struct Maps {  // TMA tensor maps of q, k and v, (D, L, H, B), boxes of 64 x rows
+  CUtensorMap q, k, v;
+};
+
+struct Args {
+  Maps maps;  // first: a CUtensorMap is 64-byte aligned in the parameter space
+  FwdArgs<bf16> a;
+  int group;  // heads whose blocks run together (heads_in_l2)
+};
+
+// Heads whose K and V fit in 32 MiB of the 50 MB L2: the grid runs the
+// blocks of one group of heads before the next, so each K and V tile is
+// read from device memory about once and then from L2 by every query tile
+// of its head.
+constexpr long long L2_KV_BYTES = 32ll << 20;
+inline int heads_in_l2(const Shape& sh) {
+  const long long per_head = 4ll * sh.Lk * sh.D;  // K and V, bf16
+  const long long g = L2_KV_BYTES / per_head;
+  const long long bh = (long long)sh.B * sh.H;
+  return (int)(g < 1 ? 1 : g > bh ? bh : g);
+}
+
+// Shared memory: Q [DP / 64][BQW][64], then ST slots of K and ST of V, each
+// [DP / 64][BKT][64], all 1024-byte aligned (the swizzle's period), then
+// the barriers.
+template <int DP>
+struct Layout {
+  static constexpr int Q_BYTES = BQW * DP * 2, KV_BYTES = BKT * DP * 2;
+  static constexpr int SMEM = 1024 + Q_BYTES + 2 * ST * KV_BYTES + (1 + 4 * ST) * 8;
+};
+
+struct Ring {
+  unsigned char *q, *k, *v;
+  uint64_t *qbar, *kfull, *kempty, *vfull, *vempty;
+};
+
+template <int DP>
+__device__ __forceinline__ void produce(const Args& args, const Ring& r, int q0, int kt0, int n,
+                                        int h, int b) {
+  using L = Layout<DP>;
+  const CUtensorMap *mq = &args.maps.q, *mk = &args.maps.k, *mv = &args.maps.v;
+  tma_prefetch_map(mq);
+  tma_prefetch_map(mk);
+  tma_prefetch_map(mv);
+  mbar_expect_tx(r.qbar, L::Q_BYTES);
+#pragma unroll
+  for (int x = 0; x < DP / 64; ++x) tma_load_4d(r.q + x * BQW * 128, mq, r.qbar, 64 * x, q0, h, b);
+  for (int i = 0; i < n; ++i) {
+    const int s = i % ST, k0 = (kt0 + i) * BKT;
+    const uint32_t ph = (i / ST) & 1;  // the slot's round; its first wait passes at once
+    mbar_wait(r.kempty + s, ph ^ 1);
+    mbar_expect_tx(r.kfull + s, L::KV_BYTES);
+#pragma unroll
+    for (int x = 0; x < DP / 64; ++x)
+      tma_load_4d(r.k + s * L::KV_BYTES + x * BKT * 128, mk, r.kfull + s, 64 * x, k0, h, b);
+    mbar_wait(r.vempty + s, ph ^ 1);
+    mbar_expect_tx(r.vfull + s, L::KV_BYTES);
+#pragma unroll
+    for (int x = 0; x < DP / 64; ++x)
+      tma_load_4d(r.v + s * L::KV_BYTES + x * BKT * 128, mv, r.vfull + s, 64 * x, k0, h, b);
+  }
+}
+
+// 2^x in one MUFU.EX2: results below 2^-126 flush to 0, far below what
+// the bf16 P and the f32 row sums resolve against their row maximum's 1
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online softmax of one key tile's scores s (raw q . k on entry,
+// unrounded probabilities on exit), rows r0 + g and r0 + g + 8 of the
+// warp.  Scores go to log2 units with the scale folded in; the mask is
+// built only on tiles that need it and read once per element: a hidden key
+// scores NEG_INF.  Probabilities are exp2(x - offset) with offset the
+// row's running maximum, or 0 while the row has seen no key (its maximum
+// is still NEG_INF), so a hidden key's probability is exactly 0 and
+// exp2(NEG_INF - NEG_INF) never happens.  lsum is this lane's share of
+// the row sum (alpha is the same on the row's four lanes).
+__device__ __forceinline__ void softmax(float (&s)[BKT / 2], float (&m)[2], float (&lsum)[2],
+                                        float (&alpha)[2], const Shape& sh, int k0, int r0,
+                                        int g, int tq, float sl2) {
+  const bool edge = k0 + BKT > sh.Lk ||
+                    (sh.causal && (k0 + BKT - 1 > r0 ||
+                                   (sh.window > 0 && k0 <= r0 + 15 - sh.window)));
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (edge) {
+      // this lane's columns 8 j + cc see keys with lo < 8 j + cc <= hi
+      const int qpos = r0 + g + 8 * hh;
+      int hi = sh.Lk - 1, lo = -1;
+      if (sh.causal) {
+        hi = min(hi, qpos);
+        if (sh.window > 0) lo = qpos - sh.window;
+      }
+      hi -= k0 + 2 * tq;
+      lo -= k0 + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < BKT / 8; ++j)
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          float& x = s[4 * j + 2 * hh + cc];
+          x = (8 * j + cc > hi || 8 * j + cc <= lo) ? NEG_INF : x * sl2;
+          mx[hh] = fmaxf(mx[hh], x);
+        }
+    } else {
+#pragma unroll
+      for (int j = 0; j < BKT / 8; ++j)
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          float& x = s[4 * j + 2 * hh + cc];
+          x *= sl2;
+          mx[hh] = fmaxf(mx[hh], x);
+        }
+    }
+    mx[hh] = quad_max(mx[hh]);
+    alpha[hh] = exp2_ftz(m[hh] - mx[hh]);
+    const float off = mx[hh] == NEG_INF ? 0.f : mx[hh];
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < BKT / 8; ++j)
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {
+        float& x = s[4 * j + 2 * hh + cc];
+        x = exp2_ftz(x - off);
+        rs += x;
+      }
+    lsum[hh] = lsum[hh] * alpha[hh] + rs;
+    m[hh] = mx[hh];
+  }
+}
+
+// P (bf16, rounded as the TPU kernel rounds it) as the A operand of the
+// P V product: K step kk takes accumulator n-blocks 2 kk and 2 kk + 1
+__device__ __forceinline__ void pack_p(uint32_t (&p)[BKT / 4], const float (&s)[BKT / 2]) {
+#pragma unroll
+  for (int i = 0; i < BKT / 4; ++i) p[i] = pack(s[2 * i], s[2 * i + 1]);
+}
+
+template <int DP>
+__device__ __forceinline__ void consume(const Args& args, const Ring& r, int q0, int kt0, int n,
+                                        int bh, int h, int b) {
+  using L = Layout<DP>;
+  const Shape& sh = args.a.sh;
+  const int c = threadIdx.x / 128 - 1, w = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int r0 = q0 + 64 * c + 16 * w;  // the warp's first query row
+  const float sl2 = sh.scale * LOG2E;
+  float o[DP / 2], s[BKT / 2], m[2] = {NEG_INF, NEG_INF}, lsum[2] = {0.f, 0.f}, alpha[2];
+  uint32_t p[BKT / 4];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BKT / 2; ++i) s[i] = 0.f;
+  if (n > 0) {
+    const uint64_t dq = desc_b128(r.q + c * 64 * 128, 16, 1024);
+    const uint64_t dk = desc_b128(r.k, 16, 1024);
+    const uint64_t dv = desc_b128(r.v, BKT * 128, 1024);
+    auto scores = [&](int slot) {  // S = Q K^T on K slot `slot`
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_ss<BKT, 0>(s, dq + (((kk / 4) * BQW * 128 + (kk % 4) * 32) >> 4),
+                         dk + ((slot * L::KV_BYTES + (kk / 4) * BKT * 128 + (kk % 4) * 32) >> 4),
+                         kk);
+      wgmma_commit();
+    };
+    auto values = [&](int slot) {  // O += P V on V slot `slot`
+#pragma unroll
+      for (int kk = 0; kk < BKT / 16; ++kk)
+        wgmma_rs<DP, 1>(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                        dv + ((slot * L::KV_BYTES + kk * 16 * 128) >> 4), 1);
+      wgmma_commit();
+    };
+    auto release = [&](uint64_t* bar) {  // this warp's reads of the slot are done
+      if (lane == 0) mbar_arrive(bar);
+    };
+    mbar_wait(r.qbar, 0);
+    mbar_wait(r.kfull, 0);
+    fence_regs(s);
+    wgmma_fence();
+    scores(0);
+    wgmma_wait<0>();
+    fence_regs(s);
+    release(r.kempty);
+    softmax(s, m, lsum, alpha, sh, kt0 * BKT, r0, g, tq, sl2);
+    pack_p(p, s);
+    // The loop's body has no branch on the consumer: ptxas serialises every
+    // wgmma of a path that diverges around one.
+    for (int i = 1; i < n; ++i) {
+      const int cur = i % ST, prv = (i - 1) % ST;
+      mbar_wait(r.kfull + cur, (i / ST) & 1);
+      fence_regs(s);  // the last tile's P, rescaled O and read S are written
+      fence_regs(o);
+      fence_regs(p);
+      wgmma_fence();
+      scores(cur);
+      mbar_wait(r.vfull + prv, ((i - 1) / ST) & 1);
+      values(prv);
+      wgmma_wait<1>();  // the scores are in; P V of the last tile runs on
+      fence_regs(s);
+      release(r.kempty + cur);
+      softmax(s, m, lsum, alpha, sh, (kt0 + i) * BKT, r0, g, tq, sl2);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(p);
+      release(r.vempty + prv);
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        o[4 * j] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
+      }
+      pack_p(p, s);
+    }
+    const int last = (n - 1) % ST;
+    mbar_wait(r.vfull + last, ((n - 1) / ST) & 1);
+    fence_regs(o);
+    fence_regs(p);
+    wgmma_fence();
+    values(last);
+    wgmma_wait<0>();
+    fence_regs(o);
+  }
+  // O / l to bf16 in the (B, Lq, H, D) output; lse = m ln 2 + log l, or
+  // NEG_INF for a row that saw no key (its output is 0)
+  float l[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) l[hh] = quad_sum(lsum[hh]);
+  bf16* out = args.a.o + b * args.a.vo.sb + h * args.a.vo.sh;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = r0 + g + 8 * hh;
+    if (row >= sh.Lq) continue;
+    const float inv = l[hh] == 0.f ? 0.f : 1.f / l[hh];
+    bf16* orow = out + (long long)row * args.a.vo.sl;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + 2 * tq;
+      if (col < sh.D)
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+            __floats2bfloat162_rn(o[4 * j + 2 * hh] * inv, o[4 * j + 2 * hh + 1] * inv);
+    }
+    if (tq == 0)
+      args.a.lse[(long long)bh * sh.Lq + row] =
+          l[hh] == 0.f ? NEG_INF : m[hh] * LN2 + logf(l[hh]);
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    flash_fwd_wgmma(const __grid_constant__ Args args) {
+  using L = Layout<DP>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  Ring r;
+  r.q = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  r.k = r.q + L::Q_BYTES;
+  r.v = r.k + ST * L::KV_BYTES;
+  r.qbar = reinterpret_cast<uint64_t*>(r.v + ST * L::KV_BYTES);
+  r.kfull = r.qbar + 1;
+  r.kempty = r.kfull + ST;
+  r.vfull = r.kempty + ST;
+  r.vempty = r.vfull + ST;
+  const Shape& sh = args.a.sh;
+  // One block a (head, query tile); the heads in groups of args.group,
+  // and within a group the longest causal rows first: its first blocks
+  // take the last query tile of each of its heads.
+  const int nq = (sh.Lq + BQW - 1) / BQW, per = args.group * nq;
+  const int grp = blockIdx.x / per, idx = blockIdx.x % per;
+  const int size = min(args.group, sh.B * sh.H - grp * args.group);  // the last may be smaller
+  const int q0 = (nq - 1 - idx / size) * BQW;
+  const int bh = grp * args.group + idx % size, b = bh / sh.H, h = bh % sh.H;
+  int kt0, kt1;
+  key_range<BQW, BKT>(sh, q0, kt0, kt1);
+  const int n = kt1 > kt0 ? kt1 - kt0 : 0;
+  if (threadIdx.x == 0) {
+    mbar_init(r.qbar, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(r.kfull + s, 1);
+      mbar_init(r.vfull + s, 1);
+      mbar_init(r.kempty + s, 8);  // one arrival from each consumer warp
+      mbar_init(r.vempty + s, 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0 && n > 0) produce<DP>(args, r, q0, kt0, n, h, b);
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    consume<DP>(args, r, q0, kt0, n, bh, h, b);
+  }
+}
+
+}  // namespace wg
+
 View view(const long long* s) { return View{s[0], s[1], s[2]}; }
 
 Shape shape(const long long* m, float scale) {
@@ -918,6 +1261,29 @@ cudaError_t fwd_bf16(const FwdArgs<__nv_bfloat16>& a, cudaStream_t st) {
   const dim3 grid((a.sh.Lq + BQ - 1) / BQ, a.sh.B * a.sh.H);
   // Q and two buffers of K and V
   return launch(tc::flash_fwd_tc<DP>, a, grid, tc::TC_THREADS, 5 * tc::tile_bytes<DP>(), st);
+}
+
+// A (D, L, H, B) tensor map of a (B, H, L, D) view with L rows `len`, in
+// boxes of 64 x `rows`; the route guarantees the strides TMA needs
+bool encode_heads(CUtensorMap* map, const __nv_bfloat16* base, const Shape& sh, int len,
+                  const View& v, int rows) {
+  const long long dims[4] = {sh.D, len, sh.H, sh.B};
+  const long long strides[3] = {2 * v.sl, 2 * v.sh, 2 * v.sb};  // bytes
+  return dft::hopper::encode_bf16_4d(map, base, dims, strides, rows);
+}
+
+// The maps are encoded on every call: the pointers change.
+template <int DP>
+cudaError_t fwd_wgmma(const FwdArgs<__nv_bfloat16>& a, cudaStream_t st) {
+  wg::Args w;
+  w.a = a;
+  w.group = wg::heads_in_l2(a.sh);
+  if (!encode_heads(&w.maps.q, a.q, a.sh, a.sh.Lq, a.vq, wg::BQW) ||
+      !encode_heads(&w.maps.k, a.k, a.sh, a.sh.Lk, a.vk, wg::BKT) ||
+      !encode_heads(&w.maps.v, a.v, a.sh, a.sh.Lk, a.vv, wg::BKT))
+    return cudaErrorInvalidValue;
+  const dim3 grid(a.sh.B * a.sh.H * ((a.sh.Lq + wg::BQW - 1) / wg::BQW));
+  return launch(wg::flash_fwd_wgmma<DP>, w, grid, wg::WG_THREADS, wg::Layout<DP>::SMEM, st);
 }
 
 template <int DP>
@@ -970,15 +1336,21 @@ BwdArgs<T> bwd_args(const long long* m, const void* q, const void* k, const void
 }  // namespace
 
 // meta: B, H, Lq, Lk, D, causal, window, vec, then the (B, H, L) element
-// strides of q, k, v, out.  bf16 takes the tensor cores, f32 the CUDA cores.
+// strides of q, k, v, out, then the route (0 f32 on the CUDA cores, 1
+// mma.sync, 2 wgmma; ops/flash_attention.py _fwd_route).
 // Returns the launch's cudaError_t; the caller raises if it is not 0.
 extern "C" int dft_flash_fwd(const long long* meta, const void* q, const void* k,
                              const void* v, void* out, float* lse, float scale, int bf16,
                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool small = meta[4] <= 64;
+  const long long route = meta[20];
+  if ((route == 0) == (bf16 != 0)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
-  if (bf16) {
+  if (route == 2) {
+    const auto a = fwd_args<__nv_bfloat16>(meta, q, k, v, out, lse, scale);
+    e = small ? fwd_wgmma<64>(a, s) : fwd_wgmma<128>(a, s);
+  } else if (route == 1) {
     const auto a = fwd_args<__nv_bfloat16>(meta, q, k, v, out, lse, scale);
     e = small ? fwd_bf16<64>(a, s) : fwd_bf16<128>(a, s);
   } else {

@@ -23,10 +23,13 @@ computed outside the kernels, as the JAX wrapper does.
 
 On CPU tensors the wrappers call the plain twins; on CUDA tensors they
 launch the kernel on the current stream or raise, and count the launch in
-``<wrapper>.launches``.  q, k, v, out and dout may be strided views (the
-last axis contiguous), so MultiheadAttention's head views need no copy;
-the output is allocated (B, Lq, H, D) and returned as its (B, H, Lq, D)
-view.
+``<wrapper>.launches``.  The forward's kernel is chosen by ``_fwd_route``
+from dtype, D, strides and alignment: bf16 that TMA can read takes the
+wgmma kernel, other bf16 the mma.sync kernel, f32 the CUDA-core kernel;
+a CUDA call never falls back to another route.  q, k, v, out and dout
+may be strided views (the last axis contiguous), so MultiheadAttention's
+head views need no copy; the output is allocated (B, Lq, H, D) and
+returned as its (B, H, Lq, D) view.
 """
 
 from __future__ import annotations
@@ -115,16 +118,47 @@ def _new_like_heads(t):
     return torch.empty((b, l, h, d), dtype=t.dtype, device=t.device).transpose(1, 2)
 
 
-def _meta(q, k, causal, window, tensors):
+def _aligned(tensors, positive=False):
+    """Whether every tensor of ``tensors`` has a contiguous last axis, (B,
+    H, L) strides that are multiples of 8 elements (positive, if asked) and
+    a 16-byte aligned base.  One pass: the forward asks it on every call."""
+    for t in tensors:
+        *strides, last = t.stride()
+        if last != 1 or t.data_ptr() % 16:
+            return False
+        for s in strides:
+            if s % 8 or (positive and s <= 0):
+                return False
+    return True
+
+
+def _meta(q, k, causal, window, tensors, extra=()):
     """The kernel's int64 header: B, H, Lq, Lk, D, causal, window, whether
     every row starts 16-byte aligned (then the bf16 kernel loads 16 bytes at
-    a time), and the (B, H, L) element strides of ``tensors``."""
+    a time), the (B, H, L) element strides of ``tensors``, then ``extra``."""
     b, h, lq, d = q.shape
     strides = [s for t in tensors for s in t.stride()[:3]]
-    vec = d % 8 == 0 and all(s % 8 == 0 for s in strides) and all(
-        t.data_ptr() % 16 == 0 for t in tensors)
+    vec = d % 8 == 0 and _aligned(tensors)
     vals = [b, h, lq, k.shape[2], d, int(bool(causal)), int(window or 0), int(vec)] + strides
+    vals += list(extra)
     return (ctypes.c_longlong * len(vals))(*vals)
+
+
+ROUTES = ("f32", "mma", "wgmma")  # the forward's routes, by their code in the header
+
+
+def _fwd_route(q, k, v):
+    """The forward kernel a call takes, from dtype, D, strides and alignment
+    alone: ``"wgmma"`` (the TMA-fed kernel) for bf16 where TMA can read q, k
+    and v — D % 8 == 0, every (B, H, L) stride a positive multiple of 8
+    elements, every base 16-byte aligned, the last axis contiguous; ``"mma"``
+    (mma.sync) for every other bf16 call; ``"f32"`` for f32."""
+    if q.dtype != torch.bfloat16:
+        return "f32"
+    d = q.shape[-1]
+    if d % 8 == 0 and d <= MAX_HEAD_DIM and _aligned((q, k, v), positive=True):
+        return "wgmma"
+    return "mma"
 
 
 def flash_attention_fwd(q, k, v, causal=False, sm_scale=None, window=None):
@@ -136,7 +170,8 @@ def flash_attention_fwd(q, k, v, causal=False, sm_scale=None, window=None):
     q, k, v = _rows(q), _rows(k), _rows(v)
     out = _new_like_heads(q)
     lse = torch.empty((b * h, lq), dtype=torch.float32, device=q.device)
-    meta = _meta(q, k, causal, window, (q, k, v, out))
+    route = ROUTES.index(_fwd_route(q, k, v))  # the C entry encodes wgmma's tensor maps
+    meta = _meta(q, k, causal, window, (q, k, v, out), (route,))
     fn = _build.c_function(
         "flash_attention", "dft_flash_fwd", (P, P, P, P, P, P, F, I, P)
     )

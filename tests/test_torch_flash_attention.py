@@ -203,3 +203,74 @@ def test_rejects_what_the_kernel_does_not_take():
                                 dtype=torch.bfloat16), torch.zeros((1, 1, 4, 8)))
     with pytest.raises(TypeError):
         ops.flash_attention_fwd(*(torch.zeros((1, 1, 4, 8), dtype=torch.float16),) * 3)
+
+
+def _heads_view(b, h, l, d, dtype=torch.bfloat16):
+    """A (B, L, H, D) tensor seen as (B, H, L, D), as MultiheadAttention
+    passes its heads."""
+    return torch.zeros((b, l, h, d), dtype=dtype).transpose(1, 2)
+
+
+def _padded(b, h, l, d, pad, offset=0, dtype=torch.bfloat16):
+    """A (B, H, L, D) view into rows of D + pad elements, starting ``offset``
+    elements in."""
+    return torch.zeros((b, h, l, d + pad), dtype=dtype)[..., offset:offset + d]
+
+
+@pytest.mark.parametrize("make, route", [
+    (lambda: torch.zeros((2, 2, 64, 128), dtype=torch.bfloat16), "wgmma"),
+    (lambda: torch.zeros((2, 2, 64, 64), dtype=torch.bfloat16), "wgmma"),
+    (lambda: torch.zeros((1, 2, 300, 32), dtype=torch.bfloat16), "wgmma"),
+    (lambda: torch.zeros((1, 2, 130, 96), dtype=torch.bfloat16), "wgmma"),
+    (lambda: torch.zeros((1, 2, 96, 8), dtype=torch.bfloat16), "wgmma"),
+    (lambda: _heads_view(2, 8, 64, 128), "wgmma"),
+    (lambda: _heads_view(2, 8, 64, 64), "wgmma"),
+    (lambda: _padded(1, 2, 40, 64, 8), "wgmma"),  # rows of 72: still 16-byte multiples
+    (lambda: torch.zeros((1, 1, 33, 100), dtype=torch.bfloat16), "mma"),
+    (lambda: _padded(1, 2, 40, 64, 4), "mma"),  # rows of 68 elements, 136 bytes
+    (lambda: _padded(1, 2, 40, 64, 8, offset=1), "mma"),  # a base 2 bytes off
+    (lambda: _padded(1, 2, 40, 128, 4), "mma"),  # rows of 132 elements
+    (lambda: _padded(1, 2, 40, 128, 8, offset=1), "mma"),
+    (lambda: torch.zeros((2, 2, 64, 128)), "f32"),
+    (lambda: _heads_view(2, 8, 64, 64, torch.float32), "f32"),
+], ids=["bf16_d128", "bf16_d64", "bf16_d32_ragged", "bf16_d96", "bf16_d8", "bf16_heads_d128",
+        "bf16_heads_d64", "bf16_padded_rows", "bf16_d100", "bf16_rows_of_68",
+        "bf16_misaligned_base", "bf16_rows_of_132", "bf16_d128_misaligned_base", "f32",
+        "f32_heads"])
+def test_forward_route(make, route):
+    """The forward's kernel follows from dtype, D, strides and alignment:
+    bf16 that TMA can read takes wgmma, other bf16 mma.sync, f32 the CUDA
+    cores."""
+    from deepflows_tpu_torch.ops.flash_attention import _fwd_route
+
+    q = make()
+    assert _fwd_route(q, q, q) == route
+
+
+def test_forward_route_needs_all_three_operands():
+    from deepflows_tpu_torch.ops.flash_attention import _fwd_route
+
+    good = torch.zeros((1, 2, 40, 64), dtype=torch.bfloat16)
+    bad = _padded(1, 2, 40, 64, 4)
+    assert _fwd_route(good, good, good) == "wgmma"
+    assert _fwd_route(good, bad, good) == "mma"
+    assert _fwd_route(good, good, bad) == "mma"
+    broadcast = good[:, :1].expand(1, 2, 40, 64)  # a head stride of 0
+    assert _fwd_route(good, broadcast, broadcast) == "mma"
+
+
+def test_forward_header():
+    """The forward's int64 header: after the 20 values of shape, vec and the
+    strides of q, k, v and out, the route's code at 20 (the C entry encodes
+    the wgmma route's tensor maps from the shape and strides)."""
+    import importlib
+
+    fa = importlib.import_module("deepflows_tpu_torch.ops.flash_attention")
+    q = _heads_view(2, 8, 64, 128)
+    k = v = torch.zeros((2, 8, 96, 128), dtype=torch.bfloat16)
+    for route in fa.ROUTES:
+        meta = fa._meta(q, k, True, None, (q, k, v, q), (fa.ROUTES.index(route),))
+        assert len(meta) == 21 and fa.ROUTES[meta[20]] == route
+        assert list(meta[:8]) == [2, 8, 64, 96, 128, 1, 0, 1]
+        assert list(meta[8:11]) == [64 * 8 * 128, 128, 8 * 128]  # q's B, H, L strides
+        assert list(meta[11:14]) == [8 * 96 * 128, 96 * 128, 128]
