@@ -694,6 +694,12 @@ FLASH_MISALIGNED = (  # (B, H, Lq, Lk, D, causal, window, layout)
     (2, 2, 100, 100, 64, True, None, "rows"), (1, 2, 130, 70, 64, False, None, "offset"),
     (2, 2, 200, 200, 128, True, None, "rows"), (1, 2, 70, 130, 128, True, 37, "offset"),
 )
+# q, k and v that TMA can read and a dout that it cannot: the forward on
+# wgmma, the backward on mma.sync (dout's layout last)
+FLASH_DOUT_MISALIGNED = (
+    (2, 2, 100, 100, 64, True, None, "rows"), (1, 2, 130, 70, 64, False, None, "offset"),
+    (2, 2, 200, 200, 128, True, None, "rows"), (1, 2, 70, 130, 128, True, 37, "offset"),
+)
 CE_RAGGED = ((37, 64, 513), (100, 200, 300), (1000, 1024, 8000), (130, 1000, 97))
 # (N, D, V) across the bf16 backward's cluster edges: C = ceil(D / 256) is 1,
 # 1, 2, 4, 8 and 16 (the f32 backward takes D <= 1024)
@@ -747,12 +753,14 @@ def flash_errs(fwd, ref_fwd, grads, ref_grads, live):
     return errs
 
 
-def flash_route(q, k, v):
-    """The forward kernel that ops/flash_attention.py _fwd_route picks for
-    these operands: "wgmma", "mma" or "f32"."""
+def flash_routes(q, k, v, do):
+    """The forward and backward kernels that ops/flash_attention.py
+    _fwd_route and _bwd_route pick for these operands: "wgmma", "mma" or
+    "f32" each."""
     import importlib
 
-    return importlib.import_module("deepflows_tpu_torch.ops.flash_attention")._fwd_route(q, k, v)
+    fa = importlib.import_module("deepflows_tpu_torch.ops.flash_attention")
+    return fa._fwd_route(q, k, v), fa._bwd_route(q, k, v, do)
 
 
 def flash_operand(torch, g, B, H, L, D, dt, layout):
@@ -768,25 +776,30 @@ def flash_operand(torch, g, B, H, L, D, dt, layout):
 
 
 def flash_case(torch, ops, g, B, H, Lq, Lk, D, causal, window, dt, label, layout="contiguous",
-               want_route=None):
+               want_route=None, want_bwd_route=None, dout_layout=None):
     """Forward and backward kernel against the plain twins on one case: the
     plain backward starts from the plain forward's out and lse.  Fails past
     the limits (lse at TOL["f32"] in both dtypes, the rest at the dtype's
     TOL), unless every row without a visible key gives output 0 and lse
-    -1e30, or unless the forward takes ``want_route`` (where given).  The
-    operands are laid out as ``layout`` says (flash_operand).  With a
+    -1e30, or unless the forward takes ``want_route`` and the backward
+    ``want_bwd_route`` (where given).  The operands are laid out as
+    ``layout`` says (flash_operand), dout as ``dout_layout`` (default
+    ``layout``).  With a
     causal window of 1 every row sees one key, its softmax is constant and
     dq and dk are exactly 0: both sides give rounding noise, which no
     relative measure can hold, so those two are held by their absolute
     error against TOL x max |dout| x max(max |q|, max |k|), the size one
     key's term of each would have.  Prints the case's forward route and
     errors; returns the operands, the plain results, the errors and the
-    route."""
+    forward's and backward's routes."""
     dev = torch.device("cuda")
-    q, k, v, do = (flash_operand(torch, g, B, H, n, D, dt, layout) for n in (Lq, Lk, Lk, Lq))
-    route = flash_route(q, k, v)
+    q, k, v = (flash_operand(torch, g, B, H, n, D, dt, layout) for n in (Lq, Lk, Lk))
+    do = flash_operand(torch, g, B, H, Lq, D, dt, dout_layout or layout)
+    route, bwd_route = flash_routes(q, k, v, do)
     if want_route is not None and route != want_route:
         fail(f"flash {label}: takes the {route} route, not {want_route}")
+    if want_bwd_route is not None and bwd_route != want_bwd_route:
+        fail(f"flash {label}: its backward takes the {bwd_route} route, not {want_bwd_route}")
     o, lse = ops.flash_attention_fwd(q, k, v, causal, None, window)
     po, plse = ops.flash_attention_plain(q, k, v, causal, None, window)
     grads = ops.flash_attention_bwd(q, k, v, o, lse, do, causal, None, window)
@@ -803,26 +816,30 @@ def flash_case(torch, ops, g, B, H, Lq, Lk, D, causal, window, dt, label, layout
     zero_lim = lim * do.float().abs().max().item() * max(
         q.float().abs().max().item(), k.float().abs().max().item())
     for name, (rel, absd) in errs.items():
+        how = f"{route} route" if name in ("out", "lse") else f"backward on {bwd_route}"
         if name in zero:
             if not absd < zero_lim:
-                fail(f"flash {label} ({route} route): {name}, exactly 0, is {absd} off the plain "
-                     f"twin (limit {zero_lim:.3g})")
+                fail(f"flash {label} ({how}): {name}, exactly 0, is {absd} off the plain twin "
+                     f"(limit {zero_lim:.3g})")
         elif not rel < (TOL["f32"] if name == "lse" else lim):
-            fail(f"flash {label} ({route} route): {name} differs from the plain twin by {rel} "
-                 f"(limit {TOL['f32'] if name == 'lse' else lim})")
-    print(f"    flash {label}: {route} route; " + ", ".join(
+            fail(f"flash {label} ({how}): {name} differs from the plain twin by {rel} (limit "
+                 f"{TOL['f32'] if name == 'lse' else lim})")
+    print(f"    flash {label}: {route} route, backward {bwd_route}; " + ", ".join(
         f"{n} {r:.3g}" + (f" (exactly 0: abs {a:.3g}, limit {zero_lim:.3g})" if n in zero else "")
         for n, (r, a) in errs.items()))
-    return (q, k, v, o, lse, do), (po, plse, want), errs, route
+    return (q, k, v, o, lse, do), (po, plse, want), errs, route, bwd_route
 
 
 def flash_planted_faults(ops, operands, refs):
-    """Shows that the bf16 check of the causal slice case catches two
+    """Shows that the bf16 check of the causal slice case catches three
     faults: a forward that drops up to one key tile (64 keys) from the
-    longest rows (the kernel run with window L - 64), and a backward fed an
-    lse off by FAULT_SHIFT.  Fails unless the limits of flash_case flag
-    both; returns each fault's errors beside the global measure max |d| /
-    max |plain|, which holds every row to the tensor's largest value."""
+    longest rows (the kernel run with window L - 64), a backward fed an
+    lse off by FAULT_SHIFT, and a backward that skips the last 64 query
+    rows (run with those rows of dout zeroed, held against the plain
+    backward of the whole dout: what a ring that drops its last query tile
+    gives).  Fails unless the limits of flash_case flag each; returns each
+    fault's errors beside the global measure max |d| / max |plain|, which
+    holds every row to the tensor's largest value."""
     q, k, v, o, lse, do = operands
     po, plse, want = refs
     fo, flse = ops.flash_attention_fwd(q, k, v, True, None, q.shape[2] - 64)
@@ -835,7 +852,14 @@ def flash_planted_faults(ops, operands, refs):
     shifted["global_scaled"] = max(scaled_err(a, b)[0] for a, b in zip(grads, want))
     if not max(shifted[n] for n in ("dq", "dk", "dv")) >= TOL["bf16"]:
         fail(f"flash planted fault (lse + {FAULT_SHIFT} in the backward) passed: {shifted}")
-    return {"dropped_key_tile": dropped, "lse_shift": shifted}
+    cut = do.clone()
+    cut[:, :, -64:] = 0
+    grads = ops.flash_attention_bwd(q, k, v, o, lse, cut, True)
+    skipped = {n: row_err(a, b)[0] for n, a, b in zip(("dq", "dk", "dv"), grads, want)}
+    skipped["global_scaled"] = max(scaled_err(a, b)[0] for a, b in zip(grads, want))
+    if not max(skipped[n] for n in ("dq", "dk", "dv")) >= TOL["bf16"]:
+        fail(f"flash planted fault (the backward's last 64 query rows dropped) passed: {skipped}")
+    return {"dropped_key_tile": dropped, "lse_shift": shifted, "dropped_query_rows": skipped}
 
 
 def elem_err(got, want):
@@ -945,9 +969,10 @@ def train_kernel_phase(torch, ops, report):
     shapes = [tuple(p.shape) for p in TransformerLM(**TRAIN, device="cuda").parameters()]
     err = {}
     for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        flash_ops, flash_refs, fe, froute = flash_case(
+        flash_ops, flash_refs, fe, froute, broute = flash_case(
             torch, ops, g, B, H, L, L, D, True, None, dt, f"slice {name}",
-            want_route="wgmma" if name == "bf16" else "f32")
+            want_route="wgmma" if name == "bf16" else "f32",
+            want_bwd_route="wgmma" if name == "bf16" else "f32")
         ce_ops, ce_want, ce_e = ce_case(torch, ops, g, N, E, V, dt, dt, f"slice {name}")
         if dt == torch.bfloat16:  # the main path's dtype: the JSON line's errors
             err = {"flash_attention_fwd": max(fe["out"][1], fe["lse"][1]),
@@ -957,24 +982,35 @@ def train_kernel_phase(torch, ops, report):
             report["flash_slice_bf16_errs"], report["ce_slice_bf16_errs"] = fe, ce_e
         for case in FLASH_RAGGED:  # contiguous bf16 with D % 8 == 0 is TMA's to read
             route = "f32" if name == "f32" else "mma" if case[4] % 8 else "wgmma"
-            flash_case(torch, ops, g, *case, dt, f"{case} {name}", want_route=route)
+            flash_case(torch, ops, g, *case, dt, f"{case} {name}", want_route=route,
+                       want_bwd_route=route)
         ce_edges = [c for c in CE_D_EDGES if c[1] <= ops.fused_ce.MAX_DIM[dt]]
         report[f"ce_cases_{name}"] = {
             str(c): ce_case(torch, ops, g, *c, dt, dt, f"{c} {name}")[2]
             for c in CE_RAGGED + tuple(ce_edges)}
     for *case, layout in FLASH_MISALIGNED:
         flash_case(torch, ops, g, *case, torch.bfloat16, f"{tuple(case)} bf16 {layout}", layout,
-                   "mma")
-    _, _, hv, hv_route = flash_case(torch, ops, g, B, H, L, L, D, True, None, torch.bfloat16,
-                                    "slice bf16 (B, L, H, D) views", "heads", "wgmma")
+                   "mma", "mma")
+    for *case, layout in FLASH_DOUT_MISALIGNED:
+        flash_case(torch, ops, g, *case, torch.bfloat16, f"{tuple(case)} bf16, dout {layout}",
+                   "contiguous", "wgmma", "mma", layout)
+    _, _, hv, hv_route, hv_broute = flash_case(
+        torch, ops, g, B, H, L, L, D, True, None, torch.bfloat16, "slice bf16 (B, L, H, D) views",
+        "heads", "wgmma", "wgmma")
     faults = flash_planted_faults(ops, flash_ops, flash_refs)
     report["flash_heads_view_errs"], report["flash_planted_faults"] = hv, faults
-    q, k, v = flash_ops[:3]  # the bf16 slice case: two forward calls give the same bits
+    q, k, v, o, lse, do = flash_ops  # the bf16 slice case: two calls give the same bits
     fwd_same = all(torch.equal(a, b) for a, b in zip(ops.flash_attention_fwd(q, k, v, True),
                                                      ops.flash_attention_fwd(q, k, v, True)))
     if not fwd_same:
         fail("flash_attention_fwd: two calls on the slice's inputs differ")
-    report["flash_fwd_bitwise_equal"], report["flash_slice_route"] = fwd_same, froute
+    bwd_same = all(torch.equal(a, b) for a, b in zip(
+        ops.flash_attention_bwd(q, k, v, o, lse, do, True),
+        ops.flash_attention_bwd(q, k, v, o, lse, do, True)))
+    if not bwd_same:
+        fail("flash_attention_bwd: two calls on the slice's inputs differ")
+    report["flash_fwd_bitwise_equal"], report["flash_bwd_bitwise_equal"] = fwd_same, bwd_same
+    report["flash_slice_route"], report["flash_slice_bwd_route"] = froute, broute
     ce_case(torch, ops, g, 130, 1000, 97, torch.bfloat16, torch.float32, "f32 bias")
     ce_faults = ce_planted_faults(ops, ce_ops, ce_want)
     x, w, b, t, clse, gr = ce_ops  # the bf16 slice case: two calls give the same bits
@@ -986,7 +1022,7 @@ def train_kernel_phase(torch, ops, report):
     adam_ops, err["fused_adam"] = adam_case(torch, ops, g, shapes, ADAM["weight_decay"], "slice")
     for wd in (0.0, 0.01):
         adam_case(torch, ops, g, [(n,) for n in ADAM_RAGGED], wd, f"ragged wd={wd}")
-    n_flash = len(FLASH_RAGGED) + len(FLASH_MISALIGNED) + 2
+    n_flash = len(FLASH_RAGGED) + len(FLASH_MISALIGNED) + len(FLASH_DOUT_MISALIGNED) + 2
     print(f"  flash {n_flash} shapes, CE {len(CE_RAGGED) + len(CE_D_EDGES) + 2} "
           f"shapes, Adam {len(shapes)} + {len(ADAM_RAGGED)} tensors agree with their plain twins "
           f"in f32 and bf16; max abs err (slice, bf16): {err}")
@@ -1005,13 +1041,16 @@ def train_kernel_phase(torch, ops, report):
           f"{ce_faults['dropped_vocab_step']['dx_global_scaled']:.3g}); lse + {FAULT_SHIFT} gives "
           + ", ".join(f"{n} {v:.3g}" for n, v in ce_faults["lse_shift"].items()))
 
-    print(f"  flash slice bf16 ({froute} route), relative errors (limits: lse {TOL['f32']}, the "
-          f"rest {TOL['bf16']}): {fmt(fe)}; as (B, L, H, D) views ({hv_route} route): {fmt(hv)};"
-          f" two slice-shape forward calls bitwise equal: {fwd_same}")
+    print(f"  flash slice bf16 ({froute} route, backward {broute}), relative errors (limits: lse "
+          f"{TOL['f32']}, the rest {TOL['bf16']}): {fmt(fe)}; as (B, L, H, D) views ({hv_route} "
+          f"route, backward {hv_broute}): {fmt(hv)}; two slice-shape calls bitwise equal: "
+          f"forward {fwd_same}, backward {bwd_same}")
     print(f"  planted faults, flagged: a dropped key tile gives out {faults['dropped_key_tile']['out']:.3g}"
           f" and lse {faults['dropped_key_tile']['lse']:.3g} (the global measure reads "
           f"{faults['dropped_key_tile']['out_global_scaled']:.3g}); lse + {FAULT_SHIFT} in the "
-          f"backward gives " + ", ".join(f"{n} {v:.3g}" for n, v in faults["lse_shift"].items()))
+          f"backward gives " + ", ".join(f"{n} {v:.3g}" for n, v in faults["lse_shift"].items())
+          + "; the backward's last 64 query rows dropped give " + ", ".join(
+              f"{n} {v:.3g}" for n, v in faults["dropped_query_rows"].items()))
 
     # times at the slice's bf16 shapes, flushed L2 between timed launches
     q, k, v, o, lse, do = flash_ops
@@ -1069,8 +1108,9 @@ def train_kernel_phase(torch, ops, report):
         r["bound_ms"], r["bound_by"] = bound_ms(*bounds[name], "bf16")
         out[name] = r
     out["fused_linear_ce_bwd"]["plan"] = list(ops.fused_ce._bwd_plan(N, E, V))  # (C, BM, BV)
-    fwd = out["flash_attention_fwd"]
+    fwd, bwd = out["flash_attention_fwd"], out["flash_attention_bwd"]
     fwd["fwd_route"], fwd["tflops"] = froute, bounds["flash_attention_fwd"][1] / fwd["ms"] / 1e9
+    bwd["bwd_route"], bwd["tflops"] = broute, bounds["flash_attention_bwd"][1] / bwd["ms"] / 1e9
     del lib_adam, lib_params
     report["train_kernels"] = out
     return out
@@ -1432,6 +1472,8 @@ def train_phase(torch, dt, report, sr=False, ref_first_loss=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, wall_ms, event_step_ms = [], [], []
+    flash = (ops.flash_attention_fwd, ops.flash_attention_bwd)
+    routes_before = [dict(f.routes) for f in flash]
     ops.reset_launch_counts()  # the main path starts here
     for i in range(WARMUP + TIMED):
         before = {k.__name__: k.launches for k in ops.KERNELS}
@@ -1452,6 +1494,11 @@ def train_phase(torch, dt, report, sr=False, ref_first_loss=None):
                      f"{k.launches - before[k.__name__]} times, expected {want}")
     counts = {k.__name__: k.launches for k in ops.KERNELS}  # the main path ends here
     print(f"main-path launches ({key}): {counts}")
+    for f, before in zip(flash, routes_before):  # bf16 head views: TMA reads every operand
+        by_route = {n: f.routes[n] - before[n] for n in f.routes}
+        if by_route["wgmma"] != counts[f.__name__]:
+            fail(f"{key}: {f.__name__} launched by route {by_route}, not all on wgmma")
+        print(f"  {f.__name__} launches by route: {by_route}")
     print(f"  losses: {[round(v, 4) for v in losses]}")
     if not all(math.isfinite(v) for v in losses):
         fail(f"a {key} loss is not finite")
@@ -1645,14 +1692,14 @@ def main(argv=None) -> int:
             replaces=f"deepflows_tpu/ops/pallas_kernels.py:{line}", launches=launches,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"], at=at,
-            **{k: r[k] for k in ("plan", "fwd_route", "tflops") if k in r})
+            **{k: r[k] for k in ("plan", "fwd_route", "bwd_route", "tflops") if k in r})
 
     at = (f"training step: TransformerLM d{TRAIN['dim']} x {TRAIN['depth']}, B {TRAIN_B}, "
           f"L {TRAIN_L}, V {TRAIN['vocab_size']}, bf16; ms and bounds per call")
     for name, r in tk.items():
         n = PER_STEP[name]
-        how = (f" ({r['fwd_route']} route, {r['tflops']:.1f} TFLOP/s)" if "fwd_route" in r
-               else "")
+        route = r.get("fwd_route", r.get("bwd_route"))
+        how = f" ({route} route, {r['tflops']:.1f} TFLOP/s)" if route else ""
         print(f"  {name}: {r['ms']:.4f} ms a call{how}, {n * r['ms']:.3f} ms a step ({n} calls); "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms']:.4f} ms; {card}")

@@ -16,8 +16,8 @@
 // probability of exactly 0, so a row without any visible key gives output 0
 // and lse -1e30.  P is rounded to v's dtype before the P.V product, dS to
 // k's (q's) dtype before the dq (dk) product; every sum is f32.  The forward
-// saves lse = m + log(l) in f32, (B*H, Lq); the backward takes delta =
-// rowsum(dO * O), computed by the caller.
+// saves lse = m + log(l) in f32, (B*H, Lq); the backward computes delta =
+// rowsum(dO * O) from dO and O first (flash_bwd_delta).
 //
 // What bounds it on an H100: at the training slice's shape (B 8, H 8,
 // L 1024, D 128, causal, bf16) the forward does 17.2 GFLOP of products
@@ -32,8 +32,10 @@
 // into an mbarrier ring and two consumer warpgroups of 64 query rows run
 // wgmma, each reading a K and V tile from shared memory once, where the
 // mma.sync kernel below reads it once per 16-row warp; the grid takes the
-// longest causal rows first.  Every other bf16 call (D 100, misaligned
-// views) and the bf16 backward run on mma.sync:
+// longest causal rows first.  The bf16 backward has the same two routes
+// (_bwd_route, which asks the same of q, k, v and dout): flash_bwd_wgmma
+// (namespace wgb) on the forward's block shape, or the mma.sync kernel.
+// Every other bf16 call (D 100, misaligned views) runs on mma.sync:
 //
 // mma.sync m16n8k16 (bf16 in, f32 accumulate) fed by ldmatrix from shared
 // memory, FlashAttention-2 style.
@@ -51,13 +53,15 @@
 // (D + 1), each thread owning 4 rows x 4 columns of a score tile.
 //
 // Both paths skip whole key tiles above the causal diagonal or below the
-// window's band.  The backward is ONE launch of two block roles, as the
-// TPU's two kernels are: blockIdx.z 0 is a dq block that loops over key
-// tiles for one query tile; blockIdx.z 1 is a dk/dv block that loops over
-// query tiles for one key tile.  Each output tile has one owner, so the
-// backward is deterministic and needs no atomics, as is the forward (one
-// owner a row, a fixed order of sums).  The backward on wgmma and a
-// persistent grid are later work; PERF.md holds the measured times.
+// window's band.  The backward's main kernel is ONE launch of two block
+// roles on every route, as the TPU's two kernels are: a dq block loops
+// over key tiles for one query tile, a dk/dv block over query tiles for
+// one key tile.  Each output tile has one owner, so the backward is
+// deterministic and needs no atomics, as is the forward (one owner a row,
+// a fixed order of sums).  Before it, on the same stream, flash_bwd_delta
+// computes delta = rowsum(dO * O) in f32 in one pass over dO and O (the
+// JAX wrapper's sum, which XLA fuses).  A persistent grid is later work;
+// PERF.md holds the measured times.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -104,14 +108,15 @@ __device__ __forceinline__ void key_range(const Shape& sh, int q0, int& begin, i
   }
 }
 
-// Query tiles [begin, end) that see some key in [k0, k0 + BK).
+// Query tiles [begin, end) of TQ queries that see some key in [k0, k0 + TK).
+template <int TQ = BQ, int TK = BK>
 __device__ __forceinline__ void query_range(const Shape& sh, int k0, int& begin, int& end) {
   begin = 0;
-  end = (sh.Lq + BQ - 1) / BQ;
+  end = (sh.Lq + TQ - 1) / TQ;
   if (sh.causal) {
-    begin = k0 / BQ;
+    begin = k0 / TQ;
     if (sh.window > 0) {
-      const int last = (k0 + BK - 1 + sh.window - 1) / BQ + 1;
+      const int last = (k0 + TK - 1 + sh.window - 1) / TQ + 1;
       end = end < last ? end : last;
     }
   }
@@ -1240,6 +1245,568 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 
 }  // namespace wg
 
+// ------------------------------------------------------------------
+// bf16 backward on Hopper: wgmma fed from a TMA ring, on the forward's
+// block shape (warpgroup 0 the producer, whose one thread issues every TMA
+// load; warpgroups 1 and 2 consumers of 64 rows each), with two block
+// roles in one launch and each output row with one owner:
+//
+// - dK/dV, one block a (head, key tile of 128): K and V are loaded once;
+//   tiles of BQT queries of Q and dO, with their lse and delta (copied by
+//   the delta pass into rows padded to a multiple of 128, so each slot's
+//   share is one aligned bulk copy), stream through a ring of BST slots (a
+//   full and an empty mbarrier each).  A consumer owns 64 key rows:
+//   S^T = K Q^T and dP^T = V dO^T by wgmma from shared memory (both
+//   operands K-major, issued back to back),
+//   P^T = exp2(S^T scale log2e - lse log2e) and dS^T = P^T (dP^T - delta)
+//   scale on the accumulators, lse and delta taken by column from the slot;
+//   then dV += P^T dO and dK += dS^T Q with P^T and dS^T rounded to bf16
+//   (where the TPU kernel rounds them) and packed into A registers, and dO
+//   and Q read MN-major (transpose-B bit) from the same shared tiles, so no
+//   transposed copy is staged.  dK and dV stay in registers until the end.
+// - dQ, one block a (head, query tile of 128): Q and dO are loaded once,
+//   each thread keeps its rows' lse and delta in registers, and tiles of
+//   KT keys of K and V stream through the ring: S = Q K^T, dP = dO V^T, dS
+//   as above, dQ += dS K with K read MN-major.
+//
+// Both roles recompute S and dP (7 products a tile pair against the 5 the
+// function needs), as the TPU's two kernels do; in exchange no output
+// needs atomics and two calls give the same bits.  A hidden score's
+// probability is selected to exactly 0, so exp2 of a hidden score against
+// a row's lse of -1e30 never reaches the products.  The grid runs the
+// longest causal blocks of both roles first (the dK/dV blocks of the first
+// key tiles, the dQ blocks of the last query tiles), in groups of heads
+// whose Q, dO, K and V fit in L2.
+namespace wgb {
+
+using namespace dft::hopper;
+using dft::mma::bf16;
+using dft::mma::pack;
+using wg::exp2_ftz;
+using wg::LOG2E;
+
+constexpr int RES = 128;  // rows of a block's resident tiles: two consumers of 64
+constexpr int KT = 64;    // keys of the dQ role's streamed tiles
+// Queries of the dK/dV role's streamed tiles, and the ring's slots: the
+// fastest of (64, 3), (64, 2) and (128, 2), the last of which spills at D
+// 128 (PERF.md; tools/flash_bwd_ab.py --check builds the others from copies
+// of this line)
+constexpr int BQT = 64, BST = 3;
+constexpr int WG_THREADS = 384;  // the producer warpgroup and two consumers
+// 128 x 24 + 256 x 240 registers = 64,512, what 384 threads of 168 hold at
+// launch: the dK/dV consumers hold dK, dV, S^T and dP^T (192 f32 at D 128)
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+
+struct Maps {  // q, k, v and dout (D, L, H, B) in boxes of 64 x 64
+  CUtensorMap q, k, v, dout;
+};
+
+// a.lse is lse log2e and a.delta delta, each (B H, ld) with ld a multiple of
+// 128 and zeros past Lq: the delta pass's copies
+struct Args {
+  Maps maps;  // first: a CUtensorMap is 64-byte aligned in the parameter space
+  BwdArgs<bf16> a;
+  int group;  // heads whose blocks run together (heads_in_l2)
+  int ld;
+};
+
+// Heads whose Q, dO, K and V fit in 32 MiB of the 50 MB L2 (wg::heads_in_l2)
+inline int heads_in_l2(const Shape& sh) {
+  const long long per_head = 4ll * (sh.Lq + sh.Lk) * sh.D;  // bf16
+  const long long g = wg::L2_KV_BYTES / per_head;
+  const long long bh = (long long)sh.B * sh.H;
+  return (int)(g < 1 ? 1 : g > bh ? bh : g);
+}
+
+// Shared memory: the two resident tiles [DP / 64][RES][64], then BST slots
+// of two streamed tiles [DP / 64][rows][64] each, all 1024-byte aligned
+// (the swizzle's period), then each slot's lse and delta [2][BQT], then
+// the barriers.
+template <int DP>
+struct Layout {
+  static constexpr int RES_BYTES = RES * DP * 2;
+  static constexpr int TILE_BYTES = (BQT > KT ? BQT : KT) * DP * 2;
+  static constexpr int SMEM =
+      1024 + 2 * RES_BYTES + BST * (2 * TILE_BYTES + 2 * BQT * 4) + (1 + 2 * BST) * 8;
+};
+
+struct Ring {
+  unsigned char *res, *tiles;  // slot s's tiles at tiles + 2 s TILE_BYTES
+  float* rows;                 // slot s's lse at rows + 2 s BQT, its delta BQT on
+  uint64_t *resbar, *full, *empty;
+};
+
+// One thread's loads: the resident pair (rows row0 .. + 127), then the
+// streamed pairs of tiles t0 .. t0 + n - 1 (with lse and delta in the dK/dV
+// role) as the ring's slots free up.
+template <int DP>
+__device__ __forceinline__ void produce(const Args& args, const Ring& r, bool dq, int row0,
+                                        int t0, int n, int bh, int h, int b) {
+  using L = Layout<DP>;
+  const Maps& m = args.maps;
+  const CUtensorMap *r0 = dq ? &m.q : &m.k, *r1 = dq ? &m.dout : &m.v;
+  const CUtensorMap *s0 = dq ? &m.k : &m.q, *s1 = dq ? &m.v : &m.dout;
+  tma_prefetch_map(r0);
+  tma_prefetch_map(r1);
+  tma_prefetch_map(s0);
+  tma_prefetch_map(s1);
+  mbar_expect_tx(r.resbar, 2 * L::RES_BYTES);
+#pragma unroll
+  for (int x = 0; x < DP / 64; ++x)
+#pragma unroll
+    for (int half = 0; half < RES / 64; ++half) {
+      const int off = x * RES * 128 + half * 64 * 128;
+      tma_load_4d(r.res + off, r0, r.resbar, 64 * x, row0 + 64 * half, h, b);
+      tma_load_4d(r.res + L::RES_BYTES + off, r1, r.resbar, 64 * x, row0 + 64 * half, h, b);
+    }
+  const int rows = dq ? KT : BQT;
+  const uint32_t bytes = 2 * rows * DP * 2 + (dq ? 0 : 2 * rows * 4);
+  const long long base = (long long)bh * args.ld;
+  for (int i = 0; i < n; ++i) {
+    const int s = i % BST, row = (t0 + i) * rows;
+    const uint32_t ph = (i / BST) & 1;  // the slot's round; its first wait passes at once
+    mbar_wait(r.empty + s, ph ^ 1);
+    mbar_expect_tx(r.full + s, bytes);
+    unsigned char* t = r.tiles + s * 2 * L::TILE_BYTES;
+    for (int half = 0; half < rows / 64; ++half) {
+#pragma unroll
+      for (int x = 0; x < DP / 64; ++x) {
+        const int off = x * rows * 128 + half * 64 * 128;
+        tma_load_4d(t + off, s0, r.full + s, 64 * x, row + 64 * half, h, b);
+        tma_load_4d(t + L::TILE_BYTES + off, s1, r.full + s, 64 * x, row + 64 * half, h, b);
+      }
+      if (!dq) {
+        float* rs = r.rows + s * 2 * BQT + 64 * half;
+        bulk_load(rs, args.a.lse + base + row + 64 * half, 256, r.full + s);
+        bulk_load(rs + BQT, args.a.delta + base + row + 64 * half, 256, r.full + s);
+      }
+    }
+  }
+}
+
+// P = exp2(x sl2 - lse2) and dS = P (dp - delta) scale, in place (P into
+// x, dS into dp), on a 64 x N accumulator tile of a warp, lse2 = lse log2e.
+// In the dK/dV role rows are keys and columns queries, so lse2 and delta
+// are taken by column from the slot; in the dQ role (given) by row.
+// With MASK, this lane's columns 8 j + cc of row half hh are visible when
+// lo[hh] < 8 j + cc <= hi[hh]; a hidden score's probability is 0.
+template <bool MASK, bool BY_COL, int N>
+__device__ __forceinline__ void grads(float (&x)[N / 2], float (&dp)[N / 2], const float* lse_s,
+                                      const float* delta_s, const float (&lse2)[2],
+                                      const float (&delta)[2], const int (&lo)[2],
+                                      const int (&hi)[2], int tq, float sl2, float scale) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    float2 lc = make_float2(0.f, 0.f), dc = lc;
+    if constexpr (BY_COL) {
+      lc = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * tq);
+      dc = *reinterpret_cast<const float2*>(delta_s + 8 * j + 2 * tq);
+    }
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int i = 4 * j + 2 * hh + cc;
+        const float l2 = BY_COL ? (cc ? lc.y : lc.x) : lse2[hh];
+        const float de = BY_COL ? (cc ? dc.y : dc.x) : delta[hh];
+        const bool hide = MASK && (8 * j + cc > hi[hh] || 8 * j + cc <= lo[hh]);
+        const float p = hide ? 0.f : exp2_ftz(x[i] * sl2 - l2);
+        x[i] = p;
+        dp[i] = p * (dp[i] - de) * scale;
+      }
+  }
+}
+
+// accumulator pairs n-blocks 2 kk and 2 kk + 1 as the A operand of K step kk
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[N / 4], const float (&x)[N / 2]) {
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) a[i] = pack(x[2 * i], x[2 * i + 1]);
+}
+
+// rows row0 + g and row0 + g + 8 of a 64 x DP accumulator to bf16, masked
+// by row < L and column < D
+template <int DP>
+__device__ __forceinline__ void store(bf16* base, long long sl, const float (&acc)[DP / 2],
+                                      int row0, int g, int tq, int L, int D) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + g + 8 * hh;
+    if (row >= L) continue;
+    bf16* p = base + (long long)row * sl;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + 2 * tq;
+      if (col < D)
+        *reinterpret_cast<__nv_bfloat162*>(p + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+    }
+  }
+}
+
+// The dK/dV role's consumer: key rows k0 + 64 c .. + 63, query tiles
+// t0 .. t0 + n - 1 of BQT.
+template <int DP>
+__device__ __forceinline__ void consume_dkv(const Args& args, const Ring& r, int k0, int t0,
+                                            int n, int h, int b) {
+  using L = Layout<DP>;
+  const Shape& sh = args.a.sh;
+  const int c = threadIdx.x / 128 - 1, w = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int kr = k0 + 64 * c + 16 * w;  // the warp's first key row
+  const float sl2 = sh.scale * LOG2E;
+  const float none[2] = {0.f, 0.f};
+  float dk[DP / 2], dv[DP / 2], st[BQT / 2], dpt[BQT / 2];
+  uint32_t pa[BQT / 4], da[BQT / 4];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BQT / 2; ++i) st[i] = dpt[i] = 0.f;
+  if (n > 0) {
+    const uint64_t ak = desc_b128(r.res + c * 64 * 128, 16, 1024);
+    const uint64_t av = desc_b128(r.res + L::RES_BYTES + c * 64 * 128, 16, 1024);
+    const uint64_t bq = desc_b128(r.tiles, 16, 1024);  // Q and dO K-major ...
+    const uint64_t bdo = desc_b128(r.tiles + L::TILE_BYTES, 16, 1024);
+    const uint64_t mq = desc_b128(r.tiles, BQT * 128, 1024);  // ... and MN-major
+    const uint64_t mdo = desc_b128(r.tiles + L::TILE_BYTES, BQT * 128, 1024);
+    auto scores = [&](int slot) {  // S^T = K Q^T and dP^T = V dO^T on slot `slot`
+      const int so = slot * 2 * L::TILE_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_ss<BQT, 0>(st, ak + (((kk / 4) * RES * 128 + (kk % 4) * 32) >> 4),
+                         bq + ((so + (kk / 4) * BQT * 128 + (kk % 4) * 32) >> 4), kk);
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_ss<BQT, 0>(dpt, av + (((kk / 4) * RES * 128 + (kk % 4) * 32) >> 4),
+                         bdo + ((so + (kk / 4) * BQT * 128 + (kk % 4) * 32) >> 4), kk);
+      wgmma_commit();
+    };
+    auto products = [&](int slot) {  // dV += P^T dO and dK += dS^T Q on slot `slot`
+      const int so = slot * 2 * L::TILE_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < BQT / 16; ++kk)
+        wgmma_rs<DP, 1>(dv, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                        mdo + ((so + kk * 16 * 128) >> 4), 1);
+#pragma unroll
+      for (int kk = 0; kk < BQT / 16; ++kk)
+        wgmma_rs<DP, 1>(dk, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3],
+                        mq + ((so + kk * 16 * 128) >> 4), 1);
+      wgmma_commit();
+    };
+    auto dscores = [&](int slot, int q0) {  // P^T into st and dS^T into dpt, in place
+      const float* ls = r.rows + slot * 2 * BQT;
+      // no mask when every query of the tile sees every key of the warp's rows
+      const bool edge = q0 + BQT > sh.Lq || kr + 16 > sh.Lk ||
+                        (sh.causal && (kr + 15 > q0 ||
+                                       (sh.window > 0 && kr <= q0 + BQT - 1 - sh.window)));
+      if (edge) {
+        // key kpos sees queries kpos <= qpos < kpos + window, qpos < Lq
+        int lo[2], hi[2];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int kpos = kr + g + 8 * hh;
+          int l = -1, u = sh.Lq - 1;
+          if (kpos >= sh.Lk) u = -1;
+          if (sh.causal) {
+            l = max(l, kpos - 1);
+            if (sh.window > 0) u = min(u, kpos + sh.window - 1);
+          }
+          lo[hh] = l - q0 - 2 * tq;
+          hi[hh] = u - q0 - 2 * tq;
+        }
+        grads<true, true, BQT>(st, dpt, ls, ls + BQT, none, none, lo, hi, tq, sl2, sh.scale);
+      } else {
+        const int all[2] = {-(1 << 30), -(1 << 30)}, any[2] = {1 << 30, 1 << 30};
+        grads<false, true, BQT>(st, dpt, ls, ls + BQT, none, none, all, any, tq, sl2, sh.scale);
+      }
+    };
+    auto release = [&](int slot) {  // this warp's reads of the slot are done
+      if (lane == 0) mbar_arrive(r.empty + slot);
+    };
+    mbar_wait(r.resbar, 0);
+    // One tile at a time: a tile's scores beside the last tile's products
+    // would hold P^T and dS^T (32 registers) over the scores' 64 beside dK
+    // and dV's 128, past the 240 a consumer has at D 128.
+    for (int i = 0; i < n; ++i) {
+      const int cur = i % BST;
+      mbar_wait(r.full + cur, (i / BST) & 1);
+      fence_regs(st);
+      fence_regs(dpt);
+      wgmma_fence();
+      scores(cur);
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+      dscores(cur, (t0 + i) * BQT);
+      pack_a<BQT>(pa, st);
+      pack_a<BQT>(da, dpt);
+      fence_regs(dv);
+      fence_regs(dk);
+      fence_regs(pa);
+      fence_regs(da);
+      wgmma_fence();
+      products(cur);
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+      release(cur);
+    }
+  }
+  const BwdArgs<bf16>& a = args.a;
+  store<DP>(a.dk + b * a.vdk.sb + h * a.vdk.sh, a.vdk.sl, dk, kr, g, tq, sh.Lk, sh.D);
+  store<DP>(a.dv + b * a.vdv.sb + h * a.vdv.sh, a.vdv.sl, dv, kr, g, tq, sh.Lk, sh.D);
+}
+
+// The dQ role's consumer: query rows q0 + 64 c .. + 63, key tiles t0 ..
+// t0 + n - 1 of KT.
+template <int DP>
+__device__ __forceinline__ void consume_dq(const Args& args, const Ring& r, int q0, int t0,
+                                           int n, int bh, int h, int b) {
+  using L = Layout<DP>;
+  const Shape& sh = args.a.sh;
+  const BwdArgs<bf16>& a = args.a;
+  const int c = threadIdx.x / 128 - 1, w = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int r0 = q0 + 64 * c + 16 * w;  // the warp's first query row
+  const float sl2 = sh.scale * LOG2E;
+  float lse2[2], delta[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = r0 + g + 8 * hh;
+    lse2[hh] = row < sh.Lq ? a.lse[(long long)bh * args.ld + row] : 0.f;
+    delta[hh] = row < sh.Lq ? a.delta[(long long)bh * args.ld + row] : 0.f;
+  }
+  float dq[DP / 2], s[KT / 2], dp[KT / 2];
+  uint32_t da[KT / 4];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < KT / 2; ++i) s[i] = dp[i] = 0.f;
+  if (n > 0) {
+    const uint64_t aq = desc_b128(r.res + c * 64 * 128, 16, 1024);
+    const uint64_t ado = desc_b128(r.res + L::RES_BYTES + c * 64 * 128, 16, 1024);
+    const uint64_t bk = desc_b128(r.tiles, 16, 1024);  // K and V K-major ...
+    const uint64_t bv = desc_b128(r.tiles + L::TILE_BYTES, 16, 1024);
+    const uint64_t mk = desc_b128(r.tiles, KT * 128, 1024);  // ... and K MN-major
+    auto scores = [&](int slot) {  // S = Q K^T and dP = dO V^T on slot `slot`
+      const int so = slot * 2 * L::TILE_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_ss<KT, 0>(s, aq + (((kk / 4) * RES * 128 + (kk % 4) * 32) >> 4),
+                        bk + ((so + (kk / 4) * KT * 128 + (kk % 4) * 32) >> 4), kk);
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_ss<KT, 0>(dp, ado + (((kk / 4) * RES * 128 + (kk % 4) * 32) >> 4),
+                        bv + ((so + (kk / 4) * KT * 128 + (kk % 4) * 32) >> 4), kk);
+      wgmma_commit();
+    };
+    auto product = [&](int slot) {  // dQ += dS K on slot `slot`
+      const int so = slot * 2 * L::TILE_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk)
+        wgmma_rs<DP, 1>(dq, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3],
+                        mk + ((so + kk * 16 * 128) >> 4), 1);
+      wgmma_commit();
+    };
+    auto dscores = [&](int k0) {  // P and dS of key tile k0 in place, dS into dp
+      const bool edge = k0 + KT > sh.Lk ||
+                        (sh.causal && (k0 + KT - 1 > r0 ||
+                                       (sh.window > 0 && k0 <= r0 + 15 - sh.window)));
+      if (edge) {
+        // query qpos sees keys qpos - window < kpos <= qpos, kpos < Lk
+        int lo[2], hi[2];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int qpos = r0 + g + 8 * hh;
+          int l = -1, u = sh.Lk - 1;
+          if (sh.causal) {
+            u = min(u, qpos);
+            if (sh.window > 0) l = qpos - sh.window;
+          }
+          lo[hh] = l - k0 - 2 * tq;
+          hi[hh] = u - k0 - 2 * tq;
+        }
+        grads<true, false, KT>(s, dp, nullptr, nullptr, lse2, delta, lo, hi, tq, sl2, sh.scale);
+      } else {
+        const int all[2] = {-(1 << 30), -(1 << 30)}, any[2] = {1 << 30, 1 << 30};
+        grads<false, false, KT>(s, dp, nullptr, nullptr, lse2, delta, all, any, tq, sl2,
+                                sh.scale);
+      }
+    };
+    auto release = [&](int slot) {  // this warp's reads of the slot are done
+      if (lane == 0) mbar_arrive(r.empty + slot);
+    };
+    mbar_wait(r.resbar, 0);
+    mbar_wait(r.full, 0);
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+    scores(0);
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    dscores(t0 * KT);
+    pack_a<KT>(da, dp);
+    // Tile i's scores run on the tensor cores beside tile i - 1's dQ
+    // product, then its dS beside that product; no branch on the consumer.
+    for (int i = 1; i < n; ++i) {
+      const int cur = i % BST, prv = (i - 1) % BST;
+      mbar_wait(r.full + cur, (i / BST) & 1);
+      fence_regs(s);
+      fence_regs(dp);
+      fence_regs(dq);
+      fence_regs(da);
+      wgmma_fence();
+      scores(cur);
+      product(prv);
+      wgmma_wait<1>();  // the scores are in; the product runs on
+      fence_regs(s);
+      fence_regs(dp);
+      dscores((t0 + i) * KT);
+      wgmma_wait<0>();
+      fence_regs(dq);
+      fence_regs(da);
+      release(prv);
+      pack_a<KT>(da, dp);
+    }
+    const int last = (n - 1) % BST;
+    fence_regs(dq);
+    fence_regs(da);
+    wgmma_fence();
+    product(last);
+    wgmma_wait<0>();
+    fence_regs(dq);
+    release(last);
+  }
+  store<DP>(a.dq + b * a.vdq.sb + h * a.vdq.sh, a.vdq.sl, dq, r0, g, tq, sh.Lq, sh.D);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    flash_bwd_wgmma(const __grid_constant__ Args args) {
+  using L = Layout<DP>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  Ring r;
+  r.res = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  r.tiles = r.res + 2 * L::RES_BYTES;
+  r.rows = reinterpret_cast<float*>(r.tiles + BST * 2 * L::TILE_BYTES);
+  r.resbar = reinterpret_cast<uint64_t*>(r.rows + BST * 2 * BQT);
+  r.full = r.resbar + 1;
+  r.empty = r.full + BST;
+  const Shape& sh = args.a.sh;
+  // Heads in groups of args.group; within a group, rank by rank, the
+  // group's dK/dV blocks of key tile `rank` and then its dQ blocks of query
+  // tile nq - 1 - rank: under the causal mask the longest of both first.
+  const int nk = (sh.Lk + RES - 1) / RES, nq = (sh.Lq + RES - 1) / RES;
+  const int per = args.group * (nk + nq);
+  const int grp = blockIdx.x / per, idx = blockIdx.x % per;
+  const int size = min(args.group, sh.B * sh.H - grp * args.group);  // the last may be smaller
+  const int both = min(nk, nq);  // ranks with blocks of both roles
+  bool dq;
+  int rank, head;
+  if (idx < 2 * size * both) {
+    rank = idx / (2 * size);
+    dq = idx % (2 * size) >= size;
+    head = idx % size;
+  } else {
+    const int x = idx - 2 * size * both;
+    rank = both + x / size;
+    dq = nq > nk;
+    head = x % size;
+  }
+  const int bh = grp * args.group + head, b = bh / sh.H, h = bh % sh.H;
+  const int row0 = (dq ? nq - 1 - rank : rank) * RES;
+  int t0, t1;
+  if (dq)
+    key_range<RES, KT>(sh, row0, t0, t1);
+  else
+    query_range<BQT, RES>(sh, row0, t0, t1);
+  const int n = t1 > t0 ? t1 - t0 : 0;
+  if (threadIdx.x == 0) {
+    mbar_init(r.resbar, 1);
+    for (int s = 0; s < BST; ++s) {
+      mbar_init(r.full + s, 1);
+      mbar_init(r.empty + s, 8);  // one arrival from each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0 && n > 0) produce<DP>(args, r, dq, row0, t0, n, bh, h, b);
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    if (dq)
+      consume_dq<DP>(args, r, row0, t0, n, bh, h, b);
+    else
+      consume_dkv<DP>(args, r, row0, t0, n, h, b);
+  }
+}
+
+}  // namespace wgb
+
+// delta = rowsum(dO * O) in f32, (B H, ld): 16 threads a row, 8 elements
+// each (D <= 128), loaded 16 bytes at a time where every row is 16-byte
+// aligned and D % 8 == 0; rows Lq .. ld - 1 are 0.  Where lse2 is given,
+// also lse2 = lse log2e, (B H, ld), 0 past Lq: the wgmma backward's copies.
+// Bound by reading dO and O once.
+template <typename T>
+struct DeltaArgs {
+  const T *dout, *out;
+  View vdo, vo;
+  const float* lse;
+  float *delta, *lse2;
+  int H, Lq, D, ld, rows, vec;  // rows = B H ld
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+__device__ __forceinline__ void load8(float (&x)[8], const float* p) {
+  const float4 a = *reinterpret_cast<const float4*>(p), b = *reinterpret_cast<const float4*>(p + 4);
+  x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w, x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
+}
+
+__device__ __forceinline__ void load8(float (&x)[8], const __nv_bfloat16* p) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* v = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(v[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256) flash_bwd_delta(const __grid_constant__ DeltaArgs<T> a) {
+  const int row = blockIdx.x * 16 + threadIdx.x / 16, t = threadIdx.x % 16, c0 = 8 * t;
+  const int bh = row / a.ld, l = row % a.ld;
+  float acc = 0.f;
+  if (row < a.rows && l < a.Lq && c0 < a.D) {
+    const int b = bh / a.H, h = bh % a.H;
+    const T* pd = a.dout + b * a.vdo.sb + h * a.vdo.sh + l * a.vdo.sl + c0;
+    const T* po = a.out + b * a.vo.sb + h * a.vo.sh + l * a.vo.sl + c0;
+    if (a.vec) {
+      float x[8], y[8];
+      load8(x, pd);
+      load8(y, po);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc = fmaf(x[e], y[e], acc);
+    } else {
+      for (int e = 0; e < 8 && c0 + e < a.D; ++e) acc = fmaf(to_f32(pd[e]), to_f32(po[e]), acc);
+    }
+  }
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (t == 0 && row < a.rows) {
+    a.delta[row] = acc;
+    if (a.lse2 != nullptr)
+      a.lse2[row] = l < a.Lq ? a.lse[(long long)bh * a.Lq + l] * wg::LOG2E : 0.f;
+  }
+}
+
 View view(const long long* s) { return View{s[0], s[1], s[2]}; }
 
 Shape shape(const long long* m, float scale) {
@@ -1303,6 +1870,54 @@ cudaError_t bwd_bf16(const BwdArgs<__nv_bfloat16>& a, cudaStream_t st) {
                 6 * tc::tile_bytes<DP>() + 4 * BQ * 4, st);
 }
 
+// The dK/dV role's blocks of every key tile and the dQ role's of every
+// query tile, one launch; the maps are encoded on every call.
+template <int DP>
+cudaError_t bwd_wgmma(const BwdArgs<__nv_bfloat16>& a, int ld, cudaStream_t st) {
+  wgb::Args w;
+  w.a = a;
+  w.group = wgb::heads_in_l2(a.sh);
+  w.ld = ld;
+  if (ld % 128 || !encode_heads(&w.maps.q, a.q, a.sh, a.sh.Lq, a.vq, 64) ||
+      !encode_heads(&w.maps.k, a.k, a.sh, a.sh.Lk, a.vk, 64) ||
+      !encode_heads(&w.maps.v, a.v, a.sh, a.sh.Lk, a.vv, 64) ||
+      !encode_heads(&w.maps.dout, a.dout, a.sh, a.sh.Lq, a.vdo, 64))
+    return cudaErrorInvalidValue;
+  const int nk = (a.sh.Lk + wgb::RES - 1) / wgb::RES, nq = (a.sh.Lq + wgb::RES - 1) / wgb::RES;
+  const dim3 grid(a.sh.B * a.sh.H * (nk + nq));
+  return launch(wgb::flash_bwd_wgmma<DP>, w, grid, wgb::WG_THREADS, wgb::Layout<DP>::SMEM, st);
+}
+
+// whether every row of a (B, H, L, D) view starts 16-byte aligned
+template <typename T>
+bool rows_aligned(const void* p, const View& v, int D) {
+  const long long e = sizeof(T);
+  return D % 8 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0 && v.sb * e % 16 == 0 &&
+         v.sh * e % 16 == 0 && v.sl * e % 16 == 0;
+}
+
+// delta into stats[0 .. B H ld) and, on the wgmma route (2), lse log2e into
+// stats[B H ld .. 2 B H ld)
+template <typename T>
+cudaError_t delta_pass(const long long* m, const void* dout, const void* out, const float* lse,
+                       float* stats, cudaStream_t st) {
+  DeltaArgs<T> d;
+  d.dout = static_cast<const T*>(dout);
+  d.out = static_cast<const T*>(out);
+  d.vdo = view(m + 17);
+  d.vo = view(m + 30);
+  d.lse = lse;
+  d.ld = (int)m[33];
+  d.rows = (int)(m[0] * m[1] * d.ld);
+  d.delta = stats;
+  d.lse2 = m[29] == 2 ? stats + d.rows : nullptr;
+  d.H = (int)m[1];
+  d.Lq = (int)m[2];
+  d.D = (int)m[4];
+  d.vec = rows_aligned<T>(dout, d.vdo, d.D) && rows_aligned<T>(out, d.vo, d.D);
+  return launch(flash_bwd_delta<T>, d, dim3((d.rows + 15) / 16), 256, 0, st);
+}
+
 template <int DP>
 cudaError_t bwd_f32(const BwdArgs<float>& a, cudaStream_t st) {
   const int nq = (a.sh.Lq + BQ - 1) / BQ, nk = (a.sh.Lk + BK - 1) / BK;
@@ -1361,15 +1976,31 @@ extern "C" int dft_flash_fwd(const long long* meta, const void* q, const void* k
 }
 
 // meta: B, H, Lq, Lk, D, causal, window, vec, then the strides of q, k, v,
-// dout, dq, dk, dv.
+// dout, dq, dk, dv, then the route (as dft_flash_fwd's; ops/flash_attention.py
+// _bwd_route), then the strides of out, then ld, the row length of the f32
+// scratch `stats`: Lq on routes 0 and 1, whose kernels read delta (B H,
+// Lq); on the wgmma route a multiple of 128 at least Lq, and stats holds
+// delta and then lse log2e, each (B H, ld).  flash_bwd_delta fills stats
+// from dout, out and lse before the main kernel, on the same stream.
+// Returns the first failed launch's cudaError_t, or 0.
 extern "C" int dft_flash_bwd(const long long* meta, const void* q, const void* k,
-                             const void* v, const void* dout, const float* lse,
-                             const float* delta, void* dq, void* dk, void* dv, float scale,
-                             int bf16, void* stream) {
+                             const void* v, const void* dout, const void* out, const float* lse,
+                             float* stats, void* dq, void* dk, void* dv, float scale, int bf16,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool small = meta[4] <= 64;
-  cudaError_t e;
-  if (bf16) {
+  const long long route = meta[29];
+  if ((route == 0) == (bf16 != 0)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = bf16 ? delta_pass<__nv_bfloat16>(meta, dout, out, lse, stats, s)
+                       : delta_pass<float>(meta, dout, out, lse, stats, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const float* delta = stats;
+  if (route == 2) {
+    const int ld = (int)meta[33];
+    const float* lse2 = stats + meta[0] * meta[1] * ld;
+    const auto a = bwd_args<__nv_bfloat16>(meta, q, k, v, dout, lse2, delta, dq, dk, dv, scale);
+    e = small ? bwd_wgmma<64>(a, ld, s) : bwd_wgmma<128>(a, ld, s);
+  } else if (route == 1) {
     const auto a = bwd_args<__nv_bfloat16>(meta, q, k, v, dout, lse, delta, dq, dk, dv, scale);
     e = small ? bwd_bf16<64>(a, s) : bwd_bf16<128>(a, s);
   } else {
@@ -1377,4 +2008,13 @@ extern "C" int dft_flash_bwd(const long long* meta, const void* q, const void* k
     e = small ? bwd_f32<64>(a, s) : bwd_f32<128>(a, s);
   }
   return static_cast<int>(e);
+}
+
+// The delta pass alone, as dft_flash_bwd runs it (the same header and
+// stats).  For timing it apart.
+extern "C" int dft_flash_bwd_delta(const long long* meta, const void* dout, const void* out,
+                                   const float* lse, float* stats, int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(bf16 ? delta_pass<__nv_bfloat16>(meta, dout, out, lse, stats, s)
+                               : delta_pass<float>(meta, dout, out, lse, stats, s));
 }

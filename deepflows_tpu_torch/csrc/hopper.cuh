@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks: TMA tensor maps and loads, mbarriers,
 // wgmma from shared memory and from registers, and setmaxnreg.  Shared by
 // the kernels that feed the tensor cores from a TMA ring (flash_attention.cu's
-// bf16 forward first).
+// bf16 forward and backward).
 //
 // Shared-memory tiles are in the layout a TMA load with the 128-byte swizzle
 // writes: rows of 64 bf16 (128 bytes), the 16-byte chunks of row r XOR-ed
@@ -88,6 +88,20 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from src in global memory to dst, both 16-byte
+// aligned, without a tensor map; completion is counted on `bar` as
+// tma_load_4d's.  (A rank-1 tensor map's box must also start 16-byte
+// aligned: one that did not stopped the kernel with an illegal
+// instruction.)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+      "r"(smem_addr(bar))
       : "memory");
 }
 

@@ -6,8 +6,8 @@ with the (L, L) scores never stored, forward and backward.
   differentiable in q, k, v (an ``autograd.Function`` that saves q, k, v,
   out and lse).
 - ``flash_attention_fwd`` / ``flash_attention_bwd``: the kernel wrappers
-  (``csrc/flash_attention.cu``); the backward is one launch that writes
-  dq, dk and dv.
+  (``csrc/flash_attention.cu``); the backward is a delta pass and one
+  launch that writes dq, dk and dv.
 - ``flash_attention_plain`` / ``flash_attention_bwd_plain``: their plain
   PyTorch twins, which materialise the scores.
 
@@ -18,18 +18,20 @@ Lq != Lk) and, with a ``window`` (which, as in JAX, only acts together
 with ``causal``), when kpos <= qpos - window.  A row with no visible key
 gives output 0 and lse -1e30.  The output is in q's dtype, lse (B·H, Lq)
 f32.  P is rounded to v's dtype before the P·V product and dS to k's (q's)
-dtype before the dq (dk) product; sums are f32.  delta = rowsum(dO·O) is
-computed outside the kernels, as the JAX wrapper does.
+dtype before the dq (dk) product; sums are f32.  delta = rowsum(dO·O), which
+the JAX wrapper computes in jnp, is one more kernel that the backward's C
+entry launches before its main kernel.
 
 On CPU tensors the wrappers call the plain twins; on CUDA tensors they
 launch the kernel on the current stream or raise, and count the launch in
-``<wrapper>.launches``.  The forward's kernel is chosen by ``_fwd_route``
-from dtype, D, strides and alignment: bf16 that TMA can read takes the
-wgmma kernel, other bf16 the mma.sync kernel, f32 the CUDA-core kernel;
-a CUDA call never falls back to another route.  q, k, v, out and dout
-may be strided views (the last axis contiguous), so MultiheadAttention's
-head views need no copy; the output is allocated (B, Lq, H, D) and
-returned as its (B, H, Lq, D) view.
+``<wrapper>.launches`` and by route in ``<wrapper>.routes``.  The
+forward's kernel is chosen by ``_fwd_route`` and the backward's by
+``_bwd_route``, from dtype, D, strides and alignment: bf16 that TMA can
+read takes the wgmma kernel, other bf16 the mma.sync kernel, f32 the
+CUDA-core kernel; a CUDA call never falls back to another route.  q, k,
+v, out and dout may be strided views (the last axis contiguous), so
+MultiheadAttention's head views need no copy; the output is allocated (B,
+Lq, H, D) and returned as its (B, H, Lq, D) view.
 """
 
 from __future__ import annotations
@@ -144,21 +146,34 @@ def _meta(q, k, causal, window, tensors, extra=()):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-ROUTES = ("f32", "mma", "wgmma")  # the forward's routes, by their code in the header
+ROUTES = ("f32", "mma", "wgmma")  # the kernels' routes, by their code in the header
+
+
+def _route(q, tensors):
+    """``"wgmma"`` (the TMA-fed kernel) for bf16 where TMA can read every
+    tensor of ``tensors`` — D % 8 == 0, every (B, H, L) stride a positive
+    multiple of 8 elements, every base 16-byte aligned, the last axis
+    contiguous; ``"mma"`` (mma.sync) for every other bf16 call; ``"f32"``
+    for f32."""
+    if q.dtype != torch.bfloat16:
+        return "f32"
+    d = q.shape[-1]
+    if d % 8 == 0 and d <= MAX_HEAD_DIM and _aligned(tensors, positive=True):
+        return "wgmma"
+    return "mma"
 
 
 def _fwd_route(q, k, v):
     """The forward kernel a call takes, from dtype, D, strides and alignment
-    alone: ``"wgmma"`` (the TMA-fed kernel) for bf16 where TMA can read q, k
-    and v — D % 8 == 0, every (B, H, L) stride a positive multiple of 8
-    elements, every base 16-byte aligned, the last axis contiguous; ``"mma"``
-    (mma.sync) for every other bf16 call; ``"f32"`` for f32."""
-    if q.dtype != torch.bfloat16:
-        return "f32"
-    d = q.shape[-1]
-    if d % 8 == 0 and d <= MAX_HEAD_DIM and _aligned((q, k, v), positive=True):
-        return "wgmma"
-    return "mma"
+    of q, k and v alone (``_route``)."""
+    return _route(q, (q, k, v))
+
+
+def _bwd_route(q, k, v, dout):
+    """The backward kernel a call takes, from dtype, D, strides and
+    alignment of q, k, v and dout alone (``_route``); dq, dk and dv are the
+    wrapper's own, always aligned."""
+    return _route(q, (q, k, v, dout))
 
 
 def flash_attention_fwd(q, k, v, causal=False, sm_scale=None, window=None):
@@ -181,15 +196,29 @@ def flash_attention_fwd(q, k, v, causal=False, sm_scale=None, window=None):
                 stream())
     _build.check(rc, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.routes[ROUTES[route]] += 1
     return out, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.routes = dict.fromkeys(ROUTES, 0)  # launches by route, never reset
+
+
+def _stats_layout(route, lq):
+    """(row length, planes) of the backward's f32 scratch, which the C
+    entry's delta pass fills: delta (B·H, Lq) for the mma.sync and f32
+    kernels; for the wgmma kernel delta and lse·log2e, each (B·H, Lq rounded
+    up to 128) with zeros past Lq, so that each tile of 64 or 128 rows of
+    them is one aligned bulk copy."""
+    if route == "wgmma":
+        return -(-lq // 128) * 128, 2
+    return lq, 1
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, causal=False, sm_scale=None, window=None):
-    """Backward kernel, one launch: returns (dq, dk, dv) in q's, k's and v's
-    dtypes."""
+    """Backward kernels: returns (dq, dk, dv) in q's, k's and v's dtypes.
+    The C entry launches the delta pass, then the main kernel (one launch
+    for dq, dk and dv), on the current stream: one call, one count."""
     _check_qkv(q, k, v)
     b, h, lq, d = q.shape
     check("out", out, (b, h, lq, d), (q.dtype,), contiguous=False)
@@ -199,24 +228,29 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=False, sm_scale=None, wi
         dout = dout.to(q.dtype)
     if not on_card(q, k, v, out, lse, dout):
         return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal, sm_scale, window)
-    q, k, v, dout = _rows(q), _rows(k), _rows(v), _rows(dout)
-    delta = (dout.float() * out.float()).sum(-1).reshape(b * h, lq).contiguous()
+    q, k, v, dout, out = _rows(q), _rows(k), _rows(v), _rows(dout), _rows(out)
     dq, dk, dv = _new_like_heads(q), _new_like_heads(k), _new_like_heads(v)
-    meta = _meta(q, k, causal, window, (q, k, v, dout, dq, dk, dv))
+    route = _bwd_route(q, k, v, dout)
+    ld, planes = _stats_layout(route, lq)
+    stats = torch.empty((planes, b * h, ld), dtype=torch.float32, device=q.device)
+    meta = _meta(q, k, causal, window, (q, k, v, dout, dq, dk, dv),
+                 (ROUTES.index(route), *out.stride()[:3], ld))
     fn = _build.c_function(
-        "flash_attention", "dft_flash_bwd", (P, P, P, P, P, P, P, P, P, P, F, I, P)
+        "flash_attention", "dft_flash_bwd", (P, P, P, P, P, P, P, P, P, P, P, F, I, P)
     )
     with on_device(q.device):
         rc = fn(meta, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), _scale(d, sm_scale), int(q.dtype == torch.bfloat16),
-                stream())
+                out.data_ptr(), lse.data_ptr(), stats.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), _scale(d, sm_scale),
+                int(q.dtype == torch.bfloat16), stream())
     _build.check(rc, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.routes[route] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.routes = dict.fromkeys(ROUTES, 0)  # launches by route, never reset
 
 
 class _FlashAttention(torch.autograd.Function):

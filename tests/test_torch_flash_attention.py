@@ -274,3 +274,85 @@ def test_forward_header():
         assert list(meta[:8]) == [2, 8, 64, 96, 128, 1, 0, 1]
         assert list(meta[8:11]) == [64 * 8 * 128, 128, 8 * 128]  # q's B, H, L strides
         assert list(meta[11:14]) == [8 * 96 * 128, 96 * 128, 128]
+
+
+_ALIGNED = {"q": (1, 2, 40, 64), "k": (1, 2, 56, 64), "v": (1, 2, 56, 64), "dout": (1, 2, 40, 64)}
+
+
+def _bwd_operands(**views):
+    """q, k, v and dout, contiguous bf16 (D 64) unless ``views`` gives one."""
+    ops_ = {n: torch.zeros(s, dtype=torch.bfloat16) for n, s in _ALIGNED.items()}
+    ops_.update(views)
+    return ops_["q"], ops_["k"], ops_["v"], ops_["dout"]
+
+
+@pytest.mark.parametrize("operands, route", [
+    (lambda: _bwd_operands(), "wgmma"),
+    (lambda: (torch.zeros((1, 2, 40, 64)),) * 2 + (torch.zeros((1, 2, 40, 64)),) * 2, "f32"),
+    (lambda: (torch.zeros((1, 1, 33, 100), dtype=torch.bfloat16),) * 4, "mma"),
+    (lambda: (torch.zeros((1, 2, 96, 8), dtype=torch.bfloat16),) * 4, "wgmma"),
+    (lambda: (torch.zeros((1, 3, 200, 96), dtype=torch.bfloat16),) * 4, "wgmma"),
+    (lambda: (torch.zeros((2, 2, 64, 128), dtype=torch.bfloat16),) * 4, "wgmma"),
+    (lambda: (_heads_view(2, 8, 64, 128),) * 4, "wgmma"),
+    (lambda: _bwd_operands(q=_padded(1, 2, 40, 64, 4)), "mma"),
+    (lambda: _bwd_operands(q=_padded(1, 2, 40, 64, 8, offset=1)), "mma"),
+    (lambda: _bwd_operands(k=_padded(1, 2, 56, 64, 4)), "mma"),
+    (lambda: _bwd_operands(k=_padded(1, 2, 56, 64, 8, offset=1)), "mma"),
+    (lambda: _bwd_operands(v=_padded(1, 2, 56, 64, 4)), "mma"),
+    (lambda: _bwd_operands(v=_padded(1, 2, 56, 64, 8, offset=1)), "mma"),
+    (lambda: _bwd_operands(dout=_padded(1, 2, 40, 64, 4)), "mma"),
+    (lambda: _bwd_operands(dout=_padded(1, 2, 40, 64, 8, offset=1)), "mma"),
+    (lambda: _bwd_operands(dout=_padded(1, 2, 40, 64, 8)), "wgmma"),  # rows of 72
+    (lambda: _bwd_operands(k=torch.zeros((1, 1, 56, 64), dtype=torch.bfloat16).expand(
+        1, 2, 56, 64), v=torch.zeros((1, 1, 56, 64), dtype=torch.bfloat16).expand(
+        1, 2, 56, 64)), "mma"),  # a head stride of 0
+], ids=["bf16_d64", "f32", "bf16_d100", "bf16_d8", "bf16_d96", "bf16_d128", "bf16_heads_d128",
+        "q_rows_of_68", "q_base_2_bytes_off", "k_rows_of_68", "k_base_2_bytes_off",
+        "v_rows_of_68", "v_base_2_bytes_off", "dout_rows_of_68", "dout_base_2_bytes_off",
+        "dout_rows_of_72", "broadcast_k_v"])
+def test_backward_route(operands, route):
+    """The backward's kernel follows from dtype, D, strides and alignment of
+    q, k, v and dout: bf16 that TMA can read takes wgmma, other bf16
+    mma.sync, f32 the CUDA cores; dout alone can send a call to mma.sync
+    whose forward took wgmma."""
+    from deepflows_tpu_torch.ops.flash_attention import _bwd_route, _fwd_route
+
+    q, k, v, dout = operands()
+    assert _bwd_route(q, k, v, dout) == route
+    if route == "mma" and _fwd_route(q, k, v) == "wgmma":
+        assert dout.stride(-2) % 8 or dout.data_ptr() % 16
+
+
+def test_backward_header():
+    """The backward's int64 header: after the 29 values of shape, vec and the
+    strides of q, k, v, dout, dq, dk and dv, the route's code at 29, then
+    out's (B, H, L) strides (the C entry's delta pass reads out), then the
+    row length of its f32 scratch: Lq, or Lq rounded up to 128 on the wgmma
+    route, where the scratch holds delta and lse·log2e."""
+    import importlib
+
+    fa = importlib.import_module("deepflows_tpu_torch.ops.flash_attention")
+    q = dout = _heads_view(2, 8, 64, 128)
+    k = v = torch.zeros((2, 8, 96, 128), dtype=torch.bfloat16)
+    out = _padded(2, 8, 64, 128, 8)
+    grads = (fa._new_like_heads(q), fa._new_like_heads(k), fa._new_like_heads(v))
+    for route, want in zip(fa.ROUTES, ((64, 1), (64, 1), (128, 2))):
+        ld, planes = fa._stats_layout(route, 64)
+        assert (ld, planes) == want
+        meta = fa._meta(q, k, True, 3, (q, k, v, dout, *grads),
+                        (fa.ROUTES.index(route), *out.stride()[:3], ld))
+        assert len(meta) == 34 and fa.ROUTES[meta[29]] == route and meta[33] == ld
+        assert list(meta[:8]) == [2, 8, 64, 96, 128, 1, 3, 1]
+        assert list(meta[17:20]) == [64 * 8 * 128, 128, 8 * 128]  # dout's B, H, L strides
+        assert list(meta[23:26]) == [96 * 8 * 128, 128, 8 * 128]  # dk, laid out (B, L, H, D)
+        assert list(meta[30:33]) == [8 * 64 * 136, 64 * 136, 136]  # out's rows of 136
+
+
+@pytest.mark.parametrize("lq, want", [(1, 128), (70, 128), (128, 128), (129, 256), (1024, 1024)])
+def test_backward_stats_rows(lq, want):
+    """The wgmma backward's delta and lse·log2e rows are padded to a multiple
+    of 128, so every 64- or 128-row tile of them starts 16-byte aligned."""
+    from deepflows_tpu_torch.ops.flash_attention import _stats_layout
+
+    assert _stats_layout("wgmma", lq) == (want, 2)
+    assert _stats_layout("mma", lq) == (lq, 1)
