@@ -81,11 +81,20 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
    run on the first V - 64 columns of w and b (one vocab step dropped),
    held by row against the full reference, and the backward fed lse +
    0.1.  Two bf16 CE backward calls and two bf16 flash forward calls at the
-   slice's shape must give the same bits.
+   slice's shape must give the same bits.  The bf16 CE forward besides,
+   each case held to the route it must take (ops/fused_ce.py _fwd_route:
+   wgmma where TMA can read x and w, else mma) with loss and lse below
+   1e-4 of the twin: the slice (wgmma; two calls bitwise equal), N 8191
+   and 300, V 1000, 8200 and 8190 (mma), D 200 and 1000, an f32 bias, x
+   viewed 2 bytes off (mma), each with targets V - 1, V + 3 and -1 (the
+   last two must cost exactly lse); and one planted fault it must flag: w
+   and b cut to their first V - 128 columns, every 7th target moved into
+   the cut tile.
    Times each kernel at the slice's bf16 shapes beside its plain twin, one
    library call (scaled_dot_product_attention; torch.matmul +
    F.cross_entropy; torch.optim.Adam(fused=True)) and its bound; the flash
-   forward with its route and TFLOP/s.
+   forward and the CE forward with their routes and TFLOP/s, the CE
+   forward's vocab plan.
 5. Training phase, the main path: TransformerLM(vocab 8192, max_len 1024,
    dim 1024, depth 12, heads 8, flash=True) with random weights from a seed,
    trained by CompiledTrainStep(lm.trunk(), Adam(lr 5e-3, weight decay
@@ -123,8 +132,13 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
    against their plain twins at rtol 1e-4 / atol 1e-3 (the JAX tests'
    bound): the MLP's layers and backward products (transposed views),
    tests/test_pallas.py's shapes, the linear plan's K split edges (K 8,
-   9, 16, 17, 784 and 4095 at (64, K, 48)) and 4096^3 (both); two MLP layer-1
-   linear_fused calls must give the same bits. Times matmul at 4096^3 and
+   9, 16, 17, 784 and 4095 at (64, K, 48)) and 4096^3 (both); the large
+   tile at ragged products (2000, 1032, 2056) (fed by TMA), (2000, 1030,
+   2050), (1536, 100, 2817) and (1500, 1001, 2900) (by cp.async) with A, B
+   or both as transposed views and A seen through a stride of 2, and each
+   epilogue; two MLP layer-1 linear_fused calls must give the same bits,
+   and matmul at 4096^3 on the large tile the same bits as the small tile
+   forced to one split. Times matmul at 4096^3 and
    linear_fused at the MLP's first layer beside their twins, their bounds
    and torch.matmul / torch.addmm (TF32 off), and the bias-free MLP's 8
    matmul calls a step, summed, beside their summed bounds, twins and
@@ -706,6 +720,15 @@ CE_RAGGED = ((37, 64, 513), (100, 200, 300), (1000, 1024, 8000), (130, 1000, 97)
 CE_D_EDGES = ((300, 200, 1000), (300, 256, 1000), (300, 257, 1000), (300, 1000, 1000),
               (300, 2048, 1000), (300, 4096, 1000))
 ADAM_RAGGED = (1, 3, 4095, 4096, 4097, 10000, 12345)
+# bf16 CE forward cases beside the slice, each held to the route it must
+# take (ops/fused_ce.py _fwd_route): (N, D, V, b's dtype, x's layout, route);
+# "offset" views x 2 bytes off a 16-byte boundary, which TMA cannot read
+CE_FWD_CASES = ((8191, 1024, 8192, "bf16", "contiguous", "wgmma"),
+                (300, 1024, 1000, "bf16", "contiguous", "wgmma"),
+                (300, 200, 8200, "bf16", "contiguous", "wgmma"),
+                (8191, 1000, 8190, "bf16", "contiguous", "mma"),
+                (300, 1000, 1000, "f32", "contiguous", "wgmma"),
+                (300, 1024, 8192, "bf16", "offset", "mma"))
 TOL = {"f32": 1e-4, "bf16": 2e-2}  # see scaled_err and row_err
 FAULT_SHIFT = 0.1  # added to lse in the planted backward fault
 # |card change - CPU change| / |CPU change| of the worst parameter after 3 f32 steps
@@ -929,6 +952,68 @@ def ce_planted_faults(ops, operands, want):
     return {"dropped_vocab_step": dropped, "lse_shift": shifted}
 
 
+def routes_taken(wrapper, fn):
+    """fn()'s result and the routes of ``wrapper``'s launches during it."""
+    before = dict(wrapper.routes)
+    out = fn()
+    return out, [r for r in wrapper.routes for _ in range(wrapper.routes[r] - before[r])]
+
+
+def ce_fwd_case(torch, ops, g, N, D, V, bdt, layout, want_route, label):
+    """The bf16 forward against its plain twin, held to the route it must
+    take; the first three targets are the last vocab column (in a partial
+    last tile where V is not a tile multiple), V + 3 and -1 (both cost
+    lse).  Fails past TOL["f32"] on loss or lse (scaled_err); returns
+    (x, w, b, t), the twin's (loss, lse) and the errors."""
+    dev = torch.device("cuda")
+    x = (torch.randn((N, D), generator=g, device=dev) * 0.5).bfloat16()
+    if layout == "offset":
+        x = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(N, D)
+    w = (torch.randn((D, V), generator=g, device=dev) * 0.05).bfloat16()
+    b = (torch.randn((V,), generator=g, device=dev) * 0.1).to(
+        torch.bfloat16 if bdt == "bf16" else torch.float32)
+    t = torch.randint(0, V, (N,), generator=g, device=dev)
+    t[:3] = torch.tensor([V - 1, V + 3, -1], device=dev)
+    got, route = routes_taken(ops.fused_linear_ce_fwd, lambda: ops.fused_linear_ce_fwd(x, w, b, t))
+    if route != [want_route]:
+        fail(f"fused_linear_ce_fwd {label}: took the route {route}, not {want_route}")
+    want = ops.fused_linear_ce_plain(x, w, b, t)
+    errs = {"loss": scaled_err(got[0], want[0]), "lse": scaled_err(got[1], want[1])}
+    for name, (rel, _) in errs.items():
+        if not rel < TOL["f32"]:
+            fail(f"fused_linear_ce_fwd {label} ({route[0]} route): {name} differs from the plain "
+                 f"twin by {rel} (limit {TOL['f32']})")
+    if not torch.equal(got[0][1:3], got[1][1:3]):
+        fail(f"fused_linear_ce_fwd {label}: a target outside [0, V) does not cost lse")
+    return (x, w, b, t), want, errs
+
+
+def ce_fwd_checks(torch, ops, g, operands):
+    """The bf16 forward beside phase 4's CE cases: CE_FWD_CASES on their
+    routes; on the slice's operands (x, w, b, t), its wgmma route, two calls
+    bitwise equal, and one planted fault that the check must flag: w and b
+    cut to their first V - 128 columns, with every 7th target moved into the
+    cut tile, against the twin on the whole of w and b."""
+    errs = {str(c): ce_fwd_case(torch, ops, g, *c, f"{c}")[2] for c in CE_FWD_CASES}
+    x, w, b, t = operands
+    V = w.shape[1]
+    one, route = routes_taken(ops.fused_linear_ce_fwd, lambda: ops.fused_linear_ce_fwd(x, w, b, t))
+    if route != ["wgmma"]:
+        fail(f"fused_linear_ce_fwd slice: took the route {route}, not wgmma")
+    same = all(torch.equal(p, q) for p, q in zip(one, ops.fused_linear_ce_fwd(x, w, b, t)))
+    if not same:
+        fail("fused_linear_ce_fwd: two calls on the slice's inputs differ")
+    tc = t.clone()
+    tc[::7] = V - 128 + torch.arange(tc[::7].numel(), device=t.device) % 128
+    want = ops.fused_linear_ce_plain(x, w, b, tc)
+    got = ops.fused_linear_ce_fwd(x, w[:, :V - 128].contiguous(), b[:V - 128].contiguous(), tc)
+    cut = {"loss": scaled_err(got[0], want[0])[0], "lse": scaled_err(got[1], want[1])[0]}
+    if not max(cut.values()) >= TOL["f32"]:
+        fail(f"CE forward planted fault (the last vocab tile cut) passed the check: {cut}")
+    return {"cases": errs, "slice_route": route[0], "bitwise_equal": same,
+            "planted_cut_tile": cut}
+
+
 def adam_case(torch, ops, g, shapes, wd, label):
     dev = torch.device("cuda")
     ps = [torch.randn(s, generator=g, device=dev) * 0.02 for s in shapes]
@@ -1019,6 +1104,7 @@ def train_kernel_phase(torch, ops, report):
     if not ce_same:
         fail("fused_linear_ce_bwd: two calls on the slice's inputs differ")
     report["ce_planted_faults"], report["ce_bitwise_equal"] = ce_faults, ce_same
+    cf = report["ce_fwd"] = ce_fwd_checks(torch, ops, g, (x, w, b, t))
     adam_ops, err["fused_adam"] = adam_case(torch, ops, g, shapes, ADAM["weight_decay"], "slice")
     for wd in (0.0, 0.01):
         adam_case(torch, ops, g, [(n,) for n in ADAM_RAGGED], wd, f"ragged wd={wd}")
@@ -1040,6 +1126,12 @@ def train_kernel_phase(torch, ops, report):
           f"{ce_faults['dropped_vocab_step']['dx']:.3g} (the global measure reads "
           f"{ce_faults['dropped_vocab_step']['dx_global_scaled']:.3g}); lse + {FAULT_SHIFT} gives "
           + ", ".join(f"{n} {v:.3g}" for n, v in ce_faults["lse_shift"].items()))
+
+    print(f"  CE forward, bf16: the slice on the {cf['slice_route']} route, two calls bitwise "
+          f"equal: {cf['bitwise_equal']}; {len(CE_FWD_CASES)} more shapes on their routes, worst "
+          + ", ".join(f"{n} {max(e[n][0] for e in cf['cases'].values()):.3g}" for n in ("loss", "lse"))
+          + f" (limit {TOL['f32']}); planted fault flagged: the last vocab tile cut gives "
+          + ", ".join(f"{n} {v:.3g}" for n, v in cf["planted_cut_tile"].items()))
 
     print(f"  flash slice bf16 ({froute} route, backward {broute}), relative errors (limits: lse "
           f"{TOL['f32']}, the rest {TOL['bf16']}): {fmt(fe)}; as (B, L, H, D) views ({hv_route} "
@@ -1108,6 +1200,10 @@ def train_kernel_phase(torch, ops, report):
         r["bound_ms"], r["bound_by"] = bound_ms(*bounds[name], "bf16")
         out[name] = r
     out["fused_linear_ce_bwd"]["plan"] = list(ops.fused_ce._bwd_plan(N, E, V))  # (C, BM, BV)
+    cfw = out["fused_linear_ce_fwd"]
+    cfw["fwd_route"] = cf["slice_route"]
+    cfw["plan"] = list(ops.fused_ce._fwd_plan(N, V, cf["slice_route"]))  # (splits, tiles a split)
+    cfw["tflops"] = bounds["fused_linear_ce_fwd"][1] / cfw["ms"] / 1e9
     fwd, bwd = out["flash_attention_fwd"], out["flash_attention_bwd"]
     fwd["fwd_route"], fwd["tflops"] = froute, bounds["flash_attention_fwd"][1] / fwd["ms"] / 1e9
     bwd["bwd_route"], bwd["tflops"] = broute, bounds["flash_attention_bwd"][1] / bwd["ms"] / 1e9
@@ -1241,6 +1337,10 @@ MLP_SHAPES = ((256, 784, 100), (256, 100, 20), (256, 20, 10))  # (M, K, N) a lay
 MM_SHAPES = ((128, 256, 128), (100, 70, 50), (257, 129, 384), (64, 100, 32))  # tests/test_pallas.py
 # the linear plan's K split edges, at an M·N that splits (ops/linear.py _linear_plan)
 SPLIT_SHAPES = tuple((64, k, 48) for k in (8, 9, 16, 17, 784, 4095))
+# products on the large tile beside 4096^3, ragged M, N and K: rows of 16-byte
+# multiples (TMA), B's rows not (cp.async; 1030 and 2050, 2817), A's not
+# either (1001: 4-byte copies)
+LARGE_SHAPES = ((2000, 1032, 2056), (2000, 1030, 2050), (1536, 100, 2817), (1500, 1001, 2900))
 
 
 def mm_check(got, want, label):
@@ -1248,6 +1348,47 @@ def mm_check(got, want, label):
     if (d > 1e-3 + 1e-4 * want.abs()).any():
         fail(f"{label}: max |d| {d.max().item()} past rtol 1e-4, atol 1e-3")
     return d.max().item()
+
+
+def large_tile_checks(torch, ops, g):
+    """The 128 x 128 tile (ops/linear.py _linear_plan's large tile): at
+    LARGE_SHAPES, matmul in each operand layout (contiguous, A or B or both
+    transposed views, A seen through a stride of 2 along K) and linear_fused
+    with each epilogue against the twins at rtol 1e-4 / atol 1e-3; at 4096^3
+    matmul bitwise equal to the small tile forced to one split (both sum
+    each output in one fmaf chain over k from 0).  Returns the largest
+    error and whether the 4096^3 products are bitwise equal."""
+    dev = torch.device("cuda")
+    err = 0.0
+    for m, k, n in LARGE_SHAPES:
+        if ops.linear._linear_plan(m, n, k)[0] != 128:
+            fail(f"the linear plan does not take the large tile at {(m, k, n)}")
+        a, b = (torch.randn(s, generator=g, device=dev) for s in ((m, k), (k, n)))
+        bias = torch.randn((1, n), generator=g, device=dev)
+        a2 = torch.randn((m, 2 * k), generator=g, device=dev)[:, ::2]
+        at, bt = a.t().contiguous().t(), b.t().contiguous().t()
+        for lab, aa, bb in (("", a, b), (" a^T", at, b), (" b^T", a, bt), (" a^T b^T", at, bt),
+                            (" a[:, ::2]", a2, b)):
+            err = max(err, mm_check(ops.matmul(aa, bb), ops.matmul_plain(aa, bb),
+                                    f"matmul {(m, k, n)}{lab}"))
+        for act in ops.linear.ACTIVATIONS:
+            err = max(err, mm_check(ops.linear_fused(a, b, bias, act),
+                                    ops.linear_fused_plain(a, b, bias, act),
+                                    f"linear_fused {(m, k, n)} {act}"))
+    big = 4096
+    a, b = (torch.randn((big, big), generator=g, device=dev) for _ in range(2))
+    large = ops.matmul(a, b)
+    plan = ops.linear._linear_plan
+    ops.linear._linear_plan = lambda m, n, k: (32, k, 1)
+    try:
+        small = ops.matmul(a, b)
+    finally:
+        ops.linear._linear_plan = plan
+    same = torch.equal(large, small)
+    if not same:
+        fail(f"matmul 4096^3: the large tile and the small tile with one split differ by "
+             f"{(large - small).abs().max().item()}")
+    return err, same
 
 
 def linear_kernel_phase(torch, ops, report):
@@ -1286,6 +1427,9 @@ def linear_kernel_phase(torch, ops, report):
         e = mm_check(ops.linear_fused(a, b, bias, act), ops.linear_fused_plain(a, b, bias, act),
                      f"linear_fused 4096^3 {act}")
         err["linear_fused"] = max(err["linear_fused"], e)
+    e, large_same = large_tile_checks(torch, ops, g)
+    err["matmul"] = max(err["matmul"], e)
+    report["matmul_large_small_bitwise_equal"] = large_same
     m, k, n = MLP_SHAPES[0]  # two MLP layer-1 calls give the same bits
     x, w = (torch.randn(s, generator=g, device=dev) for s in ((m, k), (k, n)))
     bias = torch.randn((1, n), generator=g, device=dev)
@@ -1296,7 +1440,10 @@ def linear_kernel_phase(torch, ops, report):
     print(f"  matmul and linear_fused agree with their plain twins (rtol 1e-4, atol 1e-3) at "
           f"{len(MLP_SHAPES) + len(MM_SHAPES) + len(SPLIT_SHAPES) + 1} shapes (K split edges "
           f"{[s[1] for s in SPLIT_SHAPES]}), transposed views, the MLP's backward products and "
-          f"4096^3; max abs err {err}; two MLP layer-1 calls bitwise equal: {same}")
+          f"4096^3; the large tile at {len(LARGE_SHAPES)} ragged shapes in every operand "
+          f"layout; max abs err {err}; two MLP layer-1 calls bitwise equal: {same}; matmul "
+          f"4096^3 on the large tile bitwise equal to the small tile with one split: "
+          f"{large_same}")
 
     def flush():
         flush_buf.zero_()
@@ -1309,6 +1456,7 @@ def linear_kernel_phase(torch, ops, report):
              library_ms=event_ms(lambda: torch.matmul(a, b), 10, flush),
              max_abs_err=err["matmul"], at="4096^3 f32",
              plan=list(ops.linear._linear_plan(big, big, big)))  # (tile, chunk, splits)
+    r["tile"] = f"{r['plan'][0]} x {r['plan'][0]}"
     r["bound_ms"], r["bound_by"] = bound_ms(3 * 4 * big * big, 2 * big**3, "f32")
     r["mlp_ms"] = {str(shape): event_ms(lambda o=o: ops.matmul(*o[:2]), 10, flush)
                    for shape, o in zip(MLP_SHAPES, mlp)}
@@ -1472,8 +1620,8 @@ def train_phase(torch, dt, report, sr=False, ref_first_loss=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, wall_ms, event_step_ms = [], [], []
-    flash = (ops.flash_attention_fwd, ops.flash_attention_bwd)
-    routes_before = [dict(f.routes) for f in flash]
+    routed = (ops.flash_attention_fwd, ops.flash_attention_bwd, ops.fused_linear_ce_fwd)
+    routes_before = [dict(f.routes) for f in routed]
     ops.reset_launch_counts()  # the main path starts here
     for i in range(WARMUP + TIMED):
         before = {k.__name__: k.launches for k in ops.KERNELS}
@@ -1494,7 +1642,7 @@ def train_phase(torch, dt, report, sr=False, ref_first_loss=None):
                      f"{k.launches - before[k.__name__]} times, expected {want}")
     counts = {k.__name__: k.launches for k in ops.KERNELS}  # the main path ends here
     print(f"main-path launches ({key}): {counts}")
-    for f, before in zip(flash, routes_before):  # bf16 head views: TMA reads every operand
+    for f, before in zip(routed, routes_before):  # bf16 head views and CE operands: TMA reads them
         by_route = {n: f.routes[n] - before[n] for n in f.routes}
         if by_route["wgmma"] != counts[f.__name__]:
             fail(f"{key}: {f.__name__} launched by route {by_route}, not all on wgmma")
@@ -1692,7 +1840,7 @@ def main(argv=None) -> int:
             replaces=f"deepflows_tpu/ops/pallas_kernels.py:{line}", launches=launches,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"], at=at,
-            **{k: r[k] for k in ("plan", "fwd_route", "bwd_route", "tflops") if k in r})
+            **{k: r[k] for k in ("plan", "tile", "fwd_route", "bwd_route", "tflops") if k in r})
 
     at = (f"training step: TransformerLM d{TRAIN['dim']} x {TRAIN['depth']}, B {TRAIN_B}, "
           f"L {TRAIN_L}, V {TRAIN['vocab_size']}, bf16; ms and bounds per call")

@@ -22,14 +22,26 @@
 // operands, so both are bound by operations, and only tensor cores
 // approach the bound.
 //
-// bf16 x and w take the tensor cores (mma.sync m16n8k16 fed by ldmatrix,
-// mma_bf16.cuh).  Forward: a block of 8 warps owns 128 rows (16 a warp) and
-// a share of the vocabulary; (x, w) chunks of 32 along D stream through a
-// cp.async double buffer, and each row's max, sum-exp and target logit run
-// online over vocab tiles of 128 as in the TPU kernel.  The vocabulary is
-// split so that about two blocks run on each SM; the last split of a row
-// block to finish (an atomic count) combines the splits' partials in a
-// fixed order.
+// The bf16 forward has two kernels (the route is ops/fused_ce.py
+// _fwd_route's, the vocab split _fwd_plan's; a call never falls back).
+// Where TMA can read x and w (D and V multiples of 8, 16-byte aligned
+// bases) it runs ce_fwd_wgmma (namespace wgf): a producer warp loads x's
+// (128, 64) box and w's (64, 256) slice into a 4-stage mbarrier ring, and
+// two consumer warpgroups of 64 rows run wgmma m64n128k16 from shared
+// memory (w MN-major, read with the transpose-B bit), so each w slice is
+// read from shared memory once per warpgroup where the mma.sync kernel's
+// 8 warps each loaded it with ldmatrix.  A block owns 128 rows and a
+// split's vocab tiles of 256; the online max, sum-exp and target logit
+// run on the accumulators, the first 128 columns' while the last 128
+// columns' final products run.  The splits bring the grid to one block an
+// SM.  Every other bf16 call (D or V not a multiple of 8, a misaligned
+// base) runs ce_fwd_tc: mma.sync m16n8k16 fed by ldmatrix (mma_bf16.cuh),
+// a block of 8 warps owning 128 rows (16 a warp) and a split's vocab
+// columns; (x, w) chunks of 32 along D stream through a cp.async double
+// buffer, and each row's max, sum-exp and target logit run online over
+// vocab tiles of 128 as in the TPU kernel, about two blocks an SM.  On
+// both, the last split of a row block to finish (an atomic count) combines
+// the splits' partials in a fixed order, so two calls give the same bits.
 //
 // Backward (namespace bwd): ONE launch of two roles, each a cluster of
 // C = ceil(D / 256) blocks (D <= 4096) that split D, block r owning D
@@ -77,6 +89,7 @@
 
 #include <cooperative_groups.h>
 
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -170,7 +183,7 @@ __global__ void __launch_bounds__(THREADS) ce_fwd_f32(const __grid_constant__ Ar
         const int col = v0 + tc + 16 * j;
         const float lg = col < V ? acc[i][j] + to_f(a.b[col]) : NEG_INF;
         acc[i][j] = lg;
-        if (col == tgt[i]) st[i] += lg;
+        if (col < V && col == tgt[i]) st[i] += lg;
         mx = fmaxf(mx, lg);
       }
       const float m_new = fmaxf(m[i], group_max(mx));
@@ -357,6 +370,30 @@ __global__ void __launch_bounds__(THREADS) ce_bwd_f32(const __grid_constant__ Ar
 }
 
 // ------------------------------------------------------------------
+// The last split of a row block to finish combines the splits' partials
+// (max, sum-exp, target logit) of rows n0 .. n0 + rows - 1 in split order,
+// so two calls give the same bits; thread `tid` of `threads` takes every
+// threads-th row.
+__device__ __forceinline__ void combine_splits(const float* part, int N, int splits, int n0,
+                                               int rows, int tid, int threads, float* lse_out,
+                                               float* loss) {
+  for (int r = tid; r < rows; r += threads) {
+    const int row = n0 + r;
+    if (row >= N) continue;
+    float mm = NEG_INF;
+    for (int k = 0; k < splits; ++k) mm = fmaxf(mm, __ldcg(part + (long long)k * 3 * N + row));
+    float ll = 0.f, ss = 0.f;
+    for (int k = 0; k < splits; ++k) {
+      const float* p = part + (long long)k * 3 * N;
+      ll += __ldcg(p + N + row) * expf(__ldcg(p + row) - mm);
+      ss += __ldcg(p + 2 * N + row);
+    }
+    const float lse = mm + logf(ll);
+    lse_out[row] = lse;
+    loss[row] = lse - ss;
+  }
+}
+
 // bf16 x and w on the tensor cores: mma.sync m16n8k16 fed by ldmatrix
 namespace tc {
 
@@ -443,7 +480,7 @@ __global__ void __launch_bounds__(TH) ce_fwd_tc(const __grid_constant__ Args<TB>
           const int col = v0 + n * 8 + 2 * t + c;
           float& x = acc[n][2 * r + c];
           x = col < vend ? x + to_f(a.b[col]) : NEG_INF;
-          if (col == tgt[r]) st[r] += x;
+          if (col < vend && col == tgt[r]) st[r] += x;
           mx = fmaxf(mx, x);
         }
       const float m_new = fmaxf(m[r], quad_max(mx));
@@ -476,27 +513,245 @@ __global__ void __launch_bounds__(TH) ce_fwd_tc(const __grid_constant__ Args<TB>
   __syncthreads();
   if (!last) return;
   __threadfence();
-  for (int r = threadIdx.x; r < FM; r += TH) {
-    const int row = n0 + r;
-    if (row >= a.N) continue;
-    float mm = NEG_INF;
-    for (int k = 0; k < a.splits; ++k)
-      mm = fmaxf(mm, __ldcg(a.part + (long long)k * 3 * a.N + row));
-    float ll = 0.f, ss = 0.f;
-    for (int k = 0; k < a.splits; ++k) {
-      const float* p = a.part + (long long)k * 3 * a.N;
-      ll += __ldcg(p + a.N + row) * expf(__ldcg(p + row) - mm);
-      ss += __ldcg(p + 2 * a.N + row);
-    }
-    const float lse = mm + logf(ll);
-    a.lse_out[row] = lse;
-    a.loss[row] = lse - ss;
-  }
+  combine_splits(a.part, a.N, a.splits, n0, FM, threadIdx.x, TH, a.lse_out, a.loss);
 }
 
 constexpr int fwd_smem = 2 * (FM * FXL + FD * FWL) * 2;
 
 }  // namespace tc
+
+// ------------------------------------------------------------------
+// The bf16 forward on Hopper: wgmma fed from a TMA ring.  Warpgroup 0 is
+// the producer (one thread issues every TMA load), warpgroups 1 and 2 are
+// consumers of 64 rows each, so a block owns BM = 128 rows and the vocab
+// tiles of one split.  A stage holds x's (128, 64) box, K-major, and w's
+// (64, 256) slice as four 64-column boxes, MN-major (V is w's unit
+// stride), read by wgmma with the transpose-B bit; both 128-byte swizzled,
+// zeros past N, D and V.  A consumer keeps its (64, 256) logits tile in
+// two accumulators of 128 columns, each a commit group, so the online
+// max, sum-exp and target logit of the first half run while the second
+// half's last products are on the tensor cores.
+namespace wgf {
+
+using namespace dft::hopper;
+using dft::mma::bf16;
+using dft::mma::quad_max;
+using dft::mma::quad_sum;
+
+// rows a block, D a stage; vocab a tile (128 or 256: accumulators of 128
+// columns) and stages in the ring (tools/linear_ce_ab.py builds the others
+// from copies of this line)
+constexpr int BM = 128, BD = 64;
+constexpr int BV = 256, ST = 4;
+constexpr int NH = BV / 128;  // accumulators a consumer
+constexpr int THREADS = 384;                 // the producer warpgroup and two consumers
+// 128 x 40 + 256 x 232 registers = 64,512, what 384 threads of 168 hold at launch
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+constexpr int MAX_SPLITS = 16;
+constexpr int X_BYTES = BM * BD * 2, W_BYTES = BD * BV * 2, STAGE = X_BYTES + W_BYTES;
+constexpr int SMEM = 1024 + ST * STAGE + 2 * ST * 8;  // 1024-byte alignment, ring, barriers
+constexpr float LOG2E = 1.4426950408889634f;
+
+struct Maps {  // x (D, N) in boxes of 64 x 128, w (V, D) in boxes of 64 x 64
+  CUtensorMap x, w;
+};
+
+template <typename TB>
+struct Args {
+  Maps maps;  // first: a CUtensorMap is 64-byte aligned in the parameter space
+  const TB* b;
+  const int* t;
+  float *loss, *lse_out;  // outputs
+  float* part;            // (m, l, target logit) per vocab split and row
+  int* count;             // finished splits per row block, zeroed by the caller
+  int N, D, V, splits, per;  // per: vocab tiles of BV a split
+};
+
+// 2^x in one MUFU.EX2: results below 2^-126 flush to 0, far below what a
+// row's sum-exp resolves against its maximum's 1
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online max, sum-exp and target logit of rows g and g + 8 of the warp
+// over one accumulator: 128 vocab columns from cb, this lane's columns
+// cb + 8 j + 2 q + e.  The bias is added and columns past vend count as
+// -1e30 (probability 0), as in the mma.sync kernel.  The accumulator is
+// only read: an instruction that writes it while the other accumulator's
+// products are in flight makes ptxas serialise every wgmma (C7515).
+template <typename TB>
+__device__ __forceinline__ void online(const float (&acc)[64], int cb, int vend,
+                                       const TB* __restrict__ b, const int (&tgt)[2],
+                                       float (&m)[2], float (&l)[2], float (&st)[2], int q) {
+  // the 32 biases stay in registers for the second pass (ptxas spills about
+  // 100 bytes; reading them again from L1 in place spilled 8 and ran 2%
+  // slower)
+  float bias[32], mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = cb + 8 * j + 2 * q + e;
+      const bool in = col < vend;
+      bias[2 * j + e] = in ? to_f(b[col]) : NEG_INF;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float x = in ? acc[4 * j + 2 * hh + e] + bias[2 * j + e] : NEG_INF;
+        if (in && col == tgt[hh]) st[hh] += x;
+        mx[hh] = fmaxf(mx[hh], x);
+      }
+    }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float m_new = fmaxf(m[hh], quad_max(mx[hh]));
+    const float off = m_new * LOG2E;
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        rs += cb + 8 * j + 2 * q + e < vend
+                  ? exp2_ftz(fmaf(acc[4 * j + 2 * hh + e] + bias[2 * j + e], LOG2E, -off))
+                  : 0.f;
+    l[hh] = l[hh] * exp2_ftz(fmaf(m[hh], LOG2E, -off)) + quad_sum(rs);
+    m[hh] = m_new;
+  }
+}
+
+struct Ring {
+  unsigned char* stages;  // ST x (x box, w slice)
+  uint64_t *full, *empty;
+};
+
+// One thread issues every load: x's box and w's four boxes a stage.
+template <typename TB>
+__device__ __forceinline__ void produce(const Args<TB>& a, const Ring& r, int n0, int vbeg,
+                                        int tiles, int nd) {
+  tma_prefetch_map(&a.maps.x);
+  tma_prefetch_map(&a.maps.w);
+  for (int i = 0; i < tiles * nd; ++i) {
+    const int s = i % ST, v0 = vbeg + i / nd * BV, d0 = i % nd * BD;
+    mbar_wait(r.empty + s, ((i / ST) & 1) ^ 1);  // the slot's first wait passes at once
+    mbar_expect_tx(r.full + s, STAGE);
+    unsigned char* dst = r.stages + s * STAGE;
+    tma_load_4d(dst, &a.maps.x, r.full + s, d0, n0, 0, 0);
+#pragma unroll
+    for (int j = 0; j < BV / 64; ++j)
+      tma_load_4d(dst + X_BYTES + j * BD * 128, &a.maps.w, r.full + s, v0 + 64 * j, d0, 0, 0);
+  }
+}
+
+// Consumer c's 64 rows: the logits of each vocab tile, then its online
+// statistics; writes the split's partials and, in the last split of the
+// row block to finish, combines them.
+template <typename TB>
+__device__ __forceinline__ void consume(const Args<TB>& a, const Ring& r, int n0, int vbeg,
+                                        int vend, int tiles, int nd) {
+  __shared__ int last;
+  const int c = threadIdx.x / 128 - 1, w = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, q = lane % 4, sp = blockIdx.y;
+  const int r0 = n0 + 64 * c + 16 * w + g;  // this thread's rows r0 and r0 + 8
+  int tgt[2];
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, st[2] = {0.f, 0.f};
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) tgt[hh] = r0 + 8 * hh < a.N ? a.t[r0 + 8 * hh] : -1;
+  float acc[NH][64];
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
+  // x: K-major, a step of 16 along D adds 32 bytes; w: MN-major in column
+  // blocks of 64 rows x 128 bytes, a step of 16 along D adds 16 rows
+  const uint64_t dx = desc_b128(r.stages + c * 64 * 128, 16, 1024);
+  const uint64_t dw = desc_b128(r.stages + X_BYTES, BD * 128, 1024);
+  int i = 0;
+  for (int t = 0; t < tiles; ++t) {
+    // The loop's body has no branch around a wgmma: ptxas serialises every
+    // wgmma of a path that diverges around one.
+    for (int k = 0; k < nd; ++k, ++i) {
+      const int s = i % ST;
+      mbar_wait(r.full + s, (i / ST) & 1);
+#pragma unroll
+      for (int h = 0; h < NH; ++h) fence_regs(acc[h]);
+      wgmma_fence();
+      const uint64_t xs = dx + ((s * STAGE) >> 4), ws = dw + ((s * STAGE) >> 4);
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {  // one commit group an accumulator
+#pragma unroll
+        for (int kk = 0; kk < BD / 16; ++kk)
+          wgmma_ss<128, 1>(acc[h], xs + ((kk * 32) >> 4),
+                           ws + ((h * 2 * BD * 128 + kk * 16 * 128) >> 4), k | kk);
+        wgmma_commit();
+      }
+      wgmma_wait<NH>();  // the last stage's products are done: release it
+#pragma unroll
+      for (int h = 0; h < NH; ++h) fence_regs(acc[h]);
+      if (k > 0 && lane == 0) mbar_arrive(r.empty + (i - 1) % ST);
+    }
+    const int cb = vbeg + t * BV;
+    if constexpr (NH == 2) {
+      wgmma_wait<1>();  // the first half is done; the second's last products run on
+      fence_regs(acc[0]);
+      online(acc[0], cb, vend, a.b, tgt, m, l, st, q);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc[NH - 1]);
+    if (lane == 0) mbar_arrive(r.empty + (i - 1) % ST);
+    online(acc[NH - 1], cb + 128 * (NH - 1), vend, a.b, tgt, m, l, st, q);
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float ss = quad_sum(st[hh]);
+    const int row = r0 + 8 * hh;
+    if (q == 0 && row < a.N) {
+      float* p = a.part + (long long)sp * 3 * a.N;
+      p[row] = m[hh];
+      p[a.N + row] = l[hh];
+      p[2 * a.N + row] = ss;
+    }
+  }
+  __threadfence();  // the partials are visible before the count says so
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");  // the two consumers
+  if (threadIdx.x == 128) last = atomicAdd(a.count + blockIdx.x, 1) == a.splits - 1;
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  if (!last) return;
+  __threadfence();
+  combine_splits(a.part, a.N, a.splits, n0, BM, threadIdx.x - 128, 256, a.lse_out, a.loss);
+}
+
+// Block (rb, sp) of a (row blocks, splits) grid: rows 128 rb .. + 127 and
+// the split's vocab tiles per · sp .. per · sp + per - 1 of BV columns.
+template <typename TB>
+__global__ void __launch_bounds__(THREADS, 1) ce_fwd_wgmma(const __grid_constant__ Args<TB> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  Ring r;
+  r.stages = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  r.full = reinterpret_cast<uint64_t*>(r.stages + ST * STAGE);
+  r.empty = r.full + ST;
+  const int n0 = blockIdx.x * BM, vbeg = blockIdx.y * a.per * BV;
+  const int vend = min(a.V, vbeg + a.per * BV);
+  const int tiles = (vend - vbeg + BV - 1) / BV, nd = (a.D + BD - 1) / BD;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(r.full + s, 1);
+      mbar_init(r.empty + s, 8);  // one arrival from each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) produce(a, r, n0, vbeg, tiles, nd);
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    consume(a, r, n0, vbeg, vend, tiles, nd);
+  }
+}
+
+}  // namespace wgf
 
 // ------------------------------------------------------------------
 // The bf16 backward: one launch of clusters of C = ceil(D / 256) blocks,
@@ -1011,26 +1266,52 @@ cudaError_t bwd_f32(const Args<TB>& a, cudaStream_t st) {
                 a, ndx);
 }
 
-// Vocab splits of the forward: about two blocks an SM over the row blocks.
+// The mma.sync forward over `splits` vocab splits of `per` tiles of 128
+// (ops/fused_ce.py _fwd_plan).
 template <typename TB>
-void split_vocab(tc::Args<TB>& a) {
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int rb = (a.N + tc::FM - 1) / tc::FM, nvt = (a.V + tc::FV - 1) / tc::FV;
-  int splits = (2 * sms + rb - 1) / rb;
-  splits = splits < nvt ? splits : nvt;
-  splits = splits < tc::MAX_SPLITS ? splits : tc::MAX_SPLITS;
-  const int per = (nvt + splits - 1) / splits;  // vocab tiles a split
+cudaError_t fwd_mma(tc::Args<TB> a, int splits, int per, cudaStream_t st) {
+  a.splits = splits;
   a.vchunk = per * tc::FV;
-  a.splits = (nvt + per - 1) / per;
+  const dim3 grid((a.N + tc::FM - 1) / tc::FM, splits);
+  return launch(tc::ce_fwd_tc<TB>, grid, tc::TH, tc::fwd_smem, st, a);
+}
+
+// The wgmma forward over `splits` vocab splits of `per` tiles of 256; the
+// tensor maps of x and w are encoded on every call (the pointers change),
+// and one that cuTensorMapEncodeTiled refuses is refused here.
+template <typename TB>
+cudaError_t fwd_wgmma(const tc::Args<TB>& t, int splits, int per, cudaStream_t st) {
+  wgf::Args<TB> a;
+  a.b = t.b;
+  a.t = t.t;
+  a.loss = t.loss;
+  a.lse_out = t.lse_out;
+  a.part = t.part;
+  a.count = t.count;
+  a.N = t.N, a.D = t.D, a.V = t.V, a.splits = splits, a.per = per;
+  const long long xd[4] = {t.D, t.N, 1, 1}, xs[3] = {2ll * t.D, 2ll * t.D * t.N, 2ll * t.D * t.N};
+  const long long wd[4] = {t.V, t.D, 1, 1}, ws[3] = {2ll * t.V, 2ll * t.V * t.D, 2ll * t.V * t.D};
+  if (!dft::hopper::encode_bf16_4d(&a.maps.x, t.x, xd, xs, wgf::BM) ||
+      !dft::hopper::encode_bf16_4d(&a.maps.w, t.w, wd, ws, wgf::BD))
+    return cudaErrorInvalidValue;
+  const dim3 grid((t.N + wgf::BM - 1) / wgf::BM, splits);
+  return launch(wgf::ce_fwd_wgmma<TB>, grid, wgf::THREADS, wgf::SMEM, st, a);
 }
 
 template <typename TB>
-cudaError_t fwd_bf16(tc::Args<TB> a, cudaStream_t st) {
-  split_vocab(a);
-  const dim3 grid((a.N + tc::FM - 1) / tc::FM, a.splits);
-  return launch(tc::ce_fwd_tc<TB>, grid, tc::TH, tc::fwd_smem, st, a);
+cudaError_t fwd_bf16(const tc::Args<TB>& a, int route, int splits, int per, cudaStream_t st) {
+  const int tile = route == 2 ? wgf::BV : tc::FV;
+  const int most = route == 2 ? wgf::MAX_SPLITS : tc::MAX_SPLITS;
+  const int nvt = (a.V + tile - 1) / tile;
+  if (splits < 1 || splits > most || per < 1 || splits != (nvt + per - 1) / per)
+    return cudaErrorInvalidValue;
+  if (route == 2) {  // TMA reads rows of 16-byte multiples from 16-byte aligned bases
+    if (a.D % 8 || a.V % 8 || reinterpret_cast<uintptr_t>(a.x) % 16 ||
+        reinterpret_cast<uintptr_t>(a.w) % 16)
+      return cudaErrorInvalidValue;
+    return fwd_wgmma(a, splits, per, st);
+  }
+  return fwd_mma(a, splits, per, st);
 }
 
 template <typename TB>
@@ -1055,21 +1336,30 @@ tc::Args<TB> bf16_args(const void* x, const void* w, const void* b, const int* t
 
 }  // namespace
 
-// x_bf16: x and w are bf16 (the tensor-core kernels), else f32 (the CUDA
-// cores); b_bf16: b is bf16, else f32.  xvec / wvec: the rows of x / w
-// start 16-byte aligned.  part (3 * 16 * N floats) and count (ceil(N / 128)
-// ints, zero) are the bf16 forward's scratch.  Returns the launch's
-// cudaError_t; the caller raises if it is not 0.
+// route (ops/fused_ce.py _fwd_route): 0 f32 x and w (the CUDA cores), 1
+// bf16 on mma.sync, 2 bf16 on wgmma fed by TMA; b_bf16: b is bf16, else
+// f32.  xvec / wvec: the rows of x / w start 16-byte aligned (the mma.sync
+// kernel's 16-byte copies).  (splits, per): the bf16 kernels' vocab splits
+// and the tiles a split (ops/fused_ce.py _fwd_plan); the f32 kernel takes
+// (1, 1).  part (3 * 16 * N floats) and count (ceil(N / 128) ints, zero)
+// are the bf16 kernels' scratch.  Returns the launch's cudaError_t (any
+// other route or plan is refused with cudaErrorInvalidValue); the caller
+// raises if it is not 0.
 extern "C" int dft_flce_fwd(const void* x, const void* w, const void* b, const int* t,
                             float* loss, float* lse, float* part, int* count, int N, int D,
-                            int V, int x_bf16, int b_bf16, int xvec, int wvec, void* stream) {
+                            int V, int route, int b_bf16, int xvec, int wvec, int splits, int per,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using BF = __nv_bfloat16;
+  if (N < 1 || D < 1 || V < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
-  if (x_bf16)
-    e = b_bf16 ? fwd_bf16(bf16_args<BF>(x, w, b, t, loss, lse, part, count, N, D, V, xvec, wvec), s)
+  if (route == 1 || route == 2)
+    e = b_bf16 ? fwd_bf16(bf16_args<BF>(x, w, b, t, loss, lse, part, count, N, D, V, xvec, wvec),
+                          route, splits, per, s)
                : fwd_bf16(bf16_args<float>(x, w, b, t, loss, lse, part, count, N, D, V, xvec,
-                                           wvec), s);
+                                           wvec), route, splits, per, s);
+  else if (route != 0 || splits != 1 || per != 1)
+    e = cudaErrorInvalidValue;
   else
     e = b_bf16 ? fwd_f32(f32_args<BF>(x, w, b, t, 0, 0, loss, lse, 0, 0, 0, N, D, V), s)
                : fwd_f32(f32_args<float>(x, w, b, t, 0, 0, loss, lse, 0, 0, 0, N, D, V), s);

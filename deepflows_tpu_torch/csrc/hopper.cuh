@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks: TMA tensor maps and loads, mbarriers,
 // wgmma from shared memory and from registers, and setmaxnreg.  Shared by
-// the kernels that feed the tensor cores from a TMA ring (flash_attention.cu's
-// bf16 forward and backward).
+// the kernels fed from a TMA ring: flash_attention.cu's bf16 forward and
+// backward, fused_linear_ce.cu's bf16 forward (wgmma) and linear_f32.cu's
+// large f32 tile (TMA and mbarriers only).
 //
 // Shared-memory tiles are in the layout a TMA load with the 128-byte swizzle
 // writes: rows of 64 bf16 (128 bytes), the 16-byte chunks of row r XOR-ed
@@ -102,6 +103,16 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
       "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The box at (c0, c1) of a rank-2 tensor map, as tma_load_4d
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -271,6 +282,24 @@ inline bool encode_bf16_4d(CUtensorMap* map, const void* base, const long long* 
   const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dim, stride, box,
+            step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A rank-2 f32 tensor map with the 128-byte swizzle: rows of `inner`
+// elements (unit stride), `outer` rows `row_bytes` apart (a multiple of
+// 16), boxes of 32 x `rows` (a box row is 128 bytes).  Returns false if
+// cuTensorMapEncodeTiled refuses it.
+inline bool encode_f32_2d(CUtensorMap* map, const void* base, long long inner, long long outer,
+                          long long row_bytes, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dim[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t stride[1] = {(cuuint64_t)row_bytes};
+  const cuuint32_t box[2] = {32, (cuuint32_t)rows};
+  const cuuint32_t step[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dim, stride, box,
             step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

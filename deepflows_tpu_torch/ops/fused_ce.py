@@ -7,8 +7,12 @@ forward and backward.
   differentiable in x, w and b (an ``autograd.Function`` that saves x, w,
   b, the targets and lse); targets get no gradient.
 - ``fused_linear_ce_fwd`` / ``fused_linear_ce_bwd``: the kernel wrappers
-  (``csrc/fused_linear_ce.cu``); the backward is one launch that writes dx,
-  dw and db, for bf16 x and w as clusters that split D (``_bwd_plan``).
+  (``csrc/fused_linear_ce.cu``).  The forward's kernel is chosen by
+  ``_fwd_route`` (bf16 that TMA can read on wgmma, other bf16 on mma.sync,
+  f32 on the CUDA cores; a CUDA call never falls back to another route)
+  and its vocab split by ``_fwd_plan``; it counts its launches by route in
+  ``fused_linear_ce_fwd.routes``.  The backward is one launch that writes
+  dx, dw and db, for bf16 x and w as clusters that split D (``_bwd_plan``).
 - ``fused_linear_ce_plain`` / ``fused_linear_ce_bwd_plain``: their plain
   PyTorch twins, which materialise the logits.
 
@@ -119,31 +123,80 @@ def _flags(x, w, b):
             int(d % 8 == 0 and x.data_ptr() % 16 == 0), int(v % 8 == 0 and w.data_ptr() % 16 == 0))
 
 
+ROUTES = ("f32", "mma", "wgmma")  # the forward's kernels, by their code in the C entry
+# as csrc/fused_linear_ce.cu has them: the forward's rows a block, vocab
+# columns a tile by route, and most vocab splits
+_FWD_ROWS, _FWD_TILE, _MAX_SPLITS = 128, {"mma": 128, "wgmma": 256}, 16
+
+
+def _fwd_route(x, w):
+    """The forward kernel a call takes, from dtype, shape and alignment
+    alone: ``"wgmma"`` (fed by TMA) for bf16 x and w that TMA can read — D
+    and V multiples of 8 and both bases 16-byte aligned (x and w are
+    contiguous) — ``"mma"`` (mma.sync) for every other bf16 call, ``"f32"``
+    for f32."""
+    if x.dtype != torch.bfloat16:
+        return "f32"
+    d, v = w.shape
+    if d % 8 == 0 and v % 8 == 0 and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0:
+        return "wgmma"
+    return "mma"
+
+
+def _fwd_plan(n, v, route):
+    """The bf16 forward's split of the vocabulary: ``(splits, per)``, split
+    s taking vocab tiles [s·per, min((s + 1)·per, tiles)) of the route's
+    width for every block of 128 rows; the f32 kernel takes (1, 1).
+
+    ``"mma"`` (about two blocks an SM): the fewest splits that give at
+    least 264 blocks, at most 16 and at most the tiles.  ``"wgmma"`` (one
+    block an SM): the splits, at most 16 and at most the tiles, that
+    minimise waves of 132 blocks times tiles a split, the fewest on a tie."""
+    if n < 1 or v < 1 or route not in ROUTES:
+        raise ValueError(f"the forward plan takes a non-empty (n, v) and a route, not "
+                         f"{(n, v, route)}")
+    if route == "f32":
+        return 1, 1
+    rb, tiles = -(-n // _FWD_ROWS), -(-v // _FWD_TILE[route])
+    most = min(tiles, _MAX_SPLITS)
+    if route == "mma":
+        splits = min(-(-2 * _SMS // rb), most)
+    else:
+        splits = min(range(1, most + 1), key=lambda s: -(-rb * s // _SMS) * -(-tiles // s))
+    per = -(-tiles // splits)
+    return -(-tiles // per), per
+
+
 def fused_linear_ce_fwd(x, w, b, targets):
     """Forward kernel: returns (loss, lse), both (N,) f32."""
     n, d, v = _check(x, w, b, targets)
     if not on_card(x, w, b, targets):
         return fused_linear_ce_plain(x, w, b, targets)
+    route = _fwd_route(x, w)
     t = targets.to(torch.int32)
     loss = torch.empty((n,), dtype=torch.float32, device=x.device)
     lse = torch.empty_like(loss)
-    # the bf16 kernel's scratch: per vocab split (at most 16) and row the
+    # the bf16 kernels' scratch: per vocab split (at most 16) and row the
     # partial max, sum-exp and target logit; per block of 128 rows a count
-    part = torch.empty((3 * 16 * n,), dtype=torch.float32, device=x.device)
-    count = torch.zeros((-(-n // 128),), dtype=torch.int32, device=x.device)
+    part = torch.empty((3 * _MAX_SPLITS * n,), dtype=torch.float32, device=x.device)
+    count = torch.zeros((-(-n // _FWD_ROWS),), dtype=torch.int32, device=x.device)
     fn = _build.c_function(
-        "fused_linear_ce", "dft_flce_fwd", (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P)
+        "fused_linear_ce", "dft_flce_fwd",
+        (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
     )
+    _, b_bf16, xvec, wvec = _flags(x, w, b)
     with on_device(x.device):
         rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), t.data_ptr(), loss.data_ptr(),
-                lse.data_ptr(), part.data_ptr(), count.data_ptr(), n, d, v, *_flags(x, w, b),
-                stream())
+                lse.data_ptr(), part.data_ptr(), count.data_ptr(), n, d, v, ROUTES.index(route),
+                b_bf16, xvec, wvec, *_fwd_plan(n, v, route), stream())
     _build.check(rc, "fused_linear_ce_fwd")
     fused_linear_ce_fwd.launches += 1
+    fused_linear_ce_fwd.routes[route] += 1
     return loss, lse
 
 
 fused_linear_ce_fwd.launches = 0
+fused_linear_ce_fwd.routes = dict.fromkeys(ROUTES, 0)  # launches by route, never reset
 
 
 def fused_linear_ce_bwd(x, w, b, targets, lse, g):

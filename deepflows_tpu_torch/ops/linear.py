@@ -29,27 +29,29 @@ from ._common import I, L, P, check, on_card, on_device, stream
 
 ACTIVATIONS = ("none", "relu", "tanh")
 _F32 = (torch.float32,)
-# as csrc/linear_f32.cu has them: the large tile, the small tile, its K
-# chunks' multiple and its most splits; and the SMs a grid should fill
-_LARGE, _SMALL, _K_STEP, _MAX_SPLITS, _SMS = 128, 32, 8, 16, 132
+# as csrc/linear_f32.cu has them: the large tile's rows and columns, the
+# small tile, its K chunks' multiple and its most splits; and the SMs a
+# grid should fill
+_LARGE, _LARGE_N, _SMALL, _K_STEP, _MAX_SPLITS, _SMS = 128, 128, 32, 8, 16, 132
 _MIN_CHUNK = 16  # the fewest K rows a split takes
 
 
 def _linear_plan(m, n, k):
     """The tiling of an (m, k) @ (k, n) product: ``(tile, chunk, splits)``,
-    the grid being (ceil(n / tile), ceil(m / tile), splits) blocks, split s
-    taking K rows [s·chunk, min((s + 1)·chunk, k)).
+    split s taking K rows [s·chunk, min((s + 1)·chunk, k)).  Tile 128 is
+    the large tile, 128 rows x 128 columns; tile 32 the small one, a grid
+    of (ceil(n / 32), ceil(m / 32), splits) blocks.
 
-    A product whose 128 x 128 grid has at least 132 blocks keeps that tile
-    over all of K: ``(128, k, 1)``.  Every other takes the 32 x 32 tile and
-    the fewest K splits, at most 16 with chunks a multiple of 8 and at
-    least 16 rows, that bring the grid to 132 blocks, or the most such
+    A product whose grid of large tiles has at least 132 blocks (one an SM)
+    takes that tile over all of K: ``(128, k, 1)``.  Every other takes the
+    32 x 32 tile and the fewest K splits, at most 16 with chunks a multiple
+    of 8 and at least 16 rows, that bring the grid to 132 blocks, or the most such
     splits when none does.  (A split of fewer rows saves less than the
     cluster's hand-over of its sums costs: K 10 split 8 + 2 ran slower
     than one block.)"""
     if m < 1 or n < 1 or k < 1:
         raise ValueError(f"the linear plan takes a non-empty product, not {(m, k, n)}")
-    if -(-m // _LARGE) * -(-n // _LARGE) >= _SMS:
+    if -(-m // _LARGE) * -(-n // _LARGE_N) >= _SMS:
         return _LARGE, k, 1
     tiles = -(-m // _SMALL) * -(-n // _SMALL)
     for target in range(1, _MAX_SPLITS + 1):

@@ -296,3 +296,135 @@ def test_cluster_model_matches_the_plain_backward(n, d, v):
         assert a.dtype == ref.dtype, name
         scale = ref.float().abs().max().item()
         assert (a.float() - ref.float()).abs().max().item() <= 2e-2 * scale, name
+
+
+def _offset(a):
+    """A contiguous copy of ``a`` whose base lies one element (2 bytes in
+    bf16) past a 16-byte aligned address."""
+    flat = torch.cat([a.new_zeros(1), a.reshape(-1)])
+    assert flat.data_ptr() % 16 == 0
+    return flat[1:].view(a.shape)
+
+
+# (x dtype, D, V, which base lies 2 bytes off, the route)
+FWD_ROUTES = [("bf16", 64, 96, None, "wgmma"), ("bf16", 1024, 8192, None, "wgmma"),
+              ("bf16", 60, 96, None, "mma"), ("bf16", 64, 90, None, "mma"),
+              ("bf16", 64, 8190, None, "mma"), ("bf16", 64, 96, "x", "mma"),
+              ("bf16", 64, 96, "w", "mma"), ("f32", 64, 96, None, "f32"),
+              ("f32", 60, 90, "x", "f32")]
+
+
+@pytest.mark.parametrize("dt,d,v,off,route", FWD_ROUTES)
+def test_fwd_route_takes_wgmma_where_tma_can_read(dt, d, v, off, route):
+    """bf16 x and w that TMA can read (D and V multiples of 8, 16-byte aligned
+    bases) take the wgmma forward, every other bf16 call mma.sync, f32 the
+    CUDA cores."""
+    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    x, w = torch.zeros(5, d, dtype=dtype), torch.zeros(d, v, dtype=dtype)
+    if off == "x":
+        x = _offset(x)
+        assert x.data_ptr() % 16 == x.element_size() and x.is_contiguous()
+    if off == "w":
+        w = _offset(w)
+        assert w.data_ptr() % 16 == w.element_size() and w.is_contiguous()
+    assert fused_ce._fwd_route(x, w) == route
+
+
+# (N, V): the slice, ragged N and V, a single row block, more tiles than
+# splits at a few row blocks, one tile
+FWD_PLAN_SHAPES = [(8192, 8192), (8191, 8190), (300, 1000), (300, 8200), (37, 513),
+                   (8192, 50000), (16384, 8192), (1, 1), (128, 257)]
+
+
+@pytest.mark.parametrize("route", ["mma", "wgmma"])
+@pytest.mark.parametrize("n,v", FWD_PLAN_SHAPES)
+def test_fwd_plan_covers_each_tile_once(n, v, route):
+    """Every (row block, vocab tile) pair is one block's exactly once: split
+    s takes tiles [s·per, min((s + 1)·per, tiles)), no split is empty, and
+    there are at most 16 splits (the kernels' scratch)."""
+    splits, per = fused_ce._fwd_plan(n, v, route)
+    tile = {"mma": 128, "wgmma": 256}[route]
+    tiles, row_blocks = -(-v // tile), -(-n // 128)
+    assert 1 <= splits <= 16 and per >= 1
+    cover = np.zeros((row_blocks, tiles), np.int64)
+    for rb in range(row_blocks):
+        for s in range(splits):
+            mine = range(s * per, min((s + 1) * per, tiles))
+            assert len(mine) > 0
+            cover[rb, list(mine)] += 1
+    assert (cover == 1).all()
+    if route == "mma":  # about two blocks an SM, as the kernel chose before the plan moved
+        want = min(-(-264 // row_blocks), tiles, 16)
+        assert per == -(-tiles // want)
+    else:  # the fewest waves of 132 one-block-an-SM blocks times tiles a split
+        cost = min(-(-row_blocks * s // 132) * -(-tiles // s) for s in range(1, min(tiles, 16) + 1))
+        assert -(-row_blocks * splits // 132) * per == cost
+    if (n, v, route) == (8192, 8192, "wgmma"):  # the slice: 128 blocks of 16 tiles
+        assert (splits, per) == (2, 16)
+
+
+def test_fwd_plan_f32_and_refusals():
+    assert fused_ce._fwd_plan(100, 1000, "f32") == (1, 1)
+    for args in ((0, 10, "mma"), (10, 0, "wgmma"), (10, 10, "tc")):
+        with pytest.raises(ValueError):
+            fused_ce._fwd_plan(*args)
+
+
+def _split_model(x, w, b, t, route):
+    """The bf16 forward kernels' arithmetic, written out with torch ops in
+    f32: for each vocab split of ``_fwd_plan`` and each of its tiles, in
+    steps of 128 columns (one accumulator), the logits plus bias with
+    columns past V at -1e30, then the online max, sum-exp and target logit
+    of each row; then the splits' partials combined in split order."""
+    n, v = x.shape[0], w.shape[1]
+    splits, per = fused_ce._fwd_plan(n, v, route)
+    tile = {"mma": 128, "wgmma": 256}[route]
+    xf, wf, bf = x.float(), w.float(), b.float()
+    parts = []
+    for s in range(splits):
+        m = torch.full((n,), -1e30)
+        lsum, st = torch.zeros(n), torch.zeros(n)
+        for c0 in range(s * per * tile, min((s + 1) * per * tile, -(-v // tile) * tile), 128):
+            cols = torch.arange(c0, c0 + 128)
+            live = cols < v
+            lg = torch.full((n, 128), -1e30)
+            lg[:, live] = xf @ wf[:, cols[live]] + bf[cols[live]]
+            hit = live[None, :] & (cols[None, :] == t[:, None])
+            st = st + torch.where(hit, lg, 0.0).sum(1)
+            m_new = torch.maximum(m, lg.max(1).values)
+            e = torch.where(live[None, :], torch.exp(lg - m_new[:, None]), 0.0)
+            lsum = lsum * torch.exp(m - m_new) + e.sum(1)
+            m = m_new
+        parts.append((m, lsum, st))
+    mm = torch.stack([p[0] for p in parts]).max(0).values
+    ll, ss = torch.zeros(n), torch.zeros(n)
+    for m, lsum, st in parts:
+        ll = ll + lsum * torch.exp(m - mm)
+        ss = ss + st
+    lse = mm + torch.log(ll)
+    return lse - ss, lse
+
+
+# (N, D, V): V a tile multiple; V past a partial last tile of both widths;
+# more splits than row blocks; several row blocks and splits
+@pytest.mark.parametrize("route", ["mma", "wgmma"])
+@pytest.mark.parametrize("n,d,v", [(64, 32, 512), (300, 48, 1000), (130, 64, 600),
+                                   (20, 16, 1300)])
+def test_split_model_matches_the_plain_forward_and_jax(n, d, v, route):
+    """The split forward's model against the plain twin (all rows) and the
+    JAX kernel (interpret mode), at rtol 1e-5 / atol 1e-5; the targets hold
+    the last vocab column (in a partial last tile where V is ragged), V + 3
+    and -1, which cost lse in the port (the JAX kernel gives a target in [V,
+    its padded V) 1e30, so those rows are held to the twin alone)."""
+    x, w, b, t = _operands(n, d, v)
+    t[:3] = [v - 1, v + 3, -1]
+    tx, tw, tb, tt = (torch.from_numpy(a) for a in (x, w, b, t))
+    loss, lse = _split_model(tx, tw, tb, tt, route)
+    want_loss, want_lse = ops.fused_linear_ce_plain(tx, tw, tb, tt)
+    np.testing.assert_allclose(loss.numpy(), want_loss.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), rtol=1e-5, atol=1e-5)
+    assert loss[1] == lse[1] and loss[2] == lse[2]
+    jloss, jlse = pk._flce_fwd_impl(*(jnp.asarray(a) for a in (x, w, b, t)), 128, 512)
+    keep = t < v
+    np.testing.assert_allclose(loss.numpy()[keep], np.asarray(jloss)[keep], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), rtol=1e-5, atol=1e-5)

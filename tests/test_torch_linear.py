@@ -125,7 +125,7 @@ MLP_PRODUCTS = [(256, 784, 100), (256, 100, 20), (256, 20, 10),
 
 def _check_linear_plan(m, k, n):
     """The plan's tile is one csrc/linear_f32.cu has, and its K splits cover
-    every K row exactly once: all of K on the 128 x 128 tile, chunks that
+    every K row exactly once: all of K on the 128 x 256 tile, chunks that
     are multiples of 8 and at least 16 rows on the 32 x 32 tile (or all of
     a smaller K), at most 16 splits (the blocks of one cluster).  Returns
     (blocks, the most blocks the small tile can give: its finest split,
@@ -141,7 +141,8 @@ def _check_linear_plan(m, k, n):
     else:
         assert chunk % 8 == 0 and (chunk >= 16 or splits == 1)
     finest = -(-k // max(16, 8 * -(-k // 128)))
-    return -(-m // tile) * -(-n // tile) * splits, -(-m // 32) * -(-n // 32) * finest
+    cols = linear._LARGE_N if tile == 128 else tile
+    return -(-m // tile) * -(-n // cols) * splits, -(-m // 32) * -(-n // 32) * finest
 
 
 @pytest.mark.parametrize("m,k,n", MLP_PRODUCTS)
@@ -157,10 +158,51 @@ def test_linear_plan_fills_the_card_at_the_mlp_products(m, k, n):
                                    (4096, 4096, 4096)])
 def test_linear_plan_covers_k_once(m, k, n):
     blocks, most = _check_linear_plan(m, k, n)
-    if m == 4096:  # a grid of 1,024 large tiles keeps the large tile
+    if m == 4096:  # a grid of 512 large tiles keeps the large tile
         assert linear._linear_plan(m, n, k) == (128, k, 1)
     else:
         assert blocks >= 132 or blocks == most
+
+
+def _tile_constants(namespace):
+    """{name: value} of the ``constexpr int`` lines that open ``namespace``
+    in csrc/linear_f32.cu."""
+    import re
+    from pathlib import Path
+
+    src = (Path(linear.__file__).parent.parent / "csrc" / "linear_f32.cu").read_text()
+    body = src[src.index(f"namespace {namespace} {{"):]
+    body = body[:body.index("__device__") if "__device__" in body[:2000] else 2000]
+    return {k: int(v) for k, v in re.findall(r"(\w+) = (\d+)", " ".join(
+        line for line in body.splitlines() if line.startswith("constexpr int")))}
+
+
+def test_linear_plan_constants_are_the_kernels():
+    """The plan's tiles, K multiple and most splits are those the kernel
+    declares: the large tile 128 x 16·TN (K stages of 32, a ring of 4),
+    the small one 32 x 32 with at most 16 K splits."""
+    large, small = _tile_constants("large"), _tile_constants("small")
+    assert (large["BM"], 16 * large["TN"]) == (linear._LARGE, linear._LARGE_N)
+    assert (large["BK"], large["STAGES"], large["MIN_BLOCKS"]) == (32, 4, 1)
+    assert small["BM"] == small["BN"] == linear._SMALL
+    assert small["MAX_SPLITS"] == linear._MAX_SPLITS and linear._SMS == 132
+
+
+# (M, K, N, tile): the large tile takes a product whose grid of large tiles
+# has at least 132 blocks (11 x 12 here at the edge), the small tile the
+# rest; chip_smoke.py's ragged large-tile shapes
+_LN = linear._LARGE_N
+
+
+@pytest.mark.parametrize("m,k,n,tile", [(1408, 64, 12 * _LN, 128), (1408, 64, 11 * _LN + 1, 128),
+                                        (1408, 64, 11 * _LN, 32), (1281, 64, 12 * _LN, 128),
+                                        (1280, 64, 12 * _LN, 32), (2000, 1032, 2056, 128),
+                                        (2000, 1030, 2050, 128),
+                                        (1536, 100, 2817, 128), (1500, 1001, 2900, 128)])
+def test_linear_plan_takes_the_large_tile_where_it_fills_the_card(m, k, n, tile):
+    assert linear._linear_plan(m, n, k)[0] == tile
+    blocks, most = _check_linear_plan(m, k, n)
+    assert blocks >= 132 or blocks == most
 
 
 @pytest.mark.parametrize("bias", [True, False])

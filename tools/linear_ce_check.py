@@ -1,18 +1,25 @@
 #!/usr/bin/env python3
 """A short first check of linear_fused / matmul and of the bf16
-fused_linear_ce backward on one CUDA card.
+fused_linear_ce forward and backward on one CUDA card.
 
-    python3 tools/linear_ce_check.py [linear] [ce]
+    python3 tools/linear_ce_check.py [linear] [large] [fwd] [ce]
 
-Builds the kernels (printing ptxas's registers, shared memory and spills
-for linear_f32.cu and fused_linear_ce.cu), then, for each part named (both
-by default):
+Builds the kernels (printing ptxas's registers, shared memory, spills and
+warnings for linear_f32.cu and fused_linear_ce.cu), then, for each part
+named (all by default):
 
 - linear: matmul and linear_fused (every activation) against their plain
   twins at rtol 1e-4 / atol 1e-3 (chip_smoke.mm_check) at the MLP's
   layers and backward products, transposed views, the plan's split edges
   (K 8, 9, 16, 17, 784 and 4095 at a small M·N) and 4096^3; two MLP layer-1 calls
   bitwise equal; MLP layer 1 timed beside torch.addmm.
+- large: the 128 x 128 tile (chip_smoke.large_tile_checks): ragged
+  products in every operand layout and each epilogue, and 4096^3 bitwise
+  equal to the small tile with one split; 4096^3 timed beside
+  torch.matmul.
+- fwd: the bf16 forward (chip_smoke.ce_fwd_checks) on every route it must
+  take, two slice-shape calls bitwise equal and its planted fault; the
+  slice shape timed beside its library pair.
 - ce: the bf16 backward against its plain twin by row and by column
   (chip_smoke.ce_case) at the slice's shape and at D 200, 256, 257, 1000,
   2048 and 4096; two slice-shape calls bitwise equal; the slice shape
@@ -79,6 +86,47 @@ def linear_checks(torch, ops, cs):
     return bad
 
 
+def large_checks(torch, ops, cs):
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    try:
+        err, same = cs.large_tile_checks(torch, ops, g)
+    except SystemExit as e:
+        print(e, flush=True)
+        return 1
+    a, b = (torch.randn((4096, 4096), generator=g, device=dev) for _ in range(2))
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    t = {name: cs.event_ms(f, 5, flush.zero_) for name, f in dict(
+        matmul=lambda: ops.matmul(a, b), torch_matmul=lambda: torch.matmul(a, b)).items()}
+    print(f"large: every case agrees, max abs err {err}; 4096^3 bitwise equal to the small tile "
+          f"with one split: {same}; 4096^3 ms: " + ", ".join(f"{k} {v:.4f}" for k, v in t.items()),
+          flush=True)
+    return 0
+
+
+def fwd_checks(torch, ops, cs):
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    try:
+        (x, w, b, t), _, errs = cs.ce_fwd_case(torch, ops, g, 8192, 1024, 8192, "bf16",
+                                               "contiguous", "wgmma", "slice")
+        t = t.clamp(0, 8191)  # F.cross_entropy takes no target outside [0, V)
+        out = cs.ce_fwd_checks(torch, ops, g, (x, w, b, t))
+    except (SystemExit, RuntimeError) as e:
+        print(e, flush=True)
+        return 1
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    ms = {name: cs.event_ms(f, 10, flush.zero_) for name, f in dict(
+        kernel=lambda: ops.fused_linear_ce_fwd(x, w, b, t),
+        library=lambda: F.cross_entropy((torch.matmul(x, w) + b).float(), t,
+                                        reduction="none")).items()}
+    print(f"fwd: slice {errs}; {out}; slice-shape forward ms {ms}, plan "
+          f"{ops.fused_ce._fwd_plan(8192, 8192, 'wgmma')}", flush=True)
+    return 0
+
+
 CE_SHAPES = ((8192, 1024, 8192), (300, 200, 1000), (300, 256, 1000), (300, 257, 1000),
              (300, 1000, 1000), (300, 2048, 1000), (300, 4096, 1000))
 
@@ -130,17 +178,22 @@ def main() -> int:
     from deepflows_tpu_torch import ops
     from deepflows_tpu_torch.ops import _build
 
-    parts = sys.argv[1:] or ["linear", "ce"]
+    parts = sys.argv[1:] or ["linear", "large", "fwd", "ce"]
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build_all()
     for stem in ("linear_f32", "fused_linear_ce"):
         log = _build.BUILD / _build.source_hash() / f"{stem}.log"
         for line in log.read_text().splitlines():
-            if any(w in line for w in ("Compiling entry", "registers", "spill", "error")):
+            if any(w in line for w in ("Compiling entry", "registers", "spill", "error",
+                                       "warning")):
                 print(stem, line.strip()[:200])
     bad = 0
     if "linear" in parts:
         bad += linear_checks(torch, ops, cs)
+    if "large" in parts:
+        bad += large_checks(torch, ops, cs)
+    if "fwd" in parts:
+        bad += fwd_checks(torch, ops, cs)
     if "ce" in parts:
         bad += ce_checks(torch, ops, cs)
     print(cs.card_line())
