@@ -36,15 +36,28 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
    every comparison.
 3. Slice phase, the main path: TransformerLM(vocab 8192, max_len 192,
    dim 1024, depth 12, heads 8) with random weights from a seed, served by
-   KVCacheDecoder in bf16 with quant None, "int8" and "w8a8", three requests
-   each.  Launch counts are zeroed just before and read just after; each
-   quantised decoder must launch its kernel 49 times per prefill and per
-   decode step, and every output must be in the vocabulary.  Each decoder's
-   prefill logits are held against the same decoder on a CPU copy of the
-   model (plain twins), at the JAX tests' tolerances.  Then the decode
-   throughput of each mode, the device busy share of a decode step (its
-   device time, timed with its launches queued in advance, over its wall
-   time), and the number of aten ops a step dispatches from the host.
+   KVCacheDecoder in bf16 with quant None, "int8" and "w8a8": three
+   generate() requests and two generate_beam() requests (B 2 x 4 beams, the
+   split-K path's 8 rows; B 1 x 3 beams with an eos_id the greedy run
+   emitted) each, every decode and beam loop replaying its captured CUDA
+   graph.  Launch counts are zeroed just before and read just after; a
+   quantised generate() must launch its kernel 49 times per prefill and
+   per decode step (49 x (1 + new)), a generate_beam() 49 x new (one
+   prefill, new - 1 steps), every output must be in the vocabulary, beam
+   scores finite and best-first, and every loop must have its graph.  Then,
+   outside the count: each request again through a decoder that runs the
+   eager loop on the card must give the same tokens and scores;
+   num_beams=1 must equal greedy (B 8 +128 and B 1 +20); a weight of the
+   model changed in place between two generate() calls must be read (the
+   tokens move, and equal a fresh decoder's); each decoder's prefill
+   logits are held against the same decoder on a CPU copy of the model
+   (plain twins), at the JAX tests' tolerances.  Then, for each mode, graph
+   and eager loop in turns: decode and generate tokens/s, ms a step, a
+   step's device time (queued while the stream spins) and busy share, the
+   host's us to queue a step, the aten ops of an eager step, a new
+   decoder's first generate (warm-up and capture) against its second, the
+   graph pool's memory, and a replay's device time by kernel group
+   (torch.profiler).
 4. Training kernel phase: flash_attention (forward and backward),
    fused_linear_ce (forward and backward) and fused_adam against their
    plain twins on the card, in f32 and bf16, at the training slice's shapes
@@ -73,7 +86,9 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
    dw by column (row_err of dw.t()) and db by element (elem_err), below
    1e-4 in f32 and 2e-2 in bf16, at the slice's shape, the ragged ones and
    D 200, 256, 257, 1000, 2048 and 4096 (N 300, V 1000; the bf16
-   backward's clusters of 1, 1, 2, 4, 8 and 16 blocks; f32 up to D 1024);
+   backward's clusters of 1, 1, 2, 4, 8 and 16 blocks; f32 up to D 1024),
+   each CE case with targets V - 1, V + 3 and -1 beside random ones (the
+   last two must cost exactly lse, in f32 and bf16, forward and backward);
    Adam below 1e-6.  Rows that see no key must give exactly 0 and lse
    -1e30.  Two planted faults must fail the flash check: the kernel run
    with window L - 64 (up to a key tile dropped from the longest rows) and
@@ -201,6 +216,10 @@ REQUESTS = (  # (batch, prompt, new tokens, sampling)
     (8, 64, 128, {}),
     (8, 17, 50, dict(temperature=0.8, top_k=50, top_p=0.9, seed=1)),
     (1, 5, 20, {}),
+)
+BEAM_REQUESTS = (  # (batch, prompt, new tokens, beam search): 8 rows; 3 rows with an eos
+    (2, 40, 32, dict(beams=4)),
+    (1, 5, 20, dict(beams=3, eos_id="greedy")),
 )
 # max |Δ| / max(1, |ref|) of quantised bf16 prefill logits, as in
 # tests/test_decoding.py (bf16 0.1, int8 0.15, w8a8 0.25)
@@ -547,9 +566,120 @@ def step_floor(params, kc, vc):
     return weights, cache, (weights + rows + cache) / HBM_BYTES_PER_S * 1e3
 
 
+def loop_key(dec, kind, rows, sample=False):
+    """The graph key of ``dec``'s decode (``kind`` "decode") or beam loop
+    whose caches have ``rows`` rows (B, or B x beams) and, for decode,
+    whose ``do_sample`` is ``sample``."""
+    keys = [k for k in dec._loops if k[0] == kind and k[1][1] == rows
+            and (kind == "beam" or k[3] == sample)]
+    if len(keys) != 1:
+        fail(f"expected one {kind} loop of {rows} rows, found {keys}")
+    return keys[0]
+
+
+def serve(dec, idx, new, kw, served):
+    """One request: generate(), returning (tokens, None), or, with ``beams``
+    in kw, generate_beam(), returning (every beam's tokens, scores).  An
+    ``eos_id`` of "greedy" is the token the greedy B 1 request (REQUESTS[2],
+    in ``served``) emitted at its 6th step."""
+    kw = dict(kw)
+    if kw.get("eos_id") == "greedy":
+        kw["eos_id"] = int(served[2][0][0, REQUESTS[2][1] + 5])
+    if "beams" in kw:
+        return dec.generate_beam(idx, new, num_beams=kw.pop("beams"), return_all=True, **kw)
+    return dec.generate(idx, new, **kw), None
+
+
+def loop_timing(torch, dec, idx, new):
+    """A B 8 greedy request through ``dec`` (graph or eager loop by
+    ``dec._capture``): generate wall s (3 runs), and the decode alone:
+    wall s, the host's s to queue every step, and one step's device ms
+    (the step queued while the stream spins, position reset before each
+    call).  Returns ({name: median}, the loop, aten ops of an eager step)."""
+    b, p = idx.shape
+    gen_s, dec_s, enq_s, pre_s = [], [], [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dec.generate(idx, new)
+        gen_s.append(time.perf_counter() - t0)
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params = dec._prepared()
+            prompt = torch.zeros((b, MODEL["max_len"]), dtype=torch.long)
+            prompt[:, :p] = torch.as_tensor(idx)
+            kc, vc, logits = dec._prefill(params, prompt.cuda(), p)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            tokens, _ = dec._decode(params, (kc, vc), logits.argmax(-1), p, new)
+            t2 = time.perf_counter()  # the host has queued every step
+            tokens.cpu()
+            t3 = time.perf_counter()
+        pre_s.append(t1 - t0)
+        enq_s.append(t2 - t1)
+        dec_s.append(t3 - t1)
+    key = loop_key(dec, "decode", b)
+    lp = dec._loops[key]
+    with torch.inference_mode():
+        def step():
+            lp.pos.fill_(p + new - 1)
+            lp.i.fill_(new - 1)
+            if dec._capture:
+                dec._graphs[key].replay()
+            else:
+                lp.step()
+
+        step_ms = event_ms(step, 5)
+        profile = replay_profile(torch, step)
+        n_ops = None
+        if not dec._capture:
+            lp.pos.fill_(p + new - 1)
+            lp.i.fill_(new - 1)
+            n_ops = dispatched_ops(lp.step)
+    med = statistics.median
+    return dict(generate_s=med(gen_s), decode_s=med(dec_s), enqueue_s=med(enq_s),
+                prep_prefill_s=med(pre_s), step_device_ms=step_ms, profile=profile), lp, n_ops
+
+
+def replay_profile(torch, step, reps=5):
+    """Device time of one decode step by kernel group, from torch.profiler
+    over ``reps`` calls of ``step`` (a replay with its position reset): ms
+    a step and kernels a step for the port's int8 kernels, the matrix
+    products (cuBLAS: the dense weights and attention's two products), the
+    softmaxes, and everything else PyTorch runs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+    groups = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        if "int8_decode" in e.key or "int8_prefill" in e.key:
+            name = "int8 kernels of the port"
+        elif any(k in e.key for k in ("nvjet", "gemm", "xmma", "gemv", "cutlass")):
+            name = "matrix products (cuBLAS)"
+        elif "softmax" in e.key.lower():
+            name = "softmax"
+        else:
+            name = "other PyTorch kernels"
+        ms, n = groups.get(name, (0.0, 0))
+        groups[name] = (ms + us / 1e3 / reps, n + e.count / reps)
+    return {k: {"ms": v[0], "kernels": v[1]} for k, v in groups.items()}
+
+
 def slice_phase(torch, dt, report):
     """The main path: serve the full-width model through the three decoder
-    modes.  Returns the launch counts of the run."""
+    modes, generate() and generate_beam() replaying captured CUDA graphs.
+    Returns the launch counts of the run."""
     import numpy as np
 
     from deepflows_tpu_torch import ops
@@ -560,33 +690,89 @@ def slice_phase(torch, dt, report):
     n_params = sum(p.numel() for p in lm.parameters())
     print(f"model: TransformerLM {MODEL}, {n_params} parameters on "
           f"{lm.tok_embed.weight.device}")
-    decs = {q: KVCacheDecoder(lm, compute_dtype=torch.bfloat16, quant=q)
-            for q in (None, "int8", "w8a8")}
+    quants = (None, "int8", "w8a8")
+    decs = {q: KVCacheDecoder(lm, compute_dtype=torch.bfloat16, quant=q) for q in quants}
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, MODEL["vocab_size"], (b, p)).astype(np.int64)
-               for b, p, _, _ in REQUESTS]
+               for b, p, _, _ in REQUESTS + BEAM_REQUESTS]
     kernel_of = {"int8": ops.int8_matmul, "w8a8": ops.w8a8_matmul}
+    served = {q: [] for q in quants}
 
     ops.reset_launch_counts()  # the main path starts here
     for quant, dec in decs.items():
-        for (b, p, new, kw), idx in zip(REQUESTS, prompts):
+        for (b, p, new, kw), idx in zip(REQUESTS + BEAM_REQUESTS, prompts):
             before = {k: k.launches for k in ops.KERNELS}
             t0 = time.perf_counter()
-            out = dec.generate(idx, new, **kw)
+            out, scores = serve(dec, idx, new, kw, served[quant])
             secs = time.perf_counter() - t0
-            if out.shape != (b, p + new) or not np.array_equal(out[:, :p], idx):
+            served[quant].append((out, scores))
+            lead = (b, kw["beams"]) if "beams" in kw else (b,)
+            head = idx[:, None] if "beams" in kw else idx
+            if out.shape != (*lead, p + new) or not (out[..., :p] == head).all():
                 fail(f"quant={quant}: output shape {out.shape} or prompt changed")
             if out.min() < 0 or out.max() >= MODEL["vocab_size"]:
                 fail(f"quant={quant}: token outside the vocabulary")
+            if scores is not None and not (np.isfinite(scores).all()
+                                           and (np.diff(scores, axis=1) <= 0).all()):
+                fail(f"quant={quant} beams {kw}: scores not finite and best-first: {scores}")
+            forwards = new if "beams" in kw else 1 + new
             for k in ops.KERNELS:
-                want = PER_FORWARD * (1 + new) if kernel_of.get(quant) is k else 0
+                want = PER_FORWARD * forwards if kernel_of.get(quant) is k else 0
                 if k.launches - before[k] != want:
-                    fail(f"quant={quant} B={b} +{new}: {k.__name__} launched "
+                    fail(f"quant={quant} B={b} +{new} {kw}: {k.__name__} launched "
                          f"{k.launches - before[k]} times, expected {want}")
             print(f"  served quant={str(quant):5s} B={b} prompt={p} +{new} {kw or 'greedy'}"
                   f" in {secs:.3f} s")
     counts = {k.__name__: k.launches for k in ops.KERNELS}  # the main path ends here
     print(f"main-path launches: {counts}")
+    for quant, dec in decs.items():
+        missing = [k for k in dec._loops if k not in dec._graphs]
+        if missing or len(dec._loops) != 5:
+            fail(f"quant={quant}: loops {list(dec._loops)} without a captured graph: {missing}")
+    print("  every request's loop ran from a captured CUDA graph (3 decode and 2 beam keys a mode)")
+
+    # the graph against the eager loop on the card: the same tokens
+    same = {}
+    for quant, dec in decs.items():
+        eager = KVCacheDecoder(lm, compute_dtype=torch.bfloat16, quant=quant)
+        eager._capture = False
+        for (b, p, new, kw), idx, got in zip(REQUESTS + BEAM_REQUESTS, prompts, served[quant]):
+            want = serve(eager, idx, new, kw, served[quant])
+            if not (np.array_equal(want[0], got[0]) and np.array_equal(want[1], got[1])):
+                fail(f"quant={quant} B={b} +{new} {kw}: the graph's tokens or scores differ "
+                     "from the eager loop's")
+        for r in (0, 2):  # one beam is greedy
+            b, p, new, _ = REQUESTS[r]
+            one = dec.generate_beam(prompts[r], new, num_beams=1)
+            if not np.array_equal(one, served[quant][r][0]):
+                col = int(np.nonzero((one != served[quant][r][0]).any(0))[0][0]) - p
+                fail(f"quant={quant} B={b} +{new}: num_beams=1 leaves greedy at step {col}")
+        # a weight changed in place between two generate() calls is read
+        b, p, new, _ = REQUESTS[2]
+        w = lm.blocks[0].mlp[2].weight
+        saved = w.detach().clone()
+        with torch.no_grad():
+            w.mul_(-4.0)
+        try:
+            after = dec.generate(prompts[2], new)
+            fresh = KVCacheDecoder(lm, compute_dtype=torch.bfloat16, quant=quant).generate(
+                prompts[2], new)
+        finally:
+            with torch.no_grad():
+                w.copy_(saved)
+        if not np.array_equal(after, fresh):
+            fail(f"quant={quant}: after a weight update the graph's tokens differ from a fresh "
+                 "decoder's (stale weights)")
+        if np.array_equal(after, served[quant][2][0]):
+            fail(f"quant={quant}: the weight update did not move the tokens; the refresh "
+                 "check sees nothing")
+        if not np.array_equal(dec.generate(prompts[2], new), served[quant][2][0]):
+            fail(f"quant={quant}: the restored weights do not give the first tokens again")
+        same[str(quant)] = True
+        print(f"  quant={str(quant):5s}: graph == eager loop on all {len(served[quant])} "
+              "requests (greedy, sampled seed 1, beams 2 x 4 and 1 x 3 with eos); "
+              "num_beams=1 == greedy; a weight update is read (== a fresh decoder)")
+    report["graph_equals_eager"] = same
 
     # prefill logits against the same decoder on a CPU copy of the model
     cpu_lm = TransformerLM(**MODEL, device="cpu").eval()
@@ -610,72 +796,71 @@ def slice_phase(torch, dt, report):
             fail(f"quant={quant}: prefill logits differ from the CPU reference by {err}")
     report["prefill_vs_cpu"] = checks
 
-    # decode throughput of each mode on the first request (B 8, 64 + 128)
+    # decode throughput of each mode on the first request (B 8, 64 + 128):
+    # the graph and the eager loop in turns, and a new decoder's first
+    # generate (warm-up and capture) against its second
     b, p, new, _ = REQUESTS[0]
     idx = prompts[0]
     rates = {}
     for quant, dec in decs.items():
-        gen_s, dec_s, enq_s, pre_s = [], [], [], []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            dec.generate(idx, new)
-            gen_s.append(time.perf_counter() - t0)
-            with torch.inference_mode():
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                params = dec._prep_tree(dec._gather())
-                prompt = torch.zeros((b, MODEL["max_len"]), dtype=torch.long)
-                prompt[:, :p] = torch.as_tensor(idx)
-                kc, vc, logits = dec._prefill(params, prompt.cuda(), p)
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                tokens, _ = dec._decode(params, (kc, vc), logits.argmax(-1), p, new)
-                t2 = time.perf_counter()  # the host has queued every step
-                tokens.cpu()
-                t3 = time.perf_counter()
-            pre_s.append(t1 - t0)
-            enq_s.append(t2 - t1)
-            dec_s.append(t3 - t1)
-        # the device time of one decode step, its launches queued while the
-        # stream spins, against the step's wall time: the device busy share
-        with torch.inference_mode():
-            positions = torch.arange(MODEL["max_len"], device=kc.device)
-            tok = tokens[:, -1]
-
-            def step():
-                return dec._select(
-                    dec._forward_one(params, kc, vc, tok, p + new - 1, positions)[0],
-                    None, None, None, None, False)
-
-            step_dev_ms = event_ms(step, 5)
-            n_ops, n_views = dispatched_ops(step)
-        w_bytes, kv_bytes, floor_ms = step_floor(params, kc, vc)
-        r = dict(
-            generate_tok_s=b * new / statistics.median(gen_s),
-            decode_tok_s=b * new / statistics.median(dec_s),
-            decode_step_ms=statistics.median(dec_s) / new * 1e3,
-            step_device_ms=step_dev_ms,
-            host_enqueue_share=statistics.median(enq_s) / statistics.median(dec_s),
-            prep_prefill_ms=statistics.median(pre_s) * 1e3,
-            step_aten_ops=n_ops,
-            step_aten_views=n_views,
-            step_weight_bytes=w_bytes,
-            step_cache_bytes=kv_bytes,
-            step_floor_ms=floor_ms,
-            decode_tok_s_ceiling=b / floor_ms * 1e3,
-        )
-        r["device_busy_share"] = r["step_device_ms"] / r["decode_step_ms"]
-        r["host_us_per_op"] = r["decode_step_ms"] * 1e3 / n_ops
+        first = KVCacheDecoder(lm, compute_dtype=torch.bfloat16, quant=quant)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first.generate(idx, new)
+        t1 = time.perf_counter()
+        first.generate(idx, new)
+        t2 = time.perf_counter()
+        key = loop_key(first, "decode", b)
+        cap = first._graphs[key]
+        eager = KVCacheDecoder(lm, compute_dtype=torch.bfloat16, quant=quant)
+        eager._capture = False
+        runs = {}
+        for name, d in (("graph", dec), ("eager", eager), ("graph2", dec)):
+            runs[name], lp, n_ops = loop_timing(torch, d, idx, new)
+            if n_ops is not None:
+                runs[name]["step_aten_ops"], runs[name]["step_aten_views"] = n_ops
+        w_bytes, kv_bytes, floor_ms = step_floor(dec._params, lp.kc, lp.vc)
+        r = {}
+        for name in ("graph", "eager"):
+            m = runs[name]
+            q = dict(
+                generate_tok_s=b * new / m["generate_s"],
+                decode_tok_s=b * new / m["decode_s"],
+                decode_step_ms=m["decode_s"] / new * 1e3,
+                step_device_ms=m["step_device_ms"],
+                host_us_per_step=m["enqueue_s"] / new * 1e6,
+                prep_prefill_ms=m["prep_prefill_s"] * 1e3,
+                step_by_kernel_group=m["profile"],
+            )
+            q["device_busy_share"] = q["step_device_ms"] / q["decode_step_ms"]
+            r[name] = q
+        r["eager"]["step_aten_ops"] = runs["eager"]["step_aten_ops"]
+        r["eager"]["host_us_per_op"] = r["eager"]["decode_step_ms"] * 1e3 / r["eager"]["step_aten_ops"]
+        r["graph_second_run"] = {k: runs["graph2"][k] for k in ("decode_s", "step_device_ms")}
+        r.update(first_generate_s=t1 - t0, second_generate_s=t2 - t1,
+                 capture_s=cap.capture_s, graph_pool_bytes=cap.pool_bytes,
+                 replay_launches={k.__name__: n for k, n in cap.launched},
+                 step_weight_bytes=w_bytes, step_cache_bytes=kv_bytes, step_floor_ms=floor_ms,
+                 decode_tok_s_ceiling=b / floor_ms * 1e3)
         rates[str(quant)] = r
-        print(f"  throughput quant={str(quant):5s}: generate {r['generate_tok_s']:.1f} tok/s,"
-              f" decode {r['decode_tok_s']:.1f} tok/s ({r['decode_step_ms']:.3f} ms/step,"
-              f" host enqueue {100 * r['host_enqueue_share']:.1f}% of it; device"
-              f" {r['step_device_ms']:.3f} ms/step, busy {100 * r['device_busy_share']:.1f}%),"
-              f" prep+prefill {r['prep_prefill_ms']:.2f} ms; a step dispatches {n_ops} aten"
-              f" ops ({n_views} views), {r['host_us_per_op']:.2f} us of wall time each;"
-              f" a step moves at least {w_bytes} weight and {kv_bytes} cache bytes:"
-              f" floor {floor_ms:.4f} ms/step, {r['decode_tok_s_ceiling']:.1f} tok/s")
+        g, e = r["graph"], r["eager"]
+        print(f"  throughput quant={str(quant):5s}, graph / eager loop: decode "
+              f"{g['decode_tok_s']:.1f} / {e['decode_tok_s']:.1f} tok/s "
+              f"({g['decode_step_ms']:.4f} / {e['decode_step_ms']:.4f} ms a step; device "
+              f"{g['step_device_ms']:.4f} / {e['step_device_ms']:.4f} ms, busy "
+              f"{100 * g['device_busy_share']:.1f} / {100 * e['device_busy_share']:.1f}%; host "
+              f"{g['host_us_per_step']:.1f} / {e['host_us_per_step']:.1f} us to queue a step, "
+              f"{e['step_aten_ops']} aten ops an eager step); generate {g['generate_tok_s']:.1f}"
+              f" / {e['generate_tok_s']:.1f} tok/s, prep+prefill {g['prep_prefill_ms']:.2f} ms;"
+              f" a new decoder's first generate {r['first_generate_s']:.3f} s (warm-up and "
+              f"capture {r['capture_s']:.3f} s, pool {r['graph_pool_bytes'] / 2**20:.1f} MiB), "
+              f"its second {r['second_generate_s']:.3f} s; a replay launches "
+              f"{r['replay_launches'] or 'no kernel of the port'}; floor {floor_ms:.4f} ms a "
+              f"step, {r['decode_tok_s_ceiling']:.1f} tok/s")
+        for name in ("graph", "eager"):
+            print(f"    {name} step by kernel group (torch.profiler, ms, kernels): " + ", ".join(
+                f"{k} {v['ms']:.4f} ({v['kernels']:.0f})"
+                for k, v in sorted(r[name]["step_by_kernel_group"].items())))
     report["throughput"] = rates
     return counts
 
@@ -908,7 +1093,9 @@ def ce_errs(fwd, ref_fwd, grads, ref_grads):
 
 def ce_case(torch, ops, g, N, D, V, dt, bdt, label):
     """Forward and backward kernel against the plain twins on one case; the
-    plain backward is fed the kernel's lse.  Fails past the limits (loss
+    plain backward is fed the kernel's lse.  The first three targets are
+    the last vocab column, V + 3 and -1: the last two must cost exactly lse
+    and add no one-hot term to the gradients.  Fails past the limits (loss
     and lse at TOL["f32"] in both dtypes, the gradients at the dtype's
     TOL).  Returns the operands, the plain backward and the errors."""
     dev = torch.device("cuda")
@@ -916,8 +1103,11 @@ def ce_case(torch, ops, g, N, D, V, dt, bdt, label):
     w = (torch.randn((D, V), generator=g, device=dev) * 0.05).to(dt)
     b = (torch.randn((V,), generator=g, device=dev) * 0.1).to(bdt)
     t = torch.randint(0, V, (N,), generator=g, device=dev)
+    t[:3] = torch.tensor([V - 1, V + 3, -1], device=dev)
     gr = torch.rand((N,), generator=g, device=dev) / N
     fwd = ops.fused_linear_ce_fwd(x, w, b, t)
+    if not torch.equal(fwd[0][1:3], fwd[1][1:3]):
+        fail(f"fused_linear_ce {label}: a target outside [0, V) does not cost lse")
     ref_fwd = ops.fused_linear_ce_plain(x, w, b, t)
     lse = fwd[1]
     want = ops.fused_linear_ce_bwd_plain(x, w, b, t, lse, gr)
@@ -1151,7 +1341,10 @@ def train_kernel_phase(torch, ops, report):
     qr, kr, vr = (a.detach().requires_grad_() for a in (q, k, v))
     sdpa = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
     xr, wr, br = (a.detach().requires_grad_() for a in (x, w, b))
-    lib_loss = F.cross_entropy((torch.matmul(xr, wr) + br).float(), t, reduction="none")
+    # F.cross_entropy refuses a target outside [0, V) but its ignore_index:
+    # the library's copy ignores ce_case's two such rows (of 8192)
+    tl = torch.where((t >= 0) & (t < w.shape[1]), t, -100)
+    lib_loss = F.cross_entropy((torch.matmul(xr, wr) + br).float(), tl, reduction="none")
     lib_params = [p.clone().requires_grad_() for p in ps]
     for p, gg in zip(lib_params, gs):
         p.grad = gg.clone()
@@ -1168,7 +1361,7 @@ def train_kernel_phase(torch, ops, report):
         "fused_linear_ce_fwd": (
             lambda: ops.fused_linear_ce_fwd(x, w, b, t),
             lambda: ops.fused_linear_ce_plain(x, w, b, t),
-            lambda: F.cross_entropy((torch.matmul(x, w) + b).float(), t, reduction="none")),
+            lambda: F.cross_entropy((torch.matmul(x, w) + b).float(), tl, reduction="none")),
         "fused_linear_ce_bwd": (
             lambda: ops.fused_linear_ce_bwd(x, w, b, t, clse, gr),
             lambda: ops.fused_linear_ce_bwd_plain(x, w, b, t, clse, gr),

@@ -13,7 +13,9 @@ for a CPU tensor (``ops/``).
 
 Ported so far: the serving slice — ``models.TransformerLM`` and the
 KV-cache decoder ``models.KVCacheDecoder`` in its dense, ``"int8"`` and
-``"w8a8"`` modes — and the training slice — ``jit.CompiledTrainStep`` with
+``"w8a8"`` modes, whose ``generate`` and ``generate_beam`` replay one
+captured CUDA graph of the decode step a token (``jit.StepGraphs``) — and
+the training slice — ``jit.CompiledTrainStep`` with
 ``optim.Adam`` (``fused=True``: ``ops.fused_adam``),
 ``nn.LMHeadCrossEntropy`` (``ops.fused_linear_ce``) and the flash route of
 ``nn.MultiheadAttention`` (``ops.flash_attention``), on

@@ -1,19 +1,24 @@
-"""Whole training and evaluation steps (counterpart of ``CompiledTrainStep``
-and ``CompiledEvalStep`` in ``deepflows_tpu/jit.py``).
+"""Whole steps: training and evaluation (counterpart of ``CompiledTrainStep``
+and ``CompiledEvalStep`` in ``deepflows_tpu/jit.py``), and the CUDA graphs
+that stand in for ``jax.jit`` where a step repeats (``StepGraphs``).
 
-The JAX package traces a step into one XLA program.  Here the step runs
-EAGERLY, one PyTorch op (or kernel launch) at a time, with the same
-contract; capturing it in a CUDA graph is later work.
+The JAX package traces a step into one XLA program.  Here a training step
+runs EAGERLY, one PyTorch op (or kernel launch) at a time, with the same
+contract; capturing it in a CUDA graph is later work.  The KV-cache
+decoder's step is captured once and replayed once a token
+(``models/decoding.py``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Callable, Optional
 
 import torch
 
 from .config import config
+from .ops import KERNELS
 
 
 def _owners(model, params):
@@ -170,3 +175,90 @@ class CompiledEvalStep:
         finally:
             if was_training:
                 self.model.train()
+
+
+class _Captured:
+    """One captured step: its graph, the kernel launches one replay makes
+    (``(wrapper, count)`` pairs), the device memory its private pool took
+    and the seconds the warm-up and capture took."""
+
+    def __init__(self, graph, launched, pool_bytes, capture_s):
+        self.graph = graph
+        self.launched = launched
+        self.pool_bytes = pool_bytes
+        self.capture_s = capture_s
+
+    def replay(self):
+        self.graph.replay()
+        for wrapper, n in self.launched:
+            wrapper.launches += n
+
+
+class StepGraphs:
+    """Step functions replayed from CUDA graphs, one graph per key: the
+    counterpart of the ``jax.jit`` caches of the JAX package's decoder
+    (``deepflows_tpu/models/decoding.py:221-233``), whose static arguments
+    the key holds.
+
+    ``run(key, fn, times)`` makes ``times`` calls of ``fn`` on the card.
+    The first run of a key makes the first call eagerly on a side stream:
+    that warm-up is a real step, and it runs every lazy initialisation a
+    capture must not meet (kernel builds, ``cudaFuncSetAttribute``, cuBLAS
+    handles).  Then one call of ``fn`` is captured, not run, into a graph
+    with a private memory pool, and the other calls replay it.  Later runs
+    of the key only replay.  So ``fn`` may read and write only tensors
+    that outlive the graph, and every value that changes from one call to
+    the next must live in such a tensor on the card.  Each generator in
+    ``generators`` is registered with the graph, so a replay draws what
+    the eager call would draw at the generator's offset, and moves the
+    offset on as the eager call would.  A capture that fails raises;
+    nothing falls back to eager calls.
+
+    The kernel launch counts (``<wrapper>.launches`` of ``ops.KERNELS``)
+    count launches that ran on the card: the capture's are taken off
+    again and added back at every replay.
+    """
+
+    def __init__(self):
+        self._graphs = {}
+
+    def __contains__(self, key):
+        return key in self._graphs
+
+    def __getitem__(self, key) -> _Captured:
+        return self._graphs[key]
+
+    def run(self, key, fn: Callable[[], None], times: int, generators=()) -> None:
+        if times <= 0:
+            return
+        captured = self._graphs.get(key)
+        if captured is None:
+            captured = self._graphs[key] = self._capture(fn, generators)
+            times -= 1
+        for _ in range(times):
+            captured.replay()
+
+    @staticmethod
+    def _capture(fn, generators) -> _Captured:
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        for g in generators:
+            graph.register_generator_state(g)
+        before = [k.launches for k in KERNELS]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # as the capture does first: the pool is what it adds
+        reserved = torch.cuda.memory_reserved()
+        with torch.cuda.graph(graph):
+            fn()
+        launched = []
+        for k, n in zip(KERNELS, before):
+            if k.launches != n:
+                launched.append((k, k.launches - n))
+                k.launches = n  # the capture ran nothing
+        pool = torch.cuda.memory_reserved() - reserved
+        return _Captured(graph, tuple(launched), pool, time.perf_counter() - t0)

@@ -12,7 +12,9 @@ int8 part of ``deepflows_tpu/ops/pallas_kernels.py``).
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take.  On CPU tensors it calls its plain twin
 (``*_plain``); on CUDA tensors it launches the kernel on the current stream
-or raises, and counts the launch in ``<wrapper>.launches``.  At decode
+or raises, and counts the launch in ``<wrapper>.launches``.  A launch
+captured into a CUDA graph by ``jit.StepGraphs`` counts once a replay
+instead, so the count is of launches that ran on the card.  At decode
 shapes (at most 8 rows, K up to 8192) both kernels split K across the
 blocks of a cluster as ``_decode_plan`` says, in one launch that needs no
 workspace; at every other shape they run a tensor-core tile whose rows

@@ -196,3 +196,14 @@ def test_device_none_raises_without_a_card_and_cpu_works():
     tlm = TransformerLM(**CFG, device="cpu")
     out = KVCacheDecoder(tlm, quant="int8").generate(np.ones((1, 3), np.int64), 4)
     assert out.shape == (1, 7)
+
+
+@pytest.mark.parametrize("quant", QUANTS)
+def test_beam_search_launches_no_kernel_on_the_cpu(models13, quant):
+    """generate_beam on CPU tensors runs the kernels' plain twins: the
+    ``_clean`` fixture finds every launch count still at 0."""
+    _, tlm = models13
+    dec = KVCacheDecoder(tlm, compute_dtype=torch.bfloat16, quant=quant)
+    idx = np.random.default_rng(6).integers(0, 48, (2, 5)).astype(np.int64)
+    seqs, scores = dec.generate_beam(idx.copy(), 4, num_beams=2, return_all=True)
+    assert seqs.shape == (2, 2, 9) and np.isfinite(scores).all()
