@@ -168,10 +168,60 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
    Each loss must fall, and match the same run on a CPU copy (plain twins)
    within 1e-4 relative.
 
+11. Family kernel phase: int8_matmul and w8a8_matmul against their plain
+   twins at Mistral-7B's five quantised matrices ((K, N) qkv (4096, 6144),
+   o (4096, 4096), gate_up (4096, 28672), down (14336, 4096), head (4096,
+   32000)) at M 8, 384 and 1536, bf16 x, the tolerances of phase 2; times
+   at M 8 and 1536, and a Llama decode step's and prefill's 33 calls, beside
+   their bounds.  flash_attention forward and backward at the two training
+   paths' shapes, (1, 32, 8192, 128) with window 4096 and (1, 32, 2048,
+   128) causal, bf16, q and dout as (B, L, H, D) views, both on wgmma, held
+   by row against the plain twins (computed four heads at a time) at the
+   limits of phase 4, timed beside their bounds and SDPA's forward.
+   fused_adam over both training models' parameter lists (0.70 G and 1.71
+   G elements) against its plain twin (1e-6).
+12. Llama serving, a main path: LlamaLM at Mistral-7B-v0.1's widths (dim
+   4096, 32 heads, 8 K/V heads, hidden 14336, vocab 32000, window 4096,
+   rope_theta 1e4, RMSNorm eps 1e-5), depth 8 of 32, max_len 192, random
+   weights from a seed held in bf16, served by KVCacheDecoder in quant
+   None, "int8" and "w8a8": B 8, prompt 64, +128 greedy; B 8, prompt 17,
+   +50 sampled (temperature 0.8, top_k 50, top_p 0.9, seed 1); B 2 x 4
+   beams, prompt 40, +32; every loop replaying its captured graph.  Launch
+   counts exact: 4 x depth + 1 = 33 a prefill and a decode step in int8
+   and w8a8.  Then the graph against the eager loop (tokens and scores),
+   num_beams=1 against greedy, prefill logits (B 2) against the f32
+   decoder and, quantised, against the same mode on the plain twins
+   (LOGIT_TOL), and graph and eager loop timed as in phase 3 with the
+   step's byte floor.
+13. Llama streaming, a main path: the same widths at depth 2, max_len 4096
+   = window, B 1, prompt 64, +4160 greedy (the ring wraps 128 tokens
+   before the end) from a replayed graph keyed by its rope length (8192);
+   its tokens against a twin of max_len 8192 with the same weights that
+   does not stream.  Where they part, the twin fed the stream's own tokens
+   must pick each of them, or see top-2 logits closer than NEAR_TIE there.
+14. Llama training, a main path: the same widths at depth 2, max_len 8192,
+   f32 masters, CompiledTrainStep(lm, Adam(fused=True),
+   CrossEntropyLoss(), compute_dtype=bf16), flash=True, B 1 x L 8192, 5
+   steps: each step 2 flash forward and 2 backward launches, all on
+   wgmma, and 1 fused_adam; losses finite and falling.  Step ms, tokens/s,
+   MFU (6 x Linear weights x tokens + 3 x 4 x banded pairs x dim a layer),
+   peak memory and a step's device time by kernel.
+15. Mixtral serving, a main path: MixtralLM at Mixtral-8x7B-v0.1's widths
+   (8 experts, top-2, rope_theta 1e6), depth 2 of 32, in bf16, B 8, prompt
+   64, +128 greedy in quant None and "int8": 2 x depth + 1 = 5 int8 calls
+   a prefill and a step (attention and head; the experts stay bf16), graph
+   against eager loop, prefill logits and timing as in phase 12.
+16. Mixtral training, a main path: depth 1, B 1 x L 2048,
+   MoECriterion(CrossEntropyLoss()), 3 steps: 1 flash forward and backward
+   and 1 fused_adam a step; losses finite; MFU counting all 8 experts
+   (the dense step computes them) and the top-2 alone.
+
 Prints the card's name and power limit, one {"kernels": [...]} line (the CE
 backward's, linear_fused's and matmul's entries with the plan they ran:
 (C, BM, BV) and (tile, chunk, splits); the flash forward's with its route
-and TFLOP/s), and as its last line {"ok": true,
+and TFLOP/s; each kernel's launches summed over every main path, with
+the family paths' share in ``launches_by_family_path`` and its numbers at
+the family's shapes in ``family``), and as its last line {"ok": true,
 "device": {...}}.  With ``--report PATH`` it also
 writes every measurement (each shape's times, the throughput of each mode,
 the training step's numbers) to PATH as JSON.
@@ -180,6 +230,8 @@ the training step's numbers) to PATH as JSON.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
 import math
 import os
@@ -477,21 +529,22 @@ def decode_step_timing(torch, ops):
     return forward_timing(torch, ops, 8)
 
 
-def forward_timing(torch, ops, M):
-    """The 49 calls of one forward: 12 layers of distinct weights (qkv, o,
-    fc1, fc2) at M rows and the head at M 8 (f32 out), bf16 x.  At M 1536
-    that is one B 8 prefill (the decoder takes only the last position's
-    hidden state to the head).  Returns ({kernel, plain twin and library:
-    ms}, int8 bound, w8a8 bound, weight bytes)."""
+def forward_timing(torch, ops, M, shapes=SHAPES, depth=MODEL["depth"],
+                   layer_names=("qkv", "o", "fc1", "fc2")):
+    """The calls of one forward (49 for the TransformerLM): ``depth``
+    layers of distinct weights (``layer_names``, (K, N) from ``shapes``) at
+    M rows and the head at M 8 (f32 out), bf16 x.  At M 1536 that is one
+    B 8 prefill (the decoder takes only the last position's hidden state to
+    the head).  Returns ({kernel, plain twin and library: ms}, int8 bound,
+    w8a8 bound, weight bytes)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
-    depth = MODEL["depth"]
     calls = []  # (x, xq, sx, wq, s, wdeq, out_dtype)
     int_mm = []  # torch._int_mm's operands of each call
     for layer in range(depth + 1):
-        names = ("head",) if layer == depth else ("qkv", "o", "fc1", "fc2")
+        names = ("head",) if layer == depth else layer_names
         for name in names:
-            K, N = SHAPES[name]
+            K, N = shapes[name]
             x = torch.randn((8 if name == "head" else M, K), generator=g,
                             device=dev).to(torch.bfloat16)
             wq, s = ops.quantize_int8(torch.randn((K, N), generator=g, device=dev) * 0.02)
@@ -499,7 +552,6 @@ def forward_timing(torch, ops, M):
             odt = torch.float32 if name == "head" else torch.bfloat16
             calls.append((x, xq, sx, wq, s, (wq.float() * s).to(torch.bfloat16), odt))
             int_mm.append(int_mm_operands(torch, xq, wq))
-    assert len(calls) == PER_FORWARD
     run = {
         "int8_matmul": lambda: [ops.int8_matmul(x, wq, s, out_dtype=o)
                                 for x, _, _, wq, s, _, o in calls],
@@ -550,8 +602,9 @@ def step_floor(params, kc, vc):
     """The bytes one decode step must move, each read once: every prepared
     weight, scale, bias and norm parameter, B rows of the token table and
     one row of the position table, and the whole K/V cache, which the step
-    reads over max_len.  Returns (weight bytes, cache bytes, the least
-    time in ms that takes at the card's memory rate)."""
+    reads over max_len (the Llama family has no position table).  Returns
+    (weight bytes, cache bytes, the least time in ms that takes at the
+    card's memory rate)."""
 
     def nbytes(t):
         if isinstance(t, dict):
@@ -561,7 +614,7 @@ def step_floor(params, kc, vc):
         return t.numel() * t.element_size()
 
     weights = nbytes({k: v for k, v in params.items() if k not in ("tok", "pos")})
-    rows = (kc.shape[1] + 1) * params["tok"].shape[1] * params["tok"].element_size()
+    rows = (kc.shape[1] + ("pos" in params)) * params["tok"].shape[1] * params["tok"].element_size()
     cache = nbytes([kc, vc])
     return weights, cache, (weights + rows + cache) / HBM_BYTES_PER_S * 1e3
 
@@ -607,7 +660,7 @@ def loop_timing(torch, dec, idx, new):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             params = dec._prepared()
-            prompt = torch.zeros((b, MODEL["max_len"]), dtype=torch.long)
+            prompt = torch.zeros((b, dec.lm.max_len), dtype=torch.long)
             prompt[:, :p] = torch.as_tensor(idx)
             kc, vc, logits = dec._prefill(params, prompt.cuda(), p)
             torch.cuda.synchronize()
@@ -631,7 +684,8 @@ def loop_timing(torch, dec, idx, new):
                 lp.step()
 
         step_ms = event_ms(step, 5)
-        profile = replay_profile(torch, step)
+        others = {}
+        profile = replay_profile(torch, step, others=others)
         n_ops = None
         if not dec._capture:
             lp.pos.fill_(p + new - 1)
@@ -639,15 +693,17 @@ def loop_timing(torch, dec, idx, new):
             n_ops = dispatched_ops(lp.step)
     med = statistics.median
     return dict(generate_s=med(gen_s), decode_s=med(dec_s), enqueue_s=med(enq_s),
-                prep_prefill_s=med(pre_s), step_device_ms=step_ms, profile=profile), lp, n_ops
+                prep_prefill_s=med(pre_s), step_device_ms=step_ms, profile=profile,
+                others=others), lp, n_ops
 
 
-def replay_profile(torch, step, reps=5):
+def replay_profile(torch, step, reps=5, others=None):
     """Device time of one decode step by kernel group, from torch.profiler
     over ``reps`` calls of ``step`` (a replay with its position reset): ms
     a step and kernels a step for the port's int8 kernels, the matrix
     products (cuBLAS: the dense weights and attention's two products), the
-    softmaxes, and everything else PyTorch runs."""
+    softmaxes, and everything else PyTorch runs.  ``others``, a dict, gains
+    the last group's ms a step by kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -671,9 +727,53 @@ def replay_profile(torch, step, reps=5):
             name = "softmax"
         else:
             name = "other PyTorch kernels"
+            if others is not None:
+                others[e.key] = others.get(e.key, 0.0) + us / 1e3 / reps
         ms, n = groups.get(name, (0.0, 0))
         groups[name] = (ms + us / 1e3 / reps, n + e.count / reps)
     return {k: {"ms": v[0], "kernels": v[1]} for k, v in groups.items()}
+
+
+def serve_all(decs, requests, prompts, per_forward, vocab, label):
+    """A main path: every request through every decoder of ``decs`` (quant:
+    decoder), launch counts zeroed just before and read just after.  Each
+    request's output must keep its prompt, stay in the vocabulary and, with
+    beams, give finite scores best-first; a quantised decoder must launch
+    its kernel ``per_forward`` times a prefill and a step, and no other
+    kernel.  Returns ({quant: [(tokens, scores), ...]}, the launch counts)."""
+    import numpy as np
+
+    from deepflows_tpu_torch import ops
+
+    kernel_of = {"int8": ops.int8_matmul, "w8a8": ops.w8a8_matmul}
+    served = {q: [] for q in decs}
+    ops.reset_launch_counts()  # the main path starts here
+    for quant, dec in decs.items():
+        for (b, p, new, kw), idx in zip(requests, prompts):
+            before = {k: k.launches for k in ops.KERNELS}
+            t0 = time.perf_counter()
+            out, scores = serve(dec, idx, new, kw, served[quant])
+            secs = time.perf_counter() - t0
+            served[quant].append((out, scores))
+            lead = (b, kw["beams"]) if "beams" in kw else (b,)
+            head = idx[:, None] if "beams" in kw else idx
+            if out.shape != (*lead, p + new) or not (out[..., :p] == head).all():
+                fail(f"{label}quant={quant}: output shape {out.shape} or prompt changed")
+            if out.min() < 0 or out.max() >= vocab:
+                fail(f"{label}quant={quant}: token outside the vocabulary")
+            if scores is not None and not (np.isfinite(scores).all()
+                                           and (np.diff(scores, axis=1) <= 0).all()):
+                fail(f"{label}quant={quant} beams {kw}: scores not finite and best-first: "
+                     f"{scores}")
+            forwards = new if "beams" in kw else 1 + new
+            for k in ops.KERNELS:
+                want = per_forward * forwards if kernel_of.get(quant) is k else 0
+                if k.launches - before[k] != want:
+                    fail(f"{label}quant={quant} B={b} +{new} {kw}: {k.__name__} launched "
+                         f"{k.launches - before[k]} times, expected {want}")
+            print(f"  served {label}quant={str(quant):5s} B={b} prompt={p} +{new} "
+                  f"{kw or 'greedy'} in {secs:.3f} s")
+    return served, {k.__name__: k.launches for k in ops.KERNELS}  # the main path ends here
 
 
 def slice_phase(torch, dt, report):
@@ -682,7 +782,6 @@ def slice_phase(torch, dt, report):
     Returns the launch counts of the run."""
     import numpy as np
 
-    from deepflows_tpu_torch import ops
     from deepflows_tpu_torch.models import KVCacheDecoder, TransformerLM
 
     dt.manual_seed(0)
@@ -695,35 +794,8 @@ def slice_phase(torch, dt, report):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, MODEL["vocab_size"], (b, p)).astype(np.int64)
                for b, p, _, _ in REQUESTS + BEAM_REQUESTS]
-    kernel_of = {"int8": ops.int8_matmul, "w8a8": ops.w8a8_matmul}
-    served = {q: [] for q in quants}
-
-    ops.reset_launch_counts()  # the main path starts here
-    for quant, dec in decs.items():
-        for (b, p, new, kw), idx in zip(REQUESTS + BEAM_REQUESTS, prompts):
-            before = {k: k.launches for k in ops.KERNELS}
-            t0 = time.perf_counter()
-            out, scores = serve(dec, idx, new, kw, served[quant])
-            secs = time.perf_counter() - t0
-            served[quant].append((out, scores))
-            lead = (b, kw["beams"]) if "beams" in kw else (b,)
-            head = idx[:, None] if "beams" in kw else idx
-            if out.shape != (*lead, p + new) or not (out[..., :p] == head).all():
-                fail(f"quant={quant}: output shape {out.shape} or prompt changed")
-            if out.min() < 0 or out.max() >= MODEL["vocab_size"]:
-                fail(f"quant={quant}: token outside the vocabulary")
-            if scores is not None and not (np.isfinite(scores).all()
-                                           and (np.diff(scores, axis=1) <= 0).all()):
-                fail(f"quant={quant} beams {kw}: scores not finite and best-first: {scores}")
-            forwards = new if "beams" in kw else 1 + new
-            for k in ops.KERNELS:
-                want = PER_FORWARD * forwards if kernel_of.get(quant) is k else 0
-                if k.launches - before[k] != want:
-                    fail(f"quant={quant} B={b} +{new} {kw}: {k.__name__} launched "
-                         f"{k.launches - before[k]} times, expected {want}")
-            print(f"  served quant={str(quant):5s} B={b} prompt={p} +{new} {kw or 'greedy'}"
-                  f" in {secs:.3f} s")
-    counts = {k.__name__: k.launches for k in ops.KERNELS}  # the main path ends here
+    served, counts = serve_all(decs, REQUESTS + BEAM_REQUESTS, prompts, PER_FORWARD,
+                               MODEL["vocab_size"], "")
     print(f"main-path launches: {counts}")
     for quant, dec in decs.items():
         missing = [k for k in dec._loops if k not in dec._graphs]
@@ -1751,15 +1823,18 @@ def eager_phase(torch, dt, report):
     return counts
 
 
-def step_profile(torch, step, x, y, steps=2):
+def step_profile(torch, step, x, y, steps=2, others=None, ops=None):
     """Device time of ``steps`` training steps by kernel, from
     torch.profiler, in ms a step: each of the port's kernels, the matrix
     products (cuBLAS), and everything else PyTorch runs (elementwise ops,
-    reductions, copies)."""
+    reductions, copies).  ``others``, a dict, gains the last group's ms a
+    step by kernel name; ``ops``, a dict, the device ms a step of the
+    kernels each aten op launched itself, by op and input shapes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=ops is not None) as prof:
         for _ in range(steps):
             step(x, y)
         torch.cuda.synchronize()
@@ -1776,7 +1851,15 @@ def step_profile(torch, step, x, y, steps=2):
         if name is None:
             name = ("matrix products (cuBLAS)" if any(k in e.key for k in ("nvjet", "gemm", "xmma"))
                     else "other PyTorch kernels")
+            if others is not None and name == "other PyTorch kernels":
+                others[e.key] = others.get(e.key, 0.0) + us / 1e3 / steps
         groups[name] = groups.get(name, 0.0) + us / 1e3 / steps
+    if ops is not None:
+        for e in prof.key_averages(group_by_input_shape=True):
+            us = getattr(e, "self_device_time_total", None)
+            us = e.self_cuda_time_total if us is None else us
+            if e.device_type == DeviceType.CPU and us > 0:
+                ops[f"{e.key} {e.input_shapes}"] = us / 1e3 / steps
     return groups
 
 
@@ -1931,6 +2014,654 @@ def train_cpu_check(torch, dt, report):
                                   param_change_rel=moved)
 
 
+# ------------------------------------------------ the Llama and Mixtral family
+# Published widths (the config.json of mistralai/Mistral-7B-v0.1 and of
+# mistralai/Mixtral-8x7B-v0.1), depth cut as PERF.md section 4 lists;
+# weights random from a seed.  Both models' rms_norm_eps is 1e-5, set on the
+# norms after construction as utils/hf_llama.py does (LlamaLM takes no eps).
+MISTRAL = dict(vocab_size=32000, dim=4096, num_heads=32, num_kv_heads=8, mlp_ratio=3.5,
+               rope_theta=10000.0, window=4096)
+MIXTRAL = dict(vocab_size=32000, dim=4096, num_heads=32, num_kv_heads=8, mlp_ratio=3.5,
+               n_experts=8, top_k=2, rope_theta=1e6)
+RMS_EPS = 1e-5
+LLAMA_SERVE = dict(MISTRAL, depth=8, max_len=192)
+MIXTRAL_SERVE = dict(MIXTRAL, depth=2, max_len=192)
+LLAMA_STREAM = dict(MISTRAL, depth=2, max_len=4096)  # max_len = window: the ring wraps
+STREAM_PROMPT, STREAM_NEW, STREAM_TWIN_LEN = 64, 4160, 8192
+LLAMA_TRAIN = dict(MISTRAL, depth=2, max_len=8192)  # B 1 x L 8192: the window cuts the band
+MIXTRAL_TRAIN = dict(MIXTRAL, depth=1, max_len=2048)
+FAMILY_STEPS = {"llama": 5, "mixtral": 3}
+# Llama 2 7B's published peak learning rate; the bench row's 5e-3 throws a
+# 7B-width model's loss about (10.4, 0.36, 3.0, 20.9 in a first run)
+FAMILY_ADAM = dict(ADAM, lr=3e-4)
+TOP_OTHERS = 6  # the "other PyTorch kernels" printed by name
+FAMILY_REQUESTS = {  # (batch, prompt, new tokens, sampling or beams)
+    "llama": ((8, 64, 128, {}),
+              (8, 17, 50, dict(temperature=0.8, top_k=50, top_p=0.9, seed=1)),
+              (2, 40, 32, dict(beams=4))),
+    "mixtral": ((8, 64, 128, {}),),
+}
+FAMILY_QUANTS = {"llama": (None, "int8", "w8a8"), "mixtral": (None, "int8")}
+# (K, N) of every quantised matrix of the Llama decoder at Mistral's widths
+# (Mixtral's quantised matrices are its qkv, o and head)
+MISTRAL_SHAPES = {"qkv": (4096, 6144), "o": (4096, 4096), "gate_up": (4096, 28672),
+                  "down": (14336, 4096), "head": (4096, 32000)}
+FAMILY_M = (8, 384, 1536)  # decode rows (B 8; B 2 x 4 beams); prefill rows of B 2 and B 8
+# a stream token may leave its twin's only where the twin's top-2 logits
+# are closer than this: the two sum attention over other cache layouts
+NEAR_TIE = 1e-2
+
+
+def family_model(torch, dt, cls, cfg, seed, serve):
+    """A family model on the card from a seed, its RMSNorm eps set to
+    RMS_EPS; held in bf16 to serve, in f32 (the masters) to train."""
+    from deepflows_tpu_torch import nn
+
+    dt.manual_seed(seed)
+    lm = cls(**cfg, device="cuda", **({} if serve else dict(flash=True)))
+    for m in lm.modules():
+        if isinstance(m, nn.RMSNorm):
+            m.eps = RMS_EPS
+    if serve:
+        lm.bfloat16().eval()
+    return lm
+
+
+def free_card(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def banded_pairs(L, window):
+    """(query, key) pairs a causal mask with ``window`` (None: the causal
+    triangle) keeps over L positions."""
+    W = L if window is None else min(window, L)
+    return W * (W + 1) // 2 + (L - W) * W
+
+
+def family_flash_case(torch, ops, g, L, window, label, flush, chunk=4):
+    """flash_attention forward and backward at a training path's shape,
+    (1, 32, L, 128) bf16, q and dout as MultiheadAttention passes them
+    ((B, L, H, D) seen as (B, H, L, D)), K and V repeated to every head:
+    both on the wgmma route, held by row against the plain twins, computed
+    ``chunk`` heads at a time (the twins materialise the (L, L) scores).
+    Times kernel forward and backward and SDPA's forward (its band as a
+    boolean mask) beside their bounds.  Returns the case's numbers."""
+    import torch.nn.functional as F
+
+    B, H, D = 1, 32, 128
+    q, do = (flash_operand(torch, g, B, H, L, D, torch.bfloat16, "heads") for _ in range(2))
+    k, v = (flash_operand(torch, g, B, H, L, D, torch.bfloat16, "contiguous") for _ in range(2))
+    route, bwd_route = flash_routes(q, k, v, do)
+    if (route, bwd_route) != ("wgmma", "wgmma"):
+        fail(f"flash {label}: routes {route} / {bwd_route}, not wgmma")
+    o, lse = ops.flash_attention_fwd(q, k, v, True, None, window)
+    grads = ops.flash_attention_bwd(q, k, v, o, lse, do, True, None, window)
+    live = torch.ones(L, dtype=torch.bool, device=q.device)
+    errs = {}
+    for h0 in range(0, H, chunk):
+        sl = slice(h0, h0 + chunk)
+        qs, ks, vs, dos = (t[:, sl] for t in (q, k, v, do))
+        po, plse = ops.flash_attention_plain(qs, ks, vs, True, None, window)
+        want = ops.flash_attention_bwd_plain(qs, ks, vs, po, plse, dos, True, None, window)
+        e = flash_errs((o[:, sl], lse.view(B, H, L)[:, sl].reshape(-1, L)), (po, plse),
+                       [t[:, sl] for t in grads], want, live)
+        for n, (r, a) in e.items():
+            r0, a0 = errs.get(n, (0.0, 0.0))
+            errs[n] = (max(r0, r), max(a0, a))
+        del po, plse, want
+    for n, (r, _) in errs.items():
+        lim = TOL["f32"] if n == "lse" else TOL["bf16"]
+        if not r < lim:
+            fail(f"flash {label}: {n} differs from the plain twin by {r} (limit {lim})")
+    pairs = B * H * banded_pairs(L, window)
+    qkv = B * H * L * D * 2
+    mask = None
+    if window:
+        i = torch.arange(L, device=q.device)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    r = dict(shape=[B, H, L, D], window=window, routes=[route, bwd_route],
+             max_abs_err={n: a for n, (_, a) in errs.items()},
+             rel_err={n: e for n, (e, _) in errs.items()},
+             fwd_ms=event_ms(lambda: ops.flash_attention_fwd(q, k, v, True, None, window), 5,
+                             flush),
+             bwd_ms=event_ms(lambda: ops.flash_attention_bwd(q, k, v, o, lse, do, True, None,
+                                                             window), 5, flush),
+             sdpa_fwd_ms=event_ms(lambda: F.scaled_dot_product_attention(
+                 q, k, v, attn_mask=mask, is_causal=mask is None), 5, flush))
+    r["fwd_bound_ms"], _ = bound_ms(4 * qkv + 4 * B * H * L, 2 * 2 * pairs * D, "bf16")
+    r["bwd_bound_ms"], _ = bound_ms(8 * qkv + 8 * B * H * L, 5 * 2 * pairs * D, "bf16")
+    print(f"    flash {label} (1, 32, {L}, 128) window {window}: {route} / {bwd_route}; "
+          + ", ".join(f"{n} {e:.3g}" for n, e in r["rel_err"].items())
+          + f"; fwd {r['fwd_ms']:.4f} ms (bound {r['fwd_bound_ms']:.4f}, SDPA "
+          f"{r['sdpa_fwd_ms']:.4f}), bwd {r['bwd_ms']:.4f} ms (bound {r['bwd_bound_ms']:.4f})")
+    return r
+
+
+def family_param_shapes(cfg, moe):
+    """The shapes of a family model's parameters, in order, without building it."""
+    D, V, Hd = cfg["dim"], cfg["vocab_size"], int(cfg["dim"] * cfg["mlp_ratio"])
+    kv = cfg["num_kv_heads"] * D // cfg["num_heads"]
+    block = [(D,), (D, D), (D, kv), (D, kv), (D, D), (D,)]
+    if moe:
+        E = cfg["n_experts"]
+        block += [(D, E), (1, E), (E, D, Hd), (E, D, Hd), (E, Hd, D)]
+    else:
+        block += [(D, Hd), (D, Hd), (Hd, D)]
+    return [(V, D)] + block * cfg["depth"] + [(D,), (D, V)]
+
+
+def family_kernel_phase(torch, ops, report, max_err):
+    """The kernels of the family's paths against their plain twins at the
+    shapes those paths give them: int8_matmul and w8a8_matmul at Mistral's
+    five matrices (K up to 14336, N up to 32000) at M 8, 384 and 1536 with
+    bf16 x (both output dtypes), then a Llama decode step's and prefill's
+    33 calls timed; flash_attention at the Llama (L 8192, window 4096) and
+    Mixtral (L 2048, causal) training shapes; fused_adam over both training
+    models' parameter lists.  Returns the numbers; ``max_err`` gains the
+    int8 kernels' errors."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    out = {"shapes": []}
+    for M in FAMILY_M:
+        for name, (K, N) in MISTRAL_SHAPES.items():
+            x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+            wq, s = ops.quantize_int8(torch.randn((K, N), generator=g, device=dev) * 0.02)
+            xq, sx = compare(torch, ops, x, wq, s, f"Mistral M={M} {name}", max_err)
+            if M == 384:
+                continue  # checked, not timed
+            r = dict(M=M, K=K, N=N, shape=name)
+            r["int8_ms"] = event_ms(lambda: ops.int8_matmul(x, wq, s), 5, flush)
+            r["w8a8_ms"] = event_ms(lambda: ops.w8a8_matmul(xq, sx, wq, s, out_dtype=x.dtype),
+                                    5, flush)
+            r["int8_bound_ms"], _ = bound_ms(M * K * 2 + K * N + 4 * N + 2 * M * N,
+                                             2 * M * K * N, "bf16")
+            r["w8a8_bound_ms"], _ = bound_ms(M * K + 4 * M + K * N + 4 * N + 2 * M * N,
+                                             2 * M * K * N, "int8")
+            out["shapes"].append(r)
+            print(f"  Mistral M={M:5d} {name:7s} K={K:5d} N={N:5d}: int8 {r['int8_ms']:.4f} ms "
+                  f"(bound {r['int8_bound_ms']:.4f}), w8a8 {r['w8a8_ms']:.4f} ms (bound "
+                  f"{r['w8a8_bound_ms']:.4f})")
+    print(f"  int8_matmul and w8a8_matmul agree with their plain twins at Mistral's "
+          f"{len(MISTRAL_SHAPES)} matrices, M {FAMILY_M}")
+    layer = ("qkv", "o", "gate_up", "down")
+    for key, M in (("decode_step", 8), ("prefill", 8 * LLAMA_SERVE["max_len"])):
+        ms, bi, bw, wbytes = forward_timing(torch, ops, M, MISTRAL_SHAPES, LLAMA_SERVE["depth"],
+                                            layer)
+        out[key] = dict(ms, int8_bound_ms=bi[0], int8_bound_by=bi[1], w8a8_bound_ms=bw[0],
+                        w8a8_bound_by=bw[1], weight_bytes=wbytes)
+        print(f"  a Llama {key.replace('_', ' ')}'s {4 * LLAMA_SERVE['depth'] + 1} calls (M={M}, "
+              f"bf16 x, {wbytes} weight bytes): "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+              + f"; bound int8 {bi[0]:.4f} ms ({bi[1]}), w8a8 {bw[0]:.4f} ms ({bw[1]})")
+        free_card(torch)
+    out["flash"] = {"llama": family_flash_case(torch, ops, g, LLAMA_TRAIN["max_len"],
+                                               LLAMA_TRAIN["window"], "Llama training", flush),
+                    "mixtral": family_flash_case(torch, ops, g, MIXTRAL_TRAIN["max_len"], None,
+                                                 "Mixtral training", flush)}
+    free_card(torch)
+    out["fused_adam"] = {}
+    for kind, cfg, moe in (("llama", LLAMA_TRAIN, False), ("mixtral", MIXTRAL_TRAIN, True)):
+        shapes = family_param_shapes(cfg, moe)
+        adam_ops, err = adam_case(torch, ops, g, shapes, ADAM["weight_decay"], f"{kind} training")
+        n = sum(t.numel() for t in adam_ops[0])
+        a = dict(tensors=len(shapes), elements=n, max_abs_err=err,
+                 ms=event_ms(lambda: ops.fused_adam(*adam_ops), 3))
+        a["bound_ms"], _ = bound_ms(28 * n + 28, 0, "bf16")
+        out["fused_adam"][kind] = a
+        print(f"  fused_adam over the {kind} training model's {len(shapes)} tensors ({n} "
+              f"elements) agrees with its plain twin (max abs err {err:.3g}); {a['ms']:.4f} ms, "
+              f"bound {a['bound_ms']:.4f}")
+        del adam_ops
+        free_card(torch)
+    report["family_kernels"] = out
+    return out
+
+
+@contextlib.contextmanager
+def plain_twins():
+    """The decoders' int8 products on the plain twins, on the card."""
+    from deepflows_tpu_torch import ops
+    from deepflows_tpu_torch.models import decoding
+
+    saved = decoding.int8_matmul, decoding.w8a8_matmul
+    decoding.int8_matmul, decoding.w8a8_matmul = ops.int8_matmul_plain, ops.w8a8_matmul_plain
+    try:
+        yield
+    finally:
+        decoding.int8_matmul, decoding.w8a8_matmul = saved
+
+
+def family_serve_phase(torch, dt, report, kind):
+    """A main path: serve the Llama (Mistral-7B widths, depth 8) or Mixtral
+    (8x7B widths, depth 2) model in bf16 through KVCacheDecoder in each of
+    its modes, every loop replaying its captured CUDA graph; then, outside
+    the count, the same requests through the eager loop on the card,
+    num_beams=1 against greedy, prefill logits against the f32 decoder and
+    the plain twins, and graph and eager loop timed.  Returns the launch
+    counts of the run."""
+    import numpy as np
+
+    from deepflows_tpu_torch.models import KVCacheDecoder, LlamaLM, MixtralLM
+
+    cls, cfg = {"llama": (LlamaLM, LLAMA_SERVE), "mixtral": (MixtralLM, MIXTRAL_SERVE)}[kind]
+    quants, requests = FAMILY_QUANTS[kind], FAMILY_REQUESTS[kind]
+    lm = family_model(torch, dt, cls, cfg, 0, serve=True)
+    n_params = sum(p.numel() for p in lm.parameters())
+    print(f"model: {cls.__name__} {cfg}, rms eps {RMS_EPS}, {n_params} parameters in bf16")
+    # a prefill and a decode step each make one int8 product a quantised
+    # matrix: q/k/v, o and (Llama) gate/up and down a layer, and the head
+    per_forward = (4 if kind == "llama" else 2) * cfg["depth"] + 1
+    decs = {q: KVCacheDecoder(lm, compute_dtype=torch.bfloat16, quant=q) for q in quants}
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg["vocab_size"], (b, p)).astype(np.int64)
+               for b, p, _, _ in requests]
+    served, counts = serve_all(decs, requests, prompts, per_forward, cfg["vocab_size"],
+                               f"{kind} ")
+    print(f"main-path launches ({kind} serving): {counts}")
+    for quant, dec in decs.items():
+        missing = [k for k in dec._loops if k not in dec._graphs]
+        if missing or len(dec._loops) != len(requests):
+            fail(f"{kind} quant={quant}: loops {list(dec._loops)} without a graph: {missing}")
+
+    for quant, dec in decs.items():  # the graph against the eager loop on the card
+        eager = KVCacheDecoder(lm, compute_dtype=torch.bfloat16, quant=quant)
+        eager._capture = False
+        for (b, p, new, kw), idx, got in zip(requests, prompts, served[quant]):
+            want = serve(eager, idx, new, kw, served[quant])
+            if not (np.array_equal(want[0], got[0]) and np.array_equal(want[1], got[1])):
+                fail(f"{kind} quant={quant} B={b} +{new} {kw}: the graph's tokens or scores "
+                     "differ from the eager loop's")
+        one_beam = any("beams" in kw for _, _, _, kw in requests)
+        if one_beam:
+            b, p, new, _ = requests[0]
+            one = dec.generate_beam(prompts[0], new, num_beams=1)
+            if not np.array_equal(one, served[quant][0][0]):
+                col = int(np.nonzero((one != served[quant][0][0]).any(0))[0][0]) - p
+                fail(f"{kind} quant={quant}: num_beams=1 leaves greedy at step {col}")
+        del eager
+        free_card(torch)
+        print(f"  {kind} quant={str(quant):5s}: graph == eager loop on all {len(requests)} "
+              "requests" + ("; num_beams=1 == greedy" if one_beam else ""))
+
+    # prefill logits (B 2 of the first request) against the f32 decoder and,
+    # quantised, against the same mode on the plain twins
+    p0 = requests[0][1]
+    prompt = torch.zeros((2, cfg["max_len"]), dtype=torch.long)
+    prompt[:, :p0] = torch.as_tensor(prompts[0][:2])
+    prompt = prompt.cuda()
+    checks = {}
+    with torch.inference_mode():
+        ref_dec = KVCacheDecoder(lm, compute_dtype=torch.float32)
+        ref_params = ref_dec._with_rope(ref_dec._prep_tree(ref_dec._gather()))
+        ref = ref_dec._prefill(ref_params, prompt, p0)[2]
+        del ref_params
+        del ref_dec
+        free_card(torch)
+        for quant, dec in decs.items():
+            got = dec._prefill(dec._prepared(), prompt, p0)[2]
+            if got.dtype != torch.float32 or not torch.isfinite(got).all():
+                fail(f"{kind} quant={quant}: prefill logits not finite f32")
+            c = {"vs_f32": rel_err(got, ref)}
+            if quant is not None:
+                with plain_twins():
+                    c["vs_plain_twins"] = rel_err(got, dec._prefill(dec._prepared(), prompt,
+                                                                    p0)[2])
+            checks[str(quant)] = c
+            print(f"  {kind} prefill logits quant={str(quant):5s}: max rel err "
+                  + ", ".join(f"{n} {e:.5f}" for n, e in c.items())
+                  + f" (limit {LOGIT_TOL[quant]})")
+            if not max(c.values()) < LOGIT_TOL[quant]:
+                fail(f"{kind} quant={quant}: prefill logits off by {c}")
+    report[f"{kind}_serve_prefill"] = checks
+
+    b, p, new, _ = requests[0]  # decode throughput, graph and eager loop
+    rates = {}
+    for quant, dec in decs.items():
+        eager = KVCacheDecoder(lm, compute_dtype=torch.bfloat16, quant=quant)
+        eager._capture = False
+        runs = {}
+        for name, d in (("graph", dec), ("eager", eager)):
+            runs[name], lp, _ = loop_timing(torch, d, prompts[0], new)
+        w_bytes, kv_bytes, floor_ms = step_floor(dec._params, lp.kc, lp.vc)
+        r = {}
+        for name, m in runs.items():
+            q = dict(generate_tok_s=b * new / m["generate_s"],
+                     decode_tok_s=b * new / m["decode_s"],
+                     decode_step_ms=m["decode_s"] / new * 1e3, step_device_ms=m["step_device_ms"],
+                     prep_prefill_ms=m["prep_prefill_s"] * 1e3,
+                     step_by_kernel_group=m["profile"])
+            q["device_busy_share"] = q["step_device_ms"] / q["decode_step_ms"]
+            r[name] = q
+        r.update(step_weight_bytes=w_bytes, step_cache_bytes=kv_bytes, step_floor_ms=floor_ms,
+                 decode_tok_s_ceiling=b / floor_ms * 1e3)
+        if quant is None:  # the dense head widens its bf16 weight to f32 every step
+            hw = dec._params["head_w"]
+            r["head_widening_ms"] = event_ms(lambda: hw.float(), 5)
+        rates[str(quant)] = r
+        gr, er = r["graph"], r["eager"]
+        print(f"  {kind} throughput quant={str(quant):5s}, graph / eager loop: decode "
+              f"{gr['decode_tok_s']:.1f} / {er['decode_tok_s']:.1f} tok/s, generate "
+              f"{gr['generate_tok_s']:.1f} / {er['generate_tok_s']:.1f} tok/s; "
+              f"{gr['decode_step_ms']:.4f} / {er['decode_step_ms']:.4f} ms a step, device "
+              f"{gr['step_device_ms']:.4f} / {er['step_device_ms']:.4f} ms (busy "
+              f"{100 * gr['device_busy_share']:.1f} / {100 * er['device_busy_share']:.1f}%); "
+              f"prep+prefill {gr['prep_prefill_ms']:.2f} ms; floor {floor_ms:.4f} ms a step "
+              f"({w_bytes} weight bytes, {kv_bytes} cache bytes)"
+              + (f"; the head's f32 widening alone {r['head_widening_ms']:.4f} ms"
+                 if quant is None else ""))
+        gr["other_kernels_ms"] = top_others(runs["graph"]["others"])
+        print("    graph step by kernel group (torch.profiler, ms, kernels): " + ", ".join(
+            f"{k} {v['ms']:.4f} ({v['kernels']:.0f})"
+            for k, v in sorted(gr["step_by_kernel_group"].items())))
+        print("    the largest other PyTorch kernels (ms a step): " + "; ".join(
+            f"{v:.4f} {k}" for k, v in gr["other_kernels_ms"].items()))
+        del eager, lp
+        free_card(torch)
+    report[f"{kind}_serve"] = rates
+    del decs, lm
+    free_card(torch)
+    return counts
+
+
+def stream_twin_check(torch, dec, prompt, got):
+    """The non-streaming twin's decoder ``dec`` fed the stream's own tokens
+    (its step called eagerly) must pick the stream's token at every step,
+    or see a near-tie there (top-2 logits closer than NEAR_TIE).  Returns
+    (steps, near-ties, steps where the two part at a near-tie)."""
+    plen = prompt.shape[1]
+    new = got.shape[1] - plen
+    with torch.inference_mode():
+        params = dec._prepared()
+        padded = torch.zeros((1, dec.lm.max_len), dtype=torch.long)
+        padded[:, :plen] = torch.as_tensor(prompt)
+        kc, vc, logits = dec._prefill(params, padded.cuda(), plen)
+        toks = torch.as_tensor(got[0], device="cuda")
+        positions = torch.arange(dec.lm.max_len, device="cuda")
+        pos = torch.tensor(plen, device="cuda")
+        near = parted = 0
+        for t in range(new):
+            top = torch.topk(logits[0], 2)
+            lead = (top.values[0] - top.values[1]).item()
+            near += lead < NEAR_TIE
+            if top.indices[0].item() != int(got[0, plen + t]):
+                if not lead < NEAR_TIE:
+                    fail(f"stream token {t} is {int(got[0, plen + t])}; fed the same tokens, the "
+                         f"twin picks {top.indices[0].item()}, ahead by {lead}")
+                parted += 1
+            if t + 1 < new:
+                logits, kc, vc = dec._forward_one(params, kc, vc, toks[plen + t:plen + t + 1],
+                                                  pos, positions)
+                pos += 1
+    return new, near, parted
+
+
+def llama_stream_phase(torch, dt, report):
+    """A main path: the Llama model at depth 2, max_len 4096 = window,
+    streams 64 + 4160 greedy tokens past max_len on its ring cache (a
+    replayed graph); its tokens against the twin of max_len 8192 with the
+    same weights, which does not stream."""
+    import numpy as np
+
+    from deepflows_tpu_torch import ops
+    from deepflows_tpu_torch.models import KVCacheDecoder, LlamaLM
+
+    lm = family_model(torch, dt, LlamaLM, LLAMA_STREAM, 1, serve=True)
+    twin = family_model(torch, dt, LlamaLM, dict(LLAMA_STREAM, max_len=STREAM_TWIN_LEN), 2,
+                        serve=True)
+    twin.load_state_dict(lm.state_dict())
+    prompt = np.random.default_rng(2).integers(0, MISTRAL["vocab_size"], (1, STREAM_PROMPT))
+    dec = KVCacheDecoder(lm, compute_dtype=torch.bfloat16)
+    twin_dec = KVCacheDecoder(twin, compute_dtype=torch.bfloat16)
+    print(f"model: LlamaLM {LLAMA_STREAM} and its twin at max_len {STREAM_TWIN_LEN}; B 1, "
+          f"prompt {STREAM_PROMPT} + {STREAM_NEW}")
+    ops.reset_launch_counts()  # the main path starts here (dense: no kernel of the port)
+    dec.generate(prompt, STREAM_NEW)  # the key's first call warms up and captures
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = dec.generate(prompt, STREAM_NEW)
+    stream_s = time.perf_counter() - t0
+    counts = {k.__name__: k.launches for k in ops.KERNELS}  # the main path ends here
+    keys = [k for k in dec._loops if k[0] == "stream"]
+    if len(keys) != 1 or keys[0][-1] != STREAM_TWIN_LEN or keys[0] not in dec._graphs:
+        fail(f"stream: loop keys {list(dec._loops)}, expected one captured stream key of rope "
+             f"length {STREAM_TWIN_LEN}")
+    twin_dec.generate(prompt, STREAM_NEW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = twin_dec.generate(prompt, STREAM_NEW)
+    twin_s = time.perf_counter() - t0
+    if got.shape != want.shape or got.min() < 0 or got.max() >= MISTRAL["vocab_size"]:
+        fail(f"stream: shape {got.shape} or tokens outside the vocabulary")
+    diff = np.nonzero(got[0] != want[0])[0]
+    r = dict(stream_tok_s=STREAM_NEW / stream_s, twin_tok_s=STREAM_NEW / twin_s,
+             equal=not diff.size,
+             first_difference=int(diff[0]) - STREAM_PROMPT if diff.size else None)
+    if diff.size:  # a split is legitimate only at a near-tie: the twin fed the stream's tokens
+        r["steps"], r["near_ties"], r["parted_at_near_ties"] = stream_twin_check(
+            torch, twin_dec, prompt, got)
+    print(f"  stream {r['stream_tok_s']:.1f} tok/s (the twin without a ring "
+          f"{r['twin_tok_s']:.1f}); the ring wraps at step "
+          f"{LLAMA_STREAM['max_len'] - STREAM_PROMPT}; "
+          + (f"tokens equal to the twin's over all {STREAM_NEW}" if r["equal"] else
+             f"tokens leave the twin's at step {r['first_difference']}; fed the stream's tokens "
+             f"the twin picks each of them but {r['parted_at_near_ties']} near-ties "
+             f"({r['near_ties']} steps with top-2 logits closer than {NEAR_TIE})"))
+    report["llama_stream"] = r
+    del dec, twin_dec, lm, twin
+    free_card(torch)
+    return counts
+
+
+def family_step_flops(cfg, L, moe):
+    """FLOPs of one B 1 x L training step and the Linear weights it
+    multiplies (attention, the MLP or every expert, computed densely, and
+    the head): 6 x weights x L, plus 3 x 4 x pairs x D a layer for the
+    attention products over the (query, key) pairs the causal mask (and
+    window) keeps."""
+    D, Hd = cfg["dim"], int(cfg["dim"] * cfg["mlp_ratio"])
+    kv = cfg["num_kv_heads"] * D // cfg["num_heads"]
+    ffn = 3 * D * Hd * (cfg["n_experts"] if moe else 1)
+    weights = cfg["depth"] * (2 * D * D + 2 * D * kv + ffn) + D * cfg["vocab_size"]
+    attn = 3 * cfg["depth"] * 4 * banded_pairs(L, cfg.get("window")) * D
+    return 6.0 * weights * L + attn, weights
+
+
+def top_others(others):
+    """The TOP_OTHERS largest of {kernel or op name: ms}, names cut to 100
+    characters."""
+    top = sorted(others.items(), key=lambda kv: -kv[1])[:TOP_OTHERS]
+    return {k[:100]: v for k, v in top}
+
+
+def train_pieces_ms(torch, lm, cfg, moe):
+    """Device ms a training step spends on the family's elementwise pieces,
+    each timed alone, forward and backward, at the step's bf16 shapes and
+    times its calls a step: the K/V repeat to every head (2 a layer), RoPE
+    (q and k a layer), RMSNorm (2 a layer and the final one), SwiGLU's
+    silu(g)·u (a layer, every expert's under MoE) and the cross-entropy on
+    full logits."""
+    from deepflows_tpu_torch import nn
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    L, D, V = cfg["max_len"], cfg["dim"], cfg["vocab_size"]
+    H, Hkv, depth = cfg["num_heads"], cfg["num_kv_heads"], cfg["depth"]
+    Dh, Hd = D // H, int(D * cfg["mlp_ratio"])
+    attn = lm.blocks[0].attn
+    norm = nn.RMSNorm(D, device=dev).bfloat16()
+    ce = nn.CrossEntropyLoss()
+
+    def fwd_bwd(f, *shapes):
+        xs = [torch.randn(sh, device=dev, dtype=bf).requires_grad_() for sh in shapes]
+        out = f(*xs)
+        g = torch.randn_like(out) if out.dim() else None
+        return event_ms(lambda: torch.autograd.grad(f(*xs), xs, g), 3)
+
+    y = torch.randint(0, V, (1, L), device=dev)
+    E = cfg["n_experts"] if moe else 1
+    pieces = {
+        "kv_repeat": 2 * depth * fwd_bwd(
+            lambda k: k.reshape(1, Hkv, 1, L, Dh).expand(1, Hkv, H // Hkv, L, Dh)
+            .reshape(1, H, L, Dh), (1, Hkv, L, Dh)),
+        "rope": depth * (fwd_bwd(lambda q: attn._apply_rope(q, L), (1, H, L, Dh))
+                         + fwd_bwd(lambda k: attn._apply_rope(k, L), (1, Hkv, L, Dh))),
+        "rmsnorm": (2 * depth + 1) * fwd_bwd(norm, (1, L, D)),
+        "swiglu": depth * fwd_bwd(lambda g, u: nn.functional.silu(g) * u, (E, L, Hd), (E, L, Hd)),
+        "cross_entropy": fwd_bwd(lambda z: ce(z, y), (1, L, V)),
+    }
+    return pieces
+
+
+def step_copies_ms(torch, step, x, y):
+    """Device ms a step spends on the copies the bf16 recipe makes around
+    the model, each timed alone: the bf16 copies of the f32 masters
+    (``_compute_copies``), the bf16 gradients widened to f32, and the
+    strided ones among them made contiguous for fused Adam (with how many
+    gradients, and elements, arrive strided)."""
+    opt = step.optimizer
+    seen = []
+    update = opt.pure_update
+
+    def spy(params, grads, state, lr):
+        seen.extend(g for g in grads if g is not None)
+        return update(params, grads, state, lr)
+
+    opt.pure_update = spy
+    try:
+        step(x, y)
+    finally:
+        opt.pure_update = update
+    strided = [g for g in seen if not g.is_contiguous()]
+    low = [g.to(torch.bfloat16) for g in seen]
+    out = dict(masters_to_bf16=event_ms(step._compute_copies, 3),
+               grads_to_f32=event_ms(lambda: [g.float() for g in low], 3),
+               strided_grads_made_contiguous=event_ms(lambda: [g.contiguous() for g in strided], 3),
+               strided_grads=len(strided), strided_grad_elements=sum(g.numel() for g in strided))
+    del seen, strided, low
+    return out
+
+
+def family_train_phase(torch, dt, report, kind):
+    """A main path: train the Llama (depth 2, B 1 x L 8192, window 4096) or
+    Mixtral (depth 1, B 1 x L 2048, MoECriterion) model with bf16 compute
+    over f32 masters, flash=True and Adam(lr 3e-4, fused=True), on full
+    logits with CrossEntropyLoss as the JAX package trains the family.
+    Returns the launch counts of the run."""
+    import numpy as np
+
+    from deepflows_tpu_torch import nn, ops, optim
+    from deepflows_tpu_torch.jit import CompiledTrainStep
+    from deepflows_tpu_torch.models import LlamaLM, MixtralLM
+
+    cls, cfg = {"llama": (LlamaLM, LLAMA_TRAIN), "mixtral": (MixtralLM, MIXTRAL_TRAIN)}[kind]
+    L, steps, depth = cfg["max_len"], FAMILY_STEPS[kind], cfg["depth"]
+    lm = family_model(torch, dt, cls, cfg, 3, serve=False)
+    opt = optim.Adam(lm.parameters(), **FAMILY_ADAM, fused=True)
+    crit = nn.CrossEntropyLoss()
+    if kind == "mixtral":
+        crit = nn.MoECriterion(crit, lm)
+    step = CompiledTrainStep(lm, opt, crit, compute_dtype=torch.bfloat16)
+    n_params = sum(p.numel() for p in lm.parameters())
+    print(f"model: {cls.__name__} {cfg}, {n_params} parameters in f32; B 1, L {L}, bf16 "
+          f"compute, fused Adam, flash, {type(crit).__name__}")
+    rng = np.random.default_rng(3)
+    V = cfg["vocab_size"]
+    x = torch.as_tensor(rng.integers(0, V, (1, L)).astype(np.int32), device="cuda")
+    y = torch.as_tensor(rng.integers(0, V, (1, L)).astype(np.int32), device="cuda")
+    per_step = {"flash_attention_fwd": depth, "flash_attention_bwd": depth, "fused_adam": 1}
+    routed = (ops.flash_attention_fwd, ops.flash_attention_bwd)
+    routes_before = [dict(f.routes) for f in routed]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, wall_ms = [], []
+    ops.reset_launch_counts()  # the main path starts here
+    for i in range(steps):
+        before = {k.__name__: k.launches for k in ops.KERNELS}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(x, y)
+        torch.cuda.synchronize()
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        for k in ops.KERNELS:
+            want = per_step.get(k.__name__, 0)
+            if k.launches - before[k.__name__] != want:
+                fail(f"{kind} training step {i}: {k.__name__} launched "
+                     f"{k.launches - before[k.__name__]} times, expected {want}")
+    counts = {k.__name__: k.launches for k in ops.KERNELS}  # the main path ends here
+    print(f"main-path launches ({kind} training): {counts}")
+    for f, before in zip(routed, routes_before):
+        by_route = {n: f.routes[n] - before[n] for n in f.routes}
+        if by_route["wgmma"] != counts[f.__name__]:
+            fail(f"{kind} training: {f.__name__} launched by route {by_route}, not all on wgmma")
+    print(f"  losses: {losses}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"a {kind} training loss is not finite")
+    if not losses[-1] < losses[0]:
+        fail(f"the {kind} training loss did not fall on the repeated batch: {losses}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    flops, weights = family_step_flops(cfg, L, kind == "mixtral")
+    wall = statistics.median(wall_ms[1:])
+    device_ms = event_ms(lambda: step(x, y), 2)
+    r = dict(losses=losses, step_wall_ms=wall, step_device_ms=device_ms,
+             device_busy_share=device_ms / wall, tokens_per_s=L / wall * 1e3, step_flops=flops,
+             mfu=flops / (wall * 1e-3 * PEAK_OPS["bf16"]),
+             step_bound_ms=flops / PEAK_OPS["bf16"] * 1e3, linear_weights=weights,
+             peak_memory_gb=peak_gb)
+    if kind == "mixtral":  # the FLOPs of the top-2 experts alone (the step computes all 8)
+        active, _ = family_step_flops(dict(cfg, n_experts=cfg["top_k"]), L, True)
+        r["mfu_top2_flops"] = active / (wall * 1e-3 * PEAK_OPS["bf16"])
+    others, aten = {}, {}
+    r["profile_ms"] = prof = step_profile(torch, step, x, y, steps=1, others=others, ops=aten)
+    r["other_kernels_ms"] = top_others(others)
+    r["aten_ops_ms"] = top_others(aten)
+    r["pieces_ms"] = train_pieces_ms(torch, lm, cfg, kind == "mixtral")
+    r["pieces_ms"].update(step_copies_ms(torch, step, x, y))
+    print(f"  step {wall:.3f} ms wall, {device_ms:.3f} ms device (busy "
+          f"{100 * r['device_busy_share']:.1f}%); {r['tokens_per_s']:.1f} tokens/s; MFU "
+          f"{100 * r['mfu']:.2f}% of {flops:.4g} FLOPs (6 x {weights} Linear weights x {L} "
+          f"tokens + 3 x 4 x pairs x D a layer; bound {r['step_bound_ms']:.3f} ms)"
+          + (f", {100 * r['mfu_top2_flops']:.2f}% counting the top-2 experts only"
+             if kind == "mixtral" else "") + f"; peak memory {peak_gb:.2f} GB")
+    print("  device time of a step by kernel (torch.profiler): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(prof.items(), key=lambda kv: -kv[1])))
+    print("  the largest other PyTorch kernels (ms a step): " + "; ".join(
+        f"{v:.3f} {k}" for k, v in r["other_kernels_ms"].items()))
+    print("  the aten ops whose own kernels take longest (ms a step): " + "; ".join(
+        f"{v:.3f} {k}" for k, v in r["aten_ops_ms"].items()))
+    print("  the step's elementwise pieces alone, forward and backward (ms a step): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in r["pieces_ms"].items()))
+    report[f"{kind}_train"] = r
+    del step, opt, lm, crit
+    free_card(torch)
+    return counts
+
+
+def family_phases(torch, dt, ops, report, max_err, phase):
+    """The Llama and Mixtral family's kernel checks and its five main paths,
+    each with its launch counts; returns {path: counts} and the kernel
+    phase's numbers."""
+    phase("family kernel phase (kernels vs plain twins at Mistral and Mixtral shapes):")
+    fk = family_kernel_phase(torch, ops, report, max_err)
+    paths = {}
+    phase("Llama serving (main path):")
+    paths["llama_serve"] = family_serve_phase(torch, dt, report, "llama")
+    phase("Llama streaming past max_len (main path):")
+    paths["llama_stream"] = llama_stream_phase(torch, dt, report)
+    phase("Llama training (main path):")
+    paths["llama_train"] = family_train_phase(torch, dt, report, "llama")
+    phase("Mixtral serving (main path):")
+    paths["mixtral_serve"] = family_serve_phase(torch, dt, report, "mixtral")
+    phase("Mixtral training (main path):")
+    paths["mixtral_train"] = family_train_phase(torch, dt, report, "mixtral")
+    return paths, fk
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", metavar="PATH",
@@ -2079,6 +2810,32 @@ def main(argv=None) -> int:
                   f"{m8['bound_ms']:.4f} ms, plain {m8['plain_ms']:.4f} ms, library "
                   f"{m8['library_ms']:.4f} ms; {card}")
         kernels.append(entry(name, r, ecounts[run][name], r["at"]))
+    fpaths, fk = family_phases(torch, dt, ops, report, max_err, phase)
+    family = {  # each kernel's numbers at the family's shapes
+        "int8_matmul": dict(decode_step_ms=fk["decode_step"]["int8_matmul"],
+                            decode_step_bound_ms=fk["decode_step"]["int8_bound_ms"],
+                            prefill_ms=fk["prefill"]["int8_matmul"],
+                            prefill_bound_ms=fk["prefill"]["int8_bound_ms"]),
+        "w8a8_matmul": dict(decode_step_ms=fk["decode_step"]["w8a8_matmul"],
+                            decode_step_bound_ms=fk["decode_step"]["w8a8_bound_ms"],
+                            prefill_ms=fk["prefill"]["w8a8_matmul"],
+                            prefill_bound_ms=fk["prefill"]["w8a8_bound_ms"]),
+        "flash_attention_fwd": {k: {n: v[n] for n in ("fwd_ms", "fwd_bound_ms", "sdpa_fwd_ms")}
+                                for k, v in fk["flash"].items()},
+        "flash_attention_bwd": {k: {n: v[n] for n in ("bwd_ms", "bwd_bound_ms")}
+                                for k, v in fk["flash"].items()},
+        "fused_adam": {k: {n: v[n] for n in ("ms", "bound_ms", "elements")}
+                       for k, v in fk["fused_adam"].items()},
+    }
+    for k in kernels:
+        by_path = {p: c[k["name"]] for p, c in fpaths.items() if c[k["name"]]}
+        if by_path:
+            k["launches_by_family_path"] = by_path
+            k["launches"] += sum(by_path.values())
+        if k["name"] in max_err:
+            k["max_abs_err"] = max_err[k["name"]]
+        if k["name"] in family:
+            k["family"] = family[k["name"]]
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"{k['name']} was not launched on the main path")

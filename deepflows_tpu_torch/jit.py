@@ -141,7 +141,10 @@ class CompiledTrainStep:
             self._bind(self._params)
         grads = [None] * len(copies)
         for i, g in zip(need, found):
-            grads[i] = g if g is None or cd is None else g.float()
+            # widened to f32 and laid out contiguously in one copy: autograd
+            # hands some gradients over strided (the MoE expert stacks')
+            grads[i] = g if g is None or cd is None else g.to(
+                torch.float32, memory_format=torch.contiguous_format)
         if self.grad_transform is not None:
             grads = self.grad_transform(grads)
         opt = self.optimizer

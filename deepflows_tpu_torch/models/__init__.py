@@ -1,6 +1,19 @@
 from .cnn import MLP
-from .decoding import KVCacheDecoder
+from .decoding import KVCacheDecoder, LlamaKVCacheDecoder, MixtralKVCacheDecoder
+from .llama import LlamaBlock, LlamaLM
+from .mixtral import MixtralBlock, MixtralLM
 from .transformer_lm import TransformerLM
 from .vit import EncoderBlock
 
-__all__ = ["MLP", "EncoderBlock", "KVCacheDecoder", "TransformerLM"]
+__all__ = [
+    "MLP",
+    "EncoderBlock",
+    "KVCacheDecoder",
+    "LlamaBlock",
+    "LlamaKVCacheDecoder",
+    "LlamaLM",
+    "MixtralBlock",
+    "MixtralKVCacheDecoder",
+    "MixtralLM",
+    "TransformerLM",
+]

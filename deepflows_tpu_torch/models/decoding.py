@@ -1,12 +1,17 @@
-"""KV-cache autoregressive decoding for TransformerLM (counterpart of
-``KVCacheDecoder`` in ``deepflows_tpu/models/decoding.py``).
+"""KV-cache autoregressive decoding (counterpart of ``KVCacheDecoder``,
+``LlamaKVCacheDecoder`` and ``MixtralKVCacheDecoder`` in
+``deepflows_tpu/models/decoding.py``).  ``KVCacheDecoder(lm)`` returns the
+decoder of the model's family: TransformerLM's (this class), LlamaLM's or
+MixtralLM's.
 
-``generate`` prepares the weights once (cast, q/k/v fusion, optional int8
-quantisation) into the decoder's own tensors, runs a PREFILL over the
-prompt padded to ``max_len`` that fills a ``(layers, B, H, max_len, Dh)``
-cache — the JAX layout — and then a DECODE of one token per step against
-the cache, with one host readback at the end.  ``generate_beam`` decodes
-the same step at B × num_beams rows.
+``generate`` prepares the weights once (cast, fusion of q/k/v and of the
+Llama MLP's gate/up, optional int8 quantisation) into the decoder's own
+tensors, runs a PREFILL over the prompt padded to ``max_len`` that fills a
+``(layers, B, heads, max_len, Dh)`` cache — the JAX layout, ``num_kv_heads``
+wide for the Llama family — and then a DECODE of one token per step
+against the cache, with one host readback at the end.  ``generate_beam``
+decodes the same step at B × num_beams rows.  A sliding-window Llama
+streams past ``max_len`` on a ring cache (``LlamaKVCacheDecoder``).
 
 Where JAX runs each decode as one ``fori_loop`` program, the port captures
 one step in a CUDA graph on the card (``jit.StepGraphs``) and replays it
@@ -18,12 +23,13 @@ function runs eagerly: that is the graph's plain twin.  Prefill runs
 eagerly on both.  A decoder serves one generate at a time and keeps each
 graph key's tensors between calls.
 
-``quant="int8"`` and ``quant="w8a8"`` route every attention, MLP and head
-matrix through the hand-written CUDA kernels of ``ops/quant.py``
+``quant="int8"`` and ``quant="w8a8"`` route the attention, MLP and head
+matrices (Mixtral: attention and head; its experts stay in the compute
+dtype) through the hand-written CUDA kernels of ``ops/quant.py``
 (``int8_matmul``, ``w8a8_matmul``); on CPU tensors through their plain
-twins.  The Llama/Mixtral decoders and the engine's and speculative
-decoder's forwards (``_forward_multi``, ``_forward_chunk``, the paged
-variants) come with later slices.
+twins.  The engine's and speculative decoder's forwards
+(``_forward_multi``, ``_forward_chunk``, the paged variants) come with
+later slices.
 """
 
 from __future__ import annotations
@@ -36,19 +42,13 @@ import numpy as np
 import torch
 
 from ..jit import StepGraphs
+from ..nn.modules.attention import rope_tables
 from ..ops.quant import (
     int8_matmul,
     quantize_int8,
     quantize_int8_rows,
     w8a8_matmul,
 )
-
-# weight matrices quantised under quant="int8"/"w8a8" (biases, layernorms
-# and the embeddings stay in the compute dtype; the head is quantised at top
-# level; q/k/v fuse into qkv_w before quantisation — per-channel scales make
-# fused and separate quantisation identical)
-_QUANT_KEYS = frozenset(("qkv_w", "o_w", "fc1_w", "fc2_w"))
-_QKV_KEYS = frozenset(("q_w", "k_w", "v_w", "q_b", "k_b", "v_b"))
 
 
 def _mm(x, w):
@@ -85,6 +85,29 @@ def _copy_into(dst, src):
 
 
 class KVCacheDecoder:
+    # how a block's gathered tensors are prepared: the groups concatenated
+    # along their last axis into one matrix (or bias), the matrices then
+    # quantised under quant="int8"/"w8a8" (per-channel scales make fused
+    # and separate quantisation identical), and the entries kept as they
+    # are; every other entry is cast to the compute dtype.  The head is
+    # quantised at top level.
+    _FUSED = {"qkv_w": ("q_w", "k_w", "v_w"), "qkv_b": ("q_b", "k_b", "v_b")}
+    _QUANT_KEYS = frozenset(("qkv_w", "o_w", "fc1_w", "fc2_w"))
+    _KEEP_KEYS = frozenset()
+    _stream_ok = False  # streaming past max_len needs rope: learned positions stop there
+
+    def __new__(cls, lm, *args, **kwargs):
+        # KVCacheDecoder(model) returns the decoder of the model's family
+        if cls is KVCacheDecoder:
+            from .llama import LlamaLM
+            from .mixtral import MixtralLM
+
+            if isinstance(lm, MixtralLM):
+                return super().__new__(MixtralKVCacheDecoder)
+            if isinstance(lm, LlamaLM):
+                return super().__new__(LlamaKVCacheDecoder)
+        return super().__new__(cls)
+
     def __init__(self, lm, compute_dtype=None, quant=None):
         """``compute_dtype=torch.bfloat16`` casts the weights once per
         generate() and runs prefill and decode in bf16; layernorm
@@ -107,6 +130,9 @@ class KVCacheDecoder:
         self._generator = None
         self._lock = threading.Lock()
         self._capture = True  # False runs the eager loop on the card too
+        # a sliding-window model masks every decode forward to its band
+        self.window = getattr(lm.blocks[0].attn, "window", None)
+        self._rope_len = 0  # rope table length while a generate streams
 
     # ------------------------------------------------------------ params
     def _cast(self, a):
@@ -120,32 +146,24 @@ class KVCacheDecoder:
         q, s = quantize_int8(w)
         return {"w8a8" if self.quant == "w8a8" else "q": q, "s": s}
 
+    def _prep_block(self, blk):
+        blk = dict(blk)
+        for name, parts in self._FUSED.items():
+            blk[name] = torch.cat([blk.pop(k) for k in parts], -1)
+        return {
+            k: v if k in self._KEEP_KEYS
+            else self._wprep(v) if k in self._QUANT_KEYS else self._cast(v)
+            for k, v in blk.items()
+        }
+
     def _prep_tree(self, tree):
-        """Cast, fuse q/k/v into one (D, 3E) matrix, and quantise; once per
-        generate()."""
-        out = {}
-        for k, v in tree.items():
-            if k == "blocks":
-                nbs = []
-                for blk in v:
-                    nb = {
-                        bk: (self._wprep(bv) if bk in _QUANT_KEYS else self._cast(bv))
-                        for bk, bv in blk.items()
-                        if bk not in _QKV_KEYS
-                    }
-                    nb["qkv_w"] = self._wprep(
-                        torch.cat([blk["q_w"], blk["k_w"], blk["v_w"]], 1)
-                    )
-                    nb["qkv_b"] = self._cast(
-                        torch.cat([blk["q_b"], blk["k_b"], blk["v_b"]], -1)
-                    )
-                    nbs.append(nb)
-                out[k] = nbs
-            elif k == "head_w":
-                out[k] = self._wprep(v)
-            else:
-                out[k] = self._cast(v)
-        return out
+        """Cast, fuse (q/k/v into one (D, 3E) matrix, the Llama MLP's gate
+        and up into one (D, 2·hidden)) and quantise; once per generate()."""
+        return {
+            k: [self._prep_block(b) for b in v] if k == "blocks"
+            else self._wprep(v) if k == "head_w" else self._cast(v)
+            for k, v in tree.items()
+        }
 
     def _gather(self):
         """The module's parameter tensors, detached, in the JAX tree's
@@ -207,15 +225,15 @@ class KVCacheDecoder:
         """Final-vocab logits with f32 accumulation and f32 storage."""
         x = x.contiguous()
         hw = params["head_w"]
-        hb = params["head_b"].float()
         if isinstance(hw, dict):
             if "w8a8" in hw:
                 xq, sx = quantize_int8_rows(x)
-                return w8a8_matmul(
-                    xq, sx, hw["w8a8"], hw["s"], out_dtype=torch.float32
-                ) + hb
-            return int8_matmul(x, hw["q"], hw["s"], out_dtype=torch.float32) + hb
-        return x.float() @ hw.float() + hb
+                y = w8a8_matmul(xq, sx, hw["w8a8"], hw["s"], out_dtype=torch.float32)
+            else:
+                y = int8_matmul(x, hw["q"], hw["s"], out_dtype=torch.float32)
+        else:
+            y = x.float() @ hw.float()
+        return y + params["head_b"].float() if "head_b" in params else y
 
     def _attn_proj(self, h, p, H):
         """h: (B, T, E) -> q, k, v each (B, H, T, Dh), via the fused (E, 3E)
@@ -361,19 +379,22 @@ class KVCacheDecoder:
             samples=samples,
         )
 
-    def _decode_loop(self, params, shape, dtype, device, top_k, has_top_p, do_sample):
-        """The tensors and the step of one decode key.  The token buffer is
-        max_len wide: the last step's token lands at n_steps <= max_len - 1
-        and is dropped, as in the JAX loop."""
+    def _decode_loop(self, params, shape, dtype, device, top_k, has_top_p, do_sample,
+                     width, forward):
+        """The tensors and the step of one decode key, the step forwarding
+        with ``forward`` (``_forward_one``, or ``_forward_one_ring`` when
+        streaming).  The token buffer is ``width`` wide (max_len, or the
+        stream's rope table length): the last step's token lands at
+        n_steps <= width - 1 and is dropped, as in the JAX loop."""
         lp = self._loop_tensors(shape, dtype, device, do_sample)
-        B, L = shape[1], shape[3]
-        lp.tokens = torch.zeros((B, L), dtype=torch.long, device=device)
+        B = shape[1]
+        lp.tokens = torch.zeros((B, width), dtype=torch.long, device=device)
         lp.temperature = torch.ones((), dtype=torch.float32, device=device)
         lp.top_p = torch.ones((), dtype=torch.float32, device=device) if has_top_p else None
 
         def step():
             tok = lp.tokens.index_select(1, lp.i.reshape(1)).reshape(B)
-            logits, _, _ = self._forward_one(params, lp.kc, lp.vc, tok, lp.pos, lp.positions)
+            logits, _, _ = forward(params, lp.kc, lp.vc, tok, lp.pos, lp.positions)
             nxt = self._select(logits, self._generator, lp.temperature, top_k, lp.top_p,
                                do_sample)
             lp.tokens.index_copy_(1, (lp.i + 1).reshape(1), nxt.reshape(B, 1))
@@ -386,7 +407,7 @@ class KVCacheDecoder:
     # ------------------------------------------------------------ decode
     def _decode(
         self, params, caches, tok0, pos0, n_steps,
-        temperature=None, top_k=None, top_p=None, do_sample=False,
+        temperature=None, top_k=None, top_p=None, do_sample=False, stream=False,
     ):
         """Decode ``n_steps`` steps from ``tok0`` at position ``pos0``: step
         i forwards token i and selects token i + 1, so the last step's
@@ -394,12 +415,21 @@ class KVCacheDecoder:
         (which compiles one program per power-of-two bucket of ``n_steps``;
         one captured step replayed ``n_steps`` times needs no buckets).  The
         draw reads the decoder's generator (``_rng``).  ``params`` must be
-        the decoder's prepared tree (``_prepared``).  Returns (tokens
+        the decoder's prepared tree (``_prepared``).  ``stream`` forwards
+        on the ring cache (``_forward_one_ring``), the key holding the
+        rope table's length, which ``params`` carries.  Returns (tokens
         (B, n_steps) incl. tok0, the loop's caches)."""
         kc, vc = caches
-        key = ("decode", tuple(kc.shape), kc.dtype, do_sample, top_k, top_p is not None)
+        key = ("stream" if stream else "decode", tuple(kc.shape), kc.dtype, do_sample,
+               top_k, top_p is not None)
+        if stream:
+            key += (self._rope_len,)
+            width, forward = self._rope_len, self._forward_one_ring
+        else:
+            width, forward = kc.shape[3], self._forward_one
         lp = self._loop(key, lambda: self._decode_loop(
-            params, kc.shape, kc.dtype, kc.device, top_k, top_p is not None, do_sample))
+            params, kc.shape, kc.dtype, kc.device, top_k, top_p is not None, do_sample,
+            width, forward))
         lp.kc.copy_(kc)
         lp.vc.copy_(vc)
         lp.tokens.zero_()
@@ -584,27 +614,252 @@ class KVCacheDecoder:
         if plen < 1:
             raise ValueError("prompt must have at least one token")
         L = self.lm.max_len
-        if plen + new_tokens > L:
+        stream = plen + new_tokens > L
+        if stream and not (
+            self._stream_ok and self.window and self.window <= L and plen <= L
+        ):
             raise ValueError(
                 f"prompt_len {plen} + new_tokens {new_tokens} exceeds "
-                f"max_len {L}"
+                f"max_len {L}; streaming decode needs a sliding-window "
+                "Llama-family model (window <= max_len, prompt <= max_len)"
             )
         do_sample = temperature is not None and temperature > 0.0
         if not do_sample:
             temperature = top_k = top_p = None
         device = self.lm.tok_embed.weight.device
         with self._lock, torch.inference_mode():
-            params = self._prepared()
-            prompt = torch.zeros((B, L), dtype=torch.long)
-            prompt[:, :plen] = torch.as_tensor(idx, dtype=torch.long)
-            kc, vc, logits0 = self._prefill(params, prompt.to(device), plen)
-            if new_tokens == 0:
-                return idx
-            gen = self._rng(device, seed)
-            tok0 = self._select(logits0, gen, temperature, top_k, top_p, do_sample)
-            tokens, _ = self._decode(
-                params, (kc, vc), tok0, plen, new_tokens,
-                temperature, top_k, top_p, do_sample,
-            )
-            out = tokens.cpu().numpy()  # the one readback
+            if stream:
+                # the rope tables cover every absolute position generated,
+                # their length a power of two (one graph key per length)
+                self._rope_len = 1 << (plen + new_tokens - 1).bit_length()
+            try:
+                params = self._prepared()
+                prompt = torch.zeros((B, L), dtype=torch.long)
+                prompt[:, :plen] = torch.as_tensor(idx, dtype=torch.long)
+                kc, vc, logits0 = self._prefill(params, prompt.to(device), plen)
+                if new_tokens == 0:
+                    return idx
+                gen = self._rng(device, seed)
+                tok0 = self._select(logits0, gen, temperature, top_k, top_p, do_sample)
+                tokens, _ = self._decode(
+                    params, (kc, vc), tok0, plen, new_tokens,
+                    temperature, top_k, top_p, do_sample, stream,
+                )
+                out = tokens.cpu().numpy()  # the one readback
+            finally:
+                self._rope_len = 0  # back to max_len tables for other calls
         return np.concatenate([idx, out.astype(idx.dtype)], 1)
+
+
+class LlamaKVCacheDecoder(KVCacheDecoder):
+    """KV-cache decoding for ``models.LlamaLM`` (RMSNorm, RoPE, GQA, SwiGLU).
+    The cache is ``(layers, B, num_kv_heads, max_len, Dh)``; q/k/v fuse into
+    one ``(E, E + 2·Hkv·Dh)`` matrix and gate/up into one ``(E, 2·hidden)``.
+    RMSNorm's statistics and RoPE are computed in f32, the rope tables
+    (``(n, Dh)`` f32, n = max_len or the stream's power-of-two length) kept
+    per length apart from the prepared weights, so a graph's tables never
+    move.  A sliding-window model streams past max_len
+    (``_forward_one_ring``)."""
+
+    _FUSED = {"qkv_w": ("q_w", "k_w", "v_w"), "gate_up_w": ("gate_w", "up_w")}
+    _QUANT_KEYS = frozenset(("qkv_w", "o_w", "gate_up_w", "down_w"))
+    _stream_ok = True
+
+    def _block_tensors(self, blk):
+        a = blk.attn
+        return dict(
+            ln1_w=blk.norm1.weight, q_w=a.q_proj.weight, k_w=a.k_proj.weight,
+            v_w=a.v_proj.weight, o_w=a.out_proj.weight, ln2_w=blk.norm2.weight,
+            gate_w=blk.gate.weight, up_w=blk.up.weight, down_w=blk.down.weight,
+        )
+
+    def _gather(self):
+        lm = self.lm
+        blocks = [{k: t.detach() for k, t in self._block_tensors(blk).items()}
+                  for blk in lm.blocks]
+        return dict(
+            tok=lm.tok_embed.weight.detach(), blocks=blocks,
+            lnf_w=lm.norm.weight.detach(), head_w=lm.head.weight.detach(),
+        )
+
+    def __init__(self, lm, compute_dtype=None, quant=None):
+        super().__init__(lm, compute_dtype, quant)
+        self._rope_tables = {}  # n_pos -> (cos, sin), kept while a graph may read them
+
+    def _prepared(self):
+        """The prepared weights with the rope tables of this call's length
+        (max_len, or the stream's) beside them."""
+        return self._with_rope(super()._prepared())
+
+    def _with_rope(self, params):
+        n_pos = max(self.lm.max_len, self._rope_len)
+        tables = self._rope_tables.get(n_pos)
+        if tables is None:
+            a0 = self.lm.blocks[0].attn
+            dev = params["tok"].device
+            tables = tuple(t.to(dev) for t in rope_tables(n_pos, a0.head_dim, a0.rope_theta))
+            self._rope_tables[n_pos] = tables
+        return dict(params, rope_cos=tables[0], rope_sin=tables[1])
+
+    # ------------------------------------------------------- pure pieces
+    @staticmethod
+    def _rms(x, w, eps):
+        xf = x.float()  # stats in f32 even for bf16 compute
+        ms = (xf * xf).mean(-1, keepdim=True)
+        return (xf / torch.sqrt(ms + eps)).to(x.dtype) * w
+
+    @staticmethod
+    def _rope(x, cos, sin):
+        """x (B, heads, T, D) with cos/sin (T, D) f32; applied in f32."""
+        xf = x.float()
+        half = x.shape[-1] // 2
+        rot = torch.cat([-xf[..., half:], xf[..., :half]], -1)
+        return (xf * cos + rot * sin).to(x.dtype)
+
+    def _heads(self):
+        a = self.lm.blocks[0].attn
+        return a.num_heads, a.num_kv_heads, a.head_dim
+
+    def _attn_proj(self, h, p, H):
+        """h (B, T, E) -> q (B, H, T, D), k and v (B, Hkv, T, D) through the
+        fused bias-free projection."""
+        B, T, _ = h.shape
+        _, Hkv, D = self._heads()
+        q, k, v = _mm(h, p["qkv_w"]).split([H * D, Hkv * D, Hkv * D], -1)
+
+        def sh(z, heads):
+            return z.reshape(B, T, heads, D).transpose(1, 2)
+
+        return sh(q, H), sh(k, Hkv), sh(v, Hkv)
+
+    def _mlp(self, h, p):
+        g, u = _mm(h, p["gate_up_w"]).chunk(2, -1)
+        return _mm(torch.nn.functional.silu(g) * u, p["down_w"])
+
+    # ----------------------------------------------------------- prefill
+    def _prefill(self, params, prompt, plen):
+        H, Hkv, D = self._heads()
+        G = H // Hkv
+        L = self.lm.max_len
+        eps = self.lm.norm.eps
+        scale = 1.0 / math.sqrt(D)
+        x = params["tok"][prompt]
+        B = x.shape[0]
+        full = torch.full((L, L), -1e30, dtype=torch.float32, device=x.device)
+        mask = torch.triu(full, 1)
+        if self.window:
+            mask = mask + torch.tril(full, -self.window)
+        # the tables may reach past L for a stream; prefill covers [0, L)
+        cos, sin = params["rope_cos"][:L], params["rope_sin"][:L]
+        kc = torch.empty((len(params["blocks"]), B, Hkv, L, D), dtype=x.dtype, device=x.device)
+        vc = torch.empty_like(kc)
+        for li, p in enumerate(params["blocks"]):
+            q, k, v = self._attn_proj(self._rms(x, p["ln1_w"], eps), p, H)
+            q = self._rope(q, cos, sin)
+            k = self._rope(k, cos, sin)
+            kc[li] = k
+            vc[li] = v
+            # grouped products: each K/V head serves G query heads
+            q5 = q.reshape(B, Hkv, G, L, D)
+            s = self._scores(q5, k[:, :, None], scale) + mask
+            attn = torch.softmax(s, -1).to(v.dtype)
+            o = (attn @ v[:, :, None]).reshape(B, H, L, D).transpose(1, 2).reshape(B, L, H * D)
+            x = x + _mm(o, p["o_w"])
+            x = x + self._mlp(self._rms(x, p["ln2_w"], eps), p)
+        x = self._rms(x, params["lnf_w"], eps)
+        return kc, vc, self._head(x[:, plen - 1], params)
+
+    # ------------------------------------------------- one-token forward
+    def _forward_at(self, params, kc, vc, tok, pos, slot, invalid):
+        """One decode step of the (N,) tokens at absolute position ``pos``
+        (0-d device tensor), this step's K/V written at cache index
+        ``slot`` ((1,) device tensor), keys where ``invalid`` (bool, over
+        the cache's positions) masked.  Reads no host value."""
+        H, Hkv, D = self._heads()
+        G = H // Hkv
+        eps = self.lm.norm.eps
+        scale = 1.0 / math.sqrt(D)
+        N = tok.shape[0]
+        at = pos.reshape(1)
+        # index_select at ``pos``: lax.dynamic_slice in the JAX step
+        cos = params["rope_cos"].index_select(0, at)
+        sin = params["rope_sin"].index_select(0, at)
+        x = params["tok"].index_select(0, tok)[:, None, :]
+        for li, p in enumerate(params["blocks"]):
+            q, k_new, v_new = self._attn_proj(self._rms(x, p["ln1_w"], eps), p, H)
+            q = self._rope(q, cos, sin)
+            k_new = self._rope(k_new, cos, sin)  # (N, Hkv, 1, D)
+            kc[li].index_copy_(2, slot, k_new)
+            vc[li].index_copy_(2, slot, v_new)
+            s = self._scores(q.reshape(N, Hkv, G, D), kc[li], scale).masked_fill(invalid, -1e30)
+            attn = torch.softmax(s, -1).to(vc.dtype)
+            o = (attn @ vc[li]).reshape(N, 1, H * D)
+            x = x + _mm(o, p["o_w"])
+            x = x + self._mlp(self._rms(x, p["ln2_w"], eps), p)
+        x = self._rms(x, params["lnf_w"], eps)
+        return self._head(x[:, 0], params), kc, vc
+
+    def _band(self, key_pos, pos):
+        """Keys after the query or, with a window, ``window`` or more
+        behind it."""
+        invalid = key_pos > pos
+        if self.window:
+            invalid = invalid | (key_pos <= pos - self.window)
+        return invalid
+
+    def _forward_one(self, params, kc, vc, tok, pos, positions):
+        return self._forward_at(params, kc, vc, tok, pos, pos.reshape(1),
+                                self._band(positions, pos))
+
+    def _forward_one_ring(self, params, kc, vc, tok, pos, positions):
+        """``_forward_one`` over a ring cache of C = max_len positions: the
+        write lands at ``pos % C``, over absolute position pos - C, which a
+        window <= C puts outside the band, and each slot's absolute
+        position is rebuilt for the mask (slots not yet written come out
+        negative).  Both are computed on the device."""
+        C = kc.shape[3]
+        slot = torch.remainder(pos, C).reshape(1)
+        abs_pos = pos - torch.remainder(pos - positions, C)
+        invalid = self._band(abs_pos, pos) | (abs_pos < 0)
+        return self._forward_at(params, kc, vc, tok, pos, slot, invalid)
+
+
+class MixtralKVCacheDecoder(LlamaKVCacheDecoder):
+    """KV-cache decoding for ``models.MixtralLM``: the Llama attention
+    (GQA-narrow cache, RoPE, fused q/k/v) with the top-k-routed SwiGLU
+    expert mixture as the FFN, every expert computed densely each step and
+    the top-k combine masking the rest, as the JAX package does.  int8 and
+    w8a8 apply to the attention and head matrices; the expert stacks stay
+    in the compute dtype and the router's bias as it is (f32)."""
+
+    _FUSED = {"qkv_w": ("q_w", "k_w", "v_w")}
+    _QUANT_KEYS = frozenset(("qkv_w", "o_w"))
+    _KEEP_KEYS = frozenset(("router_b",))
+
+    def _block_tensors(self, blk):
+        a, moe = blk.attn, blk.moe
+        return dict(
+            ln1_w=blk.norm1.weight, q_w=a.q_proj.weight, k_w=a.k_proj.weight,
+            v_w=a.v_proj.weight, o_w=a.out_proj.weight, ln2_w=blk.norm2.weight,
+            router_w=moe.router.weight, router_b=moe.router.bias,
+            experts_gate=moe.experts_gate, experts_up=moe.experts_up,
+            experts_down=moe.experts_down,
+        )
+
+    def _mlp(self, h, p):
+        """Router softmax in f32, the top-k gates kept (every gate tied at
+        the k-th too) and renormalised, all experts computed, the gated
+        combine."""
+        B, T, D = h.shape
+        xf = h.reshape(B * T, D)
+        logits = xf.float() @ p["router_w"].float() + p["router_b"]  # (N, E) f32
+        gates = torch.softmax(logits, -1)
+        k, E = self.lm.top_k, self.lm.n_experts
+        if k and k < E:
+            kth = torch.topk(gates, k, -1).values[..., -1:]
+            kept = torch.where(gates >= kth, gates, 0.0)
+            gates = kept / kept.sum(-1, keepdim=True)
+        g = torch.nn.functional.silu(xf @ p["experts_gate"])  # (E, N, H)
+        oe = (g * (xf @ p["experts_up"])) @ p["experts_down"]  # (E, N, D)
+        out = torch.einsum("ne,end->nd", gates.to(oe.dtype), oe)
+        return out.reshape(B, T, D).to(h.dtype)

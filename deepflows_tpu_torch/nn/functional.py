@@ -96,6 +96,25 @@ def tanh(input):
     return torch.tanh(input)
 
 
+def silu(input):
+    """``x · sigmoid(x)`` (the SwiGLU MLP's gate of the Llama family)."""
+    return torch.nn.functional.silu(input)
+
+
+def topk_mask(input, k: int):
+    """0/1 mask, in the input's dtype, of each row's top-``k`` entries along
+    the last axis.  Every entry tied at the k-th value is kept, so a row
+    may keep more than ``k``.  The mask is constant under autograd:
+    gradients flow through what it multiplies, not through the selection
+    (the MoE routing of ``nn/modules/moe.py``)."""
+    k = int(k)
+    if not 1 <= k <= input.shape[-1]:
+        raise ValueError(f"k={k} out of range for axis {input.shape[-1]}")
+    x = input.detach()
+    kth = torch.topk(x, k, dim=-1).values[..., -1:]
+    return (x >= kth).to(input.dtype)
+
+
 def gelu(input):
     """Exact (erf) GELU, ``0.5·x·(1 + erf(x/√2))``."""
     return 0.5 * input * (1.0 + torch.erf(input / math.sqrt(2.0)))

@@ -1,4 +1,4 @@
-from .activation import GELU, ReLU, Tanh
+from .activation import GELU, ReLU, SiLU, Tanh
 from .attention import MultiheadAttention
 from .container import Sequential
 from .dropout import Dropout
@@ -6,7 +6,8 @@ from .embedding import Embedding
 from .linear import Linear
 from .loss import CrossEntropyLoss, LMHeadCrossEntropy
 from .module import Module
-from .normalization import LayerNorm
+from .moe import MoE, MoECriterion
+from .normalization import LayerNorm, RMSNorm
 
 __all__ = [
     "CrossEntropyLoss",
@@ -16,9 +17,13 @@ __all__ = [
     "LMHeadCrossEntropy",
     "LayerNorm",
     "Linear",
+    "MoE",
+    "MoECriterion",
     "Module",
     "MultiheadAttention",
+    "RMSNorm",
     "ReLU",
+    "SiLU",
     "Sequential",
     "Tanh",
 ]

@@ -1,4 +1,4 @@
-"""Activations (counterpart of ``GELU``, ``ReLU`` and ``Tanh`` in
+"""Activations (counterpart of ``GELU``, ``ReLU``, ``SiLU`` and ``Tanh`` in
 ``deepflows_tpu/nn/modules/activation.py``; the tanh approximation of GELU
 and the other activations come with later slices)."""
 
@@ -25,3 +25,10 @@ class ReLU(Module):
 class Tanh(Module):
     def forward(self, x):
         return F.tanh(x)
+
+
+class SiLU(Module):
+    """``x · sigmoid(x)`` (``F.silu``)."""
+
+    def forward(self, x):
+        return F.silu(x)

@@ -1,6 +1,7 @@
-"""LayerNorm (counterpart of ``deepflows_tpu/nn/modules/normalization.py``;
-RMSNorm and GroupNorm come with later slices).  The statistics are taken
-in the input's dtype, op for op as in the JAX package."""
+"""LayerNorm and RMSNorm (counterpart of
+``deepflows_tpu/nn/modules/normalization.py``; GroupNorm comes with a later
+slice).  The statistics are taken in the input's dtype, op for op as in
+the JAX package."""
 
 from __future__ import annotations
 
@@ -41,6 +42,48 @@ class LayerNorm(Module):
         y = xc / (var + self.eps).sqrt()
         if self.weight is not None:
             y = y * self.weight + self.bias
+        return y
+
+    def extra_repr(self) -> str:
+        return (
+            f"{self.normalized_shape}, eps={self.eps}, "
+            f"elementwise_affine={self.elementwise_affine}"
+        )
+
+
+class RMSNorm(Module):
+    """Root-mean-square norm, ``x / sqrt(mean(x²) + eps) · weight``: no
+    centering and no bias (the Llama family's norm).  The mean square is
+    taken in x's dtype, as the JAX package's tape ops take it."""
+
+    def __init__(
+        self,
+        normalized_shape,
+        eps: float = 1e-6,
+        elementwise_affine: bool = True,
+        device=None,
+        dtype=None,
+    ) -> None:
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = (normalized_shape,)
+        self.normalized_shape = tuple(normalized_shape)
+        self.eps = float(eps)
+        self.elementwise_affine = elementwise_affine
+        if elementwise_affine:
+            self.weight = torch.nn.Parameter(torch.ones(
+                self.normalized_shape, device=Device(device),
+                dtype=dtype or config.default_dtype,
+            ))
+        else:
+            self.register_parameter("weight", None)
+
+    def forward(self, x):
+        axes = tuple(range(x.dim() - len(self.normalized_shape), x.dim()))
+        ms = (x * x).mean(axes, keepdim=True)
+        y = x / (ms + self.eps).sqrt()
+        if self.weight is not None:
+            y = y * self.weight
         return y
 
     def extra_repr(self) -> str:

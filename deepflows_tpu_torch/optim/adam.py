@@ -76,16 +76,18 @@ class Adam(Optimizer):
                     f"Adam(fused=True) updates f32 parameters, got {params[i].dtype}"
                 )
         hyper = self._hyper(lr, bc1, bc2) if sr or fused else None
+        # the kernels take contiguous tensors; autograd may hand back a
+        # strided gradient (the MoE router's weight, for one)
         if sr:
             fused_adam_sr(
                 [params[i] for i in sr],
-                [grads[i] if grads[i].dtype == torch.bfloat16 else grads[i].float()
-                 for i in sr],
+                [(grads[i] if grads[i].dtype == torch.bfloat16 else grads[i].float())
+                 .contiguous() for i in sr],
                 [new_v[i] for i in sr], [new_s[i] for i in sr], hyper, t, indices=sr,
             )
         if fused:
             fused_adam(
-                [params[i] for i in fused], [grads[i].float() for i in fused],
+                [params[i] for i in fused], [grads[i].float().contiguous() for i in fused],
                 [new_v[i] for i in fused], [new_s[i] for i in fused], hyper,
             )
         for i in sorted(set(live) - set(sr) - set(fused)):

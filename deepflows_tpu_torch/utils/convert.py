@@ -2,8 +2,9 @@
 
 ``load_jax_state_dict(module, state)`` takes the JAX package's
 ``module.state_dict()`` — a dict of numpy arrays keyed like
-``blocks.0.attn.q_proj.weight`` and ``pos_embed`` — and copies it into the
-port's module, on the module's device.  The two packages share parameter
+``blocks.0.attn.q_proj.weight`` and ``pos_embed``, the Llama and Mixtral
+families' 3-D ``experts_*`` stacks and router biases among them — and
+copies it into the port's module, on the module's device.  The two packages share parameter
 names and layouts, so no key or array is renamed or transposed.  It is
 strict: a missing or unexpected key, a shape or a dtype that differs
 raises.  Parity tests rest on this copy, never on the two RNGs agreeing.

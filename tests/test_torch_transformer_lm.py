@@ -152,8 +152,17 @@ def test_multihead_attention_matches_jax(causal):
      dict(rope=True), dict(causal=True, window=4)],
 )
 def test_multihead_attention_later_slices_raise(kw):
-    with pytest.raises(NotImplementedError):
-        tnn.MultiheadAttention(32, 4, device="cpu", **kw)
+    """Ring attention (the parallel slice) still raises; GQA, RoPE and the
+    window (the Llama slice) build and run (tests/test_torch_llama.py
+    holds them against the JAX package)."""
+    if "ring" in kw:
+        with pytest.raises(NotImplementedError):
+            tnn.MultiheadAttention(32, 4, device="cpu", **kw)
+        return
+    m = tnn.MultiheadAttention(32, 4, device="cpu", **kw)
+    with torch.no_grad():
+        out = m(torch.from_numpy(RNG.standard_normal((2, 6, 32)).astype(np.float32)))
+    assert out.shape == (2, 6, 32) and torch.isfinite(out).all()
 
 
 def test_encoder_block_and_layers_match_jax():
