@@ -216,12 +216,61 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
    and 1 fused_adam a step; losses finite; MFU counting all 8 experts
    (the dense step computes them) and the top-2 alone.
 
+17. ResNet-50 training, a main path: bench.py's row, ResNet50(num_classes
+   10) with random weights from a seed, CompiledTrainStep(model, Adam(lr
+   5e-3, weight decay 5e-4, fused=True), CrossEntropyLoss(),
+   compute_dtype=bf16) on B 128 normal 224 x 224 images with labels below
+   10 (numpy default_rng(0), bench.py:218-229), 2 warm-up and 5 timed
+   steps, after fused_adam is held against its plain twin over the
+   model's 161 parameter shapes (those of phase 20 too) and timed beside
+   its bound: exactly one fused_adam launch a step over the 161 tensors, the
+   losses finite and falling, the 106 BN buffers f32, finite and moved.
+   Step ms (wall and CUDA events), images/s, busy share, peak memory, MFU
+   of the analytic FLOPs (2 x the MACs of every conv and the fc, read
+   from their output shapes, x 3 x B) and the step's device ms by group
+   of the aten op that launched each kernel (convolution forward and
+   backward, batch norm forward and backward, pooling, cuBLAS, other
+   elementwise; fused_adam by name).  Convolution, batch norm and pooling
+   run on cuDNN and PyTorch's kernels by design, as the JAX package
+   leaves them to XLA.
+18. ResNet-50 evaluation: CompiledEvalStep on the trained model at B 128
+   in f32 (TF32 off) and with the model cast to bf16: logits finite, and
+   the first 64 images' logits the same alone as in the batch (BN reads
+   its running statistics); device ms and images/s.
+19. NF-ResNet-50 (norm="free"), a main path: the row's config at lr
+   1e-4 (CNN_LR: at 5e-3 its loss blows up), 3 steps, no buffers, one
+   fused_adam a step, the loss falling; fused_adam checked first over its
+   parameter shapes, as in 17.
+20. ResNet-50 with remat=True, a main path: 2 steps from the weights and
+   batch of a twin without remat; losses and the running statistics after
+   step 1 within 2e-2 (the EMA ran once); peak memory and step ms of both.
+21. MobileNetV1 and V2 (B 64, 224), VGG16-BN (B 32, 224) and ViT_Tiny
+   (B 256, 32, patch 4: 64 tokens, the naive attention), main paths: 2
+   steps each with the row's optimizer and dtype at the lr of CNN_FAMILY
+   (1e-4, VGG16-BN's 1e-5), the loss falling, one fused_adam a step and
+   no other launch; fused_adam checked first over each model's parameter
+   shapes, as in 17.
+22. CIFAR10_CNN eager under config.use_pallas, a main path: f32, B 256,
+   32 x 32, dropout on, Adam(fused=True), 30 steps of forward,
+   CrossEntropyLoss, zero_grad, backward and step: exactly one
+   linear_fused (the fc, 2048 -> 10) and one fused_adam a step, no
+   matmul; the loss falls; step ms of wall time.  First linear_fused is
+   held against its plain twin at the fc's (256, 2048) @ (2048, 10) in
+   every activation (rtol 1e-4, atol 1e-3) and fused_adam over the
+   model's parameter shapes, each timed beside its bound.
+23. Card against CPU: ResNet-18 (small input, f32, B 4, 16 x 16), one
+   CompiledTrainStep with SGD(lr 0.01, momentum 0.9) from the same
+   weights on the card and on a CPU copy: the loss within 1e-3 relative,
+   each weight and running statistic within 1e-3 of its norm.
+
 Prints the card's name and power limit, one {"kernels": [...]} line (the CE
 backward's, linear_fused's and matmul's entries with the plan they ran:
 (C, BM, BV) and (tile, chunk, splits); the flash forward's with its route
 and TFLOP/s; each kernel's launches summed over every main path, with
-the family paths' share in ``launches_by_family_path`` and its numbers at
-the family's shapes in ``family``), and as its last line {"ok": true,
+the family paths' share in ``launches_by_family_path``, the CNN paths'
+in ``launches_by_cnn_path``, its numbers at the family's shapes in
+``family`` and at each CNN path's in ``cnn``, whose worst error its
+max_abs_err takes in), and as its last line {"ok": true,
 "device": {...}}.  With ``--report PATH`` it also
 writes every measurement (each shape's times, the throughput of each mode,
 the training step's numbers) to PATH as JSON.
@@ -1823,13 +1872,48 @@ def eager_phase(torch, dt, report):
     return counts
 
 
-def step_profile(torch, step, x, y, steps=2, others=None, ops=None):
+def run_steps(torch, step, x, y, steps, label, per_step):
+    """``steps`` calls of ``step(x, y)``, each with exactly ``per_step``
+    ({kernel: launches}; every other kernel none) launches; fails on a
+    miscount or a loss that is not finite.  Returns the losses, the wall
+    ms and the CUDA-event ms of each step."""
+    from deepflows_tpu_torch import ops
+
+    losses, wall, events = [], [], []
+    for i in range(steps):
+        before = {k.__name__: k.launches for k in ops.KERNELS}
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.record()
+        loss = step(x, y)
+        b.record()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        events.append(a.elapsed_time(b))
+        losses.append(float(loss))
+        for k in ops.KERNELS:
+            want = per_step.get(k.__name__, 0)
+            if k.launches - before[k.__name__] != want:
+                fail(f"{label} step {i}: {k.__name__} launched "
+                     f"{k.launches - before[k.__name__]} times, expected {want}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"a {label} loss is not finite: {losses}")
+    return losses, wall, events
+
+
+def step_profile(torch, step, x, y, steps=2, others=None, ops=None, group=None):
     """Device time of ``steps`` training steps by kernel, from
     torch.profiler, in ms a step: each of the port's kernels, the matrix
     products (cuBLAS), and everything else PyTorch runs (elementwise ops,
     reductions, copies).  ``others``, a dict, gains the last group's ms a
     step by kernel name; ``ops``, a dict, the device ms a step of the
-    kernels each aten op launched itself, by op and input shapes."""
+    kernels each aten op launched itself, by op and input shapes.  With
+    ``group``, a function of an aten op's name, the kernels that are not
+    the port's are grouped by ``group`` of the aten op that launched them
+    instead, what no aten op launched stands as "kernels of no aten op",
+    and ``others`` gains the ms of each aten op of the group "other
+    elementwise"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1838,28 +1922,43 @@ def step_profile(torch, step, x, y, steps=2, others=None, ops=None):
         for _ in range(steps):
             step(x, y)
         torch.cuda.synchronize()
+
+    def ms(e):
+        us = getattr(e, "self_device_time_total", None)
+        return (e.self_cuda_time_total if us is None else us) / 1e3 / steps
+
     ours = {"flash_fwd": "flash_attention_fwd", "flash_bwd": "flash_attention_bwd",
             "ce_fwd": "fused_linear_ce_fwd", "ce_bwd": "fused_linear_ce_bwd",
             "fused_adam_sr": "fused_adam_sr", "fused_adam": "fused_adam"}
-    groups = {}
+    groups, device = {}, 0.0
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue  # CPU-side ops; their kernels appear as CUDA events
-        us = getattr(e, "self_device_time_total", None)
-        us = e.self_cuda_time_total if us is None else us
+        device += ms(e)
         name = next((v for k, v in ours.items() if k in e.key), None)
         if name is None:
+            if group is not None:
+                continue  # grouped by aten op below
             name = ("matrix products (cuBLAS)" if any(k in e.key for k in ("nvjet", "gemm", "xmma"))
                     else "other PyTorch kernels")
             if others is not None and name == "other PyTorch kernels":
-                others[e.key] = others.get(e.key, 0.0) + us / 1e3 / steps
-        groups[name] = groups.get(name, 0.0) + us / 1e3 / steps
+                others[e.key] = others.get(e.key, 0.0) + ms(e)
+        groups[name] = groups.get(name, 0.0) + ms(e)
+    if group is not None:
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CPU or ms(e) <= 0:
+                continue
+            name = group(e.key)
+            groups[name] = groups.get(name, 0.0) + ms(e)
+            if others is not None and name == "other elementwise":
+                others[e.key] = ms(e)
+        rest = device - sum(groups.values())
+        if abs(rest) > 1e-3:
+            groups["kernels of no aten op"] = rest
     if ops is not None:
         for e in prof.key_averages(group_by_input_shape=True):
-            us = getattr(e, "self_device_time_total", None)
-            us = e.self_cuda_time_total if us is None else us
-            if e.device_type == DeviceType.CPU and us > 0:
-                ops[f"{e.key} {e.input_shapes}"] = us / 1e3 / steps
+            if e.device_type == DeviceType.CPU and ms(e) > 0:
+                ops[f"{e.key} {e.input_shapes}"] = ms(e)
     return groups
 
 
@@ -1895,27 +1994,10 @@ def train_phase(torch, dt, report, sr=False, ref_first_loss=None):
     y = torch.as_tensor(rng.integers(0, V, (TRAIN_B, TRAIN_L)).astype(np.int32), device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    losses, wall_ms, event_step_ms = [], [], []
     routed = (ops.flash_attention_fwd, ops.flash_attention_bwd, ops.fused_linear_ce_fwd)
     routes_before = [dict(f.routes) for f in routed]
     ops.reset_launch_counts()  # the main path starts here
-    for i in range(WARMUP + TIMED):
-        before = {k.__name__: k.launches for k in ops.KERNELS}
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        a.record()
-        loss = step(x, y)
-        b.record()
-        torch.cuda.synchronize()
-        wall_ms.append((time.perf_counter() - t0) * 1e3)
-        event_step_ms.append(a.elapsed_time(b))
-        losses.append(float(loss))
-        for k in ops.KERNELS:
-            want = per_step.get(k.__name__, 0)
-            if k.launches - before[k.__name__] != want:
-                fail(f"{key} step {i}: {k.__name__} launched "
-                     f"{k.launches - before[k.__name__]} times, expected {want}")
+    losses, wall_ms, event_step_ms = run_steps(torch, step, x, y, WARMUP + TIMED, key, per_step)
     counts = {k.__name__: k.launches for k in ops.KERNELS}  # the main path ends here
     print(f"main-path launches ({key}): {counts}")
     for f, before in zip(routed, routes_before):  # bf16 head views and CE operands: TMA reads them
@@ -1924,8 +2006,6 @@ def train_phase(torch, dt, report, sr=False, ref_first_loss=None):
             fail(f"{key}: {f.__name__} launched by route {by_route}, not all on wgmma")
         print(f"  {f.__name__} launches by route: {by_route}")
     print(f"  losses: {[round(v, 4) for v in losses]}")
-    if not all(math.isfinite(v) for v in losses):
-        fail(f"a {key} loss is not finite")
     if not abs(losses[0] - math.log(V)) < 1.0:
         fail(f"{key} step-1 loss {losses[0]} is not within 1.0 of ln {V} = {math.log(V):.3f}")
     if ref_first_loss is not None:
@@ -2578,21 +2658,8 @@ def family_train_phase(torch, dt, report, kind):
     routes_before = [dict(f.routes) for f in routed]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    losses, wall_ms = [], []
     ops.reset_launch_counts()  # the main path starts here
-    for i in range(steps):
-        before = {k.__name__: k.launches for k in ops.KERNELS}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss = step(x, y)
-        torch.cuda.synchronize()
-        wall_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(loss))
-        for k in ops.KERNELS:
-            want = per_step.get(k.__name__, 0)
-            if k.launches - before[k.__name__] != want:
-                fail(f"{kind} training step {i}: {k.__name__} launched "
-                     f"{k.launches - before[k.__name__]} times, expected {want}")
+    losses, wall_ms, _ = run_steps(torch, step, x, y, steps, f"{kind} training", per_step)
     counts = {k.__name__: k.launches for k in ops.KERNELS}  # the main path ends here
     print(f"main-path launches ({kind} training): {counts}")
     for f, before in zip(routed, routes_before):
@@ -2600,8 +2667,6 @@ def family_train_phase(torch, dt, report, kind):
         if by_route["wgmma"] != counts[f.__name__]:
             fail(f"{kind} training: {f.__name__} launched by route {by_route}, not all on wgmma")
     print(f"  losses: {losses}")
-    if not all(math.isfinite(v) for v in losses):
-        fail(f"a {kind} training loss is not finite")
     if not losses[-1] < losses[0]:
         fail(f"the {kind} training loss did not fall on the repeated batch: {losses}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2660,6 +2725,455 @@ def family_phases(torch, dt, ops, report, max_err, phase):
     phase("Mixtral training (main path):")
     paths["mixtral_train"] = family_train_phase(torch, dt, report, "mixtral")
     return paths, fk
+
+
+# ------------------------------------------------------------ the CNN family
+# bench.py's ResNet-50 row (bench.py:102-103, the batch of :218-229): 10
+# classes, 224 x 224, B 128, bf16 compute over f32 masters, Adam(lr 5e-3,
+# weight decay 5e-4), here fused.  Convolution, batch norm and pooling run
+# on cuDNN and PyTorch's own kernels by design (the JAX package leaves them
+# to XLA); the port's kernel on these paths is fused_adam, and linear_fused
+# on the eager CIFAR10_CNN path.
+CNN_B, CNN_IMAGE, CNN_CLASSES = 128, 224, 10
+CNN_WARMUP, CNN_TIMED = 2, 5
+# The paths beside ResNet-50 train at an lr where their loss falls on the
+# repeated batch (tools/cnn_lr_sweep.py): at bench's 5e-3 the NF-ResNet-50,
+# VGG16-BN and ViT_Tiny losses blow up, and VGG16-BN's rises up to 1e-4
+CNN_LR = 1e-4
+CNN_FAMILY = (  # (name, constructor, keyword arguments, batch, image, lr): bench.py's shapes
+    ("mobilenet_v1", "MobileNetV1", dict(num_classes=10), 64, 224, CNN_LR),
+    ("mobilenet_v2", "MobileNetV2", dict(num_classes=10), 64, 224, CNN_LR),
+    ("vgg16_bn", "VGG16", dict(num_classes=10, batch_norm=True), 32, 224, 1e-5),
+    ("vit_tiny", "ViT_Tiny", dict(image_size=32, patch_size=4, num_classes=10), 256, 32, CNN_LR),
+)
+CIFAR_B, CIFAR_STEPS, CIFAR_FC_IN = 256, 30, 128 * 4 * 4
+CNN_PER_STEP = {"fused_adam": 1}
+CNN_CPU_TOL = 1e-3
+
+
+def cnn_batch(B, image):
+    """bench.py's batch: normal images, integer labels below 10, from
+    numpy's default_rng(0), on the card."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((B, 3, image, image)).astype(np.float32)
+    y = rng.integers(0, 10, B).astype(np.int32)
+    return torch.as_tensor(x, device="cuda"), torch.as_tensor(y, device="cuda")
+
+
+def cnn_step_flops(torch, model, image, B):
+    """Analytic FLOPs of a training step: 2 x the MACs of every conv and
+    Linear, read from their output shapes in a forward of one image, x 3
+    (forward and backward) x B."""
+    from deepflows_tpu_torch import nn
+
+    macs = []
+
+    def hook(mod, inp, out):
+        fan_in = mod.weight[0].numel() if isinstance(mod, nn.Conv2d) else mod.in_features
+        macs.append(out.numel() * fan_in)
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (nn.Conv2d, nn.Linear))]
+    was = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            model(torch.zeros(1, 3, image, image, device=next(model.parameters()).device))
+    finally:
+        for h in hooks:
+            h.remove()
+        model.train(was)
+    return 2 * sum(macs) * 3 * B
+
+
+def cnn_group(op):
+    """A CNN step's group of the kernels that the aten op ``op`` launched."""
+    if "convolution_backward" in op:
+        return "convolution backward"
+    if "convolution" in op:
+        return "convolution forward"
+    if "batch_norm" in op:
+        return "batch norm backward" if "backward" in op else "batch norm forward"
+    if "pool" in op:
+        return "pooling"
+    if op in ("aten::mm", "aten::addmm", "aten::bmm", "aten::matmul"):
+        return "matrix products (cuBLAS)"
+    return "other elementwise"
+
+
+def cnn_adam_check(torch, model, label):
+    """fused_adam against its plain twin over ``model``'s parameter list
+    (adam_case's random values at the parameters' shapes), then its time
+    beside its bound, its plain twin's and torch.optim.Adam(fused=True)'s."""
+    from deepflows_tpu_torch import ops
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    shapes = [tuple(p.shape) for p in model.parameters()]
+    (ps, gs, vs, ss, hyper), err = adam_case(torch, ops, g, shapes, ADAM["weight_decay"], label)
+    lib_params = [p.clone().requires_grad_() for p in ps]
+    for p, gg in zip(lib_params, gs):
+        p.grad = gg.clone()
+    lib = torch.optim.Adam(lib_params, **ADAM, fused=True)
+    n = sum(p.numel() for p in ps)
+    r = dict(tensors=len(shapes), elements=n, max_abs_err=err,
+             ms=event_ms(lambda: ops.fused_adam(ps, gs, vs, ss, hyper), 3),
+             plain_ms=event_ms(lambda: ops.fused_adam_plain(ps, gs, vs, ss, hyper), 3),
+             library_ms=event_ms(lib.step, 3))
+    r["bound_ms"], r["bound_by"] = bound_ms(28 * n + 28, 0, "bf16")
+    print(f"  fused_adam over {label}'s {len(shapes)} parameter tensors ({n} elements) agrees "
+          f"with its plain twin (max abs err {err:.3g}); {r['ms']:.4f} ms, bound "
+          f"{r['bound_ms']:.4f} ({r['bound_by']}), plain {r['plain_ms']:.4f}, library "
+          f"{r['library_ms']:.4f}")
+    return r
+
+
+def cifar_fc_check(torch):
+    """linear_fused against its plain twin at CIFAR10_CNN's fc, (B, 2048) @
+    (2048, 10) + b, in every activation at rtol 1e-4 / atol 1e-3 (the JAX
+    tests' bound), then its time beside its bound, its plain twin's and
+    torch.addmm's, L2 flushed between timed launches."""
+    from deepflows_tpu_torch import ops
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    m, k, n = CIFAR_B, CIFAR_FC_IN, CNN_CLASSES
+    x, w, bias = (torch.randn(s, generator=g, device=dev) for s in ((m, k), (k, n), (1, n)))
+    err = max(mm_check(ops.linear_fused(x, w, bias, act), ops.linear_fused_plain(x, w, bias, act),
+                       f"linear_fused CIFAR10_CNN fc {(m, k, n)} {act}")
+              for act in ops.linear.ACTIVATIONS)
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    r = dict(max_abs_err=err, at=f"CIFAR10_CNN fc: ({m}, {k}) @ ({k}, {n}) f32",
+             plan=list(ops.linear._linear_plan(m, n, k)),
+             ms=event_ms(lambda: ops.linear_fused(x, w, bias), 20, flush_buf.zero_),
+             plain_ms=event_ms(lambda: ops.linear_fused_plain(x, w, bias), 20, flush_buf.zero_),
+             library_ms=event_ms(lambda: torch.addmm(bias, x, w), 20, flush_buf.zero_))
+    r["bound_ms"], r["bound_by"] = bound_ms(4 * (m * k + k * n + n + m * n), 2 * m * k * n, "f32")
+    print(f"  linear_fused at {r['at']} agrees with its plain twin in every activation (max abs "
+          f"err {err:.3g}); {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ({r['bound_by']}), plain "
+          f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}")
+    return r
+
+
+def cnn_model(dt, cls, seed=0, **kw):
+    from deepflows_tpu_torch import models
+
+    dt.manual_seed(seed)
+    return getattr(models, cls)(device="cuda", **kw)
+
+
+def cnn_step(torch, model, adam=ADAM):
+    from deepflows_tpu_torch import nn, optim
+    from deepflows_tpu_torch.jit import CompiledTrainStep
+
+    opt = optim.Adam(model.parameters(), **adam, fused=True)
+    return CompiledTrainStep(model, opt, nn.CrossEntropyLoss(), compute_dtype=torch.bfloat16)
+
+
+def bn_buffers(model):
+    return {n: b for n, b in model.named_buffers() if "running" in n}
+
+
+def resnet50_train_phase(torch, dt, report, card):
+    """A main path: ResNet-50 trained at bench.py's row, after fused_adam
+    is checked over its parameters (those of the remat path too); returns
+    the launch counts, the fused_adam check, the trained model and the
+    batch."""
+    from deepflows_tpu_torch import ops
+
+    model = cnn_model(dt, "ResNet50", num_classes=CNN_CLASSES)
+    adam = cnn_adam_check(torch, model, "ResNet-50")
+    step = cnn_step(torch, model)
+    x, y = cnn_batch(CNN_B, CNN_IMAGE)
+    start = {n: b.clone() for n, b in bn_buffers(model).items()}
+    params = list(model.parameters())
+    print(f"model: ResNet50(num_classes {CNN_CLASSES}), {sum(p.numel() for p in params)} "
+          f"parameters in {len(params)} f32 tensors, {len(start)} BN buffers; B {CNN_B}, "
+          f"{CNN_IMAGE} x {CNN_IMAGE}, bf16 compute, Adam(lr 5e-3, wd 5e-4, fused)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()  # the main path starts here
+    losses, wall, events = run_steps(torch, step, x, y, CNN_WARMUP + CNN_TIMED, "resnet50",
+                                     CNN_PER_STEP)
+    counts = {k.__name__: k.launches for k in ops.KERNELS}  # and ends here
+    print(f"main-path launches (resnet50 training): {counts}")
+    print(f"  losses: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"the ResNet-50 loss did not fall on the repeated batch: {losses}")
+    for n, b in bn_buffers(model).items():
+        if b.dtype != torch.float32 or not torch.isfinite(b).all():
+            fail(f"ResNet-50 buffer {n} is {b.dtype} or not finite")
+        if torch.equal(b, start[n]):
+            fail(f"ResNet-50 buffer {n} did not change")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    wall_ms = statistics.median(wall[CNN_WARMUP:])
+    device_ms = event_ms(lambda: step(x, y), 3)
+    flops = cnn_step_flops(torch, model, CNN_IMAGE, CNN_B)
+    r = dict(losses=losses, step_wall_ms=wall_ms, step_event_ms=statistics.median(events[CNN_WARMUP:]),
+             step_device_ms=device_ms, images_per_s=CNN_B / wall_ms * 1e3,
+             device_busy_share=device_ms / wall_ms, step_flops=flops,
+             mfu=flops / (wall_ms * 1e-3 * PEAK_OPS["bf16"]),
+             step_bound_ms=flops / PEAK_OPS["bf16"] * 1e3, peak_memory_gb=peak_gb)
+    others = {}
+    r["profile_ms"] = step_profile(torch, step, x, y, others=others, group=cnn_group)
+    r["other_ops_ms"] = top_others(others)
+    print(f"  step {wall_ms:.3f} ms wall, {r['step_event_ms']:.3f} ms between CUDA events, "
+          f"{device_ms:.3f} ms device (busy {100 * r['device_busy_share']:.1f}%); "
+          f"{r['images_per_s']:.1f} images/s; MFU {100 * r['mfu']:.2f}% of {flops:.4g} FLOPs "
+          f"(2 x conv and fc MACs x 3 x B; bound {r['step_bound_ms']:.3f} ms at 989 TFLOP/s); "
+          f"peak memory {peak_gb:.2f} GB; {card}")
+    print("  device time of a step by group (torch.profiler, 2 steps): "
+          f"{sum(r['profile_ms'].values()):.3f} ms: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in sorted(r["profile_ms"].items(), key=lambda kv: -kv[1])))
+    print("  the aten ops of the other elementwise group that take longest (ms a step): "
+          + "; ".join(f"{v:.3f} {k}" for k, v in r["other_ops_ms"].items()))
+    report["resnet50_train"] = r
+    del step
+    return counts, adam, model, x
+
+
+def resnet50_eval_phase(torch, dt, report, model, x, card):
+    """CompiledEvalStep on the trained ResNet-50, f32 (TF32 off) and cast
+    to bf16; BN reads its running statistics, so each image's logits do not
+    depend on the rest of the batch."""
+    from deepflows_tpu_torch.jit import CompiledEvalStep
+
+    out = {}
+    for dtype in ("f32", "bf16"):
+        if dtype == "bf16":
+            model.bfloat16()
+        ev = CompiledEvalStep(model)
+        xi = x if dtype == "f32" else x.bfloat16()
+        logits = ev(xi)
+        if tuple(logits.shape) != (CNN_B, CNN_CLASSES) or not torch.isfinite(logits).all():
+            fail(f"ResNet-50 {dtype} eval logits: shape {tuple(logits.shape)} or not finite")
+        half = ev(xi[: CNN_B // 2])
+        scale = logits.float().abs().max().item()
+        diff = (half.float() - logits[: CNN_B // 2].float()).abs().max().item()
+        tol = 1e-3 if dtype == "f32" else 2e-2
+        if not diff <= tol * scale:
+            fail(f"ResNet-50 {dtype} eval: the first half's logits move by {diff} with the "
+                 f"rest of the batch (limit {tol} x {scale}): BN did not read running stats")
+        if not model.training:
+            fail("CompiledEvalStep left the model in eval mode")
+        ms = event_ms(lambda: ev(xi), 5)
+        out[dtype] = dict(ms=ms, images_per_s=CNN_B / ms * 1e3, half_batch_max_diff=diff)
+        print(f"  eval {dtype}: {ms:.3f} ms device a B {CNN_B} call, "
+              f"{out[dtype]['images_per_s']:.1f} images/s; half batch against whole "
+              f"max |diff| {diff:.3g} (limit {tol} x {scale:.3g}); {card}")
+    report["resnet50_eval"] = out
+
+
+def nf_resnet50_phase(torch, dt, report, card):
+    """A main path: the NF-ResNet-50 (norm="free") at the same row but lr
+    CNN_LR, 3 steps, its loss falling; returns the launch counts and the
+    fused_adam check."""
+    from deepflows_tpu_torch import ops
+
+    model = cnn_model(dt, "ResNet50", num_classes=CNN_CLASSES, norm="free")
+    if list(model.buffers()):
+        fail("NF-ResNet-50 has buffers")
+    adam = cnn_adam_check(torch, model, "NF-ResNet-50")
+    step = cnn_step(torch, model, dict(ADAM, lr=CNN_LR))
+    x, y = cnn_batch(CNN_B, CNN_IMAGE)
+    ops.reset_launch_counts()  # the main path starts here
+    losses, wall, _ = run_steps(torch, step, x, y, 3, "nf_resnet50", CNN_PER_STEP)
+    counts = {k.__name__: k.launches for k in ops.KERNELS}  # and ends here
+    print(f"main-path launches (nf_resnet50 training): {counts}; losses {losses}; step "
+          f"{statistics.median(wall[1:]):.3f} ms wall; {card}")
+    if not losses[-1] < losses[0]:
+        fail(f"the NF-ResNet-50 loss did not fall on the repeated batch: {losses}")
+    report["nf_resnet50_train"] = dict(losses=losses, step_wall_ms=statistics.median(wall[1:]),
+                                       lr=CNN_LR)
+    return counts, adam
+
+
+def remat_phase(torch, dt, report, card):
+    """A main path: ResNet-50 with remat=True, 2 steps from the weights and
+    batch of a twin without remat; losses and the running statistics after
+    step 1 agree within the bf16 bound (the EMA ran once); peak memory of
+    each."""
+    from deepflows_tpu_torch import ops
+
+    x, y = cnn_batch(CNN_B, CNN_IMAGE)
+    runs = {}
+    counts = None
+    for remat in (False, True):
+        model = cnn_model(dt, "ResNet50", num_classes=CNN_CLASSES, remat=remat)
+        if remat:
+            model.load_state_dict(runs[False]["start"])
+        start = {k: v.clone() for k, v in model.state_dict().items()}
+        step = cnn_step(torch, model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        if remat:
+            ops.reset_launch_counts()  # the main path starts here
+        losses, wall, _ = run_steps(torch, step, x, y, 1, f"resnet50 remat={remat}", CNN_PER_STEP)
+        stats = {n: b.clone() for n, b in bn_buffers(model).items()}
+        more, wall2, _ = run_steps(torch, step, x, y, 1, f"resnet50 remat={remat}", CNN_PER_STEP)
+        if remat:
+            counts = {k.__name__: k.launches for k in ops.KERNELS}  # and ends here
+        runs[remat] = dict(start=start, losses=losses + more, stats=stats,
+                           peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+                           step_wall_ms=wall2[0])
+        del step, model
+        free_card(torch)
+    a, b = runs[False], runs[True]
+    rel = max(abs(p - q) / max(abs(p), 1e-30) for p, q in zip(a["losses"], b["losses"]))
+    worst = max(((a["stats"][n] - b["stats"][n]).norm() / a["stats"][n].norm()).item()
+                for n in a["stats"])
+    print(f"main-path launches (resnet50 remat training): {counts}; losses {b['losses']} "
+          f"against {a['losses']} without remat (max rel diff {rel:.3g}, limit 2e-2); running "
+          f"stats after step 1 worst rel diff by norm {worst:.3g} (limit 2e-2); peak memory "
+          f"above the model {b['peak_gb']:.2f} GB with remat, {a['peak_gb']:.2f} GB without; "
+          f"step {b['step_wall_ms']:.3f} ms wall against {a['step_wall_ms']:.3f}; {card}")
+    if not rel < 2e-2:
+        fail(f"ResNet-50 with remat: losses differ from the twin's by {rel}")
+    if not worst < 2e-2:
+        fail(f"ResNet-50 with remat: running stats after step 1 differ by {worst}")
+    report["resnet50_remat"] = dict(losses=b["losses"], twin_losses=a["losses"], max_rel=rel,
+                                    stats_rel=worst, peak_gb=b["peak_gb"], twin_peak_gb=a["peak_gb"],
+                                    step_wall_ms=b["step_wall_ms"], twin_step_wall_ms=a["step_wall_ms"])
+    return counts
+
+
+def cnn_family_phase(torch, dt, report, card):
+    """Main paths: MobileNetV1/V2, VGG16-BN and ViT_Tiny, 2 steps each at
+    their lr of CNN_FAMILY, each loss falling, each after fused_adam is
+    checked over its parameters; returns {path: launch counts} and {path:
+    the check}."""
+    from deepflows_tpu_torch import ops
+
+    paths, adam, out = {}, {}, {}
+    for name, cls, kw, B, image, lr in CNN_FAMILY:
+        model = cnn_model(dt, cls, **kw)
+        adam[name] = cnn_adam_check(torch, model, name)
+        step = cnn_step(torch, model, dict(ADAM, lr=lr))
+        x, y = cnn_batch(B, image)
+        ops.reset_launch_counts()  # the main path starts here
+        losses, wall, _ = run_steps(torch, step, x, y, 2, name, CNN_PER_STEP)
+        paths[name] = {k.__name__: k.launches for k in ops.KERNELS}  # and ends here
+        out[name] = dict(losses=losses, step_wall_ms=wall[1], batch=B, image=image, lr=lr)
+        print(f"  {name} (B {B}, {image} x {image}, lr {lr}): losses {losses}, second step "
+              f"{wall[1]:.3f} ms wall; launches {paths[name]}; {card}")
+        if not losses[-1] < losses[0]:
+            fail(f"the {name} loss did not fall on the repeated batch: {losses}")
+        del step, model
+        free_card(torch)
+    report["cnn_family"] = out
+    return paths, adam
+
+
+def cifar_eager_phase(torch, dt, report, card):
+    """A main path: CIFAR10_CNN trained eagerly under config.use_pallas, f32,
+    B 256, dropout on, 30 steps: its fc (2048 -> 10) is one linear_fused a
+    step (the backward's products are torch.matmul's), Adam one fused_adam.
+    Both kernels are first checked at the path's shapes; returns the launch
+    counts and {kernel: its check}."""
+    from deepflows_tpu_torch import config, nn, ops, optim
+
+    model = cnn_model(dt, "CIFAR10_CNN")
+    checks = {"fused_adam": cnn_adam_check(torch, model, "CIFAR10_CNN"),
+              "linear_fused": cifar_fc_check(torch)}
+    opt = optim.Adam(model.parameters(), **ADAM, fused=True)
+    crit = nn.CrossEntropyLoss()
+    x, y = cnn_batch(CIFAR_B, 32)
+    per_step = {"linear_fused": 1, "fused_adam": 1}
+
+    def step(x, y):
+        loss = crit(model(x), y)
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    saved = config.use_pallas
+    config.use_pallas = True
+    try:
+        ops.reset_launch_counts()  # the main path starts here
+        losses, wall, _ = run_steps(torch, step, x, y, CIFAR_STEPS, "cifar10_cnn eager",
+                                    per_step)
+        counts = {k.__name__: k.launches for k in ops.KERNELS}  # and ends here
+    finally:
+        config.use_pallas = saved
+    if not losses[-1] < losses[0]:
+        fail(f"the CIFAR10_CNN eager loss did not fall: {losses[0]} -> {losses[-1]}")
+    ms = statistics.median(wall[3:])
+    print(f"main-path launches (cifar10_cnn eager): {counts}; losses {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; {ms:.3f} ms a step of wall time; {card}")
+    report["cifar10_cnn_eager"] = dict(losses=losses, step_wall_ms=ms)
+    return counts, checks
+
+
+def cnn_cpu_check(torch, dt, report):
+    """ResNet-18 (small input, f32, B 4, 16 x 16), one SGD(lr 0.01, momentum
+    0.9) step on the card and on a CPU copy: loss, weights and running
+    statistics within 1e-3 (each tensor by its norm)."""
+    import numpy as np
+
+    from deepflows_tpu_torch import nn, optim
+    from deepflows_tpu_torch.jit import CompiledTrainStep
+    from deepflows_tpu_torch.models import ResNet18
+
+    dt.manual_seed(4)
+    models = {"cuda": ResNet18(num_classes=10, small_input=True, device="cuda")}
+    models["cpu"] = ResNet18(num_classes=10, small_input=True, device="cpu")
+    models["cpu"].load_state_dict(models["cuda"].state_dict())
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((4, 3, 16, 16)).astype(np.float32)
+    y = rng.integers(0, 10, 4).astype(np.int32)
+    loss = {}
+    for d, m in models.items():
+        step = CompiledTrainStep(m, optim.SGD(m.parameters(), lr=0.01, momentum=0.9),
+                                 nn.CrossEntropyLoss())
+        loss[d] = float(step(x, y))
+    rel = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+    card_sd = models["cuda"].state_dict()
+    errs = {k: ((card_sd[k].cpu() - v).norm() / v.norm().clamp_min(1e-30)).item()
+            for k, v in models["cpu"].state_dict().items()}
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    print(f"  ResNet-18 f32 SGD step: card loss {loss['cuda']}, CPU {loss['cpu']} (rel diff "
+          f"{rel:.3g}, limit {CNN_CPU_TOL}); worst tensor {worst[0]} {worst[1]:.3g} of its norm")
+    if not rel < CNN_CPU_TOL:
+        fail(f"ResNet-18: the card's loss differs from the CPU's by {rel}")
+    if not worst[1] < CNN_CPU_TOL:
+        fail(f"ResNet-18: {worst[0]} differs from the CPU's by {worst[1]} of its norm")
+    report["cnn_vs_cpu"] = dict(loss=loss, rel=rel, worst=worst)
+
+
+def cnn_phases(torch, dt, report, phase, card):
+    """The CNN family's seven phases; returns {path: launch counts} and
+    {kernel: {path: its check against its plain twin at the path's
+    shapes}}."""
+    paths, adam = {}, {}
+    phase("ResNet-50 training (main path):")
+    paths["resnet50_train"], adam["resnet50_train"], model, x = resnet50_train_phase(
+        torch, dt, report, card)
+    phase("ResNet-50 evaluation:")
+    resnet50_eval_phase(torch, dt, report, model, x, card)
+    del model, x
+    free_card(torch)
+    phase("NF-ResNet-50 training (main path):")
+    paths["nf_resnet50_train"], adam["nf_resnet50_train"] = nf_resnet50_phase(
+        torch, dt, report, card)
+    free_card(torch)
+    phase("ResNet-50 with remat (main path):")
+    paths["resnet50_remat"] = remat_phase(torch, dt, report, card)
+    phase("MobileNetV1/V2, VGG16-BN, ViT_Tiny training (main paths):")
+    fam_paths, fam_adam = cnn_family_phase(torch, dt, report, card)
+    paths.update(fam_paths)
+    adam.update(fam_adam)
+    phase("CIFAR10_CNN eager under use_pallas (main path):")
+    paths["cifar10_cnn_eager"], cifar = cifar_eager_phase(torch, dt, report, card)
+    adam["cifar10_cnn_eager"] = cifar["fused_adam"]
+    phase("card against CPU (ResNet-18 f32 SGD step):")
+    cnn_cpu_check(torch, dt, report)
+    checks = {"fused_adam": adam, "linear_fused": {"cifar10_cnn_eager": cifar["linear_fused"]}}
+    report["cnn_kernel_checks"] = checks
+    return paths, checks
 
 
 def main(argv=None) -> int:
@@ -2827,15 +3341,21 @@ def main(argv=None) -> int:
         "fused_adam": {k: {n: v[n] for n in ("ms", "bound_ms", "elements")}
                        for k, v in fk["fused_adam"].items()},
     }
+    cpaths, cchecks = cnn_phases(torch, dt, report, phase, card)
     for k in kernels:
-        by_path = {p: c[k["name"]] for p, c in fpaths.items() if c[k["name"]]}
-        if by_path:
-            k["launches_by_family_path"] = by_path
-            k["launches"] += sum(by_path.values())
+        for key, paths in (("launches_by_family_path", fpaths), ("launches_by_cnn_path", cpaths)):
+            by_path = {p: c[k["name"]] for p, c in paths.items() if c[k["name"]]}
+            if by_path:
+                k[key] = by_path
+                k["launches"] += sum(by_path.values())
         if k["name"] in max_err:
             k["max_abs_err"] = max_err[k["name"]]
         if k["name"] in family:
             k["family"] = family[k["name"]]
+        if k["name"] in cchecks:  # each CNN path's check at its own shapes
+            k["cnn"] = cchecks[k["name"]]
+            k["max_abs_err"] = max([k["max_abs_err"]]
+                                   + [r["max_abs_err"] for r in k["cnn"].values()])
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"{k['name']} was not launched on the main path")

@@ -23,7 +23,13 @@ the training slice — ``jit.CompiledTrainStep`` with
 (``Module.bfloat16()`` with ``optim.Adam(stochastic_round=True)``:
 ``ops.fused_adam_sr``) and the eager f32 route behind
 ``config.use_pallas`` (``nn.functional.linear``: ``ops.linear_fused`` and
-``ops.matmul``), which trains ``models.MLP``.
+``ops.matmul``), which trains ``models.MLP``; the Llama and Mixtral
+family; and the CNN family — ``nn.Conv1d/2d``, ``WSConv2d``,
+``BatchNorm1d/2d``, the pools, ``nn.Remat`` and ``optim.SGD``, with
+ResNet18/34/50 (and the norm-free NF-ResNets), MobileNetV1/V2, VGG16,
+ViT_Tiny and the reference's CNNs.  Convolution, batch norm and pooling
+run on PyTorch's own ops (cuDNN on the card), as the JAX package leaves
+them to XLA outside any Pallas kernel.
 """
 
 from __future__ import annotations

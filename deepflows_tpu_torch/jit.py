@@ -78,6 +78,10 @@ class CompiledTrainStep:
           (``Module.bfloat16()``) the gradients reach the optimizer in bf16
           and the loss returns in the criterion's dtype, as in the JAX
           package (``Adam(stochastic_round=True)`` updates such weights).
+        - Buffers are not copied: the forward updates BatchNorm's running
+          statistics in place, in their own dtype (f32 under a bf16
+          ``compute_dtype``, as the JAX package keeps them), once a step
+          with or without ``nn.Remat``.
         - ``config.use_pallas`` is off during the call.
         - ``donate`` is accepted for the JAX package's signature; the update
           reuses the masters' memory where the optimizer works in place.
@@ -161,9 +165,10 @@ class CompiledTrainStep:
 
 
 class CompiledEvalStep:
-    """Inference: the model's forward in eval mode without gradients and
-    with ``config.use_pallas`` off, returning its raw output; the model's
-    mode is restored afterwards."""
+    """Inference: the model's forward in eval mode (BatchNorm on its running
+    statistics, dropout off) without gradients and with
+    ``config.use_pallas`` off, returning its raw output; the model's mode
+    is restored afterwards."""
 
     def __init__(self, model):
         self.model = model

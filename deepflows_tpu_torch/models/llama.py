@@ -20,8 +20,6 @@ class LlamaBlock(nn.Module):
         remat=False, flash=None, rope_theta=10000.0, window=None,
     ):
         super().__init__()
-        if remat:
-            raise NotImplementedError("remat is not ported yet")
         self.norm1 = nn.RMSNorm(dim, device=device)
         self.attn = nn.MultiheadAttention(
             dim, num_heads, bias=False, causal=True, device=device,
@@ -33,8 +31,14 @@ class LlamaBlock(nn.Module):
         self.up = nn.Linear(dim, hidden, bias=False, device=device)
         self.down = nn.Linear(hidden, dim, bias=False, device=device)
         self.act = nn.SiLU()
+        self._remat = remat
 
     def forward(self, x):
+        if self._remat:
+            return nn.remat_call(self, x, self._forward_impl)
+        return self._forward_impl(x)
+
+    def _forward_impl(self, x):
         x = x + self.attn(self.norm1(x))
         h = self.norm2(x)
         return x + self.down(self.act(self.gate(h)) * self.up(h))

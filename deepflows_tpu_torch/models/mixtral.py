@@ -20,8 +20,6 @@ class MixtralBlock(nn.Module):
         device=None, remat=False, flash=None, rope_theta=10000.0,
     ):
         super().__init__()
-        if remat:
-            raise NotImplementedError("remat is not ported yet")
         self.norm1 = nn.RMSNorm(dim, device=device)
         self.attn = nn.MultiheadAttention(
             dim, num_heads, bias=False, causal=True, device=device,
@@ -32,8 +30,14 @@ class MixtralBlock(nn.Module):
         self.moe = nn.MoE(
             dim, hidden, n_experts, top_k=top_k, swiglu=True, device=device
         )
+        self._remat = remat
 
     def forward(self, x):
+        if self._remat:
+            return nn.remat_call(self, x, self._forward_impl)
+        return self._forward_impl(x)
+
+    def _forward_impl(self, x):
         x = x + self.attn(self.norm1(x))
         return x + self.moe(self.norm2(x))
 

@@ -2,7 +2,12 @@
 (counterpart of part of ``deepflows_tpu/nn/functional.py``).
 
 Each follows the JAX package's arithmetic op for op, so f32 results agree
-to rounding.
+to rounding.  Convolution, batch norm and pooling are PyTorch's own ops
+(cuDNN on the card), as the JAX package leaves them to XLA
+(``lax.conv_general_dilated``, ``lax.reduce_window``) outside any Pallas
+kernel; around them the JAX package's definitions are kept where torch's
+differ: the batch variance is biased, pooling pads as ``reduce_window``
+does, a pooling stride of 0 means the window.
 """
 
 from __future__ import annotations
@@ -90,6 +95,21 @@ def relu(input):
     """``maximum(x, 0)``: a tie at 0 gives half the gradient, as the JAX
     package's maximum splits ties (``torch.relu`` would give none)."""
     return torch.maximum(input, input.new_zeros(()))
+
+
+def relu6(input):
+    """``min(max(x, 0), 6)``, the MobileNet activation; ties split the
+    gradient as ``relu``'s do."""
+    return torch.minimum(relu(input), input.new_full((), 6.0))
+
+
+def leaky_relu(input, negative_slope: float = 0.01):
+    """``maximum(x, slope · x)``."""
+    return torch.maximum(input, input * negative_slope)
+
+
+def sigmoid(input):
+    return torch.sigmoid(input)
 
 
 def tanh(input):
@@ -216,3 +236,109 @@ def cross_entropy(
     if valid is not None:
         return total / valid.sum().clamp_min(1).to(total.dtype)
     return total * (1.0 / (nll.numel() // input.shape[dim]))
+
+
+# ------------------------------------------------------------------ conv ops
+def conv2d(x, weight, padding: int = 0, stride: int = 1, groups: int = 1):
+    """``(N, Cin, H, W) × (Cout, Cin/groups, kh, kw)``, output in the
+    input's dtype.  The argument order (padding, stride) is the
+    reference's (``nn/modules/conv.py:104-108``)."""
+    return torch.nn.functional.conv2d(
+        x, weight, stride=stride, padding=padding, groups=groups)
+
+
+def conv1d(x, weight, padding: int = 0, stride: int = 1, groups: int = 1):
+    """``(N, Cin, L) × (Cout, Cin/groups, k)``."""
+    return torch.nn.functional.conv1d(
+        x, weight, stride=stride, padding=padding, groups=groups)
+
+
+def batch_norm(x, weight=None, bias=None, eps: float = 1e-5):
+    """Train-mode batch norm over every axis but the channel axis 1:
+    returns ``(out, batch_mean, batch_var)``, the statistics of shape
+    ``(C,)`` in f32 (in x's dtype for f32 and f64 x) and the variance
+    BIASED, as the JAX package's (``backend/jax_kernels.py`` ``_bn_train``
+    divides by n) and the reference's; ``out`` has x's dtype.
+
+    torch's own batch norm (cuDNN on the card) computes all three: it is
+    handed scratch running statistics at zero with momentum 1, so they
+    come back as the batch's mean and unbiased variance, and the variance
+    is scaled by (n - 1) / n.  A bf16 x is normalised with f32 weight and
+    bias (its batch statistics in f32, where the JAX package keeps them in
+    bf16)."""
+    C = x.shape[1]
+    n = x.numel() // C
+    sdt = torch.float32 if x.dtype in (torch.float16, torch.bfloat16) else x.dtype
+    mean = torch.zeros(C, dtype=sdt, device=x.device)
+    var = torch.zeros(C, dtype=sdt, device=x.device)
+    w = None if weight is None else weight.reshape(C).to(sdt)
+    b = None if bias is None else bias.reshape(C).to(sdt)
+    out = torch.nn.functional.batch_norm(
+        x, mean, var, w, b, training=True, momentum=1.0, eps=eps)
+    return out, mean, var * ((n - 1) / n)
+
+
+def batch_norm_eval(x, weight, bias, running_mean, running_var, eps: float = 1e-5):
+    """Eval-mode batch norm on running statistics shaped like the channel
+    axis (``(1, C, 1, 1)``): ``(x - rm) / sqrt(rv + eps)``, then the
+    affine, cast back to x's dtype (``backend/jax_kernels.py``
+    ``_bn_eval``)."""
+    out = (x - running_mean) / torch.sqrt(running_var + eps)
+    if weight is not None:
+        out = out * weight + bias
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------------ pool ops
+def _pair(v):
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def _pool2d(x, kernel_size, stride, padding, pool, fill):
+    """``pool`` over (kh, kw) windows; a padding past half the window, which
+    torch's pooling refuses, is made by an explicit pad with ``fill``."""
+    k, p = _pair(kernel_size), _pair(padding)
+    s = _pair(stride) if stride else k
+    if any(2 * pi > ki for pi, ki in zip(p, k)):
+        x = torch.nn.functional.pad(x, (p[1], p[1], p[0], p[0]), value=fill)
+        p = (0, 0)
+    return pool(x, k, s, p)
+
+
+def max_pool2d(x, kernel_size, stride=0, padding=0):
+    """Max pooling whose padding is -inf (``reduce_window``'s init);
+    ``stride=0`` means the window."""
+    return _pool2d(x, kernel_size, stride, padding,
+                   torch.nn.functional.max_pool2d, float("-inf"))
+
+
+def avg_pool2d(x, kernel_size, stride=0, padding=0):
+    """Average pooling that divides by the whole window, its zero padding
+    included; ``stride=0`` means the window."""
+    def pool(x, k, s, p):
+        return torch.nn.functional.avg_pool2d(x, k, s, p, count_include_pad=True)
+
+    return _pool2d(x, kernel_size, stride, padding, pool, 0.0)
+
+
+def max_pool1d(x, kernel_size: int, stride: int = 0, padding: int = 0):
+    s = stride or kernel_size
+    return max_pool2d(x[..., None], (kernel_size, 1), (s, 1), (padding, 0))[..., 0]
+
+
+def avg_pool1d(x, kernel_size: int, stride: int = 0, padding: int = 0):
+    s = stride or kernel_size
+    return avg_pool2d(x[..., None], (kernel_size, 1), (s, 1), (padding, 0))[..., 0]
+
+
+def adaptive_avg_pool2d(x, output_size: int = 1):
+    """Adaptive average pooling to ``output_size`` × ``output_size``: 1 is
+    the mean over W, then over H; otherwise bins from floor(i·H/o) to
+    ceil((i+1)·H/o), as torch's ``adaptive_avg_pool2d`` draws them."""
+    if output_size == 1:
+        return x.mean(3, keepdim=True).mean(2, keepdim=True)
+    return torch.nn.functional.adaptive_avg_pool2d(x, output_size)
+
+
+def flatten(x, start_dim: int = 1):
+    return x.flatten(start_dim)

@@ -9,12 +9,16 @@ names and layouts, so no key or array is renamed or transposed.  It is
 strict: a missing or unexpected key, a shape or a dtype that differs
 raises.  Parity tests rest on this copy, never on the two RNGs agreeing.
 
-``load_jax_optimizer_state(optimizer, state)`` takes the JAX Adam's state,
-``{"v": [...], "s": [...], "t": steps taken}`` as numpy arrays (the
-``"state"`` entry of its ``state_dict()``), and installs it in the port's
-optimizer, so a run trained in JAX resumes in the port.  The slots are
-positional, in the order of the optimizer's parameters, which is the
-order of ``parameters()`` in both packages.
+``load_jax_state_dict`` carries buffers as well as parameters: BatchNorm's
+running statistics, and the NF-ResNet convs' ``gain`` with the weights.
+
+``load_jax_optimizer_state(optimizer, state)`` takes a JAX optimizer's
+state as numpy arrays (the ``"state"`` entry of its ``state_dict()``):
+Adam's ``{"v": [...], "s": [...], "t": steps taken}`` or SGD's
+``{"v": [...]}`` (``{"v": None}`` without momentum), and installs it in
+the port's optimizer of the same kind, so a run trained in JAX resumes in
+the port.  The slots are positional, in the order of the optimizer's
+parameters, which is the order of ``parameters()`` in both packages.
 """
 
 from __future__ import annotations
@@ -64,25 +68,36 @@ def load_jax_state_dict(module: torch.nn.Module, state) -> torch.nn.Module:
 
 
 def load_jax_optimizer_state(optimizer, state):
-    """Install the JAX Adam's ``{"v", "s", "t"}`` in ``optimizer``: moments
-    as f32 tensors on each parameter's device, ``t`` as the int32 count of
-    steps taken.  Raises on a slot count or a shape that differs."""
+    """Install a JAX optimizer's state in ``optimizer``, whose own state
+    gives the layout: each list of slots as f32 tensors on each
+    parameter's device, a step count as its int32 tensor, None as None.
+    Raises on a key, a slot count or a shape that differs."""
+    optimizer._ensure_state()
+    own = optimizer._state
+    if set(own) != set(state):
+        raise KeyError(f"optimizer state keys differ: {sorted(state)} vs {sorted(own)}")
     params = optimizer.params
-    for key in ("v", "s"):
-        if len(state[key]) != len(params):
-            raise ValueError(
-                f"state[{key!r}] has {len(state[key])} slots for {len(params)} parameters"
-            )
-    new = {"v": [], "s": []}
-    for key in ("v", "s"):
-        for i, (arr, p) in enumerate(zip(state[key], params)):
-            arr = np.asarray(arr, dtype=np.float32)
-            if tuple(arr.shape) != tuple(p.shape):
+    new = {}
+    for key, slot in own.items():
+        src = state[key]
+        if slot is None or src is None:
+            if (slot is None) != (src is None):
+                raise ValueError(f"state[{key!r}] is {src!r} where the optimizer has {slot!r}")
+            new[key] = None
+        elif isinstance(slot, list):
+            if len(src) != len(params):
                 raise ValueError(
-                    f"state[{key!r}][{i}] has shape {arr.shape}, parameter {tuple(p.shape)}"
+                    f"state[{key!r}] has {len(src)} slots for {len(params)} parameters"
                 )
-            new[key].append(torch.from_numpy(np.array(arr)).to(p.device))
-    dev = params[0].device if params else torch.device("cpu")
-    new["t"] = torch.tensor(int(np.asarray(state["t"])), dtype=torch.int32, device=dev)
+            new[key] = []
+            for i, (arr, p) in enumerate(zip(src, params)):
+                arr = np.asarray(arr, dtype=np.float32)
+                if tuple(arr.shape) != tuple(p.shape):
+                    raise ValueError(
+                        f"state[{key!r}][{i}] has shape {arr.shape}, parameter {tuple(p.shape)}"
+                    )
+                new[key].append(torch.from_numpy(np.array(arr)).to(p.device))
+        else:
+            new[key] = torch.tensor(int(np.asarray(src)), dtype=slot.dtype, device=slot.device)
     optimizer._state = new
     return optimizer

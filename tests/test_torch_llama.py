@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import deepflows_tpu as df
+import deepflows_tpu_torch as dt
 from deepflows_tpu import Graph, Tensor
 from deepflows_tpu import models as jmodels
 from deepflows_tpu import nn as jnn
@@ -249,8 +250,19 @@ def test_llama_train_step_losses_match_jax():
 
 
 def test_llama_remat_raises():
-    with pytest.raises(NotImplementedError):
-        LlamaLM(**CFG, device="cpu", remat=True)
+    """remat was refused before it was ported; now LlamaLM(remat=True) builds
+    and its logits and gradients equal remat=False's
+    (tests/test_torch_remat.py holds the blocks over whole steps)."""
+    idx = torch.from_numpy(np.random.default_rng(5).integers(0, CFG["vocab_size"], (2, 9)))
+    outs = []
+    for remat in (False, True):
+        dt.manual_seed(3)
+        lm = LlamaLM(**CFG, device="cpu", remat=remat)
+        out = lm(idx)
+        out.square().sum().backward()
+        outs.append((out.detach(), lm.head.weight.grad, lm.tok_embed.weight.grad))
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
 
 
 ARG_CASES = {  # the module, its arguments; both packages must raise alike
