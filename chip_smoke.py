@@ -263,14 +263,69 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
    weights on the card and on a CPU copy: the loss within 1e-3 relative,
    each weight and running statistic within 1e-3 of its norm.
 
+24. ResNet-50 fused (after phase 17, before 18): nn.fuse_conv_bn on the
+   trained model (a B 2 slice as its example input) must fold all 53
+   BNs; the fused CompiledEvalStep against the unfused at B 128 in f32
+   (within 1e-3 of the logits' norm) and with both cast to bf16 (within
+   2e-2 of the largest logit, phase 18's bound); eval ms and images/s of
+   each.  Two planted faults must keep their BNs: a conv whose output
+   also feeds a residual add, and two convs that tie one weight.
+   GroupNorm(32, 256) on a (128, 256, 56, 56) activation, f32 and bf16,
+   forward and backward, at 1e-5 and 0.05 (tests/test_torch_batchnorm.py's
+   bounds): output and dx card against a CPU copy elementwise (rtol =
+   atol), the weight's and bias's gradients (sums of 401,408 terms) card
+   against float64 relative to the float64 gradient's norm.
+25. Fine-tuning kernel phase: flash_attention at (1, 32, 2048, 128),
+   window 4096, as in phase 11; int8_matmul and w8a8_matmul at Mistral's
+   five matrices at M 8 and 16384 (the merged model's decode and B 8 x
+   2048 prefill rows) against their twins, a depth-2 decode step's 9
+   calls timed; fused_adam over the optimizer path's 480 M-element list
+   beside torch.optim.Adam(fused=True).
+26. LoRA fine-tuning, a main path: LlamaLM at Mistral-7B widths, depth 2,
+   max_len 2048, f32 masters, flash; nn.apply_lora(r 16, alpha 32, q_proj,
+   v_proj, out_proj: 688,128 adapter elements); CompiledTrainStep with
+   AdamW(lr 2e-4, no decay) over the adapters, WarmupCosineLR(warmup 2,
+   T_max 6) stepped after every step, clip_by_global_norm(1.0),
+   accum_steps 4 and bf16 compute, on a repeated B 4 x L 2048 batch, 6
+   steps, the loss nn.CrossEntropyLoss on the logits widened to f32 (a
+   bf16 loss cannot show LoRA's first steps): 8 flash forward and
+   backward launches a step; the loss finite
+   and falling, the lr of each step the scheduler's on the host, the
+   frozen base bitwise unchanged.  Then: the clip's pre-clip norm, and
+   the transform alone under torch.cuda.set_sync_debug_mode("error");
+   one f32 step with accum_steps 4 against 1 from the trained state
+   (each adapter's change within 1e-3 of its norm); lora_state_dict into
+   a fresh LoRA model, its logits bitwise equal; a planted fault, a
+   decoder on the unmerged model, which must raise; merge_lora, the
+   merged decoders' prefill logits (bf16, dense and int8) against the
+   unmerged f32 forward within LOGIT_TOL.  Step ms, tokens/s and peak
+   memory beside a full fine-tune twin (AdamW over every parameter, 2
+   steps).
+27. Merged serving, a main path: the merged model served dense and int8
+   (B 8, prompt 64, +128 greedy), every loop from its captured graph, 9
+   int8 launches a prefill and a step; decode and generate tok/s.
+28. Optimizers, main paths: LlamaLM at Mistral-7B widths, depth 1, B 1 x
+   L 2048, bf16 compute over f32 masters, 4 steps from the same weights
+   under each of AdamW, Muon(lr 0.02, adamw_lr 3e-3), Adafactor, Lion,
+   RMSprop, Adagrad, Adadelta and Adam(fused=True) (one fused_adam
+   launch a step), at the lr of OPTIMIZERS (tools/optim_lr_sweep.py);
+   each loss falling; ModelEMA(0.999) beside AdamW, its
+   average_parameters() giving the shadow and the live weights back bit
+   for bit.  Step ms, update ms (CUDA events around pure_update), state
+   bytes, peak memory; Muon's Newton-Schulz ms and TFLOP/s.
+29. Card against CPU: one f32 step of each optimizer on a depth-1, dim-64
+   LlamaLM, each tensor's change within 1e-3 of its norm.
+
 Prints the card's name and power limit, one {"kernels": [...]} line (the CE
 backward's, linear_fused's and matmul's entries with the plan they ran:
 (C, BM, BV) and (tile, chunk, splits); the flash forward's with its route
 and TFLOP/s; each kernel's launches summed over every main path, with
 the family paths' share in ``launches_by_family_path``, the CNN paths'
-in ``launches_by_cnn_path``, its numbers at the family's shapes in
-``family`` and at each CNN path's in ``cnn``, whose worst error its
-max_abs_err takes in), and as its last line {"ok": true,
+in ``launches_by_cnn_path``, the fine-tuning slice's in
+``launches_by_finetune_path``, its numbers at the family's shapes in
+``family``, at each CNN path's in ``cnn``, whose worst error its
+max_abs_err takes in, and at the fine-tuning paths' in ``finetune``),
+and as its last line {"ok": true,
 "device": {...}}.  With ``--report PATH`` it also
 writes every measurement (each shape's times, the throughput of each mode,
 the training step's numbers) to PATH as JSON.
@@ -288,6 +343,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -2287,17 +2343,8 @@ def family_kernel_phase(torch, ops, report, max_err):
     free_card(torch)
     out["fused_adam"] = {}
     for kind, cfg, moe in (("llama", LLAMA_TRAIN, False), ("mixtral", MIXTRAL_TRAIN, True)):
-        shapes = family_param_shapes(cfg, moe)
-        adam_ops, err = adam_case(torch, ops, g, shapes, ADAM["weight_decay"], f"{kind} training")
-        n = sum(t.numel() for t in adam_ops[0])
-        a = dict(tensors=len(shapes), elements=n, max_abs_err=err,
-                 ms=event_ms(lambda: ops.fused_adam(*adam_ops), 3))
-        a["bound_ms"], _ = bound_ms(28 * n + 28, 0, "bf16")
-        out["fused_adam"][kind] = a
-        print(f"  fused_adam over the {kind} training model's {len(shapes)} tensors ({n} "
-              f"elements) agrees with its plain twin (max abs err {err:.3g}); {a['ms']:.4f} ms, "
-              f"bound {a['bound_ms']:.4f}")
-        del adam_ops
+        out["fused_adam"][kind] = adam_list_check(
+            torch, family_param_shapes(cfg, moe), f"the {kind} training model")
         free_card(torch)
     report["family_kernels"] = out
     return out
@@ -2805,17 +2852,23 @@ def cnn_group(op):
 
 
 def cnn_adam_check(torch, model, label):
-    """fused_adam against its plain twin over ``model``'s parameter list
-    (adam_case's random values at the parameters' shapes), then its time
-    beside its bound, its plain twin's and torch.optim.Adam(fused=True)'s."""
+    """adam_list_check over ``model``'s parameter shapes."""
+    return adam_list_check(torch, [tuple(p.shape) for p in model.parameters()], label)
+
+
+def adam_list_check(torch, shapes, label):
+    """fused_adam against its plain twin over a parameter list of
+    ``shapes`` (adam_case's random values), then its time beside its
+    bound, its plain twin's and torch.optim.Adam(fused=True)'s.  The
+    library updates the checked tensors themselves, once they are checked
+    (no copies: a list of a billion elements fits the card once)."""
     from deepflows_tpu_torch import ops
 
     g = torch.Generator(device="cuda").manual_seed(6)
-    shapes = [tuple(p.shape) for p in model.parameters()]
     (ps, gs, vs, ss, hyper), err = adam_case(torch, ops, g, shapes, ADAM["weight_decay"], label)
-    lib_params = [p.clone().requires_grad_() for p in ps]
+    lib_params = [torch.nn.Parameter(p) for p in ps]
     for p, gg in zip(lib_params, gs):
-        p.grad = gg.clone()
+        p.grad = gg
     lib = torch.optim.Adam(lib_params, **ADAM, fused=True)
     n = sum(p.numel() for p in ps)
     r = dict(tensors=len(shapes), elements=n, max_abs_err=err,
@@ -3152,6 +3205,10 @@ def cnn_phases(torch, dt, report, phase, card):
     phase("ResNet-50 training (main path):")
     paths["resnet50_train"], adam["resnet50_train"], model, x = resnet50_train_phase(
         torch, dt, report, card)
+    phase("ResNet-50 evaluation fused by fuse_conv_bn, its planted faults, GroupNorm:")
+    resnet50_fusion_phase(torch, dt, report, model, x, card)
+    fusion_planted_faults(torch, dt)
+    group_norm_check(torch, report)
     phase("ResNet-50 evaluation:")
     resnet50_eval_phase(torch, dt, report, model, x, card)
     del model, x
@@ -3174,6 +3231,697 @@ def cnn_phases(torch, dt, report, phase, card):
     checks = {"fused_adam": adam, "linear_fused": {"cifar10_cnn_eager": cifar["linear_fused"]}}
     report["cnn_kernel_checks"] = checks
     return paths, checks
+
+
+# ------------------------------------------------ fine-tuning and optimizers
+# LoRA on LlamaLM at Mistral-7B's widths (examples/lora_finetune.py's target
+# list), trained with AdamW, WarmupCosineLR, clipping and accum_steps, then
+# merged and served; every optimizer of the port on the same family.
+FT_CFG = dict(MISTRAL, depth=2, max_len=2048)
+FT_LORA = dict(r=16, alpha=32.0, target=["q_proj", "v_proj", "out_proj"])
+FT_ADAPTER_ELEMENTS = 688_128  # 2 layers x (q 4096·16 + 16·4096, v 4096·16 + 16·1024, o as q)
+FT_B, FT_ACCUM, FT_STEPS, FT_TWIN_STEPS = 4, 4, 6, 2
+FT_ADAMW = dict(lr=2e-4, weight_decay=0.0)
+FT_SCHEDULE = dict(warmup_epochs=2, T_max=6)
+FT_CLIP = 1.0
+FT_REQUEST = (8, 64, 128, {})  # the family's serving request
+FT_QUANTS = (None, "int8")
+OPT_CFG = dict(MISTRAL, depth=1, max_len=2048)
+OPT_STEPS = 4
+# (name, class, keyword arguments): the lr of the JAX examples
+# (examples/llama_text_train.py:55-60, transformer_lm_train.py:43) where
+# the loss falls at every step of tools/optim_lr_sweep.py on this path
+# (Muon 0.02, Adafactor 0.02, Adadelta's default 1.0), else the sweep's
+# largest lr where it does (PERF.md section 6): AdamW and Adam 3e-4 (the
+# examples' 3e-3 rises again after step 1), Lion 3e-4 (6.7e-4 rises after
+# step 2), RMSprop 1e-5 and Adagrad 1e-3 (no example)
+OPTIMIZERS = (
+    ("adamw", "AdamW", dict(lr=3e-4, weight_decay=1e-2)),
+    ("muon", "Muon", dict(lr=0.02, adamw_lr=3e-3)),
+    ("adafactor", "Adafactor", dict(lr=0.02)),
+    ("lion", "Lion", dict(lr=3e-4)),
+    ("rmsprop", "RMSprop", dict(lr=1e-5)),
+    ("adagrad", "Adagrad", dict(lr=1e-3)),
+    ("adadelta", "Adadelta", dict(lr=1.0)),
+    ("adam_fused", "Adam", dict(lr=3e-4, fused=True)),
+)
+EMA_DECAY = 0.999
+OPT_CPU = dict(vocab_size=256, max_len=32, dim=64, depth=1, num_heads=4, num_kv_heads=2,
+               mlp_ratio=3.5, rope_theta=1e4, window=4096)
+GN_SHAPE, GN_GROUPS = (128, 256, 56, 56), 32  # a ResNet-50 stage-1 activation
+GN_TOL = {"f32": 1e-5, "bf16": 0.05}  # tests/test_torch_batchnorm.py's bounds
+RESNET50_BNS = 53
+
+
+def ft_batch(torch, B, L, V, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    seq = rng.integers(0, V, (B, L + 1)).astype(np.int64)
+    return (torch.as_tensor(seq[:, :L], device="cuda"),
+            torch.as_tensor(seq[:, 1:], device="cuda"))
+
+
+def ft_kernel_phase(torch, ops, report, max_err):
+    """The kernels of the fine-tuning and optimizer paths against their
+    plain twins at the shapes those paths give them: flash_attention at
+    (1, 32, 2048, 128) with window 4096 (the band is the causal triangle at
+    L 2048); int8_matmul and w8a8_matmul at Mistral's five matrices at the
+    merged model's decode rows (M 8) and prefill rows (B 8 x max_len 2048),
+    and the 9 calls of a depth-2 decode step timed; fused_adam over the
+    optimizer path's parameter list, beside torch.optim.Adam(fused=True).
+    Returns the numbers; ``max_err`` gains the int8 kernels' errors."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    out = {"flash": family_flash_case(torch, ops, g, FT_CFG["max_len"], FT_CFG["window"],
+                                      "LoRA fine-tuning and optimizers", flush_buf.zero_)}
+    free_card(torch)
+    for M in (8, FT_REQUEST[0] * FT_CFG["max_len"]):
+        for name, (K, N) in MISTRAL_SHAPES.items():
+            x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+            wq, s = ops.quantize_int8(torch.randn((K, N), generator=g, device=dev) * 0.02)
+            compare(torch, ops, x, wq, s, f"merged Mistral M={M} {name}", max_err)
+            del x, wq, s
+        free_card(torch)
+    print(f"  int8_matmul and w8a8_matmul agree with their plain twins at Mistral's "
+          f"{len(MISTRAL_SHAPES)} matrices, M 8 and {FT_REQUEST[0] * FT_CFG['max_len']}")
+    layer = ("qkv", "o", "gate_up", "down")
+    ms, bi, _, wbytes = forward_timing(torch, ops, 8, MISTRAL_SHAPES, FT_CFG["depth"], layer)
+    out["decode_step"] = dict(ms, int8_bound_ms=bi[0], int8_bound_by=bi[1], weight_bytes=wbytes)
+    print(f"  a merged depth-2 decode step's {4 * FT_CFG['depth'] + 1} calls (M=8, bf16 x): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+          + f"; bound int8 {bi[0]:.4f} ms ({bi[1]})")
+    free_card(torch)
+    out["fused_adam"] = adam_list_check(torch, family_param_shapes(OPT_CFG, False),
+                                        "the optimizer path's LlamaLM")
+    free_card(torch)
+    report["finetune_kernels"] = out
+    return out
+
+
+def counted(ops, fn):
+    """Runs ``fn`` with the launch counts zeroed just before and read just
+    after: a main path.  Returns (fn's result, the counts)."""
+    ops.reset_launch_counts()
+    result = fn()
+    return result, {k.__name__: k.launches for k in ops.KERNELS}
+
+
+def timed_steps(torch, step, x, y, steps, label, per_step, after=None):
+    """run_steps one step at a time, ``after(i)`` between steps (a
+    scheduler's step); returns the losses, wall ms and the lr each step
+    read."""
+    losses, wall, lrs = [], [], []
+    for i in range(steps):
+        lrs.append(step.optimizer.lr)
+        loss, ms, _ = run_steps(torch, step, x, y, 1, label, per_step)
+        losses += loss
+        wall += ms
+        if after is not None:
+            after(i)
+    return losses, wall, lrs
+
+
+def step_grads(step, x, y):
+    """The gradients one call of ``step`` hands its optimizer (after its
+    grad_transform); the call is a real step."""
+    opt, seen = step.optimizer, {}
+    update = opt.pure_update
+
+    def spy(params, grads, state, lr):
+        seen["grads"] = grads
+        return update(params, grads, state, lr)
+
+    opt.pure_update = spy
+    try:
+        step(x, y)
+    finally:
+        opt.pure_update = update
+    return seen["grads"]
+
+
+def lora_model(torch, dt, seed):
+    from deepflows_tpu_torch import nn
+    from deepflows_tpu_torch.models import LlamaLM
+
+    lm = family_model(torch, dt, LlamaLM, FT_CFG, seed, serve=False)
+    adapters = nn.apply_lora(lm, **FT_LORA)
+    return lm, adapters
+
+
+class F32CrossEntropy:
+    """nn.CrossEntropyLoss on the logits widened to f32: a bf16 loss near
+    ln 32000 moves in steps of 0.0625, past the few thousandths that
+    LoRA's first steps at lr 2e-4 take off it."""
+
+    reduction = "mean"
+
+    def __init__(self):
+        from deepflows_tpu_torch import nn
+
+        self.ce = nn.CrossEntropyLoss()
+
+    def __call__(self, logits, y):
+        return self.ce(logits.float(), y)
+
+
+def lora_step(torch, lm, opt, accum=FT_ACCUM, compute_dtype=None):
+    from deepflows_tpu_torch import optim
+    from deepflows_tpu_torch.jit import CompiledTrainStep
+
+    return CompiledTrainStep(lm, opt, F32CrossEntropy(),
+                             compute_dtype=compute_dtype or torch.bfloat16,
+                             grad_transform=optim.clip_by_global_norm(FT_CLIP),
+                             accum_steps=accum)
+
+
+def accum_check(torch, lm, adapters, opt, x, y):
+    """One step with accum_steps=4 against one with accum_steps=1 from the
+    same trained adapters and AdamW state, on the same batch, in f32 (TF32
+    off): each adapter's change within PARAM_TOL of its norm."""
+    from deepflows_tpu_torch import optim
+
+    start = [p.detach().clone() for p in adapters]
+    state = {k: [t.clone() for t in v] if isinstance(v, list) else v.clone()
+             for k, v in opt._state.items()}
+    moved = {}
+    for accum in (FT_ACCUM, 1):
+        twin = optim.AdamW(adapters, lr=FT_ADAMW["lr"], weight_decay=0.0)
+        twin._state = {k: [t.clone() for t in v] if isinstance(v, list) else v.clone()
+                       for k, v in state.items()}
+        lora_step(torch, lm, twin, accum, torch.float32)(x, y)
+        moved[accum] = [(p.detach() - s0).clone() for p, s0 in zip(adapters, start)]
+        with torch.no_grad():
+            for p, s0 in zip(adapters, start):
+                p.copy_(s0)
+        del twin
+    worst = max(((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+                for a, b in zip(moved[FT_ACCUM], moved[1]))
+    print(f"  one f32 step with accum_steps={FT_ACCUM} against accum_steps=1 from the trained "
+          f"state: worst adapter change differs by {worst:.3g} of its norm (limit {PARAM_TOL})")
+    if not worst < PARAM_TOL:
+        fail(f"LoRA: accum_steps={FT_ACCUM} moves the adapters {worst} of their change away "
+             "from accum_steps=1")
+    return worst
+
+
+def clip_check(torch, step, x, y):
+    """The clip's pre-clip norm over one step's gradients, and the
+    transform run alone on them with the card's sync debug mode at "error"
+    (a host readback would raise)."""
+    from deepflows_tpu_torch import optim
+    from deepflows_tpu_torch.optim.clip import _global_norm
+
+    transform, step.grad_transform = step.grad_transform, None
+    try:
+        grads = step_grads(step, x, y)  # a real step, its gradients unclipped
+    finally:
+        step.grad_transform = transform
+    norm = float(_global_norm(grads))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        clipped = optim.clip_by_global_norm(FT_CLIP)(grads)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    after = float(_global_norm(clipped))
+    print(f"  clip_by_global_norm({FT_CLIP}): pre-clip norm {norm:.5g}, after {after:.5g}; "
+          "the transform ran with no host readback (sync debug mode 'error')")
+    if not after <= FT_CLIP * (1 + 1e-3):
+        fail(f"clip_by_global_norm left a norm of {after}")
+    return norm
+
+
+def lora_finetune_phase(torch, dt, report, card):
+    """A main path: LoRA on LlamaLM at Mistral-7B widths (depth 2, f32
+    masters, flash, bf16 compute), AdamW over the adapters with
+    WarmupCosineLR stepped every step, clip_by_global_norm and
+    accum_steps=4 on a repeated B 4 x L 2048 batch, 6 steps; then, outside
+    the count, the checks (the frozen base bitwise unchanged, the lr
+    sequence, the clip, accum 4 against 1, the adapter checkpoint into a
+    fresh model) and a decoder on the unmerged model, which must raise; and
+    a second main path: the merged model served dense and int8, graphed.
+    Returns {path: launch counts} and the numbers."""
+    import numpy as np
+
+    from deepflows_tpu_torch import nn, ops, optim
+    from deepflows_tpu_torch.models import KVCacheDecoder
+
+    L, V, depth = FT_CFG["max_len"], FT_CFG["vocab_size"], FT_CFG["depth"]
+    lm, adapters = lora_model(torch, dt, 5)
+    n_adapt = sum(p.numel() for p in adapters)
+    n_total = sum(p.numel() for p in lm.parameters())
+    if n_adapt != FT_ADAPTER_ELEMENTS:
+        fail(f"LoRA: {n_adapt} adapter elements, expected {FT_ADAPTER_ELEMENTS}")
+    frozen = {n: p.detach().clone() for n, p in lm.named_parameters() if not p.requires_grad}
+    opt = optim.AdamW(adapters, **FT_ADAMW)
+    sch = optim.WarmupCosineLR(opt, **FT_SCHEDULE)
+    host = optim.WarmupCosineLR(types.SimpleNamespace(lr=FT_ADAMW["lr"]), **FT_SCHEDULE)
+    step = lora_step(torch, lm, opt)
+    x, y = ft_batch(torch, FT_B, L, V, 5)
+    print(f"model: LlamaLM {FT_CFG}, rms eps {RMS_EPS}, {n_total} parameters in f32; LoRA "
+          f"{FT_LORA}: {len(adapters)} adapters, {n_adapt} elements trainable; B {FT_B} x L {L}, "
+          f"accum_steps {FT_ACCUM}, AdamW {FT_ADAMW}, WarmupCosineLR {FT_SCHEDULE}, clip "
+          f"{FT_CLIP}, bf16 compute")
+    per_step = {"flash_attention_fwd": depth * FT_ACCUM, "flash_attention_bwd": depth * FT_ACCUM}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (losses, wall, lrs), counts = counted(ops, lambda: timed_steps(
+        torch, step, x, y, FT_STEPS, "LoRA fine-tuning", per_step,
+        after=lambda i: sch.step()))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"main-path launches (LoRA fine-tuning): {counts}")
+    want_lrs = [FT_ADAMW["lr"]]
+    for _ in range(FT_STEPS - 1):
+        host.step()
+        want_lrs.append(host.optimizer.lr)
+    print(f"  losses: {losses}; lr each step: {lrs}")
+    if lrs != want_lrs:
+        fail(f"LoRA: the lr sequence {lrs} is not the scheduler's on the host {want_lrs}")
+    if not losses[-1] < losses[0]:
+        fail(f"the LoRA loss did not fall on the repeated batch: {losses}")
+    for n, p in lm.named_parameters():
+        if n in frozen and not torch.equal(p, frozen[n]):
+            fail(f"LoRA: the frozen {n} changed")
+    del frozen
+    wall_ms = statistics.median(wall[1:])
+    r = dict(losses=losses, lrs=lrs, step_wall_ms=wall_ms, tokens_per_s=FT_B * L / wall_ms * 1e3,
+             peak_memory_gb=peak_gb, adapter_elements=n_adapt, parameters=n_total)
+    r["step_device_ms"] = event_ms(lambda: step(x, y), 2)
+    others = {}
+    r["profile_ms"] = step_profile(torch, step, x, y, steps=1, others=others)
+    r["other_kernels_ms"] = top_others(others)
+    r["clip_norm"] = clip_check(torch, step, x, y)
+    r["accum_vs_1"] = accum_check(torch, lm, adapters, opt, x, y)
+    print(f"  LoRA step {wall_ms:.3f} ms wall, {r['step_device_ms']:.3f} ms device, "
+          f"{r['tokens_per_s']:.1f} tokens/s, peak memory {peak_gb:.2f} GB; the frozen base "
+          f"bitwise unchanged; {card}")
+    print("  device time of a LoRA step by kernel (torch.profiler): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(r["profile_ms"].items(), key=lambda kv: -kv[1]))
+          + "; the largest other PyTorch kernels: " + "; ".join(
+              f"{v:.3f} {k}" for k, v in r["other_kernels_ms"].items()))
+
+    # the adapter checkpoint into a fresh LoRA model: the same logits, bit for bit
+    sd = nn.lora_state_dict(lm)
+    fresh, _ = lora_model(torch, dt, 5)
+    nn.load_lora_state_dict(fresh, sd)
+    with torch.no_grad():
+        a, b = lm(x[:1, :256]), fresh(x[:1, :256])
+    if not torch.equal(a, b):
+        fail(f"LoRA: the reloaded adapters' logits differ by {(a - b).abs().max().item()}")
+    print(f"  lora_state_dict: {len(sd)} tensors, "
+          f"{sum(t.numel() * t.element_size() for t in sd.values())} bytes; reloaded into a "
+          "fresh model, the logits equal bit for bit")
+    del fresh, sd, a, b
+    free_card(torch)
+
+    try:  # planted fault: a decoder on the unmerged model
+        KVCacheDecoder(lm, compute_dtype=torch.bfloat16)
+        fail("a decoder accepted an unmerged LoRA model")
+    except RuntimeError as e:
+        if "merge_lora" not in str(e):
+            raise
+        print("  planted fault flagged: KVCacheDecoder on the unmerged LoRA model raises")
+
+    b, p0, new, kw = FT_REQUEST
+    rng = np.random.default_rng(5)
+    prompt_np = rng.integers(0, V, (b, p0)).astype(np.int64)
+    with torch.no_grad():  # the unmerged model's own forward, f32
+        ref = lm(torch.as_tensor(prompt_np[:2], device="cuda"))[:, p0 - 1].float()
+    nn.merge_lora(lm)
+    decs = {q: KVCacheDecoder(lm, compute_dtype=torch.bfloat16, quant=q) for q in FT_QUANTS}
+    prompt = torch.zeros((2, L), dtype=torch.long, device="cuda")
+    prompt[:, :p0] = torch.as_tensor(prompt_np[:2])
+    checks = {}
+    with torch.inference_mode():
+        for quant, dec in decs.items():
+            got = dec._prefill(dec._prepared(), prompt, p0)[2]
+            checks[str(quant)] = rel_err(got, ref)
+            print(f"  merged prefill logits quant={str(quant):5s} against the unmerged forward: "
+                  f"max rel err {checks[str(quant)]:.5f} (limit {LOGIT_TOL[quant]})")
+            if not checks[str(quant)] < LOGIT_TOL[quant]:
+                fail(f"merged quant={quant}: prefill logits off by {checks[str(quant)]}")
+    r["merged_prefill_rel_err"] = checks
+    served, scounts = serve_all(decs, (FT_REQUEST,), [prompt_np], 4 * depth + 1, V,
+                                "merged LoRA ")
+    print(f"main-path launches (merged LoRA serving): {scounts}")
+    rates = {}
+    for quant, dec in decs.items():
+        m, lp, _ = loop_timing(torch, dec, prompt_np, new)
+        rates[str(quant)] = dict(decode_tok_s=b * new / m["decode_s"],
+                                 generate_tok_s=b * new / m["generate_s"],
+                                 step_device_ms=m["step_device_ms"],
+                                 prep_prefill_ms=m["prep_prefill_s"] * 1e3)
+        q = rates[str(quant)]
+        print(f"  merged quant={str(quant):5s}: decode {q['decode_tok_s']:.1f} tok/s, generate "
+              f"{q['generate_tok_s']:.1f} tok/s, step device {q['step_device_ms']:.4f} ms, "
+              f"prep+prefill {q['prep_prefill_ms']:.2f} ms (B {b}, {p0} + {new}, max_len {L}); "
+              f"{card}")
+        del lp
+    r["merged_serve"] = rates
+    report["lora_finetune"] = r
+    del decs, step, opt, lm, adapters
+    free_card(torch)
+    r["full_finetune"] = full_finetune_twin(torch, dt, x, y, card)
+    return {"lora_train": counts, "lora_serve": scounts}, r
+
+
+def full_finetune_twin(torch, dt, x, y, card):
+    """The LoRA path's model and batch trained in full: AdamW over every
+    parameter, the same schedule, clip and accum_steps, 2 steps; step ms,
+    tokens/s and peak memory beside LoRA's."""
+    from deepflows_tpu_torch import optim
+    from deepflows_tpu_torch.models import LlamaLM
+
+    lm = family_model(torch, dt, LlamaLM, FT_CFG, 5, serve=False)
+    opt = optim.AdamW(lm.parameters(), **FT_ADAMW)
+    step = lora_step(torch, lm, opt)
+    per_step = {"flash_attention_fwd": FT_CFG["depth"] * FT_ACCUM,
+                "flash_attention_bwd": FT_CFG["depth"] * FT_ACCUM}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, wall, _ = run_steps(torch, step, x, y, FT_TWIN_STEPS, "full fine-tune", per_step)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    r = dict(losses=losses, step_wall_ms=wall[-1], peak_memory_gb=peak_gb,
+             tokens_per_s=x.numel() / wall[-1] * 1e3)
+    print(f"  full fine-tune twin (AdamW over all {sum(p.numel() for p in lm.parameters())} "
+          f"parameters): losses {losses}, step {wall[-1]:.3f} ms wall, {r['tokens_per_s']:.1f} "
+          f"tokens/s, peak memory {peak_gb:.2f} GB; {card}")
+    del step, opt, lm
+    free_card(torch)
+    return r
+
+
+def state_bytes(state):
+    return sum(t.numel() * t.element_size() for v in state.values()
+               for t in (v if isinstance(v, list) else [v]) if t is not None)
+
+
+def ns_ms(torch, opt):
+    """Device ms of Newton-Schulz over every Muon parameter's momentum
+    (the step's NS work), and its f32 FLOPs."""
+    from deepflows_tpu_torch.optim.muon import ns_orthogonalize
+
+    mats, flops = [], 0
+    for p, m, v in zip(opt.params, opt._state["m"], opt._state["v"]):
+        if v is None:
+            mat = m.reshape(p.shape[0], -1)
+            mats.append(mat)
+            a, c = sorted(mat.shape)  # NS works on the wide orientation: a x c
+            flops += opt.ns_steps * (2 * a * a * c * 2 + 2 * a ** 3)
+    ms = event_ms(lambda: [ns_orthogonalize(t, opt.ns_steps) for t in mats], 1)
+    return ms, flops
+
+
+def optimizer_phase(torch, dt, report, card):
+    """Main paths: LlamaLM at Mistral-7B widths, depth 1, B 1 x L 2048,
+    bf16 compute over f32 masters, 4 steps on a repeated batch under each
+    optimizer of OPTIMIZERS from the same weights; ModelEMA beside the
+    AdamW run.  Each loss must be finite and fall.  Returns {path: launch
+    counts} and the numbers."""
+    from deepflows_tpu_torch import nn, ops, optim
+    from deepflows_tpu_torch.jit import CompiledTrainStep
+    from deepflows_tpu_torch.models import LlamaLM
+
+    L, V = OPT_CFG["max_len"], OPT_CFG["vocab_size"]
+    lm = family_model(torch, dt, LlamaLM, OPT_CFG, 6, serve=False)
+    start = {k: v.clone() for k, v in lm.state_dict().items()}
+    x, y = ft_batch(torch, 1, L, V, 6)
+    n = sum(p.numel() for p in lm.parameters())
+    print(f"model: LlamaLM {OPT_CFG}, {n} parameters in f32; B 1 x L {L}, bf16 compute")
+    paths, out = {}, {}
+    for name, cls, kw in OPTIMIZERS:
+        lm.load_state_dict(start)
+        opt = getattr(optim, cls)(lm.parameters(), **kw)
+        step = CompiledTrainStep(lm, opt, nn.CrossEntropyLoss(), compute_dtype=torch.bfloat16)
+        ema = optim.ModelEMA(lm, decay=EMA_DECAY) if name == "adamw" else None
+        update, update_ms = opt.pure_update, []
+
+        def timed_update(*a, update=update, update_ms=update_ms):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            res = update(*a)
+            e1.record()
+            update_ms.append((e0, e1))
+            return res
+
+        opt.pure_update = timed_update
+        per_step = {"flash_attention_fwd": 1, "flash_attention_bwd": 1,
+                    "fused_adam": int(name == "adam_fused")}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        (losses, wall, _), paths[name] = counted(ops, lambda: timed_steps(
+            torch, step, x, y, OPT_STEPS, name, per_step,
+            after=(lambda i: ema.update()) if ema is not None else None))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        opt.pure_update = update
+        r = dict(kw={k: v for k, v in kw.items()}, losses=losses,
+                 step_wall_ms=statistics.median(wall[1:]),
+                 update_ms=statistics.median(a.elapsed_time(b) for a, b in update_ms[1:]),
+                 state_bytes=state_bytes(opt._state), peak_memory_gb=peak_gb)
+        if cls == "Muon":
+            r["ns_ms"], r["ns_flops"] = ns_ms(torch, opt)
+        out[name] = r
+        print(f"  {name} {kw}: losses {losses}; step {r['step_wall_ms']:.3f} ms wall, update "
+              f"{r['update_ms']:.3f} ms (CUDA events around pure_update), state "
+              f"{r['state_bytes']} bytes, peak memory {peak_gb:.2f} GB"
+              + (f"; Newton-Schulz {r['ns_ms']:.3f} ms ({r['ns_flops']:.4g} f32 FLOPs, "
+                 f"{r['ns_flops'] / r['ns_ms'] / 1e9:.1f} TFLOP/s)" if cls == "Muon" else "")
+              + f"; launches {paths[name]}; {card}")
+        if not losses[-1] < losses[0]:
+            fail(f"the {name} loss did not fall on the repeated batch: {losses}")
+        if ema is not None:
+            ema_check(torch, lm, ema)
+        del step, opt, ema
+        free_card(torch)
+    report["optimizers"] = out
+    del lm, start
+    free_card(torch)
+    return paths, out
+
+
+def ema_check(torch, lm, ema):
+    """ModelEMA after the AdamW run: average_parameters() gives the shadow
+    weights, and the live weights come back bit for bit on exit."""
+    live = {n: p.detach().clone() for n, p in lm.named_parameters()}
+    shadow = ema.state_dict()["shadow"]
+    with ema.average_parameters():
+        for n, p in lm.named_parameters():
+            if not torch.equal(p, shadow[n].to(p.dtype)):
+                fail(f"ModelEMA: average_parameters() does not give the shadow of {n}")
+    for n, p in lm.named_parameters():
+        if not torch.equal(p, live[n]):
+            fail(f"ModelEMA: the live {n} did not come back bit for bit")
+    moved = max(((live[n] - s).norm() / live[n].norm()).item() for n, s in shadow.items())
+    print(f"  ModelEMA(decay {EMA_DECAY}) beside AdamW: {ema.num_updates} updates, shadow up to "
+          f"{moved:.3g} of a weight's norm from the live one; average_parameters() gives the "
+          "shadow, the live weights back bit for bit")
+
+
+def optimizer_cpu_check(torch, dt, report):
+    """One f32 step of each optimizer on a depth-1, dim-64 LlamaLM on the
+    card and on a CPU copy: every tensor's change within PARAM_TOL of its
+    norm."""
+    import numpy as np
+
+    from deepflows_tpu_torch import nn, optim
+    from deepflows_tpu_torch.jit import CompiledTrainStep
+    from deepflows_tpu_torch.models import LlamaLM
+
+    dt.manual_seed(7)
+    card_lm = LlamaLM(**OPT_CPU, device="cuda", flash=False)
+    start = {k: v.cpu() for k, v in card_lm.state_dict().items()}
+    rng = np.random.default_rng(7)
+    seq = rng.integers(0, OPT_CPU["vocab_size"], (2, OPT_CPU["max_len"] + 1)).astype(np.int64)
+    x, y = seq[:, :-1], seq[:, 1:]
+    worst = {}
+    for name, cls, kw in OPTIMIZERS:
+        moved = {}
+        for dev in ("cuda", "cpu"):
+            m = LlamaLM(**OPT_CPU, device=dev, flash=False)
+            m.load_state_dict(start)
+            CompiledTrainStep(m, getattr(optim, cls)(m.parameters(), **kw),
+                              nn.CrossEntropyLoss())(x, y)
+            moved[dev] = {k: v.cpu() - start[k] for k, v in m.state_dict().items()}
+        errs = {k: ((moved["cuda"][k] - v).norm() / v.norm().clamp_min(1e-30)).item()
+                for k, v in moved["cpu"].items() if v.norm() > 0}
+        k = max(errs, key=errs.get)
+        worst[name] = (k, errs[k])
+        if not errs[k] < PARAM_TOL:
+            fail(f"{name}: {k}'s change on the card differs from the CPU's by {errs[k]} of its "
+                 "norm")
+    print("  one f32 step, card against CPU, worst tensor's change (of its norm): "
+          + ", ".join(f"{n} {e:.3g} ({k})" for n, (k, e) in worst.items())
+          + f"; limit {PARAM_TOL}")
+    report["optimizers_vs_cpu"] = worst
+
+
+def finetune_phases(torch, dt, ops, report, max_err, phase, card):
+    """The fine-tuning slice's kernel checks and its main paths (LoRA
+    training, merged serving, one per optimizer) and the card-against-CPU
+    optimizer check; returns {path: launch counts} and the kernel phase's
+    numbers."""
+    phase("fine-tuning kernel phase (kernels vs plain twins at the LoRA and optimizer paths' "
+          "shapes):")
+    fk = ft_kernel_phase(torch, ops, report, max_err)
+    phase("LoRA fine-tuning at Mistral-7B widths, merged and served (main paths):")
+    paths, _ = lora_finetune_phase(torch, dt, report, card)
+    phase("every optimizer on the Llama family (main paths):")
+    opaths, _ = optimizer_phase(torch, dt, report, card)
+    paths.update({f"optimizer_{k}": v for k, v in opaths.items()})
+    phase("card against CPU (one f32 step of each optimizer):")
+    optimizer_cpu_check(torch, dt, report)
+    return paths, fk
+
+
+def resnet50_fusion_phase(torch, dt, report, model, x, card):
+    """fuse_conv_bn on the trained ResNet-50, still in train mode (its 53
+    BNs must all fold in the eval copy; the model stays in train mode):
+    the fused CompiledEvalStep against the unfused in f32 (within PARAM_TOL
+    of the logits' norm) and in bf16 (phase 18's eval bound, 2e-2 of the
+    largest logit); eval images/s fused and unfused in both dtypes."""
+    import copy
+
+    from deepflows_tpu_torch import nn
+    from deepflows_tpu_torch.jit import CompiledEvalStep
+
+    fused = nn.fuse_conv_bn(model, x[:2])  # the trained model as it is, in train mode
+    if not model.training or fused.training:
+        fail("fuse_conv_bn changed the caller's training flag or left its copy in train mode")
+    left = sum(isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)) for m in fused.modules())
+    folded = sum(isinstance(m, nn.Identity) for m in fused.modules())
+    print(f"  fuse_conv_bn on the trained ResNet-50: {folded} BNs folded, {left} left")
+    if left or folded != RESNET50_BNS:
+        fail(f"fuse_conv_bn folded {folded} of ResNet-50's BNs, left {left}")
+    out = {"folded": folded}
+    for dtype in ("f32", "bf16"):
+        pair = {"unfused": model, "fused": fused}
+        if dtype == "bf16":
+            pair = {k: copy.deepcopy(m).bfloat16() for k, m in pair.items()}
+        xi = x if dtype == "f32" else x.bfloat16()
+        steps = {k: CompiledEvalStep(m) for k, m in pair.items()}
+        logits = {k: s(xi).float() for k, s in steps.items()}
+        u, f = logits["unfused"], logits["fused"]
+        if dtype == "f32":
+            err, lim = ((f - u).norm() / u.norm()).item(), PARAM_TOL
+        else:
+            err, lim = ((f - u).abs().max() / u.abs().max()).item(), 2e-2
+        r = {"err": err, "limit": lim}
+        for k, s in steps.items():
+            r[f"{k}_ms"] = event_ms(lambda s=s: s(xi), 5)
+            r[f"{k}_images_per_s"] = CNN_B / r[f"{k}_ms"] * 1e3
+        out[dtype] = r
+        print(f"  eval {dtype}: fused {r['fused_ms']:.3f} ms ({r['fused_images_per_s']:.1f} "
+              f"images/s) against unfused {r['unfused_ms']:.3f} ms "
+              f"({r['unfused_images_per_s']:.1f}); logits differ by {err:.3g} (limit {lim}); "
+              f"{card}")
+        if not err < lim:
+            fail(f"fused ResNet-50 {dtype} eval logits differ from the unfused by {err}")
+        del pair, steps, logits
+    report["resnet50_fusion"] = out
+    del fused
+    free_card(torch)
+
+
+def fusion_planted_faults(torch, dt):
+    """Two planted faults fuse_conv_bn must flag by keeping the BN: a conv
+    whose output also feeds a residual add, and two convs that tie one
+    weight."""
+    from deepflows_tpu_torch import nn
+
+    class Residual(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.conv = nn.Conv2d(8, 8, 3, padding=1, device="cuda")
+            self.bn = nn.BatchNorm2d(8, device="cuda")
+
+        def forward(self, x):
+            h = self.conv(x)
+            return self.bn(h) + h
+
+    class Tied(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.a = nn.Conv2d(8, 8, 3, padding=1, device="cuda")
+            self.b = nn.Conv2d(8, 8, 3, padding=1, device="cuda")
+            self.b.weight = self.a.weight
+            self.bn_a = nn.BatchNorm2d(8, device="cuda")
+            self.bn_b = nn.BatchNorm2d(8, device="cuda")
+
+        def forward(self, x):
+            return self.bn_a(self.a(x)) + self.bn_b(self.b(x))
+
+    dt.manual_seed(9)
+    x = torch.randn(2, 8, 16, 16, device="cuda")
+    for name, cls, kept in (("residual", Residual, 1), ("tied weight", Tied, 2)):
+        m = cls().eval()
+        fused = nn.fuse_conv_bn(m, x)
+        left = sum(isinstance(b, nn.BatchNorm2d) for b in fused.modules())
+        if left != kept:
+            fail(f"planted fault not flagged: fuse_conv_bn folded the {name} case ({left} BNs "
+                 f"left of {kept})")
+        with torch.no_grad():
+            err = (fused(x) - m(x)).abs().max().item()
+        print(f"  planted fault flagged: the {name} conv keeps its BN ({left} left); outputs "
+              f"equal within {err:.3g}")
+
+
+def group_norm_check(torch, report):
+    """GroupNorm (32 groups) on a ResNet-50 stage activation, f32 and bf16,
+    forward and backward.  The output and dx: the card against a CPU copy,
+    elementwise within GN_TOL (rtol = atol).  The weight's and bias's
+    gradients, sums over N·H·W = 401,408 terms that cancel to about 1/600
+    of their magnitudes, against a float64 reference on the same (rounded)
+    inputs, relative to that reference's norm within the same GN_TOL: a
+    zero gradient reads 1, and an H100 80GB HBM3 (700 W) reads 1.8e-7 (f32)
+    and 4.1e-3 / 1.8e-3 (bf16), as the CPU does."""
+    import torch.nn.functional as F
+
+    from deepflows_tpu_torch import nn
+
+    g = torch.Generator().manual_seed(10)
+    x = torch.randn(GN_SHAPE, generator=g)
+    gout = torch.randn(GN_SHAPE, generator=g)
+    w = 1 + 0.3 * torch.randn(GN_SHAPE[1], generator=g)
+    b = torch.randn(GN_SHAPE[1], generator=g)
+    out = {}
+    for dtype, tdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            m = nn.GroupNorm(GN_GROUPS, GN_SHAPE[1], device=dev)
+            with torch.no_grad():
+                m.weight.copy_(w)
+                m.bias.copy_(b)
+            m.to_dtype(tdt)
+            xi = x.to(dev, tdt, copy=True).requires_grad_()
+            y = m(xi)
+            y.backward(gout.to(dev, tdt))
+            res[dev] = [t.detach().double().cpu() for t in (y, xi.grad, m.weight.grad, m.bias.grad)]
+            eps = m.eps
+            del m, xi, y
+        tol = GN_TOL[dtype]
+        g64 = gout.to(tdt).double()
+        xhat = F.group_norm(x.to(tdt).double(), GN_GROUPS, eps=eps)
+        ref = {"dweight": (g64 * xhat).sum((0, 2, 3)), "dbias": g64.sum((0, 2, 3))}
+        del g64, xhat
+        r = {k: ((a - c).abs() / (tol + tol * c.abs())).max().item()
+             for k, a, c in zip(("out", "dx"), res["cuda"], res["cpu"])}
+        for k, a, c in zip(ref, res["cuda"][2:], res["cpu"][2:]):
+            r[k] = ((a - ref[k]).norm() / ref[k].norm()).item()
+            r[f"{k}_cpu"] = ((c - ref[k]).norm() / ref[k].norm()).item()
+        out[dtype] = r
+        print(f"  GroupNorm({GN_GROUPS}, {GN_SHAPE[1]}) on {GN_SHAPE} {dtype}: out and dx card "
+              f"against CPU {r['out']:.3g} and {r['dx']:.3g} of the elementwise bound (rtol = "
+              f"atol = {tol}); dweight and dbias {r['dweight']:.3g} and {r['dbias']:.3g} of the "
+              f"float64 gradient's norm (CPU {r['dweight_cpu']:.3g} and {r['dbias_cpu']:.3g}; "
+              f"limit {tol})")
+        if not (r["out"] <= 1 and r["dx"] <= 1 and r["dweight"] <= tol and r["dbias"] <= tol):
+            fail(f"GroupNorm {dtype}: the card's output or dx differs from the CPU past rtol = "
+                 f"atol = {tol}, or its dweight or dbias from float64 past {tol} of the norm")
+        del res, ref
+    report["group_norm"] = out
+    free_card(torch)
 
 
 def main(argv=None) -> int:
@@ -3338,12 +4086,26 @@ def main(argv=None) -> int:
                                 for k, v in fk["flash"].items()},
         "flash_attention_bwd": {k: {n: v[n] for n in ("bwd_ms", "bwd_bound_ms")}
                                 for k, v in fk["flash"].items()},
-        "fused_adam": {k: {n: v[n] for n in ("ms", "bound_ms", "elements")}
+        "fused_adam": {k: {n: v[n] for n in ("ms", "bound_ms", "plain_ms", "library_ms",
+                                             "elements")}
                        for k, v in fk["fused_adam"].items()},
     }
     cpaths, cchecks = cnn_phases(torch, dt, report, phase, card)
+    ftpaths, ftk = finetune_phases(torch, dt, ops, report, max_err, phase, card)
+    finetune = {  # each kernel's numbers at the fine-tuning slice's shapes
+        "int8_matmul": dict(decode_step_ms=ftk["decode_step"]["int8_matmul"],
+                            decode_step_plain_ms=ftk["decode_step"]["int8_matmul_plain"],
+                            decode_step_library_ms=ftk["decode_step"]["int8_matmul_library"],
+                            decode_step_bound_ms=ftk["decode_step"]["int8_bound_ms"]),
+        "flash_attention_fwd": {n: ftk["flash"][n] for n in ("fwd_ms", "fwd_bound_ms",
+                                                             "sdpa_fwd_ms")},
+        "flash_attention_bwd": {n: ftk["flash"][n] for n in ("bwd_ms", "bwd_bound_ms")},
+        "fused_adam": {n: ftk["fused_adam"][n] for n in ("ms", "bound_ms", "plain_ms",
+                                                         "library_ms", "elements")},
+    }
     for k in kernels:
-        for key, paths in (("launches_by_family_path", fpaths), ("launches_by_cnn_path", cpaths)):
+        for key, paths in (("launches_by_family_path", fpaths), ("launches_by_cnn_path", cpaths),
+                           ("launches_by_finetune_path", ftpaths)):
             by_path = {p: c[k["name"]] for p, c in paths.items() if c[k["name"]]}
             if by_path:
                 k[key] = by_path
@@ -3352,6 +4114,8 @@ def main(argv=None) -> int:
             k["max_abs_err"] = max_err[k["name"]]
         if k["name"] in family:
             k["family"] = family[k["name"]]
+        if k["name"] in finetune:
+            k["finetune"] = finetune[k["name"]]
         if k["name"] in cchecks:  # each CNN path's check at its own shapes
             k["cnn"] = cchecks[k["name"]]
             k["max_abs_err"] = max([k["max_abs_err"]]

@@ -29,7 +29,14 @@ family; and the CNN family — ``nn.Conv1d/2d``, ``WSConv2d``,
 ResNet18/34/50 (and the norm-free NF-ResNets), MobileNetV1/V2, VGG16,
 ViT_Tiny and the reference's CNNs.  Convolution, batch norm and pooling
 run on PyTorch's own ops (cuDNN on the card), as the JAX package leaves
-them to XLA outside any Pallas kernel.
+them to XLA outside any Pallas kernel.  Then fine-tuning and the rest of
+nn and optim: LoRA (``nn.apply_lora``, ``merge_lora``; the decoders
+refuse an unmerged model), ``nn.GroupNorm``, ``nn.Identity`` and
+``nn.fuse_conv_bn``; AdamW, Muon, Adafactor, Lion, RMSprop, Adagrad,
+Adadelta, ``ModelEMA``, the schedulers and clipping by global norm;
+``CompiledTrainStep``'s ``accum_steps`` and ``metrics_fn`` and the
+``jit`` decorator.  Their arithmetic is plain PyTorch, as the JAX
+package's is plain jnp.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
-"""Whole steps: training and evaluation (counterpart of ``CompiledTrainStep``
-and ``CompiledEvalStep`` in ``deepflows_tpu/jit.py``), and the CUDA graphs
-that stand in for ``jax.jit`` where a step repeats (``StepGraphs``).
+"""Whole steps: training and evaluation (counterpart of ``CompiledTrainStep``,
+``CompiledEvalStep`` and the ``jit`` decorator of ``deepflows_tpu/jit.py``),
+and the CUDA graphs that stand in for ``jax.jit`` where a step repeats
+(``StepGraphs``).
 
 The JAX package traces a step into one XLA program.  Here a training step
 runs EAGERLY, one PyTorch op (or kernel launch) at a time, with the same
@@ -46,6 +47,30 @@ def _traced_routes():
         config.use_pallas = saved
 
 
+def jit(fn: Callable) -> Callable:
+    """The JAX package's ``jit(fn)`` (one compiled program per input shape)
+    as an eager wrapper: ``fn`` runs with gradients off and
+    ``config.use_pallas`` off, as it would traced.  Arguments that are not
+    tensors (numpy arrays, lists) are made tensors on the device of the
+    first tensor argument, or on the card when there is none."""
+    import functools
+
+    import numpy as np
+
+    from .device import Device
+
+    @functools.wraps(fn)
+    def wrapper(*args):
+        dev = next((a.device for a in args if isinstance(a, torch.Tensor)), None)
+        args = [a if isinstance(a, torch.Tensor)
+                else torch.as_tensor(np.asarray(a), device=dev or Device(None))
+                for a in args]
+        with torch.no_grad(), _traced_routes():
+            return fn(*args)
+
+    return wrapper
+
+
 class CompiledTrainStep:
     def __init__(
         self,
@@ -85,19 +110,28 @@ class CompiledTrainStep:
         - ``config.use_pallas`` is off during the call.
         - ``donate`` is accepted for the JAX package's signature; the update
           reuses the masters' memory where the optimizer works in place.
-
-        ``accum_steps > 1`` and ``metrics_fn`` are not ported yet."""
+        - ``accum_steps=N`` accumulates gradients: the batch is split into N
+          microbatches (it must divide), each runs forward and backward in
+          turn (activation memory is one microbatch's), the gradients are
+          summed in f32 under a ``compute_dtype`` and scaled by 1/N unless
+          the criterion's ``reduction`` is ``"sum"``, and one update
+          follows.  The loss returned is the microbatch losses' mean (their
+          sum under ``"sum"``).  BatchNorm's EMA runs once a microbatch and
+          dropout draws a new mask for each.
+        - ``metrics_fn(output, y)`` is computed each microbatch, without
+          gradients, and its tensors (any nesting of lists, tuples and
+          dicts) averaged over the microbatches into ``step._last_metrics``
+          (None without a ``metrics_fn``)."""
         if int(accum_steps) < 1:
             raise ValueError("accum_steps must be >= 1")
-        if int(accum_steps) != 1:
-            raise NotImplementedError("accum_steps > 1 is not ported yet")
-        if metrics_fn is not None:
-            raise NotImplementedError("metrics_fn is not ported yet")
         self.model = model
         self.optimizer = optimizer
         self.criterion = criterion
+        self.metrics_fn = metrics_fn
         self.compute_dtype = compute_dtype
         self.grad_transform = grad_transform
+        self.accum_steps = int(accum_steps)
+        self._last_metrics = None
         self._params = [p for _, p in model.named_parameters()]
         by_id = {id(p): i for i, p in enumerate(self._params)}
         try:
@@ -124,6 +158,21 @@ class CompiledTrainStep:
                 copies.append(c.requires_grad_(p.requires_grad))
         return copies
 
+    def _fwd_bwd(self, copies, need, x, y):
+        """One microbatch's forward and backward on the bound copies: its
+        loss, the gradients of ``need`` and its metrics."""
+        with torch.enable_grad(), _traced_routes():
+            out = self.model(x)
+            loss = self.criterion(out, y)
+            found = torch.autograd.grad(
+                loss, [copies[i] for i in need], allow_unused=True
+            )
+        metrics = None
+        if self.metrics_fn is not None:
+            with torch.no_grad():
+                metrics = self.metrics_fn(out, y)
+        return loss.detach(), found, metrics
+
     def __call__(self, x, y):
         dev = self._params[0].device
         x = torch.as_tensor(x, device=dev)
@@ -131,24 +180,42 @@ class CompiledTrainStep:
         cd = self.compute_dtype
         if cd is not None and x.is_floating_point():
             x = x.to(cd)
+        n = self.accum_steps
+        if x.shape[0] % n:
+            raise ValueError(f"batch size {x.shape[0]} not divisible by accum_steps {n}")
         lr = self.optimizer.lr
         copies = self._compute_copies()
         need = [i for i, c in enumerate(copies) if c.requires_grad]
+        grads = [None] * len(copies)
+        losses, metrics = [], []
         self._bind(copies)
         try:
-            with torch.enable_grad(), _traced_routes():
-                loss = self.criterion(self.model(x), y)
-                found = torch.autograd.grad(
-                    loss, [copies[i] for i in need], allow_unused=True
-                )
+            for xm, ym in zip(x.chunk(n), y.chunk(n)):
+                loss, found, m = self._fwd_bwd(copies, need, xm, ym)
+                losses.append(loss)
+                metrics.append(m)
+                for i, g in zip(need, found):
+                    if g is None:
+                        continue
+                    if grads[i] is not None:
+                        grads[i].add_(g)
+                        continue
+                    # widened to f32 (under a compute_dtype) and laid out
+                    # contiguously in one copy: autograd hands some gradients
+                    # over strided (the MoE expert stacks'); with microbatches
+                    # always a copy, which the others are added into
+                    if cd is not None or n > 1:
+                        g = g.to(torch.float32 if cd is not None else g.dtype,
+                                 memory_format=torch.contiguous_format, copy=n > 1)
+                    grads[i] = g
         finally:
             self._bind(self._params)
-        grads = [None] * len(copies)
-        for i, g in zip(need, found):
-            # widened to f32 and laid out contiguously in one copy: autograd
-            # hands some gradients over strided (the MoE expert stacks')
-            grads[i] = g if g is None or cd is None else g.to(
-                torch.float32, memory_format=torch.contiguous_format)
+        loss = losses[0]
+        if n > 1:
+            scale = 1.0 if getattr(self.criterion, "reduction", "mean") == "sum" else 1.0 / n
+            grads = [None if g is None else g.mul_(scale) for g in grads]
+            loss = torch.stack(losses).sum() * scale
+        self._last_metrics = _mean_metrics(metrics)
         if self.grad_transform is not None:
             grads = self.grad_transform(grads)
         opt = self.optimizer
@@ -160,8 +227,22 @@ class CompiledTrainStep:
         for i, old, new in zip(self._opt_index, data, new_params):
             if new is not old:
                 self._params[i].data = new
-        loss = loss.detach()
         return loss.float() if cd is not None else loss
+
+
+def _mean_metrics(per_micro):
+    """The microbatches' metrics averaged leaf by leaf (equal microbatches,
+    so a rate equals its whole-batch value); None without metrics."""
+    first = per_micro[0]
+    if first is None:
+        return None
+    if isinstance(first, dict):
+        return {k: _mean_metrics([m[k] for m in per_micro]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_mean_metrics(list(ms)) for ms in zip(*per_micro))
+    if len(per_micro) == 1:
+        return first
+    return sum(per_micro[1:], first) / len(per_micro)
 
 
 class CompiledEvalStep:

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..jit import StepGraphs
+from ..nn.lora import assert_no_unmerged_lora
 from ..nn.modules.attention import rope_tables
 from ..ops.quant import (
     int8_matmul,
@@ -121,6 +122,9 @@ class KVCacheDecoder:
             raise ValueError(
                 f"quant must be None, 'int8' or 'w8a8', got {quant!r}"
             )
+        # the steps read the projection weights directly: an unmerged LoRA
+        # adapter would be dropped
+        assert_no_unmerged_lora(lm, type(self).__name__)
         self.lm = lm
         self.compute_dtype = compute_dtype
         self.quant = quant
@@ -683,7 +687,7 @@ class LlamaKVCacheDecoder(KVCacheDecoder):
         )
 
     def __init__(self, lm, compute_dtype=None, quant=None):
-        super().__init__(lm, compute_dtype, quant)
+        super().__init__(lm, compute_dtype, quant)  # refuses an unmerged LoRA model first
         self._rope_tables = {}  # n_pos -> (cos, sin), kept while a graph may read them
 
     def _prepared(self):

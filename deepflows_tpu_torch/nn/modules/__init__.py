@@ -16,11 +16,11 @@ from .conv import Conv1d, Conv2d, WSConv2d
 from .dropout import Dropout
 from .embedding import Embedding
 from .flatten import Flatten
-from .linear import Linear
+from .linear import Identity, Linear
 from .loss import CrossEntropyLoss, LMHeadCrossEntropy
 from .module import Module
 from .moe import MoE, MoECriterion
-from .normalization import LayerNorm, RMSNorm
+from .normalization import GroupNorm, LayerNorm, RMSNorm
 from .pool import AdaptiveAvgPool2d, AvgPool1d, AvgPool2d, MaxPool1d, MaxPool2d
 from .remat import Remat, remat_call
 
@@ -37,6 +37,8 @@ __all__ = [
     "Embedding",
     "Flatten",
     "GELU",
+    "GroupNorm",
+    "Identity",
     "LayerNorm",
     "LeakyReLU",
     "Linear",

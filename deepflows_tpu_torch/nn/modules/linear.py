@@ -1,4 +1,5 @@
-"""Linear layer (counterpart of ``deepflows_tpu/nn/modules/linear.py``).
+"""Identity and the Linear layer (counterpart of
+``deepflows_tpu/nn/modules/linear.py``).
 
 The weight is ``(in_features, out_features)``, the reference's layout and
 not torch's, and the bias is ``(1, out_features)``.  Init is
@@ -17,6 +18,18 @@ from ...device import Device
 from .. import functional as F
 from .. import init
 from .module import Module
+
+
+class Identity(Module):
+    """Pass-through that takes any constructor arguments (torch's
+    ``nn.Identity``); ``nn.fusion.fuse_conv_bn`` puts it in place of a
+    folded BatchNorm."""
+
+    def __init__(self, *args, **kwargs) -> None:
+        super().__init__()
+
+    def forward(self, input):
+        return input
 
 
 class Linear(Module):

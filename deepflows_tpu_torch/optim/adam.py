@@ -42,11 +42,10 @@ class Adam(Optimizer):
         self._consts = {}  # (device, b1, b2, eps, wd) -> f32[4] on the device
 
     def init_state(self):
-        dev = self.params[0].device if self.params else torch.device("cpu")
         return {
             "v": self._zeros_like_params(),
             "s": self._zeros_like_params(),
-            "t": torch.zeros((), dtype=torch.int32, device=dev),
+            "t": self._step_count(),
         }
 
     def _hyper(self, lr, bc1, bc2):

@@ -62,3 +62,10 @@ class Optimizer:
         """f32 zero slots, one per parameter, on its device."""
         return [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                 for p in self.params]
+
+    def _step_count(self):
+        """A step count at 0: an int32 scalar on the first parameter's
+        device, so the bias corrections are computed there with no host
+        sync."""
+        dev = self.params[0].device if self.params else torch.device("cpu")
+        return torch.zeros((), dtype=torch.int32, device=dev)

@@ -14,11 +14,15 @@ running statistics, and the NF-ResNet convs' ``gain`` with the weights.
 
 ``load_jax_optimizer_state(optimizer, state)`` takes a JAX optimizer's
 state as numpy arrays (the ``"state"`` entry of its ``state_dict()``):
-Adam's ``{"v": [...], "s": [...], "t": steps taken}`` or SGD's
-``{"v": [...]}`` (``{"v": None}`` without momentum), and installs it in
-the port's optimizer of the same kind, so a run trained in JAX resumes in
-the port.  The slots are positional, in the order of the optimizer's
-parameters, which is the order of ``parameters()`` in both packages.
+Adam's or AdamW's ``{"v": [...], "s": [...], "t": steps taken}``, SGD's
+``{"v": [...]}`` (``{"v": None}`` without momentum), Muon's ``{"m", "v",
+"t"}`` with None in ``v`` for each Muon parameter, Adafactor's factored
+``{"row", "col", "var", "t"}`` with None where a slot does not apply, and
+the other optimizers' lists, and installs it in the port's optimizer of
+the same kind, so a run trained in JAX resumes in the port.  The slots are
+positional, in the order of the optimizer's parameters, which is the order
+of ``parameters()`` in both packages.  ``optim.ModelEMA.load_state_dict``
+takes the JAX ``ModelEMA.state_dict()`` as it is.
 """
 
 from __future__ import annotations
@@ -69,14 +73,15 @@ def load_jax_state_dict(module: torch.nn.Module, state) -> torch.nn.Module:
 
 def load_jax_optimizer_state(optimizer, state):
     """Install a JAX optimizer's state in ``optimizer``, whose own state
-    gives the layout: each list of slots as f32 tensors on each
-    parameter's device, a step count as its int32 tensor, None as None.
-    Raises on a key, a slot count or a shape that differs."""
+    gives the layout: each slot's shape and dtype (a factored Adafactor
+    slot's ``(rows, 1)`` or ``(1, cols)`` too) and device come from the
+    port's slot, a None entry stays None, a step count becomes its int32
+    tensor.  Raises on a key, a slot count, a None or a shape that
+    differs."""
     optimizer._ensure_state()
     own = optimizer._state
     if set(own) != set(state):
         raise KeyError(f"optimizer state keys differ: {sorted(state)} vs {sorted(own)}")
-    params = optimizer.params
     new = {}
     for key, slot in own.items():
         src = state[key]
@@ -85,19 +90,25 @@ def load_jax_optimizer_state(optimizer, state):
                 raise ValueError(f"state[{key!r}] is {src!r} where the optimizer has {slot!r}")
             new[key] = None
         elif isinstance(slot, list):
-            if len(src) != len(params):
+            if len(src) != len(slot):
                 raise ValueError(
-                    f"state[{key!r}] has {len(src)} slots for {len(params)} parameters"
+                    f"state[{key!r}] has {len(src)} slots for {len(slot)} parameters"
                 )
-            new[key] = []
-            for i, (arr, p) in enumerate(zip(src, params)):
-                arr = np.asarray(arr, dtype=np.float32)
-                if tuple(arr.shape) != tuple(p.shape):
-                    raise ValueError(
-                        f"state[{key!r}][{i}] has shape {arr.shape}, parameter {tuple(p.shape)}"
-                    )
-                new[key].append(torch.from_numpy(np.array(arr)).to(p.device))
+            new[key] = [_slot(f"state[{key!r}][{i}]", arr, mine)
+                        for i, (arr, mine) in enumerate(zip(src, slot))]
         else:
             new[key] = torch.tensor(int(np.asarray(src)), dtype=slot.dtype, device=slot.device)
     optimizer._state = new
     return optimizer
+
+
+def _slot(name, arr, mine):
+    if mine is None or arr is None:
+        if (mine is None) != (arr is None):
+            raise ValueError(f"{name} is {'None' if arr is None else 'set'} where the "
+                             f"optimizer's is {'None' if mine is None else 'set'}")
+        return None
+    arr = np.asarray(arr, dtype=np.float32)
+    if tuple(arr.shape) != tuple(mine.shape):
+        raise ValueError(f"{name} has shape {arr.shape}, the optimizer's {tuple(mine.shape)}")
+    return torch.from_numpy(np.array(arr)).to(mine.device, mine.dtype)

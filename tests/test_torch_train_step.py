@@ -152,7 +152,8 @@ def test_bf16_compute_matches_jax():
 def test_step_contract():
     """lr is read at every call; a subset optimizer leaves the rest alone;
     grad_transform runs before the update; the model is put in train mode;
-    what is not ported raises."""
+    accum_steps below 1, or a batch it does not divide, raises; metrics_fn's
+    value is kept in ``_last_metrics``."""
     tlm = TransformerLM(**CFG, device="cpu", flash=True)
     trunk = tlm.trunk().eval()
     assert [n for n, _ in trunk.named_parameters()][:2] == ["lm.pos_embed", "lm.tok_embed.weight"]
@@ -179,11 +180,16 @@ def test_step_contract():
     assert torch.equal(after["blocks.0.mlp.0.weight"], before["blocks.0.mlp.0.weight"])
     with pytest.raises(ValueError, match="not in the model"):
         CompiledTrainStep(tlm.blocks, opt, tnn.LMHeadCrossEntropy(tlm.head))
-    with pytest.raises(NotImplementedError):
-        CompiledTrainStep(trunk, opt, tnn.LMHeadCrossEntropy(tlm.head), accum_steps=2)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="accum_steps"):
+        CompiledTrainStep(trunk, opt, tnn.LMHeadCrossEntropy(tlm.head), accum_steps=0)
+    x, y = _batch(2)
+    with pytest.raises(ValueError, match="not divisible"):
         CompiledTrainStep(trunk, opt, tnn.LMHeadCrossEntropy(tlm.head),
-                          metrics_fn=lambda out, y: out)
+                          accum_steps=x.shape[0] + 1)(x, y)
+    step = CompiledTrainStep(trunk, opt, tnn.LMHeadCrossEntropy(tlm.head),
+                             metrics_fn=lambda out, y: {"rows": out.shape[0] + 0 * out.sum()})
+    step(x, y)
+    assert float(step._last_metrics["rows"]) == x.shape[0]
 
 
 def test_eval_step_and_pipeline_partition_match_jax():
