@@ -316,15 +316,64 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
 29. Card against CPU: one f32 step of each optimizer on a depth-1, dim-64
    LlamaLM, each tensor's change within 1e-3 of its norm.
 
+30. Serving kernel phase: int8_matmul and w8a8_matmul against their plain
+   twins at Mistral's five matrices at M 40 (the speculative verify
+   forward, B 8 x (gamma 4 + 1)) and M 2048 (an admission prefill, B 1 x
+   max_len), the tolerances of phase 2 (M 8 is phase 25's); a verify
+   forward's 33 calls (the head at M 40 too) and an admission prefill's
+   (the head at M 1) timed beside their twins, library calls and bounds.
+31. The in-flight engine, main paths: LlamaLM at Mistral-7B widths, depth
+   8, max_len 2048, bf16, random weights from a seed, served by
+   InflightEngine(slots 8, chunk 8, top_k 50) in quant None, "int8" and
+   "w8a8", with a dense cache and then a paged one (512 blocks of 16:
+   half the dense positions).  Traffic from a seed: 32 requests, prompts
+   of 16-1024 tokens and +32-256, half starting with a 512-token system
+   prompt registered with register_prefix (one of them the prompt
+   alone), a quarter sampled (temperature 0.8, top_p 0.9), a quarter
+   greedy with an eos_id the one-shot run emits, from 4 threads with
+   staggered arrivals.  Launch counts zeroed just before and read just
+   after: 33 x (prefills + suffix forwards + chunk steps) in int8 and
+   w8a8, none dense.  Every request finishes in the vocabulary at its
+   length or cut at its eos; 16 prefix hits (one full), 16 misses; every
+   chunk step after a key's first replays its graph.  Greedy tokens
+   against the one-shot graphed decoder (each request alone at B 1), the
+   paged engine's against the dense engine's, by the comparison rule:
+   equal until they part, and where they part the one-shot run's f32
+   top-2 logit margin below 0.05 (a near tie); at least half of the
+   greedy tokens compared.  A head negated in place and refresh_params()
+   move the tokens.  Then a burst of 8 requests of 1024 + 256 positions,
+   which the paged pool must hold back (backpressure), its tokens against
+   the dense engine's.  Requests/s, generated tokens/s, latency p50 and
+   p99, a chunk's wall and device ms and busy share, admission ms
+   (prefill, suffix), the cache's memory, a step's device time by kernel
+   group, and the one-shot decoder's tokens/s.
+32. Speculative decoding, main paths: SpeculativeDecoder(gamma 4) over the
+   same model, B 8, prompt 64, +128, the draft a depth-1 LlamaLM holding
+   the target's embedding, first block, final norm and head: greedy with
+   a dense and with an int8 target (33 int8 launches a target prefill and
+   a round), against the plain graphed generate until the rows part, then
+   every token against the plain decoder's step fed the stream's own
+   tokens: its pick, or a near tie (top-2 closer than 0.05) there;
+   one sampled run (temperature 0.8), reproducible under its seed; the
+   target as its own draft accepting 90% of its proposals; every round
+   after the first from its graph.  Accepted share, rounds and tokens/s
+   beside the plain decoder's.
+33. gRPC: the model served by MyDLPWServicer on 127.0.0.1 (int8, an
+   in-flight engine of 8 slots) to 4 concurrent clients, 8 Generate calls
+   of prompt 64, +32 greedy, against the one-shot int8 decoder by the
+   comparison rule.
+
 Prints the card's name and power limit, one {"kernels": [...]} line (the CE
 backward's, linear_fused's and matmul's entries with the plan they ran:
 (C, BM, BV) and (tile, chunk, splits); the flash forward's with its route
 and TFLOP/s; each kernel's launches summed over every main path, with
 the family paths' share in ``launches_by_family_path``, the CNN paths'
 in ``launches_by_cnn_path``, the fine-tuning slice's in
-``launches_by_finetune_path``, its numbers at the family's shapes in
+``launches_by_finetune_path``, the serving slice's in
+``launches_by_serving_path``, its numbers at the family's shapes in
 ``family``, at each CNN path's in ``cnn``, whose worst error its
-max_abs_err takes in, and at the fine-tuning paths' in ``finetune``),
+max_abs_err takes in, at the fine-tuning paths' in ``finetune`` and at
+the serving slice's rows (M 40 and 2048) in ``serving``),
 and as its last line {"ok": true,
 "device": {...}}.  With ``--report PATH`` it also
 writes every measurement (each shape's times, the throughput of each mode,
@@ -635,10 +684,10 @@ def decode_step_timing(torch, ops):
 
 
 def forward_timing(torch, ops, M, shapes=SHAPES, depth=MODEL["depth"],
-                   layer_names=("qkv", "o", "fc1", "fc2")):
+                   layer_names=("qkv", "o", "fc1", "fc2"), head_m=8):
     """The calls of one forward (49 for the TransformerLM): ``depth``
     layers of distinct weights (``layer_names``, (K, N) from ``shapes``) at
-    M rows and the head at M 8 (f32 out), bf16 x.  At M 1536 that is one
+    M rows and the head at ``head_m`` rows (f32 out), bf16 x.  At M 1536 that is one
     B 8 prefill (the decoder takes only the last position's hidden state to
     the head).  Returns ({kernel, plain twin and library: ms}, int8 bound,
     w8a8 bound, weight bytes)."""
@@ -650,7 +699,7 @@ def forward_timing(torch, ops, M, shapes=SHAPES, depth=MODEL["depth"],
         names = ("head",) if layer == depth else layer_names
         for name in names:
             K, N = shapes[name]
-            x = torch.randn((8 if name == "head" else M, K), generator=g,
+            x = torch.randn((head_m if name == "head" else M, K), generator=g,
                             device=dev).to(torch.bfloat16)
             wq, s = ops.quantize_int8(torch.randn((K, N), generator=g, device=dev) * 0.02)
             xq, sx = ops.quantize_int8_rows(x)
@@ -3924,6 +3973,563 @@ def group_norm_check(torch, report):
     free_card(torch)
 
 
+SERVE_CFG = dict(MISTRAL, depth=8, max_len=2048)  # the serving slice's model
+SERVE_ENGINE = dict(slots=8, chunk=8, top_k=50)
+SERVE_N, SERVE_THREADS, SERVE_SYS = 32, 4, 512  # requests, submitting threads, system prompt
+SERVE_SAMPLE = dict(temperature=0.8, top_p=0.9)
+SERVE_PAGED = dict(paged_blocks=8 * 2048 // 16 // 2, block_size=16)  # half the dense positions
+SERVE_MODES = (None, "int8", "w8a8")
+SPEC_RUN = dict(gamma=4, B=8, prompt=64, new=128)
+SERVING_M = (40, 2048)  # the verify forward's rows (8 x (gamma + 1)), an admission prefill's
+GRPC_CALLS = dict(threads=4, each=2, prompt=64, new=32)
+# after the traffic, a burst of 8 greedy requests of 1024 + 256 positions
+# (80 blocks of 16 each): the paged pool (512 blocks) holds 6 at once
+SERVE_BURST = dict(n=8, prompt=1024, new=256)
+# where two greedy streams part, the one-shot run's f32 top-2 logit margin
+# there must be below this: a near tie that either rounding may flip
+TIE_MARGIN = 0.05
+
+
+def serving_kernel_phase(torch, ops, report, max_err):
+    """int8_matmul and w8a8_matmul against their plain twins at Mistral's
+    five matrices at the serving slice's new row counts: M 40 (the
+    speculative verify forward, B 8 x (gamma + 1)) and M 2048 (an
+    admission prefill, B 1 x max_len); M 8 (the engine's step) is phase
+    25's.  Then a verify forward's and an admission prefill's 33 calls
+    timed beside their twins, library calls and bounds.  Returns the
+    numbers; ``max_err`` gains the int8 kernels' errors."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(15)
+    for M in SERVING_M:
+        for name, (K, N) in MISTRAL_SHAPES.items():
+            x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+            wq, s = ops.quantize_int8(torch.randn((K, N), generator=g, device=dev) * 0.02)
+            compare(torch, ops, x, wq, s, f"serving Mistral M={M} {name}", max_err)
+            del x, wq, s
+        free_card(torch)
+    print(f"  int8_matmul and w8a8_matmul agree with their plain twins at Mistral's "
+          f"{len(MISTRAL_SHAPES)} matrices, M {SERVING_M}; M 8 at these shapes is phase 25's")
+    layer = ("qkv", "o", "gate_up", "down")
+    depth = SERVE_CFG["depth"]
+    out = {}
+    for key, M, head_m in (("verify", SERVING_M[0], SERVING_M[0]),
+                           ("admission_prefill", SERVING_M[1], 1)):
+        ms, bi, bw, wbytes = forward_timing(torch, ops, M, MISTRAL_SHAPES, depth, layer, head_m)
+        out[key] = dict(ms, M=M, head_M=head_m, int8_bound_ms=bi[0], int8_bound_by=bi[1],
+                        w8a8_bound_ms=bw[0], w8a8_bound_by=bw[1], weight_bytes=wbytes)
+        print(f"  a {key.replace('_', ' ')}'s {4 * depth + 1} calls (M={M}, head M={head_m}, "
+              "bf16 x): " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+              + f"; bound int8 {bi[0]:.4f} ms ({bi[1]}), w8a8 {bw[0]:.4f} ms ({bw[1]})")
+        free_card(torch)
+    report["serving_kernels"] = out
+    return out
+
+
+def serving_traffic(V):
+    """The engine's traffic, from a seed: SERVE_N requests of new_tokens
+    32-256; half start with the SERVE_SYS-token system prompt (the first
+    of them is the system prompt alone), the rest are prompts of 16-1024
+    tokens; a quarter sampled (SERVE_SAMPLE), a quarter greedy with an
+    eos_id (chosen from the one-shot run), the rest greedy; each with its
+    submitting thread and the pause before it."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    sys_prompt = rng.integers(0, V, SERVE_SYS)
+    kinds = rng.permutation(["greedy"] * (SERVE_N // 2) + ["eos"] * (SERVE_N // 4)
+                            + ["sample"] * (SERVE_N // 4))
+    prefixed = rng.permutation([True] * (SERVE_N // 2) + [False] * (SERVE_N // 2))
+    reqs, first = [], True
+    for i in range(SERVE_N):
+        if prefixed[i]:
+            sfx = 0 if first else int(rng.integers(1, SERVE_SYS + 1))
+            first = False
+            prompt = np.concatenate([sys_prompt, rng.integers(0, V, sfx)])
+        else:
+            prompt = rng.integers(0, V, int(rng.integers(16, 1025)))
+        reqs.append(dict(prompt=prompt.astype(np.int64), new=int(rng.integers(32, 257)),
+                         kind=str(kinds[i]), prefixed=bool(prefixed[i]),
+                         thread=i % SERVE_THREADS, pause=float(rng.uniform(0.0, 0.03))))
+    return sys_prompt.astype(np.int64), reqs
+
+
+def one_shot_margin(torch, dec, prompt, tokens, j):
+    """The f32 top-1 minus top-2 logit margin of ``dec``'s prediction of
+    generated token ``j`` after ``prompt`` + ``tokens[:j]`` (a B 1
+    prefill in the decoder's mode)."""
+    seq = list(prompt) + list(tokens[:j])
+    pad = torch.zeros((1, dec.lm.max_len), dtype=torch.long)
+    pad[0, :len(seq)] = torch.as_tensor(seq)
+    with torch.inference_mode():
+        logits = dec._prefill(dec._prepared(), pad.cuda(), len(seq))[2][0]
+    top = torch.topk(logits, 2).values
+    return (top[0] - top[1]).item()
+
+
+def parted(torch, dec, prompt, got, want, label):
+    """Greedy streams ``got`` and ``want`` (``dec``'s one-shot tokens) held
+    by the comparison rule: equal until they part, and where they part the
+    one-shot run's margin below TIE_MARGIN.  Returns the tokens compared
+    (those before the parting, or all) and the margin where they parted."""
+    n = min(len(got), len(want))
+    diff = [j for j in range(n) if got[j] != want[j]]
+    if not diff:
+        return n, None
+    j = diff[0]
+    m = one_shot_margin(torch, dec, prompt, want, j)
+    if not m < TIE_MARGIN:
+        fail(f"{label}: token {j} is {got[j]}, the one-shot run's {want[j]}, at a top-2 margin "
+             f"of {m:.4f} (not a near tie)")
+    return j, m
+
+
+def forced_check(torch, dec, prompt, toks, label):
+    """The plain decoder ``dec`` fed a stream's own tokens: after a B-row
+    prefill of ``prompt`` (B, P), its one-token steps (the eager twin of
+    its graphed step) at each of ``toks`` (B, n) must pick the stream's
+    next token, or see top-2 logits closer than TIE_MARGIN there.  Every
+    token is checked.  Returns (tokens it picked, tokens excused as near
+    ties)."""
+    B, P = prompt.shape
+    L = dec.lm.max_len
+    oks, ties = [], []
+    with torch.inference_mode():
+        params = dec._prepared()
+        pad = torch.zeros((B, L), dtype=torch.long)
+        pad[:, :P] = torch.as_tensor(prompt)
+        kc, vc, logits = dec._prefill(params, pad.cuda(), P)
+        positions = torch.arange(L, device="cuda")
+        t = torch.as_tensor(toks, device="cuda")
+        for j in range(t.shape[1]):
+            top = torch.topk(logits, 2)
+            oks.append(top.indices[:, 0] == t[:, j])
+            ties.append(top.values[:, 0] - top.values[:, 1] < TIE_MARGIN)
+            if j + 1 < t.shape[1]:
+                pos = torch.tensor(P + j, device="cuda")
+                logits = dec._forward_one(params, kc, vc, t[:, j], pos, positions)[0]
+        ok, tie = torch.stack(oks, 1).cpu(), torch.stack(ties, 1).cpu()
+    bad = ~(ok | tie)
+    if bad.any():
+        b, j = (int(v) for v in bad.nonzero()[0])
+        fail(f"{label}: row {b} token {j} is not the plain decoder's pick on the stream's own "
+             "tokens, and not a near tie")
+    return int(ok.sum()), int((~ok).sum())
+
+
+def engine_run(torch, eng, reqs, eos):
+    """The traffic through ``eng`` from SERVE_THREADS threads, each
+    submitting its requests with their pauses.  Returns (each request's
+    tokens, latencies s, the wall s from the first submit to the last
+    finish)."""
+    import threading
+
+    handles = [None] * len(reqs)
+    errors = []
+
+    def submitter(t):
+        try:
+            for i, r in enumerate(reqs):
+                if r["thread"] != t:
+                    continue
+                time.sleep(r["pause"])
+                kw = SERVE_SAMPLE if r["kind"] == "sample" else {}
+                handles[i] = eng.submit(r["prompt"], r["new"], eos_id=eos.get(i), **kw)
+        except Exception as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=submitter, args=(t,)) for t in range(SERVE_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    outs = [h.result(timeout=600)[len(r["prompt"]):] for h, r in zip(handles, reqs)]
+    t0 = min(h.t_submit for h in handles)
+    wall = max(h.t_done for h in handles) - t0
+    return outs, [h.t_done - h.t_submit for h in handles], wall
+
+
+def engine_checks(torch, eng, reqs, outs, eos, V, label):
+    """Every request finished in the vocabulary at its length, or cut at
+    its eos; the prefix hits, misses and admissions tally with the
+    traffic; every chunk after a key's first step replayed its graph."""
+    for i, (r, o) in enumerate(zip(reqs, outs)):
+        if o.min() < 0 or o.max() >= V:
+            fail(f"{label} request {i}: token outside the vocabulary")
+        e = eos.get(i)
+        if len(o) != r["new"] and not (e is not None and o[-1] == e
+                                       and e not in o[:-1].tolist()):
+            fail(f"{label} request {i}: {len(o)} tokens of {r['new']}, not cut at its eos")
+    hits = sum(r["prefixed"] for r in reqs)
+    st = eng.stats
+    want = dict(admit_prefill=len(reqs) - hits, admit_full_hit=1, admit_suffix=hits - 1)
+    if (eng.prefix_hits, eng.prefix_misses) != (hits, len(reqs) - hits) or any(
+            st[k] != v for k, v in want.items()):
+        fail(f"{label}: prefix hits {eng.prefix_hits} / misses {eng.prefix_misses}, admissions "
+             f"{ {k: st[k] for k in want} }; the traffic has {hits} hits")
+    graphs = eng._graphs._graphs
+    replays = sum(c.replays for c in graphs.values())
+    if set(eng._steps) != set(graphs) or replays != st["chunks"] * eng.chunk - len(graphs):
+        fail(f"{label}: {replays} replays of {len(graphs)} graphs for {st['chunks']} chunks")
+    return replays
+
+
+def engine_numbers(torch, eng, outs, lat, wall, label):
+    """Requests/s, generated tokens/s, latency percentiles, host ms a chunk,
+    a chunk's device ms (its greedy graph replayed ``chunk`` times, queued
+    while the stream spins) and the busy share, admission ms by kind, the
+    cache's memory, and one replay's device time by kernel group."""
+    import numpy as np
+
+    st = eng.stats
+    key = eng._key(False) if eng._key(False) in eng._graphs else eng._key(True)
+    graph = eng._graphs[key]  # the greedy step's, or the sampling step's
+    i = eng._st.i  # the output column a replay writes: back to 0 before each chunk
+
+    def step():
+        i.zero_()
+        graph.replay()
+
+    with eng._lock:
+        chunk_dev = event_ms(lambda: [i.zero_()] + [graph.replay() for _ in range(eng.chunk)], 5)
+        profile = replay_profile(torch, step)
+    n = dict(requests_per_s=len(outs) / wall, tokens_per_s=sum(len(o) for o in outs) / wall,
+             wall_s=wall, latency_p50_s=float(np.percentile(lat, 50)),
+             latency_p99_s=float(np.percentile(lat, 99)), chunks=st["chunks"],
+             chunk_wall_ms=st["chunk_s"] / st["chunks"] * 1e3, chunk_device_ms=chunk_dev,
+             admit_prefill_ms=st["admit_prefill_s"] / max(st["admit_prefill"], 1) * 1e3,
+             admit_suffix_ms=st["admit_suffix_s"] / max(st["admit_suffix"], 1) * 1e3,
+             cache_bytes=eng.cache_bytes(), backpressure=st["backpressure"],
+             step_by_kernel_group=profile)
+    n["busy_share"] = n["chunk_device_ms"] / n["chunk_wall_ms"]
+    print(f"  {label}: {n['requests_per_s']:.2f} requests/s, {n['tokens_per_s']:.1f} generated "
+          f"tok/s, latency p50 {n['latency_p50_s']:.3f} s p99 {n['latency_p99_s']:.3f} s; a chunk "
+          f"{n['chunk_wall_ms']:.3f} ms wall, {n['chunk_device_ms']:.3f} ms device (busy "
+          f"{100 * n['busy_share']:.1f}%); admission {n['admit_prefill_ms']:.2f} ms prefill, "
+          f"{n['admit_suffix_ms']:.2f} ms suffix; cache {n['cache_bytes'] / 1e6:.1f} MB; "
+          f"{n['backpressure']} admissions refused for want of blocks")
+    print("    a step by kernel group (torch.profiler, ms, kernels): " + ", ".join(
+        f"{k} {v['ms']:.4f} ({v['kernels']:.0f})" for k, v in sorted(profile.items())))
+    return n
+
+
+def engine_phase(torch, report, lm, sys_prompt, reqs):
+    """Main paths: the traffic through InflightEngine(SERVE_ENGINE) in each
+    of SERVE_MODES, dense cache then paged (SERVE_PAGED), every chunk from
+    its captured graph, each with its launch counts zeroed just before
+    and read just after; greedy tokens against the one-shot graphed
+    decoder (B 1, the requests one at a time) and the paged engine's
+    against the dense engine's, by the comparison rule; a weight changed
+    in place and refresh_params() move the tokens.  Returns {path: launch
+    counts}."""
+    import numpy as np
+
+    from deepflows_tpu_torch import ops
+    from deepflows_tpu_torch.models import InflightEngine, KVCacheDecoder
+
+    V = SERVE_CFG["vocab_size"]
+    per_forward = 4 * SERVE_CFG["depth"] + 1
+    kernel_of = {"int8": ops.int8_matmul, "w8a8": ops.w8a8_matmul}
+    greedy = [i for i, r in enumerate(reqs) if r["kind"] != "sample"]
+    paths, rep = {}, {}
+    for quant in SERVE_MODES:
+        mode = str(quant)
+        one = KVCacheDecoder(lm, compute_dtype=torch.bfloat16, quant=quant)
+        want, t_one = {}, 0.0
+        one.generate(reqs[0]["prompt"][None], 2)  # warm-up and capture
+        for i in greedy:  # the one-shot decoder, one request at a time
+            r = reqs[i]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want[i] = one.generate(r["prompt"][None], r["new"])[0, len(r["prompt"]):]
+            t_one += time.perf_counter() - t0
+        one_tok_s = sum(reqs[i]["new"] for i in greedy) / t_one
+        # an eos the greedy run emits, at a quarter to half of its budget
+        eos = {i: int(want[i][reqs[i]["new"] // 4 + i % (reqs[i]["new"] // 4)])
+               for i in greedy if reqs[i]["kind"] == "eos"}
+        rep[mode] = {"one_shot_tokens_per_s": one_tok_s}
+        dense_outs = dense_burst = None
+        burst = np.random.default_rng(2).integers(
+            0, V, (SERVE_BURST["n"], SERVE_BURST["prompt"])).astype(np.int64)
+        for cache, kw in (("dense", {}), ("paged", SERVE_PAGED)):
+            label = f"engine {cache} quant={mode}"
+            eng = InflightEngine(lm, compute_dtype=torch.bfloat16, quant=quant,
+                                 **SERVE_ENGINE, **kw)
+            eng.register_prefix(sys_prompt)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()  # the main path starts here
+            outs, lat, wall = engine_run(torch, eng, reqs, eos)
+            counts = {k.__name__: k.launches for k in ops.KERNELS}  # and ends here
+            paths[f"engine_{cache}_{mode}"] = counts
+            replays = engine_checks(torch, eng, reqs, outs, eos, V, label)
+            st = eng.stats
+            forwards = st["admit_prefill"] + st["admit_suffix"] + st["chunks"] * eng.chunk
+            for k in ops.KERNELS:
+                n = per_forward * forwards if kernel_of.get(quant) is k else 0
+                if counts[k.__name__] != n:
+                    fail(f"{label}: {k.__name__} launched {counts[k.__name__]} times, expected "
+                         f"{n} ({per_forward} x {forwards} forwards)")
+            compared = total = 0
+            margins = []
+            for i in greedy:
+                ref = want[i] if cache == "dense" else dense_outs[i]
+                if i in eos and cache == "dense":
+                    ref = ref[: list(ref).index(eos[i]) + 1]
+                c, m = parted(torch, one, reqs[i]["prompt"], outs[i], ref, f"{label} request {i}")
+                compared += c
+                total += len(ref)
+                if m is not None:
+                    margins.append(m)
+            if compared < total / 2:
+                fail(f"{label}: only {compared} of {total} greedy tokens compared")
+            print(f"  {label}: {SERVE_N} requests done; greedy tokens compared {compared} of "
+                  f"{total} against the {'one-shot decoder' if cache == 'dense' else 'dense engine'}"
+                  f" ({len(margins)} requests parted, at near ties {['%.4f' % m for m in margins]}); "
+                  f"prefix hits {eng.prefix_hits}, misses {eng.prefix_misses}; {replays} graph "
+                  f"replays; launches {({k: v for k, v in counts.items() if v})}")
+            n = engine_numbers(torch, eng, outs, lat, wall, label)
+            n.update(compared=compared, greedy_tokens=total, parted_margins=margins)
+            refused = eng.stats["backpressure"]
+            got = [h.result(timeout=600)[SERVE_BURST["prompt"]:]
+                   for h in [eng.submit(p, SERVE_BURST["new"]) for p in burst]]
+            n["burst_backpressure"] = eng.stats["backpressure"] - refused
+            if cache == "dense":
+                dense_burst = got
+            else:
+                c = sum(parted(torch, one, p, o, w, f"{label} burst")[0]
+                        for p, o, w in zip(burst, got, dense_burst))
+                if c < burst.size // SERVE_BURST["prompt"] * SERVE_BURST["new"] / 2:
+                    fail(f"{label} burst: only {c} tokens compared with the dense engine's")
+                if not n["burst_backpressure"]:
+                    fail(f"{label}: the burst of {SERVE_BURST} met no backpressure")
+                print(f"  {label}: the burst of {SERVE_BURST}: {n['burst_backpressure']} admissions "
+                      f"refused for want of blocks ({refused} during the traffic); tokens "
+                      f"compared {c} with the dense engine's")
+            if cache == "dense":
+                dense_outs = outs
+                r = reqs[greedy[0]]  # a weight changed in place moves the tokens
+                before = eng.generate(r["prompt"], 16)
+                with torch.no_grad():
+                    lm.head.weight.neg_()
+                eng.refresh_params()
+                after = eng.generate(r["prompt"], 16)
+                with torch.no_grad():
+                    lm.head.weight.neg_()
+                eng.refresh_params()
+                back = eng.generate(r["prompt"], 16)
+                if np.array_equal(before, after) or not np.array_equal(before, back):
+                    fail(f"{label}: refresh_params did not follow a weight changed in place")
+                print(f"  {label}: a head negated in place and refresh_params() move the tokens; "
+                      "put back, they return")
+            eng.close()
+            rep[mode][cache] = n
+            del eng
+            free_card(torch)
+        print(f"  quant={mode}: one-shot decoder, the {len(greedy)} greedy requests one at a "
+              f"time: {one_tok_s:.1f} tok/s; engine dense {rep[mode]['dense']['tokens_per_s']:.1f}"
+              f", paged {rep[mode]['paged']['tokens_per_s']:.1f} tok/s (all {SERVE_N} requests)"
+              f"; cache {rep[mode]['dense']['cache_bytes'] / 1e6:.1f} MB dense, "
+              f"{rep[mode]['paged']['cache_bytes'] / 1e6:.1f} MB paged")
+        del one
+        free_card(torch)
+    report["serving_engine"] = rep
+    return paths
+
+
+def layer_skip_draft(torch, dt, lm):
+    """A depth-1 LlamaLM of the target's widths holding the target's
+    embedding, first block, final norm and head."""
+    from deepflows_tpu_torch.models import LlamaLM
+
+    draft = family_model(torch, dt, LlamaLM, dict(SERVE_CFG, depth=1), 1, serve=True)
+    state = {k: v for k, v in lm.state_dict().items()
+             if not k.startswith("blocks.") or k.startswith("blocks.0.")}
+    draft.load_state_dict(state)
+    return draft
+
+
+def speculative_phase(torch, dt, report, lm):
+    """Main paths: SpeculativeDecoder(gamma 4) over the target with the
+    layer-skip draft, B 8, prompt 64, +128: greedy with a dense and with an
+    int8 target (launch counts zeroed just before and read just after:
+    33 a target prefill and a verify round in int8), against the plain
+    graphed generate until the rows part, then every token by the plain
+    decoder fed the stream's own tokens (``forced_check``); one sampled run (temperature
+    0.8), reproducible under its seed; the target as its own draft must
+    accept 90% of its proposals.  Every round after the first replays the
+    round's graph.  Tokens/s beside the plain decoder's.  Returns {path:
+    launch counts}."""
+    import numpy as np
+
+    from deepflows_tpu_torch import ops
+    from deepflows_tpu_torch.models import KVCacheDecoder, SpeculativeDecoder
+
+    g, B, P, new = (SPEC_RUN[k] for k in ("gamma", "B", "prompt", "new"))
+    V = SERVE_CFG["vocab_size"]
+    per_forward = 4 * SERVE_CFG["depth"] + 1
+    draft = layer_skip_draft(torch, dt, lm)
+    prompt = np.random.default_rng(5).integers(0, V, (B, P)).astype(np.int64)
+    paths, rep = {}, {}
+    plain = {}
+    for name, quant, d, temp in (("dense", None, draft, 0.0), ("int8", "int8", draft, 0.0),
+                                 ("self_draft", None, lm, 0.0), ("sampled", None, draft, 0.8)):
+        if quant not in plain:
+            dec = KVCacheDecoder(lm, compute_dtype=torch.bfloat16, quant=quant)
+            dec.generate(prompt, new)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = dec.generate(prompt, new)[:, P:]
+            plain[quant] = (dec, toks, B * new / (time.perf_counter() - t0))
+        dec, want, plain_tok_s = plain[quant]
+        spec = SpeculativeDecoder(lm, d, gamma=g, compute_dtype=torch.bfloat16, quant=quant)
+        first = spec.generate(prompt, new, temperature=temp, seed=3)  # warm-up and capture
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()  # the main path starts here
+        t0 = time.perf_counter()
+        out = spec.generate(prompt, new, temperature=temp, seed=3)
+        secs = time.perf_counter() - t0
+        counts = {k.__name__: k.launches for k in ops.KERNELS}  # and ends here
+        st = dict(spec.last_stats)
+        if name != "self_draft":
+            paths[f"speculative_{name}"] = counts
+        if out.shape != (B, P + new) or out.min() < 0 or out.max() >= V:
+            fail(f"speculative {name}: output shape {out.shape} or a token outside the vocabulary")
+        n_int8 = per_forward * (1 + st["rounds_run"]) if quant == "int8" else 0
+        if counts["int8_matmul"] != n_int8 or sum(counts.values()) != n_int8:
+            fail(f"speculative {name}: launches {counts}, expected int8_matmul {n_int8}")
+        (key, lp), = spec._loops.items()
+        if spec._graphs[key].replays < st["rounds_run"] * 2 - 1:
+            fail(f"speculative {name}: {spec._graphs[key].replays} replays for "
+                 f"{2 * st['rounds_run']} rounds")
+        r = dict(st, tokens_per_s=B * new / secs, plain_tokens_per_s=plain_tok_s, seconds=secs)
+        if temp > 0:
+            if not np.array_equal(out, first):
+                fail("speculative sampled: the same seed gave other tokens")
+            print(f"  speculative sampled (temperature {temp}): reproducible under its seed")
+        else:
+            # equal until they part (the rows part at near ties: the verify
+            # forward at M 40 rounds otherwise than the step at M 8), then
+            # every token by the plain decoder fed the stream's own tokens
+            before = sum(next((j for j in range(new) if out[b, P + j] != want[b, j]), new)
+                         for b in range(B))
+            picked, excused = forced_check(torch, dec, prompt, out[:, P:], f"speculative {name}")
+            if picked < B * new / 2:
+                fail(f"speculative {name}: only {picked} of {B * new} greedy tokens are the "
+                     "plain decoder's picks")
+            r.update(equal_before_parting=before, picked=picked, near_ties=excused)
+            print(f"  speculative {name}: greedy tokens equal to the plain decoder's until the rows "
+                  f"part: {before} of {B * new}; on the stream's own tokens the plain decoder "
+                  f"picks {picked} and sees a near tie at the other {excused}")
+        if name == "self_draft" and not st["acceptance_rate"] >= 0.9:
+            fail(f"speculative self-draft accepted {st['acceptance_rate']:.3f} of its proposals")
+        print(f"  speculative {name}: accepted {100 * st['acceptance_rate']:.1f}% of proposals, "
+              f"{st['rounds']} rounds ({st['rounds_run']} replayed), {r['tokens_per_s']:.1f} tok/s;"
+              f" the plain decoder {plain_tok_s:.1f} tok/s; launches "
+              f"{({k: v for k, v in counts.items() if v})}")
+        rep[name] = r
+        del spec
+        free_card(torch)
+    report["serving_speculative"] = rep
+    del plain, draft
+    free_card(torch)
+    return paths
+
+
+def grpc_phase(torch, report, lm):
+    """The model served through MyDLPWServicer on 127.0.0.1 (int8, an
+    in-flight engine of SERVE_ENGINE) to GRPC_CALLS["threads"] concurrent
+    clients, each sending Generate calls (prompt 64, +32 greedy): the
+    tokens against the one-shot int8 decoder by the comparison rule."""
+    import threading
+
+    import numpy as np
+
+    from deepflows_tpu_torch.models import KVCacheDecoder
+    from deepflows_tpu_torch.serving import MyDLPWServicer, PredictClient
+
+    V = SERVE_CFG["vocab_size"]
+    c = GRPC_CALLS
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, V, (1, c["prompt"])).astype(np.int64)
+               for _ in range(c["threads"] * c["each"])]
+    server = MyDLPWServicer("127.0.0.1:0", model=lm, decode_dtype=torch.bfloat16,
+                            decode_quant="int8", inflight_slots=SERVE_ENGINE["slots"],
+                            inflight_chunk=SERVE_ENGINE["chunk"],
+                            inflight_top_k=SERVE_ENGINE["top_k"])
+    server.serve(wait=False)
+    outs = [None] * len(prompts)
+    errors = []
+    try:
+        addr = f"127.0.0.1:{server.port}"
+
+        def client(t):
+            try:
+                cl = PredictClient(addr)
+                for i in range(t, len(prompts), c["threads"]):
+                    outs[i] = cl.generate(prompts[i], c["new"])
+                cl.close()
+            except Exception as e:  # noqa: BLE001 - re-raised below
+                errors.append(e)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(t,)) for t in range(c["threads"])]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        if errors:
+            raise errors[0]
+        engine = server._service._engine
+    finally:
+        server.stop()
+    if engine is None:
+        fail("gRPC: the in-flight engine did not serve the Generate calls")
+    one = KVCacheDecoder(lm, compute_dtype=torch.bfloat16, quant="int8")
+    compared = 0
+    for i, (p, o) in enumerate(zip(prompts, outs)):
+        if o.shape != (1, c["prompt"] + c["new"]) or not (o[:, :c["prompt"]] == p).all():
+            fail(f"gRPC call {i}: shape {o.shape} or prompt changed")
+        want = one.generate(p, c["new"])[0, c["prompt"]:]
+        compared += parted(torch, one, p[0], o[0, c["prompt"]:], want, f"gRPC call {i}")[0]
+    total = len(prompts) * c["new"]
+    if compared < total / 2:
+        fail(f"gRPC: only {compared} of {total} greedy tokens compared")
+    r = dict(calls=len(prompts), wall_s=wall, tokens_per_s=total / wall, compared=compared)
+    print(f"  gRPC: {len(prompts)} Generate calls from {c['threads']} clients in {wall:.3f} s "
+          f"({r['tokens_per_s']:.1f} tok/s), tokens compared {compared} of {total} against the "
+          f"one-shot int8 decoder")
+    report["serving_grpc"] = r
+    del one
+    free_card(torch)
+
+
+def serving_phases(torch, dt, ops, report, max_err, phase, card):
+    """The serving slice: its kernel checks, then the in-flight engine
+    (dense and paged, each quant mode), the speculative decoder and the
+    gRPC server over LlamaLM at Mistral-7B widths, depth 8, max_len 2048,
+    bf16.  Returns {path: launch counts} and the kernel phase's numbers."""
+    phase("serving kernel phase (int8 kernels vs plain twins at M 40 and 2048):")
+    sk = serving_kernel_phase(torch, ops, report, max_err)
+    from deepflows_tpu_torch.models import LlamaLM
+
+    lm = family_model(torch, dt, LlamaLM, SERVE_CFG, 0, serve=True)
+    print(f"model: LlamaLM {SERVE_CFG}, rms eps {RMS_EPS}, "
+          f"{sum(p.numel() for p in lm.parameters())} parameters in bf16; {card}")
+    sys_prompt, reqs = serving_traffic(SERVE_CFG["vocab_size"])
+    phase(f"in-flight engine (main paths): {SERVE_N} requests from {SERVE_THREADS} threads, "
+          f"{SERVE_ENGINE}:")
+    paths = engine_phase(torch, report, lm, sys_prompt, reqs)
+    phase(f"speculative decoding (main paths): {SPEC_RUN}:")
+    paths.update(speculative_phase(torch, dt, report, lm))
+    phase("gRPC serving (MyDLPWServicer on 127.0.0.1, concurrent clients):")
+    grpc_phase(torch, report, lm)
+    del lm
+    free_card(torch)
+    return paths, sk
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", metavar="PATH",
@@ -4103,9 +4709,20 @@ def main(argv=None) -> int:
         "fused_adam": {n: ftk["fused_adam"][n] for n in ("ms", "bound_ms", "plain_ms",
                                                          "library_ms", "elements")},
     }
+    spaths, svk = serving_phases(torch, dt, ops, report, max_err, phase, card)
+    serving = {  # the int8 kernels at the serving slice's new row counts
+        name: {f"{key}_{n}": svk[key][f"{name}{suffix}"]
+               for key in ("verify", "admission_prefill")
+               for n, suffix in (("ms", ""), ("plain_ms", "_plain"), ("library_ms", "_library"))}
+        | {f"{key}_bound_ms": svk[key][f"{name.split('_')[0]}_bound_ms"]
+           for key in ("verify", "admission_prefill")}
+        | {f"{key}_M": svk[key]["M"] for key in ("verify", "admission_prefill")}
+        for name in ("int8_matmul", "w8a8_matmul")
+    }
     for k in kernels:
         for key, paths in (("launches_by_family_path", fpaths), ("launches_by_cnn_path", cpaths),
-                           ("launches_by_finetune_path", ftpaths)):
+                           ("launches_by_finetune_path", ftpaths),
+                           ("launches_by_serving_path", spaths)):
             by_path = {p: c[k["name"]] for p, c in paths.items() if c[k["name"]]}
             if by_path:
                 k[key] = by_path
@@ -4116,6 +4733,8 @@ def main(argv=None) -> int:
             k["family"] = family[k["name"]]
         if k["name"] in finetune:
             k["finetune"] = finetune[k["name"]]
+        if k["name"] in serving:
+            k["serving"] = serving[k["name"]]
         if k["name"] in cchecks:  # each CNN path's check at its own shapes
             k["cnn"] = cchecks[k["name"]]
             k["max_abs_err"] = max([k["max_abs_err"]]

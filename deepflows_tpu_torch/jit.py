@@ -268,17 +268,19 @@ class CompiledEvalStep:
 
 class _Captured:
     """One captured step: its graph, the kernel launches one replay makes
-    (``(wrapper, count)`` pairs), the device memory its private pool took
-    and the seconds the warm-up and capture took."""
+    (``(wrapper, count)`` pairs), the device memory its private pool took,
+    the seconds the warm-up and capture took and the replays so far."""
 
     def __init__(self, graph, launched, pool_bytes, capture_s):
         self.graph = graph
         self.launched = launched
         self.pool_bytes = pool_bytes
         self.capture_s = capture_s
+        self.replays = 0
 
     def replay(self):
         self.graph.replay()
+        self.replays += 1
         for wrapper, n in self.launched:
             wrapper.launches += n
 
@@ -342,7 +344,9 @@ class StepGraphs:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()  # as the capture does first: the pool is what it adds
         reserved = torch.cuda.memory_reserved()
-        with torch.cuda.graph(graph):
+        # thread_local: another thread's work on the card (a server's other
+        # requests) does not break this capture
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             fn()
         launched = []
         for k, n in zip(KERNELS, before):

@@ -1,5 +1,6 @@
 from .cnn import CIFAR10_CNN, MLP, MNIST_CNN, DishesCNN
 from .decoding import KVCacheDecoder, LlamaKVCacheDecoder, MixtralKVCacheDecoder
+from .engine import InflightEngine, InflightHandle
 from .llama import LlamaBlock, LlamaLM
 from .mixtral import MixtralBlock, MixtralLM
 from .mobilenet import InvertedResidual, MobileNetV1, MobileNetV2, make_divisible
@@ -12,6 +13,7 @@ from .resnet import (
     ResNet34,
     ResNet50,
 )
+from .speculative import SpeculativeDecoder
 from .transformer_lm import TransformerLM
 from .vgg import VGG, VGG16
 from .vit import EncoderBlock, VisionTransformer, ViT_Tiny
@@ -22,6 +24,8 @@ __all__ = [
     "CIFAR10_CNN",
     "DishesCNN",
     "EncoderBlock",
+    "InflightEngine",
+    "InflightHandle",
     "InvertedResidual",
     "KVCacheDecoder",
     "LlamaBlock",
@@ -39,6 +43,7 @@ __all__ = [
     "ResNet34",
     "ResNet50",
     "ResidualBlock",
+    "SpeculativeDecoder",
     "TransformerLM",
     "VGG",
     "VGG16",

@@ -27,9 +27,18 @@ graph key's tensors between calls.
 matrices (Mixtral: attention and head; its experts stay in the compute
 dtype) through the hand-written CUDA kernels of ``ops/quant.py``
 (``int8_matmul``, ``w8a8_matmul``); on CPU tensors through their plain
-twins.  The engine's and speculative decoder's forwards
-(``_forward_multi``, ``_forward_chunk``, the paged variants) come with
-later slices.
+twins.
+
+Every decode forward runs one shared block loop a family
+(``_forward_rows``): ``_forward_one`` (one position for the whole batch),
+``_forward_multi`` (each row at its own position: the in-flight engine's
+step, ``models/engine.py``), ``_forward_multi_paged`` (the same over a
+pool of cache blocks addressed through a block table) and
+``_forward_chunk`` (g tokens a row from each row's position: the
+speculative verify forward, ``models/speculative.py``, and the engine's
+prefix-hit suffix).  Each takes its positions as device tensors and
+writes the cache in place with ``index_copy_`` or ``index_put_``, so each
+can be captured.
 """
 
 from __future__ import annotations
@@ -83,6 +92,76 @@ def _copy_into(dst, src):
         return
     for k, v in (src.items() if isinstance(src, dict) else enumerate(src)):
         _copy_into(dst[k], v)
+
+
+def _invalid_keys(pos_keys, pos_q, window):
+    """The decode forwards' mask: keys after the query or, with a sliding
+    window, ``window`` or more behind it.  The operands broadcast."""
+    m = pos_keys > pos_q
+    if window:
+        m = m | (pos_keys <= pos_q - window)
+    return m
+
+
+def _arange(n, like):
+    return torch.arange(n, device=like.device)
+
+
+def _scatter_step(cache, layer, new, posv):
+    """One step's K/V at per-slot positions, in place: cache (layers, S, Hc,
+    L, Dh), new (S, Hc, 1, Dh), posv (S,) -> ``cache[layer, s, h, posv[s]] =
+    new[s, h, 0]``."""
+    S, Hc = new.shape[:2]
+    cache[layer].index_put_(
+        (_arange(S, new)[:, None], _arange(Hc, new)[None, :], posv[:, None]),
+        new[:, :, 0].to(cache.dtype),
+    )
+
+
+def _scatter_chunk(cache, layer, new, posv):
+    """A g-token chunk's K/V at each row's window of positions, in place:
+    new (B, Hc, g, Dh) -> ``cache[layer, b, h, posv[b] + j] = new[b, h, j]``.
+    The windows must lie inside the cache (XLA would clamp or drop what
+    does not; the callers keep every window below max_len)."""
+    B, Hc, g = new.shape[:3]
+    at = posv[:, None] + _arange(g, new)  # (B, g)
+    cache[layer].index_put_(
+        (_arange(B, new)[:, None, None], _arange(Hc, new)[None, :, None], at[:, None, :]),
+        new.to(cache.dtype),
+    )
+
+
+def _paged_scatter_step(pool, layer, new, tbl, posv, block_size):
+    """One step's K/V into the paged pool, in place: pool (layers, blocks,
+    Hc, bs, Dh), tbl (S, nb) block table, posv (S,) logical positions ->
+    ``pool[layer, tbl[s, posv[s] // bs], h, posv[s] % bs] = new[s, h, 0]``.
+    Blocks belong to one slot each; slots whose table points at the null
+    block 0 write there, and block 0 is never read unmasked."""
+    Hc = new.shape[1]
+    blk = tbl.gather(1, torch.div(posv, block_size, rounding_mode="floor")[:, None])
+    pool[layer].index_put_(
+        (blk, _arange(Hc, new)[None, :], (posv % block_size)[:, None]),
+        new[:, :, 0].to(pool.dtype),
+    )
+
+
+def _paged_gather(pool, layer, tbl):
+    """A layer's per-slot K or V from the paged pool: (S, Hc, nb·bs, Dh),
+    logical position j of slot s read from ``pool[layer, tbl[s, j // bs],
+    :, j % bs]``."""
+    g = pool[layer][tbl]  # (S, nb, Hc, bs, Dh)
+    S, nb, Hc, bs, Dh = g.shape
+    return g.transpose(1, 2).reshape(S, Hc, nb * bs, Dh)
+
+
+def _categorical(logits, generator):
+    """One categorical draw a row from (N, V) logits, by Gumbel-max (the
+    construction of ``jax.random.categorical``) on ``generator``'s
+    uniforms."""
+    u = torch.rand(
+        logits.shape, generator=generator, device=logits.device, dtype=torch.float32,
+    ).clamp_min(torch.finfo(torch.float32).tiny)
+    return (logits - torch.log(-torch.log(u))).argmax(-1)
 
 
 class KVCacheDecoder:
@@ -272,12 +351,30 @@ class KVCacheDecoder:
             beyond = probs.cumsum(-1) - probs >= top_p
             thresh = srt.masked_fill(beyond, math.inf).amin(-1, keepdim=True)
             logits = logits.masked_fill(logits < thresh, -1e30)
-        # Gumbel-max, the construction of jax.random.categorical
-        u = torch.rand(
-            logits.shape, generator=generator, device=logits.device,
-            dtype=torch.float32,
-        ).clamp_min(torch.finfo(torch.float32).tiny)
-        return (logits - torch.log(-torch.log(u))).argmax(-1)
+        return _categorical(logits, generator)
+
+    @staticmethod
+    def _select_multi(logits, generator, temp, top_p, smask, top_k, any_sample):
+        """Per-slot selection for the in-flight engine from (S, V) logits:
+        ``temp`` and ``top_p`` (S,) f32 per slot (0: off), ``smask`` (S,)
+        bool picks sampling or greedy per slot; ``top_k`` is engine-wide
+        and ``any_sample`` static, so an all-greedy step draws nothing and
+        sorts no vocabulary."""
+        greedy = logits.argmax(-1)
+        if not any_sample:
+            return greedy
+        t = torch.where(smask, temp.clamp_min(1e-6), 1.0)[:, None]
+        sl = logits / t
+        if top_k is not None:
+            kth = torch.topk(sl, top_k, dim=-1).values[..., -1:]
+            sl = sl.masked_fill(sl < kth, -1e30)
+        p = torch.where(top_p > 0, top_p, 1.0)[:, None]
+        srt = torch.sort(sl, -1, descending=True).values
+        probs = torch.softmax(srt, -1)
+        beyond = probs.cumsum(-1) - probs >= p
+        thresh = srt.masked_fill(beyond, math.inf).amin(-1, keepdim=True)
+        sl = sl.masked_fill(sl < thresh, -1e30)
+        return torch.where(smask, _categorical(sl, generator), greedy)
 
     @staticmethod
     def _mlp(h, p):
@@ -323,34 +420,108 @@ class KVCacheDecoder:
         x = self._ln(x, params["lnf_w"], params["lnf_b"])
         return kc, vc, self._head(x[:, plen - 1], params)
 
-    # ------------------------------------------------- one-token forward
-    def _forward_one(self, params, kc, vc, tok, pos, positions):
-        """One decode step for a (N,) token batch at position ``pos``, a 0-d
-        int64 tensor on the tokens' device (JAX's traced position): writes
-        this step's K/V into the caches in place and returns (logits (N, V)
-        f32, kc, vc).  It reads no value back to the host, so it can be
-        captured."""
+    # --------------------------------------------------- decode forwards
+    def _mask(self, positions, rows):
+        """Keys (``positions``, the cache's) each query at ``rows`` (N, T)
+        may not see, shaped for ``_forward_rows``'s (N, H, T, L) scores."""
+        return _invalid_keys(positions, rows[:, None, :, None], self.window)
+
+    def _forward_rows(self, params, tok, rows, write, read, invalid):
+        """The block loop of every decode forward: tokens ``tok`` (N, T) at
+        positions ``rows`` ((N, T), or (1, 1) for all), a device tensor.
+        ``write(li, k, v)`` stores layer li's new K/V (N, H, T, Dh) in the
+        cache, ``read(li)`` returns the (K, V) attention reads, and keys
+        where ``invalid`` are masked.  Returns logits (N, T, V) f32.  It
+        reads no host value, so it can be captured."""
         lm = self.lm
         H = lm.blocks[0].attn.num_heads
         scale = 1.0 / math.sqrt(lm.blocks[0].attn.head_dim)
-        N = tok.shape[0]
-        at = pos.reshape(1)
-        # index_select and index_copy_ at ``at``: lax.dynamic_slice and
-        # dynamic_update_slice in the JAX step
-        x = params["tok"].index_select(0, tok)[:, None, :] + params["pos"].index_select(1, at)
-        invalid = positions > pos
+        N, T = tok.shape
+        E = params["tok"].shape[1]
+        x = (params["tok"].index_select(0, tok.reshape(-1)).view(N, T, E)
+             + params["pos"][0].index_select(0, rows.reshape(-1)).view(*rows.shape, E))
         for li, p in enumerate(params["blocks"]):
             h = self._ln(x, p["ln1_w"], p["ln1_b"])
-            q, k_new, v_new = self._attn_proj(h, p, H)  # (N, H, 1, Dh)
-            kc[li].index_copy_(2, at, k_new)
-            vc[li].index_copy_(2, at, v_new)
-            s = self._scores(q, kc[li], scale).masked_fill(invalid, -1e30)
-            attn = torch.softmax(s, -1).to(vc.dtype)
-            o = (attn @ vc[li]).transpose(1, 2).reshape(N, 1, -1)
+            q, k_new, v_new = self._attn_proj(h, p, H)  # (N, H, T, Dh)
+            write(li, k_new, v_new)
+            k, v = read(li)
+            s = self._scores(q, k, scale).masked_fill(invalid, -1e30)
+            attn = torch.softmax(s, -1).to(v.dtype)
+            o = (attn @ v).transpose(1, 2).reshape(N, T, -1)
             x = x + (_mm(o, p["o_w"]) + p["o_b"])
             x = x + self._mlp(self._ln(x, p["ln2_w"], p["ln2_b"]), p)
         x = self._ln(x, params["lnf_w"], params["lnf_b"])
-        return self._head(x[:, 0], params), kc, vc
+        return self._head(x.reshape(N * T, -1), params).view(N, T, -1)
+
+    def _forward_one(self, params, kc, vc, tok, pos, positions):
+        """One decode step for a (N,) token batch at position ``pos``, a 0-d
+        int64 tensor on the tokens' device (JAX's traced position): writes
+        this step's K/V into the caches in place (``index_copy_`` at
+        ``pos``: JAX's ``dynamic_update_slice``) and returns (logits (N, V)
+        f32, kc, vc)."""
+        at = pos.reshape(1)
+
+        def write(li, k, v):
+            kc[li].index_copy_(2, at, k)
+            vc[li].index_copy_(2, at, v)
+
+        rows = at.view(1, 1)
+        logits = self._forward_rows(params, tok[:, None], rows, write,
+                                    lambda li: (kc[li], vc[li]), self._mask(positions, rows))
+        return logits[:, 0], kc, vc
+
+    def _forward_multi(self, params, kc, vc, tok, posv, positions):
+        """One decode step where each row sits at its own position: tok (S,)
+        tokens at posv (S,) int64 positions on the device.  The in-flight
+        engine's step: the K/V land at each slot's position
+        (``_scatter_step``) and each row is masked at its own position.
+        Returns (logits (S, V) f32, kc, vc)."""
+        rows = posv[:, None]
+
+        def write(li, k, v):
+            _scatter_step(kc, li, k, posv)
+            _scatter_step(vc, li, v, posv)
+
+        logits = self._forward_rows(params, tok[:, None], rows, write,
+                                    lambda li: (kc[li], vc[li]), self._mask(positions, rows))
+        return logits[:, 0], kc, vc
+
+    def _forward_multi_paged(self, params, kp, vp, tbl, tok, posv, positions):
+        """``_forward_multi`` over a paged cache: K/V live in a pool (layers,
+        blocks, Hc, bs, Dh) addressed through the block table ``tbl`` (S,
+        nb) int64; the write goes through the table
+        (``_paged_scatter_step``) and attention reads each layer's gathered
+        (S, Hc, nb·bs, Dh) view (``_paged_gather``).  ``positions`` is
+        arange(nb·bs)."""
+        bs = kp.shape[3]
+        rows = posv[:, None]
+
+        def write(li, k, v):
+            _paged_scatter_step(kp, li, k, tbl, posv, bs)
+            _paged_scatter_step(vp, li, v, tbl, posv, bs)
+
+        logits = self._forward_rows(
+            params, tok[:, None], rows, write,
+            lambda li: (_paged_gather(kp, li, tbl), _paged_gather(vp, li, tbl)),
+            self._mask(positions, rows))
+        return logits[:, 0], kp, vp
+
+    def _forward_chunk(self, params, kc, vc, toks, posv, positions):
+        """A g-token chunk a row against the cache: toks (B, g), row b's
+        token j at position ``posv[b] + j``.  Each layer writes all g K/V
+        (``_scatter_chunk``) before attending, causal within the chunk and
+        against the cache.  Returns (logits (B, g, V) f32, kc, vc): logits[:,
+        j] is the next-token distribution after input j (the speculative
+        verify forward)."""
+        rows = posv[:, None] + _arange(toks.shape[1], posv)
+
+        def write(li, k, v):
+            _scatter_chunk(kc, li, k, posv)
+            _scatter_chunk(vc, li, v, posv)
+
+        logits = self._forward_rows(params, toks, rows, write,
+                                    lambda li: (kc[li], vc[li]), self._mask(positions, rows))
+        return logits, kc, vc
 
     # --------------------------------------------------------- the loops
     def _loop(self, key, make):
@@ -773,47 +944,38 @@ class LlamaKVCacheDecoder(KVCacheDecoder):
         x = self._rms(x, params["lnf_w"], eps)
         return kc, vc, self._head(x[:, plen - 1], params)
 
-    # ------------------------------------------------- one-token forward
-    def _forward_at(self, params, kc, vc, tok, pos, slot, invalid):
-        """One decode step of the (N,) tokens at absolute position ``pos``
-        (0-d device tensor), this step's K/V written at cache index
-        ``slot`` ((1,) device tensor), keys where ``invalid`` (bool, over
-        the cache's positions) masked.  Reads no host value."""
+    # --------------------------------------------------- decode forwards
+    def _mask(self, positions, rows):
+        return _invalid_keys(positions, rows[:, None, None, :, None], self.window)
+
+    def _forward_rows(self, params, tok, rows, write, read, invalid):
+        """The base class's block loop for the family: the rope tables read
+        at ``rows``, grouped products (each K/V head serves G query heads)
+        on (N, Hkv, G, T, L) scores, the fused SwiGLU (Mixtral: the expert
+        mixture) as the MLP."""
         H, Hkv, D = self._heads()
         G = H // Hkv
         eps = self.lm.norm.eps
         scale = 1.0 / math.sqrt(D)
-        N = tok.shape[0]
-        at = pos.reshape(1)
-        # index_select at ``pos``: lax.dynamic_slice in the JAX step
-        cos = params["rope_cos"].index_select(0, at)
-        sin = params["rope_sin"].index_select(0, at)
-        x = params["tok"].index_select(0, tok)[:, None, :]
+        N, T = tok.shape
+        at = rows.reshape(-1)
+        # (N or 1, 1, T, D): index_select at the positions, JAX's dynamic_slice
+        cos = params["rope_cos"].index_select(0, at).view(*rows.shape, D)[:, None]
+        sin = params["rope_sin"].index_select(0, at).view(*rows.shape, D)[:, None]
+        x = params["tok"].index_select(0, tok.reshape(-1)).view(N, T, -1)
         for li, p in enumerate(params["blocks"]):
             q, k_new, v_new = self._attn_proj(self._rms(x, p["ln1_w"], eps), p, H)
             q = self._rope(q, cos, sin)
-            k_new = self._rope(k_new, cos, sin)  # (N, Hkv, 1, D)
-            kc[li].index_copy_(2, slot, k_new)
-            vc[li].index_copy_(2, slot, v_new)
-            s = self._scores(q.reshape(N, Hkv, G, D), kc[li], scale).masked_fill(invalid, -1e30)
-            attn = torch.softmax(s, -1).to(vc.dtype)
-            o = (attn @ vc[li]).reshape(N, 1, H * D)
+            write(li, self._rope(k_new, cos, sin), v_new)  # (N, Hkv, T, D)
+            k, v = read(li)
+            s = self._scores(q.reshape(N, Hkv, G * T, D), k, scale)
+            s = s.view(N, Hkv, G, T, -1).masked_fill(invalid, -1e30)
+            attn = torch.softmax(s, -1).to(v.dtype).view(N, Hkv, G * T, -1)
+            o = (attn @ v).view(N, H, T, D).transpose(1, 2).reshape(N, T, H * D)
             x = x + _mm(o, p["o_w"])
             x = x + self._mlp(self._rms(x, p["ln2_w"], eps), p)
         x = self._rms(x, params["lnf_w"], eps)
-        return self._head(x[:, 0], params), kc, vc
-
-    def _band(self, key_pos, pos):
-        """Keys after the query or, with a window, ``window`` or more
-        behind it."""
-        invalid = key_pos > pos
-        if self.window:
-            invalid = invalid | (key_pos <= pos - self.window)
-        return invalid
-
-    def _forward_one(self, params, kc, vc, tok, pos, positions):
-        return self._forward_at(params, kc, vc, tok, pos, pos.reshape(1),
-                                self._band(positions, pos))
+        return self._head(x.reshape(N * T, -1), params).view(N, T, -1)
 
     def _forward_one_ring(self, params, kc, vc, tok, pos, positions):
         """``_forward_one`` over a ring cache of C = max_len positions: the
@@ -824,8 +986,15 @@ class LlamaKVCacheDecoder(KVCacheDecoder):
         C = kc.shape[3]
         slot = torch.remainder(pos, C).reshape(1)
         abs_pos = pos - torch.remainder(pos - positions, C)
-        invalid = self._band(abs_pos, pos) | (abs_pos < 0)
-        return self._forward_at(params, kc, vc, tok, pos, slot, invalid)
+        invalid = _invalid_keys(abs_pos, pos, self.window) | (abs_pos < 0)
+
+        def write(li, k, v):
+            kc[li].index_copy_(2, slot, k)
+            vc[li].index_copy_(2, slot, v)
+
+        logits = self._forward_rows(params, tok[:, None], pos.reshape(1, 1), write,
+                                    lambda li: (kc[li], vc[li]), invalid)
+        return logits[:, 0], kc, vc
 
 
 class MixtralKVCacheDecoder(LlamaKVCacheDecoder):

@@ -28,6 +28,7 @@ RNG = np.random.default_rng(41)
 @pytest.fixture(autouse=True)
 def _clean():
     ops.reset_launch_counts()
+    df.set_grad_enabled(True)  # an earlier file's JAX Module.eval() may have left it off
     yield
     Graph.free_graph_all()
     df.set_grad_enabled(True)

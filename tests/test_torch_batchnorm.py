@@ -37,6 +37,7 @@ SHAPES = {"2d": (2, 3, 2, 2), "1d": (2, 3, 4), "1d_flat": (8, 3)}  # n = 8 a cha
 @pytest.fixture(autouse=True)
 def _clean():
     ops.reset_launch_counts()
+    df.set_grad_enabled(True)  # an earlier file's JAX Module.eval() may have left it off
     yield
     Graph.free_graph_all()
     df.set_grad_enabled(True)

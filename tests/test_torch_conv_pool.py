@@ -35,6 +35,7 @@ TOL = {"f32": 1e-5, "bf16": 0.05}
 @pytest.fixture(autouse=True)
 def _clean():
     ops.reset_launch_counts()
+    df.set_grad_enabled(True)  # an earlier file's JAX Module.eval() may have left it off
     yield
     Graph.free_graph_all()
     df.set_grad_enabled(True)

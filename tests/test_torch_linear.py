@@ -63,6 +63,7 @@ def _clean():
     from deepflows_tpu import config
 
     ops.reset_launch_counts()
+    df.set_grad_enabled(True)  # an earlier file's JAX Module.eval() may have left it off
     yield
     config.use_pallas = tconfig.use_pallas = False
     Graph.free_graph_all()

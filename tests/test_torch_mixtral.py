@@ -55,6 +55,7 @@ def _keep_jax_rng():
 @pytest.fixture(autouse=True)
 def _clean():
     ops.reset_launch_counts()
+    df.set_grad_enabled(True)  # an earlier file's JAX Module.eval() may have left it off
     yield
     Graph.free_graph_all()
     df.set_grad_enabled(True)

@@ -38,6 +38,7 @@ CONFIGS = {
 @pytest.fixture(autouse=True)
 def _clean():
     ops.reset_launch_counts()
+    df.set_grad_enabled(True)  # an earlier file's JAX Module.eval() may have left it off
     yield
     Graph.free_graph_all()
     df.set_grad_enabled(True)
