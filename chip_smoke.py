@@ -363,6 +363,41 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
    of prompt 64, +32 greedy, against the one-shot int8 decoder by the
    comparison rule.
 
+34. seq2seq training, a main path: Seq2SeqTransformer at BART-base's
+   widths (facebook/bart-base config.json: d_model 768, 12 heads, FFN
+   3072, 6 encoder and 6 decoder layers, vocab 50265, source 1024 =
+   max_position_embeddings, target 256; this repo's pre-norm GELU blocks,
+   naive attention), f32 with random weights from a seed, first
+   fused_adam held bitwise against its plain twin over the model's 261
+   parameter tensors (177 M elements) and timed beside its bound and
+   torch.optim.Adam(fused=True); then CompiledTrainStep(model,
+   Adam(lr 1e-4, fused=True), CrossEntropyLoss()) on a repeated B 8 batch
+   of the reversal task of examples/seq2seq_reversal.py (the target the
+   reversed source's first 256 tokens through a fixed vocabulary
+   permutation), 5 steps of exactly one fused_adam launch each; the first
+   loss within 1.0 of ln 50265, the last below the first.  Step ms (wall,
+   CUDA events, device), target tokens/s, busy share, peak memory, MFU of
+   the analytic FLOPs against the f32 peak (TF32 off) and the step's
+   device time by kernel group (torch.profiler).
+35. seq2seq checkpoint: save_checkpoint of the trained model and its Adam,
+   load_checkpoint into a fresh model and optimizer, every parameter and
+   slot and the step count bitwise equal; then AsyncCheckpointer.save with
+   the next training step queued right behind it: the file holds the state
+   before that step (held against the loaded model), though the step
+   moved every parameter in place.  The files live in a directory of the
+   checkout that is removed afterwards.
+36. seq2seq serving, a main path: the loaded model served by
+   Seq2SeqGenerator in bf16, B 8, source 1024, +128 greedy: the eager
+   loop, then the captured step (its graph replayed 127 times), tokens
+   equal; generate and decode tokens/s, a step's device ms against its
+   byte floor and by kernel group; the f32 generator against the tape's
+   teacher-forced greedy for 8 tokens (parting only at a top-2 margin
+   under 1e-3); 4 concurrent gRPC Generate calls to MyDLPWServicer (bf16)
+   on 127.0.0.1, equal to the in-process generator's; then a ResNet-50
+   checkpoint served from its file (model_file "resnet50.pkl", model_name
+   "resnet50"): a Predict of 8 x 3 x 224^2 equal to CompiledEvalStep on
+   the saved model.  Seconds of each of 34-36.
+
 Prints the card's name and power limit, one {"kernels": [...]} line (the CE
 backward's, linear_fused's and matmul's entries with the plan they ran:
 (C, BM, BV) and (tile, chunk, splits); the flash forward's with its route
@@ -370,7 +405,9 @@ and TFLOP/s; each kernel's launches summed over every main path, with
 the family paths' share in ``launches_by_family_path``, the CNN paths'
 in ``launches_by_cnn_path``, the fine-tuning slice's in
 ``launches_by_finetune_path``, the serving slice's in
-``launches_by_serving_path``, its numbers at the family's shapes in
+``launches_by_serving_path``, the seq2seq slice's in
+``launches_by_seq2seq_path`` (fused_adam's numbers at its list in
+``seq2seq``), its numbers at the family's shapes in
 ``family``, at each CNN path's in ``cnn``, whose worst error its
 max_abs_err takes in, at the fine-tuning paths' in ``finetune`` and at
 the serving slice's rows (M 40 and 2048) in ``serving``),
@@ -4530,6 +4567,454 @@ def serving_phases(torch, dt, ops, report, max_err, phase, card):
     return paths, sk
 
 
+# ------------------------------------------------------------------ seq2seq
+# facebook/bart-base's config.json widths (d_model, heads, ffn_dim, layers,
+# vocab_size, max_position_embeddings as the source length); the blocks are
+# this repo's pre-norm GELU blocks
+S2S_CFG = dict(vocab_size=50265, src_len=1024, tgt_len=256, dim=768, enc_depth=6,
+               dec_depth=6, num_heads=12, mlp_ratio=4.0)
+S2S_B = 8
+S2S_STEPS = 5
+S2S_PER_STEP = {"fused_adam": 1}  # kernel launches a training step
+S2S_LR = 1e-4
+S2S_SEED = 0
+S2S_BOS = 0
+S2S_NEW = 128  # tokens a serving request generates
+S2S_TAPE = 8  # tokens of the f32 generator held against the tape's greedy
+S2S_F32_TIE = 1e-3  # the f32 generator and the tape may part only at a smaller top-2 margin
+S2S_GRPC_CALLS = 4
+S2S_IMAGES = (8, 3, 224, 224)  # the ResNet-50 Predict batch
+
+
+def s2s_model(dt, seed):
+    from deepflows_tpu_torch.models import Seq2SeqTransformer
+
+    dt.manual_seed(seed)
+    return Seq2SeqTransformer(**S2S_CFG, device="cuda")
+
+
+def s2s_sources(rng):
+    return rng.integers(1, S2S_CFG["vocab_size"], (S2S_B, S2S_CFG["src_len"]))
+
+
+def s2s_batch(torch):
+    """The reversal task of examples/seq2seq_reversal.py at S2S_CFG's
+    lengths, from S2S_SEED: the target is the reversed source's first
+    tgt_len tokens mapped through a fixed permutation of the vocabulary;
+    x = [source, BOS + target[:-1]], y = target."""
+    import numpy as np
+
+    V, Lt = S2S_CFG["vocab_size"], S2S_CFG["tgt_len"]
+    rng = np.random.default_rng(S2S_SEED)
+    perm = np.concatenate([[0], rng.permutation(np.arange(1, V))])
+    src = s2s_sources(rng)
+    tgt = perm[src[:, ::-1][:, :Lt]]
+    tgt_in = np.concatenate([np.full((S2S_B, 1), S2S_BOS), tgt[:, :-1]], 1)
+    return (torch.as_tensor(np.concatenate([src, tgt_in], 1), device="cuda"),
+            torch.as_tensor(tgt, device="cuda"))
+
+
+def s2s_step_flops(cfg, B):
+    """A training step's FLOPs: 6 x the multiply-adds of the forward (every
+    Linear on its tokens, the cross K/V on the source's, the head, and
+    attention's two products over every score: the naive path computes the
+    causal ones too)."""
+    D, F = cfg["dim"], int(cfg["dim"] * cfg["mlp_ratio"])
+    Ls, Lt, V = cfg["src_len"], cfg["tgt_len"], cfg["vocab_size"]
+    enc = cfg["enc_depth"] * (B * Ls * (4 * D * D + 2 * D * F) + 2 * B * Ls * Ls * D)
+    dec = cfg["dec_depth"] * (B * Lt * (6 * D * D + 2 * D * F) + B * Ls * 2 * D * D
+                              + 2 * B * Lt * Lt * D + 2 * B * Lt * Ls * D)
+    return 6 * (enc + dec + B * Lt * D * V)
+
+
+def s2s_train_phase(torch, dt, report, card):
+    """A main path: the f32 Seq2SeqTransformer at S2S_CFG trained by
+    CompiledTrainStep(model, Adam(fused=True), CrossEntropyLoss()) on the
+    repeated reversal batch, S2S_STEPS steps of exactly one fused_adam
+    launch each, after fused_adam is held bitwise against its plain twin
+    over the model's parameter list.  Returns ({path: counts}, the step's
+    numbers, the Adam check's, the model, the step, x, y)."""
+    from deepflows_tpu_torch import nn, ops, optim
+    from deepflows_tpu_torch.jit import CompiledTrainStep
+
+    model = s2s_model(dt, S2S_SEED)
+    params = list(model.parameters())
+    n = sum(p.numel() for p in params)
+    print(f"model: Seq2SeqTransformer {S2S_CFG} (BART-base's widths), {n} parameters in "
+          f"{len(params)} f32 tensors; B {S2S_B} x ({S2S_CFG['src_len']} + "
+          f"{S2S_CFG['tgt_len']}); {card}")
+    adam = adam_list_check(torch, [tuple(p.shape) for p in params], "Seq2SeqTransformer")
+    if adam["max_abs_err"] != 0.0:
+        fail(f"fused_adam over the seq2seq list differs from its twin: {adam['max_abs_err']}")
+    step = CompiledTrainStep(model, optim.Adam(params, lr=S2S_LR, fused=True),
+                             nn.CrossEntropyLoss())
+    x, y = s2s_batch(torch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (losses, wall, events), counts = counted(ops, lambda: run_steps(
+        torch, step, x, y, S2S_STEPS, "seq2seq training", S2S_PER_STEP))
+    print(f"main-path launches (seq2seq training): {counts}")
+    print(f"  losses: {[round(v, 4) for v in losses]}")
+    V = S2S_CFG["vocab_size"]
+    if not abs(losses[0] - math.log(V)) < 1.0:
+        fail(f"seq2seq step-1 loss {losses[0]} is not within 1.0 of ln {V}")
+    if not losses[-1] < losses[0]:
+        fail(f"the seq2seq loss did not fall on the repeated batch: {losses}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    device_ms = event_ms(lambda: step(x, y), 3)
+    timed = statistics.median(wall[1:])
+    flops = s2s_step_flops(S2S_CFG, S2S_B)
+    r = dict(losses=losses, parameters=n, tensors=len(params), step_wall_ms=timed,
+             step_event_ms=statistics.median(events[1:]), step_device_ms=device_ms,
+             target_tokens_per_s=S2S_B * S2S_CFG["tgt_len"] / timed * 1e3,
+             device_busy_share=device_ms / timed, step_flops=flops,
+             mfu=flops / (timed * 1e-3 * PEAK_OPS["f32"]),
+             step_bound_ms=flops / PEAK_OPS["f32"] * 1e3, peak_memory_gb=peak_gb)
+    print(f"  step {timed:.3f} ms wall (steps 2-{S2S_STEPS}), {r['step_event_ms']:.3f} ms between "
+          f"CUDA events, {device_ms:.3f} ms device (busy {100 * r['device_busy_share']:.1f}%); "
+          f"{r['target_tokens_per_s']:.1f} target tokens/s; MFU {100 * r['mfu']:.2f}% of the f32 "
+          f"peak (TF32 off) at {flops:.4g} FLOPs (bound {r['step_bound_ms']:.3f} ms); peak "
+          f"memory {peak_gb:.2f} GB; {card}")
+    others = {}
+    r["profile_ms"] = prof = step_profile(torch, step, x, y, others=others)
+    r["top_others_ms"] = top = top_others(others)
+    print(f"  device time of a step by kernel (torch.profiler, 2 steps): "
+          f"{sum(prof.values()):.3f} ms: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in sorted(prof.items(), key=lambda kv: -kv[1])))
+    print("  the largest other PyTorch kernels, ms a step: "
+          + "; ".join(f"{k} {v:.3f}" for k, v in top.items()))
+    report["seq2seq_train"] = r
+    return {"seq2seq_training": counts}, r, adam, model, step, x, y
+
+
+def s2s_same_state(torch, model, opt, other, other_opt, label):
+    """Every parameter, buffer and optimizer slot of the two equal bit for
+    bit, and the step counts equal."""
+    pairs = list(zip(model.state_dict().values(), other.state_dict().values()))
+    for key in ("v", "s"):
+        pairs += list(zip(opt._state[key], other_opt._state[key]))
+    bad = sum(not torch.equal(a, b) for a, b in pairs)
+    if bad or int(opt._state["t"]) != int(other_opt._state["t"]):
+        fail(f"{label}: {bad} of {len(pairs)} tensors differ, or t "
+             f"{int(opt._state['t'])} != {int(other_opt._state['t'])}")
+    return len(pairs)
+
+
+def s2s_file_equals(torch, path, model, opt, label):
+    """The checkpoint at ``path`` holds ``model``'s and ``opt``'s state bit
+    for bit (compared on the card)."""
+    from deepflows_tpu_torch.utils import model_utils
+
+    with open(path, "rb") as f:
+        ck = model_utils.pickle.load(f)
+
+    def same(arr, t):
+        return torch.equal(torch.from_numpy(arr).to(t.device), t)
+
+    own = dict(model.named_parameters())
+    bad = [n for n, arr in ck["model_parameters"].items() if not same(arr, own[n])]
+    st = ck["optimizer_state"]
+    for key in ("v", "s"):
+        bad += [f"{key}[{i}]" for i, (arr, t) in enumerate(zip(st[key], opt._state[key]))
+                if not same(arr, t)]
+    if bad or st["t"] != int(opt._state["t"]) + 1 or len(own) != len(ck["model_parameters"]):
+        fail(f"{label}: {len(bad)} arrays differ ({bad[:4]}), or t {st['t']}")
+    return ck["epoch"]
+
+
+def s2s_checkpoint_phase(torch, dt, report, model, step, x, y, tmp):
+    """save_checkpoint of the trained model and its Adam, loaded into a
+    fresh model and optimizer bit for bit; then AsyncCheckpointer.save with
+    the next step queued right behind it: the file holds the state before
+    that step.  Returns the loaded model."""
+    from deepflows_tpu_torch import optim
+    from deepflows_tpu_torch.utils import AsyncCheckpointer, load_checkpoint, save_checkpoint
+
+    opt = step.optimizer
+    spath, apath = os.path.join(tmp, "seq2seq.pkl"), os.path.join(tmp, "seq2seq_async.pkl")
+    t0 = time.perf_counter()
+    save_checkpoint(model, opt, epoch=S2S_STEPS, save_path=spath)
+    save_s = time.perf_counter() - t0
+    loaded = s2s_model(dt, S2S_SEED + 1)
+    loaded_opt = optim.Adam(loaded.parameters(), lr=0.5, fused=True)
+    t0 = time.perf_counter()
+    info = load_checkpoint(loaded, loaded_opt, spath)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    n = s2s_same_state(torch, model, opt, loaded, loaded_opt, "the loaded checkpoint")
+    if info["epoch"] != S2S_STEPS or loaded_opt.lr != S2S_LR:
+        fail(f"the loaded checkpoint's epoch {info['epoch']} or lr {loaded_opt.lr}")
+    with AsyncCheckpointer() as ck:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fut = ck.save(model, opt, epoch=S2S_STEPS + 1, save_path=apath)
+        call_ms = (time.perf_counter() - t0) * 1e3
+        step(x, y)  # updates in place while the write runs
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        fut.result()
+        async_s = time.perf_counter() - t0
+    moved = sum(not torch.equal(a, b) for a, b in zip(model.parameters(), loaded.parameters()))
+    if not moved:
+        fail("the step after the async save moved no parameter")
+    s2s_file_equals(torch, apath, loaded, loaded_opt, "the async checkpoint")
+    r = dict(file_bytes=os.path.getsize(spath), save_s=save_s, load_s=load_s, tensors=n,
+             async_save_call_ms=call_ms, async_step_done_s=step_s, async_write_s=async_s,
+             params_moved_by_the_step=moved)
+    print(f"  save_checkpoint {r['file_bytes'] / 1e9:.3f} GB in {save_s:.2f} s; load_checkpoint "
+          f"into a fresh model and Adam {load_s:.2f} s, {n} tensors and t bitwise equal; "
+          f"AsyncCheckpointer.save returned in {call_ms:.1f} ms, the next step done at "
+          f"{step_s:.2f} s, the file at {async_s:.2f} s, equal to the state before the step "
+          f"({moved} parameters moved by it)")
+    report["seq2seq_checkpoint"] = r
+    return loaded
+
+
+def s2s_step_floor(model, B, Ls):
+    """The bytes a decode step must move over the card's memory rate: the
+    decoder's bf16 weights it reads (cross K/V projections excluded: they
+    ran once), the head read in bf16 and written and read again widened to
+    f32, the cross K/V and the whole self-attention cache (bf16)."""
+    dec = sum(p.numel() for name, p in model.dec_blocks.named_parameters()
+              if ".cross_attn.k_proj." not in name and ".cross_attn.v_proj." not in name)
+    norm = sum(p.numel() for p in model.norm.parameters())
+    head = model.head.weight.numel() + model.head.bias.numel()
+    D, layers = S2S_CFG["dim"], S2S_CFG["dec_depth"]
+    cache = 2 * layers * B * D * (Ls + S2S_CFG["tgt_len"])
+    nbytes = 2 * (dec + norm + cache) + 10 * head
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def s2s_tape_greedy(torch, model, src, n):
+    """Greedy decoding through the f32 forward, teacher-forcing the grown
+    prefix; the tokens and each step's top-2 logit margin."""
+    B = src.shape[0]
+    tgt_in = torch.zeros((B, S2S_CFG["tgt_len"]), dtype=torch.long, device="cuda")
+    tgt_in[:, 0] = S2S_BOS
+    src = torch.as_tensor(src, device="cuda")
+    out, margins = [], []
+    with torch.no_grad():
+        for t in range(n):
+            logits = model(torch.cat([src, tgt_in], 1))[:, t]
+            top2 = torch.topk(logits, 2).values
+            margins.append((top2[:, 0] - top2[:, 1]).cpu())
+            out.append(logits.argmax(-1))
+            if t + 1 < S2S_CFG["tgt_len"]:
+                tgt_in[:, t + 1] = out[-1]
+    return torch.stack(out, 1).cpu().numpy(), torch.stack(margins, 1).numpy()
+
+
+def s2s_grpc(torch, model, srcs):
+    """S2S_GRPC_CALLS Generate calls from as many client threads to
+    MyDLPWServicer(model, decode_dtype bf16) on 127.0.0.1; their answers
+    and the wall seconds."""
+    import threading
+
+    from deepflows_tpu_torch.serving import MyDLPWServicer, PredictClient
+
+    server = MyDLPWServicer("127.0.0.1:0", model=model, decode_dtype=torch.bfloat16)
+    server.serve(wait=False)
+    outs, errors = [None] * len(srcs), []
+    try:
+        def client(i):
+            try:
+                cl = PredictClient(f"127.0.0.1:{server.port}")
+                outs[i] = cl.generate(srcs[i], S2S_NEW)
+                cl.close()
+            except Exception as e:  # noqa: BLE001 - re-raised below
+                errors.append(e)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(srcs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+    finally:
+        server.stop()
+    if errors:
+        raise errors[0]
+    return outs, wall
+
+
+def s2s_predict_phase(torch, dt, tmp, rng):
+    """A ResNet-50 checkpoint served from its file (model_file
+    "resnet50.pkl", model_name "resnet50"): a Predict of S2S_IMAGES against
+    CompiledEvalStep on the saved model, which it must equal."""
+    import numpy as np
+
+    from deepflows_tpu_torch.jit import CompiledEvalStep
+    from deepflows_tpu_torch.models import ResNet50
+    from deepflows_tpu_torch.serving import MyDLPWServicer, PredictClient
+    from deepflows_tpu_torch.utils import save_checkpoint
+
+    dt.manual_seed(S2S_SEED)
+    rn = ResNet50(num_classes=1000, device="cuda")
+    save_checkpoint(rn, save_path=os.path.join(tmp, "resnet50.pkl"))
+    images = rng.standard_normal(S2S_IMAGES).astype("float32")
+    want = CompiledEvalStep(rn)(images).float().cpu().numpy()
+    del rn
+    server = MyDLPWServicer("127.0.0.1:0", root_dir=tmp, model_file="resnet50.pkl",
+                            model_name="resnet50", device="cuda")
+    server.serve(wait=False)
+    try:
+        client = PredictClient(f"127.0.0.1:{server.port}")
+        t0 = time.perf_counter()
+        (out,) = client.predict(images)
+        call_s = time.perf_counter() - t0
+        client.close()
+    finally:
+        server.stop()
+    diff = float(abs(out - want).max())
+    if (out.shape != (S2S_IMAGES[0], 1000) or not np.isfinite(want).all()
+            or not (out == want).all()):
+        fail(f"Predict from resnet50.pkl: shape {out.shape}, max |diff| {diff} against "
+             "CompiledEvalStep on the saved model")
+    return dict(call_s=call_s, max_abs_diff=diff)
+
+
+def s2s_serve_phase(torch, dt, report, model, tmp, card):
+    """A main path: the loaded model served by Seq2SeqGenerator in bf16 (B
+    8, source 1024, S2S_NEW tokens from a captured step), its tokens equal
+    to the eager loop's; the f32 generator against the tape's greedy; the
+    gRPC Generate route against the in-process generator; Predict from a
+    ResNet-50 checkpoint file.  Returns {path: counts}."""
+    import numpy as np
+
+    from deepflows_tpu_torch import ops
+    from deepflows_tpu_torch.models import Seq2SeqGenerator
+
+    model.eval()
+    rng = np.random.default_rng(S2S_SEED + 2)
+    src = s2s_sources(rng)
+    B, Ls = src.shape
+    gen = Seq2SeqGenerator(model, compute_dtype=torch.bfloat16)
+    gen._capture = False
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager = gen.generate(src, S2S_NEW)
+    eager_s = time.perf_counter() - t0
+    gen._capture = True
+    graphed, counts = counted(ops, lambda: gen.generate(src, S2S_NEW))
+    print(f"main-path launches (seq2seq serving): {counts}")
+    key = ("decode", B, Ls, S2S_NEW, torch.bfloat16)
+    captured = gen._graphs[key]
+    if captured.replays != S2S_NEW - 1:
+        fail(f"seq2seq serving: {captured.replays} replays, not {S2S_NEW - 1}")
+    if not (graphed == eager).all():
+        j = int(np.argmax((graphed != eager).any(0)))
+        fail(f"seq2seq serving: the graphed tokens part from the eager loop's at step {j}")
+    if graphed.shape != (B, S2S_NEW) or not ((graphed >= 0) & (graphed < S2S_CFG["vocab_size"])).all():
+        fail(f"seq2seq serving: tokens of shape {graphed.shape} outside the vocabulary")
+    gen_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen.generate(src, S2S_NEW)
+        gen_s.append(time.perf_counter() - t0)
+    lp = gen._loops[key]
+
+    def decode_all():
+        lp.pos.zero_()
+        for _ in range(S2S_NEW):
+            captured.replay()
+
+    def one_step():
+        lp.pos.zero_()
+        captured.replay()
+
+    others = {}
+    with torch.inference_mode():
+        step_ms = event_ms(decode_all, 3) / S2S_NEW
+        profile = replay_profile(torch, one_step, others=others)
+    floor_ms, floor_bytes = s2s_step_floor(model, B, Ls)
+    generate_s = statistics.median(gen_s)
+    r = dict(generate_s=generate_s, generate_tokens_per_s=B * S2S_NEW / generate_s,
+             eager_generate_s=eager_s, step_device_ms=step_ms,
+             decode_tokens_per_s=B / step_ms * 1e3, step_floor_ms=floor_ms,
+             step_floor_bytes=floor_bytes, capture_s=captured.capture_s,
+             graph_pool_mib=captured.pool_bytes / 2**20, profile=profile,
+             top_others_ms=top_others(others))
+    print(f"  bf16, B {B}, source {Ls}, +{S2S_NEW}: graphed tokens equal the eager loop's; "
+          f"generate {generate_s * 1e3:.1f} ms ({r['generate_tokens_per_s']:.1f} generated tok/s;"
+          f" eager loop {eager_s * 1e3:.1f} ms, its first call), a step {step_ms:.4f} ms device "
+          f"({r['decode_tokens_per_s']:.1f} tok/s) against a floor of {floor_ms:.4f} ms "
+          f"({floor_bytes / 1e9:.3f} GB); capture {captured.capture_s:.3f} s, pool "
+          f"{r['graph_pool_mib']:.1f} MiB; {card}")
+    print("  a step's device time by kernel group: " + ", ".join(
+        f"{k} {v['ms']:.4f} ms ({v['kernels']:.0f} kernels)" for k, v in profile.items()))
+    print("  the largest other PyTorch kernels, ms a step: "
+          + "; ".join(f"{k} {v:.4f}" for k, v in r["top_others_ms"].items()))
+    f32 = Seq2SeqGenerator(model).generate(src, S2S_TAPE)
+    tape, margins = s2s_tape_greedy(torch, model, src, S2S_TAPE)
+    parted = (f32 != tape).any(0)
+    if parted.any():
+        j = int(np.argmax(parted))
+        rows = (f32[:, j] != tape[:, j])
+        if not (margins[rows, j] < S2S_F32_TIE).all() or (f32[:, :j] != tape[:, :j]).any():
+            fail(f"seq2seq f32 generator parts from the tape's greedy at step {j}, top-2 "
+                 f"margins {margins[rows, j]}")
+        print(f"  f32 generator and tape part at step {j} at a near tie "
+              f"(margins {margins[rows, j]}); equal before it")
+    else:
+        print(f"  f32 generator equals the tape's greedy for {S2S_TAPE} tokens (least top-2 "
+              f"margin {float(margins.min()):.4g})")
+    r["f32_tape_parted_at"] = int(np.argmax(parted)) if parted.any() else None
+    r["f32_tape_least_margin"] = float(margins.min())
+    srcs = [s2s_sources(rng) for _ in range(S2S_GRPC_CALLS)]
+    want = [gen.generate(s, S2S_NEW) for s in srcs]
+    outs, wall = s2s_grpc(torch, model, srcs)
+    for i, (o, w) in enumerate(zip(outs, want)):
+        if o.shape != w.shape or not (o == w).all():
+            fail(f"seq2seq gRPC call {i}: shape {o.shape}, tokens differ from the in-process "
+                 "generator's")
+    r["grpc"] = dict(calls=len(srcs), wall_s=wall, tokens_per_s=len(srcs) * B * S2S_NEW / wall)
+    print(f"  gRPC: {len(srcs)} Generate calls (B {B}, +{S2S_NEW}) from {len(srcs)} clients in "
+          f"{wall:.3f} s, tokens equal to the in-process generator's")
+    del gen
+    free_card(torch)
+    r["predict"] = p = s2s_predict_phase(torch, dt, tmp, rng)
+    print(f"  Predict from resnet50.pkl ({S2S_IMAGES}): equal to CompiledEvalStep on the saved "
+          f"model, {p['call_s']:.3f} s a call")
+    report["seq2seq_serving"] = r
+    return {"seq2seq_serving": counts}
+
+
+def seq2seq_phases(torch, dt, report, phase, card):
+    """The encoder-decoder slice at BART-base's widths: training (a main
+    path), the checkpoint phase, serving (a main path).  Returns ({path:
+    launch counts}, the fused_adam check's numbers)."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix=".seq2seq_ckpt_", dir=ROOT)
+    marks = [time.perf_counter()]
+    try:
+        phase("seq2seq training at BART-base widths (main path):")
+        paths, _, adam, model, step, x, y = s2s_train_phase(torch, dt, report, card)
+        marks.append(time.perf_counter())
+        phase("seq2seq checkpoint (save, load, an async save beside the next step):")
+        loaded = s2s_checkpoint_phase(torch, dt, report, model, step, x, y, tmp)
+        del model, step, x, y
+        free_card(torch)
+        marks.append(time.perf_counter())
+        phase("seq2seq serving (main path): the bf16 generator, gRPC Generate, Predict from a "
+              "checkpoint file:")
+        paths.update(s2s_serve_phase(torch, dt, report, loaded, tmp, card))
+        del loaded
+        free_card(torch)
+        marks.append(time.perf_counter())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    secs = dict(zip(("training_s", "checkpoint_s", "serving_s"),
+                    (b - a for a, b in zip(marks, marks[1:]))))
+    secs["total_s"] = marks[-1] - marks[0]
+    report["seq2seq_phases_s"] = secs
+    print("  seq2seq phases: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    return paths, adam
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", metavar="PATH",
@@ -4719,10 +5204,12 @@ def main(argv=None) -> int:
         | {f"{key}_M": svk[key]["M"] for key in ("verify", "admission_prefill")}
         for name in ("int8_matmul", "w8a8_matmul")
     }
+    s2paths, s2adam = seq2seq_phases(torch, dt, report, phase, card)
     for k in kernels:
         for key, paths in (("launches_by_family_path", fpaths), ("launches_by_cnn_path", cpaths),
                            ("launches_by_finetune_path", ftpaths),
-                           ("launches_by_serving_path", spaths)):
+                           ("launches_by_serving_path", spaths),
+                           ("launches_by_seq2seq_path", s2paths)):
             by_path = {p: c[k["name"]] for p, c in paths.items() if c[k["name"]]}
             if by_path:
                 k[key] = by_path
@@ -4735,6 +5222,9 @@ def main(argv=None) -> int:
             k["finetune"] = finetune[k["name"]]
         if k["name"] in serving:
             k["serving"] = serving[k["name"]]
+        if k["name"] == "fused_adam":  # at the seq2seq model's parameter list
+            k["seq2seq"] = {n: s2adam[n] for n in ("ms", "bound_ms", "plain_ms", "library_ms",
+                                                   "elements", "tensors", "max_abs_err")}
         if k["name"] in cchecks:  # each CNN path's check at its own shapes
             k["cnn"] = cchecks[k["name"]]
             k["max_abs_err"] = max([k["max_abs_err"]]

@@ -13,6 +13,7 @@ from .resnet import (
     ResNet34,
     ResNet50,
 )
+from .seq2seq import CrossDecoderBlock, Seq2SeqGenerator, Seq2SeqTransformer
 from .speculative import SpeculativeDecoder
 from .transformer_lm import TransformerLM
 from .vgg import VGG, VGG16
@@ -22,6 +23,7 @@ __all__ = [
     "BasicBlock",
     "Bottleneck",
     "CIFAR10_CNN",
+    "CrossDecoderBlock",
     "DishesCNN",
     "EncoderBlock",
     "InflightEngine",
@@ -43,6 +45,8 @@ __all__ = [
     "ResNet34",
     "ResNet50",
     "ResidualBlock",
+    "Seq2SeqGenerator",
+    "Seq2SeqTransformer",
     "SpeculativeDecoder",
     "TransformerLM",
     "VGG",

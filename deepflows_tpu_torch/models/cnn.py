@@ -4,8 +4,6 @@ Dishes CNNs, with the JAX package's module names."""
 
 from __future__ import annotations
 
-import torch
-
 from .. import nn
 from ..device import Device
 from ..nn import functional as F
@@ -18,7 +16,7 @@ class MLP(nn.Module):
     def __init__(self, in_features=784, hidden=(100, 20), num_classes=10, device=None):
         super().__init__()
         dims = [in_features, *hidden, num_classes]
-        self.layers = torch.nn.ModuleList(
+        self.layers = nn.ModuleList(
             [nn.Linear(a, b, device=device) for a, b in zip(dims[:-1], dims[1:])]
         )
 

@@ -1,5 +1,4 @@
-"""nn.functional — the functions the ported slices' modules use
-(counterpart of part of ``deepflows_tpu/nn/functional.py``).
+"""nn.functional (counterpart of ``deepflows_tpu/nn/functional.py``).
 
 Each follows the JAX package's arithmetic op for op, so f32 results agree
 to rounding.  Convolution, batch norm and pooling are PyTorch's own ops
@@ -15,6 +14,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..config import config
@@ -236,6 +236,67 @@ def cross_entropy(
     if valid is not None:
         return total / valid.sum().clamp_min(1).to(total.dtype)
     return total * (1.0 / (nll.numel() // input.shape[dim]))
+
+
+# ------------------------------------------------------------------ losses
+def _reduce(loss, reduction: str):
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    if reduction == "none":
+        return loss
+    raise ValueError("reduction must be 'mean', 'sum' or 'none'")
+
+
+def _target(target, input):
+    """A loss target on the input's device; an array's floating values in
+    the input's dtype, as the JAX tape converts them."""
+    if isinstance(target, torch.Tensor):
+        return target.to(input.device)
+    t = torch.as_tensor(np.asarray(target), device=input.device)
+    return t.to(input.dtype) if t.is_floating_point() else t
+
+
+def l1_loss(input, target, reduction: str = "mean"):
+    return _reduce(torch.abs(input - _target(target, input)), reduction)
+
+
+def mse_loss(input, target, reduction: str = "mean"):
+    return _reduce(torch.square(input - _target(target, input)), reduction)
+
+
+def nll_loss(input, target, reduction: str = "mean"):
+    """``-input * onehot(target)`` reduced over every element, as the JAX
+    package (the reference's definition): integer targets are one-hot on
+    axis 1, and ``'mean'`` divides by ``input.numel()``, not by the number
+    of targets as torch's ``nll_loss`` does."""
+    return _reduce(-input * _maybe_one_hot(_target(target, input), input), reduction)
+
+
+def binary_cross_entropy(input, target, reduction: str = "mean", eps: float = 1e-7):
+    """``-(t·log p + (1 - t)·log(1 - p))`` with the input clamped to
+    ``[eps, 1 - eps]`` first (a clamped element gets no gradient; one on
+    the bound gets half, as the JAX tape splits ties)."""
+    lo, hi = (torch.tensor(v, dtype=input.dtype, device=input.device) for v in (eps, 1.0 - eps))
+    p = torch.maximum(torch.minimum(input, hi), lo)
+    t = _target(target, input)
+    return _reduce(-(t * torch.log(p) + (1.0 - t) * torch.log(1.0 - p)), reduction)
+
+
+def one_hot(indices, num_classes: int, device=None):
+    """``(…, num_classes)`` rows of the default float dtype, without
+    gradients; on the indices' device when they are a tensor, else on
+    ``device`` (the card by default)."""
+    from ..device import Device
+
+    if isinstance(indices, torch.Tensor):
+        dev = indices.device if device is None else Device(device)
+    else:
+        dev = Device(device)
+        indices = torch.as_tensor(np.asarray(indices))
+    out = torch.nn.functional.one_hot(indices.to(dev).long(), num_classes)
+    return out.to(config.default_dtype)
 
 
 # ------------------------------------------------------------------ conv ops

@@ -11,13 +11,13 @@ from .activation import (
 )
 from .batchnorm import BatchNorm1d, BatchNorm2d
 from .attention import MultiheadAttention
-from .container import Sequential
+from .container import ModuleDict, ModuleList, Sequential
 from .conv import Conv1d, Conv2d, WSConv2d
 from .dropout import Dropout
 from .embedding import Embedding
 from .flatten import Flatten
 from .linear import Identity, Linear
-from .loss import CrossEntropyLoss, LMHeadCrossEntropy
+from .loss import BCELoss, CrossEntropyLoss, L1Loss, LMHeadCrossEntropy, MSELoss, NLLLoss
 from .module import Module
 from .moe import MoE, MoECriterion
 from .normalization import GroupNorm, LayerNorm, RMSNorm
@@ -30,6 +30,7 @@ __all__ = [
     "AvgPool2d",
     "BatchNorm1d",
     "BatchNorm2d",
+    "BCELoss",
     "Conv1d",
     "Conv2d",
     "CrossEntropyLoss",
@@ -39,6 +40,7 @@ __all__ = [
     "GELU",
     "GroupNorm",
     "Identity",
+    "L1Loss",
     "LayerNorm",
     "LeakyReLU",
     "Linear",
@@ -47,9 +49,13 @@ __all__ = [
     "MaxPool1d",
     "MaxPool2d",
     "Module",
+    "ModuleDict",
+    "ModuleList",
     "MoE",
     "MoECriterion",
+    "MSELoss",
     "MultiheadAttention",
+    "NLLLoss",
     "ReLU",
     "ReLU6",
     "Remat",

@@ -1,6 +1,7 @@
-"""Loss modules of the training slice (counterpart of ``CrossEntropyLoss``
-and ``LMHeadCrossEntropy`` in ``deepflows_tpu/nn/modules/loss.py``; the
-other losses come with later slices)."""
+"""Loss modules (counterpart of ``deepflows_tpu/nn/modules/loss.py``).
+
+Each takes ``reduction`` in {"mean", "sum", "none"}; anything else raises
+``ValueError`` (the JAX package asserts, which ``python -O`` would drop)."""
 
 from __future__ import annotations
 
@@ -15,6 +16,29 @@ class _Loss(Module):
         if reduction not in ("mean", "sum", "none"):
             raise ValueError("reduction must be 'mean', 'sum' or 'none'")
         self.reduction = reduction
+
+
+class L1Loss(_Loss):
+    def forward(self, input, target):
+        return F.l1_loss(input, target, reduction=self.reduction)
+
+
+class NLLLoss(_Loss):
+    """``F.nll_loss``: the JAX package's ``-input · onehot(target)``, not
+    torch's ``nll_loss``."""
+
+    def forward(self, input, target):
+        return F.nll_loss(input, target, reduction=self.reduction)
+
+
+class MSELoss(_Loss):
+    def forward(self, input, target):
+        return F.mse_loss(input, target, reduction=self.reduction)
+
+
+class BCELoss(_Loss):
+    def forward(self, input, target):
+        return F.binary_cross_entropy(input, target, reduction=self.reduction)
 
 
 class CrossEntropyLoss(_Loss):

@@ -8,7 +8,10 @@ over the protoc-generated messages, so a client of either package calls a
 server of either.  ``Predict`` runs the model's forward
 (``jit.CompiledEvalStep``) on the model's device; ``Generate`` decodes a
 served LM, through the in-flight engine, the speculative decoder or the
-one-shot KV-cache decoder, tried in that order as in the JAX package.
+one-shot KV-cache decoder, tried in that order as in the JAX package, or
+a ``Seq2SeqTransformer`` through its greedy generator.  The server and
+the client take messages of up to ``MAX_MESSAGE_BYTES`` (grpc's default
+is 4 MiB, less than a batch of 8 images of 3 × 224²).
 
 ``grpc`` is imported only by the server and client classes, so the rest of
 the package imports without it.
@@ -16,6 +19,7 @@ the package imports without it.
 
 from __future__ import annotations
 
+import os
 import threading
 from concurrent import futures
 from typing import Optional
@@ -25,6 +29,9 @@ import numpy as np
 from .proto import serving_pb2
 
 _SERVICE = "MyDLPW.serving.MyDLPWServing"
+MAX_MESSAGE_BYTES = 256 << 20
+_GRPC_OPTIONS = [("grpc.max_send_message_length", MAX_MESSAGE_BYTES),
+                 ("grpc.max_receive_message_length", MAX_MESSAGE_BYTES)]
 
 
 def _to_matrix(arr: np.ndarray) -> "serving_pb2.Matrix":
@@ -103,17 +110,22 @@ class PredictService:
         """matrix[0] the (B, L) prompt ids, matrix[1] [new_tokens], and
         optionally matrix[2] [temperature, top_k, top_p, seed] (0 turns
         each off; no matrix[2] or temperature 0 is greedy).  Answers
-        matrix[0] = (B, L + new_tokens) tokens."""
+        matrix[0] = (B, L + new_tokens) tokens.  A ``Seq2SeqTransformer``
+        reads matrix[0] as the (B, Ls) source, decodes greedily from the
+        bos_id in the knobs' fourth slot (0 without), and answers the
+        (B, new_tokens) target alone."""
         from ..models.decoding import KVCacheDecoder
         from ..models.llama import LlamaLM
         from ..models.mixtral import MixtralLM
+        from ..models.seq2seq import Seq2SeqTransformer
         from ..models.transformer_lm import TransformerLM
 
+        if isinstance(self._model, Seq2SeqTransformer):
+            return self._generate_seq2seq(request)
         if not isinstance(self._model, (TransformerLM, LlamaLM, MixtralLM)):
             raise ValueError(
-                "Generate is served for TransformerLM, LlamaLM and MixtralLM models; "
-                f"got {type(self._model).__name__} (Seq2SeqTransformer and its generator, "
-                "models/seq2seq.py, wait for ROADMAP.md queue 1 item 3)")
+                "Generate is served for TransformerLM, LlamaLM, MixtralLM and "
+                f"Seq2SeqTransformer models; got {type(self._model).__name__}")
         with self._make:
             if self._decoder is None:
                 self._decoder = KVCacheDecoder(self._model, compute_dtype=self._decode_dtype,
@@ -135,6 +147,23 @@ class PredictService:
             tokens = self._speculative_generate(prompt, new_tokens, sample_kw)
         if tokens is None:
             tokens = self._decoder.generate(prompt, new_tokens, **sample_kw)
+        resp = serving_pb2.PredictResp()
+        resp.matrix.extend([_to_matrix(tokens.astype(np.float32))])
+        return resp
+
+    def _generate_seq2seq(self, request):
+        """The encoder-decoder route: greedy only, the generator in
+        ``decode_dtype``."""
+        from ..models.seq2seq import Seq2SeqGenerator
+
+        with self._make:
+            if self._decoder is None:
+                self._decoder = Seq2SeqGenerator(self._model, compute_dtype=self._decode_dtype)
+        src = _from_matrix(request.matrix[0]).astype(np.int64)
+        new_tokens = int(_from_matrix(request.matrix[1]).ravel()[0])
+        knobs = _from_matrix(request.matrix[2]).ravel() if len(request.matrix) > 2 else ()
+        bos = int(knobs[3]) if len(knobs) > 3 else 0
+        tokens = self._decoder.generate(src, new_tokens, bos_id=bos)
         resp = serving_pb2.PredictResp()
         resp.matrix.extend([_to_matrix(tokens.astype(np.float32))])
         return resp
@@ -206,18 +235,29 @@ class MyDLPWServicer:
         block_size: int = 16,
         draft_model=None,
         spec_gamma: int = 4,
+        device=None,
     ):
-        """``model`` is served as it is.  Serving a file (``root_dir`` and
-        ``model_file``) is not ported yet: an ``.onnx`` graph waits for the
-        ONNX runtime (ROADMAP.md queue 1 item 11) and a checkpoint for the
-        model zoo's loaders (item 8); both raise."""
+        """Serve ``model`` as it is, or a model file (``root_dir`` and
+        ``model_file``): a checkpoint (``*.pkl``, ``utils.save_checkpoint``
+        of either package) is loaded with ``strict=False`` into the zoo
+        model ``model_name`` (``num_classes`` wide) built on ``device``
+        (the card by default).  An ``.onnx`` graph waits for the ONNX
+        runtime (ROADMAP.md queue 1 item 6) and raises."""
         import grpc
 
         if model is None and model_file is not None:
-            item = 11 if str(model_file).endswith(".onnx") else 8
-            raise NotImplementedError(
-                f"serving {model_file!r} from disk is not ported yet (ROADMAP.md queue 1 item "
-                f"{item}); pass the model")
+            if str(model_file).endswith(".onnx"):
+                raise NotImplementedError(
+                    f"serving {model_file!r} waits for the ONNX runtime (ROADMAP.md queue 1 "
+                    "item 6); pass the model")
+            from ..utils.model_utils import load_checkpoint
+            from ..utils.pretrained_models import _build_model
+
+            if model_name is None:
+                raise ValueError("model_name required to serve from a checkpoint")
+            model = _build_model(model_name, num_classes=num_classes, device=device)
+            load_checkpoint(model, None, os.path.join(root_dir or ".", model_file),
+                            strict=False)
         if model is None:
             raise ValueError("pass a deepflows_tpu_torch model to serve")
         self.host = host
@@ -226,7 +266,8 @@ class MyDLPWServicer:
             inflight_slots=inflight_slots, inflight_chunk=inflight_chunk,
             inflight_top_k=inflight_top_k, paged_blocks=paged_blocks, block_size=block_size,
             draft_model=draft_model, spec_gamma=spec_gamma)
-        self._server = grpc.server(futures.ThreadPoolExecutor(max_workers=max_workers))
+        self._server = grpc.server(futures.ThreadPoolExecutor(max_workers=max_workers),
+                                   options=_GRPC_OPTIONS)
         handler = grpc.method_handlers_generic_handler(_SERVICE, {
             name: grpc.unary_unary_rpc_method_handler(
                 fn,
@@ -258,7 +299,7 @@ class PredictClient:
     def __init__(self, host: str):
         import grpc
 
-        self._channel = grpc.insecure_channel(host)
+        self._channel = grpc.insecure_channel(host, options=_GRPC_OPTIONS)
         self._call, self._generate_call = (
             self._channel.unary_unary(
                 f"/{_SERVICE}/{name}",
@@ -277,7 +318,9 @@ class PredictClient:
                  top_k=None, top_p=None, seed: int = 0) -> np.ndarray:
         """Server-side decoding: (B, L) int prompt -> (B, L + new_tokens)
         int tokens; greedy at ``temperature=0``, else sampled with
-        ``top_k``, ``top_p`` and ``seed`` (the knobs ride a third Matrix)."""
+        ``top_k``, ``top_p`` and ``seed`` (the knobs ride a third Matrix).
+        A server of a ``Seq2SeqTransformer`` answers the (B, new_tokens)
+        target and reads ``seed``'s slot as its bos_id."""
         req = serving_pb2.PredictReq()
         mats = [_to_matrix(np.asarray(prompt, np.float32)),
                 _to_matrix(np.asarray([new_tokens], np.float32))]

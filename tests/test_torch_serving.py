@@ -1,10 +1,12 @@
 """The port's gRPC serving (deepflows_tpu_torch/serving) on the CPU, over a
 real server on 127.0.0.1 (a port the server picks): Predict round trips,
 Generate through each of its routes (one-shot, int8 bf16, in-flight,
-in-flight paged, prefix-cached, speculative), refusals (a non-LM model,
-a model file), and the JAX package's ``PredictClient`` calling the port's
-server: both packages' protobuf modules register one identical
-``serving.proto`` in the process's descriptor pool.
+in-flight paged, prefix-cached, speculative, seq2seq), Predict of a zoo
+model served from a checkpoint file (the port's and the JAX package's),
+refusals (a model that is neither LM nor seq2seq, an ONNX file), and the
+JAX package's ``PredictClient`` calling the port's server: both packages'
+protobuf modules register one identical ``serving.proto`` in the
+process's descriptor pool.
 
 LMs (TransformerLM dim 32, depth 2, 2 heads, vocab 16, max_len 24) are
 built by the JAX package and crossed with ``load_jax_state_dict``; greedy
@@ -12,6 +14,7 @@ tokens over the wire equal the JAX package's one-shot decoder's (f32) or
 the port's own decoder in the same mode (int8 bf16).
 """
 
+import sys
 import threading
 
 import numpy as np
@@ -21,6 +24,7 @@ import torch
 import deepflows_tpu as df
 from deepflows_tpu import Graph
 from deepflows_tpu import models as jmodels
+from deepflows_tpu import nn as jnn
 from deepflows_tpu.models.decoding import KVCacheDecoder as JaxDecoder
 from deepflows_tpu_torch import nn, ops
 from deepflows_tpu_torch.models import KVCacheDecoder, TransformerLM
@@ -214,16 +218,140 @@ def test_jax_client_calls_the_port_server(lms):
 
 
 def test_refusals(lms):
-    """Generate on a model that is no LM fails the call (its error names
-    the model); serving a file raises, naming the ROADMAP item it waits
-    for; no model raises."""
+    """Generate on a model that is neither an LM nor a seq2seq model fails
+    the call (its error names the model); serving an ONNX file raises,
+    naming the ROADMAP item it waits for; a checkpoint without a model
+    name, and no model, raise."""
     model = nn.Sequential(nn.Linear(8, 3, device="cpu"))
     with _Served(model) as s:
         with pytest.raises(grpc.RpcError, match="Sequential"):
             s.client.generate(np.array([[1, 2]]), 3)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         MyDLPWServicer("127.0.0.1:0", root_dir=".", model_file="m.onnx")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        MyDLPWServicer("127.0.0.1:0", root_dir=".", model_file="m.pkl", model_name="resnet18")
+    with pytest.raises(ValueError, match="model_name"):
+        MyDLPWServicer("127.0.0.1:0", root_dir=".", model_file="m.pkl")
     with pytest.raises(ValueError, match="model"):
         MyDLPWServicer("127.0.0.1:0")
+
+
+S2S = dict(vocab_size=24, src_len=6, tgt_len=6, dim=32, enc_depth=1, dec_depth=1, num_heads=2)
+
+
+def test_seq2seq_generate_over_grpc():
+    """Generate serves a Seq2SeqTransformer (tests/test_serving.py's case):
+    matrix[0] the source, the answer the (B, new_tokens) target, equal to
+    the JAX model's greedy tokens from both clients; the seed slot carries
+    bos_id; with decode_dtype bf16 the server's tokens equal the port's own
+    bf16 generator's."""
+    from deepflows_tpu_torch.models import Seq2SeqGenerator, Seq2SeqTransformer
+
+    df.manual_seed(9)
+    jm = jmodels.Seq2SeqTransformer(**S2S, device="cpu")
+    tm = Seq2SeqTransformer(**S2S, device="cpu")
+    load_jax_state_dict(tm, jm.state_dict())
+    Graph.free_graph_all()
+    src = np.array([[1, 3, 5, 7, 9, 11], [2, 4, 6, 8, 10, 12]], np.int64)
+    with _Served(tm) as s:
+        out = s.client.generate(src, 4)
+        assert out.shape == (2, 4)
+        np.testing.assert_array_equal(out, jm.generate(src, 4, bos_id=0))
+        np.testing.assert_array_equal(s.client.generate(src, 4, seed=3),
+                                      jm.generate(src, 4, bos_id=3))
+        jc = JaxClient(s.addr)
+        np.testing.assert_array_equal(jc.generate(src, 4, temperature=0.0, seed=3),
+                                      jm.generate(src, 4, bos_id=3))
+        jc.close()
+        assert isinstance(s.server._service._decoder, Seq2SeqGenerator)
+        # concurrent calls share the one generator (its lock)
+        srcs = [np.random.default_rng(i).integers(0, 24, (2, 6)) for i in range(6)]
+        outs = [None] * len(srcs)
+        interval = sys.getswitchinterval()
+        sys.setswitchinterval(1e-5)
+        try:
+            threads = [threading.Thread(target=lambda i=i: outs.__setitem__(
+                i, s.client.generate(srcs[i], 4))) for i in range(len(srcs))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+        finally:
+            sys.setswitchinterval(interval)
+        assert not any(t.is_alive() for t in threads)
+        for i, (o, src_i) in enumerate(zip(outs, srcs)):
+            np.testing.assert_array_equal(o, jm.generate(src_i, 4), err_msg=f"call {i}")
+    with _Served(tm, decode_dtype=torch.bfloat16) as s:
+        want = Seq2SeqGenerator(tm, compute_dtype=torch.bfloat16).generate(src, 5, bos_id=2)
+        np.testing.assert_array_equal(s.client.generate(src, 5, seed=2), want)
+        assert s.server._service._decoder.compute_dtype == torch.bfloat16
+
+
+def test_predict_from_a_checkpoint_file(tmp_path):
+    """A ResNet-18 checkpoint (``utils.save_checkpoint``) served from
+    ``root_dir`` + ``model_file`` with ``model_name``: Predict of 2 x 3 x
+    32² over the wire equals ``CompiledEvalStep`` on the saved model; the
+    same for the JAX package's checkpoint of its own model, against JAX's
+    eval."""
+    from deepflows_tpu.jit import CompiledEvalStep as JaxEvalStep
+    from deepflows_tpu.utils import save_checkpoint as jax_save
+    from deepflows_tpu_torch.jit import CompiledEvalStep
+    from deepflows_tpu_torch.models import ResNet18
+    from deepflows_tpu_torch.utils import save_checkpoint
+
+    model = ResNet18(num_classes=10, device="cpu")
+    with torch.no_grad():  # running statistics away from their init
+        for b in model.buffers():
+            b.uniform_(0.5, 1.5)
+    save_checkpoint(model, save_path=str(tmp_path / "resnet18.pkl"))
+    x = np.random.default_rng(1).standard_normal((2, 3, 32, 32)).astype(np.float32)
+    want = CompiledEvalStep(model)(x).numpy()
+    kw = dict(root_dir=str(tmp_path), model_name="resnet18", num_classes=10, device="cpu")
+    server = MyDLPWServicer("127.0.0.1:0", model_file="resnet18.pkl", **kw)
+    server.serve(wait=False)
+    try:
+        client = PredictClient(f"127.0.0.1:{server.port}")
+        (out,) = client.predict(x)
+        client.close()
+    finally:
+        server.stop()
+    np.testing.assert_array_equal(out, want)
+    df.manual_seed(3)
+    jm = jmodels.ResNet18(num_classes=10, device="cpu")
+    jax_save(jm, save_path=str(tmp_path / "jax_resnet18.pkl"))
+    jwant = np.asarray(JaxEvalStep(jm)(x))
+    with _Served(None, model_file="jax_resnet18.pkl", **kw) as s:
+        (jout,) = s.client.predict(x)
+    np.testing.assert_allclose(jout, jwant, rtol=1e-4, atol=1e-4)
+
+
+def test_predict_takes_a_batch_of_images_above_grpc_default():
+    """A Predict of 8 x 3 x 224² (4.8 MB, above grpc's default 4 MiB
+    limit) reaches the port's server from either client; the JAX
+    package's server keeps the default and refuses it."""
+    import socket
+
+    from deepflows_tpu.serving import MyDLPWServicer as JaxServer
+
+    x = np.random.default_rng(2).standard_normal((8, 3, 224, 224)).astype(np.float32)
+    model = nn.Sequential(nn.AdaptiveAvgPool2d(1), nn.Flatten(), nn.Linear(3, 2, device="cpu"))
+    with torch.no_grad():
+        want = model(torch.as_tensor(x)).numpy()
+    with _Served(model) as s:
+        (out,) = s.client.predict(x)
+        jc = JaxClient(s.addr)
+        (jout,) = jc.predict(x)
+        jc.close()
+    np.testing.assert_allclose(out, want, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(jout, want, rtol=1e-5, atol=1e-6)
+    with socket.socket() as sock:  # a free port: the JAX server does not report its own
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    js = JaxServer(f"127.0.0.1:{port}", model=jnn.Sequential(jnn.Flatten()))
+    js.serve(wait=False)
+    try:
+        client = PredictClient(f"127.0.0.1:{port}")
+        with pytest.raises(grpc.RpcError) as err:
+            client.predict(x)
+        client.close()
+    finally:
+        js.stop()
+    assert err.value.code() == grpc.StatusCode.RESOURCE_EXHAUSTED
