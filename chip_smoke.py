@@ -398,6 +398,57 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
    "resnet50"): a Predict of 8 x 3 x 224^2 equal to CompiledEvalStep on
    the saved model.  Seconds of each of 34-36.
 
+37. text_trainer, the utils slice's main path: the repository's markdown
+   (*.md, then docs/*.md, sorted) -> BPETokenizer().train on its first
+   65,536 characters (vocab 512), save and load (the merges equal) ->
+   LMDataset over the whole corpus at seq_len 1024 -> Trainer(lm, Adam,
+   LMHeadCrossEntropy(lm.head), checkpoint_path, step=the bench row's
+   CompiledTrainStep(lm.trunk(), Adam(lr 5e-3, wd 5e-4, fused=True),
+   LMHeadCrossEntropy(lm.head), compute_dtype=bf16)).fit(epochs 1, B 8,
+   prefetch 2) on the phase-5 model (vocab 8192: the tokenizer's ids stay
+   below 512).  Launch counts zeroed just before fit and read just after:
+   PER_STEP a step, every batch staged on the card; the loss falls from
+   the first step to the last.  Then load_checkpoint of the file fit wrote
+   into a fresh LM and Adam: logits on a batch bitwise equal, the Adam
+   slots equal; 48 greedy tokens from "## Architecture" on the graphed
+   bf16 decoder, decoded; the bare step (run_steps) timed against a step
+   inside fit; one more epoch under profiling.trace: the card's busy
+   share, and every batch copy pinned, on the loader's stream, beside a
+   kernel.  Host seconds of the tokenizer and the dataset.
+38. cnn_trainer, a main path: ResNet-50 (bf16 compute, fused Adam at
+   CNN_LR) through Trainer.fit, one epoch of 4 steps of B 128 x 224^2 (one
+   batch of uint8-range images from a seed, scaled to [0, 1], repeated in
+   order) with RandomCrop(224, 4), RandomHorizontalFlip and
+   Normalize(IMAGENET_STATS) on the prefetch thread: one fused_adam launch
+   a step, the loss falls, each step gets the x the thread augmented for
+   it (the sum of its bits, on the card and on the host) and its own
+   labels; Trainer.evaluate over 256 images,
+   one device-to-host readback (profiling.trace); one batch's
+   augmentation on the host against the step's device ms;
+   DeviceDataLoader over a DataLoader: batches on the card equal to the
+   host's, copied from pinned memory.
+39. pretrained: a seeded ResNet-50 -> export_torch_state_dict ->
+   torch.save -> convert_weights_to_deepflows -> load_pretrained_model
+   (strict) into a fresh ResNet-50 on the card: eval logits at B 32 bitwise
+   equal to the source's.
+40. hf_interop: an HF-layout Llama state dict at Mistral-7B widths (depth
+   2; numpy arrays from a seed under HF's key names and (out, in)
+   layouts; a SimpleNamespace with config.json's field names) through
+   build_llama_from_hf_config and load_hf_llama_state: 32 greedy tokens
+   (B 2, prompt 64) from the graphed decoder and the f32 logits bitwise
+   equal to the same arrays loaded by load_jax_state_dict.  Then, a main
+   path, an HF-layout GPT-2 at GPT-2 small's widths (n_embd 768, 12
+   layers and heads, vocab 50257, n_positions 1024) converted and trained
+   3 bf16 steps at B 8 x L 1024 with LMHeadCrossEntropy (Adam lr 6e-4,
+   fused): 12 flash launches each way at D 64, the CE forward on its
+   mma.sync route (V 50257 is no multiple of 8), flash on wgmma both
+   ways.  Then each of the path's kernels against its plain twins at the
+   path's shapes, timed beside its bound, plain twin and library call: the
+   CE at (N 8192, D 768, V 50257) with ce_case's tolerances, flash causal
+   at (8, 12, 1024, 64) as (B, L, H, D) views with flash_case's, and
+   fused_adam over GPT-2's 198 parameter tensors (adam_list_check).
+   Seconds of each of 37-40.
+
 Prints the card's name and power limit, one {"kernels": [...]} line (the CE
 backward's, linear_fused's and matmul's entries with the plan they ran:
 (C, BM, BV) and (tile, chunk, splits); the flash forward's with its route
@@ -407,7 +458,8 @@ in ``launches_by_cnn_path``, the fine-tuning slice's in
 ``launches_by_finetune_path``, the serving slice's in
 ``launches_by_serving_path``, the seq2seq slice's in
 ``launches_by_seq2seq_path`` (fused_adam's numbers at its list in
-``seq2seq``), its numbers at the family's shapes in
+``seq2seq``), the utils slice's in ``launches_by_utils_path`` (the CE's,
+flash's and fused_adam's numbers at GPT-2's shapes in ``gpt2``), its numbers at the family's shapes in
 ``family``, at each CNN path's in ``cnn``, whose worst error its
 max_abs_err takes in, at the fine-tuning paths' in ``finetune`` and at
 the serving slice's rows (M 40 and 2048) in ``serving``),
@@ -420,6 +472,7 @@ the training step's numbers) to PATH as JSON.
 from __future__ import annotations
 
 import argparse
+import bisect
 import contextlib
 import gc
 import json
@@ -522,6 +575,14 @@ def bound_ms(nbytes, ops, kind):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS[kind]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def cost_bound(wrapper, *args, kind="bf16"):
+    """bound_ms of one call of a kernel wrapper on ``args``, from the
+    operations and bytes the wrapper states (``<wrapper>.cost``,
+    ops._common.costed): the bounds of flash, the CE and Adam."""
+    n_ops, n_bytes = wrapper.cost(*args)
+    return bound_ms(n_bytes, n_ops, kind)
 
 
 def check_int8(torch, got, want, label):
@@ -1634,35 +1695,32 @@ def train_kernel_phase(torch, ops, report):
             lambda: ops.fused_adam_plain(ps, gs, vs, ss, hyper),
             lib_adam.step),
     }
-    pairs = B * H * L * (L + 1) // 2  # (query, key) pairs the causal mask keeps
-    one_product = 2 * pairs * D  # FLOPs of one causal (L, L, D) product
-    qkv = B * H * L * D * 2  # bytes of one bf16 (B, H, L, D) tensor
-    n_adam = sum(p.numel() for p in ps)
-    # (bytes each input read and each output written once, FLOPs the
-    # function needs: the CE backward's three products are one logits
-    # recompute, dx and dw, though the kernel's two roles each recompute)
-    bounds = {
-        "flash_attention_fwd": (4 * qkv + 4 * B * H * L, 2 * one_product),
-        "flash_attention_bwd": (8 * qkv + 8 * B * H * L, 5 * one_product),
-        "fused_linear_ce_fwd": (2 * (N * E + E * V + V) + 4 * N + 8 * N, 2 * N * E * V),
-        "fused_linear_ce_bwd": (2 * 2 * (N * E + E * V + V) + 12 * N, 3 * 2 * N * E * V),
-        "fused_adam": (28 * n_adam + 28, 0),
+    # (operations, bytes) of one call, as each wrapper states them: the CE
+    # backward's three products are one logits recompute, dx and dw,
+    # though the kernel's two roles each recompute
+    costs = {
+        "flash_attention_fwd": ops.flash_attention_fwd.cost(q, k, v, True),
+        "flash_attention_bwd": ops.flash_attention_bwd.cost(q, k, v, o, lse, do, True),
+        "fused_linear_ce_fwd": ops.fused_linear_ce_fwd.cost(x, w, b, t),
+        "fused_linear_ce_bwd": ops.fused_linear_ce_bwd.cost(x, w, b, t, clse, gr),
+        "fused_adam": ops.fused_adam.cost(ps, gs, vs, ss, hyper),
     }
     out = {}
     for name, (kern, plain, lib) in runs.items():
         reps = 3 if name == "fused_linear_ce_bwd" else 10
         r = dict(ms=event_ms(kern, reps, flush), plain_ms=event_ms(plain, reps, flush),
                  library_ms=event_ms(lib, reps, flush), max_abs_err=err[name])
-        r["bound_ms"], r["bound_by"] = bound_ms(*bounds[name], "bf16")
+        n_ops, n_bytes = costs[name]
+        r["bound_ms"], r["bound_by"] = bound_ms(n_bytes, n_ops, "bf16")
         out[name] = r
     out["fused_linear_ce_bwd"]["plan"] = list(ops.fused_ce._bwd_plan(N, E, V))  # (C, BM, BV)
     cfw = out["fused_linear_ce_fwd"]
     cfw["fwd_route"] = cf["slice_route"]
     cfw["plan"] = list(ops.fused_ce._fwd_plan(N, V, cf["slice_route"]))  # (splits, tiles a split)
-    cfw["tflops"] = bounds["fused_linear_ce_fwd"][1] / cfw["ms"] / 1e9
+    cfw["tflops"] = costs["fused_linear_ce_fwd"][0] / cfw["ms"] / 1e9
     fwd, bwd = out["flash_attention_fwd"], out["flash_attention_bwd"]
-    fwd["fwd_route"], fwd["tflops"] = froute, bounds["flash_attention_fwd"][1] / fwd["ms"] / 1e9
-    bwd["bwd_route"], bwd["tflops"] = broute, bounds["flash_attention_bwd"][1] / bwd["ms"] / 1e9
+    fwd["fwd_route"], fwd["tflops"] = froute, costs["flash_attention_fwd"][0] / fwd["ms"] / 1e9
+    bwd["bwd_route"], bwd["tflops"] = broute, costs["flash_attention_bwd"][0] / bwd["ms"] / 1e9
     del lib_adam, lib_params
     report["train_kernels"] = out
     return out
@@ -1782,8 +1840,7 @@ def sr_kernel_phase(torch, ops, report):
              plain_ms=event_ms(  # one run: the twin's Philox takes a second
                  lambda: ops.fused_adam_sr_plain(ps, gs, vs, ss, hyper, step, idx), 1, flush),
              library_ms=None, max_abs_err=0.0, elements=n, statistics=stats)
-    # bf16 p read and written, bf16 g read, f32 v and s read and written
-    r["bound_ms"], r["bound_by"] = bound_ms(22 * n + 28 + 4, 0, "f32")
+    r["bound_ms"], r["bound_by"] = cost_bound(ops.fused_adam_sr, ps, gs, vs, ss, hyper, step, idx)
     report["fused_adam_sr"] = r
     return r
 
@@ -2294,13 +2351,6 @@ def free_card(torch):
     torch.cuda.empty_cache()
 
 
-def banded_pairs(L, window):
-    """(query, key) pairs a causal mask with ``window`` (None: the causal
-    triangle) keeps over L positions."""
-    W = L if window is None else min(window, L)
-    return W * (W + 1) // 2 + (L - W) * W
-
-
 def family_flash_case(torch, ops, g, L, window, label, flush, chunk=4):
     """flash_attention forward and backward at a training path's shape,
     (1, 32, L, 128) bf16, q and dout as MultiheadAttention passes them
@@ -2336,8 +2386,6 @@ def family_flash_case(torch, ops, g, L, window, label, flush, chunk=4):
         lim = TOL["f32"] if n == "lse" else TOL["bf16"]
         if not r < lim:
             fail(f"flash {label}: {n} differs from the plain twin by {r} (limit {lim})")
-    pairs = B * H * banded_pairs(L, window)
-    qkv = B * H * L * D * 2
     mask = None
     if window:
         i = torch.arange(L, device=q.device)
@@ -2351,8 +2399,9 @@ def family_flash_case(torch, ops, g, L, window, label, flush, chunk=4):
                                                              window), 5, flush),
              sdpa_fwd_ms=event_ms(lambda: F.scaled_dot_product_attention(
                  q, k, v, attn_mask=mask, is_causal=mask is None), 5, flush))
-    r["fwd_bound_ms"], _ = bound_ms(4 * qkv + 4 * B * H * L, 2 * 2 * pairs * D, "bf16")
-    r["bwd_bound_ms"], _ = bound_ms(8 * qkv + 8 * B * H * L, 5 * 2 * pairs * D, "bf16")
+    r["fwd_bound_ms"], _ = cost_bound(ops.flash_attention_fwd, q, k, v, True, None, window)
+    r["bwd_bound_ms"], _ = cost_bound(ops.flash_attention_bwd, q, k, v, o, lse, do, True, None,
+                                      window)
     print(f"    flash {label} (1, 32, {L}, 128) window {window}: {route} / {bwd_route}; "
           + ", ".join(f"{n} {e:.3g}" for n, e in r["rel_err"].items())
           + f"; fwd {r['fwd_ms']:.4f} ms (bound {r['fwd_bound_ms']:.4f}, SDPA "
@@ -2677,11 +2726,13 @@ def family_step_flops(cfg, L, moe):
     the head): 6 x weights x L, plus 3 x 4 x pairs x D a layer for the
     attention products over the (query, key) pairs the causal mask (and
     window) keeps."""
+    from deepflows_tpu_torch.ops.flash_attention import visible_pairs
+
     D, Hd = cfg["dim"], int(cfg["dim"] * cfg["mlp_ratio"])
     kv = cfg["num_kv_heads"] * D // cfg["num_heads"]
     ffn = 3 * D * Hd * (cfg["n_experts"] if moe else 1)
     weights = cfg["depth"] * (2 * D * D + 2 * D * kv + ffn) + D * cfg["vocab_size"]
-    attn = 3 * cfg["depth"] * 4 * banded_pairs(L, cfg.get("window")) * D
+    attn = 3 * cfg["depth"] * 4 * visible_pairs(L, L, True, cfg.get("window")) * D
     return 6.0 * weights * L + attn, weights
 
 
@@ -2961,7 +3012,7 @@ def adam_list_check(torch, shapes, label):
              ms=event_ms(lambda: ops.fused_adam(ps, gs, vs, ss, hyper), 3),
              plain_ms=event_ms(lambda: ops.fused_adam_plain(ps, gs, vs, ss, hyper), 3),
              library_ms=event_ms(lib.step, 3))
-    r["bound_ms"], r["bound_by"] = bound_ms(28 * n + 28, 0, "bf16")
+    r["bound_ms"], r["bound_by"] = cost_bound(ops.fused_adam, ps, gs, vs, ss, hyper)
     print(f"  fused_adam over {label}'s {len(shapes)} parameter tensors ({n} elements) agrees "
           f"with its plain twin (max abs err {err:.3g}); {r['ms']:.4f} ms, bound "
           f"{r['bound_ms']:.4f} ({r['bound_by']}), plain {r['plain_ms']:.4f}, library "
@@ -5015,6 +5066,758 @@ def seq2seq_phases(torch, dt, report, phase, card):
     return paths, adam
 
 
+# ------------------------------------------------------------------ the utils
+TEXT_VOCAB = 512  # the tokenizer's vocabulary; the head keeps the bench row's 8192
+TEXT_CHARS = 65536  # the tokenizer learns on the sorted corpus's first 64 Ki characters
+TEXT_PROMPT, TEXT_NEW = "## Architecture", 48
+TEXT_BARE = 5  # bare steps timed beside the Trainer's
+AUG_PAD = 4  # RandomCrop's padding
+CNN_FIT_STEPS, CNN_EVAL_IMAGES = 4, 256
+PRETRAINED_B = 32
+HF_SEED = 5
+HF_STD = 0.02  # the seeded HF weights: uniform with this standard deviation
+HF_LLAMA = types.SimpleNamespace(  # Mistral-7B-v0.1's config.json field names, depth 2 of 32
+    vocab_size=32000, hidden_size=4096, intermediate_size=14336, num_hidden_layers=2,
+    num_attention_heads=32, num_key_value_heads=8, max_position_embeddings=32768,
+    rms_norm_eps=1e-5, rope_theta=10000.0, sliding_window=4096)
+HF_LLAMA_MAX_LEN = 192
+HF_LLAMA_REQUEST = (2, 64, 32)  # batch, prompt, greedy tokens
+HF_GPT2 = types.SimpleNamespace(  # GPT-2 small's config.json (n_inner None: 4 x n_embd)
+    vocab_size=50257, n_positions=1024, n_embd=768, n_layer=12, n_head=12,
+    layer_norm_epsilon=1e-5)
+GPT2_B, GPT2_STEPS = 8, 3
+GPT2_ADAM = dict(lr=6e-4, weight_decay=0.0)  # GPT-2 small's published peak lr
+GPT2_PER_STEP = {"flash_attention_fwd": HF_GPT2.n_layer, "flash_attention_bwd": HF_GPT2.n_layer,
+                 "fused_linear_ce_fwd": 1, "fused_linear_ce_bwd": 1, "fused_adam": 1}
+
+
+def repo_corpus():
+    """The repository's markdown, sorted (``*.md``, then ``docs/*.md``), as
+    examples/llama_text_train.py loads it."""
+    import glob
+
+    texts = []
+    for path in (sorted(glob.glob(os.path.join(ROOT, "*.md")))
+                 + sorted(glob.glob(os.path.join(ROOT, "docs", "*.md")))):
+        with open(path, errors="replace") as f:
+            texts.append(f.read())
+    return texts
+
+
+def corpus_head(texts, chars):
+    """The texts, in order, cut after ``chars`` characters."""
+    out, n = [], 0
+    for t in texts:
+        if n >= chars:
+            break
+        out.append(t[: chars - n])
+        n += len(out[-1])
+    return out
+
+
+class StepLog:
+    """An injected Trainer step that records each call's loss (left on the
+    card), host time and whether its batch arrived staged on the card; with
+    ``checksums`` also, on the card, the sum of x's bits as int32 words and
+    a copy of y: what the step was given, for the host to compare."""
+
+    def __init__(self, step, checksums=False):
+        self.step, self.losses, self.times, self.staged = step, [], [], []
+        self.checksums, self.given = checksums, []
+
+    def __call__(self, x, y):
+        import torch
+
+        self.times.append(time.perf_counter())
+        self.staged.append(bool(x.is_cuda and y.is_cuda))
+        if self.checksums:
+            self.given.append((x.contiguous().view(torch.int32).sum(dtype=torch.int64), y.clone()))
+        loss = self.step(x, y)
+        self.losses.append(loss)
+        return loss
+
+
+def trace_device_events(log_dir):
+    """The device events (kernels, copies, memsets) of the Chrome trace that
+    profiling.trace wrote into ``log_dir``."""
+    import glob
+
+    (path,) = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [e for e in events if e.get("ph") == "X"
+            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def busy_us(events):
+    """The union of the events' intervals, and the idle gaps between them
+    as (start after the first event, length), in µs."""
+    total, end, first, gaps = 0.0, -math.inf, None, []
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
+        first = a if first is None else first
+        if a > end > -math.inf:
+            gaps.append((end - first, a - end))
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total, gaps
+
+
+def fit_parts(step, t_fit, epoch_s):
+    """Where an epoch of Trainer.fit went, in host ms: before the first
+    step's call, the first step, the median interval of the later steps,
+    and from the last step's call to the epoch's end (the loss readback)."""
+    t = step.times
+    later = [(b - a) * 1e3 for a, b in zip(t[1:], t[2:])]
+    return dict(before_first_ms=(t[0] - t_fit) * 1e3, first_step_ms=(t[1] - t[0]) * 1e3,
+                later_step_ms=statistics.median(later) if later else None,
+                after_last_ms=(t_fit + epoch_s - t[-1]) * 1e3)
+
+
+def timed_fit(trainer, step, x, y, **kw):
+    """One epoch of trainer.fit with ``step`` (a StepLog) cleared first:
+    (the history, fit_parts of the epoch and what the host spent besides
+    the steps: Python's garbage collections, count and ms, and the caching
+    allocators' cudaMalloc, cudaFree and pinned host allocations)."""
+    import torch
+
+    step.times.clear()
+    step.losses.clear()
+    step.staged.clear()
+    step.given.clear()
+    pauses, start = [], {}
+
+    def on_gc(event, info):
+        if event == "start":
+            start["t"] = time.perf_counter()
+        elif "t" in start:
+            pauses.append((time.perf_counter() - start.pop("t")) * 1e3)
+
+    def counts():
+        dev = torch.cuda.memory_stats()
+        host = getattr(torch.cuda, "host_memory_stats", dict)()
+        return (dev.get("segment.all.allocated", 0), dev.get("segment.all.freed", 0),
+                host.get("num_host_alloc", 0))
+
+    before = counts()
+    gc.callbacks.append(on_gc)
+    try:
+        t_fit = time.perf_counter()
+        hist = trainer.fit(x, y, epochs=1, **kw)
+    finally:
+        gc.callbacks.remove(on_gc)
+    parts = fit_parts(step, t_fit, hist["epoch_time"][-1])
+    mallocs, frees, pinned = (b - a for a, b in zip(before, counts()))
+    parts.update(gc_collections=len(pauses), gc_ms=sum(pauses),
+                 cuda_mallocs=mallocs, cuda_frees=frees, pinned_allocs=pinned)
+    return hist, parts
+
+
+def h2d_copies(events):
+    """Host-to-device copies on streams where no kernel ran (the loaders'
+    side streams): (their number, how many read pinned memory, how many ran
+    while a kernel of another stream did)."""
+    kernels = [e for e in events if e["cat"] == "kernel"]
+    kstreams = {e.get("args", {}).get("stream") for e in kernels}
+    copies = [e for e in events if e["cat"] == "gpu_memcpy" and "HtoD" in e["name"]
+              and e.get("args", {}).get("stream") not in kstreams]
+    spans = sorted((k["ts"], k["ts"] + k["dur"]) for k in kernels)
+    starts = [a for a, _ in spans]
+
+    def beside_a_kernel(c):
+        a, b = c["ts"], c["ts"] + c["dur"]
+        i = bisect.bisect_left(starts, b)
+        return any(s < b and e > a for s, e in spans[max(0, i - 64):i])
+
+    return (len(copies), sum("Pinned" in c["name"] for c in copies),
+            sum(beside_a_kernel(c) for c in copies))
+
+
+def text_trainer_phase(torch, dt, report, card, tmp):
+    """A main path, the slice's: the repository's markdown -> BPETokenizer
+    (vocab 512) -> LMDataset(seq_len 1024) -> Trainer.fit with the bench
+    row's step injected (the loader's prefetch thread stages each batch on
+    the card) -> the checkpoint fit wrote -> load_checkpoint into a fresh LM
+    -> greedy text from the graphed decoder.  Returns the launch counts."""
+    import numpy as np
+
+    from deepflows_tpu_torch import nn, ops, optim
+    from deepflows_tpu_torch.jit import CompiledTrainStep
+    from deepflows_tpu_torch.models import KVCacheDecoder, TransformerLM
+    from deepflows_tpu_torch.utils import (
+        BPETokenizer,
+        LMDataset,
+        Trainer,
+        load_checkpoint,
+        profiling,
+    )
+
+    r = {}
+    t0 = time.perf_counter()
+    texts = repo_corpus()
+    tok = BPETokenizer().train(corpus_head(texts, TEXT_CHARS), TEXT_VOCAB)
+    r["tokenizer_train_s"] = time.perf_counter() - t0
+    back = BPETokenizer.load(tok.save(os.path.join(tmp, "tokenizer.json")))
+    if list(back.merges.items()) != list(tok.merges.items()) or \
+            back.special_tokens != tok.special_tokens:
+        fail("the tokenizer's save / load round trip changed its merges or specials")
+    t1 = time.perf_counter()
+    ds = LMDataset(texts, back, TRAIN_L)
+    x = np.stack([ds[i][0] for i in range(len(ds))])
+    y = np.stack([ds[i][1] for i in range(len(ds))])
+    r["dataset_s"] = time.perf_counter() - t1
+    chars = sum(len(t) for t in texts)
+    if not int(ds.tokens.max()) < tok.vocab_size <= TRAIN["vocab_size"]:
+        fail(f"token ids reach {int(ds.tokens.max())} (vocabulary {tok.vocab_size})")
+    steps = len(ds) // TRAIN_B
+    print(f"  corpus {len(texts)} files, {chars} characters; tokenizer: {len(tok.merges)} merges "
+          f"learned on {TEXT_CHARS} characters in {r['tokenizer_train_s']:.3f} s (host); "
+          f"LMDataset: {ds.tokens.size} tokens, {len(ds)} windows of {TRAIN_L} in "
+          f"{r['dataset_s']:.3f} s (host); {steps} steps of B {TRAIN_B}")
+    dt.manual_seed(0)
+    lm = TransformerLM(**TRAIN, device="cuda", flash=True)
+    opt = optim.Adam(lm.parameters(), **ADAM, fused=True)
+    head_ce = nn.LMHeadCrossEntropy(lm.head)
+    step = StepLog(CompiledTrainStep(lm.trunk(), opt, head_ce, compute_dtype=torch.bfloat16))
+    ckpt = os.path.join(tmp, "lm.pkl")
+    trainer = Trainer(lm, opt, head_ce, checkpoint_path=ckpt, step=step,
+                      log_fn=lambda s: print(f"  Trainer: {s}"))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()  # the main path starts here
+    hist, parts = timed_fit(trainer, step, x, y, batch_size=TRAIN_B, prefetch_size=2)
+    counts = {k.__name__: k.launches for k in ops.KERNELS}  # and ends here
+    print(f"main-path launches (text_trainer): {counts}")
+    n = len(step.losses)
+    if n != steps or not all(step.staged):
+        fail(f"Trainer.fit ran {n} steps of {steps}; staged on the card: {step.staged}")
+    for k, c in counts.items():
+        if c != PER_STEP.get(k, 0) * n:
+            fail(f"text_trainer: {k} launched {c} times in {n} steps, expected "
+                 f"{PER_STEP.get(k, 0)} a step")
+    losses = [float(v) for v in step.losses]
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        fail(f"the text loss did not fall over the epoch: {losses}")
+    r.update(steps=n, first_loss=losses[0], last_loss=losses[-1], epoch_mean_loss=hist["loss"][0],
+             epoch_s=hist["epoch_time"][0], epoch_parts_ms=parts,
+             launches_per_step={k: c // n for k, c in counts.items() if c})
+    print(f"  {n} steps: loss {losses[0]:.4f} -> {losses[-1]:.4f} (epoch mean "
+          f"{hist['loss'][0]:.4f}); launches a step {r['launches_per_step']} (PER_STEP); the "
+          f"epoch's {1e3 * hist['epoch_time'][0]:.1f} ms: " + ", ".join(
+              f"{k} {v:.1f}" for k, v in parts.items()))
+    # the checkpoint fit wrote, into a fresh LM and Adam
+    dt.manual_seed(1)
+    fresh = TransformerLM(**TRAIN, device="cuda", flash=True)
+    fresh_opt = optim.Adam(fresh.parameters(), **ADAM, fused=True)
+    t2 = time.perf_counter()
+    info = load_checkpoint(fresh, fresh_opt, ckpt)
+    r["checkpoint_load_s"] = time.perf_counter() - t2
+    r["checkpoint_bytes"] = os.path.getsize(ckpt)
+    xb = torch.as_tensor(x[:TRAIN_B], device="cuda")
+    lm.eval()
+    fresh.eval()
+    with torch.no_grad():
+        same = torch.equal(lm(xb), fresh(xb))
+    slots = all(torch.equal(a, b) for key in ("v", "s")
+                for a, b in zip(opt._state[key], fresh_opt._state[key]))
+    if info["epoch"] != 0 or not same or not slots:
+        fail(f"the checkpoint did not load equal: epoch {info['epoch']}, logits equal {same}, "
+             f"Adam slots equal {slots}")
+    del fresh_opt
+    print(f"  checkpoint {r['checkpoint_bytes']} bytes loaded into a fresh LM in "
+          f"{r['checkpoint_load_s']:.2f} s: logits on a batch bitwise equal, Adam slots equal")
+    # greedy text from the loaded LM on the graphed decoder
+    dec = KVCacheDecoder(fresh, compute_dtype=torch.bfloat16)
+    prompt = np.asarray([tok.encode(TEXT_PROMPT)])
+    out = dec.generate(prompt, TEXT_NEW)
+    if loop_key(dec, "decode", 1) not in dec._graphs:
+        fail("the text decoder's loop has no graph")
+    new = [int(i) for i in out[0, prompt.shape[1]:]]
+    outside = sum(i >= tok.vocab_size for i in new)
+    r["generated"] = tok.decode([i for i in new if i < tok.vocab_size])
+    r["generated_outside_vocabulary"] = outside
+    print(f"  greedy text of the loaded LM from {TEXT_PROMPT!r} (+{TEXT_NEW}, graphed decoder, "
+          f"bf16; {outside} ids outside the tokenizer's vocabulary): {r['generated']!r}")
+    del dec, fresh
+    lm.train()
+    # a warm epoch (no checkpoint), then the bare step on one staged
+    # batch: their difference is what the loader and the Trainer cost
+    trainer.checkpoint_path = None
+    warm, wparts = timed_fit(trainer, step, x, y, batch_size=TRAIN_B, prefetch_size=2)
+    fit_ms = warm["epoch_time"][-1] / n * 1e3
+    yb = torch.as_tensor(y[:TRAIN_B], device="cuda")
+    _, wall, _ = run_steps(torch, step.step, xb, yb, TEXT_BARE, "text bare step", PER_STEP)
+    r.update(fit_step_ms=fit_ms, warm_epoch_parts_ms=wparts, bare_step_ms=statistics.median(wall[1:]))
+    r["trainer_overhead_ms"] = fit_ms - r["bare_step_ms"]
+    print(f"  a step inside fit (a warm epoch): {fit_ms:.3f} ms ({warm['epoch_time'][-1]:.3f} s / "
+          f"{n}: " + ", ".join(f"{k} {v:.1f}" for k, v in wparts.items()) + f") against the bare "
+          f"step's {r['bare_step_ms']:.3f} ms (run_steps, synchronised): the loader and the "
+          f"Trainer cost {r['trainer_overhead_ms']:.3f} ms a step; {card}")
+    # one more epoch under the port's own trace: busy share, the batches' copies
+    tdir = os.path.join(tmp, "trace")
+    with profiling.trace(tdir):
+        traced, tparts = timed_fit(trainer, step, x, y, batch_size=TRAIN_B, prefetch_size=2)
+    events = trace_device_events(tdir)
+    busy, gaps = busy_us(events)
+    wall_us = traced["epoch_time"][-1] * 1e6
+    r["traced_epoch_parts_ms"] = tparts
+    r["idle_gaps_ms"] = [(round(a / 1e3, 3), round(b / 1e3, 3))
+                         for a, b in sorted(gaps, key=lambda g: -g[1])[:6]]
+    ncopy, pinned, beside = h2d_copies(events)
+    r.update(traced_epoch_s=traced["epoch_time"][-1],
+             device_busy_share=busy / wall_us if events else None,
+             batch_copies=ncopy, pinned_copies=pinned, copies_beside_a_kernel=beside)
+    if not events:
+        print("  busy share over the epoch: not measured (the trace holds no device event)")
+    else:
+        print(f"  traced epoch (profiling.trace, CPU and CUDA activities): {wall_us / 1e6:.3f} s "
+              f"wall (" + ", ".join(f"{k} {v:.1f}" for k, v in tparts.items()) + "), the card "
+              f"busy {busy / 1e6:.3f} s: busy share {100 * busy / wall_us:.1f}%; idle "
+              f"{sum(g for _, g in gaps) / 1e3:.1f} ms in {len(gaps)} gaps, the largest (ms after "
+              f"the first device event, ms long): {r['idle_gaps_ms']}; "
+              f"batch copies to the card on the loader's stream: {ncopy} ({2 * n} expected), "
+              f"{pinned} from pinned memory, {beside} while a step's kernel ran; {card}")
+        if ncopy and pinned != ncopy:
+            fail(f"{ncopy - pinned} batch copies read pageable memory")
+    report["text_trainer"] = r
+    return counts
+
+
+def cnn_trainer_phase(torch, dt, report, card, tmp):
+    """A main path: ResNet-50 (bf16, B 128 x 224^2, Adam at CNN_LR) through
+    Trainer.fit for one epoch of 4 steps over one batch repeated, in order,
+    RandomCrop, RandomHorizontalFlip and Normalize on the prefetch thread:
+    the loss must fall, and each step must get the batch the thread
+    augmented for it (the bits of x) with its own labels.  Then
+    Trainer.evaluate over 256 images; DeviceDataLoader over a DataLoader.
+    Returns the launch counts."""
+    import numpy as np
+
+    from deepflows_tpu_torch import nn, ops
+    from deepflows_tpu_torch.utils import IMAGENET_STATS, Trainer, profiling
+    from deepflows_tpu_torch.utils.data import (
+        Compose,
+        DataLoader,
+        DeviceDataLoader,
+        Normalize,
+        RandomCrop,
+        RandomHorizontalFlip,
+        TensorDataset,
+    )
+
+    r = {}
+    rng = np.random.default_rng(0)
+    # uint8-range images scaled to [0, 1], as load_image_folder gives them;
+    # one batch repeated, so that the loss can fall in one epoch
+    x = rng.integers(0, 256, (CNN_B, 3, CNN_IMAGE, CNN_IMAGE), dtype=np.uint8).astype(np.float32)
+    x /= 255.0
+    y = rng.integers(0, CNN_CLASSES, CNN_B).astype(np.int32)
+    x, y = np.tile(x, (CNN_FIT_STEPS, 1, 1, 1)), np.tile(y, CNN_FIT_STEPS)
+    augment = Compose([RandomCrop(CNN_IMAGE, AUG_PAD, seed=1), RandomHorizontalFlip(seed=2),
+                       Normalize(IMAGENET_STATS["mean"], IMAGENET_STATS["std"])])
+    on_thread, made = [], []  # the augmentation's host ms on the prefetch thread; its x's bits
+
+    def timed_augment(batch):
+        t0 = time.perf_counter()
+        out = augment(batch)
+        on_thread.append((time.perf_counter() - t0) * 1e3)
+        made.append(int(np.ascontiguousarray(out, np.float32).view(np.int32).sum(dtype=np.int64)))
+        return out
+
+    model = cnn_model(dt, "ResNet50", num_classes=CNN_CLASSES)
+    step = StepLog(cnn_step(torch, model, dict(ADAM, lr=CNN_LR)), checksums=True)
+    trainer = Trainer(model, step.step.optimizer, nn.CrossEntropyLoss(), augment_fn=timed_augment,
+                      step=step, log_fn=lambda s: print(f"  Trainer: {s}"))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()  # the main path starts here
+    hist, parts = timed_fit(trainer, step, x, y, batch_size=CNN_B, prefetch_size=2, shuffle=False)
+    counts = {k.__name__: k.launches for k in ops.KERNELS}  # and ends here
+    print(f"main-path launches (cnn_trainer): {counts}")
+    if len(step.losses) != CNN_FIT_STEPS or not all(step.staged):
+        fail(f"ResNet-50 Trainer.fit ran {len(step.losses)} steps; staged: {step.staged}")
+    for k, c in counts.items():
+        if c != CNN_PER_STEP.get(k, 0) * CNN_FIT_STEPS:
+            fail(f"cnn_trainer: {k} launched {c} times in {CNN_FIT_STEPS} steps")
+    got = [int(sx) for sx, _ in step.given]
+    labels = [bool((gy.cpu().numpy() == y[i * CNN_B:(i + 1) * CNN_B]).all())
+              for i, (_, gy) in enumerate(step.given)]
+    if got != made or not all(labels) or len(set(made)) != CNN_FIT_STEPS:
+        fail(f"cnn_trainer: the steps' x bit sums {got} against the augmented batches' {made}; "
+             f"labels equal to their batch's {labels}")
+    losses = [float(v) for v in step.losses]
+    print(f"  each step got the batch the prefetch thread augmented for it (x's bit sums, "
+          f"{len(set(made))} distinct) and its own labels")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        fail(f"the ResNet-50 Trainer loss is not finite or did not fall: {losses}")
+    r.update(losses=losses, x_bit_sums=got, epoch_s=hist["epoch_time"][0], epoch_parts_ms=parts,
+             augment_on_thread_ms=list(on_thread),
+             fit_step_ms=hist["epoch_time"][0] / CNN_FIT_STEPS * 1e3)
+    # evaluate: every step queued, one readback
+    xe, ye = x[:CNN_EVAL_IMAGES], y[:CNN_EVAL_IMAGES]
+    edir = os.path.join(tmp, "eval_trace")
+    with profiling.trace(edir):
+        acc = trainer.evaluate(xe, ye, batch_size=CNN_B)
+    events = trace_device_events(edir)
+    d2h = sum(e["cat"] == "gpu_memcpy" and "DtoH" in e["name"] for e in events)
+    r.update(eval_accuracy=acc, eval_readbacks=d2h if events else None)
+    if events and d2h != 1:
+        fail(f"Trainer.evaluate read back {d2h} times, not once")
+    # the augmentation's host time against the step's device time
+    aug = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        augment(x[:CNN_B])
+        aug.append((time.perf_counter() - t0) * 1e3)
+    xb = torch.as_tensor(augment(x[:CNN_B]), device="cuda")
+    yb = torch.as_tensor(y[:CNN_B], device="cuda")
+    r["augment_host_ms"] = statistics.median(aug)
+    r["step_device_ms"] = event_ms(lambda: step.step(xb, yb), 3)
+    print(f"  {CNN_FIT_STEPS} steps, losses {[round(v, 4) for v in losses]}; a step inside fit "
+          f"{r['fit_step_ms']:.3f} ms (" + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+          + f"); one batch's augmentation {r['augment_host_ms']:.3f} ms on "
+          f"the host alone ({', '.join(f'{v:.1f}' for v in on_thread)} ms on the prefetch thread "
+          f"during fit) against the step's {r['step_device_ms']:.3f} ms on the card (the prefetch "
+          f"thread keeps up: {r['augment_host_ms'] < r['step_device_ms']}); evaluate over "
+          f"{CNN_EVAL_IMAGES} images: accuracy {acc:.4f}, "
+          f"{'not measured' if not events else d2h} device-to-host readback(s); {card}")
+    # DeviceDataLoader over a DataLoader: staged, pinned, equal batches
+    ddir = os.path.join(tmp, "ddl_trace")
+    with profiling.trace(ddir):
+        got = [(a, b) for a, b in DeviceDataLoader(DataLoader(TensorDataset(xe, ye), CNN_B),
+                                                      device="cuda")]
+    events = trace_device_events(ddir)
+    copies = [e for e in events if e["cat"] == "gpu_memcpy" and "HtoD" in e["name"]]
+    equal = len(got) == CNN_EVAL_IMAGES // CNN_B and all(
+        a.is_cuda and b.is_cuda and np.array_equal(a.cpu().numpy(), xe[i * CNN_B:(i + 1) * CNN_B])
+        and np.array_equal(b.cpu().numpy(), ye[i * CNN_B:(i + 1) * CNN_B])
+        for i, (a, b) in enumerate(got))
+    pinned = sum("Pinned" in c["name"] for c in copies)
+    if not equal or (copies and pinned != len(copies)):
+        fail(f"DeviceDataLoader: batches equal {equal}, {pinned} of {len(copies)} copies pinned")
+    r.update(device_loader_batches=len(got), device_loader_copies=len(copies),
+             device_loader_pinned=pinned)
+    print(f"  DeviceDataLoader: {len(got)} batches on the card equal to the host's; "
+          f"{pinned} of {len(copies)} copies from pinned memory")
+    report["cnn_trainer"] = r
+    return counts
+
+
+def pretrained_phase(torch, dt, report, card, tmp):
+    """A seeded ResNet-50 -> export_torch_state_dict -> torch.save (.pth)
+    -> convert_weights_to_deepflows -> load_pretrained_model into a fresh
+    ResNet-50 on the card: eval logits at B 32 bitwise equal."""
+    import numpy as np
+
+    from deepflows_tpu_torch.utils import pretrained_models as pre
+
+    src = cnn_model(dt, "ResNet50", seed=3)
+    with torch.no_grad():  # running statistics that are not the init's
+        for name, b in src.named_buffers():
+            if name.endswith("running_mean"):
+                b.uniform_(-0.1, 0.1)
+            elif name.endswith("running_var"):
+                b.uniform_(0.5, 1.5)
+    t0 = time.perf_counter()
+    pth = os.path.join(tmp, "resnet50_torch.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in pre.export_torch_state_dict(src).items()}, pth)
+    out = pre.convert_weights_to_deepflows("resnet50", pth, pretrained_dir=tmp)
+    fresh = cnn_model(dt, "ResNet50", seed=4)
+    pre.load_pretrained_model(fresh, "resnet50", pretrained_dir=tmp, strict=True)
+    secs = time.perf_counter() - t0
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (PRETRAINED_B, 3, CNN_IMAGE, CNN_IMAGE)).astype(np.float32), device="cuda")
+    src.eval()
+    fresh.eval()
+    with torch.no_grad():
+        same = torch.equal(src(x), fresh(x))
+    if not same:
+        fail("the converted ResNet-50's eval logits differ from the source's")
+    meta = pre.load_model_metadata("resnet50", tmp)
+    report["pretrained"] = dict(seconds=secs, arrays=meta["num_arrays"],
+                                pth_bytes=os.path.getsize(pth), pkl_bytes=os.path.getsize(out))
+    print(f"  ResNet-50 exported, saved ({os.path.getsize(pth)} bytes), converted "
+          f"({meta['num_arrays']} arrays) and loaded strictly in {secs:.2f} s: eval logits at "
+          f"B {PRETRAINED_B} bitwise equal to the source's")
+
+
+def seeded_arrays(shapes, seed):
+    """numpy f32 arrays from default_rng(seed): ones for norm weights, zeros
+    for biases, else uniform with standard deviation HF_STD."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    half = HF_STD * math.sqrt(3.0)
+    out = {}
+    for key, shape in shapes.items():
+        if "norm" in key or key.endswith(("ln_1.weight", "ln_2.weight", "ln_f.weight")):
+            out[key] = np.ones(shape, np.float32)
+        elif key.endswith(".bias"):
+            out[key] = np.zeros(shape, np.float32)
+        else:
+            a = rng.random(shape, dtype=np.float32)
+            a -= 0.5
+            a *= 2 * half
+            out[key] = a
+    return out
+
+
+def hf_llama_shapes(cfg):
+    """HF's key names and (out, in) layouts of a Llama / Mistral state dict."""
+    D, F, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    kv = D // cfg.num_attention_heads * cfg.num_key_value_heads
+    shapes = {"model.embed_tokens.weight": (V, D)}
+    for i in range(cfg.num_hidden_layers):
+        p = f"model.layers.{i}."
+        shapes.update({
+            p + "input_layernorm.weight": (D,), p + "self_attn.q_proj.weight": (D, D),
+            p + "self_attn.k_proj.weight": (kv, D), p + "self_attn.v_proj.weight": (kv, D),
+            p + "self_attn.o_proj.weight": (D, D), p + "post_attention_layernorm.weight": (D,),
+            p + "mlp.gate_proj.weight": (F, D), p + "mlp.up_proj.weight": (F, D),
+            p + "mlp.down_proj.weight": (D, F)})
+    shapes.update({"model.norm.weight": (D,), "lm_head.weight": (V, D)})
+    return shapes
+
+
+def port_llama_arrays(sd, depth):
+    """The same arrays in the port's (and the JAX package's) names and
+    (in, out) layout, for load_jax_state_dict."""
+    out = {"tok_embed.weight": sd["model.embed_tokens.weight"], "norm.weight": sd["model.norm.weight"],
+           "head.weight": sd["lm_head.weight"].T}
+    pairs = (("attn.q_proj", "self_attn.q_proj"), ("attn.k_proj", "self_attn.k_proj"),
+             ("attn.v_proj", "self_attn.v_proj"), ("attn.out_proj", "self_attn.o_proj"),
+             ("gate", "mlp.gate_proj"), ("up", "mlp.up_proj"), ("down", "mlp.down_proj"))
+    for i in range(depth):
+        p, h = f"blocks.{i}.", f"model.layers.{i}."
+        out[p + "norm1.weight"] = sd[h + "input_layernorm.weight"]
+        out[p + "norm2.weight"] = sd[h + "post_attention_layernorm.weight"]
+        for ours, theirs in pairs:
+            out[p + ours + ".weight"] = sd[h + theirs + ".weight"].T
+    return out
+
+
+def hf_gpt2_shapes(cfg):
+    D, V = cfg.n_embd, cfg.vocab_size
+    shapes = {"transformer.wte.weight": (V, D), "transformer.wpe.weight": (cfg.n_positions, D)}
+    for i in range(cfg.n_layer):
+        p = f"transformer.h.{i}."
+        shapes.update({
+            p + "ln_1.weight": (D,), p + "ln_1.bias": (D,),
+            p + "attn.c_attn.weight": (D, 3 * D), p + "attn.c_attn.bias": (3 * D,),
+            p + "attn.c_proj.weight": (D, D), p + "attn.c_proj.bias": (D,),
+            p + "ln_2.weight": (D,), p + "ln_2.bias": (D,),
+            p + "mlp.c_fc.weight": (D, 4 * D), p + "mlp.c_fc.bias": (4 * D,),
+            p + "mlp.c_proj.weight": (4 * D, D), p + "mlp.c_proj.bias": (D,)})
+    shapes.update({"transformer.ln_f.weight": (D,), "transformer.ln_f.bias": (D,)})
+    return shapes
+
+
+def hf_llama_phase(torch, dt, report, card):
+    """An HF-layout Llama state dict at Mistral-7B widths (depth 2) through
+    build_llama_from_hf_config and load_hf_llama_state, decoded greedily on
+    the graphed decoder: tokens and logits equal to the same arrays loaded
+    through load_jax_state_dict."""
+    import numpy as np
+
+    from deepflows_tpu_torch import nn
+    from deepflows_tpu_torch.models import KVCacheDecoder, LlamaLM
+    from deepflows_tpu_torch.utils import (
+        build_llama_from_hf_config,
+        load_hf_llama_state,
+        load_jax_state_dict,
+    )
+
+    cfg = HF_LLAMA
+    t0 = time.perf_counter()
+    sd = seeded_arrays(hf_llama_shapes(cfg), HF_SEED)
+    t1 = time.perf_counter()
+    lm = build_llama_from_hf_config(cfg, max_len=HF_LLAMA_MAX_LEN, device="cuda")
+    load_hf_llama_state(lm, sd)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    twin = LlamaLM(**dict(MISTRAL, depth=cfg.num_hidden_layers, max_len=HF_LLAMA_MAX_LEN),
+                   device="cuda")
+    for m in twin.modules():
+        if isinstance(m, nn.RMSNorm):
+            m.eps = cfg.rms_norm_eps
+    load_jax_state_dict(twin, port_llama_arrays(sd, cfg.num_hidden_layers))
+    del sd
+    B, P, new = HF_LLAMA_REQUEST
+    ids = np.random.default_rng(HF_SEED).integers(0, cfg.vocab_size, (B, P))
+    idx = torch.as_tensor(ids, device="cuda")
+    toks, logits = [], []
+    for m in (lm, twin):
+        m.eval()
+        with torch.no_grad():
+            logits.append(m(idx))
+        dec = KVCacheDecoder(m, compute_dtype=torch.bfloat16)
+        toks.append(dec.generate(ids, new))
+        if loop_key(dec, "decode", B) not in dec._graphs:
+            fail("the converted Llama's decode loop has no graph")
+        del dec
+    if lm.blocks[0].attn.window != cfg.sliding_window:
+        fail(f"sliding_window {cfg.sliding_window} became window {lm.blocks[0].attn.window}")
+    same_t, same_l = np.array_equal(*toks), torch.equal(*logits)
+    if not (same_t and same_l):
+        fail(f"the HF-loaded Llama differs from load_jax_state_dict's: tokens equal {same_t}, "
+             f"logits equal {same_l}")
+    n = sum(p.numel() for p in lm.parameters())
+    report["hf_llama"] = dict(parameters=n, arrays_s=t1 - t0, load_s=t2 - t1)
+    print(f"  HF Llama (Mistral-7B widths, depth {cfg.num_hidden_layers}, {n} parameters): "
+          f"seeded arrays {t1 - t0:.2f} s, built and loaded on the card {t2 - t1:.2f} s; greedy "
+          f"B {B}, prompt {P}, +{new} on the graphed decoder: tokens and f32 logits bitwise equal "
+          f"to load_jax_state_dict's")
+    del lm, twin, logits
+    free_card(torch)
+
+
+def gpt2_phase(torch, dt, report, card):
+    """A main path: an HF-layout GPT-2 (GPT-2 small's widths) converted and
+    trained GPT2_STEPS bf16 steps at B 8 x L 1024 with LMHeadCrossEntropy.
+    Each of its kernels is then held against its plain twin at the shapes
+    the path gives it and timed beside its bound, plain twin and library
+    call: the CE at V 50257 on its mma route (ce_case's tolerances), flash
+    causal at (8, 12, 1024, 64) as (B, L, H, D) views on wgmma both ways
+    (flash_case's), fused_adam over GPT-2's parameter list (adam_list_check).
+    Returns (launch counts, {kernel: numbers})."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from deepflows_tpu_torch import nn, ops, optim
+    from deepflows_tpu_torch.jit import CompiledTrainStep
+    from deepflows_tpu_torch.utils import build_gpt2_from_hf_config, load_hf_gpt2_state
+
+    cfg = HF_GPT2
+    lm = build_gpt2_from_hf_config(cfg, device="cuda")
+    load_hf_gpt2_state(lm, seeded_arrays(hf_gpt2_shapes(cfg), HF_SEED + 1))
+    if lm.blocks[0].mlp[1].approximate != "tanh" or lm.head.bias.detach().any():
+        fail("the converted GPT-2 lacks its tanh GELU or keeps a head bias")
+    step = CompiledTrainStep(lm.trunk(), optim.Adam(lm.parameters(), **GPT2_ADAM, fused=True),
+                             nn.LMHeadCrossEntropy(lm.head), compute_dtype=torch.bfloat16)
+    rng = np.random.default_rng(HF_SEED)
+    L, V = cfg.n_positions, cfg.vocab_size
+    x = torch.as_tensor(rng.integers(0, V, (GPT2_B, L)), device="cuda")
+    y = torch.as_tensor(rng.integers(0, V, (GPT2_B, L)), device="cuda")
+    routed = (ops.flash_attention_fwd, ops.flash_attention_bwd, ops.fused_linear_ce_fwd)
+    before = [dict(f.routes) for f in routed]
+    (losses, wall, _), counts = counted(ops, lambda: run_steps(
+        torch, step, x, y, GPT2_STEPS, "gpt2 training", GPT2_PER_STEP))
+    print(f"main-path launches (gpt2_training): {counts}")
+    routes = {f.__name__: {k: f.routes[k] - b[k] for k in f.routes if f.routes[k] - b[k]}
+              for f, b in zip(routed, before)}
+    if routes["fused_linear_ce_fwd"] != {"mma": GPT2_STEPS}:
+        fail(f"the GPT-2 CE forward took {routes['fused_linear_ce_fwd']}, not mma")
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        if set(routes[name]) != {"wgmma"}:
+            fail(f"GPT-2's {name} took {routes[name]}, not wgmma alone")
+    shapes = [tuple(p.shape) for p in lm.parameters()]
+    n = sum(p.numel() for p in lm.parameters())
+    print(f"  GPT-2 ({n} parameters, {cfg.n_layer} x d{cfg.n_embd}, V {V}): losses "
+          f"{[round(v, 4) for v in losses]}, step {statistics.median(wall[1:]):.3f} ms wall; "
+          f"routes {routes}")
+    del lm, step
+    free_card(torch)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    N, D, H = GPT2_B * L, cfg.n_embd, cfg.n_head
+    # the CE call at the step's shape: (N, D, V) = (B L, 768, 50257), bf16
+    (ce_ops, want, errs), route = routes_taken(
+        ops.fused_linear_ce_fwd,
+        lambda: ce_case(torch, ops, g, N, D, V, torch.bfloat16, torch.bfloat16, "GPT-2 head"))
+    if route != ["mma"]:
+        fail(f"the GPT-2 CE case took {route}, not mma")
+    cx, cw, cb, ct, clse, cgr = ce_ops
+    xr, wr, br = (a.detach().requires_grad_() for a in (cx, cw, cb))
+    tl = torch.where((ct >= 0) & (ct < V), ct, -100)
+    lib_loss = F.cross_entropy((torch.matmul(xr, wr) + br).float(), tl, reduction="none")
+    # flash at the step's shape and layout: q, k, v and dout (B, L, H, D)
+    # seen as (B, H, L, D), as MultiheadAttention passes them
+    fops, _, ferrs, _, _ = flash_case(torch, ops, g, GPT2_B, H, L, L, D // H, True, None,
+                                      torch.bfloat16, "GPT-2", "heads", "wgmma", "wgmma")
+    q, k, v, o, lse, do = fops
+    qr, kr, vr = (a.detach().requires_grad_() for a in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+
+    def flush():
+        flush_buf.zero_()
+
+    ce_at, fl_at = f"N {N}, D {D}, V {V}, bf16", f"({GPT2_B}, {H}, {L}, {D // H}) causal, bf16"
+    runs = {  # (plain twin, library call, the wrapper's arguments, route, at, max abs err)
+        "fused_linear_ce_fwd": (
+            lambda: ops.fused_linear_ce_plain(cx, cw, cb, ct),
+            lambda: F.cross_entropy((torch.matmul(cx, cw) + cb).float(), tl, reduction="none"),
+            (cx, cw, cb, ct), "mma", ce_at, max(errs[n][1] for n in ("loss", "lse"))),
+        "fused_linear_ce_bwd": (
+            lambda: ops.fused_linear_ce_bwd_plain(cx, cw, cb, ct, clse, cgr),
+            lambda: torch.autograd.grad(lib_loss, (xr, wr, br), cgr, retain_graph=True),
+            (cx, cw, cb, ct, clse, cgr), "mma", ce_at, max(errs[n][1] for n in ("dx", "dw", "db"))),
+        "flash_attention_fwd": (
+            lambda: ops.flash_attention_plain(q, k, v, True),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+            (q, k, v, True), "wgmma", fl_at, max(ferrs["out"][1], ferrs["lse"][1])),
+        "flash_attention_bwd": (
+            lambda: ops.flash_attention_bwd_plain(q, k, v, o, lse, do, True),
+            lambda: torch.autograd.grad(sdpa, (qr, kr, vr), do, retain_graph=True),
+            (q, k, v, o, lse, do, True), "wgmma", fl_at,
+            max(ferrs[n][1] for n in ("dq", "dk", "dv"))),
+    }
+    out = {}
+    for name, (plain, lib, args, route, at, err) in runs.items():
+        kern = getattr(ops, name)
+        r = dict(ms=event_ms(lambda: kern(*args), 3, flush), plain_ms=event_ms(plain, 3, flush),
+                 library_ms=event_ms(lib, 3, flush), route=route, at=at, max_abs_err=err)
+        r["bound_ms"], r["bound_by"] = cost_bound(kern, *args)
+        out[name] = r
+        print(f"  {name} at GPT-2's {at} ({route} route): {r['ms']:.4f} ms; bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms; max abs err {err:.3g}; {card}")
+    del lib_loss, sdpa, ce_ops, want, fops
+    free_card(torch)
+    out["fused_adam"] = adam_list_check(torch, shapes, "GPT-2 small")
+    report["gpt2"] = dict(losses=losses, parameters=n, routes=routes, kernels=out,
+                          ce_errors={k: v[0] for k, v in errs.items()},
+                          flash_errors={k: v[0] for k, v in ferrs.items()})
+    free_card(torch)
+    return counts, out
+
+
+def utils_phases(torch, dt, phase, report, card):
+    """The utils slice: text_trainer (the slice's main path), cnn_trainer,
+    pretrained and hf_interop (HF Llama, then GPT-2's training path).
+    Returns ({path: launch counts}, GPT-2's kernel numbers)."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix=".utils_ckpt_", dir=ROOT)
+    marks = [time.perf_counter()]
+    paths = {}
+    try:
+        phase("text_trainer (main path): the repository's markdown, BPE, LMDataset, Trainer.fit, "
+              "the checkpoint, greedy text:")
+        paths["text_trainer"] = text_trainer_phase(torch, dt, report, card, tmp)
+        free_card(torch)
+        marks.append(time.perf_counter())
+        phase("cnn_trainer (main path): ResNet-50 through Trainer.fit with augmentation, "
+              "evaluate, DeviceDataLoader:")
+        paths["cnn_trainer"] = cnn_trainer_phase(torch, dt, report, card, tmp)
+        free_card(torch)
+        marks.append(time.perf_counter())
+        phase("pretrained: ResNet-50 exported, converted and loaded:")
+        pretrained_phase(torch, dt, report, card, tmp)
+        free_card(torch)
+        marks.append(time.perf_counter())
+        phase("hf_interop: an HF Llama at Mistral-7B widths, GPT-2 trained (main path):")
+        hf_llama_phase(torch, dt, report, card)
+        paths["gpt2_training"], gpt2 = gpt2_phase(torch, dt, report, card)
+        marks.append(time.perf_counter())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    secs = dict(zip(("text_trainer_s", "cnn_trainer_s", "pretrained_s", "hf_interop_s"),
+                    (b - a for a, b in zip(marks, marks[1:]))))
+    secs["total_s"] = marks[-1] - marks[0]
+    report["utils_phases_s"] = secs
+    print("  utils phases: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    return paths, gpt2
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", metavar="PATH",
@@ -5205,11 +6008,13 @@ def main(argv=None) -> int:
         for name in ("int8_matmul", "w8a8_matmul")
     }
     s2paths, s2adam = seq2seq_phases(torch, dt, report, phase, card)
+    upaths, gpt2k = utils_phases(torch, dt, phase, report, card)
     for k in kernels:
         for key, paths in (("launches_by_family_path", fpaths), ("launches_by_cnn_path", cpaths),
                            ("launches_by_finetune_path", ftpaths),
                            ("launches_by_serving_path", spaths),
-                           ("launches_by_seq2seq_path", s2paths)):
+                           ("launches_by_seq2seq_path", s2paths),
+                           ("launches_by_utils_path", upaths)):
             by_path = {p: c[k["name"]] for p, c in paths.items() if c[k["name"]]}
             if by_path:
                 k[key] = by_path
@@ -5225,6 +6030,9 @@ def main(argv=None) -> int:
         if k["name"] == "fused_adam":  # at the seq2seq model's parameter list
             k["seq2seq"] = {n: s2adam[n] for n in ("ms", "bound_ms", "plain_ms", "library_ms",
                                                    "elements", "tensors", "max_abs_err")}
+        if k["name"] in gpt2k:  # at GPT-2's shapes: the CE at V 50257 on mma, flash at D 64
+            k["gpt2"] = gpt2k[k["name"]]
+            k["max_abs_err"] = max(k["max_abs_err"], k["gpt2"]["max_abs_err"])
         if k["name"] in cchecks:  # each CNN path's check at its own shapes
             k["cnn"] = cchecks[k["name"]]
             k["max_abs_err"] = max([k["max_abs_err"]]

@@ -36,7 +36,12 @@ refuse an unmerged model), ``nn.GroupNorm``, ``nn.Identity`` and
 Adadelta, ``ModelEMA``, the schedulers and clipping by global norm;
 ``CompiledTrainStep``'s ``accum_steps`` and ``metrics_fn`` and the
 ``jit`` decorator.  Their arithmetic is plain PyTorch, as the JAX
-package's is plain jnp.
+package's is plain jnp.  Then the encoder-decoder family with the rest of
+nn's surface and checkpoints, and the rest of the utils: the data
+pipeline (``utils.data``, whose prefetch thread stages batches on the
+card), byte-level BPE and the text datasets (``utils.text``),
+``utils.Trainer``, the Hugging Face and torchvision converters and
+``utils.profiling``.
 """
 
 from __future__ import annotations

@@ -135,8 +135,13 @@ def topk_mask(input, k: int):
     return (x >= kth).to(input.dtype)
 
 
-def gelu(input):
-    """Exact (erf) GELU, ``0.5·x·(1 + erf(x/√2))``."""
+def gelu(input, approximate: str = "none"):
+    """GELU: exact, ``0.5·x·(1 + erf(x/√2))``, or with ``approximate="tanh"``
+    the tanh form ``0.5·x·(1 + tanh(√(2/π)·(x + 0.044715·x³)))`` (GPT-2's
+    ``gelu_new``), as the JAX package writes both."""
+    if approximate == "tanh":
+        inner = math.sqrt(2.0 / math.pi) * (input + 0.044715 * input**3)
+        return 0.5 * input * (1.0 + torch.tanh(inner))
     return 0.5 * input * (1.0 + torch.erf(input / math.sqrt(2.0)))
 
 

@@ -1,5 +1,4 @@
-"""Activations (counterpart of ``deepflows_tpu/nn/modules/activation.py``;
-the tanh approximation of GELU comes with a later slice)."""
+"""Activations (counterpart of ``deepflows_tpu/nn/modules/activation.py``)."""
 
 from __future__ import annotations
 
@@ -10,10 +9,17 @@ from .module import Module
 
 
 class GELU(Module):
-    """Exact-erf GELU."""
+    """GELU, exact (erf) or, with ``approximate="tanh"``, the tanh form."""
+
+    def __init__(self, approximate: str = "none") -> None:
+        super().__init__()
+        self.approximate = approximate
 
     def forward(self, x):
-        return F.gelu(x)
+        return F.gelu(x, self.approximate)
+
+    def extra_repr(self) -> str:
+        return f"approximate={self.approximate!r}"
 
 
 class ReLU(Module):

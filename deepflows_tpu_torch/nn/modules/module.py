@@ -16,6 +16,14 @@ import torch
 class Module(torch.nn.Module):
     """Base class of the port's modules."""
 
+    def load_weights(self, weights):
+        """Non-strict load of ``{name: array}`` (the JAX package's
+        ``load_weights``): names the module lacks and arrays of another
+        shape are skipped.  Returns (missing, unexpected)."""
+        from ...utils.convert import load_arrays
+
+        return load_arrays(self, weights, strict=False)
+
     def to_dtype(self, dtype, cast_buffers: bool = False):
         """Cast every parameter to ``dtype`` in place, keeping each
         Parameter object (so an optimizer built before or after sees the

@@ -3,14 +3,49 @@
 A wrapper checks its operands with ``check``, then asks ``on_card`` where
 they lie: CPU tensors go to the plain twin, CUDA tensors to the kernel,
 which launches on the current stream inside ``on_device``.
+
+The wrappers a whole step can run (flash attention, the fused CE, fused
+Adam) state what one call costs with ``costed``: the operations the
+function needs and the bytes it must move (each input read once, each
+output written once), the counts ``chip_smoke.py`` takes its bounds from.
+``utils.profiling.step_report`` reads them through a recorder in
+``RECORDERS``; with none active the wrapper pays one list test.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 
 import torch
+
+# active cost recorders (utils.profiling.step_report); the innermost is last
+RECORDERS: list = []
+
+
+def costed(cost):
+    """Decorate a kernel wrapper with ``cost(*args, **kwargs) -> (operations,
+    bytes)`` of one call; an active recorder gets ``kernel(name, ops,
+    bytes)``, a context manager around the call."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if not RECORDERS:
+                return fn(*args, **kwargs)
+            with RECORDERS[-1].kernel(fn.__name__, *cost(*args, **kwargs)):
+                return fn(*args, **kwargs)
+
+        wrapper.cost = cost
+        return wrapper
+
+    return wrap
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the tensors' elements, each counted once."""
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 FLOATS = (torch.float32, torch.bfloat16)
 P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float

@@ -32,7 +32,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._common import I, L, P, check, on_card, on_device, stream
+from ._common import I, L, P, check, costed, nbytes, on_card, on_device, stream
 
 CHUNK = 4096  # elements per block
 
@@ -59,6 +59,21 @@ def fused_adam_plain(params, grads, vs, ss, hyper):
     return params, vs, ss
 
 
+def _adam_cost(params, grads, vs, ss, hyper):
+    """No products (the bound is the bytes): p, g, v and s read, p, v and s
+    written, and the hyper-parameters."""
+    params, grads, vs, ss = _lists(params, grads, vs, ss)
+    return 0, nbytes(*params, *grads, *vs, *ss) + nbytes(*params, *vs, *ss) + nbytes(hyper)
+
+
+def _adam_sr_cost(params, grads, vs, ss, hyper, step, indices=None, bits=None):
+    """``fused_adam``'s count, and the step read (bf16 p: 22 bytes an
+    element with a bf16 gradient)."""
+    ops, moved = _adam_cost(params, grads, vs, ss, hyper)
+    return ops, moved + nbytes(step)
+
+
+@costed(_adam_cost)
 def fused_adam(params, grads, vs, ss, hyper):
     """Adam over every (p, g, v, s), in place, in one launch; returns
     (params, vs, ss)."""
@@ -178,6 +193,7 @@ def fused_adam_sr_plain(params, grads, vs, ss, hyper, step, indices=None, bits=N
     return params, vs, ss
 
 
+@costed(_adam_sr_cost)
 def fused_adam_sr(params, grads, vs, ss, hyper, step, indices=None, bits=None):
     """Adam with stochastic rounding over every (p bf16, g bf16 or f32, v,
     s f32), in place, in one launch; returns (params, vs, ss).

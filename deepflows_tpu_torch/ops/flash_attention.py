@@ -42,7 +42,7 @@ import math
 import torch
 
 from . import _build
-from ._common import FLOATS, F, I, P, check, on_card, on_device, stream
+from ._common import FLOATS, F, I, P, check, costed, nbytes, on_card, on_device, stream
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
@@ -176,6 +176,32 @@ def _bwd_route(q, k, v, dout):
     return _route(q, (q, k, v, dout))
 
 
+def visible_pairs(lq, lk, causal, window):
+    """(query, key) pairs the mask keeps, for one (batch, head)."""
+    if not causal:
+        return lq * lk
+    i = torch.arange(lq, dtype=torch.int64)
+    lo = (i - int(window) + 1).clamp_min(0) if window else torch.zeros_like(i)
+    return int((i.clamp_max(lk - 1) - lo + 1).clamp_min(0).sum())
+
+
+def _fwd_cost(q, k, v, causal=False, sm_scale=None, window=None):
+    """Two products over the visible pairs; q, k, v read, out and lse written."""
+    b, h, lq, d = q.shape
+    pairs = b * h * visible_pairs(lq, k.shape[2], causal, window)
+    return 2 * 2 * pairs * d, 2 * nbytes(q) + nbytes(k, v) + 4 * b * h * lq
+
+
+def _bwd_cost(q, k, v, out, lse, dout, causal=False, sm_scale=None, window=None):
+    """Five products over the visible pairs (the scores again, dP, dq, dk,
+    dv); q, k, v, out, dout and lse read, dq, dk, dv written, delta written
+    and read."""
+    b, h, lq, d = q.shape
+    pairs = b * h * visible_pairs(lq, k.shape[2], causal, window)
+    return 5 * 2 * pairs * d, 4 * nbytes(q) + 2 * nbytes(k, v) + 8 * b * h * lq
+
+
+@costed(_fwd_cost)
 def flash_attention_fwd(q, k, v, causal=False, sm_scale=None, window=None):
     """Forward kernel: returns (out in q's dtype, lse f32 (B·H, Lq))."""
     _check_qkv(q, k, v)
@@ -215,6 +241,7 @@ def _stats_layout(route, lq):
     return lq, 1
 
 
+@costed(_bwd_cost)
 def flash_attention_bwd(q, k, v, out, lse, dout, causal=False, sm_scale=None, window=None):
     """Backward kernels: returns (dq, dk, dv) in q's, k's and v's dtypes.
     The C entry launches the delta pass, then the main kernel (one launch

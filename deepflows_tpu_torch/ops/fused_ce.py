@@ -34,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._common import FLOATS, I, P, check, on_card, on_device, stream
+from ._common import FLOATS, I, P, check, costed, nbytes, on_card, on_device, stream
 
 # the backward kernel's largest D: bf16 in clusters of up to 16 blocks of
 # 256 columns, f32 in one block
@@ -167,6 +167,21 @@ def _fwd_plan(n, v, route):
     return -(-tiles // per), per
 
 
+def _fwd_cost(x, w, b, targets):
+    """The logits' product; x, w, b and int32 targets read, loss and lse
+    written."""
+    n, d = x.shape
+    return 2 * n * d * w.shape[1], nbytes(x, w, b) + 4 * n + 8 * n
+
+
+def _bwd_cost(x, w, b, targets, lse, g):
+    """Three products (the logits again, dx, dw); x, w, b, targets, lse and
+    g read, dx, dw and db written."""
+    n, d = x.shape
+    return 3 * 2 * n * d * w.shape[1], 2 * nbytes(x, w, b) + 12 * n
+
+
+@costed(_fwd_cost)
 def fused_linear_ce_fwd(x, w, b, targets):
     """Forward kernel: returns (loss, lse), both (N,) f32."""
     n, d, v = _check(x, w, b, targets)
@@ -199,6 +214,7 @@ fused_linear_ce_fwd.launches = 0
 fused_linear_ce_fwd.routes = dict.fromkeys(ROUTES, 0)  # launches by route, never reset
 
 
+@costed(_bwd_cost)
 def fused_linear_ce_bwd(x, w, b, targets, lse, g):
     """Backward kernel, one launch: returns (dx, dw, db) in x's, w's and b's
     dtypes.  ``g`` is the (N,) gradient of the per-row loss."""

@@ -45,7 +45,43 @@ def _from_numpy(name, arr) -> torch.Tensor:
         raise TypeError(f"{name}: unsupported dtype {arr.dtype}") from e
 
 
+def load_arrays(module, weights, strict: bool = True, cast: bool = True):
+    """The JAX package's ``Module.load_state_dict``: copy each entry of
+    ``weights`` (numpy arrays, JAX arrays or tensors by name) into the
+    parameter or persistent buffer of that name, in place.  Without
+    ``strict`` a name the module lacks or an array of another shape is
+    skipped; with it, either raises, and so does a name the weights lack.
+    With ``cast`` an array takes its target's dtype; without it a dtype
+    that differs raises.  Returns (missing, unexpected)."""
+    own = module.state_dict(keep_vars=True)
+    unexpected = []
+    with torch.no_grad():
+        for name, value in weights.items():
+            target = own.get(name)
+            if target is None:
+                unexpected.append(name)
+                continue
+            src = (value.detach() if isinstance(value, torch.Tensor)
+                   else _from_numpy(name, np.asarray(value)))
+            if tuple(src.shape) != tuple(target.shape):
+                if strict:
+                    raise ValueError(f"size mismatch for {name}: checkpoint "
+                                     f"{tuple(src.shape)} vs model {tuple(target.shape)}")
+                continue
+            if not cast and src.dtype != target.dtype:
+                raise TypeError(f"dtype mismatch for {name}: checkpoint {src.dtype} vs "
+                                f"model {target.dtype}")
+            target.copy_(src)
+    missing = [name for name in own if name not in weights]
+    if strict and (missing or unexpected):
+        raise KeyError(f"load_state_dict strict failure: missing={missing}, "
+                       f"unexpected={unexpected}")
+    return missing, unexpected
+
+
 def load_jax_state_dict(module: torch.nn.Module, state) -> torch.nn.Module:
+    """``load_arrays`` held to the JAX state dict's exact layout: the same
+    names (checked before anything is copied), shapes and dtypes."""
     own = module.state_dict(keep_vars=True)
     missing = sorted(set(own) - set(state))
     unexpected = sorted(set(state) - set(own))
@@ -53,21 +89,7 @@ def load_jax_state_dict(module: torch.nn.Module, state) -> torch.nn.Module:
         raise KeyError(
             f"state_dict keys differ: missing={missing}, unexpected={unexpected}"
         )
-    with torch.no_grad():
-        for name, target in own.items():
-            arr = np.asarray(state[name])
-            if tuple(arr.shape) != tuple(target.shape):
-                raise ValueError(
-                    f"size mismatch for {name}: checkpoint {arr.shape} vs "
-                    f"model {tuple(target.shape)}"
-                )
-            src = _from_numpy(name, arr)
-            if src.dtype != target.dtype:
-                raise TypeError(
-                    f"dtype mismatch for {name}: checkpoint {src.dtype} vs "
-                    f"model {target.dtype}"
-                )
-            target.copy_(src)
+    load_arrays(module, state, cast=False)
     return module
 
 
