@@ -448,6 +448,24 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
    at (8, 12, 1024, 64) as (B, L, H, D) views with flash_case's, and
    fused_adam over GPT-2's 198 parameter tensors (adam_list_check).
    Seconds of each of 37-40.
+41. parallel, main paths: a one-rank NCCL process group (a FileStore in a
+   temporary directory of the checkout) and a DeviceMesh {data: 1,
+   model: 1}.  The training phase's model and batch train 3 steps by the
+   plain CompiledTrainStep and by parallel.ShardedTrainStep under DP,
+   tensor_parallel_rules("model"), fsdp_rules(mesh,
+   base=tensor_parallel_rules()) and zero_shard_state=True, each from
+   the same seeded weights (Adam fused, LMHeadCrossEntropy, bf16
+   compute): every step of every layout launches flash 12 times each way,
+   the CE once each way and fused_adam once, as the plain step does; each
+   loss within 1e-3 of the plain run's (relative) and each weight's
+   distance from the plain run's within 1e-2 of its change (by norm).
+   Then the model with ring=(mesh, "model") (one chunk: an f32 (L, L)
+   block a head; no flash launch) against the flash model's losses within
+   2e-2, with its peak memory; then MixtralLM at MIXTRAL_TRAIN with
+   expert_parallel_rules("model") and MoECriterion, 2 steps against its
+   plain step to the same bounds.  Each step's wall ms beside the plain
+   step's, one {"parallel": ...} line with the card; the group is
+   destroyed at the end.
 
 Prints the card's name and power limit, one {"kernels": [...]} line (the CE
 backward's, linear_fused's and matmul's entries with the plan they ran:
@@ -458,7 +476,8 @@ in ``launches_by_cnn_path``, the fine-tuning slice's in
 ``launches_by_finetune_path``, the serving slice's in
 ``launches_by_serving_path``, the seq2seq slice's in
 ``launches_by_seq2seq_path`` (fused_adam's numbers at its list in
-``seq2seq``), the utils slice's in ``launches_by_utils_path`` (the CE's,
+``seq2seq``), the parallel slice's in ``launches_by_parallel_path``, the
+utils slice's in ``launches_by_utils_path`` (the CE's,
 flash's and fused_adam's numbers at GPT-2's shapes in ``gpt2``), its numbers at the family's shapes in
 ``family``, at each CNN path's in ``cnn``, whose worst error its
 max_abs_err takes in, at the fine-tuning paths' in ``finetune`` and at
@@ -5818,11 +5837,449 @@ def utils_phases(torch, dt, phase, report, card):
     return paths, gpt2
 
 
+# ------------------------------------------------------------- the parallel slice
+PAR_STEPS = 3  # steps of each layout on the TRAIN model
+PAR_EP_STEPS = 2  # steps of the expert-parallel MixtralLM
+PAR_LAYOUTS = (  # (name, placement rule, ShardedTrainStep keywords) on {data: 1, model: 1}
+    ("dp", None, {}),
+    ("tp", "tp", {}),
+    ("fsdp_tp", "fsdp_tp", {}),
+    ("zero1", None, {"zero_shard_state": True}),
+)
+PAR_LOSS_TOL = 1e-3  # a sharded run's loss against the plain run's, relative
+# a parameter's distance from the plain run's over the plain run's change,
+# by norm: one rank computes the plain step's ops, but the embedding's and
+# the CE's backward sum with atomics, and Adam's m / sqrt(v) turns a
+# near-zero gradient's last bits into a step of up to lr
+PAR_PARAM_TOL = 1e-2
+PAR_EP_PER_STEP = {"flash_attention_fwd": MIXTRAL_TRAIN["depth"],
+                   "flash_attention_bwd": MIXTRAL_TRAIN["depth"], "fused_adam": 1}
+PAR_RING_TOL = TOL["bf16"]  # the ring's f32 attention against flash's bf16, relative loss
+PAR_MULTI = (  # (name, mesh axes over n ranks, rule, ring): the part on more than one card
+    ("dp", lambda n: {"data": n}, None, False),
+    ("fsdp", lambda n: {"data": n}, "fsdp", False),
+    ("ring", lambda n: {"data": n // 2, "model": 2}, None, True),
+)
+PAR_MULTI_TIMEOUT_S = 300
+# Every rank also trains each layout's one-card twin on its own card: the
+# rows of a rank of the data axis a microbatch (accum_steps = the axis's
+# size), so that the twin's products have the ranks' shapes and only the
+# order of the gradients' f32 sum differs (the ring's twin is the one-chunk
+# ring, whose f32 chunk merge differs too).  Against the plain step, bf16
+# products of other shapes moved the losses by up to 6.8e-4 on 4 H100s
+# (PERF.md section 6); the bounds below were set before the run that
+# first held the twins.
+PAR_MULTI_TWIN_TOL = 2e-4  # a layout's losses against its twin's, relative
+PAR_MULTI_PLAIN_TOL = 3e-3  # against the one-card plain step's, relative
+# The first step's gradients against the twin's, relative by the global
+# norm: held before any update.  The ring's chunked f32 softmax merge
+# rounds a few bf16 activations the other way, and Adam's first updates
+# carry that into the later losses as far as bf16 products of other shapes
+# do (its losses 9.3e-4 and weights 0.10 of their change off the twin's on
+# 4 H100s): its later losses are held at PAR_MULTI_PLAIN_TOL and its
+# weights are printed, not held.
+PAR_MULTI_GRAD_TOL = 1e-2
+
+
+def par_rules(name, mesh):
+    from deepflows_tpu_torch.parallel import (expert_parallel_rules, fsdp_rules,
+                                              tensor_parallel_rules)
+
+    return {None: lambda: None, "tp": lambda: tensor_parallel_rules("model"),
+            "fsdp": lambda: fsdp_rules(mesh),
+            "fsdp_tp": lambda: fsdp_rules(mesh, base=tensor_parallel_rules("model")),
+            "ep": lambda: expert_parallel_rules("model")}[name]()
+
+
+def par_batch(torch, device):
+    """The training phase's batch (bench.py's: numpy default_rng(0))."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    V = TRAIN["vocab_size"]
+    return tuple(torch.as_tensor(rng.integers(0, V, (TRAIN_B, TRAIN_L)).astype(np.int32),
+                                 device=device) for _ in range(2))
+
+
+def par_lm_build(torch, dt, device, ring=None):
+    """A builder of the TRAIN model from seed 0 with fused Adam and
+    LMHeadCrossEntropy (``par_run``'s ``build``)."""
+    from deepflows_tpu_torch import nn, optim
+    from deepflows_tpu_torch.models import TransformerLM
+
+    def build():
+        dt.manual_seed(0)
+        lm = TransformerLM(**TRAIN, device=device, flash=True, ring=ring)
+        return (lm, lm.trunk(), optim.Adam(lm.parameters(), **ADAM, fused=True),
+                nn.LMHeadCrossEntropy(lm.head))
+
+    return build
+
+
+def parallel_rank(rank, world, port, out, device="cuda"):
+    """One rank of the part on more cards (a process of its own, started by
+    ``parallel_multi``): joins an NCCL group of ``world`` ranks, one card
+    each, trains the TRAIN model by the plain step and under each layout of
+    PAR_MULTI beside the layout's one-card twin, each step's launches held
+    to the plain step's, and measures each layout's losses and weights
+    against the twin's and the plain step's (``par_diffs``) and its first
+    step's gradients against the twin's.  Every rank
+    writes its numbers and a fingerprint of its final weights to
+    ``out``.<rank> as JSON; ``parallel_multi`` holds them to the bounds."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    import deepflows_tpu_torch as dt
+    from deepflows_tpu_torch.parallel import init_process_group, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = init_process_group(device, rank, world, f"tcp://127.0.0.1:{port}")
+    per_ring = dict(PER_STEP, flash_attention_fwd=0, flash_attention_bwd=0)
+    res = {}
+    try:
+        x, y = par_batch(torch, dev)
+        # a one-rank mesh for each card (every rank makes all of them)
+        one = [make_mesh({"data": 1, "model": 1}, [r]) for r in range(world)][rank]
+
+        def build(ring=False, mesh=None):
+            return par_lm_build(torch, dt, dev, (mesh, "model") if ring else None)
+
+        init = whole_params(torch, build()()[0])
+        plain, _, plain_params = par_run(torch, build(), x, y, PAR_STEPS, PER_STEP,
+                                         f"rank {rank}: plain")
+        res["plain"] = plain
+        for name, axes, rules, ring in PAR_MULTI:
+            mesh = make_mesh(axes(world))
+            d = axes(world)["data"]
+            per = per_ring if ring else PER_STEP
+            twin_grads, keep = first_grads(torch)
+            twin, _, twin_params = par_run(
+                torch, build(ring, one), x, y, PAR_STEPS, accumulated(per, d),
+                f"rank {rank}: {name}'s twin", one if ring else None, accum_steps=d,
+                grad_transform=keep)
+            grads, keep = first_grads(torch)
+            r, _, params = par_run(torch, build(ring, mesh), x, y, PAR_STEPS, per,
+                                   f"rank {rank} of {world}, {name}", mesh, rules,
+                                   grad_transform=keep)
+            r.update(mesh=axes(world), ring=ring, twin=twin, fingerprint=fingerprint(params),
+                     vs_twin=par_diffs(r, params, twin, twin_params, init))
+            r["vs_twin"]["grad_rel_diff"] = float(
+                sum(((a - b) ** 2).sum() for a, b in zip(grads, twin_grads) if b is not None)
+                .sqrt() / sum((b ** 2).sum() for b in twin_grads if b is not None).sqrt())
+            if not ring:
+                r["vs_plain"] = par_diffs(r, params, plain, plain_params, init)
+            res[name] = r
+            del params, twin_params
+            free_card(torch)
+    finally:
+        import torch.distributed as tdist
+
+        tdist.destroy_process_group()
+    with open(f"{out}.{rank}", "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def first_grads(torch):
+    """A list and a ``grad_transform`` that fills it with the first step's
+    gradients (f32, on the host), passing every step's through."""
+    kept = []
+
+    def keep(grads):
+        if not kept:
+            kept.extend(None if g is None else g.detach().float().cpu() for g in grads)
+        return grads
+
+    return kept, keep
+
+
+def accumulated(per_step, n):
+    """Launches a step with ``accum_steps=n``: the forward and backward
+    kernels n times, the update once."""
+    return {k: v if k.startswith("fused_adam") else v * n for k, v in per_step.items()}
+
+
+def fingerprint(params):
+    """Each weight's sum and sum of magnitudes (f64): equal on every rank
+    that holds the same weights."""
+    return {n: [float(p.double().sum()), float(p.double().abs().sum())]
+            for n, p in params.items()}
+
+
+def parallel_multi(torch, plain, card):
+    """With more than one card: one process per card (an even count) runs
+    ``parallel_rank``; fails unless every rank passed its checks and every
+    rank holds the same losses and weights under each layout.  Returns
+    their numbers, or None on one card."""
+    import shutil
+    import socket
+    import tempfile
+
+    n = torch.cuda.device_count()
+    n -= n % 2
+    if n < 2:
+        print("  one card: the part on more cards is not run")
+        return None
+    tmp = tempfile.mkdtemp(prefix=".parallel_", dir=ROOT)
+    out = os.path.join(tmp, "rank")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-rank",
+                               str(r), "--parallel-world", str(n), "--parallel-port", str(port),
+                               "--parallel-out", out]) for r in range(n)]
+    deadline = time.monotonic() + PAR_MULTI_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rcs = [p.returncode for p in procs]
+    try:
+        if any(rcs) or not all(os.path.exists(f"{out}.{r}") for r in range(n)):
+            fail(f"parallel ranks on {n} cards exited with {rcs}")
+        ranks = []
+        for r in range(n):
+            with open(f"{out}.{r}") as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res = ranks[0]
+    for name, r in res.items():
+        if name == "plain":
+            continue
+        for k, other in enumerate(ranks[1:], 1):
+            if (other[name]["losses"] != r["losses"]
+                    or other[name]["fingerprint"] != r["fingerprint"]):
+                fail(f"parallel {name} on {n} cards: rank {k}'s losses or weights differ from "
+                     f"rank 0's ({other[name]['losses']} against {r['losses']})")
+        r.pop("fingerprint")
+        # the weights are held against the twin's: against the plain step's,
+        # bf16 products of other shapes move them by more than arithmetic
+        # order does, and that distance is printed alone
+        held = [("its twin", r["vs_twin"], PAR_MULTI_PLAIN_TOL if r["ring"]
+                 else PAR_MULTI_TWIN_TOL, None if r["ring"] else PAR_PARAM_TOL)]
+        if "vs_plain" in r:
+            held.append(("the plain step", r["vs_plain"], PAR_MULTI_PLAIN_TOL, None))
+        print(f"  {n} cards, {name} on {r['mesh']}: losses {[round(v, 5) for v in r['losses']]}"
+              f" and weights the same on every rank; step wall ms "
+              f"{[round(v, 2) for v in r['wall_ms']]} (one card: twin "
+              f"{[round(v, 2) for v in r['twin']['wall_ms']]}, plain "
+              f"{[round(v, 2) for v in res['plain']['wall_ms']]}), peak "
+              f"{r['peak_memory_gb']:.2f} GB a card (twin {r['twin']['peak_memory_gb']:.2f}, "
+              f"plain {res['plain']['peak_memory_gb']:.2f}); " + "; ".join(
+                  f"against {what}: loss rel diff {dif['loss_rel_diff']:.3g} (limit {tol}), "
+                  f"weight diff / change {dif['param_rel_diff']:.3g} (limit {ptol})"
+                  for what, dif, tol, ptol in held)
+              + f"; the first step's gradients against the twin's {r['vs_twin']['grad_rel_diff']:.3g}"
+              f" by norm (limit {PAR_MULTI_GRAD_TOL}); {card}")
+        if not r["vs_twin"]["grad_rel_diff"] < PAR_MULTI_GRAD_TOL:
+            fail(f"parallel {name} on {n} cards: the first step's gradients differ from the "
+                 f"twin's by {r['vs_twin']['grad_rel_diff']} of their norm")
+        for what, dif, tol, ptol in held:
+            if not (dif["loss_rel_diff"] < tol
+                    and (ptol is None or dif["param_rel_diff"] < ptol)):
+                fail(f"parallel {name} on {n} cards against {what}: {dif}")
+    for k, other in enumerate(ranks):
+        if other["plain"]["losses"] != plain["losses"]:
+            print(f"  note: rank {k}'s plain losses {other['plain']['losses']} against card "
+                  f"0's one-rank run {plain['losses']}")
+    return dict(cards=n, runs=res)
+
+
+def whole_params(torch, model):
+    """Every parameter's whole value in f32, by name (a DTensor gathered)."""
+    from torch.distributed.tensor import DTensor
+
+    with torch.no_grad():
+        return {n: (p.full_tensor() if isinstance(p, DTensor) else p.detach()).float().clone()
+                for n, p in model.named_parameters()}
+
+
+def par_run(torch, build, x, y, steps, per_step, label, mesh=None, rules=None, **kw):
+    """Train a fresh model ``build() -> (model, trunk, optimizer,
+    criterion)`` for ``steps`` steps, by ``CompiledTrainStep`` or (with a
+    mesh) ``ShardedTrainStep``, with bf16 compute and the step's keywords
+    ``kw``; each step's launches must be ``per_step``.  Returns its
+    numbers, launch counts and final weights."""
+    from deepflows_tpu_torch import ops
+    from deepflows_tpu_torch.jit import CompiledTrainStep
+    from deepflows_tpu_torch.parallel import ShardedTrainStep
+
+    model, trunk, opt, crit = build()
+    if mesh is None:
+        step = CompiledTrainStep(trunk, opt, crit, compute_dtype=torch.bfloat16, **kw)
+    else:
+        step = ShardedTrainStep(trunk, opt, crit, mesh, param_rules=par_rules(rules, mesh),
+                                compute_dtype=torch.bfloat16, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()  # the path starts here
+    losses, wall, _ = run_steps(torch, step, x, y, steps, label, per_step)
+    counts = {k.__name__: k.launches for k in ops.KERNELS}  # the path ends here
+    r = dict(losses=losses, wall_ms=wall, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    params = whole_params(torch, model)
+    del step, opt, crit, trunk, model
+    free_card(torch)
+    return r, counts, params
+
+
+def par_diffs(r, params, ref, ref_params, init):
+    """A run's largest relative loss difference from the reference run's,
+    its largest weight difference, and its largest weight difference by
+    norm over the reference's change from ``init``."""
+    return dict(
+        loss_rel_diff=max(abs(a - b) / abs(b) for a, b in zip(r["losses"], ref["losses"])),
+        param_max_abs_diff=max(float((p - ref_params[n]).abs().max())
+                               for n, p in params.items()),
+        param_rel_diff=max(float((p - ref_params[n]).norm()
+                                 / (ref_params[n] - init[n]).norm().clamp_min(1e-30))
+                           for n, p in params.items()))
+
+
+def par_compare(torch, r, params, ref, ref_params, init, label, loss_tol=PAR_LOSS_TOL):
+    """Hold a run's losses and weights against the plain run's; fails past
+    the tolerances, prints and records the largest differences."""
+    r.update(par_diffs(r, params, ref, ref_params, init))
+    print(f"  {label}: losses {[round(v, 5) for v in r['losses']]}, step wall ms "
+          f"{[round(v, 2) for v in r['wall_ms']]} (plain {[round(v, 2) for v in ref['wall_ms']]}),"
+          f" peak {r['peak_memory_gb']:.2f} GB (plain {ref['peak_memory_gb']:.2f}); max loss rel "
+          f"diff {r['loss_rel_diff']:.3g} (limit {loss_tol}), max |weight diff| "
+          f"{r['param_max_abs_diff']:.3g}, max weight diff / change {r['param_rel_diff']:.3g} "
+          f"(limit {PAR_PARAM_TOL})")
+    if not r["loss_rel_diff"] < loss_tol:
+        fail(f"parallel {label}: losses {r['losses']} against the plain step's {ref['losses']}")
+    if not r["param_rel_diff"] < PAR_PARAM_TOL:
+        fail(f"parallel {label}: weights differ from the plain step's by "
+             f"{r['param_rel_diff']} of their change")
+
+
+def parallel_one_rank(torch, dt, x, y, plain, init, ref_params, tmp, runs, paths):
+    """``parallel_phase``'s part on a one-rank NCCL group: the layouts of
+    PAR_LAYOUTS, the ring and expert-parallel MixtralLM; records into
+    ``runs`` and ``paths``."""
+    import numpy as np
+    import torch.distributed as tdist
+
+    from deepflows_tpu_torch import nn, optim
+    from deepflows_tpu_torch.models import MixtralLM
+    from deepflows_tpu_torch.parallel import init_process_group, make_mesh
+
+    def lm_build(ring=None):
+        return par_lm_build(torch, dt, "cuda", ring)
+
+    init_process_group("cuda", rank=0, world_size=1,
+                       store=tdist.FileStore(os.path.join(tmp, "store"), 1))
+    mesh = make_mesh({"data": 1, "model": 1})
+    for name, rules, kw in PAR_LAYOUTS:
+        r, counts, params = par_run(torch, lm_build(), x, y, PAR_STEPS, PER_STEP,
+                                    f"parallel {name}", mesh, rules, **kw)
+        par_compare(torch, r, params, plain, ref_params, init, name)
+        runs[name], paths[f"parallel_{name}"] = r, counts
+        del params
+    per_ring = dict(PER_STEP, flash_attention_fwd=0, flash_attention_bwd=0)
+    r, counts, params = par_run(torch, lm_build((mesh, "model")), x, y, PAR_STEPS, per_ring,
+                                "parallel ring", mesh)
+    r["loss_rel_diff"] = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], plain["losses"]))
+    print(f"  ring (one chunk of L {TRAIN_L}): losses {[round(v, 5) for v in r['losses']]}, "
+          f"step wall ms {[round(v, 2) for v in r['wall_ms']]} (flash "
+          f"{[round(v, 2) for v in plain['wall_ms']]}), peak {r['peak_memory_gb']:.2f} GB "
+          f"(flash {plain['peak_memory_gb']:.2f}); max loss rel diff against flash "
+          f"{r['loss_rel_diff']:.3g} (limit {PAR_RING_TOL})")
+    if not r["loss_rel_diff"] < PAR_RING_TOL:
+        fail(f"parallel ring: losses {r['losses']} against flash's {plain['losses']}")
+    runs["ring"], paths["parallel_ring"] = r, counts
+    del init, ref_params, params
+    free_card(torch)
+
+    def mixtral_build():
+        lm = family_model(torch, dt, MixtralLM, MIXTRAL_TRAIN, 3, serve=False)
+        return (lm, lm, optim.Adam(lm.parameters(), **FAMILY_ADAM, fused=True),
+                nn.MoECriterion(nn.CrossEntropyLoss(), lm))
+
+    L, Vm = MIXTRAL_TRAIN["max_len"], MIXTRAL_TRAIN["vocab_size"]
+    rng = np.random.default_rng(3)  # the family training phase's batch
+    xm = torch.as_tensor(rng.integers(0, Vm, (1, L)).astype(np.int32), device="cuda")
+    ym = torch.as_tensor(rng.integers(0, Vm, (1, L)).astype(np.int32), device="cuda")
+    per_ep = PAR_EP_PER_STEP
+    init = whole_params(torch, mixtral_build()[0])
+    free_card(torch)
+    ref, _, ref_params = par_run(torch, mixtral_build, xm, ym, PAR_EP_STEPS, per_ep,
+                                 "plain mixtral")
+    r, counts, params = par_run(torch, mixtral_build, xm, ym, PAR_EP_STEPS, per_ep,
+                                "parallel ep", mesh, "ep")
+    par_compare(torch, r, params, ref, ref_params, init, "ep (MixtralLM, MoECriterion)")
+    runs["mixtral_plain"], runs["ep"], paths["parallel_ep"] = ref, r, counts
+    del init, ref_params, params, xm, ym
+    tdist.destroy_process_group()
+
+
+def parallel_phase(torch, dt, report, card, multi_only=False):
+    """The parallel slice's main path on one card: a one-rank NCCL group
+    (a FileStore in a temporary directory of the checkout) and a mesh
+    {data: 1, model: 1}.  The TRAIN model trains PAR_STEPS steps by the
+    plain CompiledTrainStep and by ShardedTrainStep under each layout of
+    PAR_LAYOUTS, each from the same seeded weights, with fused Adam and
+    LMHeadCrossEntropy: every sharded step launches flash, the CE and
+    fused_adam as the plain step does, and its losses and weights are held
+    against the plain run's.  Then the same model with ring=(mesh,
+    "model"), held against the flash model's losses (PAR_RING_TOL), and
+    MixtralLM at MIXTRAL_TRAIN with expert_parallel_rules and MoECriterion
+    against its plain step.  Last, with more than one card,
+    ``parallel_multi``.  ``multi_only``: the plain run and that part
+    alone.  Returns {path: launch counts}."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as tdist
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix=".parallel_", dir=ROOT)
+    paths, runs = {}, {}
+    try:
+        x, y = par_batch(torch, "cuda")
+
+        def lm_build(ring=None):
+            return par_lm_build(torch, dt, "cuda", ring)
+
+        init = whole_params(torch, lm_build()()[0])
+        plain, _, ref_params = par_run(torch, lm_build(), x, y, PAR_STEPS, PER_STEP, "plain")
+        runs["plain"] = plain
+        print(f"  plain CompiledTrainStep: losses {[round(v, 5) for v in plain['losses']]}, "
+              f"step wall ms {[round(v, 2) for v in plain['wall_ms']]}")
+        if not multi_only:
+            parallel_one_rank(torch, dt, x, y, plain, init, ref_params, tmp, runs, paths)
+        del x, y, init, ref_params
+        free_card(torch)
+        runs["multi"] = parallel_multi(torch, plain, card)
+    finally:
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+        report["parallel"] = out = dict(
+            card=card, phase_s=time.perf_counter() - t0, steps=PAR_STEPS,
+            ep_steps=PAR_EP_STEPS, mesh={"data": 1, "model": 1}, runs=runs)
+    print(f"  parallel phase: {out['phase_s']:.1f} s; {card}")
+    print(json.dumps({"parallel": out}))
+    return paths
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", metavar="PATH",
                         help="also write every measurement to PATH as JSON")
+    for flag, kind in (("--parallel-rank", int), ("--parallel-world", int),
+                       ("--parallel-port", int), ("--parallel-out", str)):
+        parser.add_argument(flag, type=kind, help=argparse.SUPPRESS)  # parallel_multi's ranks
     args = parser.parse_args(argv)
+    if args.parallel_rank is not None:
+        return parallel_rank(args.parallel_rank, args.parallel_world, args.parallel_port,
+                             args.parallel_out)
     import torch
 
     if not torch.cuda.is_available():
@@ -6009,12 +6466,16 @@ def main(argv=None) -> int:
     }
     s2paths, s2adam = seq2seq_phases(torch, dt, report, phase, card)
     upaths, gpt2k = utils_phases(torch, dt, phase, report, card)
+    phase("parallel (main path): DP, TP, FSDP + TP and ZeRO-1 ShardedTrainSteps of the training "
+          "model on a one-rank NCCL mesh, ring attention, expert-parallel MixtralLM:")
+    ppaths = parallel_phase(torch, dt, report, card)
     for k in kernels:
         for key, paths in (("launches_by_family_path", fpaths), ("launches_by_cnn_path", cpaths),
                            ("launches_by_finetune_path", ftpaths),
                            ("launches_by_serving_path", spaths),
                            ("launches_by_seq2seq_path", s2paths),
-                           ("launches_by_utils_path", upaths)):
+                           ("launches_by_utils_path", upaths),
+                           ("launches_by_parallel_path", ppaths)):
             by_path = {p: c[k["name"]] for p, c in paths.items() if c[k["name"]]}
             if by_path:
                 k[key] = by_path

@@ -147,21 +147,39 @@ class CompiledTrainStep:
             for module, name in slots:
                 module._parameters[name] = t
 
+    def _full_params(self):
+        """Each parameter's whole value (``ShardedTrainStep`` gathers
+        them)."""
+        return [p.detach() for p in self._params]
+
     def _compute_copies(self):
         cd = self.compute_dtype
         copies = []
         with torch.no_grad():
-            for p in self._params:
-                c = p.detach()
+            for p, c in zip(self._params, self._full_params()):
                 if cd is not None and c.is_floating_point():
                     c = c.to(cd)
                 copies.append(c.requires_grad_(p.requires_grad))
         return copies
 
+    def _microbatches(self, x, y):
+        """The (x, y) pairs of the microbatches this process computes."""
+        n = self.accum_steps
+        return zip(x.chunk(n), y.chunk(n))
+
+    def _scope(self):
+        """A context the forward and backward run in."""
+        return contextlib.nullcontext()
+
+    def _reduce(self, loss, grads, metrics):
+        """The step's loss, gradients and metrics from this process's
+        (a sharded step sums them over the data axis)."""
+        return loss, grads, metrics
+
     def _fwd_bwd(self, copies, need, x, y):
         """One microbatch's forward and backward on the bound copies: its
         loss, the gradients of ``need`` and its metrics."""
-        with torch.enable_grad(), _traced_routes():
+        with torch.enable_grad(), _traced_routes(), self._scope():
             out = self.model(x)
             loss = self.criterion(out, y)
             found = torch.autograd.grad(
@@ -190,7 +208,7 @@ class CompiledTrainStep:
         losses, metrics = [], []
         self._bind(copies)
         try:
-            for xm, ym in zip(x.chunk(n), y.chunk(n)):
+            for xm, ym in self._microbatches(x, y):
                 loss, found, m = self._fwd_bwd(copies, need, xm, ym)
                 losses.append(loss)
                 metrics.append(m)
@@ -215,9 +233,14 @@ class CompiledTrainStep:
             scale = 1.0 if getattr(self.criterion, "reduction", "mean") == "sum" else 1.0 / n
             grads = [None if g is None else g.mul_(scale) for g in grads]
             loss = torch.stack(losses).sum() * scale
-        self._last_metrics = _mean_metrics(metrics)
+        loss, grads, self._last_metrics = self._reduce(loss, grads, _mean_metrics(metrics))
         if self.grad_transform is not None:
             grads = self.grad_transform(grads)
+        self._update(grads, lr)
+        return loss.float() if cd is not None else loss
+
+    def _update(self, grads, lr):
+        """The optimizer's update of the parameters it holds."""
         opt = self.optimizer
         data = [self._params[i].data for i in self._opt_index]
         with torch.no_grad():
@@ -227,7 +250,6 @@ class CompiledTrainStep:
         for i, old, new in zip(self._opt_index, data, new_params):
             if new is not old:
                 self._params[i].data = new
-        return loss.float() if cd is not None else loss
 
 
 def _mean_metrics(per_micro):

@@ -17,6 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import _data_axis as data_axis
 from ..config import config
 from ..ops.linear import linear_fused, matmul
 from ..random import generator
@@ -154,13 +155,17 @@ def softmax(input, dim: int = 1):
 
 def dropout(input, p: float = 0.5, training: bool = True):
     """Inverted dropout with a mask drawn from the package generator; the
-    identity in eval mode or at ``p == 0``."""
+    identity in eval mode or at ``p == 0``.  Inside a sharded step the
+    mask is drawn at the global batch's shape (dim 0 times the data axis's
+    ranks, which share the generator's state) and this rank's rows kept:
+    the unsharded step's mask."""
     if not training or p == 0.0:
         return input
-    keep = torch.empty_like(input).bernoulli_(
+    shape = (input.shape[0] * data_axis.size(),) + tuple(input.shape[1:])
+    keep = torch.empty(shape, dtype=input.dtype, device=input.device).bernoulli_(
         1.0 - p, generator=generator(input.device)
     )
-    return input * keep / (1.0 - p)
+    return input * data_axis.local_rows(keep) / (1.0 - p)
 
 
 def log_softmax(input, dim: int = 1):
@@ -198,7 +203,7 @@ def cross_entropy(
       the per-token ``(B, L)`` loss;
     - ``ignore_index`` (integer targets only): those positions contribute
       zero loss and ``'mean'`` divides by the count of the others (at
-      least 1);
+      least 1); inside a sharded step both sums span the global batch;
     - ``label_smoothing``: the one-hot target becomes ``(1 - eps)·onehot +
       eps / C``, ignored rows kept at zero;
     - otherwise ``'mean'`` divides by the number of positions (every axis
@@ -239,7 +244,8 @@ def cross_entropy(
     if reduction == "sum":
         return total
     if valid is not None:
-        return total / valid.sum().clamp_min(1).to(total.dtype)
+        count = data_axis.total(valid.sum().to(total.dtype))
+        return data_axis.total(total) / count.clamp_min(1)
     return total * (1.0 / (nll.numel() // input.shape[dim]))
 
 
@@ -335,6 +341,8 @@ def batch_norm(x, weight=None, bias=None, eps: float = 1e-5):
     C = x.shape[1]
     n = x.numel() // C
     sdt = torch.float32 if x.dtype in (torch.float16, torch.bfloat16) else x.dtype
+    if data_axis.current() is not None:
+        return _batch_norm_global(x, weight, bias, eps, sdt)
     mean = torch.zeros(C, dtype=sdt, device=x.device)
     var = torch.zeros(C, dtype=sdt, device=x.device)
     w = None if weight is None else weight.reshape(C).to(sdt)
@@ -342,6 +350,25 @@ def batch_norm(x, weight=None, bias=None, eps: float = 1e-5):
     out = torch.nn.functional.batch_norm(
         x, mean, var, w, b, training=True, momentum=1.0, eps=eps)
     return out, mean, var * ((n - 1) / n)
+
+
+def _batch_norm_global(x, weight, bias, eps, sdt):
+    """``batch_norm`` inside a sharded step (``_data_axis.scope``): the
+    statistics of the global batch, each sum taken over the data axis's
+    ranks (the mean first, then the squared deviations from it), as the
+    JAX package's one program computes them."""
+    C = x.shape[1]
+    dims = [0] + list(range(2, x.dim()))
+    shape = (1, C) + (1,) * (x.dim() - 2)
+    n = x.numel() // C * data_axis.size()
+    xs = x.to(sdt)
+    mean = data_axis.total(xs.sum(dims)) / n
+    xc = xs - mean.reshape(shape)
+    var = data_axis.total((xc * xc).sum(dims)) / n
+    out = xc * torch.rsqrt(var + eps).reshape(shape)
+    if weight is not None:
+        out = out * weight.reshape(shape).to(sdt) + bias.reshape(shape).to(sdt)
+    return out.to(x.dtype), mean, var
 
 
 def batch_norm_eval(x, weight, bias, running_mean, running_var, eps: float = 1e-5):

@@ -24,7 +24,11 @@ RoPE is the NeoX half rotation ``x·cos + rotate_half(x)·sin`` on q and k
 after the head split, its tables built in float64 numpy, cast to x's
 dtype and applied in that dtype, as in the JAX package.
 
-``ring`` (the parallel slice) raises ``NotImplementedError``.
+``ring=(mesh, seq_axis[, batch_axis])`` sends self-attention with equal
+head counts, without ``need_weights`` and without live attention dropout
+to ``parallel.ring_attention`` over the mesh axis ``seq_axis`` (batch axis
+``"data"`` unless named), as the JAX package chooses it; other calls take
+the routes above.  A window is refused with a ring.
 """
 
 from __future__ import annotations
@@ -88,10 +92,6 @@ class MultiheadAttention(Module):
                 raise ValueError("window must be >= 1")
             if ring is not None:
                 raise ValueError("window is not supported with ring attention")
-        if ring is not None:
-            raise NotImplementedError(
-                "ring attention is ported with the parallel slice"
-            )
         kv_dim = num_kv_heads * self.head_dim
         self.q_proj = Linear(embed_dim, embed_dim, bias=bias, device=device)
         self.k_proj = Linear(embed_dim, kv_dim, bias=bias, device=device)
@@ -103,11 +103,19 @@ class MultiheadAttention(Module):
         self.causal = causal
         self.window = None if window is None else int(window)
         self.flash = flash
+        self.ring = tuple(ring) if ring is not None else None
         self._mask_cache = {}
         self._rope_cache = {}
 
     # the JAX package's crossover of its auto mode (FLASH_AUTO_MIN_LEN)
     FLASH_AUTO_MIN_LEN = 512
+
+    def _use_ring(self, need_weights: bool, is_self: bool) -> bool:
+        if self.ring is None or not is_self or self.num_kv_heads != self.num_heads:
+            return False
+        if need_weights:
+            return False
+        return not (self.attn_drop is not None and self.training)
 
     def _use_flash(self, need_weights: bool, q_len: int) -> bool:
         if need_weights:
@@ -119,6 +127,7 @@ class MultiheadAttention(Module):
         return bool(self.flash)
 
     def forward(self, query, key=None, value=None, need_weights: bool = False):
+        is_self = key is None and value is None
         key = query if key is None else key
         value = key if value is None else value
         B, L, E = query.shape
@@ -135,6 +144,14 @@ class MultiheadAttention(Module):
         if self.rope:
             q = self._apply_rope(q, L)
             k = self._apply_rope(k, Lk)
+        if self._use_ring(need_weights, is_self):
+            from ...parallel.ring import ring_attention
+
+            mesh, seq_axis = self.ring[0], self.ring[1]
+            batch_axis = self.ring[2] if len(self.ring) > 2 else "data"
+            out = ring_attention(q, k, v, mesh, seq_axis, causal=self.causal,
+                                 batch_axis=batch_axis)  # (B, H, L, D)
+            return self.out_proj(out.transpose(1, 2).reshape(B, L, E))
         if self._use_flash(need_weights, L):
             if Hkv != H:  # the kernel takes equal head counts: repeat K/V
                 k, v = (t.reshape(B, Hkv, 1, Lk, D).expand(B, Hkv, H // Hkv, Lk, D)

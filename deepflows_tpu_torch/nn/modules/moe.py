@@ -16,6 +16,7 @@ import math
 
 import torch
 
+from ... import _data_axis as data_axis
 from ...config import config
 from ...device import Device
 from .. import functional as F
@@ -137,8 +138,9 @@ class MoE(Module):
         and f as ``last_expert_fraction`` (f32)."""
         E = self.n_experts
         flat = logits.detach().reshape(-1, E)
-        f = torch.nn.functional.one_hot(flat.argmax(-1), E).float().mean(0)
-        P = F.softmax(logits, logits.dim() - 1).reshape(-1, E).mean(0)
+        # over the global batch inside a sharded step (_data_axis)
+        f = data_axis.mean(torch.nn.functional.one_hot(flat.argmax(-1), E).float().mean(0))
+        P = data_axis.mean(F.softmax(logits, logits.dim() - 1).reshape(-1, E).mean(0))
         self.last_aux_loss = (f.to(logits.dtype) * P).sum() * float(E)
         m = torch.amax(logits, -1, keepdim=True)
         lse = torch.log(torch.exp(logits - m).sum(-1, keepdim=True)) + m
@@ -149,24 +151,34 @@ class MoE(Module):
         """Switch top-1 dispatch: (N, E, C) one-hot dispatch and combine
         tensors, the expert FFNs on (E, C, D) slots.  The routing
         bookkeeping is f32 whatever x's dtype (a bf16 cumulative sum is
-        inexact past 256 tokens)."""
+        inexact past 256 tokens).
+
+        Inside a sharded step the capacity and the slot order count the
+        global batch's tokens (the ranks' rows in rank order): a token's
+        slot is its place among this rank's tokens of its expert after the
+        earlier ranks' counts.  Each rank computes the experts on its own
+        tokens, in ``min(C, n)`` slots an expert for its n tokens (its
+        kept tokens of one expert are fewer than both)."""
         D, E = x.shape[-1], self.n_experts
         xf = x.reshape(-1, D)
-        N = xf.shape[0]
+        n = xf.shape[0]
+        N = n * data_axis.size()
         C = max(1, int(math.ceil(N / E * self.capacity_factor)))
-        gates = torch.softmax(logits.reshape(N, E), -1)
+        gates = torch.softmax(logits.reshape(n, E), -1)
         e_t = gates.detach().argmax(-1)  # routing is constant under autograd
         g_t = gates.gather(1, e_t[:, None])[:, 0]
-        onehot = torch.nn.functional.one_hot(e_t, E).float()  # (N, E)
-        pos = (torch.cumsum(onehot, 0) - 1.0) * onehot
+        onehot = torch.nn.functional.one_hot(e_t, E).float()  # (n, E)
+        local = (torch.cumsum(onehot, 0) - 1.0) * onehot
+        pos = local + data_axis.before(onehot.sum(0)) * onehot
         keep = torch.where(pos < C, onehot, 0.0)
-        posc = pos.clamp(0, C - 1).long()
-        disp = (keep[..., None] * torch.nn.functional.one_hot(posc, C).float()).to(xf.dtype)
+        slots = min(C, n)
+        posc = local.clamp(0, slots - 1).long()
+        disp = (keep[..., None] * torch.nn.functional.one_hot(posc, slots).float()).to(xf.dtype)
         xe = torch.einsum("nec,nd->ecd", disp, xf)
         h = self._act(torch.einsum("ecd,edh->ech", xe, self.experts_w1) + self.experts_b1)
         ye = torch.einsum("ech,ehd->ecd", h, self.experts_w2) + self.experts_b2
         y = torch.einsum("nec,ecd->nd", disp, ye) * g_t[:, None]
-        self.last_dropped_fraction = 1.0 - keep.sum() / N
+        self.last_dropped_fraction = 1.0 - data_axis.total(keep.sum()) / N
         return y.reshape(x.shape)
 
     def extra_repr(self) -> str:

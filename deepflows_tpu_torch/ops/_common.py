@@ -51,9 +51,23 @@ FLOATS = (torch.float32, torch.bfloat16)
 P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 
+@functools.cache
+def _dtensor_type():
+    if not torch.distributed.is_available():
+        return ()
+    from torch.distributed.tensor import DTensor
+
+    return DTensor
+
+
 def on_card(*tensors) -> bool:
     """True when every operand lies on one CUDA card, False when all lie on
-    the CPU; raises on a mix or on any other device."""
+    the CPU; raises on a mix or on any other device, and on a DTensor: a
+    kernel takes a rank's plain block (``parallel.ShardedTrainStep`` hands
+    the model plain tensors), never a DTensor, on the card or off it."""
+    dtensor = _dtensor_type()
+    if any(isinstance(t, dtensor) for t in tensors):
+        raise TypeError("a DTensor reached a kernel's entry; pass the rank's local tensors")
     dev = tensors[0].device
     if any(t.device != dev for t in tensors[1:]):
         raise ValueError(

@@ -9,6 +9,8 @@ from .optimizer import Optimizer
 
 
 class Adadelta(Optimizer):
+    elementwise = True
+
     def __init__(self, params, lr: float = 1.0, rho: float = 0.9,
                  weight_decay: float = 0.0, eps: float = 1e-6) -> None:
         super().__init__(params)

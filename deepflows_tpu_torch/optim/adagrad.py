@@ -8,6 +8,8 @@ from .optimizer import Optimizer
 
 
 class Adagrad(Optimizer):
+    elementwise = True
+
     def __init__(self, params, lr: float = 1e-2, weight_decay: float = 0.0,
                  eps: float = 1e-10) -> None:
         super().__init__(params)

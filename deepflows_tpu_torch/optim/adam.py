@@ -103,6 +103,12 @@ class Adam(Optimizer):
         return new_params, {"v": new_v, "s": new_s, "t": t}
 
     @property
+    def elementwise(self):
+        """Stochastic rounding draws each element's bits from its index in
+        the whole tensor, so it updates whole values."""
+        return not self.stochastic_round
+
+    @property
     def v(self):
         self._ensure_state()
         return self._state["v"]

@@ -12,6 +12,8 @@ from .optimizer import Optimizer
 
 
 class AdamW(Optimizer):
+    elementwise = True
+
     def __init__(
         self,
         params,

@@ -15,6 +15,8 @@ from .optimizer import Optimizer
 
 
 class Lion(Optimizer):
+    elementwise = True
+
     def __init__(self, params, lr: float = 1e-4, betas=(0.9, 0.99),
                  weight_decay: float = 0.0) -> None:
         super().__init__(params)

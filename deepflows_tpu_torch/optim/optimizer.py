@@ -19,6 +19,12 @@ import torch
 
 
 class Optimizer:
+    # True when each element's new value depends on that element's
+    # parameter, gradient and slots alone: a sharded step then updates each
+    # rank's block (``parallel.ShardedTrainStep``); otherwise it updates the
+    # whole values
+    elementwise = False
+
     def __init__(self, params) -> None:
         self.params = list(params)
         self._state = None

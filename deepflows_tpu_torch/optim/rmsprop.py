@@ -10,6 +10,8 @@ from .optimizer import Optimizer
 
 
 class RMSprop(Optimizer):
+    elementwise = True
+
     def __init__(
         self,
         params,

@@ -9,6 +9,8 @@ from .optimizer import Optimizer
 
 
 class SGD(Optimizer):
+    elementwise = True
+
     def __init__(
         self,
         params,

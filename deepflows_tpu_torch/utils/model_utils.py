@@ -20,7 +20,13 @@ place, cast to its dtype; the optimizer's state goes through
 ``utils.load_jax_optimizer_state``, from ``full_state`` or, in a
 reference-layout file, from ``v`` / ``s`` / ``t``.
 
-Writes are atomic (a temporary file, then ``os.replace``).
+Writes are atomic (a temporary file, then ``os.replace``).  The
+parameters and optimizer slots of a sharded run (DTensors,
+``parallel.ShardedTrainStep``) are gathered whole: every rank calls
+``save_checkpoint`` (or ``AsyncCheckpointer.save``), and rank 0 writes the
+file, in the same layout.  Such a file loads into a fresh model and
+optimizer, which a new ``ShardedTrainStep`` places on its mesh, of any
+shape.
 ``AsyncCheckpointer.save`` returns once it has copied the state on the
 device; the copy to the host, the pickling and the write run on a
 background thread while training goes on.  The JAX package's snapshot only
@@ -31,7 +37,7 @@ update in place, so a reference would let later steps into the file.
 from __future__ import annotations
 
 import os
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -58,7 +64,11 @@ def _snapshot_state(model, optimizer, copy: bool) -> dict:
     detached tensors; with ``copy``, copies made on each tensor's device,
     and an event recorded after them on the card."""
 
+    from torch.distributed.tensor import DTensor
+
     def grab(t):
+        if isinstance(t, DTensor):
+            return t.full_tensor()  # a collective: every rank takes part
         t = t.detach()
         return t.clone() if copy else t
 
@@ -120,10 +130,18 @@ def _write_checkpoint(snap: dict, epoch, loss, save_path: str, extra) -> str:
     return save_path
 
 
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of a process group, or the only
+    process."""
+    dist = torch.distributed
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
 def save_checkpoint(model, optimizer=None, epoch: int = 0, loss: Optional[float] = None,
                     save_path: str = "checkpoint.pkl", extra: Optional[dict] = None) -> None:
-    _write_checkpoint(_snapshot_state(model, optimizer, copy=False), epoch, loss, save_path,
-                      extra)
+    snap = _snapshot_state(model, optimizer, copy=False)
+    if _writer():
+        _write_checkpoint(snap, epoch, loss, save_path, extra)
 
 
 class AsyncCheckpointer:
@@ -159,6 +177,10 @@ class AsyncCheckpointer:
         while len(self._pending) >= self._max_pending:
             self._pending.pop(0).result()  # backpressure; raises a write's error
         snap = _snapshot_state(model, optimizer, copy=True)
+        if not _writer():
+            fut = Future()
+            fut.set_result(None)
+            return fut
         fut = self._pool.submit(_write_checkpoint, snap, epoch, loss, save_path, extra)
         self._pending.append(fut)
         return fut

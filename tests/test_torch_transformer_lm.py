@@ -153,16 +153,21 @@ def test_multihead_attention_matches_jax(causal):
      dict(rope=True), dict(causal=True, window=4)],
 )
 def test_multihead_attention_later_slices_raise(kw):
-    """Ring attention (the parallel slice) still raises; GQA, RoPE and the
-    window (the Llama slice) build and run (tests/test_torch_llama.py
-    holds them against the JAX package)."""
-    if "ring" in kw:
-        with pytest.raises(NotImplementedError):
-            tnn.MultiheadAttention(32, 4, device="cpu", **kw)
-        return
+    """The later slices' options build and run: ring attention (the parallel
+    slice; tests/test_torch_ring_attention.py runs its route on 4 ranks)
+    takes self-attention, and a call with key and value given takes the
+    plain route here; GQA, RoPE and the window (the Llama slice;
+    tests/test_torch_llama.py holds them against the JAX package)."""
     m = tnn.MultiheadAttention(32, 4, device="cpu", **kw)
+    x = torch.from_numpy(RNG.standard_normal((2, 6, 32)).astype(np.float32))
+    if "ring" in kw:
+        assert m.ring == kw["ring"] and m._use_ring(False, True)
+        with torch.no_grad():
+            out = m(x, x, x)
+        assert out.shape == (2, 6, 32) and torch.isfinite(out).all()
+        return
     with torch.no_grad():
-        out = m(torch.from_numpy(RNG.standard_normal((2, 6, 32)).astype(np.float32)))
+        out = m(x)
     assert out.shape == (2, 6, 32) and torch.isfinite(out).all()
 
 
