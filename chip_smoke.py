@@ -466,6 +466,25 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
    plain step to the same bounds.  Each step's wall ms beside the plain
    step's, one {"parallel": ...} line with the card; the group is
    destroyed at the end.
+42. pipeline, main paths: the training phase's model and batch (bf16
+   compute, fused Adam, nn.CrossEntropyLoss on the logits widened to f32)
+   split by pipeline_partition() and trained 3 steps by
+   parallel.PipelinedTrainStep on a one-rank NCCL mesh {pipe: 1}: GPipe
+   and 1F1B with one stage (the 12 blocks), interleaved 1F1B with the 12
+   blocks as 12 chunks, each at 4 microbatches, against the plain
+   CompiledTrainStep with accum_steps=4 from the same seeded weights:
+   every step launches flash 48 times each way and fused_adam once, each
+   loss within 1e-3 of the plain run's (relative) and each weight's
+   distance within 1e-2 of its change (by norm); then eval_logits against
+   the plain model's f32 forward with the pipeline's weights.  With more
+   than one card (an even count n), one NCCL rank a card: GPipe and 1F1B
+   over {pipe: n} (12/n blocks a stage), interleaved over {pipe: n} (12
+   chunks), and with 4 cards GPipe over {data: 2, pipe: 2}, each at 8
+   microbatches (4 over data), against the one-card twin with
+   accum_steps=8 that every rank trains; every rank must hold the same
+   losses and weights.  Each schedule's step wall ms beside the plain
+   step's, its bubble fraction and peak memory a card, on one
+   {"pipeline": ...} line with the card.
 
 Prints the card's name and power limit, one {"kernels": [...]} line (the CE
 backward's, linear_fused's and matmul's entries with the plan they ran:
@@ -477,6 +496,7 @@ in ``launches_by_cnn_path``, the fine-tuning slice's in
 ``launches_by_serving_path``, the seq2seq slice's in
 ``launches_by_seq2seq_path`` (fused_adam's numbers at its list in
 ``seq2seq``), the parallel slice's in ``launches_by_parallel_path``, the
+pipeline slice's in ``launches_by_pipeline_path``, the
 utils slice's in ``launches_by_utils_path`` (the CE's,
 flash's and fused_adam's numbers at GPT-2's shapes in ``gpt2``), its numbers at the family's shapes in
 ``family``, at each CNN path's in ``cnn``, whose worst error its
@@ -6269,17 +6289,333 @@ def parallel_phase(torch, dt, report, card, multi_only=False):
     return paths
 
 
+# ------------------------------------------------------------- the pipeline slice
+PIPE_STEPS = 3  # steps of each schedule
+PIPE_M = 4  # microbatches of the one-card runs (rows of 2)
+PIPE_MULTI_M = 8  # microbatches on more cards (rows of 1)
+PIPE_SCHEDULES = ("gpipe", "1f1b", "interleaved_1f1b")
+PIPE_MULTI_TIMEOUT_S = 300
+
+
+def pipe_per_step(blocks, micro):
+    """Launches a pipelined step makes on a rank that runs ``blocks``
+    blocks of ``micro`` microbatches: flash once a block a microbatch each
+    way (the graphs are kept, nothing is recomputed), fused_adam once."""
+    return {"flash_attention_fwd": blocks * micro, "flash_attention_bwd": blocks * micro,
+            "fused_adam": 1}
+
+
+def pipe_lm(torch, dt, device):
+    from deepflows_tpu_torch.models import TransformerLM
+
+    dt.manual_seed(0)
+    return TransformerLM(**TRAIN, device=device, flash=True)
+
+
+def pipe_twin(torch, dt, device, x, y, accum, label):
+    """The plain CompiledTrainStep of the TRAIN model with ``accum``
+    microbatches (fused Adam, the CE on f32 logits, bf16 compute): its
+    numbers, launch counts and final weights by name."""
+    from deepflows_tpu_torch import ops, optim
+    from deepflows_tpu_torch.jit import CompiledTrainStep
+
+    lm = pipe_lm(torch, dt, device)
+    step = CompiledTrainStep(lm, optim.Adam(lm.parameters(), **ADAM, fused=True),
+                             F32CrossEntropy(), compute_dtype=torch.bfloat16, accum_steps=accum)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, wall, _ = run_steps(torch, step, x, y, PIPE_STEPS, label,
+                                pipe_per_step(TRAIN["depth"], accum))
+    counts = {k.__name__: k.launches for k in ops.KERNELS}
+    r = dict(losses=losses, wall_ms=wall, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    params = whole_params(torch, lm)
+    del step, lm
+    free_card(torch)
+    return r, counts, params
+
+
+def pipe_stages(blocks, per_stage):
+    """The blocks as stages of ``per_stage`` blocks (one: the blocks)."""
+    from deepflows_tpu_torch import nn
+
+    if per_stage == 1:
+        return list(blocks)
+    return [nn.Sequential(*blocks[k:k + per_stage]) for k in range(0, len(blocks), per_stage)]
+
+
+def pipe_params(torch, step, stack, pre, post, per_stage):
+    """A pipelined run's weights whole in f32 by the TransformerLM's names
+    (stacked rows in logical order; every rank gathers)."""
+    from torch.distributed.tensor import DTensor
+
+    def whole(t):
+        return (t.full_tensor() if isinstance(t, DTensor) else t.detach()).float().clone()
+
+    with torch.no_grad():
+        out = {n: whole(p) for mod in (pre, post) for n, p in mod.named_parameters()}
+        inv = step._stage_inv
+        for name, p in zip(stack._param_names, stack.parameters()):
+            full = whole(p)
+            if inv is not None:
+                full = full[torch.as_tensor(inv, device=full.device)]
+            for s in range(full.shape[0]):
+                if per_stage == 1:
+                    out[f"blocks.{s}.{name}"] = full[s]
+                else:
+                    k, rest = name.split(".", 1)
+                    out[f"blocks.{s * per_stage + int(k)}.{rest}"] = full[s]
+    return out
+
+
+def pipe_run(torch, dt, device, mesh, schedule, per_stage, micro, x, y, label):
+    """Train the TRAIN model split by pipeline_partition() by
+    PipelinedTrainStep over ``mesh``; every step's launches must be this
+    rank's share.  Returns its numbers, launch counts, weights by name and
+    the step (for eval_logits)."""
+    from deepflows_tpu_torch import ops, optim
+    from deepflows_tpu_torch.parallel import PipelinedTrainStep, PipelineStack
+    from deepflows_tpu_torch.parallel.mesh import axis_size
+
+    lm = pipe_lm(torch, dt, device)
+    pre, blocks, post = lm.pipeline_partition()
+    stack = PipelineStack(pipe_stages(blocks, per_stage))
+    params = list(pre.parameters()) + list(stack.parameters()) + list(post.parameters())
+    step = PipelinedTrainStep(stack, optim.Adam(params, **ADAM, fused=True), F32CrossEntropy(),
+                              mesh, n_micro=micro, pre=pre, post=post,
+                              compute_dtype=torch.bfloat16, schedule=schedule)
+    del lm, blocks, params
+    data = axis_size(mesh, "data") if "data" in mesh.mesh_dim_names else 1
+    mine = TRAIN["depth"] // axis_size(mesh, "pipe")  # blocks on this rank
+    per = pipe_per_step(mine, micro)
+    free_card(torch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()  # the path starts here
+    losses, wall, _ = run_steps(torch, step, x, y, PIPE_STEPS, label, per)
+    counts = {k.__name__: k.launches for k in ops.KERNELS}  # the path ends here
+    r = dict(losses=losses, wall_ms=wall, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+             bubble_fraction=step.bubble_fraction, n_micro=micro, data=data,
+             launches_a_step=per)
+    return r, counts, pipe_params(torch, step, stack, pre, post, per_stage), step
+
+
+def pipe_eval_check(torch, dt, step, params, x, label):
+    """eval_logits of a trained pipeline against the plain model's eval
+    forward with the same weights (f32 masters: flash's f32 route both
+    ways); fails past 1e-4 of the logits' scale."""
+    from deepflows_tpu_torch.utils.convert import load_arrays
+
+    got = step.eval_logits(x)
+    ref = pipe_lm(torch, dt, "cuda")
+    load_arrays(ref, {n: p for n, p in params.items()}, strict=False)
+    ref.eval()
+    with torch.no_grad():
+        want = ref(x)
+    err = float((got.float() - want.float()).abs().max() / want.float().abs().max().clamp_min(1))
+    del ref, want, got
+    free_card(torch)
+    if not err < 1e-4:
+        fail(f"pipeline {label}: eval_logits differ from the plain forward by {err}")
+    return err
+
+
+def pipe_multi_layouts(n):
+    """(name, mesh axes, schedule, blocks a stage, microbatches) on n cards."""
+    out = [("gpipe", {"pipe": n}, "gpipe", TRAIN["depth"] // n, PIPE_MULTI_M),
+           ("1f1b", {"pipe": n}, "1f1b", TRAIN["depth"] // n, PIPE_MULTI_M),
+           ("interleaved_1f1b", {"pipe": n}, "interleaved_1f1b", 1, PIPE_MULTI_M)]
+    if n == 4:
+        out.append(("gpipe_dp", {"data": 2, "pipe": 2}, "gpipe", TRAIN["depth"] // 2,
+                    PIPE_MULTI_M // 2))
+    return out
+
+
+def pipeline_rank(rank, world, port, out, device="cuda"):
+    """One rank of the pipeline part on more cards (a process of its own,
+    started by ``pipeline_multi``): joins an NCCL group of ``world``
+    ranks, trains the one-card twin (accum_steps 8: the ranks' rows) on its
+    own card, then each layout of ``pipe_multi_layouts``, and writes each
+    run's numbers, its distance from the twin and a fingerprint of its
+    weights to ``out``.<rank> as JSON."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    import deepflows_tpu_torch as dt
+    from deepflows_tpu_torch.parallel import init_process_group, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = init_process_group(device, rank, world, f"tcp://127.0.0.1:{port}")
+    res = {}
+    try:
+        x, y = par_batch(torch, dev)
+        init = whole_params(torch, pipe_lm(torch, dt, dev))
+        free_card(torch)
+        twin, _, twin_params = pipe_twin(torch, dt, dev, x, y, PIPE_MULTI_M,
+                                         f"rank {rank}: twin")
+        res["twin"] = twin
+        for name, axes, schedule, per_stage, micro in pipe_multi_layouts(world):
+            r, _, params, step = pipe_run(torch, dt, dev, make_mesh(axes), schedule, per_stage,
+                                          micro, x, y, f"rank {rank} of {world}, {name}")
+            r.update(mesh=axes, fingerprint=fingerprint(params),
+                     vs_twin=par_diffs(r, params, twin, twin_params, init))
+            res[name] = r
+            del params, step
+            free_card(torch)
+    finally:
+        import torch.distributed as tdist
+
+        tdist.destroy_process_group()
+    with open(f"{out}.{rank}", "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def pipeline_multi(torch, card):
+    """With more than one card: one process per card (an even count) runs
+    ``pipeline_rank``; fails unless every rank passed its checks, every
+    rank holds the same losses and weights under each layout, and each is
+    within the bounds of its twin.  Returns their numbers, or None on one
+    card."""
+    import shutil
+    import socket
+    import tempfile
+
+    n = torch.cuda.device_count()
+    n -= n % 2
+    if n < 2:
+        print("  one card: the part on more cards is not run")
+        return None
+    tmp = tempfile.mkdtemp(prefix=".pipeline_", dir=ROOT)
+    out = os.path.join(tmp, "rank")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--pipeline-rank",
+                               str(r), "--pipeline-world", str(n), "--pipeline-port", str(port),
+                               "--pipeline-out", out]) for r in range(n)]
+    deadline = time.monotonic() + PIPE_MULTI_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rcs = [p.returncode for p in procs]
+    try:
+        if any(rcs) or not all(os.path.exists(f"{out}.{r}") for r in range(n)):
+            fail(f"pipeline ranks on {n} cards exited with {rcs}")
+        ranks = []
+        for r in range(n):
+            with open(f"{out}.{r}") as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res = ranks[0]
+    for name, r in res.items():
+        if name == "twin":
+            continue
+        for k, other in enumerate(ranks[1:], 1):
+            if (other[name]["losses"] != r["losses"]
+                    or other[name]["fingerprint"] != r["fingerprint"]):
+                fail(f"pipeline {name} on {n} cards: rank {k}'s losses or weights differ from "
+                     f"rank 0's ({other[name]['losses']} against {r['losses']})")
+        r.pop("fingerprint")
+        dif = r["vs_twin"]
+        print(f"  {n} cards, {name} on {r['mesh']}, M {r['n_micro']}: losses "
+              f"{[round(v, 5) for v in r['losses']]} and weights the same on every rank; step "
+              f"wall ms {[round(v, 2) for v in r['wall_ms']]} (one-card twin "
+              f"{[round(v, 2) for v in res['twin']['wall_ms']]}); bubble "
+              f"{r['bubble_fraction']:.4f}; peak {r['peak_memory_gb']:.2f} GB a card (twin "
+              f"{res['twin']['peak_memory_gb']:.2f}); against the twin: loss rel diff "
+              f"{dif['loss_rel_diff']:.3g} (limit {PAR_LOSS_TOL}), weight diff / change "
+              f"{dif['param_rel_diff']:.3g} (limit {PAR_PARAM_TOL}); {card}")
+        if not (dif["loss_rel_diff"] < PAR_LOSS_TOL and dif["param_rel_diff"] < PAR_PARAM_TOL):
+            fail(f"pipeline {name} on {n} cards against its twin: {dif}")
+    return dict(cards=n, runs=res)
+
+
+def pipeline_phase(torch, dt, report, card, multi_only=False):
+    """The pipeline slice's main paths on one card: a one-rank NCCL group
+    (a FileStore in a temporary directory of the checkout) and a mesh
+    {pipe: 1}.  The TRAIN model trains PIPE_STEPS steps by the plain
+    CompiledTrainStep with accum_steps=PIPE_M and by PipelinedTrainStep
+    under each schedule from the same seeded weights; each is held to the
+    plain run's launches, losses and weights, and its eval_logits to the
+    plain model's forward.  Then, with more than one card,
+    ``pipeline_multi``.  ``multi_only``: that part alone.  Returns {path:
+    launch counts}."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as tdist
+
+    from deepflows_tpu_torch.parallel import init_process_group, make_mesh
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix=".pipeline_", dir=ROOT)
+    paths, runs = {}, {}
+    try:
+        if not multi_only:
+            x, y = par_batch(torch, "cuda")
+            init = whole_params(torch, pipe_lm(torch, dt, "cuda"))
+            free_card(torch)
+            plain, _, ref_params = pipe_twin(torch, dt, "cuda", x, y, PIPE_M, "plain")
+            runs["plain"] = plain
+            print(f"  plain CompiledTrainStep (accum_steps={PIPE_M}): losses "
+                  f"{[round(v, 5) for v in plain['losses']]}, step wall ms "
+                  f"{[round(v, 2) for v in plain['wall_ms']]}, peak "
+                  f"{plain['peak_memory_gb']:.2f} GB")
+            init_process_group("cuda", rank=0, world_size=1,
+                               store=tdist.FileStore(os.path.join(tmp, "store"), 1))
+            mesh = make_mesh({"pipe": 1})
+            for schedule in PIPE_SCHEDULES:
+                per_stage = 1 if schedule == "interleaved_1f1b" else TRAIN["depth"]
+                r, counts, params, step = pipe_run(torch, dt, "cuda", mesh, schedule, per_stage,
+                                                   PIPE_M, x, y, f"pipeline {schedule}")
+                r["eval_err"] = pipe_eval_check(torch, dt, step, params, x[:PIPE_M], schedule)
+                par_compare(torch, r, params, plain, ref_params, init,
+                            f"{schedule} (bubble {r['bubble_fraction']:.4f}; eval_logits "
+                            f"{r['eval_err']:.2g} of the plain forward)")
+                runs[schedule], paths[f"pipeline_{schedule}"] = r, counts
+                del params, step
+                free_card(torch)
+            tdist.destroy_process_group()
+            del x, y, init, ref_params
+            free_card(torch)
+        runs["multi"] = pipeline_multi(torch, card)
+    finally:
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+        report["pipeline"] = out = dict(
+            card=card, phase_s=time.perf_counter() - t0, steps=PIPE_STEPS, n_micro=PIPE_M,
+            mesh={"pipe": 1}, runs=runs)
+    print(f"  pipeline phase: {out['phase_s']:.1f} s; {card}")
+    print(json.dumps({"pipeline": out}))
+    return paths
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", metavar="PATH",
                         help="also write every measurement to PATH as JSON")
     for flag, kind in (("--parallel-rank", int), ("--parallel-world", int),
-                       ("--parallel-port", int), ("--parallel-out", str)):
-        parser.add_argument(flag, type=kind, help=argparse.SUPPRESS)  # parallel_multi's ranks
+                       ("--parallel-port", int), ("--parallel-out", str),
+                       ("--pipeline-rank", int), ("--pipeline-world", int),
+                       ("--pipeline-port", int), ("--pipeline-out", str)):
+        parser.add_argument(flag, type=kind, help=argparse.SUPPRESS)  # the multi parts' ranks
     args = parser.parse_args(argv)
     if args.parallel_rank is not None:
         return parallel_rank(args.parallel_rank, args.parallel_world, args.parallel_port,
                              args.parallel_out)
+    if args.pipeline_rank is not None:
+        return pipeline_rank(args.pipeline_rank, args.pipeline_world, args.pipeline_port,
+                             args.pipeline_out)
     import torch
 
     if not torch.cuda.is_available():
@@ -6469,13 +6805,17 @@ def main(argv=None) -> int:
     phase("parallel (main path): DP, TP, FSDP + TP and ZeRO-1 ShardedTrainSteps of the training "
           "model on a one-rank NCCL mesh, ring attention, expert-parallel MixtralLM:")
     ppaths = parallel_phase(torch, dt, report, card)
+    phase("pipeline (main path): GPipe, 1F1B and interleaved 1F1B PipelinedTrainSteps of the "
+          "training model on a one-rank NCCL mesh {pipe: 1}:")
+    pipepaths = pipeline_phase(torch, dt, report, card)
     for k in kernels:
         for key, paths in (("launches_by_family_path", fpaths), ("launches_by_cnn_path", cpaths),
                            ("launches_by_finetune_path", ftpaths),
                            ("launches_by_serving_path", spaths),
                            ("launches_by_seq2seq_path", s2paths),
                            ("launches_by_utils_path", upaths),
-                           ("launches_by_parallel_path", ppaths)):
+                           ("launches_by_parallel_path", ppaths),
+                           ("launches_by_pipeline_path", pipepaths)):
             by_path = {p: c[k["name"]] for p, c in paths.items() if c[k["name"]]}
             if by_path:
                 k[key] = by_path

@@ -71,12 +71,26 @@ def load_arrays(module, weights, strict: bool = True, cast: bool = True):
             if not cast and src.dtype != target.dtype:
                 raise TypeError(f"dtype mismatch for {name}: checkpoint {src.dtype} vs "
                                 f"model {target.dtype}")
-            target.copy_(src)
+            copy_into(target, src)
     missing = [name for name in own if name not in weights]
     if strict and (missing or unexpected):
         raise KeyError(f"load_state_dict strict failure: missing={missing}, "
                        f"unexpected={unexpected}")
     return missing, unexpected
+
+
+def copy_into(target: torch.Tensor, src: torch.Tensor) -> None:
+    """Copy a whole value into ``target`` in place; a DTensor (a sharded
+    step's parameter or buffer) takes its own block of it."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(target, DTensor):
+        from ..parallel.mesh import local_block
+
+        mine = target.to_local()
+        mine.copy_(local_block(src.to(mine.device), target.device_mesh, target.placements))
+    else:
+        target.copy_(src)
 
 
 def load_jax_state_dict(module: torch.nn.Module, state) -> torch.nn.Module:
@@ -133,4 +147,12 @@ def _slot(name, arr, mine):
     arr = np.asarray(arr, dtype=np.float32)
     if tuple(arr.shape) != tuple(mine.shape):
         raise ValueError(f"{name} has shape {arr.shape}, the optimizer's {tuple(mine.shape)}")
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(mine, DTensor):  # a sharded step's slot keeps its placement
+        from ..parallel.mesh import as_dtensor, local_block
+
+        mesh, pl = mine.device_mesh, mine.placements
+        whole = torch.from_numpy(np.array(arr)).to(mine.to_local().device, mine.dtype)
+        return as_dtensor(local_block(whole, mesh, pl).contiguous(), mesh, pl, mine.shape)
     return torch.from_numpy(np.array(arr)).to(mine.device, mine.dtype)

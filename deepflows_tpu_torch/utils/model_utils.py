@@ -26,7 +26,8 @@ parameters and optimizer slots of a sharded run (DTensors,
 ``save_checkpoint`` (or ``AsyncCheckpointer.save``), and rank 0 writes the
 file, in the same layout.  Such a file loads into a fresh model and
 optimizer, which a new ``ShardedTrainStep`` places on its mesh, of any
-shape.
+shape, or into a placed one: each DTensor parameter, buffer and slot
+takes its own block (``convert.copy_into``).
 ``AsyncCheckpointer.save`` returns once it has copied the state on the
 device; the copy to the host, the pickling and the write run on a
 background thread while training goes on.  The JAX package's snapshot only
@@ -48,7 +49,7 @@ try:
 except ImportError:  # pragma: no cover
     import pickle
 
-from .convert import _from_numpy, load_jax_optimizer_state
+from .convert import _from_numpy, copy_into, load_jax_optimizer_state
 
 
 def _map(fn, v):
@@ -215,7 +216,7 @@ def _copy_in(kind: str, named: dict, arrays: dict, strict: bool) -> None:
             if tuple(src.shape) != tuple(target.shape):
                 raise ValueError(f"size mismatch for {name}: checkpoint {tuple(src.shape)} vs "
                                  f"model {tuple(target.shape)}")
-            target.copy_(src)
+            copy_into(target, src)
 
 
 def load_checkpoint(model, optimizer=None, load_path: str = "checkpoint.pkl",

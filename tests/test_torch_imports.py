@@ -1,5 +1,6 @@
-"""The port's import rule: deepflows_tpu_torch and chip_smoke.py import
-torch and never jax nor anything of the JAX package deepflows_tpu — the
+"""The port's import rule: deepflows_tpu_torch, chip_smoke.py,
+tools/pipeline_check.py and the tests' rank scripts import torch and never
+jax nor anything of the JAX package deepflows_tpu — the
 card's machine has no JAX at all.  Nor has it transformers, safetensors,
 PIL, matplotlib, torchvision or grpc: the port imports those only inside
 the functions that need them, and every module imports with them
@@ -15,7 +16,11 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "deepflows_tpu_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the port, the card's script and tool, and the rank scripts of the port's
+# multi-process tests (processes that must run without JAX)
+FILES = sorted(PORT.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tools" / "pipeline_check.py",
+    ROOT / "tests" / "torch_parallel_ranks.py", ROOT / "tests" / "torch_pipeline_ranks.py"]
 
 
 def _forbidden(name: str) -> bool:

@@ -683,7 +683,8 @@ class World:
     process goes on (with the JAX side) and reads ``results()`` when it
     needs them."""
 
-    def __init__(self, cases, inputs, tmpdir, n=4, timeout=240):
+    def __init__(self, cases, inputs, tmpdir, n=4, timeout=240, script=None):
+        """``script``: the rank script to start (this file by default)."""
         import subprocess
 
         self.tmpdir, self.n, self.cases = str(tmpdir), n, list(cases)
@@ -696,8 +697,8 @@ class World:
                    PYTHONPATH=os.pathsep.join([ROOT] + [
                        q for q in os.environ.get("PYTHONPATH", "").split(os.pathsep) if q]))
         self.procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--rank", str(r), "--world", str(n),
-             "--store", store, "--inp", inp, "--out", self.out,
+            [sys.executable, script or os.path.abspath(__file__), "--rank", str(r),
+             "--world", str(n), "--store", store, "--inp", inp, "--out", self.out,
              "--cases", ",".join(self.cases)],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in range(n)]
         self.deadline = time.monotonic() + timeout
@@ -748,7 +749,9 @@ class World:
 
 
 # --------------------------------------------------------------------- main
-def main():
+def main(cases=None):
+    """Run the named cases of ``cases`` (this file's by default) on this rank."""
+    cases = CASES if cases is None else cases
     ap = argparse.ArgumentParser()
     ap.add_argument("--rank", type=int, required=True)
     ap.add_argument("--world", type=int, required=True)
@@ -769,7 +772,7 @@ def main():
         torch.manual_seed(0)
         t0 = time.perf_counter()
         try:
-            results[name] = CASES[name](inp.get(name))
+            results[name] = cases[name](inp.get(name))
             results["seconds"][name] = time.perf_counter() - t0
         except Exception:
             results[name] = {"error": traceback.format_exc()}
