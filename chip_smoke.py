@@ -485,6 +485,37 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
    losses and weights.  Each schedule's step wall ms beside the plain
    step's, its bubble fraction and peak memory a card, on one
    {"pipeline": ...} line with the card.
+43. tape, main paths, under config.use_pallas, f32, on device="cuda":
+   first matmul against its plain twin at the raw-tape MLP's 8 products
+   in the layouts its backward hands it (transposed views) and
+   linear_fused at the MLP's layers (phase 9's rtol 1e-4 / atol 1e-3),
+   the 8 calls timed beside bound, twin and torch.matmul.  Then the
+   reference's loop (out = model(Tensor(x, device="cuda")); loss =
+   criterion(out, Tensor(y, ...)); zero_grad; backward; step;
+   float(loss.numpy()); Graph.free_graph_all()) on models.MLP with
+   phase 10's data and Adam(lr 1e-3) for 30 steps, one model.eval() /
+   model.train() pass in the middle (nothing recorded, outputs without
+   gradients): exactly 3 linear_fused a step; on CIFAR10_CNN with phase
+   22's model, batch and fused Adam, dropout on, 30 steps: exactly one
+   linear_fused and one fused_adam a step, no matmul.  Each beside its
+   plain-tensor loop re-run here from the same weights and generator
+   state, cuDNN deterministic in both (its default weight-gradient
+   algorithms vary run to run): losses and final weights bitwise equal;
+   Graph at its leaf count
+   (0: the parameters are not tape nodes) after every backward; peak
+   memory after the last step within 1 MiB of the peak after step 3.
+   Then the MLP written with tape ops alone (leaf Tensors, x @ w + b,
+   maximum(h, 0), a log-softmax from exp, log, max and sum, mean; SGD as
+   w.data -= 0.1 * w.grad under no_grad), 30 steps of B 256: exactly 8
+   matmul a step, Graph at its 6 leaves after every backward, losses
+   within 1e-4 relative of a CPU copy's.  Then a reference-style script
+   (from DeepFlows.tensor import *; y = 3x + 5 fitted by nn.Linear and
+   SGD) through python -m deepflows_tpu_torch.shim with device 'cuda' in
+   a subprocess: its fit within 1e-2 of (3, 5).  Prints each loop's
+   median step ms beside its plain loop's, the __torch_function__ calls
+   of one tape MLP step and the host us a call they cost, one small op's
+   host us on the tape and plain, and one {"tape": ...} line with the
+   card.
 
 Prints the card's name and power limit, one {"kernels": [...]} line (the CE
 backward's, linear_fused's and matmul's entries with the plan they ran:
@@ -496,7 +527,9 @@ in ``launches_by_cnn_path``, the fine-tuning slice's in
 ``launches_by_serving_path``, the seq2seq slice's in
 ``launches_by_seq2seq_path`` (fused_adam's numbers at its list in
 ``seq2seq``), the parallel slice's in ``launches_by_parallel_path``, the
-pipeline slice's in ``launches_by_pipeline_path``, the
+pipeline slice's in ``launches_by_pipeline_path``, the tape slice's in
+``launches_by_tape_path`` (matmul's numbers at the raw-tape MLP's
+products in ``tape``), the
 utils slice's in ``launches_by_utils_path`` (the CE's,
 flash's and fused_adam's numbers at GPT-2's shapes in ``gpt2``), its numbers at the family's shapes in
 ``family``, at each CNN path's in ``cnn``, whose worst error its
@@ -2040,6 +2073,18 @@ def linear_kernel_phase(torch, ops, report):
     return out
 
 
+def mnist_like():
+    """MLP_STEPS batches of B MLP_B of synthetic MNIST: pixels uniform in
+    [0, 1) from numpy's default_rng(3), labels from a fixed random linear
+    teacher."""
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    teacher = rng.standard_normal((784, 10)).astype(np.float32)
+    xs = rng.random((MLP_STEPS, MLP_B, 784), dtype=np.float32)
+    return xs, (xs @ teacher).argmax(-1).astype(np.int64)
+
+
 def eager_phase(torch, dt, report):
     """Main paths 4 and 5: models.MLP trained eagerly under
     config.use_pallas (its three Linear layers as linear_fused), then a
@@ -2050,10 +2095,7 @@ def eager_phase(torch, dt, report):
     from deepflows_tpu_torch import config, nn, ops, optim
     from deepflows_tpu_torch.models import MLP
 
-    rng = np.random.default_rng(3)  # synthetic MNIST: pixels in [0, 1), a linear teacher
-    teacher = rng.standard_normal((784, 10)).astype(np.float32)
-    xs = rng.random((MLP_STEPS, MLP_B, 784), dtype=np.float32)
-    ys = (xs @ teacher).argmax(-1).astype(np.int64)
+    xs, ys = mnist_like()
 
     def bias_free(device):
         return nn.Sequential(nn.Linear(784, 100, bias=False, device=device), nn.ReLU(),
@@ -6600,6 +6642,408 @@ def pipeline_phase(torch, dt, report, card, multi_only=False):
     return paths
 
 
+# ------------------------------------------------ the define-by-run tape
+# The reference's own loop, out = model(Tensor(x, device="cuda")); loss =
+# criterion(out, Tensor(y, device="cuda")); zero_grad; backward; step, on
+# the MLP and CIFAR10_CNN paths of phases 10 and 22, each beside its plain
+# loop re-run here; then an MLP written with tape ops alone, and a
+# reference-style script through the DeepFlows shim.
+TAPE_SGD_LR = 0.1  # the raw-tape MLP's SGD step
+TAPE_EVAL_AT = MLP_STEPS // 2  # the MLP loop's eval pass comes before this step
+TAPE_MEM_SLACK = 1 << 20  # bytes the peak may grow from step 3 to the last
+TAPE_REL_TOL = 1e-4  # the raw-tape MLP's losses against its CPU copy's, relative
+TAPE_OP_REPS = 2000  # calls timed for the host cost of one tape op
+TAPE_SHIM_TIMEOUT_S = 300
+TAPE_SHIM_SCRIPT = """
+import sys
+
+import numpy as np
+
+from DeepFlows.tensor import *
+from DeepFlows import nn, optim
+import DeepFlows
+
+dev = sys.argv[1]
+DeepFlows.manual_seed(0)
+rng = np.random.default_rng(0)
+x = rng.uniform(-1, 1, (256, 1)).astype(np.float32)
+y = 3.0 * x + 5.0
+model = nn.Linear(1, 1, device=dev)
+criterion = nn.MSELoss()
+optimizer = optim.SGD(model.parameters(), lr=0.1)
+for epoch in range(300):
+    loss = criterion(model(Tensor(x, device=dev)), Tensor(y, device=dev))
+    optimizer.zero_grad()
+    loss.backward()
+    optimizer.step()
+    Graph.free_graph_all()
+print(DeepFlows.__name__, type(loss).__module__, str(loss.device))
+print("fitted", float(Tensor(model.weight).numpy().ravel()[0]),
+      float(Tensor(model.bias).numpy().ravel()[0]))
+"""
+
+
+def raw_mlp_shapes():
+    """The raw-tape MLP's 8 products a step as (a shape, b shape, a
+    transposed, b transposed): 3 forward, dW = h^T g of every layer (h^T a
+    transposed view), dx = g W^T of layers 2 and 3 (W^T a view)."""
+    dims = (784, 100, 20, 10)
+    out = [((MLP_B, k), (k, n), False, False) for k, n in zip(dims[:-1], dims[1:])]
+    for i, (k, n) in enumerate(zip(dims[:-1], dims[1:])):
+        out.append(((k, MLP_B), (MLP_B, n), True, False))  # dW
+        if i:
+            out.append(((MLP_B, n), (n, k), False, True))  # dx
+    return out
+
+
+def tape_matmul_check(torch, ops):
+    """matmul against its plain twin at the raw-tape MLP's 8 products, in
+    the layouts the tape's backward hands it, at rtol 1e-4 / atol 1e-3
+    (phase 9's bound); then the 8 calls timed, summed, beside their
+    bounds, twins and torch.matmul.  linear_fused likewise at the MLP's
+    three layers."""
+    g = torch.Generator(device="cuda").manual_seed(43)
+    calls, err = [], 0.0
+    for ash, bsh, at, bt in raw_mlp_shapes():
+        a = torch.randn(ash[::-1] if at else ash, generator=g, device="cuda")
+        b = torch.randn(bsh[::-1] if bt else bsh, generator=g, device="cuda")
+        a, b = (a.t() if at else a), (b.t() if bt else b)
+        err = max(err, mm_check(ops.matmul(a, b), ops.matmul_plain(a, b),
+                                f"tape matmul {ash} @ {bsh}"))
+        calls.append((a, b))
+    lf_err = 0.0
+    for m, k, n in MLP_SHAPES:
+        x, w, bias = (torch.randn(s, generator=g, device="cuda") for s in ((m, k), (k, n), (1, n)))
+        lf_err = max(lf_err, mm_check(ops.linear_fused(x, w, bias),
+                                      ops.linear_fused_plain(x, w, bias),
+                                      f"tape linear_fused {(m, k, n)}"))
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    r = {name: sum(event_ms(lambda c=c: fn(*c), 10, flush_buf.zero_) for c in calls)
+         for name, fn in (("ms", ops.matmul), ("plain_ms", ops.matmul_plain),
+                          ("library_ms", torch.matmul))}
+    r["bound_ms"] = sum(
+        bound_ms(4 * (a.numel() + b.numel() + a.shape[0] * b.shape[1]),
+                 2 * a.shape[0] * a.shape[1] * b.shape[1], "f32")[0] for a, b in calls)
+    r.update(max_abs_err=err, linear_fused_max_abs_err=lf_err, calls=len(calls))
+    print(f"  matmul agrees with its plain twin at the raw-tape MLP's {len(calls)} products "
+          f"(transposed views; max abs err {err:.3g}), linear_fused at the MLP's 3 layers "
+          f"({lf_err:.3g}); the 8 calls summed: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f}, "
+          f"plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}")
+    return r
+
+
+def tape_step_counts(ops, before, per_step, label):
+    for k in ops.KERNELS:
+        want = per_step.get(k.__name__, 0)
+        if k.launches - before[k.__name__] != want:
+            fail(f"{label}: {k.__name__} launched {k.launches - before[k.__name__]} times, "
+                 f"expected {want}")
+
+
+def tape_model_loops(torch, dt, build, xs, ys, steps, per_step, label, adam, eval_at=None):
+    """The plain loop and the tape loop of one model from the same weights
+    and the same package-generator state (so both draw the same dropout
+    masks): losses, final state dicts, each step's wall ms, the tape
+    loop's launch counts (every step exactly ``per_step``), its Graph size
+    after every backward, and its peak memory after step 3 and the last.
+    With ``eval_at``, an eval pass (model.eval(), a forward, model.train())
+    comes before that step in both loops, outside the counts."""
+    from deepflows_tpu_torch import Graph, Tensor, nn, ops, optim
+    from deepflows_tpu_torch.random import generator
+
+    torch.backends.cudnn.deterministic = True  # cuDNN's atomic weight gradients vary
+    plain_model = build()
+    tape_model = build()
+    tape_model.load_state_dict(plain_model.state_dict())
+    gen = generator("cuda")  # after the builds: a manual_seed makes new generators
+    state = gen.get_state()
+    out = {}
+    for mode, model in (("plain", plain_model), ("tape", tape_model)):
+        gen.set_state(state)
+        opt = optim.Adam(model.parameters(), **adam)
+        crit = nn.CrossEntropyLoss()
+        losses, wall, graph_sizes, peaks = [], [], [], {}
+        Graph.free_graph_all()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts = None
+        for i in range(steps):
+            x, y = xs[i], ys[i]
+            if i == eval_at:
+                model.eval()
+                if mode == "tape":
+                    nodes = len(Graph.node_list)
+                    e = model(Tensor(x, device="cuda"))
+                    if e.requires_grad or len(Graph.node_list) != nodes or dt.is_grad_enable():
+                        fail(f"{label}: the eval pass recorded on the tape")
+                else:
+                    with torch.no_grad():
+                        model(torch.as_tensor(x, device="cuda"))
+                model.train()
+            if mode == "tape" and i == 0:
+                ops.reset_launch_counts()  # the tape's main path starts here
+            before = {k.__name__: k.launches for k in ops.KERNELS}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if mode == "tape":
+                o = model(Tensor(x, device="cuda"))
+                loss = crit(o, Tensor(y, device="cuda"))
+                opt.zero_grad()
+                loss.backward()
+                graph_sizes.append(len(Graph.node_list))
+                opt.step()
+                losses.append(float(loss.numpy()))
+                Graph.free_graph_all()
+            else:
+                loss = crit(model(torch.as_tensor(x, device="cuda")),
+                            torch.as_tensor(y, device="cuda"))
+                opt.zero_grad()
+                loss.backward()
+                opt.step()
+                losses.append(loss.item())
+            wall.append((time.perf_counter() - t0) * 1e3)
+            if mode == "tape":
+                if i != eval_at:
+                    tape_step_counts(ops, before, per_step, f"{label} tape step {i}")
+                if i + 1 in (3, steps):
+                    peaks[i + 1] = torch.cuda.max_memory_allocated()
+        if mode == "tape":
+            counts = {k.__name__: k.launches for k in ops.KERNELS}  # and ends here
+        out[mode] = dict(losses=losses, step_wall_ms=statistics.median(wall[3:]),
+                         state={k: v.detach().clone() for k, v in model.state_dict().items()},
+                         graph_sizes=graph_sizes, peaks=peaks, counts=counts)
+    torch.backends.cudnn.deterministic = False
+    return out
+
+
+def tape_op_cost_us(torch):
+    """Host µs of one small op (a + b on (8, 8) f32 tensors on the card)
+    through the tape's __torch_function__ and on plain tensors, from
+    time.perf_counter over TAPE_OP_REPS calls each."""
+    from deepflows_tpu_torch import Tensor
+
+    a = torch.randn((8, 8), device="cuda")
+    t = Tensor(a)
+    res = {}
+    for name, x in (("plain", a), ("tape", t)):
+        for _ in range(50):
+            x + x
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TAPE_OP_REPS):
+            x + x
+        res[name] = (time.perf_counter() - t0) / TAPE_OP_REPS * 1e6
+        torch.cuda.synchronize()
+    return res
+
+
+def tape_calls_in(fn):
+    """The __torch_function__ calls one run of ``fn`` makes on the tape."""
+    from deepflows_tpu_torch import tensor
+
+    orig = tensor.Tensor.__dict__["__torch_function__"]
+    n = [0]
+
+    def counting(cls, func, types, args=(), kwargs=None):
+        n[0] += 1
+        return orig.__func__(cls, func, types, args, kwargs)
+
+    tensor.Tensor.__torch_function__ = classmethod(counting)
+    try:
+        fn()
+    finally:
+        tensor.Tensor.__torch_function__ = orig
+    return n[0]
+
+
+def raw_tape_mlp(torch, dt, device, xs, ys, per_step=None):
+    """The MLP written with tape ops only: leaf Tensors w (in, out) and b
+    (1, out) from numpy's default_rng(43), x @ w + b, maximum(h, 0), a
+    log-softmax from exp, log, max and sum, the mean NLL, and SGD as
+    w.data -= lr * w.grad under no_grad.  Returns the losses, each step's
+    wall ms and the Graph size after every backward; on the card each
+    step must launch exactly ``per_step``."""
+    import numpy as np
+
+    from deepflows_tpu_torch import Graph, Tensor, ops
+
+    r = np.random.default_rng(43)
+    dims = (784, 100, 20, 10)
+    Graph.free_graph_all()
+    ws = []
+    for a, b in zip(dims[:-1], dims[1:]):
+        ws.append(Tensor((r.standard_normal((a, b)) / np.sqrt(a)).astype(np.float32),
+                         device=device, requires_grad=True))
+        ws.append(Tensor(np.zeros((1, b), np.float32), device=device, requires_grad=True))
+    eye = np.eye(dims[-1], dtype=np.float32)
+    losses, wall, sizes = [], [], []
+    for i, (x, y) in enumerate(zip(xs, ys)):
+        before = {k.__name__: k.launches for k in ops.KERNELS}
+        t0 = time.perf_counter()
+        h = Tensor(x, device=device)
+        for j in range(0, len(ws), 2):
+            h = h @ ws[j] + ws[j + 1]
+            if j + 2 < len(ws):
+                h = dt.maximum(h, 0.0)
+        m = h.max(axis=1, keepdims=True)
+        logp = h - m - dt.log(dt.exp(h - m).sum(axis=1, keepdims=True))
+        loss = -(logp * Tensor(eye[y], device=device)).sum(axis=1).mean()
+        loss.backward()
+        sizes.append(len(Graph.node_list))
+        with dt.no_grad():
+            for w in ws:
+                w.data -= TAPE_SGD_LR * w.grad
+                w.zero_grad()
+        losses.append(float(loss.numpy()))
+        wall.append((time.perf_counter() - t0) * 1e3)
+        if per_step is not None:
+            tape_step_counts(ops, before, per_step, f"raw-tape MLP step {i}")
+    Graph.free_graph_all()
+    return losses, wall, sizes
+
+
+def tape_shim_run():
+    """TAPE_SHIM_SCRIPT through python -m deepflows_tpu_torch.shim with
+    device 'cuda', in a subprocess: (w, b) it printed, and its seconds."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".tape_shim_") as tmp:
+        script = os.path.join(tmp, "linear_regression.py")
+        with open(script, "w") as f:
+            f.write(TAPE_SHIM_SCRIPT)
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "deepflows_tpu_torch.shim", script, "cuda"],
+                              capture_output=True, text=True, timeout=TAPE_SHIM_TIMEOUT_S,
+                              env=env, cwd=tmp)
+        secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"the shim's script failed: {proc.stderr[-2000:]}")
+    lines = proc.stdout.strip().splitlines()
+    if lines[0].split()[:2] != ["DeepFlows", "deepflows_tpu_torch.tensor"] or \
+            not lines[0].split()[2].startswith("cuda"):
+        fail(f"the shim's script did not run the port's tape on the card: {lines[0]}")
+    w, b = (float(v) for v in lines[-1].split()[1:])
+    return w, b, secs
+
+
+def tape_phase(torch, dt, report, card):
+    """Phase 43, main paths: the tape.  Returns {path: launch counts} and
+    the matmul check at the raw-tape MLP's shapes."""
+    import numpy as np
+
+    from deepflows_tpu_torch import config, ops
+    from deepflows_tpu_torch.models import MLP
+
+    mm = tape_matmul_check(torch, ops)
+    bare = dt.Tensor(np.zeros(2, np.float32))
+    if bare.device.type != "cuda" or dt.default_device().torch_device != bare.device:
+        fail(f"a Tensor made without device= is on {bare.device}, not the card")
+    xs, ys = mnist_like()
+    cx, cy = cnn_batch(CIFAR_B, 32)
+    cxs = [cx.cpu().numpy()] * CIFAR_STEPS
+    cys = [cy.cpu().numpy()] * CIFAR_STEPS
+    paths, res = {}, {}
+    saved = config.use_pallas
+    config.use_pallas = True
+    try:
+        def mlp():
+            dt.manual_seed(0)
+            return MLP(device="cuda")
+
+        runs = {
+            "mlp_tape": tape_model_loops(torch, dt, mlp, xs, ys, MLP_STEPS, {"linear_fused": 3},
+                                         "MLP", dict(lr=1e-3), eval_at=TAPE_EVAL_AT),
+            "cifar10_cnn_tape": tape_model_loops(
+                torch, dt, lambda: cnn_model(dt, "CIFAR10_CNN"), cxs, cys, CIFAR_STEPS,
+                {"linear_fused": 1, "fused_adam": 1}, "CIFAR10_CNN", dict(ADAM, fused=True)),
+        }
+        for name, run in runs.items():
+            p, t = run["plain"], run["tape"]
+            same_loss = p["losses"] == t["losses"]
+            same_state = all(torch.equal(p["state"][k], t["state"][k]) for k in p["state"])
+            if not (same_loss and same_state):
+                fail(f"{name}: the tape loop is not bitwise its plain loop (losses "
+                     f"{same_loss}, weights {same_state})")
+            if any(n != 0 for n in t["graph_sizes"]):
+                fail(f"{name}: Graph held {max(t['graph_sizes'])} nodes after a backward; its "
+                     f"leaf count is 0 (the parameters are not tape nodes)")
+            if not t["losses"][-1] < t["losses"][0]:
+                fail(f"{name}: the loss did not fall: {t['losses'][0]} -> {t['losses'][-1]}")
+            growth = t["peaks"][MLP_STEPS if name == "mlp_tape" else CIFAR_STEPS] - t["peaks"][3]
+            if growth > TAPE_MEM_SLACK:
+                fail(f"{name}: peak memory grew {growth} bytes from step 3 to the last")
+            paths[name] = t["counts"]
+            res[name] = dict(losses=t["losses"], step_wall_ms=t["step_wall_ms"],
+                             plain_step_wall_ms=p["step_wall_ms"], bitwise=True,
+                             peak_bytes=t["peaks"], graph_after_backward=max(t["graph_sizes"]))
+            print(f"  {name}: {len(t['losses'])} steps, launches {t['counts']}; losses "
+                  f"{t['losses'][0]:.5f} -> {t['losses'][-1]:.5f}, bitwise the plain loop's "
+                  f"(losses and every weight); median step {t['step_wall_ms']:.3f} ms of wall "
+                  f"time, plain {p['step_wall_ms']:.3f} ms; peak memory {t['peaks']} bytes; "
+                  f"{card}")
+        # host cost: the ops a tape step sends through __torch_function__
+        from deepflows_tpu_torch import Graph, Tensor, nn, optim
+
+        model = mlp()
+        opt, crit = optim.Adam(model.parameters(), lr=1e-3), nn.CrossEntropyLoss()
+
+        def one_step():
+            loss = crit(model(Tensor(xs[0], device="cuda")), Tensor(ys[0], device="cuda"))
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            float(loss.numpy())
+            Graph.free_graph_all()
+
+        calls = tape_calls_in(one_step)
+        per_op = tape_op_cost_us(torch)
+        m = res["mlp_tape"]
+        res["host"] = dict(
+            mlp_step_torch_function_calls=calls,
+            mlp_step_extra_us=(m["step_wall_ms"] - m["plain_step_wall_ms"]) * 1e3,
+            us_per_call_from_step=(m["step_wall_ms"] - m["plain_step_wall_ms"]) * 1e3 / calls,
+            op_us=per_op)
+        print(f"  host: a tape MLP step makes {calls} __torch_function__ calls; the step's "
+              f"{res['host']['mlp_step_extra_us']:.1f} us over the plain loop's are "
+              f"{res['host']['us_per_call_from_step']:.2f} us a call; one (8, 8) add takes "
+              f"{per_op['tape']:.2f} us of host time on the tape, {per_op['plain']:.2f} plain")
+
+        # the raw-tape MLP on the card (8 matmul a step), then on the CPU
+        ops.reset_launch_counts()  # its main path starts here
+        got, wall, sizes = raw_tape_mlp(torch, dt, "cuda", xs, ys, per_step={"matmul": 8})
+        paths["raw_tape_mlp"] = {k.__name__: k.launches for k in ops.KERNELS}  # and ends here
+        want, cpu_wall, _ = raw_tape_mlp(torch, dt, "cpu", xs, ys)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        if not rel < TAPE_REL_TOL:
+            fail(f"raw-tape MLP: the card's losses differ from the CPU copy's by {rel}")
+        if any(n != 6 for n in sizes):
+            fail(f"raw-tape MLP: Graph held {sizes} nodes after backward, not its 6 leaves")
+        if not got[-1] < got[0]:
+            fail(f"raw-tape MLP: the loss did not fall: {got[0]} -> {got[-1]}")
+        res["raw_tape_mlp"] = dict(losses=got, cpu_losses=want, max_rel=rel,
+                                   step_wall_ms=statistics.median(wall[3:]),
+                                   matmul=mm)
+        print(f"  raw_tape_mlp: {len(got)} SGD steps, launches {paths['raw_tape_mlp']}; losses "
+              f"{got[0]:.5f} -> {got[-1]:.5f}, against a CPU copy max rel diff {rel:.3g} (limit "
+              f"{TAPE_REL_TOL}); Graph at its 6 leaves after every backward; median step "
+              f"{res['raw_tape_mlp']['step_wall_ms']:.3f} ms of wall time; {card}")
+    finally:
+        config.use_pallas = saved
+    w, b, secs = tape_shim_run()
+    if not (abs(w - 3.0) < 1e-2 and abs(b - 5.0) < 1e-2):
+        fail(f"the shim's script fitted y = {w}x + {b}, not 3x + 5")
+    res["shim"] = dict(w=w, b=b, seconds=secs)
+    print(f"  shim: python -m deepflows_tpu_torch.shim ran a reference-style script on the card "
+          f"in {secs:.1f} s: fitted y = {w:.4f}x + {b:.4f}")
+    print(json.dumps({"tape": dict(card=card, **{
+        k: {n: v for n, v in r.items() if n not in ("losses", "cpu_losses", "matmul")}
+        for k, r in res.items()})}))
+    report["tape"] = res
+    return paths, mm
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", metavar="PATH",
@@ -6808,6 +7252,9 @@ def main(argv=None) -> int:
     phase("pipeline (main path): GPipe, 1F1B and interleaved 1F1B PipelinedTrainSteps of the "
           "training model on a one-rank NCCL mesh {pipe: 1}:")
     pipepaths = pipeline_phase(torch, dt, report, card)
+    phase("tape (main paths): the reference's loop on models.MLP and CIFAR10_CNN beside their "
+          "plain loops, a raw-tape MLP, a script through the DeepFlows shim:")
+    tapepaths, tape_mm = tape_phase(torch, dt, report, card)
     for k in kernels:
         for key, paths in (("launches_by_family_path", fpaths), ("launches_by_cnn_path", cpaths),
                            ("launches_by_finetune_path", ftpaths),
@@ -6815,7 +7262,8 @@ def main(argv=None) -> int:
                            ("launches_by_seq2seq_path", s2paths),
                            ("launches_by_utils_path", upaths),
                            ("launches_by_parallel_path", ppaths),
-                           ("launches_by_pipeline_path", pipepaths)):
+                           ("launches_by_pipeline_path", pipepaths),
+                           ("launches_by_tape_path", tapepaths)):
             by_path = {p: c[k["name"]] for p, c in paths.items() if c[k["name"]]}
             if by_path:
                 k[key] = by_path
@@ -6834,6 +7282,11 @@ def main(argv=None) -> int:
         if k["name"] in gpt2k:  # at GPT-2's shapes: the CE at V 50257 on mma, flash at D 64
             k["gpt2"] = gpt2k[k["name"]]
             k["max_abs_err"] = max(k["max_abs_err"], k["gpt2"]["max_abs_err"])
+        if k["name"] == "matmul":  # the raw-tape MLP's 8 products a step, summed
+            k["tape"] = tape_mm
+            k["max_abs_err"] = max(k["max_abs_err"], tape_mm["max_abs_err"])
+        if k["name"] == "linear_fused":
+            k["max_abs_err"] = max(k["max_abs_err"], tape_mm["linear_fused_max_abs_err"])
         if k["name"] in cchecks:  # each CNN path's check at its own shapes
             k["cnn"] = cchecks[k["name"]]
             k["max_abs_err"] = max([k["max_abs_err"]]

@@ -41,13 +41,42 @@ nn's surface and checkpoints, and the rest of the utils: the data
 pipeline (``utils.data``, whose prefetch thread stages batches on the
 card), byte-level BPE and the text datasets (``utils.text``),
 ``utils.Trainer``, the Hugging Face and torchvision converters and
-``utils.profiling``.
+``utils.profiling``.  Then mesh and pipeline parallelism.  Then the
+reference's own API, the define-by-run tape: ``Tensor``, ``Graph``, the grad
+flag (``no_grad``, ``enable_grad``, ``set_grad_enabled``; ``Module.eval()``
+turns it off), ``BackendTensor`` and the device registry (``Device``,
+``default_device``, ``backend_api``), with the eager f32 products of the
+tape on ``ops.matmul`` under ``config.use_pallas``; the ``shim/``
+directory's ``DeepFlows`` package runs the reference's scripts on the
+port (``python -m deepflows_tpu_torch.shim SCRIPT``).
+
+The root names are the JAX package's: ``Tensor``, ``Graph``, the grad
+contexts, ``backend_api``, ``BackendTensor``, ``Device`` (the registry's,
+see ``backend/device.py``), ``default_device``, ``default_accelerator``,
+``manual_seed`` and the tape's ops and factories.
 """
 
 from __future__ import annotations
 
-from .config import config
-from .device import Device, default_accelerator
-from .random import manual_seed
+from .tensor import *  # noqa: F401,F403
+from .tensor import Graph, Tensor
+from .autograd import (  # noqa: F401
+    enable_grad,
+    is_grad_enable,
+    is_grad_enabled,
+    no_grad,
+    set_grad_enabled,
+)
+from .backend_selection import *  # noqa: F401,F403
+from .backend_selection import BackendTensor, Device, backend_api, default_device
+from .backend import default_accelerator  # noqa: F401
+from .config import config  # noqa: F401
+from .random import manual_seed  # noqa: F401
 
-__all__ = ["Device", "config", "default_accelerator", "manual_seed"]
+from . import tensor as _tensor  # noqa: E402
+
+__all__ = list(_tensor.__all__) + [
+    "BackendTensor", "Device", "backend_api", "config", "default_accelerator",
+    "default_device", "enable_grad", "is_grad_enable", "is_grad_enabled", "manual_seed",
+    "no_grad", "set_grad_enabled",
+]

@@ -18,8 +18,11 @@ from typing import Callable, Optional
 
 import torch
 
+from .autograd import flag_kept
+from .backend.torch_kernels import plain
 from .config import config
 from .ops import KERNELS
+from .tensor import Tensor
 
 
 def _owners(model, params):
@@ -47,6 +50,13 @@ def _traced_routes():
         config.use_pallas = saved
 
 
+def _untaped(x):
+    """A tape ``Tensor`` as a plain tensor on the same storage (a step's
+    own forward and backward never record on the tape); anything else as
+    it is."""
+    return plain(x) if isinstance(x, Tensor) else x
+
+
 def jit(fn: Callable) -> Callable:
     """The JAX package's ``jit(fn)`` (one compiled program per input shape)
     as an eager wrapper: ``fn`` runs with gradients off and
@@ -61,6 +71,7 @@ def jit(fn: Callable) -> Callable:
 
     @functools.wraps(fn)
     def wrapper(*args):
+        args = [_untaped(a) for a in args]
         dev = next((a.device for a in args if isinstance(a, torch.Tensor)), None)
         args = [a if isinstance(a, torch.Tensor)
                 else torch.as_tensor(np.asarray(a), device=dev or Device(None))
@@ -140,7 +151,8 @@ class CompiledTrainStep:
             raise ValueError("optimizer holds parameters that are not in the model") from None
         self._slots = _owners(model, self._params)
         optimizer._ensure_state()
-        self.model.train()
+        with flag_kept():  # train() sets the tape's grad flag
+            self.model.train()
 
     def _bind(self, tensors):
         for slots, t in zip(self._slots, tensors):
@@ -193,8 +205,8 @@ class CompiledTrainStep:
 
     def __call__(self, x, y):
         dev = self._params[0].device
-        x = torch.as_tensor(x, device=dev)
-        y = torch.as_tensor(y, device=dev)
+        x = torch.as_tensor(_untaped(x), device=dev)
+        y = torch.as_tensor(_untaped(y), device=dev)
         cd = self.compute_dtype
         if cd is not None and x.is_floating_point():
             x = x.to(cd)
@@ -279,13 +291,14 @@ class CompiledEvalStep:
     def __call__(self, x):
         dev = next(self.model.parameters()).device
         was_training = self.model.training
-        self.model.eval()
-        try:
-            with torch.no_grad(), _traced_routes():
-                return self.model(torch.as_tensor(x, device=dev))
-        finally:
-            if was_training:
-                self.model.train()
+        with flag_kept():  # eval() and train() set the tape's grad flag
+            self.model.eval()
+            try:
+                with torch.no_grad(), _traced_routes():
+                    return self.model(torch.as_tensor(_untaped(x), device=dev))
+            finally:
+                if was_training:
+                    self.model.train()
 
 
 class _Captured:

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from .. import nn
+from ..autograd import flag_kept
 from ..config import config
 from ..device import Device
 from .vit import EncoderBlock
@@ -19,27 +20,28 @@ def _pad_greedy_generate(model, idx, new_tokens: int):
     """Greedy decoding by full forwards: append ``new_tokens`` tokens to the
     (B, L) int prompt, right-padding each context to ``max_len`` as the JAX
     package does (causal masking makes the pad inert)."""
-    was_training = model.training
-    model.eval()
-    try:
-        idx = np.asarray(idx)
-        for _ in range(new_tokens):
-            L = idx.shape[1]
-            if L >= model.max_len:
-                ctx = idx[:, -model.max_len:]
-                pos = model.max_len - 1
-            else:
-                pad = np.zeros((idx.shape[0], model.max_len - L), idx.dtype)
-                ctx = np.concatenate([idx, pad], 1)
-                pos = L - 1
-            with torch.no_grad():
-                logits = model(torch.as_tensor(ctx, dtype=torch.long))
-            nxt = logits[:, pos].argmax(-1).cpu().numpy()
-            idx = np.concatenate([idx, nxt[:, None].astype(idx.dtype)], 1)
-        return idx
-    finally:
-        if was_training:
-            model.train()
+    with flag_kept():  # eval() and train() set the tape's grad flag
+        was_training = model.training
+        model.eval()
+        try:
+            idx = np.asarray(idx)
+            for _ in range(new_tokens):
+                L = idx.shape[1]
+                if L >= model.max_len:
+                    ctx = idx[:, -model.max_len:]
+                    pos = model.max_len - 1
+                else:
+                    pad = np.zeros((idx.shape[0], model.max_len - L), idx.dtype)
+                    ctx = np.concatenate([idx, pad], 1)
+                    pos = L - 1
+                with torch.no_grad():
+                    logits = model(torch.as_tensor(ctx, dtype=torch.long))
+                nxt = logits[:, pos].argmax(-1).cpu().numpy()
+                idx = np.concatenate([idx, nxt[:, None].astype(idx.dtype)], 1)
+            return idx
+        finally:
+            if was_training:
+                model.train()
 
 
 def _embed(tok_embed, pos_embed, idx):

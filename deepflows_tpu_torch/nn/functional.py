@@ -21,6 +21,7 @@ from .. import _data_axis as data_axis
 from ..config import config
 from ..ops.linear import linear_fused, matmul
 from ..random import generator
+from ..tensor import function_apply
 
 
 class _FusedLinear(torch.autograd.Function):
@@ -81,8 +82,8 @@ def linear(input, weight, bias: Optional[torch.Tensor] = None):
     ``torch.matmul``."""
     if _eager_f32_route(input, weight, bias):
         if bias is not None:
-            return _FusedLinear.apply(input, weight, bias)
-        return _Matmul.apply(input, weight)
+            return function_apply(_FusedLinear, input, weight, bias)
+        return function_apply(_Matmul, input, weight)
     if input.dtype != weight.dtype:  # promote as JAX does: f32 x with bf16 W is f32
         dt = torch.promote_types(input.dtype, weight.dtype)
         input, weight = input.to(dt), weight.to(dt)

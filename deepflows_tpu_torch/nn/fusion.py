@@ -38,6 +38,7 @@ import numpy as np
 import torch
 from torch.overrides import TorchFunctionMode
 
+from ..autograd import flag_kept
 from .modules import BatchNorm1d, BatchNorm2d, Conv1d, Conv2d, Identity, Linear
 from .modules.module import Module
 
@@ -155,6 +156,11 @@ def fuse_conv_bn(model: Module, example_input, *, inplace: bool = False) -> Modu
     forward equals the original's up to the rounding of the folded
     weights; it must not be trained further (the statistics are frozen
     into the convs)."""
+    with flag_kept():  # eval() sets the tape's grad flag
+        return _fuse_conv_bn(model, example_input, inplace)
+
+
+def _fuse_conv_bn(model, example_input, inplace):
     if not inplace:
         model = copy.deepcopy(model).eval()
     elif any(type(m) in _NORMS and m.training for m in model.modules()):

@@ -3,18 +3,35 @@
 A thin layer over ``torch.nn.Module``: registration, traversal,
 ``state_dict`` and ``train``/``eval`` are torch's own, and the key names
 they produce are the JAX package's (``blocks.0.attn.q_proj.weight``).
-Unlike the JAX package, ``eval()`` does not switch gradient recording off
-globally; inference code runs under ``torch.no_grad`` or
-``torch.inference_mode`` itself.
+As in the JAX package, ``train(mode)`` and ``eval()`` also set the tape's
+grad flag (``autograd.set_grad_enabled(mode)``): the reference's scripts
+call ``model.eval()`` to stop recording for their eval loops and
+``model.train()`` to record again.  The flag is the tape's alone: a
+forward on plain ``torch.Tensor``s after ``eval()`` still builds torch's
+autograd graph, so the port's own inference code runs under
+``torch.no_grad`` or ``torch.inference_mode`` itself.  The port's own code
+that switches a model's mode for its own ends (``fuse_conv_bn``,
+``CompiledTrainStep``, ``CompiledEvalStep``, ``evaluate_accuracy``, the
+sharded and pipelined steps) leaves the flag as it found it
+(``autograd.flag_kept``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ... import autograd as _tape_grad
+
 
 class Module(torch.nn.Module):
     """Base class of the port's modules."""
+
+    def train(self, mode: bool = True):
+        """Set train or eval mode recursively, and the tape's grad flag to
+        ``mode``."""
+        super().train(mode)
+        _tape_grad.set_grad_enabled(mode)
+        return self
 
     def load_weights(self, weights):
         """Non-strict load of ``{name: array}`` (the JAX package's

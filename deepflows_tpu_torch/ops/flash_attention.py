@@ -43,6 +43,7 @@ import torch
 
 from . import _build
 from ._common import FLOATS, F, I, P, check, costed, nbytes, on_card, on_device, stream
+from ..tensor import function_apply
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
@@ -297,4 +298,4 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, causal=False, sm_scale=None, window=None):
     """softmax(q·kᵀ·scale + mask)·v, differentiable in q, k and v."""
-    return _FlashAttention.apply(q, k, v, causal, sm_scale, window)
+    return function_apply(_FlashAttention, q, k, v, causal, sm_scale, window)

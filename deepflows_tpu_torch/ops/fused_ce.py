@@ -35,6 +35,7 @@ import torch
 
 from . import _build
 from ._common import FLOATS, I, P, check, costed, nbytes, on_card, on_device, stream
+from ..tensor import function_apply
 
 # the backward kernel's largest D: bf16 in clusters of up to 16 blocks of
 # 256 columns, f32 in one block
@@ -263,4 +264,4 @@ class _FusedLinearCE(torch.autograd.Function):
 def fused_linear_ce(x, w, b, targets):
     """Per-row cross-entropy of ``x @ w + b`` against ``targets``, (N,) f32,
     differentiable in x, w and b."""
-    return _FusedLinearCE.apply(x, w, b, targets)
+    return function_apply(_FusedLinearCE, x, w, b, targets)

@@ -58,6 +58,7 @@ import torch
 import torch.distributed as dist
 
 from .. import _data_axis
+from ..autograd import flag_kept
 from ..jit import _owners, _traced_routes
 from ..nn.modules.dropout import Dropout
 from ..nn.modules.module import Module
@@ -182,12 +183,13 @@ class PipelineStack(Module):
 
         def fn(param_tensors, buffer_tensors, x):
             was = template.training
-            template.train(training)
-            try:
-                return call_by_names(template, names, bnames, param_tensors,
-                                     buffer_tensors, x)
-            finally:
-                template.train(was)
+            with flag_kept():  # train() sets the tape's grad flag
+                template.train(training)
+                try:
+                    return call_by_names(template, names, bnames, param_tensors,
+                                         buffer_tensors, x)
+                finally:
+                    template.train(was)
 
         return fn
 

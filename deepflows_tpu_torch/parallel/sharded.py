@@ -52,6 +52,7 @@ import torch
 import torch.distributed as dist
 
 from .. import _data_axis
+from ..autograd import flag_kept
 from ..jit import CompiledEvalStep, CompiledTrainStep, _owners, _traced_routes
 from .mesh import (P, PartitionSpec, as_dtensor, axis_size, is_replicated, local_block,
                    placements)
@@ -358,14 +359,15 @@ class ShardedEvalStep(CompiledEvalStep):
             for module, name in slots:
                 module._parameters[name] = t
         was_training = self.model.training
-        self.model.eval()
-        try:
-            with torch.no_grad(), _traced_routes():
-                out = self.model(x)
-        finally:
-            for slots, p in zip(self._slots, self._params):
-                for module, name in slots:
-                    module._parameters[name] = p
-            if was_training:
-                self.model.train()
+        with flag_kept():  # eval() and train() set the tape's grad flag
+            self.model.eval()
+            try:
+                with torch.no_grad(), _traced_routes():
+                    out = self.model(x)
+            finally:
+                for slots, p in zip(self._slots, self._params):
+                    for module, name in slots:
+                        module._parameters[name] = p
+                if was_training:
+                    self.model.train()
         return out if d is None else _gather_dim0(out, d)

@@ -25,7 +25,7 @@ def manual_seed(seed: int) -> None:
 def generator(device) -> torch.Generator:
     """The package generator of ``device``, seeded with ``config.seed`` when
     first used."""
-    device = torch.device(device)
+    device = torch.device(getattr(device, "torch_device", device))
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     g = _generators.get(device)

@@ -1,0 +1,1 @@
+from deepflows_tpu_torch.backend import *  # noqa: F401,F403

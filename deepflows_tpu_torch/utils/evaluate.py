@@ -6,6 +6,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..autograd import flag_kept
+
 
 def _numpy(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
@@ -50,15 +52,16 @@ def evaluate_accuracy(model, data_iter, device=None):
     fed on ``device`` (the model's by default); the model's mode is
     restored afterwards."""
     was_training = model.training
-    model.eval()
     dev = device or next(model.parameters()).device
     metric = Accumulator(2)
-    try:
-        for x, y in data_iter:
-            out = model(torch.as_tensor(np.asarray(x), device=dev))
-            metric.add(accuracy(out, y), len(np.asarray(y)))
-    finally:
-        model.train(was_training)
+    with flag_kept():  # eval() and train() set the tape's grad flag
+        model.eval()
+        try:
+            for x, y in data_iter:
+                out = model(torch.as_tensor(np.asarray(x), device=dev))
+                metric.add(accuracy(out, y), len(np.asarray(y)))
+        finally:
+            model.train(was_training)
     return metric[0] / metric[1]
 
 
