@@ -516,6 +516,32 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
    of one tape MLP step and the host us a call they cost, one small op's
    host us on the tape and plain, and one {"tape": ...} line with the
    card.
+44. lazy, main paths: the same reference loops with lazy mode on
+   (deepflows_tpu_torch.lazy: the step's torch calls recorded, run at the
+   optimizer step's flush, and from the second matching step replayed as
+   one captured CUDA graph).  models.MLP and CIFAR10_CNN as in phase 43,
+   each in three loops (plain, tape, lazy) from the same weights and
+   generator state, the MLP's under a per-step CosineAnnealingLR in every
+   loop: the lazy loop bitwise the plain loop (losses, weights, BN's
+   running statistics), exactly 3 linear_fused or 1 linear_fused + 1
+   fused_adam a step, Graph at 0 after every backward, peak memory after
+   the last step within 1 MiB of the peak after step 3, no eager fallback,
+   at most 3 runners built, and every step from the fourth on that is not
+   next to the eval pass a template replay.  The raw-tape MLP with an lr
+   that changes every step, lazy against its eager loop on the card
+   (bitwise) and a CPU copy (1e-4 relative).  Two MLP loops over a dataset
+   held on the card, each step's batch a slice of it, for two epochs (f32
+   Adam; bf16 Lion with weight decay at a per-step cosine lr), lazy against
+   eager: bitwise past the capture, graphs replayed, the dataset unchanged.
+   ResNet-50 at 224, f32, B 64,
+   Adam(lr=1e-3, fused=True), 20 steps of an eager tape loop and of a lazy
+   loop from the same weights, every step's loss kept and all of them read
+   at every 10th step: the lazy loop bitwise the eager one, every held loss
+   its own step's value, one fused_adam a step; a CompiledTrainStep of the
+   same model timed beside them.  The DeepFlows shim's script under
+   DEEPFLOWS_LAZY=1 fits 3x + 5.  Prints each loop's median step ms, each
+   captured template's pool bytes, the peak memory and lazy_stats(), and
+   one {"lazy": ...} line with the card.
 
 Prints the card's name and power limit, one {"kernels": [...]} line (the CE
 backward's, linear_fused's and matmul's entries with the plan they ran:
@@ -529,7 +555,7 @@ in ``launches_by_cnn_path``, the fine-tuning slice's in
 ``seq2seq``), the parallel slice's in ``launches_by_parallel_path``, the
 pipeline slice's in ``launches_by_pipeline_path``, the tape slice's in
 ``launches_by_tape_path`` (matmul's numbers at the raw-tape MLP's
-products in ``tape``), the
+products in ``tape``), the lazy slice's in ``launches_by_lazy_path``, the
 utils slice's in ``launches_by_utils_path`` (the CE's,
 flash's and fused_adam's numbers at GPT-2's shapes in ``gpt2``), its numbers at the family's shapes in
 ``family``, at each CNN path's in ``cnn``, whose worst error its
@@ -6677,9 +6703,8 @@ for epoch in range(300):
     loss.backward()
     optimizer.step()
     Graph.free_graph_all()
-print(DeepFlows.__name__, type(loss).__module__, str(loss.device))
-print("fitted", float(Tensor(model.weight).numpy().ravel()[0]),
-      float(Tensor(model.bias).numpy().ravel()[0]))
+print(DeepFlows.__name__, isinstance(loss, Tensor), str(loss.device))
+print("fitted", float(model.weight.numpy().ravel()[0]), float(model.bias.numpy().ravel()[0]))
 """
 
 
@@ -6740,78 +6765,98 @@ def tape_step_counts(ops, before, per_step, label):
                  f"expected {want}")
 
 
-def tape_model_loops(torch, dt, build, xs, ys, steps, per_step, label, adam, eval_at=None):
-    """The plain loop and the tape loop of one model from the same weights
-    and the same package-generator state (so both draw the same dropout
-    masks): losses, final state dicts, each step's wall ms, the tape
-    loop's launch counts (every step exactly ``per_step``), its Graph size
-    after every backward, and its peak memory after step 3 and the last.
-    With ``eval_at``, an eval pass (model.eval(), a forward, model.train())
-    comes before that step in both loops, outside the counts."""
-    from deepflows_tpu_torch import Graph, Tensor, nn, ops, optim
+def tape_model_loops(torch, dt, build, xs, ys, steps, per_step, label, adam, eval_at=None,
+                     modes=("plain", "tape"), schedule=False):
+    """The plain loop and the tape loop of one model (and with "lazy" in
+    ``modes`` the tape loop under lazy mode) from the same weights and the
+    same package-generator state (so all draw the same dropout masks):
+    losses, final state dicts, each step's wall ms, the tape loops' launch
+    counts (every step exactly ``per_step``), their Graph size after every
+    backward, and their peak memory after step 3 and the last.  With
+    ``eval_at``, an eval pass (model.eval(), a forward, model.train())
+    comes before that step in every loop, outside the counts.  With
+    ``schedule`` every loop sets its lr by CosineAnnealingLR(T_max=steps)
+    after each step.  The lazy loop also returns each step's change of the
+    lazy counters."""
+    from deepflows_tpu_torch import Graph, Tensor, lazy, nn, ops, optim
     from deepflows_tpu_torch.random import generator
 
     torch.backends.cudnn.deterministic = True  # cuDNN's atomic weight gradients vary
-    plain_model = build()
-    tape_model = build()
-    tape_model.load_state_dict(plain_model.state_dict())
+    models = {m: build() for m in modes}
+    for m in modes[1:]:
+        models[m].load_state_dict(models[modes[0]].state_dict())
     gen = generator("cuda")  # after the builds: a manual_seed makes new generators
     state = gen.get_state()
     out = {}
-    for mode, model in (("plain", plain_model), ("tape", tape_model)):
+    for mode in modes:
+        model = models[mode]
         gen.set_state(state)
         opt = optim.Adam(model.parameters(), **adam)
+        sched = optim.CosineAnnealingLR(opt, T_max=steps) if schedule else None
         crit = nn.CrossEntropyLoss()
-        losses, wall, graph_sizes, peaks = [], [], [], {}
+        losses, wall, graph_sizes, peaks, stats = [], [], [], {}, []
         Graph.free_graph_all()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         counts = None
-        for i in range(steps):
-            x, y = xs[i], ys[i]
-            if i == eval_at:
-                model.eval()
-                if mode == "tape":
-                    nodes = len(Graph.node_list)
-                    e = model(Tensor(x, device="cuda"))
-                    if e.requires_grad or len(Graph.node_list) != nodes or dt.is_grad_enable():
-                        fail(f"{label}: the eval pass recorded on the tape")
+        if mode == "lazy":
+            lazy.enable()
+        try:
+            for i in range(steps):
+                x, y = xs[i], ys[i]
+                if i == eval_at:
+                    model.eval()
+                    if mode != "plain":
+                        nodes = len(Graph.node_list)
+                        e = model(Tensor(x, device="cuda"))
+                        if e.requires_grad or len(Graph.node_list) != nodes or \
+                                dt.is_grad_enable():
+                            fail(f"{label}: the eval pass recorded on the tape")
+                    else:
+                        with torch.no_grad():
+                            model(torch.as_tensor(x, device="cuda"))
+                    model.train()
+                if mode != "plain" and i == 0:
+                    ops.reset_launch_counts()  # the tape's main path starts here
+                before = {k.__name__: k.launches for k in ops.KERNELS}
+                lz = lazy.lazy_stats()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if mode != "plain":
+                    o = model(Tensor(x, device="cuda"))
+                    loss = crit(o, Tensor(y, device="cuda"))
+                    opt.zero_grad()
+                    loss.backward()
+                    graph_sizes.append(len(Graph.node_list))
+                    opt.step()
+                    losses.append(float(loss.numpy()))
+                    Graph.free_graph_all()
                 else:
-                    with torch.no_grad():
-                        model(torch.as_tensor(x, device="cuda"))
-                model.train()
-            if mode == "tape" and i == 0:
-                ops.reset_launch_counts()  # the tape's main path starts here
-            before = {k.__name__: k.launches for k in ops.KERNELS}
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            if mode == "tape":
-                o = model(Tensor(x, device="cuda"))
-                loss = crit(o, Tensor(y, device="cuda"))
-                opt.zero_grad()
-                loss.backward()
-                graph_sizes.append(len(Graph.node_list))
-                opt.step()
-                losses.append(float(loss.numpy()))
-                Graph.free_graph_all()
-            else:
-                loss = crit(model(torch.as_tensor(x, device="cuda")),
-                            torch.as_tensor(y, device="cuda"))
-                opt.zero_grad()
-                loss.backward()
-                opt.step()
-                losses.append(loss.item())
-            wall.append((time.perf_counter() - t0) * 1e3)
-            if mode == "tape":
-                if i != eval_at:
-                    tape_step_counts(ops, before, per_step, f"{label} tape step {i}")
-                if i + 1 in (3, steps):
-                    peaks[i + 1] = torch.cuda.max_memory_allocated()
-        if mode == "tape":
+                    loss = crit(model(torch.as_tensor(x, device="cuda")),
+                                torch.as_tensor(y, device="cuda"))
+                    opt.zero_grad()
+                    loss.backward()
+                    opt.step()
+                    losses.append(loss.item())
+                if sched is not None:
+                    sched.step()
+                wall.append((time.perf_counter() - t0) * 1e3)
+                if mode == "lazy":
+                    after = lazy.lazy_stats()
+                    stats.append({k: after[k] - lz[k] for k in after})
+                if mode != "plain":
+                    if i != eval_at:
+                        tape_step_counts(ops, before, per_step, f"{label} {mode} step {i}")
+                    if i + 1 in (3, steps):
+                        peaks[i + 1] = torch.cuda.max_memory_allocated()
+        finally:
+            if mode == "lazy":
+                lazy.disable()
+        if mode != "plain":
             counts = {k.__name__: k.launches for k in ops.KERNELS}  # and ends here
         out[mode] = dict(losses=losses, step_wall_ms=statistics.median(wall[3:]),
                          state={k: v.detach().clone() for k, v in model.state_dict().items()},
-                         graph_sizes=graph_sizes, peaks=peaks, counts=counts)
+                         graph_sizes=graph_sizes, peaks=peaks, counts=counts, stats=stats)
     torch.backends.cudnn.deterministic = False
     return out
 
@@ -6856,13 +6901,14 @@ def tape_calls_in(fn):
     return n[0]
 
 
-def raw_tape_mlp(torch, dt, device, xs, ys, per_step=None):
+def raw_tape_mlp(torch, dt, device, xs, ys, per_step=None, lrs=None, lazy_on=False):
     """The MLP written with tape ops only: leaf Tensors w (in, out) and b
     (1, out) from numpy's default_rng(43), x @ w + b, maximum(h, 0), a
     log-softmax from exp, log, max and sum, the mean NLL, and SGD as
-    w.data -= lr * w.grad under no_grad.  Returns the losses, each step's
-    wall ms and the Graph size after every backward; on the card each
-    step must launch exactly ``per_step``."""
+    w.data -= lr * w.grad under no_grad, lr TAPE_SGD_LR or step i's
+    ``lrs[i]``; under lazy mode with ``lazy_on``.  Returns the losses, each
+    step's wall ms and the Graph size after every backward; on the card
+    each step must launch exactly ``per_step``."""
     import numpy as np
 
     from deepflows_tpu_torch import Graph, Tensor, ops
@@ -6877,7 +6923,10 @@ def raw_tape_mlp(torch, dt, device, xs, ys, per_step=None):
         ws.append(Tensor(np.zeros((1, b), np.float32), device=device, requires_grad=True))
     eye = np.eye(dims[-1], dtype=np.float32)
     losses, wall, sizes = [], [], []
+    if lazy_on:
+        dt.lazy.enable()
     for i, (x, y) in enumerate(zip(xs, ys)):
+        lr = TAPE_SGD_LR if lrs is None else lrs[i]
         before = {k.__name__: k.launches for k in ops.KERNELS}
         t0 = time.perf_counter()
         h = Tensor(x, device=device)
@@ -6892,19 +6941,22 @@ def raw_tape_mlp(torch, dt, device, xs, ys, per_step=None):
         sizes.append(len(Graph.node_list))
         with dt.no_grad():
             for w in ws:
-                w.data -= TAPE_SGD_LR * w.grad
+                w.data -= lr * w.grad
                 w.zero_grad()
         losses.append(float(loss.numpy()))
         wall.append((time.perf_counter() - t0) * 1e3)
         if per_step is not None:
             tape_step_counts(ops, before, per_step, f"raw-tape MLP step {i}")
+    if lazy_on:
+        dt.lazy.disable()
     Graph.free_graph_all()
     return losses, wall, sizes
 
 
-def tape_shim_run():
+def tape_shim_run(lazy=False):
     """TAPE_SHIM_SCRIPT through python -m deepflows_tpu_torch.shim with
-    device 'cuda', in a subprocess: (w, b) it printed, and its seconds."""
+    device 'cuda', in a subprocess (with DEEPFLOWS_LAZY=1 if ``lazy``):
+    (w, b) it printed, and its seconds."""
     import tempfile
 
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".tape_shim_") as tmp:
@@ -6913,6 +6965,9 @@ def tape_shim_run():
             f.write(TAPE_SHIM_SCRIPT)
         env = dict(os.environ, PYTHONPATH=os.pathsep.join(
             [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+        env.pop("DEEPFLOWS_LAZY", None)
+        if lazy:
+            env["DEEPFLOWS_LAZY"] = "1"
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-m", "deepflows_tpu_torch.shim", script, "cuda"],
                               capture_output=True, text=True, timeout=TAPE_SHIM_TIMEOUT_S,
@@ -6921,7 +6976,7 @@ def tape_shim_run():
     if proc.returncode != 0:
         fail(f"the shim's script failed: {proc.stderr[-2000:]}")
     lines = proc.stdout.strip().splitlines()
-    if lines[0].split()[:2] != ["DeepFlows", "deepflows_tpu_torch.tensor"] or \
+    if lines[0].split()[:2] != ["DeepFlows", "True"] or \
             not lines[0].split()[2].startswith("cuda"):
         fail(f"the shim's script did not run the port's tape on the card: {lines[0]}")
     w, b = (float(v) for v in lines[-1].split()[1:])
@@ -7042,6 +7097,329 @@ def tape_phase(torch, dt, report, card):
         for k, r in res.items()})}))
     report["tape"] = res
     return paths, mm
+
+
+# ------------------------------------------------ lazy mode
+# Phase 43's loops with lazy.enable(): the recorder, the templates and the
+# captured CUDA graphs are on the main path; then ResNet-50 at 224 the
+# JAX package's lazy protocol (tools/lazy_chip.py) with fused Adam.
+LAZY_COMPILES = 3  # runners (captured graphs) a loop may build
+LAZY_RESNET_B, LAZY_RESNET_STEPS, LAZY_READ_EVERY = 64, 20, 10
+LAZY_CTS_STEPS = 10  # CompiledTrainStep steps timed beside the ResNet-50 loops
+
+
+LAZY_EPOCH_STEPS = 4  # batches in an epoch of the held-input loops' card-resident dataset
+
+
+def lazy_held_inputs(torch, dt, card, device="cuda"):
+    """Two loops of models.MLP, each run as an eager tape loop and under
+    lazy mode from the same weights, for two epochs of LAZY_EPOCH_STEPS
+    batches of a dataset held on the card, each step's batch a slice
+    Tensor(X[i*B:(i+1)*B]): f32 with Adam, and bf16 with Lion (weight
+    decay) at a cosine lr that changes every step.  The lazy loop must be
+    bitwise the eager loop (losses and weights) past its capture, replay
+    graphs with no eager fallback, and leave the dataset unchanged."""
+    from deepflows_tpu_torch import Graph, Tensor, lazy, nn, optim
+    from deepflows_tpu_torch.models import MLP
+
+    xs, ys = mnist_like()
+    n, B = LAZY_EPOCH_STEPS, MLP_B
+    X = torch.as_tensor(xs[:n].reshape(n * B, -1), device=device)
+    Y = torch.as_tensor(ys[:n].reshape(-1), device=device)
+    cases = {
+        "f32_adam": (torch.float32, lambda ps: optim.Adam(ps, lr=1e-3), False),
+        "bf16_lion": (torch.bfloat16, lambda ps: optim.Lion(ps, lr=1e-4, weight_decay=0.1),
+                      True),
+    }
+    res = {}
+    for name, (dtype, make_opt, schedule) in cases.items():
+        data = X.to(dtype)
+        kept = (data.clone(), Y.clone())
+        runs = {}
+        for mode in ("eager", "lazy"):
+            dt.manual_seed(0)
+            model = MLP(device=device).to(dtype)
+            opt = make_opt(model.parameters())
+            sched = optim.CosineAnnealingLR(opt, T_max=2 * n) if schedule else None
+            crit = nn.CrossEntropyLoss()
+            losses, st0 = [], lazy.lazy_stats()
+            if mode == "lazy":
+                lazy.enable()
+            try:
+                for i in range(2 * n):
+                    j = i % n
+                    loss = crit(model(Tensor(data[j * B:(j + 1) * B])),
+                                Tensor(Y[j * B:(j + 1) * B]))
+                    opt.zero_grad()
+                    loss.backward()
+                    opt.step()
+                    losses.append(float(loss.numpy()))
+                    Graph.free_graph_all()
+                    if sched is not None:
+                        sched.step()
+                caps = lazy.captured()
+            finally:
+                if mode == "lazy":
+                    lazy.disable()
+            st = {k: v - st0[k] for k, v in lazy.lazy_stats().items()}
+            runs[mode] = dict(losses=losses, stats=st, captured=caps,
+                              state={k: v.detach().clone()
+                                     for k, v in model.state_dict().items()})
+        e, lz = runs["eager"], runs["lazy"]
+        label = f"lazy held inputs, {name}"
+        if not (torch.equal(data, kept[0]) and torch.equal(Y, kept[1])):
+            fail(f"{label}: the dataset held on the card changed under the loops")
+        if lz["losses"] != e["losses"] or not all(
+                torch.equal(e["state"][k], lz["state"][k]) for k in e["state"]):
+            fail(f"{label}: the lazy loop is not bitwise the eager loop: losses "
+                 f"{lz['losses']} vs {e['losses']}")
+        st = lz["stats"]
+        if st["eager_fallback_ops"] or st["eager_fallback_fragments"]:
+            fail(f"{label}: lazy mode fell back to eager calls: {st}")
+        replays = sum(c["replays"] for c in lz["captured"])
+        if device == "cuda" and replays < 2 * n - 3:
+            fail(f"{label}: {replays} graph replays in {2 * n} steps: {lz['captured']}")
+        res[name] = dict(steps=2 * n, replays=replays, lazy_stats=st, losses=lz["losses"])
+        print(f"  lazy held inputs, {name}: {2 * n} steps over a dataset on the card, sliced a "
+              f"batch a step, two epochs: bitwise the eager loop (losses, weights), the "
+              f"dataset unchanged, {replays} graph replays; lazy_stats {st}; {card}")
+    return res
+
+
+def lazy_loop_checks(name, run, eval_at, steps):
+    """The lazy loop bitwise the plain loop (and the tape loop too), no
+    eager fallback, at most LAZY_COMPILES runners, and every step from the
+    fourth on but the one the eval pass joins a template replay."""
+    p = run["plain"]
+    for mode in ("tape", "lazy"):
+        t = run[mode]
+        same_loss = p["losses"] == t["losses"]
+        same_state = all(torch_equal(p["state"][k], t["state"][k]) for k in p["state"])
+        if not (same_loss and same_state):
+            fail(f"{name}: the {mode} loop is not bitwise the plain loop (losses {same_loss}, "
+                 f"weights and running statistics {same_state})")
+        if any(n != 0 for n in t["graph_sizes"]):
+            fail(f"{name}: Graph held {max(t['graph_sizes'])} nodes after a {mode} backward")
+        growth = t["peaks"][steps] - t["peaks"][3]
+        if growth > TAPE_MEM_SLACK:
+            fail(f"{name}: {mode} peak memory grew {growth} bytes from step 3 to the last")
+    st = run["lazy"]["stats"]
+    tot = {k: sum(d[k] for d in st) for k in st[0]}
+    if tot["eager_fallback_ops"] or tot["eager_fallback_fragments"]:
+        fail(f"{name}: lazy mode fell back to eager calls: {tot}")
+    if tot["compiles"] > LAZY_COMPILES:
+        fail(f"{name}: lazy mode built {tot['compiles']} runners (limit {LAZY_COMPILES})")
+    slow = [i for i in range(3, steps) if i != eval_at
+            and not (st[i]["flushes"] == st[i]["fast_flushes"] == 1)]
+    if slow:
+        fail(f"{name}: steps {slow} were not one template replay each: "
+             f"{[st[i] for i in slow]}")
+    return tot
+
+
+def torch_equal(a, b):
+    import torch
+
+    return torch.equal(a, b)
+
+
+def lazy_resnet50(torch, dt, card):
+    """ResNet-50 at 224, f32, B 64, Adam(lr=1e-3, fused=True): an eager tape
+    loop and a lazy loop from the same weights, LAZY_RESNET_STEPS steps
+    each, every step's loss kept and all read at every LAZY_READ_EVERY-th
+    step; then a CompiledTrainStep of the eager loop's model and optimizer.
+    Each loop's step ms is its last window's wall time over its steps (one
+    readback a window)."""
+    from deepflows_tpu_torch import Graph, Tensor, lazy, nn, ops, optim
+    from deepflows_tpu_torch.jit import CompiledTrainStep
+
+    torch.backends.cudnn.deterministic = True
+    x, y = cnn_batch(LAZY_RESNET_B, CNN_IMAGE)
+    init = {k: v.detach().clone()
+            for k, v in cnn_model(dt, "ResNet50", num_classes=CNN_CLASSES).state_dict().items()}
+    free_card(torch)
+    res, models = {}, {}
+    for mode in ("tape", "lazy"):
+        model = cnn_model(dt, "ResNet50", num_classes=CNN_CLASSES)
+        model.load_state_dict(init)
+        opt = optim.Adam(model.parameters(), lr=1e-3, fused=True)
+        crit = nn.CrossEntropyLoss()
+        model.train()
+        kept, reads, counts, marks = [], {}, [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if mode == "lazy":
+            ops.reset_launch_counts()  # the lazy ResNet-50 path starts here
+            lazy.enable()
+            st0 = lazy.lazy_stats()
+        try:
+            t_start = time.perf_counter()
+            for i in range(LAZY_RESNET_STEPS):
+                before = ops.fused_adam.launches
+                loss = crit(model(Tensor(x)), Tensor(y))
+                opt.zero_grad()
+                loss.backward()
+                opt.step()
+                kept.append(loss)
+                Graph.free_graph_all()
+                if (i + 1) % LAZY_READ_EVERY == 0:
+                    reads[i + 1] = [float(v.numpy()) for v in kept]
+                    marks.append(time.perf_counter())
+                counts.append(ops.fused_adam.launches - before)
+            pools = lazy.captured() if mode == "lazy" else []
+        finally:
+            if mode == "lazy":
+                st = lazy.lazy_stats()
+                lazy.disable()
+        window = (marks[-1] - marks[-2]) / LAZY_READ_EVERY * 1e3
+        r = dict(reads=reads, step_ms=window, counts=counts,
+                 peak_bytes=torch.cuda.max_memory_allocated(),
+                 wall_s=marks[-1] - t_start)
+        if mode == "lazy":
+            r["launches"] = {k.__name__: k.launches for k in ops.KERNELS}  # and ends here
+            r["stats"] = {k: st[k] - st0[k] for k in st}
+            r["captured"] = pools
+        res[mode] = r
+        models[mode] = (model, opt, crit)
+    t, lz = res["tape"], res["lazy"]
+    for r, mode in ((t, "tape"), (lz, "lazy")):
+        first, last = r["reads"][LAZY_READ_EVERY], r["reads"][LAZY_RESNET_STEPS]
+        if last[:LAZY_READ_EVERY] != first:
+            fail(f"ResNet-50 {mode}: a held loss changed after later steps: {first} -> "
+                 f"{last[:LAZY_READ_EVERY]}")
+        if any(c != 1 for c in r["counts"]):
+            fail(f"ResNet-50 {mode}: fused_adam launched {r['counts']} times a step, not once")
+    if lz["reads"] != t["reads"]:
+        fail(f"ResNet-50: the lazy loop's losses are not the eager tape loop's: "
+             f"{lz['reads'][LAZY_RESNET_STEPS]} vs {t['reads'][LAZY_RESNET_STEPS]}")
+    ts, ls = models["tape"][0].state_dict(), models["lazy"][0].state_dict()
+    diff = [k for k in ts if not torch.equal(ts[k], ls[k])]
+    if diff:
+        fail(f"ResNet-50: the lazy loop's weights or running statistics differ from the "
+             f"eager tape loop's: {diff[:5]}")
+    if lz["stats"]["eager_fallback_ops"] or lz["stats"]["eager_fallback_fragments"]:
+        fail(f"ResNet-50: lazy mode fell back to eager calls: {lz['stats']}")
+    if not lz["captured"]:
+        fail("ResNet-50: lazy mode captured no graph")
+    del models["lazy"], ls
+    free_card(torch)
+    model, opt, crit = models["tape"]
+    step = CompiledTrainStep(model, opt, crit)
+    step(x, y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LAZY_CTS_STEPS):
+        step(x, y)
+    torch.cuda.synchronize()
+    cts_ms = (time.perf_counter() - t0) / LAZY_CTS_STEPS * 1e3
+    torch.backends.cudnn.deterministic = False
+    del models, model, opt, step
+    free_card(torch)
+    return dict(tape_step_ms=t["step_ms"], lazy_step_ms=lz["step_ms"],
+                compiled_step_ms=cts_ms, captured=lz["captured"],
+                peak_bytes={"tape": t["peak_bytes"], "lazy": lz["peak_bytes"]},
+                lazy_stats=lz["stats"], losses=lz["reads"][LAZY_RESNET_STEPS],
+                launches=lz["launches"])
+
+
+def lazy_phase(torch, dt, report, card):
+    """Phase 44, main paths: lazy mode.  Returns {path: launch counts}."""
+    import numpy as np
+
+    from deepflows_tpu_torch import config
+
+    t0 = time.perf_counter()
+    xs, ys = mnist_like()
+    cx, cy = cnn_batch(CIFAR_B, 32)
+    cxs = [cx.cpu().numpy()] * CIFAR_STEPS
+    cys = [cy.cpu().numpy()] * CIFAR_STEPS
+    paths, res = {}, {}
+    saved = config.use_pallas
+    config.use_pallas = True
+    try:
+        def mlp():
+            from deepflows_tpu_torch.models import MLP
+
+            dt.manual_seed(0)
+            return MLP(device="cuda")
+
+        modes = ("plain", "tape", "lazy")
+        runs = {
+            "mlp_lazy": (tape_model_loops(torch, dt, mlp, xs, ys, MLP_STEPS, {"linear_fused": 3},
+                                          "MLP", dict(lr=1e-3), eval_at=TAPE_EVAL_AT,
+                                          modes=modes, schedule=True), TAPE_EVAL_AT, MLP_STEPS),
+            "cifar10_cnn_lazy": (tape_model_loops(
+                torch, dt, lambda: cnn_model(dt, "CIFAR10_CNN"), cxs, cys, CIFAR_STEPS,
+                {"linear_fused": 1, "fused_adam": 1}, "CIFAR10_CNN", dict(ADAM, fused=True),
+                modes=modes), None, CIFAR_STEPS),
+        }
+        for name, (run, eval_at, steps) in runs.items():
+            tot = lazy_loop_checks(name, run, eval_at, steps)
+            lz = run["lazy"]
+            paths[name] = lz["counts"]
+            res[name] = dict(step_wall_ms={m: run[m]["step_wall_ms"] for m in modes},
+                             peak_bytes=lz["peaks"], lazy_stats=tot, bitwise=True,
+                             losses=lz["losses"])
+            print(f"  {name}: {steps} steps, launches {lz['counts']}, bitwise the plain loop "
+                  f"(losses, weights, running statistics); median step ms plain "
+                  f"{run['plain']['step_wall_ms']:.3f}, tape {run['tape']['step_wall_ms']:.3f}, "
+                  f"lazy {lz['step_wall_ms']:.3f}; lazy_stats {tot}; peak memory "
+                  f"{lz['peaks']} bytes; {card}")
+
+        # the raw-tape MLP, lr changing every step: lazy against eager on the card and a CPU copy
+        from deepflows_tpu_torch import lazy, ops
+
+        lrs = [TAPE_SGD_LR * (1.0 - i / (2 * MLP_STEPS)) for i in range(MLP_STEPS)]
+        eager, ewall, _ = raw_tape_mlp(torch, dt, "cuda", xs, ys, {"matmul": 8}, lrs=lrs)
+        ops.reset_launch_counts()  # the lazy raw-tape path starts here
+        st0 = lazy.lazy_stats()
+        got, wall, sizes = raw_tape_mlp(torch, dt, "cuda", xs, ys, {"matmul": 8}, lrs=lrs,
+                                        lazy_on=True)
+        paths["raw_tape_mlp_lazy"] = {k.__name__: k.launches for k in ops.KERNELS}  # ends here
+        st = {k: v - st0[k] for k, v in lazy.lazy_stats().items()}
+        want, _, _ = raw_tape_mlp(torch, dt, "cpu", xs, ys, lrs=lrs)
+        if got != eager:
+            fail(f"raw-tape MLP: the lazy loop is not bitwise the eager loop on the card")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        if not rel < TAPE_REL_TOL:
+            fail(f"raw-tape MLP lazy: the card's losses differ from the CPU copy's by {rel}")
+        if any(n != 6 for n in sizes):
+            fail(f"raw-tape MLP lazy: Graph held {sizes} nodes after backward, not its 6 leaves")
+        if st["eager_fallback_ops"] or st["eager_fallback_fragments"]:
+            fail(f"raw-tape MLP lazy: lazy mode fell back to eager calls: {st}")
+        res["raw_tape_mlp_lazy"] = dict(
+            step_wall_ms=dict(tape=statistics.median(ewall[3:]), lazy=statistics.median(wall[3:])),
+            max_rel=rel, lazy_stats=st, losses=got)
+        print(f"  raw_tape_mlp_lazy: {len(got)} SGD steps at an lr that changes every step, "
+              f"launches {paths['raw_tape_mlp_lazy']}; bitwise the eager loop on the card, "
+              f"against a CPU copy max rel diff {rel:.3g}; median step ms tape "
+              f"{res['raw_tape_mlp_lazy']['step_wall_ms']['tape']:.3f}, lazy "
+              f"{res['raw_tape_mlp_lazy']['step_wall_ms']['lazy']:.3f}; lazy_stats {st}; {card}")
+    finally:
+        config.use_pallas = saved
+    res["held_inputs"] = lazy_held_inputs(torch, dt, card)
+    rn = lazy_resnet50(torch, dt, card)
+    paths["resnet50_lazy"] = rn.pop("launches")
+    res["resnet50_lazy"] = rn
+    print(f"  resnet50_lazy: {LAZY_RESNET_STEPS} steps a loop at B {LAZY_RESNET_B}, f32, fused "
+          f"Adam, a readback every {LAZY_READ_EVERY}: bitwise the eager tape loop (losses, "
+          f"weights, running statistics), one fused_adam a step, held losses kept; step ms "
+          f"tape {rn['tape_step_ms']:.3f}, lazy {rn['lazy_step_ms']:.3f}, CompiledTrainStep "
+          f"{rn['compiled_step_ms']:.3f}; captured {rn['captured']}; peak bytes "
+          f"{rn['peak_bytes']}; lazy_stats {rn['lazy_stats']}; {card}")
+    w, b, secs = tape_shim_run(lazy=True)
+    if not (abs(w - 3.0) < 1e-2 and abs(b - 5.0) < 1e-2):
+        fail(f"the shim's script under DEEPFLOWS_LAZY=1 fitted y = {w}x + {b}, not 3x + 5")
+    res["shim"] = dict(w=w, b=b, seconds=secs)
+    print(f"  shim: DEEPFLOWS_LAZY=1 python -m deepflows_tpu_torch.shim ran the reference-style "
+          f"script on the card in {secs:.1f} s: fitted y = {w:.4f}x + {b:.4f}")
+    res["phase_s"] = time.perf_counter() - t0
+    print(f"  lazy phase: {res['phase_s']:.1f} s; {card}")
+    print(json.dumps({"lazy": dict(card=card, **{
+        k: ({n: v for n, v in r.items() if n != "losses"} if isinstance(r, dict) else r)
+        for k, r in res.items()})}, default=str))
+    report["lazy"] = res
+    return paths
 
 
 def main(argv=None) -> int:
@@ -7255,6 +7633,9 @@ def main(argv=None) -> int:
     phase("tape (main paths): the reference's loop on models.MLP and CIFAR10_CNN beside their "
           "plain loops, a raw-tape MLP, a script through the DeepFlows shim:")
     tapepaths, tape_mm = tape_phase(torch, dt, report, card)
+    phase("lazy (main paths): the tape loops under lazy mode, replayed as captured CUDA graphs, "
+          "beside their plain and tape loops; the raw-tape MLP; ResNet-50 at 224; the shim:")
+    lazypaths = lazy_phase(torch, dt, report, card)
     for k in kernels:
         for key, paths in (("launches_by_family_path", fpaths), ("launches_by_cnn_path", cpaths),
                            ("launches_by_finetune_path", ftpaths),
@@ -7263,7 +7644,8 @@ def main(argv=None) -> int:
                            ("launches_by_utils_path", upaths),
                            ("launches_by_parallel_path", ppaths),
                            ("launches_by_pipeline_path", pipepaths),
-                           ("launches_by_tape_path", tapepaths)):
+                           ("launches_by_tape_path", tapepaths),
+                           ("launches_by_lazy_path", lazypaths)):
             by_path = {p: c[k["name"]] for p, c in paths.items() if c[k["name"]]}
             if by_path:
                 k[key] = by_path

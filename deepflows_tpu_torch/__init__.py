@@ -50,10 +50,15 @@ tape on ``ops.matmul`` under ``config.use_pallas``; the ``shim/``
 directory's ``DeepFlows`` package runs the reference's scripts on the
 port (``python -m deepflows_tpu_torch.shim SCRIPT``).
 
+Then lazy mode (``lazy.enable()``, or ``DEEPFLOWS_LAZY=1`` at import):
+the tape's work records into fragments that run at the first host readback,
+and a repeated step replays as one captured CUDA graph
+(``backend/lazy.py``).
+
 The root names are the JAX package's: ``Tensor``, ``Graph``, the grad
 contexts, ``backend_api``, ``BackendTensor``, ``Device`` (the registry's,
 see ``backend/device.py``), ``default_device``, ``default_accelerator``,
-``manual_seed`` and the tape's ops and factories.
+``manual_seed``, ``lazy`` and the tape's ops and factories.
 """
 
 from __future__ import annotations
@@ -77,6 +82,15 @@ from . import tensor as _tensor  # noqa: E402
 
 __all__ = list(_tensor.__all__) + [
     "BackendTensor", "Device", "backend_api", "config", "default_accelerator",
-    "default_device", "enable_grad", "is_grad_enable", "is_grad_enabled", "manual_seed",
-    "no_grad", "set_grad_enabled",
+    "default_device", "enable_grad", "is_grad_enable", "is_grad_enabled", "lazy",
+    "manual_seed", "no_grad", "set_grad_enabled",
 ]
+
+# ---------------------------------------------------------------- lazy mode
+from .backend import lazy  # noqa: E402
+
+import os as _os  # noqa: E402
+
+if _os.environ.get("DEEPFLOWS_LAZY", "") not in ("", "0"):
+    lazy.enable()
+del _os

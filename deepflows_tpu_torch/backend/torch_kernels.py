@@ -59,7 +59,7 @@ def plain(t):
         return t
     with torch._C.DisableTorchFunctionSubclass():
         out = t.detach()
-    if type(out) is not torch.Tensor:
+    if type(out) is not torch.Tensor and not getattr(out, "_lazy", False):
         out = torch.Tensor._make_subclass(torch.Tensor, out)
     return out
 
@@ -87,7 +87,12 @@ def from_numpy(a, device=None, dtype=None):
 
 
 def to_numpy(a) -> np.ndarray:
-    """A host copy; bf16 widens to f32 (numpy has no bf16)."""
+    """A host copy; bf16 widens to f32 (numpy has no bf16).  A readback:
+    under lazy mode the pending work runs first."""
+    from . import lazy
+
+    if lazy.recording():
+        lazy.flush()
     a = plain(a)
     if a.dtype == torch.bfloat16:
         a = a.float()

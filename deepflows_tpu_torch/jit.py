@@ -5,8 +5,9 @@ and the CUDA graphs that stand in for ``jax.jit`` where a step repeats
 
 The JAX package traces a step into one XLA program.  Here a training step
 runs EAGERLY, one PyTorch op (or kernel launch) at a time, with the same
-contract; capturing it in a CUDA graph is later work.  The KV-cache
-decoder's step is captured once and replayed once a token
+contract; capturing it in a CUDA graph is later work.  Under lazy mode the
+steps run outside the recorder, after a flush (``backend/lazy.py``).  The
+KV-cache decoder's step is captured once and replayed once a token
 (``models/decoding.py``).
 """
 
@@ -19,9 +20,10 @@ from typing import Callable, Optional
 import torch
 
 from .autograd import flag_kept
+from .backend import lazy as _lazy
 from .backend.torch_kernels import plain
 from .config import config
-from .ops import KERNELS
+from .ops import KERNELS, _common
 from .tensor import Tensor
 
 
@@ -135,6 +137,8 @@ class CompiledTrainStep:
           (None without a ``metrics_fn``)."""
         if int(accum_steps) < 1:
             raise ValueError("accum_steps must be >= 1")
+        if _lazy.recording():
+            _lazy.flush()
         self.model = model
         self.optimizer = optimizer
         self.criterion = criterion
@@ -203,6 +207,7 @@ class CompiledTrainStep:
                 metrics = self.metrics_fn(out, y)
         return loss.detach(), found, metrics
 
+    @_lazy.eager
     def __call__(self, x, y):
         dev = self._params[0].device
         x = torch.as_tensor(_untaped(x), device=dev)
@@ -288,6 +293,7 @@ class CompiledEvalStep:
     def __init__(self, model):
         self.model = model
 
+    @_lazy.eager
     def __call__(self, x):
         dev = next(self.model.parameters()).device
         was_training = self.model.training
@@ -304,10 +310,12 @@ class CompiledEvalStep:
 class _Captured:
     """One captured step: its graph, the kernel launches one replay makes
     (``(wrapper, count)`` pairs), the device memory its private pool took,
-    the seconds the warm-up and capture took and the replays so far."""
+    the seconds the warm-up and capture took, the replays so far, and the
+    pinned host buffers its copies read (``ops._common.GraphHost``)."""
 
-    def __init__(self, graph, launched, pool_bytes, capture_s):
+    def __init__(self, graph, launched, pool_bytes, capture_s, host=()):
         self.graph = graph
+        self.host = host
         self.launched = launched
         self.pool_bytes = pool_bytes
         self.capture_s = capture_s
@@ -367,26 +375,31 @@ class StepGraphs:
     @staticmethod
     def _capture(fn, generators) -> _Captured:
         t0 = time.perf_counter()
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fn()
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        for g in generators:
-            graph.register_generator_state(g)
-        before = [k.launches for k in KERNELS]
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()  # as the capture does first: the pool is what it adds
-        reserved = torch.cuda.memory_reserved()
-        # thread_local: another thread's work on the card (a server's other
-        # requests) does not break this capture
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            fn()
+        host, prev = _common.GraphHost(), _common.graph_host
+        _common.graph_host = host
+        try:
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            for g in generators:
+                graph.register_generator_state(g)
+            before = [k.launches for k in KERNELS]
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()  # as the capture does first: the pool is what it adds
+            reserved = torch.cuda.memory_reserved()
+            # thread_local: another thread's work on the card (a server's other
+            # requests) does not break this capture
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                fn()
+        finally:
+            _common.graph_host = prev
         launched = []
         for k, n in zip(KERNELS, before):
             if k.launches != n:
                 launched.append((k, k.launches - n))
                 k.launches = n  # the capture ran nothing
         pool = torch.cuda.memory_reserved() - reserved
-        return _Captured(graph, tuple(launched), pool, time.perf_counter() - t0)
+        return _Captured(graph, tuple(launched), pool, time.perf_counter() - t0, host.kept)

@@ -22,6 +22,7 @@ import torch
 from ...config import config
 from ...device import Device
 from .. import functional as F
+from ..parameter import Parameter
 from .module import Module
 from .remat import recomputing
 
@@ -48,8 +49,8 @@ class _BatchNormNd(Module):
         shape = (1, num_features) + (1,) * self._dims
         kw = dict(device=Device(device), dtype=dtype or config.default_dtype)
         if affine:
-            self.weight = torch.nn.Parameter(torch.ones(shape, **kw))
-            self.bias = torch.nn.Parameter(torch.zeros(shape, **kw))
+            self.weight = Parameter(torch.ones(shape, **kw))
+            self.bias = Parameter(torch.zeros(shape, **kw))
         else:
             self.register_parameter("weight", None)
             self.register_parameter("bias", None)

@@ -18,6 +18,7 @@ from ...config import config
 from ...device import Device
 from .. import functional as F
 from .. import init
+from ..parameter import Parameter
 from .module import Module
 
 
@@ -50,10 +51,10 @@ class _ConvNd(Module):
         self.groups = groups
         kw = dict(device=Device(device), dtype=dtype or config.default_dtype)
         kshape = (out_channels, in_channels // groups) + (kernel_size,) * self._dims
-        self.weight = torch.nn.Parameter(torch.empty(kshape, **kw))
+        self.weight = Parameter(torch.empty(kshape, **kw))
         if bias:
             bshape = (1, out_channels) + (1,) * self._dims
-            self.bias = torch.nn.Parameter(torch.empty(bshape, **kw))
+            self.bias = Parameter(torch.empty(bshape, **kw))
         else:
             self.register_parameter("bias", None)
         self.reset_parameters()
@@ -109,7 +110,7 @@ class WSConv2d(Conv2d):
         super().__init__(*args, **kw)
         self.gamma = float(gamma)
         self.eps = float(eps)
-        self.gain = torch.nn.Parameter(torch.ones(
+        self.gain = Parameter(torch.ones(
             (self.out_channels, 1, 1, 1), dtype=self.weight.dtype,
             device=self.weight.device))
 

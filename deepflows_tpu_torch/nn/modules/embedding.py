@@ -8,6 +8,7 @@ import torch
 from ...config import config
 from ...device import Device
 from .. import init
+from ..parameter import Parameter
 from .module import Module
 
 
@@ -22,7 +23,7 @@ class Embedding(Module):
         super().__init__()
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
-        self.weight = torch.nn.Parameter(
+        self.weight = Parameter(
             torch.empty(
                 (num_embeddings, embedding_dim),
                 device=Device(device), dtype=dtype or config.default_dtype,

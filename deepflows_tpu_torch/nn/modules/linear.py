@@ -17,6 +17,7 @@ from ...config import config
 from ...device import Device
 from .. import functional as F
 from .. import init
+from ..parameter import Parameter
 from .module import Module
 
 
@@ -45,11 +46,11 @@ class Linear(Module):
         self.in_features = in_features
         self.out_features = out_features
         kw = dict(device=Device(device), dtype=dtype or config.default_dtype)
-        self.weight = torch.nn.Parameter(
+        self.weight = Parameter(
             torch.empty((in_features, out_features), **kw)
         )
         if bias:
-            self.bias = torch.nn.Parameter(torch.empty((1, out_features), **kw))
+            self.bias = Parameter(torch.empty((1, out_features), **kw))
         else:
             self.register_parameter("bias", None)
         self.reset_parameters()

@@ -26,12 +26,27 @@ from ... import autograd as _tape_grad
 class Module(torch.nn.Module):
     """Base class of the port's modules."""
 
+    def register_buffer(self, name, tensor, persistent=True):
+        """torch's; a buffer made under lazy mode holds its values
+        (``backend/lazy.py``), as a ``Parameter`` does."""
+        from ...backend import lazy
+
+        super().register_buffer(name, lazy.force(tensor), persistent)
+
     def train(self, mode: bool = True):
         """Set train or eval mode recursively, and the tape's grad flag to
         ``mode``."""
         super().train(mode)
         _tape_grad.set_grad_enabled(mode)
         return self
+
+    def state_dict(self, *args, **kwargs):
+        """torch's, after the pending work under lazy mode (a readback)."""
+        from ...backend import lazy
+
+        if lazy.recording():
+            lazy.flush()
+        return super().state_dict(*args, **kwargs)
 
     def load_weights(self, weights):
         """Non-strict load of ``{name: array}`` (the JAX package's

@@ -22,6 +22,7 @@ from ...device import Device
 from .. import functional as F
 from .. import init
 from .linear import Linear
+from ..parameter import Parameter
 from .module import Module
 
 
@@ -91,14 +92,14 @@ class MoE(Module):
                 ("experts_up", (n_experts, dim, hidden), bound_d),
                 ("experts_down", (n_experts, hidden, dim), bound_h),
             ):
-                par = torch.nn.Parameter(torch.empty(shape, **kw))
+                par = Parameter(torch.empty(shape, **kw))
                 init.uniform_(par, -bound, bound)
                 self.register_parameter(name, par)
             return
-        self.experts_w1 = torch.nn.Parameter(torch.empty((n_experts, dim, hidden), **kw))
-        self.experts_b1 = torch.nn.Parameter(torch.zeros((n_experts, 1, hidden), **kw))
-        self.experts_w2 = torch.nn.Parameter(torch.empty((n_experts, hidden, dim), **kw))
-        self.experts_b2 = torch.nn.Parameter(torch.zeros((n_experts, 1, dim), **kw))
+        self.experts_w1 = Parameter(torch.empty((n_experts, dim, hidden), **kw))
+        self.experts_b1 = Parameter(torch.zeros((n_experts, 1, hidden), **kw))
+        self.experts_w2 = Parameter(torch.empty((n_experts, hidden, dim), **kw))
+        self.experts_b2 = Parameter(torch.zeros((n_experts, 1, dim), **kw))
         init.uniform_(self.experts_w1, -bound_d, bound_d)
         init.uniform_(self.experts_w2, -bound_h, bound_h)
 

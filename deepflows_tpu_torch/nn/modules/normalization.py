@@ -9,6 +9,7 @@ import torch
 
 from ...config import config
 from ...device import Device
+from ..parameter import Parameter
 from .module import Module
 
 
@@ -29,8 +30,8 @@ class LayerNorm(Module):
         self.elementwise_affine = elementwise_affine
         if elementwise_affine:
             kw = dict(device=Device(device), dtype=dtype or config.default_dtype)
-            self.weight = torch.nn.Parameter(torch.ones(self.normalized_shape, **kw))
-            self.bias = torch.nn.Parameter(torch.zeros(self.normalized_shape, **kw))
+            self.weight = Parameter(torch.ones(self.normalized_shape, **kw))
+            self.bias = Parameter(torch.zeros(self.normalized_shape, **kw))
         else:
             self.register_parameter("weight", None)
             self.register_parameter("bias", None)
@@ -71,7 +72,7 @@ class RMSNorm(Module):
         self.eps = float(eps)
         self.elementwise_affine = elementwise_affine
         if elementwise_affine:
-            self.weight = torch.nn.Parameter(torch.ones(
+            self.weight = Parameter(torch.ones(
                 self.normalized_shape, device=Device(device),
                 dtype=dtype or config.default_dtype,
             ))
@@ -119,8 +120,8 @@ class GroupNorm(Module):
         self.affine = affine
         if affine:
             kw = dict(device=Device(device), dtype=dtype or config.default_dtype)
-            self.weight = torch.nn.Parameter(torch.ones((num_channels,), **kw))
-            self.bias = torch.nn.Parameter(torch.zeros((num_channels,), **kw))
+            self.weight = Parameter(torch.ones((num_channels,), **kw))
+            self.bias = Parameter(torch.zeros((num_channels,), **kw))
         else:
             self.register_parameter("weight", None)
             self.register_parameter("bias", None)

@@ -24,6 +24,20 @@ import torch
 RECORDERS: list = []
 
 
+class GraphHost:
+    """Pinned host memory of one step that ``jit.StepGraphs`` captures:
+    ``spare`` holds buffers its warm-up sets aside, by length, for the
+    capture's host-to-card copies (pinning memory cannot be captured), and
+    ``kept`` the buffers the captured copies read at every replay, which
+    the graph keeps as long as it lives."""
+
+    def __init__(self):
+        self.spare, self.kept = {}, []
+
+
+graph_host = None  # the GraphHost of the warm-up and capture in progress
+
+
 def costed(cost):
     """Decorate a kernel wrapper with ``cost(*args, **kwargs) -> (operations,
     bytes)`` of one call; an active recorder gets ``kernel(name, ops,
@@ -73,9 +87,9 @@ def on_card(*tensors) -> bool:
         raise ValueError(
             f"operands lie on different devices: {[str(t.device) for t in tensors]}"
         )
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {dev}")
-    return dev.type == "cuda"
+    return dev.type == "cuda"  # meta tensors (lazy mode's shape inference) take the twin
 
 
 def on_device(dev):

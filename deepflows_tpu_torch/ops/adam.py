@@ -31,10 +31,33 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, _common
 from ._common import I, L, P, check, costed, nbytes, on_card, on_device, stream
 
 CHUNK = 4096  # elements per block
+
+
+def _device_table(values, dev):
+    """The kernel's table of pointers and block starts, copied to the card
+    from pinned host memory.  A captured copy reads its host buffer again
+    at every replay: so a call in ``jit.StepGraphs``' warm-up sets a pinned
+    buffer aside, the captured call copies from it, and the graph keeps
+    it."""
+    host_of_graph = _common.graph_host
+    if torch.cuda.is_current_stream_capturing():
+        spare = [] if host_of_graph is None else host_of_graph.spare.get(len(values), [])
+        if not spare:
+            raise RuntimeError("fused Adam is captured only inside jit.StepGraphs, after the "
+                               "warm-up call")
+        host = spare.pop()
+        host.copy_(torch.tensor(values, dtype=torch.int64))
+        host_of_graph.kept.append(host)
+    else:
+        host = torch.tensor(values, dtype=torch.int64).pin_memory()
+        if host_of_graph is not None:
+            host_of_graph.spare.setdefault(len(values), []).append(torch.empty_like(host)
+                                                                    .pin_memory())
+    return host.to(dev, non_blocking=True)
 
 
 def _lists(params, grads, vs, ss):
@@ -92,8 +115,7 @@ def fused_adam(params, grads, vs, ss, hyper):
         rows += [p.data_ptr(), g.data_ptr(), v.data_ptr(), s.data_ptr(), p.numel()]
         starts.append(blocks)
         blocks += -(-p.numel() // CHUNK)
-    table = torch.tensor(rows + starts + [blocks], dtype=torch.int64).pin_memory()
-    table = table.to(dev, non_blocking=True)
+    table = _device_table(rows + starts + [blocks], dev)
     fn = _build.c_function("fused_adam", "dft_fused_adam", (P, I, L, I, P, P))
     with on_device(dev):
         rc = fn(table.data_ptr(), len(params), blocks, CHUNK, hyper.data_ptr(), stream())
@@ -227,8 +249,7 @@ def fused_adam_sr(params, grads, vs, ss, hyper, step, indices=None, bits=None):
         rows += [*ptrs, p.numel(), i, int(g16), int(aligned)]
         starts.append(blocks)
         blocks += -(-p.numel() // CHUNK)
-    table = torch.tensor(rows + starts + [blocks], dtype=torch.int64).pin_memory()
-    table = table.to(dev, non_blocking=True)
+    table = _device_table(rows + starts + [blocks], dev)
     step = step.contiguous()
     fn = _build.c_function("fused_adam_sr", "dft_fused_adam_sr", (P, I, L, I, P, P, I, P))
     with on_device(dev):

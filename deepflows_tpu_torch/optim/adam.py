@@ -56,7 +56,10 @@ class Adam(Optimizer):
         if consts is None:
             consts = torch.tensor(vals, dtype=torch.float32).to(dev)
             self._consts = {(dev, *vals): consts}
-        lr_t = torch.full((1,), lr, dtype=torch.float32, device=dev)
+        if isinstance(lr, torch.Tensor):  # lazy mode's graph reads lr from the card
+            lr_t = lr.reshape(1).to(torch.float32)
+        else:
+            lr_t = torch.full((1,), lr, dtype=torch.float32, device=dev)
         return torch.cat([lr_t, consts, bc1.reshape(1), bc2.reshape(1)])
 
     def pure_update(self, params, grads, state, lr):

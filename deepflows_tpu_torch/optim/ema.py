@@ -23,8 +23,11 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 
+from ..backend import lazy as _lazy
+
 
 class ModelEMA:
+    @_lazy.eager
     def __init__(self, model, decay: float = 0.999, warmup: bool = True):
         if not (0.0 <= decay < 1.0):
             raise ValueError(f"decay must be in [0, 1), got {decay}")
@@ -42,6 +45,7 @@ class ModelEMA:
         t = self.num_updates
         return min(self.decay, (1.0 + t) / (10.0 + t))
 
+    @_lazy.eager
     @torch.no_grad()
     def update(self) -> None:
         """Fold the model's current weights into the shadow average."""
@@ -53,6 +57,7 @@ class ModelEMA:
         for s, (_, p) in zip(self._shadow, self._named):
             s.add_((p.detach().float() - s) * w)
 
+    @_lazy.eager
     @torch.no_grad()
     def copy_to(self, model=None) -> None:
         """Write the averaged weights into ``model`` (default: the tracked
@@ -77,6 +82,7 @@ class ModelEMA:
             for (_, p), d in zip(self._named, saved):
                 p.data = d
 
+    @_lazy.eager
     def state_dict(self) -> dict:
         return {
             "decay": self.decay,
@@ -85,6 +91,7 @@ class ModelEMA:
             "shadow": {n: s.detach().clone() for (n, _), s in zip(self._named, self._shadow)},
         }
 
+    @_lazy.eager
     def load_state_dict(self, state: dict) -> None:
         """Takes this class's state dict or the JAX package's (its shadow
         weights as numpy arrays)."""

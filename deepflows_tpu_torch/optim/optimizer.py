@@ -11,11 +11,21 @@ Unlike the JAX package's pure functions, an update may work in place (the
 fused Adam route does, on the parameter tensors it is given); it returns
 the tensors that hold the new values either way.  State slots are f32
 whatever the parameter dtype.
+
+The parameters may be the port's ``nn.Parameter``s or the tape's leaf
+``Tensor``s, whose ``.data`` and ``.grad`` read as ``BackendTensor``s:
+``step()`` unwraps both, as the JAX package's does, and writes the new
+values back through the leaf's ``.data``.  Under lazy mode ``step()``
+records the whole update as one node with ``lr`` an input, writes the new
+values and slots back in place, and flushes (``backend/lazy.py``).
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..backend import lazy as _lazy
+from ..backend.ndarray import BackendTensor
 
 
 class Optimizer:
@@ -42,10 +52,12 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self):
+        if _lazy.recording():
+            return _lazy.record_optimizer_step(self)
         self._ensure_state()
-        data = [p.data for p in self.params]
+        data = [_unwrap(p.data) for p in self.params]
         new_params, self._state = self.pure_update(
-            data, [p.grad for p in self.params], self._state, self.lr
+            data, [_unwrap(p.grad) for p in self.params], self._state, self.lr
         )
         for p, old, new in zip(self.params, data, new_params):
             if new is not old:
@@ -75,3 +87,8 @@ class Optimizer:
         sync."""
         dev = self.params[0].device if self.params else torch.device("cpu")
         return torch.zeros((), dtype=torch.int32, device=dev)
+
+
+def _unwrap(x):
+    """A tape leaf's ``BackendTensor`` value or gradient as its tensor."""
+    return x.array if isinstance(x, BackendTensor) else x

@@ -55,6 +55,8 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+
+from ..backend import lazy as _lazy
 import torch.distributed as dist
 
 from .. import _data_axis
@@ -120,6 +122,7 @@ class PipelineStack(Module):
     ``repr`` (types and configuration: BatchNorm's momentum, an
     activation's slope), since stage 0's forward serves all of them."""
 
+    @_lazy.eager
     def __init__(self, stages: Sequence[Module]):
         super().__init__()
         stages = list(stages)
@@ -369,6 +372,7 @@ def _gather_rows(rows, data, M):
 # --------------------------------------------------------------------------
 # the pipelined forward
 # --------------------------------------------------------------------------
+@_lazy.eager
 def pipeline_apply(
     stage_fn: Callable,
     stacked_params,
@@ -508,6 +512,7 @@ class PipelinedTrainStep:
     the whole global batch and returns the global loss (f32 under a
     ``compute_dtype``)."""
 
+    @_lazy.eager
     def __init__(
         self,
         stack: PipelineStack,
@@ -776,6 +781,7 @@ class PipelinedTrainStep:
         return lambda: torch.empty(shape, dtype=dtype, device=xs[0].device)
 
     # ------------------------------------------------------------------
+    @_lazy.eager
     def __call__(self, x, y):
         mesh, pipe = self.mesh, self._pipe
         S, M, v, cd = self.stack.n_stages, self.n_micro, self._v, self.compute_dtype

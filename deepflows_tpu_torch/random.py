@@ -18,6 +18,12 @@ _generators: dict = {}
 
 
 def manual_seed(seed: int) -> None:
+    """Reseed every package generator; under lazy mode the draws already
+    recorded run first, from the old state."""
+    from .backend import lazy
+
+    if lazy.recording():
+        lazy.flush()
     config.seed = int(seed)
     _generators.clear()
 

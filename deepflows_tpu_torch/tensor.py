@@ -70,6 +70,7 @@ from . import autograd as _autograd
 from . import backend as backend_api
 from .autograd import no_grad
 from .backend import BackendTensor, Device, default_device
+from .backend import lazy as _lazy
 from .backend import torch_kernels as K
 from .config import config
 
@@ -174,7 +175,10 @@ def function_apply(fn, *args):
     arguments, the Function runs with ``__torch_function__`` off (its
     forward and backward see plain torch), under ``torch.no_grad()`` while
     the grad flag is off, and its outputs join the tape as any op's do;
-    otherwise it is ``fn.apply(*args)``."""
+    otherwise it is ``fn.apply(*args)``.  Under lazy mode the call is one
+    recorded node (``backend/lazy.py``)."""
+    if _lazy.recording() and any(isinstance(a, torch.Tensor) for a in args):
+        return _lazy.record_function(fn, args)
     if not _taping() or not any(isinstance(a, Tensor) for a in args):
         return fn.apply(*args)
     with _Disable():
@@ -224,7 +228,10 @@ class Tensor(torch.Tensor):
 
     def __new__(cls, array, dtype=None, device=None, name=None, requires_grad=False):
         rg = bool(requires_grad) and _autograd._grad_enabled
-        t = torch.Tensor._make_subclass(cls, _leaf_data(array, dtype, device), rg)
+        data = _leaf_data(array, dtype, device)
+        if isinstance(data, _lazy.LazyTensor):  # a leaf holds values: a pending one runs now
+            data = data.force()
+        t = torch.Tensor._make_subclass(cls, data, rg)
         if name is not None:
             t.name = name
         if rg:
@@ -247,7 +254,7 @@ class Tensor(torch.Tensor):
 
     def __deepcopy__(self, memo):
         """A fresh leaf with a copy of the values and attributes."""
-        with _Disable():
+        with _lazy.paused(), _Disable():
             rg = self.requires_grad
             data = self.detach().clone()
         new = torch.Tensor._make_subclass(type(self), data, rg)
@@ -394,7 +401,10 @@ class Tensor(torch.Tensor):
         with _Disable():
             if self.numel() != 1:
                 raise ValueError("backward should be called only on a scalar.")
-            torch.autograd.backward(self, retain_graph=retain_graph)
+            if _lazy.recording():  # one node: the walk runs when the fragment runs
+                _lazy.record_backward(self, retain_graph)
+            else:
+                torch.autograd.backward(self, retain_graph=retain_graph)
         if not retain_graph:
             Graph.free_graph()
 
@@ -602,7 +612,8 @@ def _unbroadcast(g, shape):
 
 
 def _run_user_op(cls, operands, args, kwargs):
-    op = torch.Tensor._make_subclass(cls, torch.empty(0))
+    with _lazy.paused(flush_first=False):
+        op = torch.Tensor._make_subclass(cls, torch.empty(0))
     op._building = True
     cls.__init__(op, *args, **kwargs)
     op._building = False

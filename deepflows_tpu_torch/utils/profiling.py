@@ -28,6 +28,8 @@ import time
 from typing import Optional
 
 import torch
+
+from ..backend import lazy as _lazy
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
@@ -165,6 +167,7 @@ def _clone_state(v):
     return v.clone() if isinstance(v, torch.Tensor) else v
 
 
+@_lazy.eager
 def step_report(step, *example_args) -> dict:
     """Cost of one call of a ``CompiledTrainStep`` or ``CompiledEvalStep``
     on ``example_args``: FLOPs, bytes, arithmetic intensity and, on a card

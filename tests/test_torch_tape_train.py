@@ -286,22 +286,27 @@ SCRIPT = """
         loss.backward()
         optimizer.step()
         Graph.free_graph_all()
-    print(DeepFlows.__name__, type(loss).__module__)
-    print("fitted", float(Tensor(model.weight).numpy().ravel()[0]),
-          float(Tensor(model.bias).numpy().ravel()[0]))
+    print(DeepFlows.__name__, isinstance(loss, Tensor), type(loss).__module__.split(".")[0])
+    print("fitted", float(model.weight.numpy().ravel()[0]), float(model.bias.numpy().ravel()[0]))
 """
 
 
-def test_shim_runs_a_reference_script(tmp_path):
+@pytest.mark.parametrize("lazy", [None, "1"])
+def test_shim_runs_a_reference_script(tmp_path, lazy):
+    """The script with ``DEEPFLOWS_LAZY`` unset, and set to 1 (lazy mode
+    from the port's import on)."""
     script = tmp_path / "linear_regression.py"
     script.write_text(textwrap.dedent(SCRIPT))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    env.pop("DEEPFLOWS_LAZY", None)
+    if lazy is not None:
+        env["DEEPFLOWS_LAZY"] = lazy
     proc = subprocess.run([sys.executable, "-m", "deepflows_tpu_torch.shim", str(script), "cpu"],
                           capture_output=True, text=True, timeout=120, env=env,
                           cwd=str(tmp_path))
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = proc.stdout.split("\n")
-    assert lines[0] == "DeepFlows deepflows_tpu_torch.tensor", proc.stdout
+    assert lines[0] == "DeepFlows True deepflows_tpu_torch", proc.stdout
     w, b = (float(v) for v in lines[1].split()[1:])
     assert abs(w - 3.0) < 1e-2 and abs(b - 5.0) < 1e-2, proc.stdout
