@@ -542,6 +542,38 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
    DEEPFLOWS_LAZY=1 fits 3x + 5.  Prints each loop's median step ms, each
    captured template's pool bytes, the peak memory and lazy_stats(), and
    one {"lazy": ...} line with the card.
+45. onnx, main paths: ResNet-50 (1000 classes, f32, random weights from a
+   seed, BN running statistics moved off their initial values) exported
+   with onnx.export_onnx on the card (the seconds, the file's MB and
+   check_onnx's histogram printed: 53 Conv, BN folded), run by OnnxModel on
+   the card at B 8 and B 1 (the dynamic batch), each shape one CUDA graph
+   whose later calls replay it (3 replays a shape counted), against
+   CompiledEvalStep with TF32 off: max |diff| within 1e-3 of the largest
+   |logit| and the top-1 equal where the top-2 margin exceeds that.  ms a
+   batch of 8 (wall, numpy in and out): the runtime, CompiledEvalStep and
+   the eager model; device ms of a replay and of the eager forward.  The
+   file served by MyDLPWServicer(model_file="resnet50.onnx") on 127.0.0.1:
+   a Predict of 8 x 3 x 224^2, its first call and a replay, bitwise the
+   in-process OnnxModel (cuDNN deterministic in this phase).  The bench
+   row's TransformerLM widths (dim 1024, heads 8, V 8192, L 1024) at depth
+   2 with flash=None exported (its attention traced on the naive path) and
+   run on fresh tokens (B 2) against CompiledEvalStep (the flash route) at
+   the same bound; the same model with flash=True refused by the route's
+   name.  The files go to a .onnx_* directory of the checkout, removed.
+46. viz, a main path: make_server on 127.0.0.1, a WebSocket client, and
+   POST /api/train/start with MNIST_CNN, the whole digits set (the viz
+   package's own copy), 1 epoch at batch 64 on device "tpu": the metrics
+   frames' losses finite and falling, the epoch message and "finished",
+   the parameters on the card; the ms a step printed.
+47. bridge: nn.torch_function on card tensors, forward and gradients
+   against autograd through the same math within 1e-6, with and without
+   checkpoint.
+48. cpu_native on the card's host (its CPU model from /proc/cpuinfo
+   printed): the g++ build, the 24 C entries against torch on the CPU, the
+   MLP's 30 Adam steps through the C kernels (5 SGEMMs a step counted, none
+   on the cpu device, losses within 1e-5 of the cpu device's and halved),
+   and a 1024^3 SGEMM timed against torch.matmul on the host.  The four
+   phases print one {"last_slice": ...} line with the card.
 
 Prints the card's name and power limit, one {"kernels": [...]} line (the CE
 backward's, linear_fused's and matmul's entries with the plan they ran:
@@ -555,7 +587,8 @@ in ``launches_by_cnn_path``, the fine-tuning slice's in
 ``seq2seq``), the parallel slice's in ``launches_by_parallel_path``, the
 pipeline slice's in ``launches_by_pipeline_path``, the tape slice's in
 ``launches_by_tape_path`` (matmul's numbers at the raw-tape MLP's
-products in ``tape``), the lazy slice's in ``launches_by_lazy_path``, the
+products in ``tape``), the lazy slice's in ``launches_by_lazy_path``, the last slice's in
+``launches_by_last_slice_path``, the
 utils slice's in ``launches_by_utils_path`` (the CE's,
 flash's and fused_adam's numbers at GPT-2's shapes in ``gpt2``), its numbers at the family's shapes in
 ``family``, at each CNN path's in ``cnn``, whose worst error its
@@ -7422,6 +7455,507 @@ def lazy_phase(torch, dt, report, card):
     return paths
 
 
+# ------------------------------------------------------------------ the last slice
+ONNX_B = 8  # ResNet-50's batch through the ONNX runtime (and B 1, B 32: the dynamic batch)
+ONNX_B_BIG = 32
+ONNX_CLIENTS = 8  # concurrent Predict clients, each with its own input
+ONNX_IMAGE = 224
+ONNX_REPS = 10  # calls timed a path
+ONNX_TOL = 1e-3  # max |diff| against CompiledEvalStep, relative to the largest |logit|
+ONNX_LM = dict(TRAIN, depth=2)  # the bench row's TransformerLM widths, depth cut to 2
+ONNX_LM_B = 2
+VIZ_BATCH = 64
+BRIDGE_TOL = 1e-6
+NATIVE_SGEMM = 1024  # M = K = N of the host SGEMM timed against torch.matmul
+NATIVE_REPS = 3
+
+
+def wall_ms(torch, fn, reps):
+    """Median wall ms of ``fn`` (synchronised) over ``reps`` calls after one."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def onnx_check_logits(got, want, label):
+    """max |diff| within ONNX_TOL of the largest |logit|; the top-1 equal
+    wherever the reference's top-2 margin exceeds that bound."""
+    import numpy as np
+
+    scale = float(np.abs(want).max())
+    diff = float(np.abs(got - want).max())
+    if got.shape != want.shape or not np.isfinite(got).all() or not diff <= ONNX_TOL * scale:
+        fail(f"{label}: shape {got.shape} vs {want.shape}, max |diff| {diff} against a "
+             f"largest |logit| of {scale}")
+    flat_g, flat_w = got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1])
+    top2 = np.sort(flat_w, -1)[:, -2:]
+    sure = (top2[:, 1] - top2[:, 0]) > ONNX_TOL * scale
+    if (flat_g.argmax(-1) != flat_w.argmax(-1))[sure].any():
+        fail(f"{label}: a top-1 differs where the top-2 margin exceeds {ONNX_TOL * scale}")
+    return diff, scale
+
+
+def onnx_concurrent_predicts(om, tmp, rng):
+    """ONNX_CLIENTS clients on threads send different inputs of one shape
+    at once to a fresh server (so its first calls race too); each answer
+    must be bitwise ``om`` on that request's own input.  Returns the
+    seconds for all."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from deepflows_tpu_torch.serving import MyDLPWServicer, PredictClient
+
+    xs = [rng.standard_normal((ONNX_B, 3, ONNX_IMAGE, ONNX_IMAGE)).astype("float32")
+          for _ in range(ONNX_CLIENTS)]
+    wants = [om(x) for x in xs]
+    server = MyDLPWServicer("127.0.0.1:0", root_dir=tmp, model_file="resnet50.onnx",
+                            device="cuda")
+    server.serve(wait=False)
+
+    def ask(x):
+        client = PredictClient(f"127.0.0.1:{server.port}")
+        try:
+            return client.predict(x)[0]
+        finally:
+            client.close()
+
+    try:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(ONNX_CLIENTS) as pool:
+            outs = list(pool.map(ask, xs))
+        seconds = time.perf_counter() - t0
+    finally:
+        server.stop()
+    for i, (out, want) in enumerate(zip(outs, wants)):
+        if out.shape != want.shape or not (out == want).all():
+            fail(f"concurrent Predict from resnet50.onnx: client {i}'s answer is not the "
+                 "in-process OnnxModel's on its own input")
+    return seconds
+
+
+def onnx_phase(torch, dt, card, tmp):
+    """ResNet-50 (1000 classes, f32, 224) exported on the card, run by
+    OnnxModel as one replayed CUDA graph per batch shape (B 8, 1, 32 in one
+    shared pool; a shape past MAX_GRAPHS eager) against CompiledEvalStep,
+    served over gRPC Predict from its file, to one client and to several
+    at once; the bench row's TransformerLM widths at depth 2 exported and
+    round-tripped, its flash=True twin refused."""
+    import numpy as np
+
+    from deepflows_tpu_torch.jit import CompiledEvalStep
+    from deepflows_tpu_torch.models import ResNet50, TransformerLM
+    from deepflows_tpu_torch.onnx import OnnxModel, check_onnx, export_onnx
+    from deepflows_tpu_torch.serving import MyDLPWServicer, PredictClient
+
+    res = {}
+    rng = np.random.default_rng(45)
+    dt.manual_seed(45)
+    rn = ResNet50(num_classes=1000, device="cuda")
+    with torch.no_grad():  # running statistics off their initial values: the folded BN is read
+        for name, buf in rn.named_buffers():
+            shift = torch.from_numpy(rng.standard_normal(tuple(buf.shape)).astype("float32"))
+            buf.copy_(buf + 0.1 * shift.cuda() if name.endswith("mean")
+                      else buf * torch.exp(0.1 * shift.cuda()))
+    rn.eval()
+    x8 = rng.standard_normal((ONNX_B, 3, ONNX_IMAGE, ONNX_IMAGE)).astype("float32")
+    x1 = rng.standard_normal((1, 3, ONNX_IMAGE, ONNX_IMAGE)).astype("float32")
+    x32 = rng.standard_normal((ONNX_B_BIG, 3, ONNX_IMAGE, ONNX_IMAGE)).astype("float32")
+    shapes = ((x8, "B 8"), (x1, "B 1"), (x32, f"B {ONNX_B_BIG}"))
+    path = os.path.join(tmp, "resnet50.onnx")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    export_onnx(rn, x8, path)
+    res["export_s"] = time.perf_counter() - t0
+    res["file_mb"] = os.path.getsize(path) / 2**20
+    info = check_onnx(path)
+    res["ops"] = info["ops"]
+    if info["ops"].get("Conv") != 53 or "BatchNormalization" in info["ops"]:
+        fail(f"resnet50.onnx: op histogram {info['ops']} (53 Conv, BN folded, expected)")
+    ev = CompiledEvalStep(rn)
+    t0 = time.perf_counter()
+    om = OnnxModel(path)
+    res["load_s"] = time.perf_counter() - t0
+    for x, label in shapes:
+        want = ev(x).float().cpu().numpy()
+        first = om(x)  # the shape's first call: eager on a side stream, then its capture
+        for _ in range(3):
+            got = om(x)
+            if not (got == first).all():
+                fail(f"OnnxModel resnet50 {label}: a replay differs from the first call")
+        diff, scale = onnx_check_logits(got, want, f"OnnxModel resnet50 {label}")
+        res[f"max_abs_diff_{label}"] = diff
+        res[f"max_logit_{label}"] = scale
+    replays = {label: om.replays(x.shape) for x, label in shapes}
+    if set(replays.values()) != {3}:
+        fail(f"OnnxModel resnet50: replays {replays}, not 3 a shape after its first call")
+    res["replays"] = replays
+    # one pool for every shape: B 1's graph reuses B 8's memory (a pool of its
+    # own would take about an eighth of B 8's), the three together take no
+    # more than B 8's and B 32's graphs alone, and cycling them adds nothing
+    pools = {label: om._graphs[om._key((x,))].pool_bytes for x, label in shapes}
+    alone = OnnxModel(path)
+    alone(x32)
+    big = alone._graphs[alone._key((x32,))].pool_bytes
+    alone.MAX_GRAPHS = 1  # past the cap a shape runs eagerly, with no graph
+    if not (alone(x8) == om(x8)).all() or alone.replays(x8.shape) or len(alone._io) != 1:
+        fail("OnnxModel resnet50: B 8 past MAX_GRAPHS is not an eager call equal to the graph's")
+    del alone
+    free_card(torch)
+    reserved = torch.cuda.memory_reserved()
+    for _ in range(2):
+        for x, _label in shapes:
+            om(x)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_reserved() - reserved
+    res["graph_pool_bytes"] = dict(pools, all=sum(pools.values()), b32_alone=big,
+                                   cycled_growth=grown)
+    if (pools["B 1"] > pools["B 8"] / 16 or sum(pools.values()) > pools["B 8"] + big
+            or grown != 0):
+        fail(f"OnnxModel resnet50: graph pools {res['graph_pool_bytes']} (B 1 over a 16th of "
+             f"B 8, the shapes together over B 8's and B {ONNX_B_BIG}'s alone, or growing as "
+             "the shapes cycle)")
+    key = om._key((x8,))
+    xd = torch.from_numpy(x8).cuda()
+
+    def eager():
+        with torch.no_grad():
+            return rn(torch.from_numpy(x8).cuda()).cpu()
+
+    res["ms"] = dict(
+        onnx_runtime=wall_ms(torch, lambda: om(x8), ONNX_REPS),
+        compiled_eval_step=wall_ms(torch, lambda: ev(x8).cpu(), ONNX_REPS),
+        eager=wall_ms(torch, eager, ONNX_REPS),
+        onnx_replay_device=event_ms(om._graphs[key].graph.replay, ONNX_REPS))
+    with torch.no_grad():
+        res["ms"]["eager_device"] = event_ms(lambda: rn(xd), ONNX_REPS)
+    print(f"  onnx resnet50: export {res['export_s']:.2f} s, {res['file_mb']:.1f} MB, ops "
+          f"{info['ops']}; load {res['load_s']:.2f} s; B 8 max |diff| "
+          f"{res['max_abs_diff_B 8']:.3g} of max |logit| {res['max_logit_B 8']:.3g}, B 1 "
+          f"{res['max_abs_diff_B 1']:.3g}, B {ONNX_B_BIG} "
+          f"{res[f'max_abs_diff_B {ONNX_B_BIG}']:.3g}; replays {replays}; graph pool bytes "
+          f"{res['graph_pool_bytes']}; ms a batch of 8 (wall, numpy in and out): runtime "
+          f"{res['ms']['onnx_runtime']:.3f}, CompiledEvalStep "
+          f"{res['ms']['compiled_eval_step']:.3f}, eager {res['ms']['eager']:.3f}; device ms: "
+          f"replay {res['ms']['onnx_replay_device']:.3f}, eager forward "
+          f"{res['ms']['eager_device']:.3f}; {card}")
+    want = om(x8)
+    server = MyDLPWServicer("127.0.0.1:0", root_dir=tmp, model_file="resnet50.onnx",
+                            device="cuda")
+    server.serve(wait=False)
+    try:
+        client = PredictClient(f"127.0.0.1:{server.port}")
+        outs = []
+        for _ in range(2):  # the server's runtime: its first call, then a replay
+            t0 = time.perf_counter()
+            (out,) = client.predict(x8)
+            outs.append(time.perf_counter() - t0)
+            if out.shape != want.shape or not (out == want).all():
+                fail(f"Predict from resnet50.onnx: shape {out.shape}, max |diff| "
+                     f"{float(np.abs(out - want).max())} against the in-process OnnxModel")
+        client.close()
+    finally:
+        server.stop()
+    res["predict_s"] = outs
+    res["concurrent_predict_s"] = onnx_concurrent_predicts(om, tmp, rng)
+    print(f"  onnx Predict from resnet50.onnx over gRPC (8 x 3 x 224^2): bitwise the in-process "
+          f"OnnxModel; call s {outs[0]:.3f} (first), {outs[1]:.3f}; {ONNX_CLIENTS} clients at "
+          f"once on a fresh server, each its own input: each answer bitwise the in-process "
+          f"OnnxModel on it, {res['concurrent_predict_s']:.3f} s for all; {card}")
+    del om, ev, rn, xd
+    free_card(torch)
+
+    dt.manual_seed(46)
+    lm = TransformerLM(**ONNX_LM, device="cuda", flash=None)
+    lm.eval()
+    idx = rng.integers(0, ONNX_LM["vocab_size"], (ONNX_LM_B, ONNX_LM["max_len"])).astype("int32")
+    fresh = rng.integers(0, ONNX_LM["vocab_size"], idx.shape).astype("int32")
+    lpath = os.path.join(tmp, "lm.onnx")
+    t0 = time.perf_counter()
+    export_onnx(lm, idx, lpath)
+    res["lm_export_s"] = time.perf_counter() - t0
+    res["lm_file_mb"] = os.path.getsize(lpath) / 2**20
+    lom = OnnxModel(lpath)
+    want = CompiledEvalStep(lm)(fresh).float().cpu().numpy()  # flash route: L >= 512 on the card
+    got = lom(fresh)
+    lm_diff, lm_scale = onnx_check_logits(got, want, "OnnxModel TransformerLM")
+    res["lm_max_abs_diff"], res["lm_max_logit"] = lm_diff, lm_scale
+    for blk in lm.blocks:
+        blk.attn.flash = True
+    try:
+        export_onnx(lm, idx, os.path.join(tmp, "flash.onnx"))
+    except ValueError as e:
+        if "_FlashAttention" not in str(e):
+            fail(f"export of the flash=True TransformerLM refused without naming the route: {e}")
+        res["flash_refusal"] = str(e)
+    else:
+        fail("export of the flash=True TransformerLM was not refused")
+    print(f"  onnx TransformerLM (d{ONNX_LM['dim']} x {ONNX_LM['depth']}, V "
+          f"{ONNX_LM['vocab_size']}, L {ONNX_LM['max_len']}, B {ONNX_LM_B}): export "
+          f"{res['lm_export_s']:.2f} s, {res['lm_file_mb']:.1f} MB; fresh tokens against "
+          f"CompiledEvalStep (flash route) max |diff| {lm_diff:.3g} of {lm_scale:.3g}; flash=True "
+          f"refused: {res['flash_refusal'][:60]}...; {card}")
+    del lom, lm
+    free_card(torch)
+    return res
+
+
+def viz_phase(torch, card):
+    """The viz server on 127.0.0.1: a WebSocket client, MNIST_CNN trained on
+    the whole digits set for 1 epoch at batch 64 on device "tpu" (the card);
+    finite falling losses in the metrics frames, the epoch message, the
+    parameters on the card."""
+    import socket
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from deepflows_tpu_torch.viz import make_server
+    from deepflows_tpu_torch.viz.server import load_digits_images
+    from deepflows_tpu_torch.viz.websocket import read_frame
+
+    srv = make_server("127.0.0.1", 0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    host = f"127.0.0.1:{srv.server_address[1]}"
+    try:
+        sock = socket.create_connection(("127.0.0.1", srv.server_address[1]), timeout=120)
+        sock.sendall(b"GET /ws HTTP/1.1\r\nHost: " + host.encode() + b"\r\nUpgrade: websocket"
+                     b"\r\nConnection: Upgrade\r\nSec-WebSocket-Key: dGhlIHNhbXBsZSBub25jZQ=="
+                     b"\r\nSec-WebSocket-Version: 13\r\n\r\n")
+        resp = b""
+        while b"\r\n\r\n" not in resp:
+            resp += sock.recv(4096)
+        if b" 101 " not in resp.split(b"\r\n")[0] + b" ":
+            fail(f"viz: the WebSocket handshake answered {resp.splitlines()[0]!r}")
+        n = len(load_digits_images(limit=10**6)[0])
+        cfg = dict(model="MNIST_CNN", num_samples=n, epochs=1, batch_size=VIZ_BATCH,
+                   device="tpu")
+        req = urllib.request.Request(f"http://{host}/api/train/start",
+                                     data=json.dumps(cfg).encode(), method="POST",
+                                     headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=10) as r:
+            if json.loads(r.read())["status"] != "started":
+                fail("viz: /api/train/start did not start")
+        msgs = []
+        while True:
+            frame = read_frame(sock)
+            if frame is None:
+                fail(f"viz: the WebSocket closed before the run ended; frames {msgs}")
+            msgs.append(json.loads(frame[1]))
+            if msgs[-1]["type"] == "status" and msgs[-1]["data"] not in ("loading data",
+                                                                         "training"):
+                break
+        wall = time.perf_counter() - t0
+        sock.close()
+    finally:
+        srv.state.flags["stop"] = True
+        srv.shutdown()
+        srv.server_close()
+    losses = [m["data"]["loss"] for m in msgs if m["type"] == "metrics"]
+    epochs = [m["data"] for m in msgs if m["type"] == "epoch"]
+    if msgs[-1]["data"] != "finished" or not epochs:
+        fail(f"viz: the run ended {msgs[-1]['data']!r}, epoch messages {epochs}")
+    if len(losses) < 2 or not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        fail(f"viz: metrics losses {losses} are not finite and falling")
+    p = next(srv.state.model.parameters())
+    if not p.is_cuda:
+        fail(f"viz: the trained model's parameters are on {p.device}, not the card")
+    steps = (n - max(1, n // 6)) // VIZ_BATCH
+    res = dict(losses=losses, epoch=epochs[0], steps=steps, wall_s=wall,
+               ms_per_step=1e3 * epochs[0]["epoch_time"] / steps,
+               history=srv.state.history[-1])
+    print(f"  viz: MNIST_CNN on the card, {n} digits ({steps} steps of {VIZ_BATCH}), 1 epoch: "
+          f"metrics losses {[round(v, 4) for v in losses]}, test acc "
+          f"{epochs[0]['test_acc']:.4f}, epoch {epochs[0]['epoch_time']:.2f} s "
+          f"({res['ms_per_step']:.2f} ms a step, data and first-step warm-up included), run "
+          f"{wall:.2f} s; parameters on {p.device}; {card}")
+    return res
+
+
+def bridge_phase(torch, card):
+    """nn.torch_function on card tensors: forward and gradients equal
+    autograd's through the same math, with and without checkpoint."""
+    from deepflows_tpu_torch.nn import torch_function
+
+    g = torch.Generator(device="cuda").manual_seed(47)
+
+    def math_fn(x, w, b):
+        h = x @ w
+        return torch.tanh(h) * torch.sigmoid(h) + b
+
+    res = {}
+    ins = [torch.randn(s, device="cuda", generator=g) for s in ((256, 512), (512, 128), (1, 128))]
+    for checkpoint in (False, True):
+        leaves = [t.clone().requires_grad_() for t in ins]
+        y = torch_function(math_fn, checkpoint=checkpoint)(*leaves)
+        (y * y).sum().backward()
+        ref = [t.clone().requires_grad_() for t in ins]
+        yr = math_fn(*ref)
+        (yr * yr).sum().backward()
+        err = max([float((y - yr).detach().abs().max())]
+                  + [float((a.grad - b.grad).abs().max()) for a, b in zip(leaves, ref)])
+        if not err <= BRIDGE_TOL:
+            fail(f"torch_function(checkpoint={checkpoint}) on the card: max |diff| {err} "
+                 "against autograd")
+        res[f"checkpoint={checkpoint}"] = err
+    print(f"  bridge: torch_function on card tensors against autograd, max |diff| {res}; {card}")
+    return res
+
+
+def native_phase(torch, dt, card):
+    """cpu_native on the card's host: the g++ build, the entries against
+    torch, the MLP's 30 steps through the C kernels (counted), a 1024^3
+    SGEMM against torch.matmul."""
+    import numpy as np
+
+    from deepflows_tpu_torch import Tensor, nn, optim
+    from deepflows_tpu_torch.backend import Device
+    from deepflows_tpu_torch.backend import native_kernels as nk
+
+    dt.set_grad_enabled(True)  # the reference's loop starts with the tape recording
+    cpu = nk.host_cpu()
+    res = dict(host_cpu=cpu, threads=os.cpu_count())
+    t0 = time.perf_counter()
+    so = nk.build()
+    res["build_s"] = time.perf_counter() - t0
+    Device("cpu_native")
+    rng = np.random.default_rng(48)
+    a = torch.from_numpy(rng.standard_normal((64, 33)).astype("float32"))
+    b = torch.from_numpy(rng.standard_normal((64, 33)).astype("float32")) + 2
+    pos = a.abs() + 0.1
+    x4 = torch.from_numpy(rng.standard_normal((2, 3, 11, 9)).astype("float32"))
+    w4 = torch.from_numpy(rng.standard_normal((4, 3, 3, 3)).astype("float32"))
+    m1 = torch.from_numpy(rng.standard_normal((100, 37)).astype("float32"))
+    m2 = torch.from_numpy(rng.standard_normal((37, 251)).astype("float32"))
+    bn = nk.batchnorm_train(x4, None, None, (0, 2, 3), 1e-5)
+    cases = {
+        "fill": (nk.fill((4, 5), 3.25), torch.full((4, 5), 3.25)),
+        "ewise_add": (nk.ewise_add(a, b), a + b), "ewise_sub": (nk.ewise_sub(a, b), a - b),
+        "ewise_mul": (nk.ewise_mul(a, b), a * b), "ewise_div": (nk.ewise_div(a, b), a / b),
+        "ewise_maximum": (nk.ewise_maximum(a, b), torch.maximum(a, b)),
+        "ewise_eq": (nk.ewise_eq(a, a), torch.ones_like(a)),
+        "ewise_ge": (nk.ewise_ge(a, b), (a >= b).float()),
+        "scalar_add": (nk.scalar_add(a, 1.5), a + 1.5), "scalar_mul": (nk.scalar_mul(a, 1.5), a * 1.5),
+        "scalar_div": (nk.scalar_div(a, 1.5), a / 1.5),
+        "scalar_power": (nk.scalar_power(pos, 2.0), pos ** 2),
+        "scalar_maximum": (nk.scalar_maximum(a, 0.0), a.clamp_min(0.0)),
+        "scalar_eq": (nk.scalar_eq(a, 0.0), (a == 0).float()),
+        "scalar_ge": (nk.scalar_ge(a, 0.0), (a >= 0).float()),
+        "ewise_log": (nk.ewise_log(pos), torch.log(pos)),
+        "ewise_exp": (nk.ewise_exp(a), torch.exp(a)), "ewise_tanh": (nk.ewise_tanh(a), torch.tanh(a)),
+        "matmul": (nk.matmul(m1, m2), m1 @ m2),
+        "reduce_sum": (nk.reduce_sum(a, 1), a.sum(1)), "reduce_max": (nk.reduce_max(a, 1), a.amax(1)),
+        "im2col": (nk.conv2d(x4, w4, 2, 1), torch.nn.functional.conv2d(x4, w4, stride=2, padding=1)),
+        "max_pool2d": (nk.max_pool2d(x4, 3, 2, 1),
+                       torch.nn.functional.max_pool2d(x4, 3, 2, 1)),
+        "batchnorm_train": (bn[0], torch.nn.functional.batch_norm(
+            x4, None, None, training=True, eps=1e-5)),
+        "batchnorm_train mean": (bn[1].reshape(-1), x4.mean((0, 2, 3))),
+        "batchnorm_train var": (bn[2].reshape(-1), x4.var((0, 2, 3), unbiased=False)),
+    }
+    errs = {}
+    for name, (got, want) in cases.items():
+        errs[name] = float((got - want).abs().max() / want.abs().max().clamp_min(1.0))
+        if not errs[name] <= 1e-5:
+            fail(f"cpu_native {name}: scaled max |diff| {errs[name]} against torch")
+    missing = set(nk._SIGS) - {f"nat_{k}" for k in nk.calls}
+    if missing:
+        fail(f"cpu_native: entries {sorted(missing)} were not called")
+    res["max_scaled_err"] = errs
+
+    X = rng.standard_normal((64, 8)).astype("float32")
+    yl = (X @ rng.standard_normal((8, 2)).astype("float32")).argmax(1).astype("int32")
+    losses = {}
+    for dev in ("cpu", "cpu_native"):
+        dt.manual_seed(48)
+        model = nn.Sequential(nn.Linear(8, 16, device=dev), nn.ReLU(), nn.Linear(16, 2, device=dev))
+        opt, crit = optim.Adam(model.parameters(), lr=0.05), nn.CrossEntropyLoss()
+        nk.calls.clear()
+        t0 = time.perf_counter()
+        for _ in range(30):
+            loss = crit(model(Tensor(X, device=dev)), Tensor(yl, device=dev))
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            losses.setdefault(dev, []).append(float(loss.numpy()))
+        res[f"mlp_{dev}_s"] = time.perf_counter() - t0
+        res[f"mlp_{dev}_calls"] = dict(nk.calls)
+    if res["mlp_cpu_calls"] or res["mlp_cpu_native_calls"].get("matmul") != 150:
+        fail(f"cpu_native MLP: C calls {res['mlp_cpu_native_calls']} (cpu: "
+             f"{res['mlp_cpu_calls']}), not 5 SGEMMs a step on cpu_native alone")
+    rel = max(abs(p - q) / abs(q) for p, q in zip(losses["cpu_native"], losses["cpu"]))
+    if not rel < 1e-5 or not losses["cpu_native"][-1] < 0.5 * losses["cpu_native"][0]:
+        fail(f"cpu_native MLP: losses {losses['cpu_native']} (cpu {losses['cpu']})")
+    res["mlp_losses"], res["mlp_max_rel"] = losses["cpu_native"], rel
+
+    n = NATIVE_SGEMM
+    A = torch.from_numpy(rng.standard_normal((n, n)).astype("float32"))
+    B = torch.from_numpy(rng.standard_normal((n, n)).astype("float32"))
+    times = {}
+    for name, fn in (("native", lambda: nk.matmul(A, B)), ("torch", lambda: torch.matmul(A, B))):
+        fn()
+        ts = []
+        for _ in range(NATIVE_REPS):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        times[name] = statistics.median(ts)
+    err = float((nk.matmul(A, B) - A @ B).abs().max())
+    res["sgemm_ms"], res["sgemm_max_abs_diff"] = times, err
+    print(f"  cpu_native on the host ({cpu}, {os.cpu_count()} threads): g++ build "
+          f"{res['build_s']:.2f} s into {so.parent.name}; 24 entries against torch, worst scaled "
+          f"|diff| {max(errs.values()):.3g}; MLP 30 Adam steps {res['mlp_cpu_native_s']:.3f} s "
+          f"({res['mlp_cpu_s']:.3f} s on cpu), C calls {res['mlp_cpu_native_calls']}, losses "
+          f"{losses['cpu_native'][0]:.4f} -> {losses['cpu_native'][-1]:.4f}, max rel vs cpu "
+          f"{rel:.3g}; {n}^3 SGEMM {times['native']:.1f} ms native, {times['torch']:.1f} ms "
+          f"torch.matmul (max |diff| {err:.3g}); card {card}")
+    return res
+
+
+def last_slice_phases(torch, dt, report, card):
+    """Phases 45-48: ONNX, viz, nn.torch_function and cpu_native.  Returns
+    {path: launch counts} (each path's counts zeroed just before it)."""
+    import shutil
+    import tempfile
+
+    from deepflows_tpu_torch import ops
+    from deepflows_tpu_torch.autograd import flag_kept
+
+    t0 = time.perf_counter()
+    res, paths = {}, {}
+    tmp = tempfile.mkdtemp(prefix=".onnx_", dir=ROOT)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # a served file's Predict is bitwise the runtime's
+    try:
+        ops.reset_launch_counts()
+        with flag_kept():  # the models' eval() turns the tape's grad flag off
+            res["onnx"] = onnx_phase(torch, dt, card, tmp)
+        paths["onnx"] = {k.__name__: k.launches for k in ops.KERNELS}
+    finally:
+        torch.backends.cudnn.deterministic = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name, run in (("viz", lambda: viz_phase(torch, card)),
+                      ("bridge", lambda: bridge_phase(torch, card)),
+                      ("cpu_native", lambda: native_phase(torch, dt, card))):
+        ops.reset_launch_counts()
+        with flag_kept():
+            res[name] = run()
+        paths[name] = {k.__name__: k.launches for k in ops.KERNELS}
+    res["phase_s"] = time.perf_counter() - t0
+    print(f"  last slice's phases: {res['phase_s']:.1f} s; {card}")
+    print(json.dumps({"last_slice": dict(card=card, **{
+        k: ({n: v for n, v in r.items() if n not in ("losses", "mlp_losses")}
+            if isinstance(r, dict) else r) for k, r in res.items()})}, default=str))
+    report["last_slice"] = res
+    return paths
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", metavar="PATH",
@@ -7636,6 +8170,10 @@ def main(argv=None) -> int:
     phase("lazy (main paths): the tape loops under lazy mode, replayed as captured CUDA graphs, "
           "beside their plain and tape loops; the raw-tape MLP; ResNet-50 at 224; the shim:")
     lazypaths = lazy_phase(torch, dt, report, card)
+    phase("last slice (main paths): ResNet-50 exported to ONNX on the card and run as one CUDA "
+          "graph per batch shape, served over gRPC from the file; the bench row's TransformerLM "
+          "exported; the viz server training MNIST_CNN; nn.torch_function; cpu_native:")
+    lastpaths = last_slice_phases(torch, dt, report, card)
     for k in kernels:
         for key, paths in (("launches_by_family_path", fpaths), ("launches_by_cnn_path", cpaths),
                            ("launches_by_finetune_path", ftpaths),
@@ -7645,7 +8183,8 @@ def main(argv=None) -> int:
                            ("launches_by_parallel_path", ppaths),
                            ("launches_by_pipeline_path", pipepaths),
                            ("launches_by_tape_path", tapepaths),
-                           ("launches_by_lazy_path", lazypaths)):
+                           ("launches_by_lazy_path", lazypaths),
+                           ("launches_by_last_slice_path", lastpaths)):
             by_path = {p: c[k["name"]] for p, c in paths.items() if c[k["name"]]}
             if by_path:
                 k[key] = by_path

@@ -55,6 +55,14 @@ the tape's work records into fragments that run at the first host readback,
 and a repeated step replays as one captured CUDA graph
 (``backend/lazy.py``).
 
+And the last slice, which completes the port (every module of
+``deepflows_tpu`` has its counterpart): ONNX export and a runtime that
+serves ``.onnx`` files on the card as one CUDA graph per input shape
+(``onnx/``, and ``serving`` with ``model_file="*.onnx"``); the
+live-training viz server (``viz/``); ``nn.torch_function``, the
+counterpart of ``nn.jax_function``; and the ``cpu_native`` device over
+the JAX package's C++ kernel library (``backend/native_kernels.py``).
+
 The root names are the JAX package's: ``Tensor``, ``Graph``, the grad
 contexts, ``backend_api``, ``BackendTensor``, ``Device`` (the registry's,
 see ``backend/device.py``), ``default_device``, ``default_accelerator``,

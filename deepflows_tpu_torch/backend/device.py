@@ -1,7 +1,11 @@
 """Device registry (counterpart of ``deepflows_tpu/backend/device.py``).
 
-A ``BackendDevice`` is a named device bound to the kernel module
-``torch_kernels``: ``cpu`` is torch on the CPU, ``cuda`` the card.
+A ``BackendDevice`` is a named device bound to a kernel module: ``cpu``
+is torch on the CPU and ``cuda`` the card, both over ``torch_kernels``;
+``cpu_native`` is the CPU over ``native_kernels``, the C++ kernel library
+(the JAX package's ``backend/native/kernels.cpp``, built with g++ at first
+use; a tape Tensor made there is a ``tensor.NativeTensor``, whose ops run
+on that library where it fits them).
 ``Device('cuda')``, ``Device('gpu')`` and ``Device('tpu')`` all name the
 card, so the reference's scripts (``device='cuda'``) and the JAX
 package's (``device='tpu'``) run unchanged.
@@ -24,8 +28,9 @@ Differences from the JAX package, on purpose:
 - A card named by ``device=``, by ``DEEPFLOWS_BACKEND`` or by the default
   when no card is present raises, and so does an unknown name in
   ``DEEPFLOWS_BACKEND``; the JAX package warns and falls back to the CPU.
-- ``cpu_native`` (the JAX package's C++ CPU library) is not ported:
-  ``Device('cpu_native')`` raises.
+- ``Device('cpu_native')`` builds its library and raises with the
+  compiler's output if the build fails; the JAX package's device stays
+  registered but disabled and its tensors fall to NumPy.
 
 Each device's ``manual_seed``, ``randn``, ``rand``, ``uniform``,
 ``randint`` and ``dropout_mask`` draw from the package generator of that
@@ -38,25 +43,22 @@ import os
 
 import torch
 
-from . import torch_kernels
+from . import native_kernels, torch_kernels
 
 # the protocol functions that make a tensor: a device binds its torch.device
 _MAKES = frozenset(("from_numpy", "fill", "scatter_add", "randn", "rand",
                     "uniform", "randint", "dropout_mask", "one_hot", "manual_seed"))
 
-CPU_NATIVE = ("Device('cpu_native'): the JAX package's C++ CPU kernel library is not ported "
-              "to deepflows_tpu_torch (ROADMAP.md queue 1, item 2); use 'cpu'")
-
-
 class BackendDevice:
-    """A device name bound to the kernel module, with its ``torch.device``."""
+    """A device name bound to a kernel module, with its ``torch.device``."""
 
-    def __init__(self, name: str, torch_device: torch.device):
+    def __init__(self, name: str, torch_device: torch.device, kernels=torch_kernels):
         self.name = name
         self.torch_device = torch_device
+        self.kernels = kernels
 
     def __getattr__(self, attr):
-        fn = getattr(torch_kernels, attr)
+        fn = getattr(self.kernels, attr)
         if attr in _MAKES:
             dev = self.torch_device
             return lambda *a, **k: fn(*a, device=dev, **k)
@@ -70,7 +72,7 @@ class BackendDevice:
 
     def __eq__(self, other):
         if isinstance(other, BackendDevice):
-            return self.torch_device == other.torch_device
+            return self.torch_device == other.torch_device and self.kernels is other.kernels
         if isinstance(other, torch.device):
             return self.torch_device == _normalise(other)
         return NotImplemented
@@ -153,8 +155,17 @@ def cuda() -> BackendDevice:
 tpu = cuda  # the JAX package's accelerator name
 
 
-def cpu_native():
-    raise NotImplementedError(CPU_NATIVE)
+_native = None
+
+
+def cpu_native() -> BackendDevice:
+    """The CPU over the C++ kernel library, built at the first call (a failed
+    build raises with the compiler's output)."""
+    global _native
+    if _native is None:
+        native_kernels.load()
+        _native = BackendDevice("cpu_native", torch.device("cpu"), native_kernels)
+    return _native
 
 
 def default_device() -> BackendDevice:
@@ -198,7 +209,7 @@ def Device(name=None) -> BackendDevice:
         raise ValueError(f"unknown device: {name!r}")
     key = name.strip().lower()
     if key == "cpu_native":
-        raise NotImplementedError(CPU_NATIVE)
+        return cpu_native()
     if key in ("gpu", "tpu"):
         key = "cuda"
     try:

@@ -309,9 +309,10 @@ class CompiledEvalStep:
 
 class _Captured:
     """One captured step: its graph, the kernel launches one replay makes
-    (``(wrapper, count)`` pairs), the device memory its private pool took,
-    the seconds the warm-up and capture took, the replays so far, and the
-    pinned host buffers its copies read (``ops._common.GraphHost``)."""
+    (``(wrapper, count)`` pairs), the device memory its capture added (its
+    private pool, or what it grew a shared one by), the seconds the
+    warm-up and capture took, the replays so far, and the pinned host
+    buffers its copies read (``ops._common.GraphHost``)."""
 
     def __init__(self, graph, launched, pool_bytes, capture_s, host=()):
         self.graph = graph
@@ -339,22 +340,30 @@ class StepGraphs:
     that warm-up is a real step, and it runs every lazy initialisation a
     capture must not meet (kernel builds, ``cudaFuncSetAttribute``, cuBLAS
     handles).  Then one call of ``fn`` is captured, not run, into a graph
-    with a private memory pool, and the other calls replay it.  Later runs
-    of the key only replay.  So ``fn`` may read and write only tensors
-    that outlive the graph, and every value that changes from one call to
-    the next must live in such a tensor on the card.  Each generator in
-    ``generators`` is registered with the graph, so a replay draws what
-    the eager call would draw at the generator's offset, and moves the
-    offset on as the eager call would.  A capture that fails raises;
+    with a private memory pool (but see ``shared_pool``), and the other
+    calls replay it.  Later runs of the key only replay.  So ``fn`` may
+    read and write only tensors that outlive the graph, and every value
+    that changes from one call to the next must live in such a tensor on
+    the card.  Each generator in ``generators`` is registered with the
+    graph, so a replay draws what the eager call would draw at the
+    generator's offset, and moves the offset on as the eager call would.  A capture that fails raises;
     nothing falls back to eager calls.
 
     The kernel launch counts (``<wrapper>.launches`` of ``ops.KERNELS``)
     count launches that ran on the card: the capture's are taken off
     again and added back at every replay.
+
+    With ``shared_pool`` every graph of this object is captured into one
+    memory pool, so the card holds the largest graph's temporaries rather
+    than the sum over the keys.  The caller then replays the graphs one at
+    a time, never two at once, and ``fn`` leaves nothing of the capture's
+    own allocations alive.
     """
 
-    def __init__(self):
+    def __init__(self, shared_pool: bool = False):
         self._graphs = {}
+        self._shared = shared_pool
+        self._pool = None  # the shared pool's handle, made at the first capture
 
     def __contains__(self, key):
         return key in self._graphs
@@ -367,13 +376,15 @@ class StepGraphs:
             return
         captured = self._graphs.get(key)
         if captured is None:
-            captured = self._graphs[key] = self._capture(fn, generators)
+            if self._shared and self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            captured = self._graphs[key] = self._capture(fn, generators, self._pool)
             times -= 1
         for _ in range(times):
             captured.replay()
 
     @staticmethod
-    def _capture(fn, generators) -> _Captured:
+    def _capture(fn, generators, pool=None) -> _Captured:
         t0 = time.perf_counter()
         host, prev = _common.GraphHost(), _common.graph_host
         _common.graph_host = host
@@ -392,7 +403,7 @@ class StepGraphs:
             reserved = torch.cuda.memory_reserved()
             # thread_local: another thread's work on the card (a server's other
             # requests) does not break this capture
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
                 fn()
         finally:
             _common.graph_host = prev
@@ -401,5 +412,5 @@ class StepGraphs:
             if k.launches != n:
                 launched.append((k, k.launches - n))
                 k.launches = n  # the capture ran nothing
-        pool = torch.cuda.memory_reserved() - reserved
-        return _Captured(graph, tuple(launched), pool, time.perf_counter() - t0, host.kept)
+        added = torch.cuda.memory_reserved() - reserved
+        return _Captured(graph, tuple(launched), added, time.perf_counter() - t0, host.kept)

@@ -15,7 +15,8 @@ plain twin on the CPU), chosen as the JAX package's ``_use_flash`` chooses:
 ``need_weights`` or live attention dropout in training take the naive path;
 otherwise ``flash=True`` forces the route, ``flash=False`` refuses it, and
 ``flash=None`` takes it on the card from ``q_len >= 512``, the counterpart
-of the JAX package's "on a real TPU".  The kernel takes equal head
+of the JAX package's "on a real TPU" (but not while ``onnx.export_onnx``
+traces the model: the kernel has no ONNX form).  The kernel takes equal head
 counts, so under GQA K and V are repeated to ``num_heads`` heads first (a
 copy; autograd sums their gradients back per group, as the JAX package's
 ones-multiply does); the window goes to the kernel.
@@ -39,10 +40,12 @@ import numpy as np
 import torch
 
 from ...ops.flash_attention import flash_attention
+from ...tensor import active_mode
 from .. import functional as F
 from .dropout import Dropout
 from .linear import Linear
 from .module import Module
+
 
 
 class MultiheadAttention(Module):
@@ -123,7 +126,10 @@ class MultiheadAttention(Module):
         if self.attn_drop is not None and self.training:
             return False  # attention dropout needs the materialised softmax
         if self.flash is None:
-            return self.q_proj.weight.is_cuda and q_len >= self.FLASH_AUTO_MIN_LEN
+            # a mode that records the forward for a format with no form of
+            # the kernel (the ONNX exporter's tracer) gets the naive path
+            return (self.q_proj.weight.is_cuda and q_len >= self.FLASH_AUTO_MIN_LEN
+                    and getattr(active_mode(), "kernel_routes", True))
         return bool(self.flash)
 
     def forward(self, query, key=None, value=None, need_weights: bool = False):

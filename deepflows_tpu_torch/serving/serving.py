@@ -6,7 +6,8 @@ with ``Predict`` and ``Generate``, each taking a ``PredictReq`` of
 (``proto/serving.proto``), registered with grpc's generic method handlers
 over the protoc-generated messages, so a client of either package calls a
 server of either.  ``Predict`` runs the model's forward
-(``jit.CompiledEvalStep``) on the model's device; ``Generate`` decodes a
+(``jit.CompiledEvalStep``) on the model's device, or a served ``.onnx``
+file in the port's runtime (``onnx.OnnxModel``); ``Generate`` decodes a
 served LM, through the in-flight engine, the speculative decoder or the
 one-shot KV-cache decoder, tried in that order as in the JAX package, or
 a ``Seq2SeqTransformer`` through its greedy generator.  The server and
@@ -25,6 +26,7 @@ from concurrent import futures
 from typing import Optional
 
 import numpy as np
+import torch
 
 from .proto import serving_pb2
 
@@ -71,6 +73,7 @@ class PredictService:
         when no engine is configured; requests with ``top_k`` or ``top_p``
         go to the one-shot decoder."""
         from ..jit import CompiledEvalStep
+        from ..onnx import OnnxModel
 
         self._model = model
         self._decoder = None
@@ -86,7 +89,8 @@ class PredictService:
         self._spec_gamma = spec_gamma
         self._spec = None
         self._prefixes: list = []
-        self._step = CompiledEvalStep(model)
+        # an ONNX file runs in the port's runtime; a model through its forward
+        self._step = model if isinstance(model, OnnxModel) else CompiledEvalStep(model)
         self._make = threading.Lock()  # concurrent calls make each decoder once
 
     def register_prefix(self, tokens) -> None:
@@ -101,7 +105,9 @@ class PredictService:
         outs = []
         for m in request.matrix:
             y = self._step(_from_matrix(m))
-            outs.append(_to_matrix(y.detach().float().cpu().numpy()))
+            if isinstance(y, torch.Tensor):
+                y = y.detach().float().cpu().numpy()
+            outs.append(_to_matrix(y))
         resp = serving_pb2.PredictResp()
         resp.matrix.extend(outs)
         return resp
@@ -238,18 +244,20 @@ class MyDLPWServicer:
         device=None,
     ):
         """Serve ``model`` as it is, or a model file (``root_dir`` and
-        ``model_file``): a checkpoint (``*.pkl``, ``utils.save_checkpoint``
-        of either package) is loaded with ``strict=False`` into the zoo
-        model ``model_name`` (``num_classes`` wide) built on ``device``
-        (the card by default).  An ``.onnx`` graph waits for the ONNX
-        runtime (ROADMAP.md queue 1 item 6) and raises."""
+        ``model_file``) on ``device`` (the card by default): an ``.onnx``
+        graph (either package's exporter, or a foreign file within the op
+        set) runs in the port's ONNX runtime (``onnx.OnnxModel``), with no
+        model class needed, as the reference ran onnxruntime here; a
+        checkpoint (``*.pkl``, ``utils.save_checkpoint`` of either package)
+        is loaded with ``strict=False`` into the zoo model ``model_name``
+        (``num_classes`` wide)."""
         import grpc
 
+        if model is None and model_file is not None and str(model_file).endswith(".onnx"):
+            from ..onnx import OnnxModel
+
+            model = OnnxModel(os.path.join(root_dir or ".", model_file), device=device)
         if model is None and model_file is not None:
-            if str(model_file).endswith(".onnx"):
-                raise NotImplementedError(
-                    f"serving {model_file!r} waits for the ONNX runtime (ROADMAP.md queue 1 "
-                    "item 6); pass the model")
             from ..utils.model_utils import load_checkpoint
             from ..utils.pretrained_models import _build_model
 

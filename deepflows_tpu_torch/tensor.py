@@ -71,6 +71,7 @@ from . import backend as backend_api
 from .autograd import no_grad
 from .backend import BackendTensor, Device, default_device
 from .backend import lazy as _lazy
+from .backend import native_kernels as _native_kernels
 from .backend import torch_kernels as K
 from .config import config
 
@@ -169,14 +170,29 @@ def _tape(ret, args, kwargs):
     return ret
 
 
+def active_mode():
+    """The innermost ``TorchFunctionMode`` active in this thread, or None.
+    torch keeps the mode stack per thread, so a mode entered on one thread
+    changes nothing that another thread runs."""
+    n = torch._C._len_torch_function_stack()
+    if n == 0 or not torch._C._is_torch_function_mode_enabled():
+        return None
+    return torch._C._get_function_stack_at(n - 1)
+
+
 def function_apply(fn, *args):
     """``fn.apply(*args)`` for a ``torch.autograd.Function``, which
     ``__torch_function__`` does not see.  With a Tensor among the
     arguments, the Function runs with ``__torch_function__`` off (its
     forward and backward see plain torch), under ``torch.no_grad()`` while
     the grad flag is off, and its outputs join the tape as any op's do;
-    otherwise it is ``fn.apply(*args)``.  Under lazy mode the call is one
-    recorded node (``backend/lazy.py``)."""
+    otherwise it is ``fn.apply(*args)``.  Where this thread's active mode
+    takes Functions itself (a ``take_function`` method: the ONNX
+    exporter's tracer, ``onnx/export.py``) the call is handed to it; under
+    lazy mode it is one recorded node (``backend/lazy.py``)."""
+    take = getattr(active_mode(), "take_function", None)
+    if take is not None:
+        return take(fn, args)
     if _lazy.recording() and any(isinstance(a, torch.Tensor) for a in args):
         return _lazy.record_function(fn, args)
     if not _taping() or not any(isinstance(a, Tensor) for a in args):
@@ -231,6 +247,8 @@ class Tensor(torch.Tensor):
         data = _leaf_data(array, dtype, device)
         if isinstance(data, _lazy.LazyTensor):  # a leaf holds values: a pending one runs now
             data = data.force()
+        if cls is Tensor and device is not None and _native(device):
+            cls = NativeTensor
         t = torch.Tensor._make_subclass(cls, data, rg)
         if name is not None:
             t.name = name
@@ -420,7 +438,7 @@ class Tensor(torch.Tensor):
             dev = Device(args[0])
             with _Disable():
                 here, rg = self.device, self.requires_grad
-            if dev == here:
+            if dev == here and _native(dev) == isinstance(self, NativeTensor):
                 return self
             return Tensor(self, device=dev, requires_grad=rg)
         return torch.Tensor.to(self, *args, **kwargs)
@@ -493,6 +511,50 @@ for _name in ("__iadd__", "__isub__", "__imul__", "__itruediv__"):
 for _name, _fn in (("__lt__", torch.lt), ("__le__", torch.le), ("__gt__", torch.gt),
                    ("__ge__", torch.ge), ("eq", torch.eq), ("ne", torch.ne)):
     setattr(Tensor, _name, _comparison(_name, _fn))
+
+
+def _native(device) -> bool:
+    """True for the ``cpu_native`` device, by name or registry device."""
+    if isinstance(device, str):
+        return device.strip().lower() == "cpu_native"
+    return getattr(device, "name", None) == "cpu_native"
+
+
+class NativeTensor(Tensor):
+    """A tape Tensor on the ``cpu_native`` device: a CPU tensor whose ops
+    run on the C++ kernel library where ``backend.native_kernels.route``
+    takes them (each an autograd Function), and on the tape as a ``cpu``
+    Tensor's otherwise.  Its fresh results are NativeTensors too.  The
+    ``cpu`` and ``cuda`` Tensors never reach this class's
+    ``__torch_function__``: the device costs them nothing."""
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        if kwargs is None:
+            kwargs = {}
+        with _Disable():
+            run = _native_kernels.route(func, args, kwargs)
+        if run is None:
+            ret = super().__torch_function__(func, types, args, kwargs)
+        else:
+            with _Disable():
+                if _autograd._grad_enabled:
+                    ret = run()
+                else:
+                    with torch.no_grad():
+                        ret = run()
+            ret = _tape(ret, args, kwargs)
+        return _as_native(ret, args, kwargs)
+
+
+def _as_native(ret, args, kwargs):
+    if type(ret) is Tensor and not _is_arg(ret, args, kwargs):
+        ret.__class__ = NativeTensor
+    elif isinstance(ret, (tuple, list)) and any(type(r) is Tensor for r in ret):
+        for r in ret:
+            if type(r) is Tensor and not _is_arg(r, args, kwargs):
+                r.__class__ = NativeTensor
+    return ret
 
 
 def _is_device(arg) -> bool:

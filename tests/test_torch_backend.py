@@ -2,8 +2,8 @@
 package's: ``BackendTensor`` on the CPU beside the JAX package's on its
 ``cpu`` device (the cases of tests/test_ndarray.py), the kernel module
 ``torch_kernels`` (the cases of tests/test_tpu_backend.py), the device
-registry, ``DEEPFLOWS_BACKEND`` and the devices that raise here: the card
-without one, and ``cpu_native``, which is not ported.
+registry, ``DEEPFLOWS_BACKEND``, the card raising without one, and
+``cpu_native`` as a CPU device over the C++ kernel library.
 
 Values agree within 1e-6 relative (exactly where both compute the same
 f32 operation).
@@ -15,7 +15,7 @@ import torch
 
 from deepflows_tpu import backend as jbackend
 from deepflows_tpu_torch import backend as backend_api
-from deepflows_tpu_torch.backend import BackendTensor, Device
+from deepflows_tpu_torch.backend import BackendDevice, BackendTensor, Device
 from deepflows_tpu_torch.backend import device as devmod
 from deepflows_tpu_torch.backend import torch_kernels as K
 
@@ -315,10 +315,17 @@ def test_card_names_raise_without_a_card(name):
 
 
 def test_cpu_native_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        Device("cpu_native")
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        devmod.cpu_native()
+    """The name predates the port of ``cpu_native``: ``Device('cpu_native')``
+    is now a CPU ``BackendDevice`` bound to ``native_kernels``, one
+    singleton, distinct from ``cpu`` (tests/test_torch_native.py holds its
+    kernels against the JAX package's)."""
+    from deepflows_tpu_torch.backend import native_kernels
+
+    d = Device("cpu_native")
+    assert isinstance(d, BackendDevice) and d is devmod.cpu_native()
+    assert d.name == "cpu_native" and d.torch_device == torch.device("cpu")
+    assert d.kernels is native_kernels and d.fill is not None
+    assert d != devmod.cpu() and devmod.cpu().kernels is not native_kernels
 
 
 def test_entry_points_take_either_kind_of_device():

@@ -1,10 +1,10 @@
 """The port's import rule: deepflows_tpu_torch, chip_smoke.py,
-tools/pipeline_check.py and the tests' rank scripts import torch and never
-jax nor anything of the JAX package deepflows_tpu — the
-card's machine has no JAX at all.  Nor has it transformers, safetensors,
-PIL, matplotlib, torchvision or grpc: the port imports those only inside
-the functions that need them, and every module imports with them
-blocked."""
+tools/pipeline_check.py, tools/onnx_check.py and the tests' rank scripts
+import torch and never jax nor anything of the JAX package deepflows_tpu —
+the card's machine has no JAX at all.  Nor has it transformers,
+safetensors, PIL, matplotlib, torchvision, scikit-learn or psutil: the
+port imports those (and grpc) only inside the functions that need them,
+and every module imports with them blocked."""
 
 import ast
 import os
@@ -19,7 +19,7 @@ PORT = ROOT / "deepflows_tpu_torch"
 # the port, the card's script and tool, and the rank scripts of the port's
 # multi-process tests (processes that must run without JAX)
 FILES = sorted(PORT.rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "pipeline_check.py",
+    ROOT / "chip_smoke.py", ROOT / "tools" / "pipeline_check.py", ROOT / "tools" / "onnx_check.py",
     ROOT / "tests" / "torch_parallel_ranks.py", ROOT / "tests" / "torch_pipeline_ranks.py"]
 
 
@@ -73,10 +73,11 @@ def test_importing_every_module_loads_no_jax():
     assert out.stdout.startswith("ok")
 
 
-# packages the card's machine lacks: imported only inside the functions
-# that use them
+# packages the card's machine lacks (and grpc): imported only inside the
+# functions that use them, or not at all (sklearn: the viz server reads its
+# own copy of the digits data; psutil: no resources messages without it)
 OPTIONAL = ("transformers", "safetensors", "PIL", "matplotlib", "matplotlib_inline",
-            "torchvision", "grpc")
+            "torchvision", "grpc", "sklearn", "psutil")
 
 
 def _module_level_imports(tree):

@@ -219,15 +219,15 @@ def test_jax_client_calls_the_port_server(lms):
 
 def test_refusals(lms):
     """Generate on a model that is neither an LM nor a seq2seq model fails
-    the call (its error names the model); serving an ONNX file raises,
-    naming the ROADMAP item it waits for; a checkpoint without a model
-    name, and no model, raise."""
+    the call (its error names the model); an ONNX file that is not there
+    raises FileNotFoundError (tests/test_torch_onnx.py serves one that
+    is); a checkpoint without a model name, and no model, raise."""
     model = nn.Sequential(nn.Linear(8, 3, device="cpu"))
     with _Served(model) as s:
         with pytest.raises(grpc.RpcError, match="Sequential"):
             s.client.generate(np.array([[1, 2]]), 3)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        MyDLPWServicer("127.0.0.1:0", root_dir=".", model_file="m.onnx")
+    with pytest.raises(FileNotFoundError):
+        MyDLPWServicer("127.0.0.1:0", root_dir=".", model_file="absent.onnx", device="cpu")
     with pytest.raises(ValueError, match="model_name"):
         MyDLPWServicer("127.0.0.1:0", root_dir=".", model_file="m.pkl")
     with pytest.raises(ValueError, match="model"):
