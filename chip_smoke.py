@@ -72,7 +72,10 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
    views TMA cannot read, f32; with the window of 1, dq and dk are exactly
    0 and are held by absolute error against TOL x max |dout| x max |q or
    k|); CE: N
-   and V not tile multiples, an f32 bias beside bf16 x and w; Adam: sizes
+   and V not tile multiples (V no multiple of 8 too: w staged into padded
+   rows), an f32 bias beside bf16 x and w, each case held to the forward
+   route it must take (wgmma in bf16 at D a multiple of 8, mma.sync at D
+   257); Adam: sizes
    that are not a block multiple, weight decay 0 and not), and the slice's
    bf16 flash case again on (B, L, H, D) tensors seen as (B, H, L, D), as
    MultiheadAttention passes them.  Tolerances: flash's out, dq, dk and dv
@@ -98,10 +101,11 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
    0.1.  Two bf16 CE backward calls and two bf16 flash forward calls at the
    slice's shape must give the same bits.  The bf16 CE forward besides,
    each case held to the route it must take (ops/fused_ce.py _fwd_route:
-   wgmma where TMA can read x and w, else mma) with loss and lse below
-   1e-4 of the twin: the slice (wgmma; two calls bitwise equal), N 8191
-   and 300, V 1000, 8200 and 8190 (mma), D 200 and 1000, an f32 bias, x
-   viewed 2 bytes off (mma), each with targets V - 1, V + 3 and -1 (the
+   wgmma where TMA can read x, w staged into 16-byte aligned rows at any V,
+   else mma) with loss and lse below 1e-4 of the twin: the slice (wgmma;
+   two calls bitwise equal), N 8191 and 300, V 1000, 8200 and 8190 (now
+   wgmma), D 200, 1000 and 1001 (mma), an f32 bias, x viewed 2 bytes off
+   at V 8192 and 8190 (mma), each with targets V - 1, V + 3 and -1 (the
    last two must cost exactly lse); and one planted fault it must flag: w
    and b cut to their first V - 128 columns, every 7th target moved into
    the cut tile.
@@ -441,10 +445,11 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
    layers and heads, vocab 50257, n_positions 1024) converted and trained
    3 bf16 steps at B 8 x L 1024 with LMHeadCrossEntropy (Adam lr 6e-4,
    fused): 12 flash launches each way at D 64, the CE forward on its
-   mma.sync route (V 50257 is no multiple of 8), flash on wgmma both
-   ways.  Then each of the path's kernels against its plain twins at the
-   path's shapes, timed beside its bound, plain twin and library call: the
-   CE at (N 8192, D 768, V 50257) with ce_case's tolerances, flash causal
+   wgmma route (w staged once a step into rows padded to 50264, since V
+   50257 is no multiple of 8), flash on wgmma both ways.  Then each of
+   the path's kernels against its plain twins at the path's shapes,
+   timed beside its bound, plain twin and library call: the CE at (N
+   8192, D 768, V 50257) with ce_case's tolerances, flash causal
    at (8, 12, 1024, 64) as (B, L, H, D) views with flash_case's, and
    fused_adam over GPT-2's 198 parameter tensors (adam_list_check).
    Seconds of each of 37-40.
@@ -1366,9 +1371,11 @@ ADAM_RAGGED = (1, 3, 4095, 4096, 4097, 10000, 12345)
 CE_FWD_CASES = ((8191, 1024, 8192, "bf16", "contiguous", "wgmma"),
                 (300, 1024, 1000, "bf16", "contiguous", "wgmma"),
                 (300, 200, 8200, "bf16", "contiguous", "wgmma"),
-                (8191, 1000, 8190, "bf16", "contiguous", "mma"),
+                (8191, 1000, 8190, "bf16", "contiguous", "wgmma"),
                 (300, 1000, 1000, "f32", "contiguous", "wgmma"),
-                (300, 1024, 8192, "bf16", "offset", "mma"))
+                (300, 1024, 8192, "bf16", "offset", "mma"),
+                (8191, 1000, 8190, "bf16", "offset", "mma"),
+                (300, 1001, 1001, "bf16", "contiguous", "mma"))
 TOL = {"f32": 1e-4, "bf16": 2e-2}  # see scaled_err and row_err
 FAULT_SHIFT = 0.1  # added to lse in the planted backward fault
 # |card change - CPU change| / |CPU change| of the worst parameter after 3 f32 steps
@@ -1575,6 +1582,19 @@ def ce_case(torch, ops, g, N, D, V, dt, bdt, label):
     return (x, w, b, t, lse, gr), want, errs
 
 
+def ce_routed(torch, ops, g, case, dt, label):
+    """ce_case at (N, D, V) = case, held to the forward route _fwd_route
+    gives it: f32, or in bf16 wgmma at D a multiple of 8 (any V: w is
+    staged) and mma.sync otherwise (D 257 of CE_D_EDGES).  Returns its
+    errors."""
+    (_, _, errs), route = routes_taken(
+        ops.fused_linear_ce_fwd, lambda: ce_case(torch, ops, g, *case, dt, dt, label))
+    want = "f32" if dt == torch.float32 else "mma" if case[1] % 8 else "wgmma"
+    if route != [want]:
+        fail(f"fused_linear_ce {label}: the forward took {route}, not {want}")
+    return errs
+
+
 def ce_planted_faults(ops, operands, want):
     """Shows that the bf16 check of the slice case catches two faults of the
     backward: dx of a run on the first V - 64 columns of w and b (one
@@ -1716,7 +1736,7 @@ def train_kernel_phase(torch, ops, report):
                        want_bwd_route=route)
         ce_edges = [c for c in CE_D_EDGES if c[1] <= ops.fused_ce.MAX_DIM[dt]]
         report[f"ce_cases_{name}"] = {
-            str(c): ce_case(torch, ops, g, *c, dt, dt, f"{c} {name}")[2]
+            str(c): ce_routed(torch, ops, g, c, dt, f"{c} {name}")
             for c in CE_RAGGED + tuple(ce_edges)}
     for *case, layout in FLASH_MISALIGNED:
         flash_case(torch, ops, g, *case, torch.bfloat16, f"{tuple(case)} bf16 {layout}", layout,
@@ -5814,9 +5834,10 @@ def gpt2_phase(torch, dt, report, card):
     trained GPT2_STEPS bf16 steps at B 8 x L 1024 with LMHeadCrossEntropy.
     Each of its kernels is then held against its plain twin at the shapes
     the path gives it and timed beside its bound, plain twin and library
-    call: the CE at V 50257 on its mma route (ce_case's tolerances), flash
-    causal at (8, 12, 1024, 64) as (B, L, H, D) views on wgmma both ways
-    (flash_case's), fused_adam over GPT-2's parameter list (adam_list_check).
+    call: the CE at V 50257 on its wgmma route (w staged into padded rows;
+    ce_case's tolerances), flash causal at (8, 12, 1024, 64) as (B, L, H,
+    D) views on wgmma both ways (flash_case's), fused_adam over GPT-2's
+    parameter list (adam_list_check).
     Returns (launch counts, {kernel: numbers})."""
     import numpy as np
     import torch.nn.functional as F
@@ -5843,8 +5864,8 @@ def gpt2_phase(torch, dt, report, card):
     print(f"main-path launches (gpt2_training): {counts}")
     routes = {f.__name__: {k: f.routes[k] - b[k] for k in f.routes if f.routes[k] - b[k]}
               for f, b in zip(routed, before)}
-    if routes["fused_linear_ce_fwd"] != {"mma": GPT2_STEPS}:
-        fail(f"the GPT-2 CE forward took {routes['fused_linear_ce_fwd']}, not mma")
+    if routes["fused_linear_ce_fwd"] != {"wgmma": GPT2_STEPS}:
+        fail(f"the GPT-2 CE forward took {routes['fused_linear_ce_fwd']}, not wgmma")
     for name in ("flash_attention_fwd", "flash_attention_bwd"):
         if set(routes[name]) != {"wgmma"}:
             fail(f"GPT-2's {name} took {routes[name]}, not wgmma alone")
@@ -5861,8 +5882,8 @@ def gpt2_phase(torch, dt, report, card):
     (ce_ops, want, errs), route = routes_taken(
         ops.fused_linear_ce_fwd,
         lambda: ce_case(torch, ops, g, N, D, V, torch.bfloat16, torch.bfloat16, "GPT-2 head"))
-    if route != ["mma"]:
-        fail(f"the GPT-2 CE case took {route}, not mma")
+    if route != ["wgmma"]:
+        fail(f"the GPT-2 CE case took {route}, not wgmma")
     cx, cw, cb, ct, clse, cgr = ce_ops
     xr, wr, br = (a.detach().requires_grad_() for a in (cx, cw, cb))
     tl = torch.where((ct >= 0) & (ct < V), ct, -100)
@@ -5880,15 +5901,19 @@ def gpt2_phase(torch, dt, report, card):
         flush_buf.zero_()
 
     ce_at, fl_at = f"N {N}, D {D}, V {V}, bf16", f"({GPT2_B}, {H}, {L}, {D // H}) causal, bf16"
-    runs = {  # (plain twin, library call, the wrapper's arguments, route, at, max abs err)
+    # (plain twin, library call, the wrapper's arguments, route, at, max abs
+    # err); the CE forward is timed with its staging copy of w, the backward
+    # on that copy, as fused_linear_ce runs them
+    runs = {
         "fused_linear_ce_fwd": (
             lambda: ops.fused_linear_ce_plain(cx, cw, cb, ct),
             lambda: F.cross_entropy((torch.matmul(cx, cw) + cb).float(), tl, reduction="none"),
-            (cx, cw, cb, ct), "mma", ce_at, max(errs[n][1] for n in ("loss", "lse"))),
+            (cx, cw, cb, ct), "wgmma", ce_at, max(errs[n][1] for n in ("loss", "lse"))),
         "fused_linear_ce_bwd": (
             lambda: ops.fused_linear_ce_bwd_plain(cx, cw, cb, ct, clse, cgr),
             lambda: torch.autograd.grad(lib_loss, (xr, wr, br), cgr, retain_graph=True),
-            (cx, cw, cb, ct, clse, cgr), "mma", ce_at, max(errs[n][1] for n in ("dx", "dw", "db"))),
+            (cx, ops.fused_ce._staged(cw), cb, ct, clse, cgr), "mma", ce_at,
+            max(errs[n][1] for n in ("dx", "dw", "db"))),
         "flash_attention_fwd": (
             lambda: ops.flash_attention_plain(q, k, v, True),
             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
@@ -8200,7 +8225,7 @@ def main(argv=None) -> int:
         if k["name"] == "fused_adam":  # at the seq2seq model's parameter list
             k["seq2seq"] = {n: s2adam[n] for n in ("ms", "bound_ms", "plain_ms", "library_ms",
                                                    "elements", "tensors", "max_abs_err")}
-        if k["name"] in gpt2k:  # at GPT-2's shapes: the CE at V 50257 on mma, flash at D 64
+        if k["name"] in gpt2k:  # at GPT-2's shapes: the CE at V 50257 on wgmma, flash at D 64
             k["gpt2"] = gpt2k[k["name"]]
             k["max_abs_err"] = max(k["max_abs_err"], k["gpt2"]["max_abs_err"])
         if k["name"] == "matmul":  # the raw-tape MLP's 8 products a step, summed

@@ -24,7 +24,11 @@
 //
 // The bf16 forward has two kernels (the route is ops/fused_ce.py
 // _fwd_route's, the vocab split _fwd_plan's; a call never falls back).
-// Where TMA can read x and w (D and V multiples of 8, 16-byte aligned
+// w's rows are ldw >= V elements apart: the wrapper copies a bf16 w whose
+// rows do not start 16-byte aligned (GPT-2's V 50257) into a buffer whose
+// rows are padded to a multiple of 8, once a step, so that TMA and the
+// 16-byte cp.async copies can read it; no kernel reads a column past V.
+// Where TMA can read x and w (D and ldw multiples of 8, 16-byte aligned
 // bases) it runs ce_fwd_wgmma (namespace wgf): a producer warp loads x's
 // (128, 64) box and w's (64, 256) slice into a 4-stage mbarrier ring, and
 // two consumer warpgroups of 64 rows run wgmma m64n128k16 from shared
@@ -34,8 +38,8 @@
 // split's vocab tiles of 256; the online max, sum-exp and target logit
 // run on the accumulators, the first 128 columns' while the last 128
 // columns' final products run.  The splits bring the grid to one block an
-// SM.  Every other bf16 call (D or V not a multiple of 8, a misaligned
-// base) runs ce_fwd_tc: mma.sync m16n8k16 fed by ldmatrix (mma_bf16.cuh),
+// SM.  Every other bf16 call (D not a multiple of 8, x's base misaligned)
+// runs ce_fwd_tc: mma.sync m16n8k16 fed by ldmatrix (mma_bf16.cuh),
 // a block of 8 warps owning 128 rows (16 a warp) and a split's vocab
 // columns; (x, w) chunks of 32 along D stream through a cp.async double
 // buffer, and each row's max, sum-exp and target logit run online over
@@ -127,7 +131,7 @@ struct Args {  // the f32 kernels' operands; b may be bf16
   float* lse_out;
   float *dx, *dw;
   TB* db;
-  int N, D, V;
+  int N, D, V, ldw;  // ldw: w's row stride (>= V)
 };
 
 template <typename TB>
@@ -159,7 +163,7 @@ __global__ void __launch_bounds__(THREADS) ce_fwd_f32(const __grid_constant__ Ar
       }
       for (int e = tid; e < FBD * FBV; e += THREADS) {
         const int r = e / FBV, c = e % FBV;
-        ws[r][c] = (d0 + r < D && v0 + c < V) ? to_f(a.w[(long long)(d0 + r) * V + v0 + c]) : 0.f;
+        ws[r][c] = (d0 + r < D && v0 + c < V) ? to_f(a.w[(long long)(d0 + r) * a.ldw + v0 + c]) : 0.f;
       }
       __syncthreads();
 #pragma unroll 8
@@ -233,12 +237,13 @@ __device__ __forceinline__ void logits_tile(const float* x, int N, int D, int n0
   __syncthreads();
 }
 
-// ws[d][c] = w[d][v0 + c] for d < DW (zero past D and V)
+// ws[d][c] = w[d][v0 + c] for d < DW (zero past D and V; w's rows ldw apart)
 template <int DW>
-__device__ __forceinline__ void stage_w(const float* w, int D, int V, int v0, float* ws) {
+__device__ __forceinline__ void stage_w(const float* w, int D, int V, int ldw, int v0,
+                                        float* ws) {
   for (int e = threadIdx.x; e < DW * T32; e += THREADS) {
     const int r = e / T32, c = e % T32;
-    ws[r * LD32 + c] = (r < D && v0 + c < V) ? to_f(w[(long long)r * V + v0 + c]) : 0.f;
+    ws[r * LD32 + c] = (r < D && v0 + c < V) ? to_f(w[(long long)r * ldw + v0 + c]) : 0.f;
   }
 }
 
@@ -265,7 +270,7 @@ __device__ __forceinline__ void dx_block(const Args<TB>& a, int n0, float* smem)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
   for (int v0 = 0; v0 < a.V; v0 += T32) {
-    stage_w<DW>(a.w, a.D, a.V, v0, ws);  // the previous tile ended synchronised
+    stage_w<DW>(a.w, a.D, a.V, a.ldw, v0, ws);  // the previous tile ended synchronised
     float lg[4];
     logits_tile(a.x, a.N, a.D, n0, ws, xs, lg);
 #pragma unroll
@@ -313,7 +318,7 @@ __device__ __forceinline__ void dw_block(const Args<TB>& a, int v0, float* smem)
   for (int i = 0; i < NI; ++i)
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0.f;
-  stage_w<DW>(a.w, a.D, a.V, v0, ws);
+  stage_w<DW>(a.w, a.D, a.V, a.ldw, v0, ws);
   for (int n0 = 0; n0 < a.N; n0 += T32) {
     float lg[4];
     logits_tile(a.x, a.N, a.D, n0, ws, xs, lg);
@@ -411,7 +416,7 @@ struct Args {
   float *loss, *lse_out;  // outputs
   float* part;           // (m, l, target logit) per vocab split and row
   int* count;            // finished splits per row block, zeroed by the caller
-  int N, D, V, splits, vchunk, xvec, wvec;
+  int N, D, V, ldw, splits, vchunk, xvec;  // ldw: w's row stride (>= V)
 };
 
 // Forward: block (rb, sp) owns rows rb * 128 .. + 127 (16 a warp) and the
@@ -432,7 +437,7 @@ __global__ void __launch_bounds__(TH) ce_fwd_tc(const __grid_constant__ Args<TB>
     bf16* xs = buf + into * STAGE;
     const int v0 = vbeg + (i / nd) * FV, d0 = (i % nd) * FD;
     stage_tile<FM, FD, TH>(xs, FXL, a.x, a.D, n0, d0, a.N, a.D, a.xvec);
-    stage_tile<FD, FV, TH>(xs + FM * FXL, FWL, a.w, a.V, d0, v0, a.D, vend, a.wvec);
+    stage_tile<FD, FV, TH>(xs + FM * FXL, FWL, a.w, a.ldw, d0, v0, a.D, vend, 1);
   };
   int tgt[2];
   float m[2] = {NEG_INF, NEG_INF}, lsum[2] = {0.f, 0.f}, st[2] = {0.f, 0.f};
@@ -757,7 +762,11 @@ __global__ void __launch_bounds__(THREADS, 1) ce_fwd_wgmma(const __grid_constant
 // The bf16 backward: one launch of clusters of C = ceil(D / 256) blocks,
 // block r of a cluster owning D columns [256 r, 256 r + 256).  dx clusters
 // own BM rows, dw clusters BV vocab columns (the wrapper's plan,
-// ops/fused_ce.py _bwd_plan).
+// ops/fused_ce.py _bwd_plan).  w is read with its rows ldw apart (the
+// forward's staged copy where its rows were not 16-byte aligned, so its
+// slices come by 16-byte cp.async); dw is written contiguous, rows V
+// apart, by the same bf16 element stores at any V, so an unaligned V
+// costs no padded dw and no copy back.
 namespace bwd {
 
 using namespace dft::mma;
@@ -776,7 +785,7 @@ struct Args {
   const float *lse, *g;
   bf16 *dx, *dw;
   void* db;
-  int N, D, V, b_bf16, xvec, wvec;
+  int N, D, V, ldw, b_bf16, xvec;  // ldw: w's row stride (>= V); dw's is V
 };
 
 // Copy j (of 8 a thread) of staging a (ROWS, COLS) bf16 tile: what
@@ -1020,8 +1029,8 @@ __device__ __forceinline__ void dx_role(const Args& a, int n0, int rank, int C,
   uint32_t next_bias = tid < STEP && tid < a.V ? bias_bits(a, tid) : 0u;
   // copy j of the ring's slice for step i (8 a thread)
   auto fetch = [&](int i, int j) {
-    stage_part<DS, STEP>(ws + (i % STAGES) * DS * WL, WL, a.w, a.V, d0, i * STEP, a.D, a.V,
-                         a.wvec, j);
+    stage_part<DS, STEP>(ws + (i % STAGES) * DS * WL, WL, a.w, a.ldw, d0, i * STEP, a.D, a.V,
+                         1, j);
   };
   stage_tile<BM, DS, TH>(xs, XL, a.x, a.D, n0, d0, a.N, a.D, a.xvec);
   for (int j = 0; j < 8; ++j) fetch(0, j);
@@ -1103,7 +1112,7 @@ __device__ __forceinline__ void dw_role(const Args& a, int v0, int rank, int C,
     stage_part<STEP, DS>(xr + (i % STAGES) * STEP * XL, XL, a.x, a.D, i * STEP, d0, a.N, a.D,
                          a.xvec, j);
   };
-  stage_tile<DS, BV, TH>(wres, WL, a.w, a.V, d0, v0, a.D, a.V, a.wvec);
+  stage_tile<DS, BV, TH>(wres, WL, a.w, a.ldw, d0, v0, a.D, a.V, 1);
   for (int j = 0; j < 8; ++j) fetch(0, j);
   cp_async_commit();
   for (int j = 0; j < 8 && nr > 1; ++j) fetch(1, j);
@@ -1290,7 +1299,9 @@ cudaError_t fwd_wgmma(const tc::Args<TB>& t, int splits, int per, cudaStream_t s
   a.count = t.count;
   a.N = t.N, a.D = t.D, a.V = t.V, a.splits = splits, a.per = per;
   const long long xd[4] = {t.D, t.N, 1, 1}, xs[3] = {2ll * t.D, 2ll * t.D * t.N, 2ll * t.D * t.N};
-  const long long wd[4] = {t.V, t.D, 1, 1}, ws[3] = {2ll * t.V, 2ll * t.V * t.D, 2ll * t.V * t.D};
+  // w: extent V, rows ldw apart; TMA fills the columns past V with zeros
+  const long long wd[4] = {t.V, t.D, 1, 1},
+                  ws[3] = {2ll * t.ldw, 2ll * t.ldw * t.D, 2ll * t.ldw * t.D};
   if (!dft::hopper::encode_bf16_4d(&a.maps.x, t.x, xd, xs, wgf::BM) ||
       !dft::hopper::encode_bf16_4d(&a.maps.w, t.w, wd, ws, wgf::BD))
     return cudaErrorInvalidValue;
@@ -1306,7 +1317,7 @@ cudaError_t fwd_bf16(const tc::Args<TB>& a, int route, int splits, int per, cuda
   if (splits < 1 || splits > most || per < 1 || splits != (nvt + per - 1) / per)
     return cudaErrorInvalidValue;
   if (route == 2) {  // TMA reads rows of 16-byte multiples from 16-byte aligned bases
-    if (a.D % 8 || a.V % 8 || reinterpret_cast<uintptr_t>(a.x) % 16 ||
+    if (a.D % 8 || a.ldw % 8 || reinterpret_cast<uintptr_t>(a.x) % 16 ||
         reinterpret_cast<uintptr_t>(a.w) % 16)
       return cudaErrorInvalidValue;
     return fwd_wgmma(a, splits, per, st);
@@ -1317,75 +1328,89 @@ cudaError_t fwd_bf16(const tc::Args<TB>& a, int route, int splits, int per, cuda
 template <typename TB>
 Args<TB> f32_args(const void* x, const void* w, const void* b, const int* t,
                   const float* lse, const float* g, float* loss, float* lse_out, void* dx,
-                  void* dw, void* db, int N, int D, int V) {
+                  void* dw, void* db, int N, int D, int V, int ldw) {
   return Args<TB>{static_cast<const float*>(x), static_cast<const float*>(w),
                          static_cast<const TB*>(b), t, lse, g, loss, lse_out,
                          static_cast<float*>(dx), static_cast<float*>(dw), static_cast<TB*>(db),
-                         N, D, V};
+                         N, D, V, ldw};
 }
 
 template <typename TB>
 tc::Args<TB> bf16_args(const void* x, const void* w, const void* b, const int* t,
                        float* loss, float* lse_out, float* part, int* count, int N, int D,
-                       int V, int xvec, int wvec) {
+                       int V, int ldw, int xvec) {
   using BF = __nv_bfloat16;
   return tc::Args<TB>{static_cast<const BF*>(x), static_cast<const BF*>(w),
                       static_cast<const TB*>(b), t, loss, lse_out, part, count,
-                      N, D, V, 1, 0, xvec, wvec};
+                      N, D, V, ldw, 1, 0, xvec};
+}
+
+// bf16 w's rows must start 16-byte aligned: an ldw that is a multiple of 8
+// and an aligned base (the bf16 kernels copy w 16 bytes at a time).
+bool bf16_rows_aligned(const void* w, int ldw) {
+  return ldw % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
 }
 
 }  // namespace
 
-// route (ops/fused_ce.py _fwd_route): 0 f32 x and w (the CUDA cores), 1
-// bf16 on mma.sync, 2 bf16 on wgmma fed by TMA; b_bf16: b is bf16, else
-// f32.  xvec / wvec: the rows of x / w start 16-byte aligned (the mma.sync
+// x is (N, D) contiguous; w is (D, V) with rows ldw >= V elements apart,
+// which in bf16 start 16-byte aligned (ops/fused_ce.py _staged pads a bf16
+// w's rows to a multiple of 8 where they do not).  route (ops/fused_ce.py
+// _fwd_route): 0 f32 x and w (the CUDA cores), 1 bf16 on mma.sync, 2 bf16
+// on wgmma fed by TMA (D a multiple of 8, x's base aligned); b_bf16: b is
+// bf16, else f32.  xvec: the rows of x start 16-byte aligned (the mma.sync
 // kernel's 16-byte copies).  (splits, per): the bf16 kernels' vocab splits
 // and the tiles a split (ops/fused_ce.py _fwd_plan); the f32 kernel takes
 // (1, 1).  part (3 * 16 * N floats) and count (ceil(N / 128) ints, zero)
 // are the bf16 kernels' scratch.  Returns the launch's cudaError_t (any
-// other route or plan is refused with cudaErrorInvalidValue); the caller
-// raises if it is not 0.
+// other route, plan or w is refused with cudaErrorInvalidValue); the
+// caller raises if it is not 0.
 extern "C" int dft_flce_fwd(const void* x, const void* w, const void* b, const int* t,
                             float* loss, float* lse, float* part, int* count, int N, int D,
-                            int V, int route, int b_bf16, int xvec, int wvec, int splits, int per,
+                            int V, int ldw, int route, int b_bf16, int xvec, int splits, int per,
                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using BF = __nv_bfloat16;
-  if (N < 1 || D < 1 || V < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (N < 1 || D < 1 || V < 1 || ldw < V) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
-  if (route == 1 || route == 2)
-    e = b_bf16 ? fwd_bf16(bf16_args<BF>(x, w, b, t, loss, lse, part, count, N, D, V, xvec, wvec),
+  if ((route == 1 || route == 2) && !bf16_rows_aligned(w, ldw))
+    e = cudaErrorInvalidValue;
+  else if (route == 1 || route == 2)
+    e = b_bf16 ? fwd_bf16(bf16_args<BF>(x, w, b, t, loss, lse, part, count, N, D, V, ldw, xvec),
                           route, splits, per, s)
-               : fwd_bf16(bf16_args<float>(x, w, b, t, loss, lse, part, count, N, D, V, xvec,
-                                           wvec), route, splits, per, s);
+               : fwd_bf16(bf16_args<float>(x, w, b, t, loss, lse, part, count, N, D, V, ldw,
+                                           xvec), route, splits, per, s);
   else if (route != 0 || splits != 1 || per != 1)
     e = cudaErrorInvalidValue;
   else
-    e = b_bf16 ? fwd_f32(f32_args<BF>(x, w, b, t, 0, 0, loss, lse, 0, 0, 0, N, D, V), s)
-               : fwd_f32(f32_args<float>(x, w, b, t, 0, 0, loss, lse, 0, 0, 0, N, D, V), s);
+    e = b_bf16 ? fwd_f32(f32_args<BF>(x, w, b, t, 0, 0, loss, lse, 0, 0, 0, N, D, V, ldw), s)
+               : fwd_f32(f32_args<float>(x, w, b, t, 0, 0, loss, lse, 0, 0, 0, N, D, V, ldw), s);
   return static_cast<int>(e);
 }
 
-// dx, dw and db come out in x's, w's and b's dtypes.  bf16 x and w take
+// x and w as the forward takes them; dx, dw and db come out contiguous in
+// x's, w's and b's dtypes (dw (D, V), rows V apart).  bf16 x and w take
 // the plan (C, BM, BV) of ops/fused_ce.py _bwd_plan (D <= 4096); f32 x and
-// w take D <= 1024 and the plan (0, 0, 0).  Any other plan is refused with
-// cudaErrorInvalidValue.
+// w take D <= 1024 and the plan (0, 0, 0).  Any other plan or w is
+// refused with cudaErrorInvalidValue.
 extern "C" int dft_flce_bwd(const void* x, const void* w, const void* b, const int* t,
                             const float* lse, const float* g, void* dx, void* dw, void* db,
-                            int N, int D, int V, int x_bf16, int b_bf16, int xvec, int wvec,
+                            int N, int D, int V, int ldw, int x_bf16, int b_bf16, int xvec,
                             int C, int BM, int BV, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using BF = __nv_bfloat16;
   cudaError_t e;
-  if (x_bf16)
+  if (ldw < V || (x_bf16 && !bf16_rows_aligned(w, ldw)))
+    e = cudaErrorInvalidValue;
+  else if (x_bf16)
     e = bwd::run(bwd::Args{static_cast<const BF*>(x), static_cast<const BF*>(w), b, t, lse, g,
-                           static_cast<BF*>(dx), static_cast<BF*>(dw), db, N, D, V, b_bf16, xvec,
-                           wvec},
+                           static_cast<BF*>(dx), static_cast<BF*>(dw), db, N, D, V, ldw, b_bf16,
+                           xvec},
                  C, BM, BV, s);
   else if (C != 0 || BM != 0 || BV != 0 || D < 1 || D > 1024)
     e = cudaErrorInvalidValue;
   else
-    e = b_bf16 ? bwd_f32(f32_args<BF>(x, w, b, t, lse, g, 0, 0, dx, dw, db, N, D, V), s)
-               : bwd_f32(f32_args<float>(x, w, b, t, lse, g, 0, 0, dx, dw, db, N, D, V), s);
+    e = b_bf16 ? bwd_f32(f32_args<BF>(x, w, b, t, lse, g, 0, 0, dx, dw, db, N, D, V, ldw), s)
+               : bwd_f32(f32_args<float>(x, w, b, t, lse, g, 0, 0, dx, dw, db, N, D, V, ldw), s);
   return static_cast<int>(e);
 }

@@ -13,15 +13,23 @@ forward and backward.
   and its vocab split by ``_fwd_plan``; it counts its launches by route in
   ``fused_linear_ce_fwd.routes``.  The backward is one launch that writes
   dx, dw and db, for bf16 x and w as clusters that split D (``_bwd_plan``).
+  Both take w with its rows any ldw >= V elements apart; a bf16 w whose
+  rows do not start 16-byte aligned (V not a multiple of 8, as GPT-2's
+  50,257, or a misaligned base) is first copied by ``_staged`` into a
+  buffer whose rows are padded to a multiple of 8, so that TMA and the
+  16-byte copies can read it.  ``fused_linear_ce`` stages once a step and
+  keeps the copy for the backward.
 - ``fused_linear_ce_plain`` / ``fused_linear_ce_bwd_plain``: their plain
   PyTorch twins, which materialise the logits.
 
 x (N, D) and w (D, V) share a dtype, f32 or bf16; b (V,) is f32 or bf16;
-targets (N,) are integers.  loss_i = lse_i - logit_i,t_i with logits =
-x·w in f32 plus b; a target outside [0, V) matches no class, so its loss
-is lse.  Backward: dl = (softmax - onehot)·g, rounded to w's dtype before
-dx = dl·wᵀ and to x's before dw = xᵀ·dl; db sums the f32 dl.  dx, dw and
-db come out in x's, w's and b's dtypes.  The backward kernel takes D up to
+targets (N,) are integers; x, b and targets are contiguous and w is
+row-major (a contiguous w or a column slice of one).  loss_i = lse_i -
+logit_i,t_i with logits = x·w in f32 plus b; a target outside [0, V)
+matches no class, so its loss is lse.  Backward: dl = (softmax -
+onehot)·g, rounded to w's dtype before dx = dl·wᵀ and to x's before dw =
+xᵀ·dl; db sums the f32 dl.  dx, dw and db come out contiguous in x's,
+w's and b's dtypes.  The backward kernel takes D up to
 ``MAX_DIM[x.dtype]``: 4096 in bf16, 1024 in f32.
 
 On CPU tensors the wrappers call the plain twins; on CUDA tensors they
@@ -109,19 +117,39 @@ def fused_linear_ce_bwd_plain(x, w, b, targets, lse, g):
 def _check(x, w, b, targets):
     check("x", x, (None, None), FLOATS)
     n, d = x.shape
-    check("w", w, (d, None), (x.dtype,))
+    check("w", w, (d, None), (x.dtype,), contiguous=False)
     v = w.shape[1]
+    if w.stride(1) != 1 or w.stride(0) < v:
+        raise ValueError(f"w must be row-major (a contiguous tensor or a column slice of one), "
+                         f"not strides {w.stride()}")
     check("b", b, (v,), FLOATS)
     check("targets", targets, (n,), _INTS)
     return n, d, v
 
 
-def _flags(x, w, b):
-    """bf16 x and w, bf16 b, and whether the rows of x and of w start 16-byte
-    aligned (then the bf16 kernels stage them with 16-byte copies)."""
+def _staged(w):
+    """w where it is not a row-major bf16 w or its rows start 16-byte
+    aligned, else a (D, V) view of a copy whose rows are padded to
+    round_up(V, 8) elements (its pad is never read).  A plain copy, once a
+    step: it makes a w at GPT-2's V 50,257 readable by TMA (the wgmma
+    forward) and by the 16-byte cp.async copies (the mma.sync forward and
+    the backward).  A w that is not row-major is left to ``_check``."""
+    if (w.dtype != torch.bfloat16 or w.device.type == "meta" or w.dim() != 2
+            or w.stride(1) != 1 or (w.stride(0) % 8 == 0 and w.data_ptr() % 16 == 0)):
+        return w
     d, v = w.shape
+    buf = torch.empty((d, -(-v // 8) * 8), dtype=w.dtype, device=w.device)
+    view = buf[:, :v]
+    view.copy_(w.detach())
+    return view
+
+
+def _flags(x, b):
+    """bf16 x and w, bf16 b, and whether the rows of x start 16-byte aligned
+    (then the bf16 kernels stage them with 16-byte copies; a bf16 w's rows
+    always do, ``_staged`` sees to it)."""
     return (int(x.dtype == torch.bfloat16), int(b.dtype == torch.bfloat16),
-            int(d % 8 == 0 and x.data_ptr() % 16 == 0), int(v % 8 == 0 and w.data_ptr() % 16 == 0))
+            int(x.shape[1] % 8 == 0 and x.data_ptr() % 16 == 0))
 
 
 ROUTES = ("f32", "mma", "wgmma")  # the forward's kernels, by their code in the C entry
@@ -132,14 +160,13 @@ _FWD_ROWS, _FWD_TILE, _MAX_SPLITS = 128, {"mma": 128, "wgmma": 256}, 16
 
 def _fwd_route(x, w):
     """The forward kernel a call takes, from dtype, shape and alignment
-    alone: ``"wgmma"`` (fed by TMA) for bf16 x and w that TMA can read — D
-    and V multiples of 8 and both bases 16-byte aligned (x and w are
-    contiguous) — ``"mma"`` (mma.sync) for every other bf16 call, ``"f32"``
-    for f32."""
+    alone: ``"wgmma"`` (fed by TMA) for bf16 x that TMA can read — D a
+    multiple of 8 and x's base 16-byte aligned (x is contiguous; w is read
+    as ``_staged`` leaves it, its rows aligned at any V) — ``"mma"``
+    (mma.sync) for every other bf16 call, ``"f32"`` for f32."""
     if x.dtype != torch.bfloat16:
         return "f32"
-    d, v = w.shape
-    if d % 8 == 0 and v % 8 == 0 and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0:
+    if w.shape[0] % 8 == 0 and x.data_ptr() % 16 == 0:
         return "wgmma"
     return "mma"
 
@@ -188,6 +215,7 @@ def fused_linear_ce_fwd(x, w, b, targets):
     n, d, v = _check(x, w, b, targets)
     if not on_card(x, w, b, targets):
         return fused_linear_ce_plain(x, w, b, targets)
+    w = _staged(w)
     route = _fwd_route(x, w)
     t = targets.to(torch.int32)
     loss = torch.empty((n,), dtype=torch.float32, device=x.device)
@@ -200,11 +228,11 @@ def fused_linear_ce_fwd(x, w, b, targets):
         "fused_linear_ce", "dft_flce_fwd",
         (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
     )
-    _, b_bf16, xvec, wvec = _flags(x, w, b)
+    _, b_bf16, xvec = _flags(x, b)
     with on_device(x.device):
         rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), t.data_ptr(), loss.data_ptr(),
-                lse.data_ptr(), part.data_ptr(), count.data_ptr(), n, d, v, ROUTES.index(route),
-                b_bf16, xvec, wvec, *_fwd_plan(n, v, route), stream())
+                lse.data_ptr(), part.data_ptr(), count.data_ptr(), n, d, v, w.stride(0),
+                ROUTES.index(route), b_bf16, xvec, *_fwd_plan(n, v, route), stream())
     _build.check(rc, "fused_linear_ce_fwd")
     fused_linear_ce_fwd.launches += 1
     fused_linear_ce_fwd.routes[route] += 1
@@ -228,17 +256,19 @@ def fused_linear_ce_bwd(x, w, b, targets, lse, g):
         raise ValueError(f"fused_linear_ce_bwd takes D up to {MAX_DIM[x.dtype]} in {x.dtype}, "
                          f"got {d}")
     plan = _bwd_plan(n, d, v) if x.dtype == torch.bfloat16 else (0, 0, 0)
+    w = _staged(w)
     t = targets.to(torch.int32)
     g = g.to(torch.float32).contiguous()
-    dx, dw, db = torch.empty_like(x), torch.empty_like(w), torch.empty_like(b)
+    dx, db = torch.empty_like(x), torch.empty_like(b)
+    dw = torch.empty((d, v), dtype=w.dtype, device=w.device)  # rows V apart
     fn = _build.c_function(
         "fused_linear_ce", "dft_flce_bwd",
         (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P),
     )
     with on_device(x.device):
         rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), t.data_ptr(), lse.data_ptr(),
-                g.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(), n, d, v,
-                *_flags(x, w, b), *plan, stream())
+                g.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(), n, d, v, w.stride(0),
+                *_flags(x, b), *plan, stream())
     _build.check(rc, "fused_linear_ce_bwd")
     fused_linear_ce_bwd.launches += 1
     return dx, dw, db
@@ -250,6 +280,7 @@ fused_linear_ce_bwd.launches = 0
 class _FusedLinearCE(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, b, targets):
+        w = _staged(w)  # once a step: the backward reads the same copy
         loss, lse = fused_linear_ce_fwd(x, w, b, targets)
         ctx.save_for_backward(x, w, b, targets, lse)
         return loss

@@ -307,19 +307,23 @@ def _offset(a):
     return flat[1:].view(a.shape)
 
 
-# (x dtype, D, V, which base lies 2 bytes off, the route)
+# (x dtype, D, V, which base lies 2 bytes off, the route); a bf16 w whose
+# rows are not 16-byte aligned (V not a multiple of 8, or its base 2 bytes
+# off) is staged into padded rows, so it no longer decides the route
 FWD_ROUTES = [("bf16", 64, 96, None, "wgmma"), ("bf16", 1024, 8192, None, "wgmma"),
-              ("bf16", 60, 96, None, "mma"), ("bf16", 64, 90, None, "mma"),
-              ("bf16", 64, 8190, None, "mma"), ("bf16", 64, 96, "x", "mma"),
-              ("bf16", 64, 96, "w", "mma"), ("f32", 64, 96, None, "f32"),
-              ("f32", 60, 90, "x", "f32")]
+              ("bf16", 60, 96, None, "mma"), ("bf16", 64, 90, None, "wgmma"),
+              ("bf16", 64, 8190, None, "wgmma"), ("bf16", 768, 50257, None, "wgmma"),
+              ("bf16", 64, 96, "x", "mma"), ("bf16", 64, 90, "x", "mma"),
+              ("bf16", 60, 90, None, "mma"), ("bf16", 64, 96, "w", "wgmma"),
+              ("f32", 64, 96, None, "f32"), ("f32", 60, 90, "x", "f32")]
 
 
 @pytest.mark.parametrize("dt,d,v,off,route", FWD_ROUTES)
 def test_fwd_route_takes_wgmma_where_tma_can_read(dt, d, v, off, route):
-    """bf16 x and w that TMA can read (D and V multiples of 8, 16-byte aligned
-    bases) take the wgmma forward, every other bf16 call mma.sync, f32 the
-    CUDA cores."""
+    """bf16 x that TMA can read (D a multiple of 8, a 16-byte aligned base)
+    takes the wgmma forward at any V, w read as the wrapper's ``_staged``
+    leaves it (rows 16-byte aligned); every other bf16 call takes mma.sync,
+    f32 the CUDA cores."""
     dtype = torch.bfloat16 if dt == "bf16" else torch.float32
     x, w = torch.zeros(5, d, dtype=dtype), torch.zeros(d, v, dtype=dtype)
     if off == "x":
@@ -328,13 +332,20 @@ def test_fwd_route_takes_wgmma_where_tma_can_read(dt, d, v, off, route):
     if off == "w":
         w = _offset(w)
         assert w.data_ptr() % 16 == w.element_size() and w.is_contiguous()
-    assert fused_ce._fwd_route(x, w) == route
+    staged = fused_ce._staged(w)
+    assert staged.shape == w.shape and torch.equal(staged, w)
+    if dt == "bf16":  # what the kernels read: rows a multiple of 8 apart, aligned
+        assert staged.stride(0) % 8 == 0 and staged.data_ptr() % 16 == 0
+        assert (staged is w) == (v % 8 == 0 and off != "w")
+    else:
+        assert staged is w
+    assert fused_ce._fwd_route(x, staged) == route
 
 
 # (N, V): the slice, ragged N and V, a single row block, more tiles than
 # splits at a few row blocks, one tile
 FWD_PLAN_SHAPES = [(8192, 8192), (8191, 8190), (300, 1000), (300, 8200), (37, 513),
-                   (8192, 50000), (16384, 8192), (1, 1), (128, 257)]
+                   (8192, 50000), (8192, 50257), (16384, 8192), (1, 1), (128, 257)]
 
 
 @pytest.mark.parametrize("route", ["mma", "wgmma"])
@@ -362,6 +373,84 @@ def test_fwd_plan_covers_each_tile_once(n, v, route):
         assert -(-row_blocks * splits // 132) * per == cost
     if (n, v, route) == (8192, 8192, "wgmma"):  # the slice: 128 blocks of 16 tiles
         assert (splits, per) == (2, 16)
+
+
+@pytest.mark.parametrize("n,d,v", [(130, 64, 1001), (64, 32, 513)])
+def test_staged_w_at_an_odd_vocabulary(n, d, v):
+    """A bf16 w at a V that is no multiple of 8: ``_staged`` gives a (D, V)
+    view of a buffer with rows round_up(V, 8) apart, and the plain twins
+    over it give the bits they give over w.  Through ``fused_linear_ce``
+    (which stages once and keeps the copy for the backward) loss, lse, dx,
+    dw and db match the JAX kernel on the same bf16 inputs: loss and lse
+    at rtol / atol 1e-5 (both sum exact products of bf16 values in f32),
+    the gradients within 2e-2 of each one's largest value (the cluster
+    model's bound; both round dl to bf16).  dw reaches a bf16 parameter with
+    its shape (D, V), and an f32 master cast to bf16 gets it as an f32
+    gradient that fused Adam takes."""
+    x, w, b, t = _operands(n, d, v)
+    t[:3] = [v - 1, v + 3, -1]  # the last column; two targets that cost lse
+    tx, tw = (torch.from_numpy(a).to(torch.bfloat16) for a in (x, w))
+    tb, tt = torch.from_numpy(b), torch.from_numpy(t)
+    ws = fused_ce._staged(tw)
+    assert ws.shape == (d, v) and ws.stride() == (-(-v // 8) * 8, 1) and torch.equal(ws, tw)
+    assert ws.untyped_storage().nbytes() == d * -(-v // 8) * 8 * 2
+    fwd, fwd_s = ops.fused_linear_ce_fwd(tx, tw, tb, tt), ops.fused_linear_ce_fwd(tx, ws, tb, tt)
+    assert all(torch.equal(p, q) for p, q in zip(fwd, fwd_s))
+    g = torch.from_numpy(RNG.random(n).astype(np.float32)) / n
+    bwd = ops.fused_linear_ce_bwd(tx, tw, tb, tt, fwd[1], g)
+    bwd_s = ops.fused_linear_ce_bwd(tx, ws, tb, tt, fwd[1], g)
+    assert all(torch.equal(p, q) for p, q in zip(bwd, bwd_s))
+    assert bwd_s[1].shape == (d, v) and bwd_s[1].is_contiguous()
+
+    jx, jw = (jnp.asarray(a).astype(jnp.bfloat16) for a in (x, w))
+    jb, jt = jnp.asarray(b), jnp.asarray(t)
+    jt_in = jnp.where((jt >= 0) & (jt < v), jt, -1)  # JAX gives a target >= V 1e30
+    want_loss, want_lse = pk._flce_fwd_impl(jx, jw, jb, jt_in, 128, 512)
+    np.testing.assert_allclose(fwd[0].numpy(), np.asarray(want_loss), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(fwd[1].numpy(), np.asarray(want_lse), rtol=1e-5, atol=1e-5)
+    gj = jnp.asarray(g.numpy())
+    want = jax.grad(lambda *a: (pk.fused_linear_ce(*a, jt_in) * gj).sum(),
+                    argnums=(0, 1, 2))(jx, jw, jb)
+    px = tx.clone().requires_grad_()
+    pw = torch.nn.Parameter(tw.clone())
+    pb = tb.clone().requires_grad_()
+    loss = ops.fused_linear_ce(px, pw, pb, tt)
+    assert torch.equal(loss.detach(), fwd[0])
+    (loss * g).sum().backward()
+    assert pw.grad.shape == (d, v) and pw.grad.dtype == torch.bfloat16
+    for name, got, mine, ref in zip("xwb", (px.grad, pw.grad, pb.grad), bwd, want):
+        assert torch.equal(got, mine), f"d{name}: autograd and the twin differ"
+        ref = np.asarray(ref.astype(jnp.float32))
+        scale = np.abs(ref).max()
+        assert np.abs(got.float().numpy() - ref).max() <= 2e-2 * scale, f"d{name}"
+    # an f32 master cast to bf16, as CompiledTrainStep's compute_dtype does
+    master = torch.nn.Parameter(torch.from_numpy(w))
+    before = master.detach().clone()
+    opt = optim.Adam([master], lr=1e-2, fused=True)
+    (ops.fused_linear_ce(tx, master.to(torch.bfloat16), tb, tt) * g).sum().backward()
+    assert master.grad.shape == (d, v) and master.grad.dtype == torch.float32
+    assert torch.equal(master.grad, bwd[1].float())
+    opt.step()
+    assert (master.detach() - before).abs().min() > 0
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_w_that_is_not_row_major_is_refused(dt):
+    """A transposed w (columns not unit-stride) is refused by both wrappers
+    and by ``fused_linear_ce``, in either dtype, as before staging: only a
+    column slice of a contiguous w is taken as it is."""
+    x, w, b, t = (torch.from_numpy(a) for a in _operands(6, 16, 40))
+    x, wt = x.to(dt), w.to(dt).t().contiguous().t()
+    lse = ops.fused_linear_ce_plain(x, w.to(dt), b, t)[1]
+    for call in (lambda: ops.fused_linear_ce_fwd(x, wt, b, t),
+                 lambda: ops.fused_linear_ce_bwd(x, wt, b, t, lse, torch.ones(6)),
+                 lambda: ops.fused_linear_ce(x, wt, b, t)):
+        with pytest.raises(ValueError, match="row-major"):
+            call()
+    wide = w.to(dt).new_zeros((16, 48))
+    wide[:, :40] = w.to(dt)
+    assert torch.equal(ops.fused_linear_ce_fwd(x, wide[:, :40], b, t)[0],
+                       ops.fused_linear_ce_fwd(x, w.to(dt), b, t)[0])
 
 
 def test_fwd_plan_f32_and_refusals():

@@ -4,7 +4,20 @@ held against the JAX package's (``tests/test_native.py``'s cases).
 Both packages build the same ``kernels.cpp`` with the same flags, so each
 entry agrees bit for bit on the same inputs.  The MLP trains through the
 C kernels on ``cpu_native`` (the port's call counter shows them), with
-the ``cpu`` device's gradients and losses, and a failed build raises."""
+the ``cpu`` device's gradients and losses, and a failed build raises.
+
+The JAX side runs on a private build of its own ``kernels.cpp``, made with
+its Makefile's flags in this module's temporary directory (``_jax_native``):
+the library the JAX package builds beside its source is linked in place by
+``make``, and when several test workers import ``tests/test_native.py`` at
+once on a tree without it, a worker can load it while another's linker
+rewrites it; the JAX package then caches a disabled ``cpu_native`` device
+for that whole process."""
+
+import os
+import re
+import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -22,12 +35,40 @@ from deepflows_tpu_torch.tensor import NativeTensor
 RNG = np.random.default_rng(0)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _jax_native():
-    from deepflows_tpu.backend import cpu_native
+def _makefile_flags(makefile):
+    """The ``CXXFLAGS ?= ...`` default of the JAX package's Makefile."""
+    m = re.search(r"^CXXFLAGS\s*\?=\s*(.+)$", makefile.read_text(), re.M)
+    return tuple(m.group(1).split())
 
-    if not cpu_native().enabled():
-        pytest.fail("the JAX package's cpu_native library did not build")
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native(tmp_path_factory):
+    """The JAX package's wrappers (``jnk``) and its ``cpu_native`` device
+    over a private build of the JAX package's own ``kernels.cpp`` with its
+    Makefile's flags (the port's ``CXX_FLAGS``), written to a temporary name
+    and moved into place, for this module's tests; both are restored after.
+    Nothing another process does to the shared library beside the JAX
+    source reaches it, and a disabled device that the JAX package cached in
+    this process is not used."""
+    from deepflows_tpu.backend import device as jdevice
+
+    here = Path(jnk._HERE)
+    flags = _makefile_flags(here / "Makefile")
+    assert flags == nk.CXX_FLAGS
+    so = tmp_path_factory.mktemp("jax_native") / "libdeepflows_native.so"
+    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
+    proc = subprocess.run([os.environ.get("CXX", "g++"), *flags, "-o", str(tmp),
+                           str(here / "kernels.cpp")], capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        pytest.fail(f"the JAX package's kernels.cpp did not build:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, so)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnk, "_SO", str(so))
+        mp.setattr(jnk, "_lib", None)
+        if jnk._load() is None:
+            pytest.fail(f"the JAX package's wrappers did not load {so}")
+        mp.setattr(jdevice, "_cpu_native", jdevice.BackendDevice("cpu_native", jnk))
+        yield
 
 
 @pytest.fixture(autouse=True)

@@ -19,9 +19,17 @@ flushed between launches), on inputs from the same seeds:
   the slope is the time of one K step of 8 (the parent's only tile; in a
   tree with ops/linear.py _linear_plan, that tile forced);
 - fused_linear_ce's backward and forward at the training slice's bf16
-  shape (N 8192, D 1024, V 8192) beside their library calls (the autograd
-  backward of torch.matmul + F.cross_entropy, and that forward), with the
-  forward's route (ops/fused_ce.py _fwd_route; "mma" in a tree without it);
+  shape (N 8192, D 1024, V 8192) and at GPT-2's head (N 8192, D 768, V
+  50257) beside their library calls (the autograd backward of
+  torch.matmul + F.cross_entropy, and that forward) and their bounds
+  (chip_smoke.cost_bound), with the forward's route as its launch counts
+  by route show it; the forward is timed as a caller calls it (with the
+  staging copy of w a tree makes), the backward on the w that
+  fused_linear_ce hands it (the staged copy, in a tree that stages);
+- GPT-2 small (chip_smoke.HF_GPT2) trained in bf16 at B 8 x L 1024 as
+  chip_smoke.py's GPT-2 phase trains it: a step's device ms by kernel
+  group (the CE's share), a step's device ms with its launches queued
+  ahead, its wall ms, and the peak memory of a step;
 - for a tree with the plans, a sweep of their choices: every K split of
   the 32 x 32 tile and the 128 x 128 tile at MLP layer 1, and every
   (BM, BV) of ops/fused_ce.py _bwd_plan at the slice's CE shape;
@@ -65,6 +73,7 @@ from int8_decode_ab import ROOT, load_chip_smoke  # noqa: E402
 
 K_STEPS = (8, 200, 392, 784, 1568)  # matmul (256, K, 100) on the large tile
 CE_SHAPE = (8192, 1024, 8192)
+GPT2_CE_SHAPE = (8192, 768, 50257)  # GPT-2 small's head at B 8 x L 1024
 # Edits made in copies of the kernels' sources for --sweep, each (old, new)
 # matching the source once; named by the values they set.  The sources'
 # own: the large tile LINEAR_SOURCE, the CE forward (BV 256, 4 stages).
@@ -147,9 +156,9 @@ def k_step_runs(torch, ops, g, flush, cs):
     return out
 
 
-def ce_operands(torch, ops, g):
+def ce_operands(torch, ops, g, shape=CE_SHAPE):
     dev = torch.device("cuda")
-    N, D, V = CE_SHAPE
+    N, D, V = shape
     x = (torch.randn((N, D), generator=g, device=dev) * 0.5).bfloat16()
     w = (torch.randn((D, V), generator=g, device=dev) * 0.05).bfloat16()
     b = (torch.randn((V,), generator=g, device=dev) * 0.1).bfloat16()
@@ -158,7 +167,9 @@ def ce_operands(torch, ops, g):
     return x, w, b, t, ops.fused_linear_ce_fwd(x, w, b, t)[1], gr
 
 
-def ce_runs(torch, ops, cs, ce, flush):
+def ce_runs(torch, ops, cs, ce, flush, label=""):
+    """(the forward's route, {kernel: {kernel, library, bound} ms}) of the
+    CE at ce's shape; keys end in ``label``."""
     import torch.nn.functional as F
 
     from deepflows_tpu_torch.ops import fused_ce
@@ -166,16 +177,23 @@ def ce_runs(torch, ops, cs, ce, flush):
     x, w, b, t, lse, gr = ce
     xr, wr, br = (a.detach().requires_grad_() for a in (x, w, b))
     lib = F.cross_entropy((torch.matmul(xr, wr) + br).float(), t, reduction="none")
-    route = fused_ce._fwd_route(x, w) if hasattr(fused_ce, "_fwd_route") else "mma"
+    routes = fused_ce.fused_linear_ce_fwd.routes
+    before = dict(routes)
+    ops.fused_linear_ce_fwd(x, w, b, t)
+    route = next(r for r in routes if routes[r] > before[r])
+    wb = fused_ce._staged(w) if hasattr(fused_ce, "_staged") else w  # what the backward gets
+    fwd_args, bwd_args = (x, w, b, t), (x, wb, b, t, lse, gr)
     return route, {
-        "fused_linear_ce_bwd": {
-            "kernel": cs.event_ms(lambda: ops.fused_linear_ce_bwd(x, w, b, t, lse, gr), 5, flush),
+        "fused_linear_ce_bwd" + label: {
+            "kernel": cs.event_ms(lambda: ops.fused_linear_ce_bwd(*bwd_args), 5, flush),
             "library": cs.event_ms(lambda: torch.autograd.grad(lib, (xr, wr, br), gr,
-                                                               retain_graph=True), 5, flush)},
-        "fused_linear_ce_fwd": {
-            "kernel": cs.event_ms(lambda: ops.fused_linear_ce_fwd(x, w, b, t), 5, flush),
+                                                               retain_graph=True), 5, flush),
+            "bound": cs.cost_bound(ops.fused_linear_ce_bwd, *bwd_args)[0]},
+        "fused_linear_ce_fwd" + label: {
+            "kernel": cs.event_ms(lambda: ops.fused_linear_ce_fwd(*fwd_args), 5, flush),
             "library": cs.event_ms(lambda: F.cross_entropy((torch.matmul(x, w) + b).float(), t,
-                                                           reduction="none"), 5, flush)},
+                                                           reduction="none"), 5, flush),
+            "bound": cs.cost_bound(ops.fused_linear_ce_fwd, *fwd_args)[0]},
     }
 
 
@@ -237,6 +255,54 @@ def train_runs(torch, cs):
             "step_device_ms": cs.event_ms(lambda: step(x, y), 3)}
 
 
+def gpt2_runs(torch, cs):
+    """GPT-2 small trained in bf16 as chip_smoke.gpt2_phase trains it (B 8
+    x L 1024, fused Adam, LMHeadCrossEntropy): the losses of its first
+    steps (chip_smoke.py's three, then the timed ones), device ms a step by
+    kernel group over two steps, one step's device ms with its launches queued
+    ahead, the median wall ms of three synchronised steps, and the peak
+    memory of one step (bytes allocated above what the model and its Adam
+    state hold)."""
+    import time
+
+    import numpy as np
+
+    from deepflows_tpu_torch import nn, optim
+    from deepflows_tpu_torch.jit import CompiledTrainStep
+    from deepflows_tpu_torch.utils import build_gpt2_from_hf_config, load_hf_gpt2_state
+
+    cfg = cs.HF_GPT2
+    lm = build_gpt2_from_hf_config(cfg, device="cuda")
+    load_hf_gpt2_state(lm, cs.seeded_arrays(cs.hf_gpt2_shapes(cfg), cs.HF_SEED + 1))
+    step = CompiledTrainStep(lm.trunk(), optim.Adam(lm.parameters(), **cs.GPT2_ADAM, fused=True),
+                             nn.LMHeadCrossEntropy(lm.head), compute_dtype=torch.bfloat16)
+    rng = np.random.default_rng(cs.HF_SEED)
+    L, V = cfg.n_positions, cfg.vocab_size
+    x, y = (torch.as_tensor(rng.integers(0, V, (cs.GPT2_B, L)), device="cuda") for _ in range(2))
+    losses = [float(step(x, y)) for _ in range(cs.GPT2_STEPS)]  # chip_smoke's steps
+    torch.cuda.synchronize()
+    prof = cs.step_profile(torch, step, x, y)
+    wall = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        losses.append(float(step(x, y)))
+        wall.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step(x, y)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    out = {"profile_ms": prof, "profile_total_ms": sum(prof.values()),
+           "ce_ms": sum(v for k, v in prof.items() if k.startswith("fused_linear_ce")),
+           "step_device_ms": cs.event_ms(lambda: step(x, y), 3),
+           "step_wall_ms": statistics.median(wall), "peak_bytes": peak,
+           "peak_above_held_bytes": peak - held, "losses": losses}
+    del lm, step
+    torch.cuda.empty_cache()
+    return out
+
+
 def child(tree, save):
     """One tree's timings, printed as one JSON line; its 4096^3 product and
     CE forward outputs saved to ``save``."""
@@ -259,11 +325,19 @@ def child(tree, save):
     linear, product = linear_runs(torch, ops, cs, g, flush)
     route, ce_ms = ce_runs(torch, ops, cs, ce, flush)
     loss, lse = ops.fused_linear_ce_fwd(*ce[:4])
-    torch.save({"matmul": product.cpu(), "loss": loss.cpu(), "lse": lse.cpu()}, save)
+    gce = ce_operands(torch, ops, g, GPT2_CE_SHAPE)
+    gpt2_route, gpt2_ms = ce_runs(torch, ops, cs, gce, flush, " GPT-2 head")
+    ce_ms.update(gpt2_ms)
+    gloss, glse = ops.fused_linear_ce_fwd(*gce[:4])
+    torch.save({"matmul": product.cpu(), "loss": loss.cpu(), "lse": lse.cpu(),
+                "gpt2_loss": gloss.cpu(), "gpt2_lse": glse.cpu()}, save)
+    del gce, gloss, glse
     print(json.dumps(dict(
         tree=tree, linear=linear, matmul_digest=digest(product), ce_fwd_route=route,
+        ce_fwd_route_gpt2=gpt2_route,
         k_steps=k_step_runs(torch, ops, g, flush, cs), ce=ce_ms,
-        sweeps=sweeps(torch, ops, cs, g, ce, flush), train=train_runs(torch, cs))))
+        sweeps=sweeps(torch, ops, cs, g, ce, flush), train=train_runs(torch, cs),
+        gpt2=gpt2_runs(torch, cs))))
 
 
 def start_copies(build_dir, source, copies):
@@ -453,6 +527,8 @@ def main():
         for key in runs[0][group]:
             for kind in ("kernel", "library"):
                 row(f"{key} {kind}", lambda r, key=key, kind=kind: r[group][key][kind])
+            if "bound" in runs[0][group][key]:
+                print(f"  {key} bound: {runs[0][group][key]['bound'] * 1e3:.2f}")
     first = outputs[args.trees[0]]
     for t in args.trees:
         digests = sorted({r["matmul_digest"] for r in by_tree[t]})
@@ -462,6 +538,10 @@ def main():
               f"{torch.equal(outputs[t]['matmul'], first['matmul'])}; CE forward on the "
               f"{by_tree[t][0]['ce_fwd_route']} route, max |d| from {args.trees[0]}'s: loss "
               f"{d['loss']:.3g}, lse {d['lse']:.3g}")
+        gd = {k: (outputs[t][k] - first[k]).abs().max().item() for k in ("gpt2_loss", "gpt2_lse")}
+        print(f"  {t}: CE forward at GPT-2's head on the {by_tree[t][0]['ce_fwd_route_gpt2']} "
+              f"route, max |d| from {args.trees[0]}'s: loss {gd['gpt2_loss']:.3g}, lse "
+              f"{gd['gpt2_lse']:.3g}")
     print("matmul (256, K, 100) on the 128 x 128 tile, us by K " + str(K_STEPS) + ":")
     for t in args.trees:
         vals = [med(t, lambda r, k=k: r["k_steps"][str(k)]) * 1e3 for k in K_STEPS]
@@ -484,6 +564,21 @@ def main():
     names = sorted({n for r in runs for n in r["train"]["profile_ms"]})
     for name in names:
         row(name, lambda r, name=name: r["train"]["profile_ms"].get(name, 0.0), 1, "{:.3f}")
+    print("GPT-2 small, bf16 training step (B 8 x L 1024):")
+    row("device ms by kernel, sum of torch.profiler (2 steps)",
+        lambda r: r["gpt2"]["profile_total_ms"], 1, "{:.3f}")
+    row("of it the CE's kernels", lambda r: r["gpt2"]["ce_ms"], 1, "{:.3f}")
+    row("one step, launches queued ahead, device ms", lambda r: r["gpt2"]["step_device_ms"], 1,
+        "{:.3f}")
+    row("wall ms (median of 3)", lambda r: r["gpt2"]["step_wall_ms"], 1, "{:.3f}")
+    row("peak memory of a step, MiB", lambda r: r["gpt2"]["peak_bytes"], 2**-20, "{:.1f}")
+    row("of it above the model and its state, MiB", lambda r: r["gpt2"]["peak_above_held_bytes"],
+        2**-20, "{:.1f}")
+    names = sorted({n for r in runs for n in r["gpt2"]["profile_ms"]})
+    for name in names:
+        row(name, lambda r, name=name: r["gpt2"]["profile_ms"].get(name, 0.0), 1, "{:.3f}")
+    for t in args.trees:
+        print(f"  {t} losses: " + ", ".join(f"{v:.4f}" for v in by_tree[t][0]["gpt2"]["losses"]))
     if sweep:
         print(f"sweep of {args.trees[-1]} (us; outputs against the source's build):")
         for key, what in (("linear", "matmul 4096^3 by (TN, BK, stages, blocks an SM, "
