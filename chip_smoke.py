@@ -20,7 +20,8 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
    prefill tile's (M 9, 16, 100, 129, 300 and 1000 at K 4096 and N 1000 or
    1030, a misaligned weight, bf16 x with K 70 and int8 x with K 33, whose
    rows are not whole 16-byte chunks, and K 9000, past the decode path, at
-   M 2 and 300).  Tolerances: w8a8 exact; int8 with f32 output rtol 1e-4
+   M 2 and 300; M 48 and below take the stream, quant.STREAM_M).
+   Tolerances: w8a8 exact; int8 with f32 output rtol 1e-4
    and atol 1e-3 (the JAX tests' bound); bf16 output that bound plus one
    bf16 ulp.  Then the same decode call (M 8) and prefill call (M 1536)
    twice must give the same bits (int8 with f32 and bf16 output, f32 x,
@@ -177,11 +178,18 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
    o (4096, 4096), gate_up (4096, 28672), down (14336, 4096), head (4096,
    32000)) at M 8, 384 and 1536, bf16 x, the tolerances of phase 2; times
    at M 8 and 1536, and a Llama decode step's and prefill's 33 calls, beside
-   their bounds.  flash_attention forward and backward at the two training
-   paths' shapes, (1, 32, 8192, 128) with window 4096 and (1, 32, 2048,
-   128) causal, bf16, q and dout as (B, L, H, D) views, both on wgmma, held
-   by row against the plain twins (computed four heads at a time) at the
-   limits of phase 4, timed beside their bounds and SDPA's forward.
+   their bounds.  Each matrix's route (ops/quant.py _route) asserted: the
+   down projection (K 14336) at M 1 and 8 on the stream, the others on the
+   decode kernel, M 384 and 1536 on the prefill tile.  The stream against
+   both plain twins at its edges (stream_ragged: M 1, 8, 9, 17, 33, 40 and
+   STREAM_M 48, and M 63 on the prefill tile; K 8193, 14336 and 16385; N
+   50, 4096 and 4097; misaligned weights), f32 and bf16 x and output, w8a8
+   bitwise, and the same call twice bitwise.  flash_attention forward and
+   backward at the two training paths' shapes, (1, 32, 8192, 128) with
+   window 4096 and (1, 32, 2048, 128) causal, bf16, q and dout as (B, L,
+   H, D) views, both on wgmma, held by row against the plain twins
+   (computed four heads at a time) at the limits of phase 4, timed beside
+   their bounds and SDPA's forward.
    fused_adam over both training models' parameter lists (0.70 G and 1.71
    G elements) against its plain twin (1e-6).
 12. Llama serving, a main path: LlamaLM at Mistral-7B-v0.1's widths (dim
@@ -323,7 +331,8 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
 30. Serving kernel phase: int8_matmul and w8a8_matmul against their plain
    twins at Mistral's five matrices at M 40 (the speculative verify
    forward, B 8 x (gamma 4 + 1)) and M 2048 (an admission prefill, B 1 x
-   max_len), the tolerances of phase 2 (M 8 is phase 25's); a verify
+   max_len), the tolerances of phase 2 (M 8 is phase 25's), each held to
+   its route (M 40 the stream, M 2048 the prefill tile); a verify
    forward's 33 calls (the head at M 40 too) and an admission prefill's
    (the head at M 1) timed beside their twins, library calls and bounds.
 31. The in-flight engine, main paths: LlamaLM at Mistral-7B widths, depth
@@ -637,7 +646,8 @@ DECODE_RAGGED = (  # (M, K, N, weight 16-byte aligned): the split-K path's edges
     (8, 1000, 1024, True), (8, 17, 64, True), (5, 1024, 1000, True), (8, 4100, 1024, False),
     (3, 4100, 1030, True), (1, 8192, 32, True), (2, 9000, 48, True),  # K past the decode path
 )
-PREFILL_RAGGED = (  # (M, K, N, weight 16-byte aligned): the prefill tile's edges
+PREFILL_RAGGED = (  # (M, K, N, weight 16-byte aligned): the prefill tile's edges; M 9,
+    # 16 and 40 take the stream
     (9, 4096, 1000, True), (16, 4096, 1030, True), (100, 4096, 1000, True),
     (129, 4096, 1030, True), (300, 4096, 1000, True), (1000, 4096, 1030, True),
     (200, 4096, 1024, False), (100, 70, 64, True), (40, 33, 100, True), (300, 9000, 200, True),
@@ -906,6 +916,58 @@ def prefill_repeat_checks(torch, ops, g):
         if not torch.equal(ops.w8a8_matmul(xq, sx, wq, s), ops.w8a8_matmul(xq, sx, wq, s)):
             fail(f"w8a8_matmul M={PREFILL_M} {name}: two calls differ")
     print(f"  prefill calls deterministic: two calls bitwise equal at the 4 shapes, M {PREFILL_M}")
+
+
+def stream_ragged(stream_m):
+    """(M, K, N, weight 16-byte aligned): the stream's edges, at M 9 to
+    ``stream_m`` (quant.STREAM_M) and at most 8 rows with K past the decode
+    kernel's 8192: K not a multiple of the chunk or of 16 (x rows that are
+    not whole 16-byte chunks), N not a multiple of 128 or 16 and N 50 (16
+    splits, the largest cluster), misaligned weights; and M 63, past
+    ``stream_m``, on the prefill tile."""
+    return ((9, 8193, 4096, True), (17, 14336, 4097, True), (33, 8193, 4097, False),
+            (40, 16385, 50, True), (stream_m, 14336, 4096, True), (63, 8193, 4097, True),
+            (8, 14336, 50, True), (1, 16385, 4096, False))
+
+
+def check_routes(ops, label, cases):
+    """Fails unless each (M, K, N) of ``cases`` takes its route
+    (quant._route)."""
+    for M, K, N, want in cases:
+        got = ops.quant._route(M, N, K)
+        if got != want:
+            fail(f"{label} M={M} K={K} N={N}: routed to {got}, not {want}")
+
+
+def stream_checks(torch, ops, g, max_err):
+    """The stream against both plain twins at its ragged shapes
+    (stream_ragged), f32 and bf16 x and output, w8a8 bitwise; then the same
+    call twice gives the same bits (int8 with bf16 x and f32 or bf16
+    output, f32 x, w8a8).  Returns the shapes checked."""
+    dev = torch.device("cuda")
+    cases = stream_ragged(ops.quant.STREAM_M)
+    for M, K, N, aligned in cases:
+        x = torch.randn((M, K), generator=g, device=dev)
+        wq, s = ops.quantize_int8(torch.randn((K, N), generator=g, device=dev) * 0.02)
+        if not aligned:
+            wq = misaligned(torch, wq)
+        for xdt in (torch.bfloat16, torch.float32):
+            compare(torch, ops, x.to(xdt), wq, s, f"stream M={M} K={K} N={N} "
+                    f"aligned={aligned} x={xdt}", max_err)
+        xq, sx = ops.quantize_int8_rows(x)
+        for xin, odt in ((x.bfloat16(), torch.float32), (x.bfloat16(), torch.bfloat16),
+                         (x, torch.float32)):
+            a = ops.int8_matmul(xin, wq, s, out_dtype=odt)
+            if not torch.equal(a, ops.int8_matmul(xin, wq, s, out_dtype=odt)):
+                fail(f"int8_matmul stream M={M} K={K} N={N} x={xin.dtype} out={odt}: "
+                     "two calls differ")
+        if not torch.equal(ops.w8a8_matmul(xq, sx, wq, s), ops.w8a8_matmul(xq, sx, wq, s)):
+            fail(f"w8a8_matmul stream M={M} K={K} N={N}: two calls differ")
+        del x, wq, s, xq, sx
+    print(f"  the stream (up to STREAM_M {ops.quant.STREAM_M} rows) agrees with both plain "
+          f"twins at {[c[:3] for c in cases]}, f32 and bf16 x and output, w8a8 bitwise; two "
+          "calls bitwise equal")
+    return [list(c) for c in cases]
 
 
 def decode_step_timing(torch, ops):
@@ -2620,6 +2682,12 @@ def family_kernel_phase(torch, ops, report, max_err):
                   f"{r['w8a8_bound_ms']:.4f})")
     print(f"  int8_matmul and w8a8_matmul agree with their plain twins at Mistral's "
           f"{len(MISTRAL_SHAPES)} matrices, M {FAMILY_M}")
+    check_routes(ops, "Mistral", [(M, K, N, "stream" if name == "down" else "decode")
+                                  for M in (1, 8) for name, (K, N) in MISTRAL_SHAPES.items()]
+                 + [(M, K, N, "prefill") for M in FAMILY_M[1:]
+                    for K, N in MISTRAL_SHAPES.values()])
+    out["stream_ragged"] = stream_checks(torch, ops, g, max_err)
+    free_card(torch)
     layer = ("qkv", "o", "gate_up", "down")
     for key, M in (("decode_step", 8), ("prefill", 8 * LLAMA_SERVE["max_len"])):
         ms, bi, bw, wbytes = forward_timing(torch, ops, M, MISTRAL_SHAPES, LLAMA_SERVE["depth"],
@@ -4248,6 +4316,9 @@ def serving_kernel_phase(torch, ops, report, max_err):
     numbers; ``max_err`` gains the int8 kernels' errors."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(15)
+    check_routes(ops, "serving Mistral", [(M, K, N, route) for M, route in
+                                          zip(SERVING_M, ("stream", "prefill"))
+                                          for K, N in MISTRAL_SHAPES.values()])
     for M in SERVING_M:
         for name, (K, N) in MISTRAL_SHAPES.items():
             x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)

@@ -17,7 +17,10 @@
 // split-K stream: (32-column tile, K chunk) blocks, at least 264 at every
 // decoder shape, a tile's K splits one cluster; every warp keeps its whole
 // share of the weight in flight as 16-byte cp.async copies and multiplies
-// each 64-row step as it lands on the tensor cores.  Prefill M takes the
+// each 64-row step as it lands on the tensor cores.  Between the two (9 to
+// 48 rows, or K above 8192) the stream does the same on 128-column tiles
+// through a ring that each block refills, x's rows as n8 tiles that share
+// each widened weight fragment.  Prefill M takes the
 // tensor-core tile: BM x 128 outputs a block (the plan's BM fills the 132
 // SMs), a 3-stage cp.async ring of 64-row K steps, mma.sync m16n8k16.
 // Both widen int8 -> bf16 exactly and take bf16 x as it is and f32 x as
@@ -58,8 +61,9 @@ cudaError_t run(const void* x, const void* wq, const void* scale, void* out, int
 
 }  // namespace
 
-// chunk and splits are the decode plan (ops/quant.py _decode_plan), tile_m
-// the prefill plan (_prefill_plan), the other zero.  Returns
+// chunk and splits are the decode or stream plan (ops/quant.py
+// _decode_plan, _stream_plan), tile_m the prefill plan (_prefill_plan), the
+// other zero.  Returns
 // cudaErrorInvalidValue for a plan the kernel does not take, else the
 // launch's error; the caller raises if it is not 0.
 extern "C" int dft_int8_matmul(const void* x, int x_bf16, const void* wq,

@@ -3,7 +3,8 @@
 // int8 (K, N) row-major weight.  It replaces the K loops of the TPU kernels
 // _int8_matmul_kernel and _w8a8_kernel (deepflows_tpu/ops/pallas_kernels.py).
 // The int8 weight bytes are all that crosses device memory: it is widened
-// only on chip.  Two designs, chosen by the shape.
+// only on chip.  Three designs, chosen by the wrapper's plan
+// (ops/quant.py _route): decode, stream and prefill.
 //
 // Decode (M <= 8, K <= 8192; int8_decode_kernel): a weight stream.  The
 // grid is (column tiles of 32, K splits) as the wrapper's plan
@@ -27,8 +28,29 @@
 // TB/s) but each call's fixed cost: the launch (about 1 us), the first
 // trip to device memory, and the cluster's hand-over at the end.
 //
-// Prefill and every other call (M > 8, or K > 8192 at any M;
-// int8_prefill_kernel): bound by operations, not bytes.  At the decoder's
+// Stream (9 to 48 rows at any K, and at most 8 rows with K above 8192;
+// int8_stream_kernel): the shapes between decode and prefill, such as
+// Mistral's down projection (K 14336) at decode and a speculative verify's
+// 40 rows.  Still bound by the weight bytes (2 M K N operations on K N
+// bytes is 2 M operations a byte, far below the tensor cores' 295), so the
+// plan (_stream_plan) again launches at least 264 blocks of (column tile,
+// K chunk), a tile's splits one cluster, all resident at once (four
+// blocks an SM).  The tile is 128 columns, as the prefill tile's: every K
+// row of it is a whole 128-byte line, and x, which each block reads from
+// L2 for its own tile, costs M / 64 of the weight's bytes for bf16 x (the
+// decode kernel's 32 columns cost M / 16 and lost to the prefill tile at N
+// 28672 and 32000 from M 24 in a sweep on the H100).  K goes in 32-row steps
+// through a ring of 2-8 slots that the block refills as it consumes it,
+// so the chunk has no limit; a slot holds a step's weight and x.  x's
+// rows are NT n8 tiles that share each step's widened weight fragment, on
+// mma.sync for every x type: m16n8k16 bf16 for float x, m16n8k32 s8 -> s32
+// for int8 x.  The splits' sums meet by distributed shared memory, read by
+// the finishing block in split order after a cluster barrier.  At 64 rows
+// the stream lost to the prefill tile at one of Mistral's matrices, which
+// set its 48 (PERF.md section 6).
+//
+// Prefill and every other call (M > 48; int8_prefill_kernel): bound
+// by operations, not bytes.  At the decoder's
 // prefill shapes (M 1536) a call does 2 M K N = 3.2-12.9 GFLOP on 1-4 MB of
 // weight, 3.3-13 us at 989 TFLOP/s (bf16) or 1,979 TOPS (int8) against
 // 1-4 us of bytes, so only the tensor cores can approach the card's rate.
@@ -657,9 +679,254 @@ int8_prefill_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w, int 
     }
 }
 
-// The wrapper's plan (ops/quant.py): at decode shapes the K rows a block
-// takes and the number of K splits, tile_m 0; at every other shape the
-// prefill tile's rows, 128, 64 or 32, chunk and splits 0.
+namespace stream {
+constexpr int MAX_NT = 6;              // n8 tiles of x rows: at most 48 rows, quant.STREAM_M
+constexpr int MAX_SPLITS = 16;         // K splits of a column tile: the blocks of one cluster
+constexpr int THREADS = 128, WARPS = THREADS / 32;
+constexpr int BN = 32 * WARPS;         // columns of a block's tile, 32 a warp
+constexpr int STEP = 32;               // K rows of a step; a chunk is whole steps
+// A quad (4 K rows of the tile, 4 x 128 bytes) takes 544 bytes: the 32-byte
+// pad puts the 4 quads a warp reads at once on 4 disjoint sets of 8 banks.
+constexpr int QUAD_BYTES = 4 * BN + 32;
+constexpr int W_SLOT = STEP / 4 * QUAD_BYTES;  // a step of the tile's weight
+// Four blocks an SM: at most 128 registers a thread and 54 KB of ring a block.
+constexpr int BLOCKS_PER_SM = 4;
+constexpr int RING_BYTES = 54 * 1024;
+// A slot of the ring: a step of weight, then x's 8 NT rows at its K rows as
+// two halves [8 NT][16] (K rows 0-15 and 16-31).
+template <int NT, typename XT>
+__host__ __device__ constexpr int slot_bytes() {
+  return W_SLOT + 2 * 8 * NT * 16 * (int)sizeof(XT);
+}
+// slots of the ring: as many as RING_BYTES holds, 2 to 8
+template <int NT, typename XT>
+__host__ __device__ constexpr int ring_slots() {
+  return RING_BYTES / slot_bytes<NT, XT>() < 2   ? 2
+         : RING_BYTES / slot_bytes<NT, XT>() > 8 ? 8
+                                                 : RING_BYTES / slot_bytes<NT, XT>();
+}
+// the ring, which the block's sums [8 NT][BN] reuse after the K loop
+template <int NT, typename XT>
+__host__ __device__ constexpr int smem_bytes() {
+  return ring_slots<NT, XT>() * slot_bytes<NT, XT>() > 8 * NT * BN * 4
+             ? ring_slots<NT, XT>() * slot_bytes<NT, XT>()
+             : 8 * NT * BN * 4;
+}
+}  // namespace stream
+
+// out[m, n] for m < M <= 8 NT over one (128-column tile, K chunk) block,
+// the K splits of a tile being one cluster: the weight stream of the calls
+// between decode and prefill (9 to 48 rows, and at most 8 rows with K above
+// 8192); see the head of this file.  Warp w takes columns 32 w .. 32 w + 31
+// of every 32-row step; the four warps share the step's x rows.  K goes in
+// steps through a ring of 2-8 slots of 16-byte cp.async copies with one
+// block barrier a step, the copies of the next R - 1 steps in flight while
+// a step multiplies.  out^T = w^T x^T: the widened weight fragment of a
+// quad is reused by NT n8 tiles of x rows, as mma.sync m16n8k16 (float x:
+// bf16 as it is, f32 as the three exact bf16 of split3) or m16n8k32 s8 ->
+// s32 (int8 x, exact).  A quad's K rows 4 q .. 4 q + 3 are the k values of
+// lane t = q % 4 in both, so the A fragment's columns and the B fragment's
+// rows meet.  x rows at and past M are not loaded: a column of the product
+// depends on its own x row only, and those columns are never stored.  Each
+// block leaves its sums in its shared memory; after a cluster barrier the
+// block that finishes an output reads every split's sum of it through
+// distributed shared memory and adds them in split order.
+template <int NT, typename XT, typename ACC, class Epilogue>
+__global__ void __launch_bounds__(stream::THREADS, stream::BLOCKS_PER_SM)
+int8_stream_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w, int M, int N,
+                   int K, int chunk, int w_vec16, int x_vec16, Epilogue epi) {
+  using namespace stream;
+  namespace cg = cooperative_groups;
+  using bf16 = __nv_bfloat16;
+  constexpr bool INT = std::is_same<XT, int8_t>::value;
+  static_assert(INT == std::is_same<ACC, int>::value, "int8 x sums in int, float x in float");
+  constexpr int MR = 8 * NT;
+  constexpr int V = 16 / (int)sizeof(XT);           // x elements of a 16-byte copy
+  constexpr int PIECES = 16 / V;                    // 16-byte copies of a half row of x
+  constexpr int XHALF = MR * 16 * (int)sizeof(XT);  // bytes of one half of a slot's x
+  constexpr int SLOT = slot_bytes<NT, XT>(), R = ring_slots<NT, XT>();
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const int tile = blockIdx.x, split = blockIdx.y, splits = gridDim.y;
+  const int n0 = tile * BN, k0 = split * chunk;
+  const int rows = min(chunk, K - k0), steps = (rows + STEP - 1) / STEP;
+
+  // The copies of step j into slot b: the weight's 32 rows of 128 bytes
+  // (8 threads a row), then x's rows below M (K rows of the step as 2 PIECES
+  // copies a row, consecutive threads along a row).
+  auto issue = [&](int j, int b) {
+    unsigned char* ws = smem + b * SLOT;
+    unsigned char* xs = ws + W_SLOT;
+    const int kr = STEP * j;  // the step's first K row in the chunk
+#pragma unroll
+    for (int it = 0; it < STEP * BN / 16 / THREADS; ++it) {
+      const int e = t + it * THREADS, r = e / 8, seg = e % 8, kw = kr + r, gn = n0 + 16 * seg;
+      unsigned char* dst = ws + (r >> 2) * QUAD_BYTES + (r & 3) * BN + 16 * seg;
+      const int8_t* src = w + (size_t)(k0 + kw) * N + gn;
+      if (w_vec16) {
+        const bool in = kw < rows && gn < N;
+        cp_async16_zfill(dst, in ? src : w, in ? 16 : 0);
+      } else {  // N % 16 != 0 or a misaligned weight: byte loads
+        alignas(16) int8_t v[16] = {};
+#pragma unroll
+        for (int c = 0; c < 16; ++c)
+          if (kw < rows && gn + c < N) v[c] = __ldg(src + c);
+        *reinterpret_cast<int4*>(dst) = *reinterpret_cast<const int4*>(v);
+      }
+    }
+    for (int e = t; e < M * 2 * PIECES; e += THREADS) {
+      const int p = e % (2 * PIECES), m = e / (2 * PIECES), h = p / PIECES, c = p % PIECES;
+      const int kk = kr + 16 * h + V * c;
+      unsigned char* dst = xs + h * XHALF + (m * 16 + V * c) * (int)sizeof(XT);
+      const XT* src = x + (size_t)m * K + k0 + kk;
+      if (x_vec16) {  // K % V == 0, so a copy is wholly in or past the chunk
+        const bool in = kk < rows;
+        cp_async16_zfill(dst, in ? src : x, in ? 16 : 0);
+      } else {  // rows of K elements are not whole 16-byte chunks: plain loads
+        alignas(16) XT v[V] = {};
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+          if (kk + i < rows) v[i] = src[i];
+        *reinterpret_cast<int4*>(dst) = *reinterpret_cast<const int4*>(v);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < R - 1; ++s) {
+    if (s < steps) issue(s, s);
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+
+  // c[i][p]: x rows 8 i .. 8 i + 7 by the warp's 16 columns 4 g + 2 p and
+  // 4 g + 2 p + 1 (g = 0..7), the product's rows g and g + 8.
+  ACC c[NT][2][4];
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[i][p][e] = ACC(0);
+  const int g = lane / 4, tq = lane % 4;
+  const int wcol = 32 * warp + 4 * g;  // the first of the lane's 4 columns in the tile
+  for (int j = 0; j < steps; ++j) {
+    cp_async_wait(R - 2);  // this thread's copies of step j have landed
+    __syncthreads();       // everyone's have, and the slot refilled next is free
+    if (j + R - 1 < steps) issue(j + R - 1, (j + R - 1) % R);
+    asm volatile("cp.async.commit_group;\n" ::);
+    const unsigned char* ws = smem + (j % R) * SLOT;
+    const unsigned char* xs = ws + W_SLOT;
+    if constexpr (INT) {
+      // m16n8k32: A's k 4 tq .. 4 tq + 3 and 16 + 4 tq .. are quads tq and
+      // 4 + tq, B's the same K rows of x row 8 i + g
+      uint32_t col[2][4];  // column wcol + cc's 4 K values of quad 4 h + tq
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t r[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          r[i] = *reinterpret_cast<const uint32_t*>(ws + (4 * h + tq) * QUAD_BYTES + BN * i +
+                                                    wcol);
+        transpose4(r, col[h]);
+      }
+      uint32_t a[2][4];
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        a[p][0] = col[0][2 * p], a[p][1] = col[0][2 * p + 1];
+        a[p][2] = col[1][2 * p], a[p][3] = col[1][2 * p + 1];
+      }
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+        const unsigned char* xr = xs + (8 * i + g) * 16 + 4 * tq;
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(xr);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(xr + XHALF);
+        mma_s8(c[i][0], a[0], b0, b1);
+        mma_s8(c[i][1], a[1], b0, b1);
+      }
+    } else {
+      // m16n8k16 a half: quad q = 4 h + tq gives the k pairs (2 tq, 2 tq + 1)
+      // and (2 tq + 8, 2 tq + 9), as in the decode kernel
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = 4 * h + tq;
+        uint32_t u[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          u[i] = *reinterpret_cast<const uint32_t*>(ws + q * QUAD_BYTES + BN * i + wcol) ^
+                 0x80808080u;
+        uint32_t a[2][4];
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {  // column wcol + cc: product cc / 2, row g (+ 8)
+          const float f0 = widen(u[0], cc), f1 = widen(u[1], cc);
+          const float f2 = widen(u[2], cc), f3 = widen(u[3], cc);
+          a[cc / 2][cc % 2] = top_halves(f0, f1);
+          a[cc / 2][2 + cc % 2] = top_halves(f2, f3);
+        }
+        const XT* xh = reinterpret_cast<const XT*>(xs + h * XHALF);
+#pragma unroll
+        for (int i = 0; i < NT; ++i) {
+          const XT* xr = xh + (8 * i + g) * 16 + 4 * tq;  // x row 8 i + g, K rows 4 q ..
+          if constexpr (std::is_same<XT, float>::value) {  // three exact bf16 planes
+            const float4 f = *reinterpret_cast<const float4*>(xr);
+            bf16 p0[3], p1[3], p2[3], p3[3];
+            split3(f.x, p0), split3(f.y, p1), split3(f.z, p2), split3(f.w, p3);
+#pragma unroll
+            for (int p = 0; p < 3; ++p) {
+              const __nv_bfloat162 lo = __halves2bfloat162(p0[p], p1[p]);
+              const __nv_bfloat162 hi = __halves2bfloat162(p2[p], p3[p]);
+              const uint32_t b0 = *reinterpret_cast<const uint32_t*>(&lo);
+              const uint32_t b1 = *reinterpret_cast<const uint32_t*>(&hi);
+              mma::mma(c[i][0], a[0], b0, b1);
+              mma::mma(c[i][1], a[1], b0, b1);
+            }
+          } else {
+            const uint2 bb = *reinterpret_cast<const uint2*>(xr);
+            mma::mma(c[i][0], a[0], bb.x, bb.y);
+            mma::mma(c[i][1], a[1], bb.x, bb.y);
+          }
+        }
+      }
+    }
+  }
+
+  // The block's sums in the freed ring, [MR][BN]: c[i][p][2 h + ii] is x
+  // row 8 i + 2 tq + ii, column wcol + 2 p + h.
+  __syncthreads();  // every warp is done with the ring
+  ACC* red = reinterpret_cast<ACC*>(smem);
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii)
+          red[(8 * i + 2 * tq + ii) * BN + wcol + 2 * p + h] = c[i][p][2 * h + ii];
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every block's sums are in its shared memory, visible to the cluster
+
+  // Output e = m BN + column of the tile (real rows only) is finished by
+  // block (e / 128) % splits, which adds the splits' sums in split order.
+  const int sums = M * BN;
+  for (int b = split; b * THREADS < sums; b += splits) {
+    const int e = b * THREADS + t, n = n0 + e % BN;
+    if (e >= sums || n >= N) continue;
+    ACC p[MAX_SPLITS];
+#pragma unroll
+    for (int r = 0; r < MAX_SPLITS; ++r)
+      p[r] = r < splits ? *cluster.map_shared_rank(red + e, r) : ACC(0);
+    ACC s = ACC(0);
+#pragma unroll
+    for (int r = 0; r < MAX_SPLITS; ++r) s += p[r];  // in split order
+    epi.store(e / BN, n, s, epi.load(e / BN, n));
+  }
+  cluster.sync();  // no block leaves while another reads its sums
+}
+
+// The wrapper's plan (ops/quant.py): at decode and stream shapes the K rows
+// a block takes and the number of K splits, tile_m 0; at prefill shapes the
+// tile's rows, 128, 64 or 32, chunk and splits 0.
 struct Plan {
   int chunk, splits, tile_m;
 };
@@ -690,6 +957,33 @@ cudaError_t launch_decode(const XT* x, const int8_t* w, int M, int N, int K,
   return cudaLaunchKernelEx(&cfg, kernel, x, w, M, N, K, p.chunk, wv, xv, epi);
 }
 
+template <int NT, typename XT, typename ACC, class Epilogue>
+cudaError_t launch_stream(const XT* x, const int8_t* w, int M, int N, int K, const Plan& p,
+                          Epilogue epi, cudaStream_t stream) {
+  using namespace stream;
+  constexpr int SMEM = smem_bytes<NT, XT>();
+  auto kernel = int8_stream_kernel<NT, XT, ACC, Epilogue>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (e == cudaSuccess && p.splits > 8)  // a cluster past the portable 8 blocks
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = p.splits;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + BN - 1) / BN, p.splits);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = SMEM;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const int wv = (N % 16 == 0) && (reinterpret_cast<uintptr_t>(w) % 16 == 0);
+  const int xv = ((size_t)K * sizeof(XT) % 16 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
+  return cudaLaunchKernelEx(&cfg, kernel, x, w, M, N, K, p.chunk, wv, xv, epi);
+}
+
 template <int MT, int WM, typename XT, typename ACC, class Epilogue>
 cudaError_t launch_prefill(const XT* x, const int8_t* w, int M, int N, int K, Epilogue epi,
                            cudaStream_t stream) {
@@ -706,24 +1000,40 @@ cudaError_t launch_prefill(const XT* x, const int8_t* w, int M, int N, int K, Ep
   return cudaGetLastError();
 }
 
-// Decode shapes (M <= 8, K <= 8192) take the split-K stream, every other
-// the prefill tile; a plan that does not fit the shape is refused.
+// Decode shapes (M <= 8, K <= 8192) take the decode kernel, as the plan
+// must; at every other shape a plan with tile_m takes the prefill tile and
+// one with K splits the stream (at most 48 rows).  A plan that does not fit
+// the shape is refused.
 template <typename XT, typename ACC, class Epilogue>
 cudaError_t launch_int8_product(const void* x, const void* w, int M, int N, int K,
                                 const Plan& plan, Epilogue epi, cudaStream_t stream) {
-  using namespace decode;
   const XT* xp = static_cast<const XT*>(x);
   const int8_t* wp = static_cast<const int8_t*>(w);
   if (M < 1 || N < 1 || K < 1) return cudaErrorInvalidValue;
-  if (M > MAX_M || K > CHUNK_MAX * MAX_SPLITS) {
-    if (plan.splits != 0 || plan.chunk != 0) return cudaErrorInvalidValue;
-    switch (plan.tile_m) {  // 8 warps of 64 x 32, 4 of 64 x 32, 4 of 32 x 32
-      case 128: return launch_prefill<4, 2, XT, ACC>(xp, wp, M, N, K, epi, stream);
-      case 64: return launch_prefill<4, 1, XT, ACC>(xp, wp, M, N, K, epi, stream);
-      case 32: return launch_prefill<2, 1, XT, ACC>(xp, wp, M, N, K, epi, stream);
-      default: return cudaErrorInvalidValue;
+  if (M > decode::MAX_M || K > decode::CHUNK_MAX * decode::MAX_SPLITS) {
+    if (plan.tile_m != 0) {
+      if (plan.splits != 0 || plan.chunk != 0) return cudaErrorInvalidValue;
+      switch (plan.tile_m) {  // 8 warps of 64 x 32, 4 of 64 x 32, 4 of 32 x 32
+        case 128: return launch_prefill<4, 2, XT, ACC>(xp, wp, M, N, K, epi, stream);
+        case 64: return launch_prefill<4, 1, XT, ACC>(xp, wp, M, N, K, epi, stream);
+        case 32: return launch_prefill<2, 1, XT, ACC>(xp, wp, M, N, K, epi, stream);
+        default: return cudaErrorInvalidValue;
+      }
+    }
+    using namespace stream;
+    if (M > 8 * MAX_NT || plan.splits < 1 || plan.splits > MAX_SPLITS || plan.chunk < STEP ||
+        plan.chunk % STEP || plan.splits != (K + plan.chunk - 1) / plan.chunk)
+      return cudaErrorInvalidValue;
+    switch ((M + 7) / 8) {  // n8 tiles of x rows
+      case 1: return launch_stream<1, XT, ACC>(xp, wp, M, N, K, plan, epi, stream);
+      case 2: return launch_stream<2, XT, ACC>(xp, wp, M, N, K, plan, epi, stream);
+      case 3: return launch_stream<3, XT, ACC>(xp, wp, M, N, K, plan, epi, stream);
+      case 4: return launch_stream<4, XT, ACC>(xp, wp, M, N, K, plan, epi, stream);
+      case 5: return launch_stream<5, XT, ACC>(xp, wp, M, N, K, plan, epi, stream);
+      default: return launch_stream<6, XT, ACC>(xp, wp, M, N, K, plan, epi, stream);
     }
   }
+  using namespace decode;
   if (plan.tile_m != 0 || plan.splits < 1 || plan.splits > MAX_SPLITS || plan.chunk < STEP ||
       plan.chunk > CHUNK_MAX || plan.chunk % STEP ||
       plan.splits != (K + plan.chunk - 1) / plan.chunk)

@@ -18,10 +18,13 @@
 // of the weight in flight at once as 16-byte cp.async copies; a 4 x 4 byte
 // transpose of each quad of K rows feeds __dp4a (exact int32 sums), and
 // the splits' sums meet in distributed shared memory, so they stay exact.
-// Prefill M shares int8_matmul's tensor-core tile: BM x 128 outputs a
-// block, a 3-stage cp.async ring of 64-row K steps, x read with ldmatrix
-// as it is and the weight through the same byte transpose as the B
-// operand of mma.sync m16n8k32 s8 x s8 -> s32, exact.  Ragged edges are
+// Between the two (9 to 48 rows, or K above 8192) the stream does the same
+// on 128-column tiles through a ring that each block refills, on mma.sync
+// m16n8k32 s8 x s8 -> s32 (exact), x's rows as n8 tiles.  Prefill M
+// shares int8_matmul's tensor-core tile: BM x 128 outputs a block, a
+// 3-stage cp.async ring of 64-row K steps, x read with ldmatrix as it is
+// and the weight through the same byte transpose as the B operand of
+// mma.sync m16n8k32 s8 x s8 -> s32, exact.  Ragged edges are
 // masked in the kernel instead of the TPU kernel's padding to 128/256/512
 // tiles and its 128-lane row-scale pad.  PERF.md holds its measured times.
 #include "int8_tile.cuh"
@@ -62,8 +65,9 @@ cudaError_t run(const void* xq, const void* sx, const void* wq, const void* sw, 
 
 }  // namespace
 
-// chunk and splits are the decode plan (ops/quant.py _decode_plan), tile_m
-// the prefill plan (_prefill_plan), the other zero.  Returns
+// chunk and splits are the decode or stream plan (ops/quant.py
+// _decode_plan, _stream_plan), tile_m the prefill plan (_prefill_plan), the
+// other zero.  Returns
 // cudaErrorInvalidValue for a plan the kernel does not take, else the
 // launch's error; the caller raises if it is not 0.
 extern "C" int dft_w8a8_matmul(const void* xq, const void* sx, const void* wq,

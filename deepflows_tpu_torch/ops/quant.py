@@ -14,11 +14,14 @@ its kernel does not take.  On CPU tensors it calls its plain twin
 (``*_plain``); on CUDA tensors it launches the kernel on the current stream
 or raises, and counts the launch in ``<wrapper>.launches``.  A launch
 captured into a CUDA graph by ``jit.StepGraphs`` counts once a replay
-instead, so the count is of launches that ran on the card.  At decode
-shapes (at most 8 rows, K up to 8192) both kernels split K across the
-blocks of a cluster as ``_decode_plan`` says, in one launch that needs no
-workspace; at every other shape they run a tensor-core tile whose rows
-``_prefill_plan`` chooses.
+instead, so the count is of launches that ran on the card.  Each call
+takes one of three routes (``_route``): at decode shapes (at most 8 rows,
+K up to 8192) both kernels split K across the blocks of a cluster as
+``_decode_plan`` says, in one launch that needs no workspace; at up to
+``STREAM_M`` rows, and at most 8 rows with K above 8192, the stream does
+the same on 128-column tiles through a ring that each block refills
+(``_stream_plan``); at every other shape they run a tensor-core tile whose
+rows ``_prefill_plan`` chooses.
 """
 
 from __future__ import annotations
@@ -97,22 +100,51 @@ def _decode_plan(m, n, k):
     return _TILE_N, chunk, splits
 
 
+# rows the stream takes (6 n8 tiles, csrc/int8_tile.cuh stream::MAX_NT):
+# up to 48 it beat the prefill tile at all five of Mistral's matrices, at
+# 64 not (tools/int8_decode_ab.py, PERF.md section 6)
+STREAM_M = 48
+# as csrc/int8_tile.cuh stream:: has them: a block's columns and its K
+# step, the chunk's granularity
+_STREAM_N, _STREAM_STEP = 128, 32
+
+
+def _stream_plan(m, n, k):
+    """The split of a product between decode and prefill (9 to STREAM_M
+    rows at any K, or 1 to 8 rows with K above 8192) over blocks:
+    ``(column tile, K chunk, splits)``, the grid and the clusters as in
+    ``_decode_plan``.
+
+    It takes the fewest splits (at most 16) that launch at least 264
+    blocks; the chunk is k over the splits rounded up to 32, and has no
+    upper limit, since the block refills its ring."""
+    if not 1 <= m <= STREAM_M or k < 1 or (m <= DECODE_M and k <= DECODE_K):
+        raise ValueError(
+            f"the stream plan takes 1 to {STREAM_M} rows past the decode shapes "
+            f"(at most {DECODE_M} rows and K {DECODE_K}), not ({m}, {k})"
+        )
+    tiles = -(-n // _STREAM_N)
+    splits = next((s for s in range(1, _MAX_SPLITS + 1) if tiles * s >= _MIN_BLOCKS),
+                  _MAX_SPLITS)
+    chunk = -(-k // (splits * _STREAM_STEP)) * _STREAM_STEP
+    return _STREAM_N, chunk, -(-k // chunk)
+
+
 # as csrc/int8_tile.cuh prefill:: has them: the tile's columns, and its rows
 # from the largest
 _PREFILL_N, _PREFILL_MS = 128, (128, 64, 32)
 
 
 def _prefill_plan(m, n, k):
-    """The tile of a product that is not a decode call (more than 8 rows,
-    or K above 8192): ``(tile_m, tile_n)``, the grid being (ceil(n /
-    tile_n), ceil(m / tile_m)) blocks of one tile each, over all of K.
+    """The tile of a product with more than ``STREAM_M`` rows: ``(tile_m,
+    tile_n)``, the grid being (ceil(n / tile_n), ceil(m / tile_m)) blocks
+    of one tile each, over all of K.
 
     It takes the largest tile that launches at least one block per SM
     (132), or the smallest when none does."""
-    if m < 1 or k < 1 or (m <= DECODE_M and k <= DECODE_K):
+    if m <= STREAM_M or k < 1:
         raise ValueError(
-            f"the prefill plan takes more than {DECODE_M} rows or K above "
-            f"{DECODE_K}, not ({m}, {k})"
+            f"the prefill plan takes more than {STREAM_M} rows, not ({m}, {k})"
         )
     tiles_n = -(-n // _PREFILL_N)
     for tile_m in _PREFILL_MS:
@@ -121,12 +153,23 @@ def _prefill_plan(m, n, k):
     return tile_m, _PREFILL_N
 
 
-def _plan_args(m, n, k):
-    """The C entry's (chunk, splits, tile_m): the decode plan's split at
-    decode shapes, the prefill plan's tile rows at any other."""
+def _route(m, n, k):
+    """The route of an (m, k) x (k, n) product: "decode" (at most 8 rows,
+    K up to 8192), "stream" (up to STREAM_M rows otherwise) or
+    "prefill"."""
     if m <= DECODE_M and k <= DECODE_K:
-        return (*_decode_plan(m, n, k)[1:], 0)
-    return 0, 0, _prefill_plan(m, n, k)[0]
+        return "decode"
+    return "stream" if m <= STREAM_M else "prefill"
+
+
+def _plan_args(m, n, k):
+    """The C entry's (chunk, splits, tile_m): the decode or stream plan's
+    split, or the prefill plan's tile rows, as ``_route`` says."""
+    route = _route(m, n, k)
+    if route == "prefill":
+        return 0, 0, _prefill_plan(m, n, k)[0]
+    plan = _decode_plan if route == "decode" else _stream_plan
+    return (*plan(m, n, k)[1:], 0)
 
 
 def int8_matmul(x, wq, scale, out_dtype=None):

@@ -218,8 +218,10 @@ def test_decode_plan_covers_ragged_shapes(m, k, n):
 def test_decode_plan_takes_decode_shapes_only(m, k):
     with pytest.raises(ValueError):
         quant._decode_plan(m, 1024, k)
-    if m > 8 or k > 8192:  # the prefill tile, with no K split
+    if m > quant.STREAM_M:  # the prefill tile, with no K split
         assert quant._plan_args(m, 1024, k) == (0, 0, quant._prefill_plan(m, 1024, k)[0])
+    elif m >= 1:  # the stream, K split as its plan says
+        assert quant._plan_args(m, 1024, k) == (*quant._stream_plan(m, 1024, k)[1:], 0)
 
 
 # prefill-tile shapes of chip_smoke.py: the plan's tile edges at K 4096, a
@@ -259,8 +261,14 @@ def test_prefill_plan_fills_the_card_at_the_decoder_shapes(m, name):
 
 @pytest.mark.parametrize("m,k,n", RAGGED_PREFILL)
 def test_prefill_plan_covers_ragged_shapes(m, k, n):
-    _check_prefill_plan(m, k, n)
-    assert quant._plan_args(m, n, k)[:2] == (0, 0)
+    """Each shape's plan covers it: the prefill tile's above STREAM_M rows,
+    the stream's split at or below (M 2, 9, 16 and 40 of these)."""
+    if quant._route(m, n, k) == "stream":
+        _check_stream_plan(m, k, n)
+        assert quant._plan_args(m, n, k)[2] == 0
+    else:
+        _check_prefill_plan(m, k, n)
+        assert quant._plan_args(m, n, k)[:2] == (0, 0)
 
 
 @pytest.mark.parametrize("m,k", [(1, 1024), (8, 8192), (5, 17), (0, 9000)])
@@ -269,6 +277,154 @@ def test_prefill_plan_refuses_decode_shapes(m, k):
         quant._prefill_plan(m, 1024, k)
     if m >= 1:
         assert quant._plan_args(m, 1024, k)[2] == 0  # the decode kernel
+
+
+# the parent's decode plan, (chunk, splits, tile_m) of the C entry, at the
+# decoder's shapes (any M of 1 to 8) and the ragged decode shapes: the
+# stream left every shape of the decode kernel where it was
+PARENT_DECODE_PLANS = {
+    "qkv": (384, 3, 0), "o": (64, 16, 0), "fc1": (384, 3, 0), "fc2": (448, 10, 0),
+    "head": (512, 2, 0),
+}
+PARENT_RAGGED_PLANS = [
+    (384, 3, 0), (64, 2, 0), (64, 1, 0), (64, 1, 0), (64, 16, 0), (64, 1, 0), (64, 16, 0),
+    (512, 9, 0), (512, 9, 0), (512, 16, 0),
+]
+
+
+@pytest.mark.parametrize("name", sorted(DECODER))
+@pytest.mark.parametrize("m", [1, 2, 5, 8])
+def test_decode_plan_is_the_parents_at_the_decoder_shapes(m, name):
+    k, n = DECODER[name]
+    assert quant._route(m, n, k) == "decode"
+    assert quant._plan_args(m, n, k) == PARENT_DECODE_PLANS[name]
+
+
+@pytest.mark.parametrize("i", range(len(RAGGED_DECODE)))
+def test_decode_plan_is_the_parents_at_the_ragged_shapes(i):
+    m, k, n = RAGGED_DECODE[i]
+    assert quant._route(m, n, k) == "decode"
+    assert quant._plan_args(m, n, k) == PARENT_RAGGED_PLANS[i]
+
+
+# (K, N) of the Llama decoder's quantised matrices at Mistral-7B's widths,
+# as chip_smoke.MISTRAL_SHAPES has them
+MISTRAL = {"qkv": (4096, 6144), "o": (4096, 4096), "gate_up": (4096, 28672),
+           "down": (14336, 4096), "head": (4096, 32000)}
+# the stream's ragged shapes of chip_smoke.stream_ragged: M 9 to STREAM_M,
+# and at most 8 rows with K past 8192
+RAGGED_STREAM = [(9, 8193, 4096), (17, 14336, 4097), (33, 8193, 4097), (40, 16385, 50),
+                 (48, 14336, 4096), (8, 14336, 50), (1, 16385, 4096), (2, 9000, 48),
+                 (40, 8320, 64)]
+
+
+@pytest.mark.parametrize("m", [0, 1, 8, 9, 16, 40, 63, 64, 65, 128, 384, 2048])
+@pytest.mark.parametrize("k", [17, 4096, 8192, 8193, 14336])
+def test_each_shape_takes_one_route(m, k):
+    """_route names one route, _plan_args gives that route's plan, and
+    the other two plans refuse the shape."""
+    n = 4096
+    if m < 1:
+        for plan in (quant._decode_plan, quant._stream_plan, quant._prefill_plan):
+            with pytest.raises(ValueError):
+                plan(m, n, k)
+        return
+    route = quant._route(m, n, k)
+    want = ("decode" if m <= 8 and k <= 8192 else "stream" if m <= quant.STREAM_M
+            else "prefill")
+    assert route == want
+    plans = {"decode": quant._decode_plan, "stream": quant._stream_plan,
+             "prefill": quant._prefill_plan}
+    for name, plan in plans.items():
+        if name == route:
+            plan(m, n, k)  # takes the shape
+        else:
+            with pytest.raises(ValueError):
+                plan(m, n, k)
+    args = quant._plan_args(m, n, k)
+    if route == "prefill":
+        assert args == (0, 0, quant._prefill_plan(m, n, k)[0])
+    else:
+        assert args == (*plans[route](m, n, k)[1:], 0)
+
+
+def _check_stream_plan(m, k, n):
+    """The stream's splits cover every K row and its tiles every column
+    exactly once, in the tile and chunks its kernel takes (128 columns; K
+    rows a multiple of 32, any number of them), with at most 16 splits,
+    the blocks of one cluster.  Returns the block count."""
+    tile, chunk, splits = quant._stream_plan(m, n, k)
+    assert tile == 128 and chunk % 32 == 0 and chunk >= 32
+    assert 1 <= splits <= 16
+    rows = np.zeros(splits * chunk, np.int64)
+    for s in range(splits):
+        rows[s * chunk:(s + 1) * chunk] += 1
+    assert (rows[:k] == 1).all() and (splits - 1) * chunk < k <= splits * chunk
+    tiles = -(-n // tile)
+    assert (tiles - 1) * tile < n <= tiles * tile
+    return tiles * splits
+
+
+@pytest.mark.parametrize("m,k,n", RAGGED_STREAM)
+def test_stream_plan_covers_ragged_shapes(m, k, n):
+    assert quant._route(m, n, k) == "stream"
+    _check_stream_plan(m, k, n)
+
+
+@pytest.mark.parametrize("name", sorted(MISTRAL))
+@pytest.mark.parametrize("m", [8, 40])
+def test_stream_fills_the_card_at_mistrals_matrices(m, name):
+    """The down projection at M 8 and all five matrices at M 40 (a verify
+    forward's rows) take the stream, with at least 264 blocks."""
+    k, n = MISTRAL[name]
+    if m == 8 and name != "down":
+        assert quant._route(m, n, k) == "decode"
+        return
+    assert quant._route(m, n, k) == "stream"
+    assert _check_stream_plan(m, k, n) >= 2 * 132
+
+
+@pytest.mark.parametrize("name", sorted(MISTRAL))
+@pytest.mark.parametrize("m", ["STREAM_M + 1", 384, 1536, 2048])
+def test_prefill_above_stream_m(m, name):
+    m = quant.STREAM_M + 1 if m == "STREAM_M + 1" else m
+    k, n = MISTRAL[name]
+    assert quant._route(m, n, k) == "prefill"
+    tile_m, tile_n = quant._prefill_plan(m, n, k)
+    assert tile_m in TILES_M and tile_n == 128
+    assert quant._plan_args(m, n, k) == (0, 0, tile_m)
+
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_int8_matmul_matches_jax_at_a_stream_shape(x_dtype):
+    """M 40, K 8320 (past the decode kernel's 8192), N 64: a shape of the
+    stream, through the wrapper (its plain twin on the CPU) against the
+    JAX kernel in interpret mode, f32 output."""
+    m, k, n = 40, 8320, 64
+    assert quant._route(m, n, k) == "stream"
+    x = RNG.standard_normal((m, k)).astype(np.float32)
+    w = RNG.standard_normal((k, n)).astype(np.float32) * 0.1
+    jq, js = pk.quantize_int8(jnp.asarray(w))
+    tq, ts = quant.quantize_int8(torch.from_numpy(w))
+    want = pk.int8_matmul(jnp.asarray(x).astype(x_dtype), jq, js, out_dtype=jnp.float32)
+    got = ops.int8_matmul(torch.from_numpy(x).to(getattr(torch, x_dtype)), tq, ts,
+                          out_dtype=torch.float32)
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-3)
+
+
+def test_w8a8_matmul_exact_against_jax_at_a_stream_shape():
+    m, k, n = 40, 8320, 64
+    assert quant._route(m, n, k) == "stream"
+    x = RNG.standard_normal((m, k)).astype(np.float32)
+    w = RNG.standard_normal((k, n)).astype(np.float32)
+    jxq, jsx = pk.quantize_int8_rows(jnp.asarray(x))
+    jwq, jsw = pk.quantize_int8(jnp.asarray(w))
+    want = pk.w8a8_matmul(jxq, jsx, jwq, jsw, out_dtype=jnp.float32)
+    txq, tsx = quant.quantize_int8_rows(torch.from_numpy(x))
+    twq, tsw = quant.quantize_int8(torch.from_numpy(w))
+    got = ops.w8a8_matmul(txq, tsx, twq, tsw, out_dtype=torch.float32)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("out", [None, "float32"])

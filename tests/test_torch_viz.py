@@ -219,10 +219,25 @@ def test_ws_broadcast(server):
     assert srv.manager.connections
     srv.manager.broadcast({"type": "status", "data": "hello"})
     sock.settimeout(20)
-    opcode, payload = read_frame(sock)  # no psutil: no resources frames interleave
-    assert opcode == 1 and json.loads(payload) == {"type": "status", "data": "hello"}
+    # with psutil installed the server's 1 Hz monitor broadcasts resources
+    # frames, which may come before or after any other frame
+    deadline = time.time() + 20
+    msg = None
+    while time.time() < deadline:
+        opcode, payload = read_frame(sock)
+        assert opcode == 1
+        msg = json.loads(payload)
+        if msg["type"] != "resources":
+            break
+    assert msg == {"type": "status", "data": "hello"}
     sock.sendall(encode_frame(b"", 0x8)[:1] + bytes([0x80]) + b"\x00\x00\x00\x00")
-    assert read_frame(sock)[0] == 0x8  # the close is answered
+    deadline = time.time() + 20
+    opcode = None
+    while time.time() < deadline:
+        opcode = read_frame(sock)[0]
+        if opcode != 1:
+            break
+    assert opcode == 0x8  # the close is answered
     sock.close()
 
 

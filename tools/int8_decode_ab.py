@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time int8_matmul and w8a8_matmul at decode M on one CUDA card, for two
-or more trees of deepflows_tpu_torch, each imported in its own process.
+"""Time int8_matmul and w8a8_matmul at decode and stream M on one CUDA card,
+for two or more trees of deepflows_tpu_torch, each imported in its own
+process.
 
     python3 tools/int8_decode_ab.py PARENT_TREE CHANGE_TREE [--report PATH]
 
@@ -14,21 +15,36 @@ flushed between launches), on inputs from the same seeds:
 - each of the decoder's five (K, N) shapes (chip_smoke.SHAPES) at M 1, 2,
   5 and 8: int8_matmul with bf16 x (bf16 out) and with f32 x (f32 out),
   and w8a8_matmul (bf16 out), one call each;
+- Mistral's five matrices (chip_smoke.MISTRAL_SHAPES) at M 1, 8, 16, 24,
+  32, 40, 48, 64, 96 and 128, the same three calls on the route the tree's
+  plan takes: the sweep that sets quant.STREAM_M, run on a tree whose
+  stream takes every M to be swept (stream::MAX_NT and quant.STREAM_M
+  raised together);
 - one decode step's 49 calls (chip_smoke.decode_step_timing: M 8, bf16 x,
-  12 layers of distinct weights and the head), with the library calls
+  12 layers of distinct weights and the head), a Llama decode step's 33
+  (M 8) and a speculative verify forward's 33 (M 40, the head too) at
+  Mistral's widths, depth 8, with the plain twins and library calls
   beside them;
-- the same step under torch.profiler: each kernel's device time, by the
-  decoder shape it serves, and the idle time between kernels, for both
-  kernels and torch.matmul on the dequantised weights.
+- the same 49-call step under torch.profiler: each kernel's device time,
+  by the decoder shape it serves, and the idle time between kernels, for
+  both kernels and torch.matmul on the dequantised weights;
+- a SHA-256 of every output at the parent's decode shapes (at most 8 rows
+  and K up to 8192: the decoder's shapes at M 1, 2, 5 and 8, Mistral's at
+  M 1 and 8, the ragged decode shapes), for int8_matmul with bf16 x (f32
+  and bf16 out) and f32 x and for w8a8_matmul, which the trees must share.
 
-Prints the card's name and power limit and a table of the median of each
-tree's runs; with ``--report PATH`` it also writes every run to PATH as
-JSON.  It needs a card and exits non-zero without one.
+Prints the card's name and power limit, a table of the median of each
+tree's runs, whether the outputs at the decode shapes are equal bit for
+bit, and the largest M of the sweep up to which the last tree's stream
+beat the first tree's route at all five matrices; with ``--report PATH`` it also writes
+every run to PATH as JSON.  It needs a card and exits non-zero without
+one.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import os
@@ -97,6 +113,51 @@ def profile_step(torch, ops, cs):
     return out
 
 
+SWEEP_M = (1, 8, 16, 24, 32, 40, 48, 64, 96, 128)
+KINDS = ("int8_bf16", "int8_f32", "w8a8")
+
+
+def calls(torch, ops, x, wq, s):
+    """The three timed calls on (x, wq, s): int8_matmul with bf16 x (bf16
+    out) and f32 x (f32 out), w8a8_matmul (bf16 out)."""
+    xb = x.bfloat16()
+    xq, sx = ops.quantize_int8_rows(xb)
+    return {"int8_bf16": lambda: ops.int8_matmul(xb, wq, s, torch.bfloat16),
+            "int8_f32": lambda: ops.int8_matmul(x, wq, s, torch.float32),
+            "w8a8": lambda: ops.w8a8_matmul(xq, sx, wq, s, torch.bfloat16)}
+
+
+def route_of(ops, m, n, k):
+    q = ops.quant
+    if hasattr(q, "_route"):
+        return q._route(m, n, k)
+    return "decode" if m <= q.DECODE_M and k <= q.DECODE_K else "prefill"
+
+
+def decode_hashes(torch, ops, cs):
+    """SHA-256 of every output at the parent's decode shapes, from inputs
+    of one seed a shape."""
+    shapes = [(M, K, N) for M in (1, 2, 5, 8) for K, N in cs.SHAPES.values()]
+    shapes += [(M, K, N) for M in (1, 8) for K, N in cs.MISTRAL_SHAPES.values() if K <= 8192]
+    shapes += [c[:3] for c in cs.RAGGED + cs.DECODE_RAGGED if c[0] <= 8 and c[1] <= 8192]
+    dev = torch.device("cuda")
+    out = {}
+    for i, (M, K, N) in enumerate(shapes):
+        g = torch.Generator(device=dev).manual_seed(100 + i)
+        x = torch.randn((M, K), generator=g, device=dev)
+        wq, s = ops.quantize_int8(torch.randn((K, N), generator=g, device=dev) * 0.02)
+        xq, sx = ops.quantize_int8_rows(x)
+        outs = [ops.int8_matmul(x.bfloat16(), wq, s, out_dtype=torch.float32),
+                ops.int8_matmul(x.bfloat16(), wq, s, out_dtype=torch.bfloat16),
+                ops.int8_matmul(x, wq, s, out_dtype=torch.float32),
+                ops.w8a8_matmul(xq, sx, wq, s, out_dtype=torch.float32)]
+        h = hashlib.sha256()
+        for o in outs:
+            h.update(o.cpu().view(torch.uint8).numpy().tobytes())
+        out[f"M={M} K={K} N={N}"] = h.hexdigest()
+    return out
+
+
 def child(tree):
     """One tree's timings, printed as one JSON line."""
     sys.path.insert(0, os.path.abspath(tree))
@@ -118,18 +179,92 @@ def child(tree):
         for name, (K, N) in cs.SHAPES.items():
             x = torch.randn((M, K), generator=g, device=dev)
             wq, s = ops.quantize_int8(torch.randn((K, N), generator=g, device=dev) * 0.02)
-            xb = x.bfloat16()
-            xq, sx = ops.quantize_int8_rows(xb)
-            runs = {
-                "int8_bf16": lambda: ops.int8_matmul(xb, wq, s),
-                "int8_f32": lambda: ops.int8_matmul(x, wq, s),
-                "w8a8": lambda: ops.w8a8_matmul(xq, sx, wq, s, out_dtype=torch.bfloat16),
-            }
-            shapes[f"M={M} {name}"] = {
-                k: cs.event_ms(f, 20, flush_buf.zero_) for k, f in runs.items()}
+            shapes[f"M={M} {name}"] = {k: cs.event_ms(f, 20, flush_buf.zero_)
+                                       for k, f in calls(torch, ops, x, wq, s).items()}
+    sweep = {}
+    for name, (K, N) in cs.MISTRAL_SHAPES.items():
+        wq, s = ops.quantize_int8(torch.randn((K, N), generator=g, device=dev) * 0.02)
+        for M in SWEEP_M:
+            x = torch.randn((M, K), generator=g, device=dev)
+            r = {"route": route_of(ops, M, N, K)}
+            r.update({k: cs.event_ms(f, 20, flush_buf.zero_)
+                      for k, f in calls(torch, ops, x, wq, s).items()})
+            sweep[f"M={M} {name}"] = r
+        del wq, s
     step_ms, b_int8, b_w8a8, _ = cs.decode_step_timing(torch, ops)
-    print(json.dumps(dict(tree=tree, shapes=shapes, step=step_ms, step_bound_ms=dict(
-        int8=b_int8[0], w8a8=b_w8a8[0]), profile=profile_step(torch, ops, cs))))
+    layer = ("qkv", "o", "gate_up", "down")
+    llama = {}
+    for key, M, depth in (("llama_decode_step", 8, cs.LLAMA_SERVE["depth"]),
+                          ("verify_forward", 40, cs.SERVE_CFG["depth"])):
+        ms, bi, bw, _ = cs.forward_timing(torch, ops, M, cs.MISTRAL_SHAPES, depth, layer, M)
+        llama[key] = dict(ms, int8_bound_ms=bi[0], w8a8_bound_ms=bw[0])
+        cs.free_card(torch)
+    print(json.dumps(dict(tree=tree, shapes=shapes, sweep=sweep, step=step_ms,
+                          step_bound_ms=dict(int8=b_int8[0], w8a8=b_w8a8[0]), llama=llama,
+                          hashes=decode_hashes(torch, ops, cs),
+                          profile=profile_step(torch, ops, cs))))
+
+
+def stream_m(med, route, trees, sweep_keys):
+    """The largest M of the sweep up to which the last tree's stream beat
+    the first tree's route at all five matrices in every kind, counting M
+    above 8 only (8 where it never did)."""
+    best = 8
+    for M in (m for m in SWEEP_M if m > 8):
+        for key in (k for k in sweep_keys if k.startswith(f"M={M} ")):
+            if route(trees[-1], key) != "stream" or not all(
+                    med(trees[-1], lambda r: r["sweep"][key][kind])
+                    < med(trees[0], lambda r: r["sweep"][key][kind]) for kind in KINDS):
+                return best
+        best = M
+    return best
+
+
+def summarise(cs, card, trees, runs):
+    """Prints the medians of each tree's runs."""
+    by_tree = {t: [r for r in runs if r["tree"] == t] for t in trees}
+
+    def med(tree, get):
+        return statistics.median(get(r) for r in by_tree[tree])
+
+    def route(tree, key):
+        return by_tree[tree][0]["sweep"][key]["route"]
+
+    print(card)
+    print("us a call (median of each tree's runs), L2 flushed: " + " | ".join(trees))
+    for key in runs[0]["shapes"]:
+        cells = []
+        for kind in KINDS:
+            vals = [med(t, lambda r: r["shapes"][key][kind]) * 1e3 for t in trees]
+            cells.append(f"{kind} " + " / ".join(f"{v:.2f}" for v in vals))
+        print(f"  {key:10s} " + "; ".join(cells))
+    print("Mistral's matrices, us a call on each tree's route (median of each tree's runs): "
+          + " | ".join(trees))
+    for key in runs[0]["sweep"]:
+        cells = []
+        for kind in KINDS:
+            vals = [f"{med(t, lambda r: r['sweep'][key][kind]) * 1e3:.2f}" for t in trees]
+            cells.append(f"{kind} " + " / ".join(vals))
+        print(f"  {key:14s} [{'/'.join(route(t, key) for t in trees)}] " + "; ".join(cells))
+    print(f"the stream beat {trees[0]}'s route at all five matrices, every kind, up to "
+          f"M {stream_m(med, route, trees, list(runs[0]['sweep']))} of the sweep")
+    for kind in runs[0]["step"]:
+        vals = [med(t, lambda r: r["step"][kind]) for t in trees]
+        print(f"step ({cs.PER_FORWARD} calls) {kind}: " + " / ".join(f"{v:.4f}" for v in vals)
+              + " ms")
+    for key, r0 in runs[0]["llama"].items():
+        for kind in r0:
+            vals = [med(t, lambda r: r["llama"][key][kind]) for t in trees]
+            print(f"{key} (33 calls) {kind}: " + " / ".join(f"{v:.4f}" for v in vals) + " ms")
+    first = runs[0]["hashes"]
+    differ = sorted({k for r in runs for k in first if r["hashes"].get(k) != first[k]})
+    print(f"outputs at the parent's {len(first)} decode shapes bitwise equal across every run: "
+          f"{not differ}" + (f"; they differ at {differ}" if differ else ""))
+    print("device time by torch.profiler, us (median of each tree's runs):")
+    for kind, r0 in runs[0]["profile"].items():
+        for key in r0:
+            vals = [med(t, lambda r: r["profile"][kind][key]) for t in trees]
+            print(f"  {kind} {key}: " + " / ".join(f"{v:.2f}" for v in vals))
 
 
 def main():
@@ -158,29 +293,7 @@ def main():
             return out.returncode
         runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
         print(f"timed {tree}", flush=True)
-    by_tree = {t: [r for r in runs if r["tree"] == t] for t in args.trees}
-
-    def med(tree, get):
-        return statistics.median(get(r) for r in by_tree[tree])
-
-    print(card)
-    print("us a call (median of each tree's runs), L2 flushed: "
-          + " | ".join(args.trees))
-    for key in runs[0]["shapes"]:
-        cells = []
-        for kind in ("int8_bf16", "int8_f32", "w8a8"):
-            vals = [med(t, lambda r: r["shapes"][key][kind]) * 1e3 for t in args.trees]
-            cells.append(f"{kind} " + " / ".join(f"{v:.2f}" for v in vals))
-        print(f"  {key:10s} " + "; ".join(cells))
-    for kind in runs[0]["step"]:
-        vals = [med(t, lambda r: r["step"][kind]) for t in args.trees]
-        print(f"step ({cs.PER_FORWARD} calls) {kind}: " + " / ".join(f"{v:.4f}" for v in vals)
-              + " ms")
-    print("device time by torch.profiler, us (median of each tree's runs):")
-    for kind, r0 in runs[0]["profile"].items():
-        for key in r0:
-            vals = [med(t, lambda r: r["profile"][kind][key]) for t in args.trees]
-            print(f"  {kind} {key}: " + " / ".join(f"{v:.2f}" for v in vals))
+    summarise(cs, card, args.trees, runs)
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
         with open(args.report, "w") as f:

@@ -8,9 +8,11 @@ sources), holds both kernels against their plain twins with chip_smoke's
 tolerances (chip_smoke.compare: w8a8 exact, int8 rtol 1e-4 / atol 1e-3
 plus one bf16 ulp for bf16 output) at a few shapes of both paths (tiny
 ones, the decoder's at M 1536 and 192, the prefill tile's edges, a
-misaligned weight, ragged K, K past the decode path), printing where a
-case disagrees, then times the decoder's four layer shapes at M 1536 and
-192 (bf16 x, L2 flushed) beside torch.matmul and torch._int_mm.  It is
+misaligned weight, ragged K, K past the decode path), printing each
+case's route and where a case disagrees, and the stream at its edges
+(chip_smoke.stream_checks, with its two-call bitwise check), then times
+the decoder's four layer shapes at M 1536 and 192 (bf16 x, L2 flushed)
+beside torch.matmul and torch._int_mm.  It is
 the quick call to make after a change to the kernels, before
 chip_smoke.py's full run.  Exits non-zero on a disagreement and without a
 card.
@@ -61,10 +63,15 @@ def main() -> int:
             try:
                 cs.compare(torch, ops, x, wq, s, f"M={M} K={K} N={N} aligned={aligned} x={xdt}",
                            err)
-                print("ok", M, K, N, aligned, xdt, flush=True)
+                print("ok", ops.quant._route(M, N, K), M, K, N, aligned, xdt, flush=True)
             except SystemExit as e:
                 bad += 1
                 print(e, flush=True)
+    try:
+        cs.stream_checks(torch, ops, g, err)
+    except SystemExit as e:
+        bad += 1
+        print(e, flush=True)
     torch.cuda.synchronize()
     print("max abs err", err, "cases that disagree", bad)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
