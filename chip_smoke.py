@@ -74,9 +74,11 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
    0 and are held by absolute error against TOL x max |dout| x max |q or
    k|); CE: N
    and V not tile multiples (V no multiple of 8 too: w staged into padded
-   rows), an f32 bias beside bf16 x and w, each case held to the forward
-   route it must take (wgmma in bf16 at D a multiple of 8, mma.sync at D
-   257); Adam: sizes
+   rows), an f32 bias beside bf16 x and w, x viewed 2 bytes off a 16-byte
+   boundary, each case held to the routes its forward and its backward
+   must take (ops/fused_ce.py _fwd_route and _bwd_route: wgmma in bf16 at
+   D a multiple of 8 with x's base aligned, mma.sync at D 257 and for the
+   offset x); Adam: sizes
    that are not a block multiple, weight decay 0 and not), and the slice's
    bf16 flash case again on (B, L, H, D) tensors seen as (B, H, L, D), as
    MultiheadAttention passes them.  Tolerances: flash's out, dq, dk and dv
@@ -90,7 +92,8 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
    dw by column (row_err of dw.t()) and db by element (elem_err), below
    1e-4 in f32 and 2e-2 in bf16, at the slice's shape, the ragged ones and
    D 200, 256, 257, 1000, 2048 and 4096 (N 300, V 1000; the bf16
-   backward's clusters of 1, 1, 2, 4, 8 and 16 blocks; f32 up to D 1024),
+   backward's clusters of 1, 1, 2, 4, 8 and 16 blocks, the last at 2
+   stages; f32 up to D 1024),
    each CE case with targets V - 1, V + 3 and -1 beside random ones (the
    last two must cost exactly lse, in f32 and bf16, forward and backward);
    Adam below 1e-6.  Rows that see no key must give exactly 0 and lse
@@ -99,8 +102,9 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
    its backward fed lse + 0.1; and two the CE check: dx of the backward
    run on the first V - 64 columns of w and b (one vocab step dropped),
    held by row against the full reference, and the backward fed lse +
-   0.1.  Two bf16 CE backward calls and two bf16 flash forward calls at the
-   slice's shape must give the same bits.  The bf16 CE forward besides,
+   0.1, both on the backward's wgmma route.  Two bf16 CE backward calls
+   (wgmma) and two bf16 flash forward calls at the slice's shape must give
+   the same bits.  The bf16 CE forward besides,
    each case held to the route it must take (ops/fused_ce.py _fwd_route:
    wgmma where TMA can read x, w staged into 16-byte aligned rows at any V,
    else mma) with loss and lse below 1e-4 of the twin: the slice (wgmma;
@@ -122,7 +126,8 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
    the fixed B 8 x L 1024 batch of bench.py (numpy default_rng(0)), 3
    warm-up and 10 timed steps.  Launch counts are zeroed just before and read
    just after; every step must launch flash forward and backward 12 times
-   each, the CE forward and backward and fused Adam once each.  Every loss
+   each, the CE forward and backward and fused Adam once each, flash and
+   the CE both ways on their wgmma routes (printed by route).  Every loss
    must be finite, the first within 1.0 of ln 8192, the last below the
    first.  Prints step ms (CUDA events and wall clock), tokens/s, the
    device busy share, the MFU of the analytic 9.071e12 FLOPs a step, and
@@ -453,9 +458,10 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
    path, an HF-layout GPT-2 at GPT-2 small's widths (n_embd 768, 12
    layers and heads, vocab 50257, n_positions 1024) converted and trained
    3 bf16 steps at B 8 x L 1024 with LMHeadCrossEntropy (Adam lr 6e-4,
-   fused): 12 flash launches each way at D 64, the CE forward on its
-   wgmma route (w staged once a step into rows padded to 50264, since V
-   50257 is no multiple of 8), flash on wgmma both ways.  Then each of
+   fused): 12 flash launches each way at D 64, the CE forward and
+   backward on their wgmma routes (w staged once a step into rows padded
+   to 50264, since V 50257 is no multiple of 8; the backward's launches
+   printed by route), flash on wgmma both ways.  Then each of
    the path's kernels against its plain twins at the path's shapes,
    timed beside its bound, plain twin and library call: the CE at (N
    8192, D 768, V 50257) with ce_case's tolerances, flash causal
@@ -1426,6 +1432,7 @@ CE_RAGGED = ((37, 64, 513), (100, 200, 300), (1000, 1024, 8000), (130, 1000, 97)
 # 1, 2, 4, 8 and 16 (the f32 backward takes D <= 1024)
 CE_D_EDGES = ((300, 200, 1000), (300, 256, 1000), (300, 257, 1000), (300, 1000, 1000),
               (300, 2048, 1000), (300, 4096, 1000))
+CE_OFFSET = (300, 1024, 1000)  # bf16 x viewed 2 bytes off: both directions on mma.sync
 ADAM_RAGGED = (1, 3, 4095, 4096, 4097, 10000, 12345)
 # bf16 CE forward cases beside the slice, each held to the route it must
 # take (ops/fused_ce.py _fwd_route): (N, D, V, b's dtype, x's layout, route);
@@ -1615,15 +1622,18 @@ def ce_errs(fwd, ref_fwd, grads, ref_grads):
             "dx": row_err(dx, pdx), "dw": row_err(dw.t(), pdw.t()), "db": elem_err(db, pdb)}
 
 
-def ce_case(torch, ops, g, N, D, V, dt, bdt, label):
+def ce_case(torch, ops, g, N, D, V, dt, bdt, label, layout="contiguous"):
     """Forward and backward kernel against the plain twins on one case; the
     plain backward is fed the kernel's lse.  The first three targets are
     the last vocab column, V + 3 and -1: the last two must cost exactly lse
-    and add no one-hot term to the gradients.  Fails past the limits (loss
-    and lse at TOL["f32"] in both dtypes, the gradients at the dtype's
-    TOL).  Returns the operands, the plain backward and the errors."""
+    and add no one-hot term to the gradients; "offset" views x 2 bytes off
+    a 16-byte boundary.  Fails past the limits (loss and lse at TOL["f32"]
+    in both dtypes, the gradients at the dtype's TOL).  Returns the
+    operands, the plain backward and the errors."""
     dev = torch.device("cuda")
     x = (torch.randn((N, D), generator=g, device=dev) * 0.5).to(dt)
+    if layout == "offset":
+        x = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(N, D)
     w = (torch.randn((D, V), generator=g, device=dev) * 0.05).to(dt)
     b = (torch.randn((V,), generator=g, device=dev) * 0.1).to(bdt)
     t = torch.randint(0, V, (N,), generator=g, device=dev)
@@ -1644,27 +1654,33 @@ def ce_case(torch, ops, g, N, D, V, dt, bdt, label):
     return (x, w, b, t, lse, gr), want, errs
 
 
-def ce_routed(torch, ops, g, case, dt, label):
-    """ce_case at (N, D, V) = case, held to the forward route _fwd_route
-    gives it: f32, or in bf16 wgmma at D a multiple of 8 (any V: w is
-    staged) and mma.sync otherwise (D 257 of CE_D_EDGES).  Returns its
-    errors."""
-    (_, _, errs), route = routes_taken(
-        ops.fused_linear_ce_fwd, lambda: ce_case(torch, ops, g, *case, dt, dt, label))
-    want = "f32" if dt == torch.float32 else "mma" if case[1] % 8 else "wgmma"
-    if route != [want]:
-        fail(f"fused_linear_ce {label}: the forward took {route}, not {want}")
-    return errs
+def ce_routed(torch, ops, g, case, dt, label, layout="contiguous", bdt=None):
+    """ce_case at (N, D, V) = case, its forward and its backward each held
+    to the route _fwd_route and _bwd_route give it: f32, or in bf16 wgmma at
+    D a multiple of 8 with x's base 16-byte aligned (any V: w is staged)
+    and mma.sync otherwise (D 257 of CE_D_EDGES, an offset x).  Returns
+    ce_case's result."""
+    (res, fwd), bwd = routes_taken(ops.fused_linear_ce_bwd, lambda: routes_taken(
+        ops.fused_linear_ce_fwd,
+        lambda: ce_case(torch, ops, g, *case, dt, bdt or dt, label, layout)))
+    want = ("f32" if dt == torch.float32 else "mma" if case[1] % 8 or layout == "offset"
+            else "wgmma")
+    if fwd != [want] or bwd != [want]:
+        fail(f"fused_linear_ce {label}: the forward took {fwd} and the backward {bwd}, not "
+             f"{want}")
+    return res
 
 
 def ce_planted_faults(ops, operands, want):
     """Shows that the bf16 check of the slice case catches two faults of the
-    backward: dx of a run on the first V - 64 columns of w and b (one
-    vocab step fewer), held by row against the full reference, and the
-    backward fed an lse off by FAULT_SHIFT.  Fails unless ce_case's limits
-    flag both; returns each fault's errors beside the global measure."""
+    backward on its wgmma route: dx of a run on the first V - 64 columns of
+    w and b (one vocab step fewer), held by row against the full reference,
+    and the backward fed an lse off by FAULT_SHIFT.  Fails unless ce_case's
+    limits flag both; returns each fault's errors beside the global
+    measure."""
     x, w, b, t, lse, gr = operands
     V = w.shape[1]
+    before = dict(ops.fused_linear_ce_bwd.routes)
     dx = ops.fused_linear_ce_bwd(x, w[:, :V - 64].contiguous(), b[:V - 64].contiguous(), t,
                                  lse, gr)[0]
     dropped = {"dx": row_err(dx, want[0])[0], "dx_global_scaled": scaled_err(dx, want[0])[0]}
@@ -1676,6 +1692,9 @@ def ce_planted_faults(ops, operands, want):
     shifted["global_scaled"] = max(scaled_err(a, r)[0] for a, r in zip(grads, want))
     if not max(shifted[n] for n in ("dx", "dw", "db")) >= TOL["bf16"]:
         fail(f"CE planted fault (lse + {FAULT_SHIFT} in the backward) passed: {shifted}")
+    routes = {k: n - before[k] for k, n in ops.fused_linear_ce_bwd.routes.items() if n - before[k]}
+    if routes != {"wgmma": 2}:
+        fail(f"the CE planted faults ran the backward on {routes}, not wgmma")
     return {"dropped_vocab_step": dropped, "lse_shift": shifted}
 
 
@@ -1785,7 +1804,7 @@ def train_kernel_phase(torch, ops, report):
             torch, ops, g, B, H, L, L, D, True, None, dt, f"slice {name}",
             want_route="wgmma" if name == "bf16" else "f32",
             want_bwd_route="wgmma" if name == "bf16" else "f32")
-        ce_ops, ce_want, ce_e = ce_case(torch, ops, g, N, E, V, dt, dt, f"slice {name}")
+        ce_ops, ce_want, ce_e = ce_routed(torch, ops, g, (N, E, V), dt, f"slice {name}")
         if dt == torch.bfloat16:  # the main path's dtype: the JSON line's errors
             err = {"flash_attention_fwd": max(fe["out"][1], fe["lse"][1]),
                    "flash_attention_bwd": max(fe[n][1] for n in ("dq", "dk", "dv")),
@@ -1798,8 +1817,11 @@ def train_kernel_phase(torch, ops, report):
                        want_bwd_route=route)
         ce_edges = [c for c in CE_D_EDGES if c[1] <= ops.fused_ce.MAX_DIM[dt]]
         report[f"ce_cases_{name}"] = {
-            str(c): ce_routed(torch, ops, g, c, dt, f"{c} {name}")
+            str(c): ce_routed(torch, ops, g, c, dt, f"{c} {name}")[2]
             for c in CE_RAGGED + tuple(ce_edges)}
+        if dt == torch.bfloat16:  # x 2 bytes off: both directions on mma.sync
+            report["ce_cases_bf16"][f"{CE_OFFSET} offset"] = ce_routed(
+                torch, ops, g, CE_OFFSET, dt, f"{CE_OFFSET} bf16 offset", "offset")[2]
     for *case, layout in FLASH_MISALIGNED:
         flash_case(torch, ops, g, *case, torch.bfloat16, f"{tuple(case)} bf16 {layout}", layout,
                    "mma", "mma")
@@ -1823,20 +1845,21 @@ def train_kernel_phase(torch, ops, report):
         fail("flash_attention_bwd: two calls on the slice's inputs differ")
     report["flash_fwd_bitwise_equal"], report["flash_bwd_bitwise_equal"] = fwd_same, bwd_same
     report["flash_slice_route"], report["flash_slice_bwd_route"] = froute, broute
-    ce_case(torch, ops, g, 130, 1000, 97, torch.bfloat16, torch.float32, "f32 bias")
+    ce_routed(torch, ops, g, (130, 1000, 97), torch.bfloat16, "f32 bias", bdt=torch.float32)
     ce_faults = ce_planted_faults(ops, ce_ops, ce_want)
     x, w, b, t, clse, gr = ce_ops  # the bf16 slice case: two calls give the same bits
-    ce_same = all(torch.equal(p, q) for p, q in zip(ops.fused_linear_ce_bwd(x, w, b, t, clse, gr),
-                                                    ops.fused_linear_ce_bwd(x, w, b, t, clse, gr)))
-    if not ce_same:
-        fail("fused_linear_ce_bwd: two calls on the slice's inputs differ")
+    (one, two), bwd_route = routes_taken(ops.fused_linear_ce_bwd, lambda: [
+        ops.fused_linear_ce_bwd(x, w, b, t, clse, gr) for _ in range(2)])
+    ce_same = all(torch.equal(p, q) for p, q in zip(one, two))
+    if not ce_same or bwd_route != ["wgmma"] * 2:
+        fail(f"fused_linear_ce_bwd: two calls on the slice's inputs differ ({bwd_route})")
     report["ce_planted_faults"], report["ce_bitwise_equal"] = ce_faults, ce_same
     cf = report["ce_fwd"] = ce_fwd_checks(torch, ops, g, (x, w, b, t))
     adam_ops, err["fused_adam"] = adam_case(torch, ops, g, shapes, ADAM["weight_decay"], "slice")
     for wd in (0.0, 0.01):
         adam_case(torch, ops, g, [(n,) for n in ADAM_RAGGED], wd, f"ragged wd={wd}")
     n_flash = len(FLASH_RAGGED) + len(FLASH_MISALIGNED) + len(FLASH_DOUT_MISALIGNED) + 2
-    print(f"  flash {n_flash} shapes, CE {len(CE_RAGGED) + len(CE_D_EDGES) + 2} "
+    print(f"  flash {n_flash} shapes, CE {len(CE_RAGGED) + len(CE_D_EDGES) + 3} "
           f"shapes, Adam {len(shapes)} + {len(ADAM_RAGGED)} tensors agree with their plain twins "
           f"in f32 and bf16; max abs err (slice, bf16): {err}")
 
@@ -1848,7 +1871,7 @@ def train_kernel_phase(torch, ops, report):
           f"{TOL['bf16']}; dx by row, dw by column, db by element): slice {fmt(ce_e)}; worst of "
           f"{len(report['ce_cases_bf16'])} other shapes (D up to {CE_D_EDGES[-1][1]}) "
           + ", ".join(f"{n} {v:.3g}" for n, v in worst.items())
-          + f"; two slice-shape backward calls bitwise equal: {ce_same}")
+          + f"; two slice-shape backward calls ({bwd_route[0]} route) bitwise equal: {ce_same}")
     print(f"  CE planted faults, flagged: a dropped vocab step gives dx "
           f"{ce_faults['dropped_vocab_step']['dx']:.3g} (the global measure reads "
           f"{ce_faults['dropped_vocab_step']['dx_global_scaled']:.3g}); lse + {FAULT_SHIFT} gives "
@@ -1926,7 +1949,10 @@ def train_kernel_phase(torch, ops, report):
         n_ops, n_bytes = costs[name]
         r["bound_ms"], r["bound_by"] = bound_ms(n_bytes, n_ops, "bf16")
         out[name] = r
-    out["fused_linear_ce_bwd"]["plan"] = list(ops.fused_ce._bwd_plan(N, E, V))  # (C, BM, BV)
+    cbw = out["fused_linear_ce_bwd"]
+    cbw["bwd_route"] = bwd_route[0]
+    cbw["plan"] = list(ops.fused_ce._bwd_wgmma_plan(N, E, V))  # (C, 128, stages)
+    cbw["tflops"] = costs["fused_linear_ce_bwd"][0] / cbw["ms"] / 1e9  # the function's 3 products
     cfw = out["fused_linear_ce_fwd"]
     cfw["fwd_route"] = cf["slice_route"]
     cfw["plan"] = list(ops.fused_ce._fwd_plan(N, V, cf["slice_route"]))  # (splits, tiles a split)
@@ -2415,7 +2441,8 @@ def train_phase(torch, dt, report, sr=False, ref_first_loss=None):
     y = torch.as_tensor(rng.integers(0, V, (TRAIN_B, TRAIN_L)).astype(np.int32), device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    routed = (ops.flash_attention_fwd, ops.flash_attention_bwd, ops.fused_linear_ce_fwd)
+    routed = (ops.flash_attention_fwd, ops.flash_attention_bwd, ops.fused_linear_ce_fwd,
+              ops.fused_linear_ce_bwd)
     routes_before = [dict(f.routes) for f in routed]
     ops.reset_launch_counts()  # the main path starts here
     losses, wall_ms, event_step_ms = run_steps(torch, step, x, y, WARMUP + TIMED, key, per_step)
@@ -5928,15 +5955,18 @@ def gpt2_phase(torch, dt, report, card):
     L, V = cfg.n_positions, cfg.vocab_size
     x = torch.as_tensor(rng.integers(0, V, (GPT2_B, L)), device="cuda")
     y = torch.as_tensor(rng.integers(0, V, (GPT2_B, L)), device="cuda")
-    routed = (ops.flash_attention_fwd, ops.flash_attention_bwd, ops.fused_linear_ce_fwd)
+    routed = (ops.flash_attention_fwd, ops.flash_attention_bwd, ops.fused_linear_ce_fwd,
+              ops.fused_linear_ce_bwd)
     before = [dict(f.routes) for f in routed]
     (losses, wall, _), counts = counted(ops, lambda: run_steps(
         torch, step, x, y, GPT2_STEPS, "gpt2 training", GPT2_PER_STEP))
     print(f"main-path launches (gpt2_training): {counts}")
     routes = {f.__name__: {k: f.routes[k] - b[k] for k in f.routes if f.routes[k] - b[k]}
               for f, b in zip(routed, before)}
-    if routes["fused_linear_ce_fwd"] != {"wgmma": GPT2_STEPS}:
-        fail(f"the GPT-2 CE forward took {routes['fused_linear_ce_fwd']}, not wgmma")
+    for name in ("fused_linear_ce_fwd", "fused_linear_ce_bwd"):
+        if routes[name] != {"wgmma": GPT2_STEPS}:
+            fail(f"the GPT-2 CE's {name} took {routes[name]}, not wgmma")
+    print(f"  fused_linear_ce_bwd launches by route: {routes['fused_linear_ce_bwd']}")
     for name in ("flash_attention_fwd", "flash_attention_bwd"):
         if set(routes[name]) != {"wgmma"}:
             fail(f"GPT-2's {name} took {routes[name]}, not wgmma alone")
@@ -5950,11 +5980,7 @@ def gpt2_phase(torch, dt, report, card):
     g = torch.Generator(device="cuda").manual_seed(17)
     N, D, H = GPT2_B * L, cfg.n_embd, cfg.n_head
     # the CE call at the step's shape: (N, D, V) = (B L, 768, 50257), bf16
-    (ce_ops, want, errs), route = routes_taken(
-        ops.fused_linear_ce_fwd,
-        lambda: ce_case(torch, ops, g, N, D, V, torch.bfloat16, torch.bfloat16, "GPT-2 head"))
-    if route != ["wgmma"]:
-        fail(f"the GPT-2 CE case took {route}, not wgmma")
+    ce_ops, want, errs = ce_routed(torch, ops, g, (N, D, V), torch.bfloat16, "GPT-2 head")
     cx, cw, cb, ct, clse, cgr = ce_ops
     xr, wr, br = (a.detach().requires_grad_() for a in (cx, cw, cb))
     tl = torch.where((ct >= 0) & (ct < V), ct, -100)
@@ -5983,7 +6009,7 @@ def gpt2_phase(torch, dt, report, card):
         "fused_linear_ce_bwd": (
             lambda: ops.fused_linear_ce_bwd_plain(cx, cw, cb, ct, clse, cgr),
             lambda: torch.autograd.grad(lib_loss, (xr, wr, br), cgr, retain_graph=True),
-            (cx, ops.fused_ce._staged(cw), cb, ct, clse, cgr), "mma", ce_at,
+            (cx, ops.fused_ce._staged(cw), cb, ct, clse, cgr), "wgmma", ce_at,
             max(errs[n][1] for n in ("dx", "dw", "db"))),
         "flash_attention_fwd": (
             lambda: ops.flash_attention_plain(q, k, v, True),

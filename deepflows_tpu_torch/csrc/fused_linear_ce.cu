@@ -47,41 +47,45 @@
 // both, the last split of a row block to finish (an atomic count) combines
 // the splits' partials in a fixed order, so two calls give the same bits.
 //
-// Backward (namespace bwd): ONE launch of two roles, each a cluster of
-// C = ceil(D / 256) blocks (D <= 4096) that split D, block r owning D
-// columns [256 r, 256 r + 256).  What held a one-block design back was how
-// often each operand crossed L2: a block that owns all of D can hold only
-// 32 rows of dx (or 32 columns of dw) in registers, so every block staged
-// all of w (or x), 8.6 GB through L2 for 67 MB of operands.  Split over C
-// blocks, a dx cluster owns BM = 128 rows (each block a (128, 256) slice of
-// dx in registers, its (128, 256) slice of x resident) and a dw cluster BV
-// = 128 vocab columns (each block a (256, 128) slice of dw, its (256, 128)
-// slice of w resident), so w and x each cross L2 about 1 GB.  A dx block
-// walks the vocabulary in steps of 64: its (256, 64) slices of w come
-// through a 3-stage cp.async ring, step i + 2's copies issued a few at a
-// time between step i's logits products and step i + 1's in flight; it
-// computes its partial logits over its 256 columns of D and stores them
-// through distributed shared memory into the slots of the blocks that
+// The bf16 backward has two kernels, each ONE launch of two roles in
+// clusters of C = ceil(D / 256) blocks (D <= 4096) that split D, block r
+// owning D columns [256 r, 256 r + 256); the route is ops/fused_ce.py
+// _bwd_route's, by the forward's rule (a call never falls back).  What
+// held a one-block design back was how often each operand crossed L2: a
+// block that owns all of D can hold only 32 rows of dx (or 32 columns of
+// dw) in registers, so every block staged all of w (or x), 8.6 GB through
+// L2 for 67 MB of operands.  Split over C blocks, a dx cluster owns 128
+// rows (each block a (128, 256) slice of dx in registers, its (128, 256)
+// slice of x resident) and a dw cluster 128 vocab columns (each block a
+// (256, 128) slice of dw, its (256, 128) slice of w resident), so w and x
+// each cross L2 about 1 GB.  A dx block walks the vocabulary in steps of
+// 64, computes its partial logits over its 256 columns of D and stores
+// them through distributed shared memory into the slots of the blocks that
 // finish them (each block finishes 64 / C of the columns; a store costs no
-// round trip, where a remote load does).  After a cluster barrier each
-// block adds the C partials of its columns from its own slots in rank
-// order, forms dl and stores it in bf16 into every block's dl tile; after a
-// second barrier each block adds dl w_slice^T from the same staged slice.
-// A dw block is the mirror image: (64, 256) slices of x stream through the
-// ring, dw_slice += x_slice^T dl, and db is summed from the f32 dl by every
-// thread of the cluster, each block over its own columns in a fixed order.
-// Every product runs on warp tiles of 32 x 32 or larger (64 x 64 for dx
-// and dw), each loaded fragment used by every tile it serves.  The longer
-// role's clusters start first.  Both roles still recompute the logits, as
-// the TPU kernel's two pallas_calls do: four products where the function
-// needs three.  Sums run in a fixed order and without float atomics: two
-// calls give the same bits.  What bounds it now is not L2 but the step's
-// serial chain: copies, logits, the partials' exchange, a barrier, the
-// combine, a barrier, the product, with no tensor work beside the
-// exchange; overlapping them (warp-specialised halves, wgmma and TMA) is
-// later work.  The plan (C, BM, BV) is the wrapper's (ops/fused_ce.py
-// _bwd_plan); BM and BV fall to 64 when the partials of C blocks do not fit
-// an owner's slots or 128 would leave the grid under 132 blocks.
+// round trip, where a remote load does); each block adds the C partials of
+// its columns from its own slots in rank order, forms dl and stores it in
+// bf16 into every block's dl tile; then each block adds dl w_slice^T from
+// the same staged slice of w.  A dw block is the mirror image: slices of x
+// stream, dw_slice += x_slice^T dl, and db is summed from the f32 dl, each
+// block over its own columns in a fixed order.  The longer role's clusters
+// start first.  Both roles recompute the logits, as the TPU kernel's two
+// pallas_calls do: four products where the function needs three.  Sums run
+// in a fixed order and without float atomics: two calls give the same
+// bits.
+// - Where TMA can read x (D a multiple of 8, a 16-byte aligned base; w is
+//   staged) it runs ce_bwd_wgmma (namespace bwg): a producer warp keeps TMA
+//   loads in an mbarrier ring and two consumer warpgroups of 64 rows (or
+//   vocab columns) run wgmma, each a pipeline of its own whose exchange
+//   goes by st.async stores counted on the receiver's mbarriers, so one
+//   consumer's products run while the other exchanges.  Its plan (C, 128,
+//   ST) is _bwd_wgmma_plan's.
+// - Every other bf16 call (D not a multiple of 8, x's base misaligned)
+//   runs ce_bwd_cluster (namespace bwd): 8 warps on mma.sync fed by
+//   ldmatrix, (256, 64) slices through a 3-stage cp.async ring, each step a
+//   serial chain (copies, logits, the partials' exchange, a cluster
+//   barrier, the combine, a barrier, the product).  Its plan (C, BM, BV) is
+//   _bwd_plan's; BM and BV fall to 64 when the partials of C blocks do not
+//   fit an owner's slots or 128 would leave the grid under 132 blocks.
 //
 // f32 x and w run on the CUDA cores in f32 FMA: the same forward with
 // 64 x 64 tiles staged as f32, and a backward of 32 x 32 tiles whose block
@@ -759,8 +763,9 @@ __global__ void __launch_bounds__(THREADS, 1) ce_fwd_wgmma(const __grid_constant
 }  // namespace wgf
 
 // ------------------------------------------------------------------
-// The bf16 backward: one launch of clusters of C = ceil(D / 256) blocks,
-// block r of a cluster owning D columns [256 r, 256 r + 256).  dx clusters
+// The bf16 backward on mma.sync (the "mma" route): one launch of clusters
+// of C = ceil(D / 256) blocks, block r of a cluster owning D columns
+// [256 r, 256 r + 256).  dx clusters
 // own BM rows, dw clusters BV vocab columns (the wrapper's plan,
 // ops/fused_ce.py _bwd_plan).  w is read with its rows ldw apart (the
 // forward's staged copy where its rows were not 16-byte aligned, so its
@@ -1246,6 +1251,629 @@ cudaError_t run(const Args& a, int C, int BM, int BV, cudaStream_t st) {
 
 }  // namespace bwd
 
+// ------------------------------------------------------------------
+// The bf16 backward on Hopper's tensor cores: the clusters of namespace
+// bwd (C = ceil(D / 256) blocks, block r owning D columns [256 r, 256 r +
+// 256)), with wgmma fed by TMA and warp-specialised blocks.  A block is a
+// producer warpgroup (one thread issues every TMA load) and two consumer
+// warpgroups; each consumer is a pipeline of its own over a 64 x 64 tile a
+// step, exchanging its partial logits with the same consumer of the
+// cluster's other blocks through distributed shared memory (st.async
+// stores that count their bytes on the receiver's mbarrier, as TMA loads
+// do; no cluster-wide barrier, no release fence), so while one consumer
+// sends, waits and combines, the other's products run on the tensor
+// cores.
+//
+// A dx cluster owns 128 rows (64 a consumer) and walks the vocabulary in
+// steps of 64: each block keeps its (128, 256) slice of x resident and the
+// producer streams the (256, 64) slices of w through a ring of ST stages
+// of one TMA box each.  A dw cluster owns 128 vocab columns (64 a
+// consumer) and walks the rows in steps of 64: its (256, 128) slice of w
+// is resident and (64, 256) slices of x stream.  Both operands are
+// 128-byte swizzled, zeros past N, D and V, and one staged slice serves
+// both products of a step:
+// - dx role: logits (64, 64) = x_slice (K-major) w_slice (MN-major, the
+//   transpose-B bit), then dx (64, 256) += dl (K-major) w_slice^T (the
+//   same bytes read K-major), two accumulators of 128 columns;
+// - dw role: logits (64, 64) = x_slice (K-major) w_slice (MN-major), then
+//   dw (256, 64) += x_slice^T (MN-major, the transpose-A bit) dl
+//   (MN-major), four accumulators of 64 rows.
+// A step's exchange: each consumer stores its partial logits into the
+// slots of the blocks that finish them (unit u of 8 columns belongs to
+// block owner(u), as in bwd), counted on their `part` barriers; each owner
+// adds the C partials of its units in rank order, forms dl = (exp(logit +
+// b - lse) - onehot(t)) g (0 past N and V; exp by ex2.approx, as the wgmma
+// forward) and stores it in bf16 into every block's dl tile (the swizzled
+// layout wgmma reads), counted on their `dlb` barriers; the consumer then
+// adds its product.  A
+// consumer issues step i + 1's logits before it waits for step i's
+// partials, so they run on the tensor cores while it combines; it sends
+// step i + 1's partials only after its own step i product is done and
+// after every owner's dl of step i arrived (which the owners wrote after
+// reading their slots), so one slot array and one dl tile a consumer
+// suffice.  db is summed from the f32 dl by the owners, each
+// column in a fixed order.  No float atomics: two calls give the same
+// bits.  The plan (C, 128, ST) is the wrapper's (ops/fused_ce.py
+// _bwd_wgmma_plan): ST = 3 where the partials of C blocks fit 6,144 floats
+// a consumer, else 2 with 8,192.  What bounds it now: the exchange's
+// latency, about 3,900 cycles a step (the stores, both waits and the
+// combine) beside about 1,100 of tensor work, which the other consumer
+// and the early logits only partly hide; a second slot array and dl
+// tile, so that a consumer's sends run a step ahead of its exchange, do
+// not fit shared memory at C = 3 beside a 3-stage ring (PERF.md).
+namespace bwg {
+
+using namespace dft::hopper;
+using dft::mma::bf16;
+using dft::mma::pack;
+namespace cg = cooperative_groups;
+
+constexpr int DS = 256;        // the D columns a block owns
+constexpr int STEP = 64;       // vocab columns (dx) or rows (dw) a step, and a consumer's share
+constexpr int TILE = 128;      // a cluster's rows (dx) or vocab columns (dw): two consumers
+constexpr int UNITS = STEP / 8;
+constexpr int MAX_C = 16;      // blocks of a cluster: D <= 4096
+constexpr int THREADS = 384;   // the producer warpgroup and two consumers
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+constexpr int HALF = 32768;    // a consumer's resident slice, and a stage of the ring
+constexpr int BOX = 8192;      // a 64 x 64 box, and a consumer's dl tile
+
+// Shared memory, 1024-byte aligned: the two resident slices, the ring, the
+// two dl tiles, then f32 slots, biases and the barriers (res, full[ST],
+// empty[ST], part[2], dlb[2]).
+template <int ST>
+struct Layout {
+  static constexpr int SLOTS = ST == 3 ? 6144 : 8192;  // floats of a consumer's slots
+  static constexpr int RING = 2 * HALF;
+  static constexpr int DL = RING + ST * HALF;
+  static constexpr int SLOT = DL + 2 * BOX;
+  static constexpr int BIAS = SLOT + 2 * SLOTS * 4;  // dx: [2][2][64], dw: [128] f32
+  static constexpr int BARS = BIAS + 4 * STEP * 4;
+  static constexpr int SMEM = 1024 + BARS + (1 + 2 * ST + 4) * 8;
+};
+
+struct Args {
+  CUtensorMap xmap, wmap;  // first: 64-byte aligned.  x (D, N) in boxes of 64 x 64,
+                           // w (V, D) in boxes of 64 x 256
+  const void* b;           // f32 or bf16, as b_bf16 says; db the same
+  const int* t;
+  const float *lse, *g;
+  bf16 *dx, *dw;
+  void* db;
+  int N, D, V, b_bf16;
+};
+
+__device__ __forceinline__ uint32_t bias_bits(const Args& a, int col) {
+  return a.b_bf16 ? static_cast<uint32_t>(__ldg(static_cast<const unsigned short*>(a.b) + col))
+                  : __ldg(static_cast<const unsigned int*>(a.b) + col);
+}
+__device__ __forceinline__ float bias_of(const Args& a, uint32_t bits) {
+  return __uint_as_float(a.b_bf16 ? bits << 16 : bits);
+}
+
+struct Row {
+  float lse, g;
+  int t;
+  bool live;
+};
+
+__device__ __forceinline__ Row load_row(const Args& a, int row) {
+  if (row >= a.N) return Row{0.f, 0.f, -1, false};
+  return Row{a.lse[row], a.g[row], a.t[row], true};
+}
+
+// p's address in the shared memory of the cluster's block `rank`
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_addr(p)), "r"(rank));
+  return r;
+}
+// Stores into the shared memory of a block of the cluster (cluster
+// addresses) that count their bytes on the barrier `bar` of that block, as
+// a TMA load does: the receiver waits on its barrier, the sender waits for
+// nothing (no release fence, no arrival).
+__device__ __forceinline__ void st_async(uint32_t addr, uint4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
+      : "memory");
+}
+// mbar_wait, acquiring at cluster scope what the stores released
+__device__ __forceinline__ void wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  }
+}
+
+// Consumer c's part of the exchange in this block.  Its barriers `part`
+// (the partials of its units have landed in its slots) and `dlb` (its dl
+// tile is whole) take one arrival a phase, the consumer's own, which also
+// sets the bytes to come.
+struct Exchange {
+  float* slots;        // [C senders][64 rows][cs], in bwd::SlotMap order
+  unsigned char* dl;   // its dl tile, 64 x 64 bf16, 128-byte swizzled
+  uint64_t *part, *dlb;
+  int rank, C, u0, nu;  // this block's units of a step: [u0, u0 + nu)
+  bwd::SlotMap map;     // of every block's slots
+  // unit j's owner (4 bits each) and its place among the owner's units
+  // (3 bits each): what send needs, without a division a step
+  uint32_t owners, places;
+};
+
+// Waits for phase i of a consumer's barrier, which counts `bytes` of
+// st_async stores; the consumer's thread 0 arrives and sets the count.
+__device__ __forceinline__ void await_bytes(uint64_t* bar, uint32_t bytes, int i) {
+  if (threadIdx.x % 128 == 0) mbar_expect_tx(bar, bytes);
+  wait_cluster(bar, i & 1);
+}
+
+template <int ST>
+__device__ __forceinline__ Exchange exchange(unsigned char* sm, int c, int rank, int C) {
+  using L = Layout<ST>;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::BARS) + 1 + 2 * ST;
+  Exchange e;
+  e.slots = reinterpret_cast<float*>(sm + L::SLOT) + c * L::SLOTS;
+  e.dl = sm + L::DL + c * BOX;
+  e.part = bars + c;
+  e.dlb = bars + 2 + c;
+  e.rank = rank;
+  e.C = C;
+  bwd::units<STEP>(rank, C, e.u0, e.nu);
+  e.map = bwd::slot_map<STEP>(C);
+  e.owners = e.places = 0u;
+  for (int j = 0; j < UNITS; ++j) {
+    const int o = bwd::owner<STEP>(j, C);
+    int u0, nu;
+    bwd::units<STEP>(o, C, u0, nu);
+    e.owners |= static_cast<uint32_t>(o) << (4 * j);
+    e.places |= static_cast<uint32_t>(j - u0) << (3 * j);
+  }
+  return e;
+}
+
+// The consumer's partial logits (a 64 x 64 accumulator over this block's
+// 256 columns of D) to the blocks that finish them: unit u to its owner's
+// slots, rows 64 rank .. + 63, counted on the owner's `part` barrier.  A
+// lane pair trades halves first, so that each lane stores 4 adjacent
+// columns of one row (16 bytes): the even lane row g, the odd row g + 8.
+__device__ __forceinline__ void send(const Exchange& e, const float (&lg)[32]) {
+  const int w = threadIdx.x / 32 % 4, lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
+  const bool odd = q & 1;
+  const int row = 64 * e.rank + 16 * w + g + (odd ? 8 : 0);
+  const int rowoff = row * e.map.cs, rowx = (row >> e.map.sh) & e.map.m;
+#pragma unroll
+  for (int j = 0; j < UNITS; ++j) {
+    const float give0 = odd ? lg[4 * j] : lg[4 * j + 2], give1 = odd ? lg[4 * j + 1] : lg[4 * j + 3];
+    const float got0 = __shfl_xor_sync(0xffffffffu, give0, 1);
+    const float got1 = __shfl_xor_sync(0xffffffffu, give1, 1);
+    const uint4 v = odd ? make_uint4(__float_as_uint(got0), __float_as_uint(got1),
+                                     __float_as_uint(lg[4 * j + 2]), __float_as_uint(lg[4 * j + 3]))
+                        : make_uint4(__float_as_uint(lg[4 * j]), __float_as_uint(lg[4 * j + 1]),
+                                     __float_as_uint(got0), __float_as_uint(got1));
+    const int o = (e.owners >> (4 * j)) & 15;
+    const int chunk = 2 * ((e.places >> (3 * j)) & 7) + (q >> 1);  // 16-byte chunk in the row
+    st_async(cluster_addr(e.slots, o) + 4 * (rowoff + ((chunk ^ rowx) << 2)), v,
+             cluster_addr(e.part, o));
+  }
+}
+
+// the bytes of partials an owner's `part` barrier counts a step
+__device__ __forceinline__ uint32_t part_bytes(const Exchange& e) {
+  return e.C * STEP * 8 * e.nu * 4;
+}
+
+// This block's units of the consumer's step, once every partial is in its
+// slots: thread i of the consumer takes row r = i % 64 (whose inputs are
+// `row`) of units u0 + i / 64, u0 + i / 64 + 2, ...; it adds the C partials
+// in rank order, forms dl with the step's biases `bias` (f32, 64 columns
+// from c0), and stores it in bf16 into every block's dl tile (counted on
+// its `dlb` barrier).  With DB it adds the f32 dl into dbacc (by unit of
+// the thread, then column).
+template <bool DB>
+__device__ __forceinline__ void combine(const Exchange& e, const Row& row, int c0, int V,
+                                        const float* bias, float (&dbacc)[4][8]) {
+  const int i = threadIdx.x % 128, r = i % 64;
+  // slot row 64 q + r has row r's swizzle for every sender q
+  const int stride = 64 * e.map.cs, rowx = (r >> e.map.sh) & e.map.m;
+  const float lse2 = row.lse * wgf::LOG2E;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int uu = i / 64 + 2 * k;
+    if (uu >= e.nu) break;
+    const int u = e.u0 + uu;
+    const float* p0 = e.slots + r * e.map.cs + (((2 * uu) ^ rowx) << 2);
+    const float* p1 = e.slots + r * e.map.cs + (((2 * uu + 1) ^ rowx) << 2);
+    float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int q = 0; q < e.C; ++q) {
+      const float4 v0 = *reinterpret_cast<const float4*>(p0 + q * stride);
+      const float4 v1 = *reinterpret_cast<const float4*>(p1 + q * stride);
+      s[0] += v0.x; s[1] += v0.y; s[2] += v0.z; s[3] += v0.w;
+      s[4] += v1.x; s[5] += v1.y; s[6] += v1.z; s[7] += v1.w;
+    }
+    float dl[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = c0 + 8 * u + j;
+      const float p = wgf::exp2_ftz(fmaf(s[j] + bias[8 * u + j], wgf::LOG2E, -lse2));
+      dl[j] = row.live && col < V ? (p - (col == row.t ? 1.f : 0.f)) * row.g : 0.f;
+      if constexpr (DB) dbacc[k][j] += dl[j];
+    }
+    const uint4 packed = make_uint4(pack(dl[0], dl[1]), pack(dl[2], dl[3]), pack(dl[4], dl[5]),
+                                    pack(dl[6], dl[7]));
+    const uint32_t off = r * 128 + ((u ^ (r & 7)) << 4);  // the 128-byte swizzle
+    for (int o = 0; o < e.C; ++o)
+      st_async(cluster_addr(e.dl, o) + off, packed, cluster_addr(e.dlb, o));
+  }
+}
+
+// Waits until the dl tile of step i is whole (64 x 64 bf16 from the
+// owners); then wgmma, through the async proxy, may read it.
+__device__ __forceinline__ void dl_ready(const Exchange& e, int i) {
+  await_bytes(e.dlb, BOX, i);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// One thread issues every load: the resident slices on `res`, then a
+// stage a step.
+template <int ST>
+__device__ __forceinline__ void produce(const Args& a, unsigned char* sm, bool dx, int base,
+                                        int rank) {
+  using L = Layout<ST>;
+  uint64_t* res = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t *full = res + 1, *empty = full + ST;
+  tma_prefetch_map(&a.xmap);
+  tma_prefetch_map(&a.wmap);
+  const int d0 = rank * DS;
+  mbar_expect_tx(res, 2 * HALF);
+  for (int c = 0; c < 2; ++c) {
+    if (dx) {  // x rows base + 64 c .. + 63, D columns d0 .. d0 + 255: four boxes
+      for (int kb = 0; kb < 4; ++kb)
+        tma_load_4d(sm + c * HALF + kb * BOX, &a.xmap, res, d0 + 64 * kb, base + 64 * c, 0, 0);
+    } else {   // w vocab columns base + 64 c .. + 63, D rows d0 .. d0 + 255: one box
+      tma_load_4d(sm + c * HALF, &a.wmap, res, base + 64 * c, d0, 0, 0);
+    }
+  }
+  const int n = dx ? (a.V + STEP - 1) / STEP : (a.N + STEP - 1) / STEP;
+  for (int i = 0; i < n; ++i) {
+    const int s = i % ST;
+    mbar_wait(empty + s, ((i / ST) & 1) ^ 1);  // the slot's first wait passes at once
+    mbar_expect_tx(full + s, HALF);
+    unsigned char* dst = sm + L::RING + s * HALF;
+    if (dx) {
+      tma_load_4d(dst, &a.wmap, full + s, STEP * i, d0, 0, 0);
+    } else {
+      for (int kb = 0; kb < 4; ++kb)
+        tma_load_4d(dst + kb * BOX, &a.xmap, full + s, d0 + 64 * kb, STEP * i, 0, 0);
+    }
+  }
+}
+
+// dx of rows n0 + 64 c .. + 63 and this block's 256 columns of D.  Step
+// i + 1's logits run on the tensor cores while the consumer waits for and
+// combines step i's partials; its dx product then ends with them, and only
+// then go step i + 1's partials (so one slot array and one dl tile serve).
+template <int ST>
+__device__ __forceinline__ void consume_dx(const Args& a, unsigned char* sm, int n0, int rank,
+                                           int C) {
+  using L = Layout<ST>;
+  const int c = threadIdx.x / 128 - 1, i = threadIdx.x % 128, lane = threadIdx.x % 32;
+  const int w = i / 32, g = lane / 4, q = lane % 4;
+  uint64_t* res = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t *full = res + 1, *empty = full + ST;
+  const Exchange e = exchange<ST>(sm, c, rank, C);
+  // the biases of a step's 64 columns, double-buffered: thread i < 64
+  // stores step s + 1's (loaded a step ahead) just before step s + 1's
+  // partials go, then the consumer meets at its named barrier 2 + c
+  float* sbias = reinterpret_cast<float*>(sm + L::BIAS) + c * 2 * STEP;
+  const int nv = (a.V + STEP - 1) / STEP;
+  const Row row = load_row(a, n0 + 64 * c + i % 64);
+  uint32_t next = 0u;
+  if (i < STEP) {
+    sbias[i] = i < a.V ? bias_of(a, bias_bits(a, i)) : 0.f;
+    next = STEP + i < a.V ? bias_bits(a, STEP + i) : 0u;
+  }
+  // no accumulator is zeroed: the first products take scale_d 0 (an
+  // instruction that writes one while the other's products are in flight
+  // makes ptxas serialise every wgmma, C7515)
+  float acc[2][64], lg[32], none[4][8];
+  // x slice K-major (a step of 16 along D adds 32 bytes, a box 8 KB); the
+  // stage's w slice MN-major for the logits (16 rows of D: 2 KB) and
+  // K-major for dx (16 vocab columns: 32 bytes; 128 rows of D: 16 KB); dl
+  // K-major
+  const uint64_t xa = desc_b128(sm + c * HALF, 16, 1024);
+  const uint64_t wmn = desc_b128(sm + L::RING, BOX, 1024);
+  const uint64_t wk = desc_b128(sm + L::RING, 16, 1024);
+  const uint64_t da = desc_b128(e.dl, 16, 1024);
+  auto logits = [&](int it) {  // step it's, on the tensor cores
+    const uint64_t so = ((it % ST) * HALF) >> 4;
+    mbar_wait(full + it % ST, (it / ST) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk)
+      wgmma_ss<64, 1>(lg, xa + (((kk / 4) * BOX + (kk % 4) * 32) >> 4),
+                      wmn + so + ((kk * 2048) >> 4), kk);
+    wgmma_commit();
+  };
+  auto send_next = [&](int it) {  // step it's biases stored, its partials sent
+    if (i < STEP) {
+      sbias[(it & 1) * STEP + i] = bias_of(a, next);
+      const int col = (it + 1) * STEP + i;
+      next = col < a.V ? bias_bits(a, col) : 0u;
+    }
+    send(e, lg);
+    asm volatile("bar.sync %0, 128;\n" ::"r"(2 + c) : "memory");
+  };
+  auto product = [&](int it) {  // step it's combine and dx product, issued
+    await_bytes(e.part, part_bytes(e), it);
+    combine<false>(e, row, it * STEP, a.V, sbias + (it & 1) * STEP, none);
+    dl_ready(e, it);
+    wgmma_fence();
+    const uint64_t so = ((it % ST) * HALF) >> 4;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        wgmma_ss<128, 0>(acc[h], da + ((kk * 32) >> 4), wk + so + ((h * 16384 + kk * 32) >> 4),
+                         it | kk);
+    wgmma_commit();
+  };
+  mbar_wait(res, 0);
+  logits(0);
+  wgmma_wait<0>();
+  fence_regs(lg);
+  send(e, lg);  // step 0's biases were stored before
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + c) : "memory");
+  for (int it = 0; it + 1 < nv; ++it) {
+    logits(it + 1);
+    product(it);
+    wgmma_wait<0>();  // step it + 1's logits and step it's dx product
+    fence_regs(lg);
+    if (lane == 0) mbar_arrive(empty + it % ST);
+    send_next(it + 1);
+  }
+  product(nv - 1);
+  wgmma_wait<0>();
+  fence_regs(acc[0]);
+  fence_regs(acc[1]);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = n0 + 64 * c + 16 * w + g + 8 * hh;
+    if (r >= a.N) continue;
+    bf16* o = a.dx + (long long)r * a.D;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = rank * DS + 128 * h + 8 * j + 2 * q;  // D is even: col + 1 < D too
+        if (col < a.D)
+          *reinterpret_cast<__nv_bfloat162*>(o + col) =
+              __floats2bfloat162_rn(acc[h][4 * j + 2 * hh], acc[h][4 * j + 2 * hh + 1]);
+      }
+  }
+}
+
+// dw of vocab columns v0 + 64 c .. + 63 and this block's 256 rows of D,
+// and db of this block's units of those columns; steps overlap as
+// consume_dx's.
+template <int ST>
+__device__ __forceinline__ void consume_dw(const Args& a, unsigned char* sm, int v0, int rank,
+                                           int C) {
+  using L = Layout<ST>;
+  const int c = threadIdx.x / 128 - 1, i = threadIdx.x % 128, lane = threadIdx.x % 32;
+  const int w = i / 32, g = lane / 4, q = lane % 4;
+  uint64_t* res = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t *full = res + 1, *empty = full + ST;
+  const Exchange e = exchange<ST>(sm, c, rank, C);
+  const int cb = v0 + 64 * c, nr = (a.N + STEP - 1) / STEP;
+  const float* sbias = reinterpret_cast<const float*>(sm + L::BIAS) + 64 * c;  // the kernel's
+  Row row = load_row(a, i % 64), next = load_row(a, STEP + i % 64);  // a step ahead
+  float acc[4][32], lg[32], dbacc[4][8];  // acc as consume_dx's: scale_d 0 first
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) dbacc[k][j] = 0.f;
+  // the stage's x slice K-major for the logits and MN-major (A transposed,
+  // a box of 64 D rows each) for dw; the w slice and dl MN-major
+  const uint64_t xk = desc_b128(sm + L::RING, 16, 1024);
+  const uint64_t xm = desc_b128(sm + L::RING, BOX, 1024);
+  const uint64_t wmn = desc_b128(sm + c * HALF, BOX, 1024);
+  const uint64_t dlm = desc_b128(e.dl, BOX, 1024);
+  auto logits = [&](int it) {
+    const uint64_t so = ((it % ST) * HALF) >> 4;
+    mbar_wait(full + it % ST, (it / ST) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk)
+      wgmma_ss<64, 1>(lg, xk + so + (((kk / 4) * BOX + (kk % 4) * 32) >> 4),
+                      wmn + ((kk * 2048) >> 4), kk);
+    wgmma_commit();
+  };
+  auto product = [&](int it) {
+    await_bytes(e.part, part_bytes(e), it);
+    combine<true>(e, row, cb, a.V, sbias, dbacc);
+    row = next;
+    next = load_row(a, (it + 2) * STEP + i % 64);
+    dl_ready(e, it);
+    wgmma_fence();
+    const uint64_t so = ((it % ST) * HALF) >> 4;
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<64, 1, 1>(acc[m], xm + so + ((m * BOX + kk * 2048) >> 4),
+                           dlm + ((kk * 2048) >> 4), it | kk);
+    wgmma_commit();
+  };
+  mbar_wait(res, 0);
+  logits(0);
+  wgmma_wait<0>();
+  fence_regs(lg);
+  send(e, lg);
+  for (int it = 0; it + 1 < nr; ++it) {
+    logits(it + 1);
+    product(it);
+    wgmma_wait<0>();  // step it + 1's logits and step it's dw product
+    fence_regs(lg);
+    if (lane == 0) mbar_arrive(empty + it % ST);
+    send(e, lg);
+  }
+  product(nr - 1);
+  wgmma_wait<0>();
+#pragma unroll
+  for (int m = 0; m < 4; ++m) fence_regs(acc[m]);
+  // db: over each warp's 32 rows by a fixed tree, then the two warps of a
+  // row group in order, in the slots (every partial has been read once the
+  // consumer has passed its last combine)
+  const int bar_id = 2 + c;
+  asm volatile("bar.sync %0, 128;\n" ::"r"(bar_id) : "memory");
+  float* red = e.slots;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float v = dbacc[k][j];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      if (lane == 0) red[(w * 4 + k) * 8 + j] = v;
+    }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(bar_id) : "memory");
+  for (int x = i; x < 8 * e.nu; x += 128) {
+    const int uu = x / 8, j = x % 8, grp = uu % 2, k = uu / 2;  // warps 2 grp, 2 grp + 1
+    const float v = red[(2 * grp * 4 + k) * 8 + j] + red[((2 * grp + 1) * 4 + k) * 8 + j];
+    const int col = cb + 8 * (e.u0 + uu) + j;
+    if (col < a.V) {
+      if (a.b_bf16) static_cast<bf16*>(a.db)[col] = __float2bfloat16_rn(v);
+      else static_cast<float*>(a.db)[col] = v;
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int d = rank * DS + 64 * m + 16 * w + g + 8 * hh;
+      if (d >= a.D) continue;
+      bf16* o = a.dw + (long long)d * a.V;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = cb + 8 * j + 2 * q;
+        if (col < a.V) o[col] = __float2bfloat16_rn(acc[m][4 * j + 2 * hh]);
+        if (col + 1 < a.V) o[col + 1] = __float2bfloat16_rn(acc[m][4 * j + 2 * hh + 1]);
+      }
+    }
+}
+
+// Grid (C, dx clusters + dw clusters), clusters of (C, 1, 1): blockIdx.x is
+// the block's rank.  The role whose clusters run longer comes first.
+template <int ST>
+__global__ void __launch_bounds__(THREADS, 1)
+ce_bwd_wgmma(const __grid_constant__ Args a, int ndx, int dx_first) {
+  using L = Layout<ST>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  unsigned char* sm = smem_raw + (((raw + 1023) & ~1023u) - raw);  // the same in every block
+  const int rank = blockIdx.x, C = gridDim.x, ndw = gridDim.y - ndx, cl = blockIdx.y;
+  const bool dx = dx_first ? cl < ndx : cl >= ndw;
+  const int base = (dx ? (dx_first ? cl : cl - ndw) : (dx_first ? cl - ndx : cl)) * TILE;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(bars + 1 + s, 1);
+      mbar_init(bars + 1 + ST + s, 8);  // one arrival from each consumer warp
+    }
+    for (int k = 0; k < 4; ++k) mbar_init(bars + 1 + 2 * ST + k, 1);  // part, dlb
+    mbar_fence_init();
+  }
+  if (!dx) {  // the dw role's biases, fixed for the whole walk
+    float* sbias = reinterpret_cast<float*>(sm + L::BIAS);
+    for (int k = threadIdx.x; k < TILE; k += THREADS)
+      sbias[k] = base + k < a.V ? bias_of(a, bias_bits(a, base + k)) : 0.f;
+  }
+  // every block's barriers are initialised before any arrives from another
+  cg::this_cluster().sync();
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) produce<ST>(a, sm, dx, base, rank);
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    if (dx)
+      consume_dx<ST>(a, sm, base, rank, C);
+    else
+      consume_dw<ST>(a, sm, base, rank, C);
+  }
+}
+
+template <int ST>
+cudaError_t launch(const Args& a, int C, cudaStream_t st) {
+  constexpr int smem = Layout<ST>::SMEM;
+  static_assert(smem <= 232448, "one block an SM");
+  auto kernel = ce_bwd_wgmma<ST>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess && C > 8)  // a cluster past the portable 8 blocks, on the current card
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return e;
+  const int ndx = (a.N + TILE - 1) / TILE, ndw = (a.V + TILE - 1) / TILE;
+  if (ndx + ndw > 65535) return cudaErrorInvalidValue;
+  // a dx cluster walks V in steps of 64, a dw cluster N
+  const int dx_first = (a.V + STEP - 1) / STEP >= (a.N + STEP - 1) / STEP;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, ndx + ndw);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, a, ndx, dx_first);
+}
+
+// The plan (C, 128, ST): C = ceil(D / 256) up to 16, ST 3 or 2 where the
+// C blocks' partials fit Layout<ST>'s slots (_bwd_wgmma_plan takes 3 where
+// it can); any other is refused, as is an operand TMA cannot read (D or
+// ldw not a multiple of 8, a base off a 16-byte boundary) or a tensor map
+// that cuTensorMapEncodeTiled refuses.
+cudaError_t run(const bf16* x, const bf16* w, const void* b, const int* t, const float* lse,
+                const float* g, bf16* dx, bf16* dw, void* db, int N, int D, int V, int ldw,
+                int b_bf16, int C, int tile, int ST, cudaStream_t st) {
+  if (N < 1 || D < 1 || V < 1 || C < 1 || C > MAX_C || C != (D + DS - 1) / DS || tile != TILE ||
+      D % 8 || ldw % 8 || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16)
+    return cudaErrorInvalidValue;
+  if (!(ST == 3 && bwd::slots_fit<STEP, STEP>(C, Layout<3>::SLOTS)) &&
+      !(ST == 2 && bwd::slots_fit<STEP, STEP>(C, Layout<2>::SLOTS)))
+    return cudaErrorInvalidValue;
+  Args a;
+  a.b = b;
+  a.t = t;
+  a.lse = lse;
+  a.g = g;
+  a.dx = dx;
+  a.dw = dw;
+  a.db = db;
+  a.N = N, a.D = D, a.V = V, a.b_bf16 = b_bf16;
+  const long long xd[4] = {D, N, 1, 1}, xs[3] = {2ll * D, 2ll * D * N, 2ll * D * N};
+  // w: extent V, rows ldw apart; TMA fills the columns past V with zeros
+  const long long wd[4] = {V, D, 1, 1}, ws[3] = {2ll * ldw, 2ll * ldw * D, 2ll * ldw * D};
+  if (!encode_bf16_4d(&a.xmap, x, xd, xs, STEP) || !encode_bf16_4d(&a.wmap, w, wd, ws, DS))
+    return cudaErrorInvalidValue;
+  return ST == 3 ? launch<3>(a, C, st) : launch<2>(a, C, st);
+}
+
+}  // namespace bwg
+
 template <int DW>
 constexpr int bwd_smem() {
   return (DW + 3 * T32) * LD32 * 4;
@@ -1389,25 +2017,31 @@ extern "C" int dft_flce_fwd(const void* x, const void* w, const void* b, const i
 }
 
 // x and w as the forward takes them; dx, dw and db come out contiguous in
-// x's, w's and b's dtypes (dw (D, V), rows V apart).  bf16 x and w take
-// the plan (C, BM, BV) of ops/fused_ce.py _bwd_plan (D <= 4096); f32 x and
-// w take D <= 1024 and the plan (0, 0, 0).  Any other plan or w is
-// refused with cudaErrorInvalidValue.
+// x's, w's and b's dtypes (dw (D, V), rows V apart).  route
+// (ops/fused_ce.py _bwd_route): 0 f32 x and w, D <= 1024, plan (0, 0, 0);
+// 1 bf16 on the mma.sync clusters, plan (C, BM, BV) of _bwd_plan; 2 bf16 on
+// the wgmma clusters fed by TMA (D a multiple of 8, x's base 16-byte
+// aligned), plan (C, 128, ST) of _bwd_wgmma_plan.  Any other route, plan
+// or w is refused with cudaErrorInvalidValue.
 extern "C" int dft_flce_bwd(const void* x, const void* w, const void* b, const int* t,
                             const float* lse, const float* g, void* dx, void* dw, void* db,
-                            int N, int D, int V, int ldw, int x_bf16, int b_bf16, int xvec,
-                            int C, int BM, int BV, void* stream) {
+                            int N, int D, int V, int ldw, int route, int b_bf16, int xvec,
+                            int p0, int p1, int p2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using BF = __nv_bfloat16;
   cudaError_t e;
-  if (ldw < V || (x_bf16 && !bf16_rows_aligned(w, ldw)))
+  if (ldw < V || (route != 0 && !bf16_rows_aligned(w, ldw)))
     e = cudaErrorInvalidValue;
-  else if (x_bf16)
+  else if (route == 2)
+    e = bwg::run(static_cast<const BF*>(x), static_cast<const BF*>(w), b, t, lse, g,
+                 static_cast<BF*>(dx), static_cast<BF*>(dw), db, N, D, V, ldw, b_bf16, p0, p1, p2,
+                 s);
+  else if (route == 1)
     e = bwd::run(bwd::Args{static_cast<const BF*>(x), static_cast<const BF*>(w), b, t, lse, g,
                            static_cast<BF*>(dx), static_cast<BF*>(dw), db, N, D, V, ldw, b_bf16,
                            xvec},
-                 C, BM, BV, s);
-  else if (C != 0 || BM != 0 || BV != 0 || D < 1 || D > 1024)
+                 p0, p1, p2, s);
+  else if (route != 0 || p0 != 0 || p1 != 0 || p2 != 0 || D < 1 || D > 1024)
     e = cudaErrorInvalidValue;
   else
     e = b_bf16 ? bwd_f32(f32_args<BF>(x, w, b, t, lse, g, 0, 0, dx, dw, db, N, D, V, ldw), s)

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks: TMA tensor maps and loads, mbarriers,
 // wgmma from shared memory and from registers, and setmaxnreg.  Shared by
 // the kernels fed from a TMA ring: flash_attention.cu's bf16 forward and
-// backward, fused_linear_ce.cu's bf16 forward (wgmma) and linear_f32.cu's
-// large f32 tile (TMA and mbarriers only).
+// backward, fused_linear_ce.cu's bf16 forward and backward (wgmma) and
+// linear_f32.cu's large f32 tile (TMA and mbarriers only).
 //
 // Shared-memory tiles are in the layout a TMA load with the 128-byte swizzle
 // writes: rows of 64 bf16 (128 bytes), the 16-byte chunks of row r XOR-ed
@@ -184,9 +184,10 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "  \
   "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
 
-// d (64 x N, f32) = A (64 x 16, bf16, shared memory, K-major) B (16 x N,
-// bf16, shared memory; TRANS_B 0: K-major, 1: MN-major) + (scale_d ? d : 0)
-template <int N, int TRANS_B>
+// d (64 x N, f32) = A (64 x 16, bf16, shared memory; TRANS_A 0: K-major,
+// 1: MN-major) B (16 x N, bf16, shared memory; TRANS_B 0: K-major, 1:
+// MN-major) + (scale_d ? d : 0)
+template <int N, int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
                                          int scale_d) {
   static_assert(N == 64 || N == 128, "wgmma_ss: N is 64 or 128");
@@ -194,16 +195,16 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " DFT_R32
-        ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+        ", %32, %33, p, 1, 1, %36, %35;\n}\n"
         : DFT_D32
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
   } else {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " DFT_R64
-        ", %64, %65, p, 1, 1, 0, %67;\n}\n"
+        ", %64, %65, p, 1, 1, %68, %67;\n}\n"
         : DFT_D64
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
   }
 }
 

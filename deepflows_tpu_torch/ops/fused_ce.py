@@ -12,7 +12,10 @@ forward and backward.
   f32 on the CUDA cores; a CUDA call never falls back to another route)
   and its vocab split by ``_fwd_plan``; it counts its launches by route in
   ``fused_linear_ce_fwd.routes``.  The backward is one launch that writes
-  dx, dw and db, for bf16 x and w as clusters that split D (``_bwd_plan``).
+  dx, dw and db; for bf16 x and w, clusters that split D, chosen by
+  ``_bwd_route`` as the forward's kernel is (``"wgmma"``: wgmma fed by TMA,
+  split by ``_bwd_wgmma_plan``; ``"mma"``: mma.sync, split by
+  ``_bwd_plan``), counted by route in ``fused_linear_ce_bwd.routes``.
   Both take w with its rows any ldw >= V elements apart; a bf16 w whose
   rows do not start 16-byte aligned (V not a multiple of 8, as GPT-2's
   50,257, or a misaligned base) is first copied by ``_staged`` into a
@@ -66,7 +69,7 @@ def _slots_fit(c, rows, cols, capacity):
 
 
 def _bwd_plan(n, d, v):
-    """The split of the bf16 backward over clusters: ``(C, BM, BV)``.  C =
+    """The split of the mma.sync backward over clusters: ``(C, BM, BV)``.  C =
     ceil(d / 256) blocks a cluster, block r owning D columns [256 r, 256 r
     + 256); ceil(n / BM) dx clusters of BM rows and ceil(v / BV) dw
     clusters of BV vocab columns, each cluster over all of the other axis.
@@ -145,14 +148,13 @@ def _staged(w):
 
 
 def _flags(x, b):
-    """bf16 x and w, bf16 b, and whether the rows of x start 16-byte aligned
-    (then the bf16 kernels stage them with 16-byte copies; a bf16 w's rows
-    always do, ``_staged`` sees to it)."""
-    return (int(x.dtype == torch.bfloat16), int(b.dtype == torch.bfloat16),
-            int(x.shape[1] % 8 == 0 and x.data_ptr() % 16 == 0))
+    """bf16 b, and whether the rows of x start 16-byte aligned (then the
+    mma.sync kernels stage them with 16-byte copies; a bf16 w's rows always
+    do, ``_staged`` sees to it)."""
+    return int(b.dtype == torch.bfloat16), int(x.shape[1] % 8 == 0 and x.data_ptr() % 16 == 0)
 
 
-ROUTES = ("f32", "mma", "wgmma")  # the forward's kernels, by their code in the C entry
+ROUTES = ("f32", "mma", "wgmma")  # each direction's kernels, by their code in the C entries
 # as csrc/fused_linear_ce.cu has them: the forward's rows a block, vocab
 # columns a tile by route, and most vocab splits
 _FWD_ROWS, _FWD_TILE, _MAX_SPLITS = 128, {"mma": 128, "wgmma": 256}, 16
@@ -169,6 +171,36 @@ def _fwd_route(x, w):
     if w.shape[0] % 8 == 0 and x.data_ptr() % 16 == 0:
         return "wgmma"
     return "mma"
+
+
+def _bwd_route(x, w):
+    """The backward kernel a call takes, by the forward's rule: ``"wgmma"``
+    (fed by TMA) for bf16 x that TMA can read — D a multiple of 8 and x's
+    base 16-byte aligned (w is read as ``_staged`` leaves it) — ``"mma"``
+    (the mma.sync clusters) for every other bf16 call, ``"f32"`` for f32."""
+    return _fwd_route(x, w)
+
+
+# as csrc/fused_linear_ce.cu bwg:: has them: a cluster's rows (dx) or vocab
+# columns (dw), two consumers of 64, and the floats of a consumer's slots
+# for the partial logits by stages of the ring
+_WG_TILE, _WG_SLOTS = 128, {3: 6144, 2: 8192}
+
+
+def _bwd_wgmma_plan(n, d, v):
+    """The split of the wgmma backward: ``(C, 128, ST)``.  C = ceil(d / 256)
+    blocks a cluster, block r owning D columns [256 r, 256 r + 256);
+    ceil(n / 128) dx clusters of 128 rows and ceil(v / 128) dw clusters of
+    128 vocab columns, each walking the other axis in steps of 64; ST = 3
+    stages in the ring where the partial logits of C blocks over a
+    consumer's 64 x 64 tile fit 6,144 floats, else 2 with 8,192."""
+    if n < 1 or v < 1 or not 1 <= d <= MAX_DIM[torch.bfloat16]:
+        raise ValueError(
+            f"the backward plan takes D up to {MAX_DIM[torch.bfloat16]}, not {(n, d, v)}"
+        )
+    c = -(-d // _SLICE)
+    stages = 3 if _slots_fit(c, _STEP, _STEP, _WG_SLOTS[3]) else 2
+    return c, _WG_TILE, stages
 
 
 def _fwd_plan(n, v, route):
@@ -228,7 +260,7 @@ def fused_linear_ce_fwd(x, w, b, targets):
         "fused_linear_ce", "dft_flce_fwd",
         (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
     )
-    _, b_bf16, xvec = _flags(x, b)
+    b_bf16, xvec = _flags(x, b)
     with on_device(x.device):
         rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), t.data_ptr(), loss.data_ptr(),
                 lse.data_ptr(), part.data_ptr(), count.data_ptr(), n, d, v, w.stride(0),
@@ -255,8 +287,10 @@ def fused_linear_ce_bwd(x, w, b, targets, lse, g):
     if d > MAX_DIM[x.dtype]:
         raise ValueError(f"fused_linear_ce_bwd takes D up to {MAX_DIM[x.dtype]} in {x.dtype}, "
                          f"got {d}")
-    plan = _bwd_plan(n, d, v) if x.dtype == torch.bfloat16 else (0, 0, 0)
     w = _staged(w)
+    route = _bwd_route(x, w)
+    plan = (_bwd_wgmma_plan(n, d, v) if route == "wgmma" else _bwd_plan(n, d, v)
+            if route == "mma" else (0, 0, 0))
     t = targets.to(torch.int32)
     g = g.to(torch.float32).contiguous()
     dx, db = torch.empty_like(x), torch.empty_like(b)
@@ -268,13 +302,15 @@ def fused_linear_ce_bwd(x, w, b, targets, lse, g):
     with on_device(x.device):
         rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), t.data_ptr(), lse.data_ptr(),
                 g.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(), n, d, v, w.stride(0),
-                *_flags(x, b), *plan, stream())
+                ROUTES.index(route), *_flags(x, b), *plan, stream())
     _build.check(rc, "fused_linear_ce_bwd")
     fused_linear_ce_bwd.launches += 1
+    fused_linear_ce_bwd.routes[route] += 1
     return dx, dw, db
 
 
 fused_linear_ce_bwd.launches = 0
+fused_linear_ce_bwd.routes = dict.fromkeys(ROUTES, 0)  # launches by route, never reset
 
 
 class _FusedLinearCE(torch.autograd.Function):

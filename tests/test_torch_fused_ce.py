@@ -1,8 +1,9 @@
 """The port's fused LM-head cross-entropy (deepflows_tpu_torch/ops/fused_ce.py)
 and its cross-entropy losses against the JAX package on the CPU, where the
 JAX side runs its Pallas ``fused_linear_ce`` in interpret mode and the port
-its kernels' plain twins; and the bf16 backward kernel's split over
-clusters (``_bwd_plan``) with a model of its arithmetic.
+its kernels' plain twins; and the bf16 backward kernels' routes
+(``_bwd_route``) and splits over clusters (``_bwd_plan`` for mma.sync,
+``_bwd_wgmma_plan`` for wgmma) with models of their arithmetic.
 
 Inputs are numpy arrays from a seed; models cross with
 ``load_jax_state_dict``.  Tolerances are tests/test_fused_ce.py's: loss
@@ -13,6 +14,8 @@ arithmetic is held to the plain twin at 2e-2 of each gradient's largest
 value (chip_smoke.py's bf16 bound): both round dl to bf16, and their
 logits differ only in the order of f32 sums.
 """
+
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -299,6 +302,133 @@ def test_cluster_model_matches_the_plain_backward(n, d, v):
         assert (a.float() - ref.float()).abs().max().item() <= 2e-2 * scale, name
 
 
+def _wgmma_model(x, w, b, t, lse, g):
+    """The wgmma backward kernel's arithmetic and order of sums, written out
+    with torch ops: c = ceil(D / 256) blocks a cluster, each owning 256
+    columns of D.  A dx cluster of 128 rows walks the vocabulary in steps of
+    64: the blocks' partial logits added in rank order, bias, dl =
+    (softmax - onehot) g (0 past V), dl rounded to bf16, and each block's
+    slice of dx += dl w_slice^T, step after step.  A dw cluster of 128
+    vocab columns walks the rows in steps of 64 the same way: each block's
+    slice of dw += x_slice^T dl, and db adds each step's column sums of the
+    f32 dl."""
+    n, d = x.shape
+    v = w.shape[1]
+    c, tile, _ = fused_ce._bwd_wgmma_plan(n, d, v)
+    xf, wf, bf = x.float(), w.float(), b.float()
+    slices = [slice(256 * r, min(256 * (r + 1), d)) for r in range(c)]
+
+    def dl_of(rows, cols):
+        logits = xf[rows, slices[0]] @ wf[slices[0], cols]
+        for sl in slices[1:]:
+            logits = logits + xf[rows, sl] @ wf[sl, cols]
+        logits = logits + bf[cols]
+        hit = torch.arange(v)[cols][None, :] == t[rows][:, None]
+        return (torch.exp(logits - lse[rows][:, None]) - hit.float()) * g[rows][:, None]
+
+    dx, dw, db = torch.zeros(n, d), torch.zeros(d, v), torch.zeros(v)
+    for r0 in range(0, n, tile):
+        rows = slice(r0, min(r0 + tile, n))
+        for c0 in range(0, v, 64):
+            cols = slice(c0, min(c0 + 64, v))
+            dlb = dl_of(rows, cols).to(torch.bfloat16).float()
+            for sl in slices:
+                dx[rows, sl] += dlb @ wf[sl, cols].t()
+    for c0 in range(0, v, tile):
+        cols = slice(c0, min(c0 + tile, v))
+        for r0 in range(0, n, 64):
+            rows = slice(r0, min(r0 + 64, n))
+            dl = dl_of(rows, cols)
+            db[cols] += dl.sum(0)
+            for sl in slices:
+                dw[sl, cols] += xf[rows, sl].t() @ dl.to(torch.bfloat16).float()
+    return dx.to(x.dtype), dw.to(w.dtype), db.to(b.dtype)
+
+
+# (N, D, V): a ragged N over two dx clusters, D across two and three
+# 256-column slices, a V that is no multiple of 8
+@pytest.mark.parametrize("n,d,v", [(150, 320, 200), (70, 520, 131), (40, 64, 77)])
+def test_wgmma_model_matches_the_plain_backward_and_jax(n, d, v):
+    """The wgmma backward's model against the plain twin and the JAX
+    backward (interpret mode) on the same bf16 inputs, each gradient within
+    2e-2 of its largest value (all three round dl to bf16; their logits
+    differ only in the order of f32 sums); the targets hold the last vocab
+    column, V + 3 and -1 (no one-hot term; the JAX kernel is fed -1 for
+    both, as its padded columns would take V + 3)."""
+    x, w, b, t = _operands(n, d, v)
+    x *= 0.2
+    t[:3] = [v - 1, v + 3, -1]
+    tx, tw = (torch.from_numpy(a).to(torch.bfloat16) for a in (x, w))
+    tb, tt = torch.from_numpy(b), torch.from_numpy(t)
+    _, lse = ops.fused_linear_ce_plain(tx, tw, tb, tt)
+    g = torch.from_numpy(RNG.random(n).astype(np.float32)) / n
+    got = _wgmma_model(tx, tw, tb, tt, lse, g)
+    want = ops.fused_linear_ce_bwd_plain(tx, tw, tb, tt, lse, g)
+    jx, jw = (jnp.asarray(a).astype(jnp.bfloat16) for a in (x, w))
+    jt = jnp.asarray(np.where((t >= 0) & (t < v), t, -1))
+    gj = jnp.asarray(g.numpy())
+    jwant = jax.grad(lambda *a: (pk.fused_linear_ce(*a, jt) * gj).sum(),
+                     argnums=(0, 1, 2))(jx, jw, jnp.asarray(b))
+    for name, a, ref, jref in zip(("dx", "dw", "db"), got, want, jwant):
+        assert a.dtype == ref.dtype and a.shape == ref.shape, name
+        for r in (ref.float().numpy(), np.asarray(jref.astype(jnp.float32))):
+            scale = np.abs(r).max()
+            assert np.abs(a.float().numpy() - r).max() <= 2e-2 * scale, name
+
+
+# (N, D, V): the training slice (C 4), GPT-2's head (C 3), and C = 1, 2, 5,
+# 7, 8, 9, 16 at ragged N and V
+WGMMA_PLAN_SHAPES = [(8192, 1024, 8192), (8192, 768, 50257), (37, 64, 513), (300, 512, 1000),
+                     (300, 1200, 1000), (100, 1700, 300), (300, 2048, 1000), (48, 2100, 200),
+                     (300, 4096, 1000)]
+
+
+def _wgmma_smem(stages):
+    """csrc/fused_linear_ce.cu bwg::Layout<ST>::SMEM: 1024 bytes of
+    alignment, the two resident 32 KB slices, the ring, two 8 KB dl tiles,
+    two consumers' slots, the biases and the barriers."""
+    return (1024 + 2 * 32768 + stages * 32768 + 2 * 8192 + 2 * fused_ce._WG_SLOTS[stages] * 4
+            + 4 * 64 * 4 + (1 + 2 * stages + 4) * 8)
+
+
+@pytest.mark.parametrize("n,d,v", WGMMA_PLAN_SHAPES)
+def test_bwd_wgmma_plan_covers_rows_and_columns_once(n, d, v):
+    """C = ceil(D / 256) blocks a cluster, each owning 256 columns of D;
+    128-row dx clusters and 128-column dw clusters cover N and V once, each
+    step of 64 columns (or rows) lies in one cluster, its 8 units of 8
+    columns each finished by one block; the C blocks' partials fit a
+    consumer's slots at the plan's stages (3 where they fit 6,144 floats),
+    and the layout fits one SM's 232,448 bytes, its slot sizes read from
+    the source."""
+    c, tile, stages = fused_ce._bwd_wgmma_plan(n, d, v)
+    assert c == -(-d // 256) and 256 * (c - 1) < d <= 256 * c and tile == 128
+    for size in (n, v):
+        cover = np.zeros(-(-size // 64) * 64, np.int64)
+        for cl in range(-(-size // tile)):
+            for step in range(cl * tile, min((cl + 1) * tile, -(-size // 64) * 64), 64):
+                cover[step:step + 64] += 1
+        assert (cover[:size] == 1).all()
+    units = np.zeros(8, np.int64)
+    for r in range(c):
+        u0, u1 = r * 8 // c, (r + 1) * 8 // c  # bwd::units<64>
+        units[u0:u1] += 1
+        assert all(((u + 1) * c - 1) // 8 == r for u in range(u0, u1))  # bwd::owner<64>
+    assert (units == 1).all()
+    assert stages == (3 if fused_ce._slots_fit(c, 64, 64, fused_ce._WG_SLOTS[3]) else 2)
+    assert fused_ce._slots_fit(c, 64, 64, fused_ce._WG_SLOTS[stages])
+    assert _wgmma_smem(stages) <= 232448
+    src = (Path(fused_ce.__file__).parent.parent / "csrc" / "fused_linear_ce.cu").read_text()
+    assert "SLOTS = ST == 3 ? {} : {};".format(*(fused_ce._WG_SLOTS[s] for s in (3, 2))) in src
+    if (n, d, v) in ((8192, 1024, 8192), (8192, 768, 50257)):  # the main paths: 3 stages
+        assert (c, stages) == (-(-d // 256), 3)
+
+
+@pytest.mark.parametrize("d", [0, 4097])
+def test_bwd_wgmma_plan_refuses_d_past_the_clusters(d):
+    with pytest.raises(ValueError):
+        fused_ce._bwd_wgmma_plan(64, d, 100)
+
+
 def _offset(a):
     """A contiguous copy of ``a`` whose base lies one element (2 bytes in
     bf16) past a 16-byte aligned address."""
@@ -340,6 +470,24 @@ def test_fwd_route_takes_wgmma_where_tma_can_read(dt, d, v, off, route):
     else:
         assert staged is w
     assert fused_ce._fwd_route(x, staged) == route
+
+
+@pytest.mark.parametrize("dt,d,v,off,route", FWD_ROUTES + [("bf16", 257, 96, None, "mma"),
+                                                      ("bf16", 1024, 8192, "x", "mma")])
+def test_bwd_route_takes_wgmma_where_tma_can_read(dt, d, v, off, route):
+    """The backward takes the forward's route: the wgmma clusters for bf16
+    x that TMA can read (D a multiple of 8, a 16-byte aligned base) at any
+    V, w read as ``_staged`` leaves it; the mma.sync clusters for every
+    other bf16 call (D 257, an x 2 bytes off); f32 the CUDA cores."""
+    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    x, w = torch.zeros(5, d, dtype=dtype), torch.zeros(d, v, dtype=dtype)
+    if off == "x":
+        x = _offset(x)
+    if off == "w":
+        w = _offset(w)
+    staged = fused_ce._staged(w)
+    assert fused_ce._bwd_route(x, staged) == route == fused_ce._fwd_route(x, staged)
+    assert fused_ce.fused_linear_ce_bwd.routes.keys() == set(fused_ce.ROUTES)
 
 
 # (N, V): the slice, ragged N and V, a single row block, more tiles than

@@ -3,7 +3,7 @@
 for two or more trees of deepflows_tpu_torch, each imported in its own
 process.
 
-    python3 tools/int8_decode_ab.py PARENT_TREE CHANGE_TREE [--report PATH]
+    python3 tools/int8_decode_ab.py PARENT_TREE CHANGE_TREE [--down] [--report PATH]
 
 Each tree is a directory that holds a deepflows_tpu_torch package (an
 unpacked ``git archive`` of another commit, or ``.``).  The trees run in
@@ -31,7 +31,12 @@ flushed between launches), on inputs from the same seeds:
 - a SHA-256 of every output at the parent's decode shapes (at most 8 rows
   and K up to 8192: the decoder's shapes at M 1, 2, 5 and 8, Mistral's at
   M 1 and 8, the ragged decode shapes), for int8_matmul with bf16 x (f32
-  and bf16 out) and f32 x and for w8a8_matmul, which the trees must share.
+  and bf16 out) and f32 x and for w8a8_matmul, which the trees must share;
+- Mistral's down projection (K 14336, N 4096) at M 8, bf16 x and out:
+  both kernels, their plain twins and their library calls (torch.matmul
+  on the dequantised bf16 weight; torch._int_mm, x padded to 32 rows).
+
+``--down`` times only the down projection (a short call).
 
 Prints the card's name and power limit, a table of the median of each
 tree's runs, whether the outputs at the decode shapes are equal bit for
@@ -158,7 +163,28 @@ def decode_hashes(torch, ops, cs):
     return out
 
 
-def child(tree):
+def down_projection(torch, ops, cs, flush):
+    """{call: ms} of Mistral's down projection at M 8 (bf16 x, bf16 out):
+    int8_matmul and w8a8_matmul, their plain twins and library calls."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    K, N = cs.MISTRAL_SHAPES["down"]
+    x = torch.randn((8, K), generator=g, device=dev).to(torch.bfloat16)
+    wq, s = ops.quantize_int8(torch.randn((K, N), generator=g, device=dev) * 0.02)
+    xq, sx = ops.quantize_int8_rows(x)
+    wd = (wq.float() * s).to(torch.bfloat16)
+    xl, wl = cs.int_mm_operands(torch, xq, wq)
+    bf = torch.bfloat16
+    run = {"int8_matmul": lambda: ops.int8_matmul(x, wq, s, out_dtype=bf),
+           "int8_matmul_plain": lambda: ops.int8_matmul_plain(x, wq, s, out_dtype=bf),
+           "int8_matmul_library": lambda: torch.matmul(x, wd),
+           "w8a8_matmul": lambda: ops.w8a8_matmul(xq, sx, wq, s, out_dtype=bf),
+           "w8a8_matmul_plain": lambda: ops.w8a8_matmul_plain(xq, sx, wq, s, out_dtype=bf),
+           "w8a8_matmul_library": lambda: torch._int_mm(xl, wl)}
+    return {k: cs.event_ms(f, 20, flush) for k, f in run.items()}
+
+
+def child(tree, down_only=False):
     """One tree's timings, printed as one JSON line."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
@@ -174,6 +200,10 @@ def child(tree):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    down = down_projection(torch, ops, cs, flush_buf.zero_)
+    if down_only:
+        print(json.dumps(dict(tree=tree, down=down)))
+        return
     shapes = {}
     for M in (1, 2, 5, 8):
         for name, (K, N) in cs.SHAPES.items():
@@ -199,7 +229,7 @@ def child(tree):
         ms, bi, bw, _ = cs.forward_timing(torch, ops, M, cs.MISTRAL_SHAPES, depth, layer, M)
         llama[key] = dict(ms, int8_bound_ms=bi[0], w8a8_bound_ms=bw[0])
         cs.free_card(torch)
-    print(json.dumps(dict(tree=tree, shapes=shapes, sweep=sweep, step=step_ms,
+    print(json.dumps(dict(tree=tree, down=down, shapes=shapes, sweep=sweep, step=step_ms,
                           step_bound_ms=dict(int8=b_int8[0], w8a8=b_w8a8[0]), llama=llama,
                           hashes=decode_hashes(torch, ops, cs),
                           profile=profile_step(torch, ops, cs))))
@@ -227,10 +257,19 @@ def summarise(cs, card, trees, runs):
     def med(tree, get):
         return statistics.median(get(r) for r in by_tree[tree])
 
+    print(card)
+    K, N = cs.MISTRAL_SHAPES["down"]
+    print(f"the down projection ({K}, {N}) at M 8, bf16 x and out, ms a call (median of each "
+          f"tree's runs), L2 flushed: " + " | ".join(trees))
+    for kind in runs[0]["down"]:
+        print(f"  {kind}: " + " / ".join(f"{med(t, lambda r: r['down'][kind]):.4f}"
+                                        for t in trees))
+    if "shapes" not in runs[0]:
+        return
+
     def route(tree, key):
         return by_tree[tree][0]["sweep"][key]["route"]
 
-    print(card)
     print("us a call (median of each tree's runs), L2 flushed: " + " | ".join(trees))
     for key in runs[0]["shapes"]:
         cells = []
@@ -271,11 +310,13 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("trees", nargs="*")
     parser.add_argument("--child", metavar="TREE", help=argparse.SUPPRESS)
+    parser.add_argument("--down", action="store_true",
+                        help="time only Mistral's down projection at M 8")
     parser.add_argument("--report", metavar="PATH",
                         help="also write every run to PATH as JSON")
     args = parser.parse_args()
     if args.child:
-        return child(args.child)
+        return child(args.child, args.down)
     import torch
 
     if not torch.cuda.is_available() or len(args.trees) < 2:
@@ -286,8 +327,8 @@ def main():
     order = args.trees + args.trees[::-1]
     runs = []
     for tree in order:
-        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", tree],
-                             capture_output=True, text=True, cwd=ROOT)
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", tree]
+                             + ["--down"] * args.down, capture_output=True, text=True, cwd=ROOT)
         if out.returncode != 0:
             print(out.stdout[-3000:], out.stderr[-6000:], file=sys.stderr)
             return out.returncode

@@ -23,16 +23,20 @@ flushed between launches), on inputs from the same seeds:
   50257) beside their library calls (the autograd backward of
   torch.matmul + F.cross_entropy, and that forward) and their bounds
   (chip_smoke.cost_bound), with the forward's route as its launch counts
-  by route show it; the forward is timed as a caller calls it (with the
-  staging copy of w a tree makes), the backward on the w that
+  by route show it and the backward's route (``_bwd_route``; "mma" in a
+  tree without it), and in a tree whose backward takes wgmma the mma.sync
+  clusters forced beside it; the forward is timed as a caller calls it
+  (with the staging copy of w a tree makes), the backward on the w that
   fused_linear_ce hands it (the staged copy, in a tree that stages);
 - GPT-2 small (chip_smoke.HF_GPT2) trained in bf16 at B 8 x L 1024 as
   chip_smoke.py's GPT-2 phase trains it: a step's device ms by kernel
   group (the CE's share), a step's device ms with its launches queued
   ahead, its wall ms, and the peak memory of a step;
 - for a tree with the plans, a sweep of their choices: every K split of
-  the 32 x 32 tile and the 128 x 128 tile at MLP layer 1, and every
-  (BM, BV) of ops/fused_ce.py _bwd_plan at the slice's CE shape;
+  the 32 x 32 tile and the 128 x 128 tile at MLP layer 1, every (BM, BV)
+  of ops/fused_ce.py _bwd_plan at the slice's CE shape (the mma.sync
+  route forced), and, in a tree with _bwd_wgmma_plan, the wgmma
+  backward's ring of 2 and 3 stages at the slice's and GPT-2's CE shapes;
 - the device time of two bf16 bench-row training steps by kernel group
   (chip_smoke.step_profile, torch.profiler) and of one step with its
   launches queued ahead (chip_smoke.event_ms).
@@ -57,6 +61,7 @@ JSON.  It needs a card and exits non-zero without one.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import hashlib
 import json
@@ -183,12 +188,16 @@ def ce_runs(torch, ops, cs, ce, flush, label=""):
     route = next(r for r in routes if routes[r] > before[r])
     wb = fused_ce._staged(w) if hasattr(fused_ce, "_staged") else w  # what the backward gets
     fwd_args, bwd_args = (x, w, b, t), (x, wb, b, t, lse, gr)
+    bwd_route = fused_ce._bwd_route(x, wb) if hasattr(fused_ce, "_bwd_route") else "mma"
+    bwd = {"kernel": cs.event_ms(lambda: ops.fused_linear_ce_bwd(*bwd_args), 5, flush),
+           "library": cs.event_ms(lambda: torch.autograd.grad(lib, (xr, wr, br), gr,
+                                                              retain_graph=True), 5, flush),
+           "bound": cs.cost_bound(ops.fused_linear_ce_bwd, *bwd_args)[0], "route": bwd_route}
+    if bwd_route == "wgmma":  # the mma.sync clusters forced beside it
+        with forced(fused_ce, "_bwd_route", lambda *_: "mma"):
+            bwd["mma"] = cs.event_ms(lambda: ops.fused_linear_ce_bwd(*bwd_args), 5, flush)
     return route, {
-        "fused_linear_ce_bwd" + label: {
-            "kernel": cs.event_ms(lambda: ops.fused_linear_ce_bwd(*bwd_args), 5, flush),
-            "library": cs.event_ms(lambda: torch.autograd.grad(lib, (xr, wr, br), gr,
-                                                               retain_graph=True), 5, flush),
-            "bound": cs.cost_bound(ops.fused_linear_ce_bwd, *bwd_args)[0]},
+        "fused_linear_ce_bwd" + label: bwd,
         "fused_linear_ce_fwd" + label: {
             "kernel": cs.event_ms(lambda: ops.fused_linear_ce_fwd(*fwd_args), 5, flush),
             "library": cs.event_ms(lambda: F.cross_entropy((torch.matmul(x, w) + b).float(), t,
@@ -197,7 +206,21 @@ def ce_runs(torch, ops, cs, ce, flush, label=""):
     }
 
 
-def sweeps(torch, ops, cs, g, ce, flush):
+class forced:
+    """``module.name`` is ``value`` while the block runs."""
+
+    def __init__(self, module, name, value):
+        self.module, self.name, self.value = module, name, value
+
+    def __enter__(self):
+        self.intact = getattr(self.module, self.name)
+        setattr(self.module, self.name, self.value)
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.intact)
+
+
+def sweeps(torch, ops, cs, g, ce, gce, flush):
     """The plans' choices, each forced in turn; {} for a tree without them."""
     from deepflows_tpu_torch.ops import fused_ce, linear
 
@@ -218,14 +241,28 @@ def sweeps(torch, ops, cs, g, ce, flush):
         out["linear_fused (256, 784, 100)"] = lin
         c = -(-CE_SHAPE[1] // 256)
         cev = {}
-        for bm in (128, 64):
-            for bv in (128, 64):
-                fused_ce._bwd_plan = lambda *_, p=(c, bm, bv): p
-                cev[str((c, bm, bv))] = cs.event_ms(
-                    lambda: ops.fused_linear_ce_bwd(*ce), 5, flush)
+        mma = (forced(fused_ce, "_bwd_route", lambda *_: "mma") if hasattr(fused_ce, "_bwd_route")
+               else contextlib.nullcontext())
+        with mma:
+            for bm in (128, 64):
+                for bv in (128, 64):
+                    fused_ce._bwd_plan = lambda *_, p=(c, bm, bv): p
+                    cev[str((c, bm, bv))] = cs.event_ms(
+                        lambda: ops.fused_linear_ce_bwd(*ce), 5, flush)
         out["fused_linear_ce_bwd slice"] = cev
     finally:
         linear._linear_plan, fused_ce._bwd_plan = lplan, bplan
+    if hasattr(fused_ce, "_bwd_wgmma_plan"):
+        for key, shape, operands in (("slice", CE_SHAPE, ce), ("GPT-2 head", GPT2_CE_SHAPE, gce)):
+            c, tile, _ = fused_ce._bwd_wgmma_plan(*shape)
+            args = operands[:1] + (fused_ce._staged(operands[1]),) + operands[2:]
+            out.setdefault("wgmma_plan", []).append(list(fused_ce._bwd_wgmma_plan(*shape)))
+            wg = {}
+            for stages in (3, 2):
+                with forced(fused_ce, "_bwd_wgmma_plan", lambda *_, p=(c, tile, stages): p):
+                    wg[str((c, tile, stages))] = cs.event_ms(
+                        lambda: ops.fused_linear_ce_bwd(*args), 5, flush)
+            out[f"fused_linear_ce_bwd wgmma {key}"] = wg
     return out
 
 
@@ -331,13 +368,12 @@ def child(tree, save):
     gloss, glse = ops.fused_linear_ce_fwd(*gce[:4])
     torch.save({"matmul": product.cpu(), "loss": loss.cpu(), "lse": lse.cpu(),
                 "gpt2_loss": gloss.cpu(), "gpt2_lse": glse.cpu()}, save)
+    k_steps, sweep = k_step_runs(torch, ops, g, flush, cs), sweeps(torch, ops, cs, g, ce, gce, flush)
     del gce, gloss, glse
     print(json.dumps(dict(
         tree=tree, linear=linear, matmul_digest=digest(product), ce_fwd_route=route,
-        ce_fwd_route_gpt2=gpt2_route,
-        k_steps=k_step_runs(torch, ops, g, flush, cs), ce=ce_ms,
-        sweeps=sweeps(torch, ops, cs, g, ce, flush), train=train_runs(torch, cs),
-        gpt2=gpt2_runs(torch, cs))))
+        ce_fwd_route_gpt2=gpt2_route, k_steps=k_steps, ce=ce_ms, sweeps=sweep,
+        train=train_runs(torch, cs), gpt2=gpt2_runs(torch, cs))))
 
 
 def start_copies(build_dir, source, copies):
@@ -529,6 +565,13 @@ def main():
                 row(f"{key} {kind}", lambda r, key=key, kind=kind: r[group][key][kind])
             if "bound" in runs[0][group][key]:
                 print(f"  {key} bound: {runs[0][group][key]['bound'] * 1e3:.2f}")
+            if "route" in runs[0][group][key]:
+                print(f"  {key} route: " + " / ".join(
+                    by_tree[t][0][group][key].get("route", "?") for t in args.trees))
+            for t in args.trees:
+                if "mma" in by_tree[t][0][group][key]:
+                    print(f"  {key} mma.sync forced in {t}: "
+                          f"{med(t, lambda r, key=key: r[group][key]['mma']) * 1e3:.2f}")
     first = outputs[args.trees[0]]
     for t in args.trees:
         digests = sorted({r["matmul_digest"] for r in by_tree[t]})
@@ -553,8 +596,11 @@ def main():
         if not sw:
             continue
         print(f"plan sweep of {t} (us; the plan's choice: linear {sw['linear_plan']}, CE "
-              f"{sw['ce_plan']}):")
-        for key in ("linear_fused (256, 784, 100)", "fused_linear_ce_bwd slice"):
+              f"{sw['ce_plan']}; wgmma CE {sw.get('wgmma_plan')}):")
+        for key in ("linear_fused (256, 784, 100)", "fused_linear_ce_bwd slice",
+                    "fused_linear_ce_bwd wgmma slice", "fused_linear_ce_bwd wgmma GPT-2 head"):
+            if key not in sw:
+                continue
             print(f"  {key}: " + ", ".join(
                 f"{p} {med(t, lambda r, p=p: r['sweeps'][key][p]) * 1e3:.2f}" for p in sw[key]))
     print("bf16 training step, device ms:")

@@ -21,9 +21,11 @@ named (all by default):
   take, two slice-shape calls bitwise equal and its planted fault; the
   slice shape timed beside its library pair.
 - ce: the bf16 backward against its plain twin by row and by column
-  (chip_smoke.ce_case) at the slice's shape and at D 200, 256, 257, 1000,
-  2048 and 4096; two slice-shape calls bitwise equal; the slice shape
-  timed beside its library pair.
+  (chip_smoke.ce_routed: forward and backward each held to the route it
+  must take) at the slice's shape, at GPT-2's head, at D 200, 256, 257,
+  1000, 2048 and 4096 and with x 2 bytes off (mma.sync); two slice-shape
+  calls bitwise equal and the planted faults (wgmma); the slice shape
+  timed beside its library pair on each route.
 
 It is the quick call to make after a change to those kernels, before
 chip_smoke.py's full run.  Prints where a case disagrees and exits
@@ -128,18 +130,22 @@ def fwd_checks(torch, ops, cs):
 
 
 CE_SHAPES = ((8192, 1024, 8192), (300, 200, 1000), (300, 256, 1000), (300, 257, 1000),
-             (300, 1000, 1000), (300, 2048, 1000), (300, 4096, 1000))
+             (300, 1000, 1000), (300, 2048, 1000), (300, 4096, 1000), (8192, 768, 50257))
 
 
 def ce_checks(torch, ops, cs):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2)
     bad = 0
-    for n, d, v in CE_SHAPES:
+    fc = ops.fused_ce
+    cases = [(c, "contiguous") for c in CE_SHAPES] + [(cs.CE_OFFSET, "offset")]
+    for (n, d, v), layout in cases:
         try:
-            ops_, want, errs = cs.ce_case(torch, ops, g, n, d, v, torch.bfloat16, torch.bfloat16,
-                                          f"{(n, d, v)}")
-            print("ok", (n, d, v), ops.fused_ce._bwd_plan(n, d, v),
+            ops_, want, errs = cs.ce_routed(torch, ops, g, (n, d, v), torch.bfloat16,
+                                            f"{(n, d, v)} {layout}", layout)
+            route = fc._bwd_route(ops_[0], fc._staged(ops_[1]))
+            plan = fc._bwd_wgmma_plan(n, d, v) if route == "wgmma" else fc._bwd_plan(n, d, v)
+            print("ok", (n, d, v), layout, route, plan,
                   ", ".join(f"{k} {r:.3g}" for k, (r, _) in errs.items()), flush=True)
             if (n, d, v) == CE_SHAPES[0]:
                 x, w, b, t, lse, gr = ops_
@@ -155,11 +161,17 @@ def ce_checks(torch, ops, cs):
                 tl = torch.where((t >= 0) & (t < v), t, -100)
                 lib = torch.nn.functional.cross_entropy((torch.matmul(xr, wr) + br).float(), tl,
                                                         reduction="none")
-                ms = {name: cs.event_ms(f, 5, flush.zero_) for name, f in dict(
-                    kernel=lambda: ops.fused_linear_ce_bwd(x, w, b, t, lse, gr),
-                    library=lambda: torch.autograd.grad(lib, (xr, wr, br), gr,
-                                                        retain_graph=True)).items()}
-                print("slice-shape backward ms:", ms, flush=True)
+                run = lambda: ops.fused_linear_ce_bwd(x, w, b, t, lse, gr)  # noqa: E731
+                ms = {"wgmma": cs.event_ms(run, 5, flush.zero_)}
+                bwd_route = fc._bwd_route
+                fc._bwd_route = lambda *_: "mma"
+                try:
+                    ms["mma"] = cs.event_ms(run, 5, flush.zero_)
+                finally:
+                    fc._bwd_route = bwd_route
+                ms["library"] = cs.event_ms(lambda: torch.autograd.grad(
+                    lib, (xr, wr, br), gr, retain_graph=True), 5, flush.zero_)
+                print("slice-shape backward ms by route:", ms, flush=True)
         except SystemExit as e:
             bad += 1
             print(e, flush=True)
@@ -187,7 +199,7 @@ def main() -> int:
         log = _build.BUILD / _build.source_hash() / f"{stem}.log"
         for line in log.read_text().splitlines():
             if any(w in line for w in ("Compiling entry", "registers", "spill", "error",
-                                       "warning")):
+                                       "warning", "C7515")):
                 print(stem, line.strip()[:200])
     bad = 0
     if "linear" in parts:
