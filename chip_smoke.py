@@ -20,7 +20,15 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
    prefill tile's (M 9, 16, 100, 129, 300 and 1000 at K 4096 and N 1000 or
    1030, a misaligned weight, bf16 x with K 70 and int8 x with K 33, whose
    rows are not whole 16-byte chunks, and K 9000, past the decode path, at
-   M 2 and 300; M 48 and below take the stream, quant.STREAM_M).
+   M 2 and 300; M 48 and below take the stream, quant.STREAM_M).  Every
+   int8_matmul call is held to the route it must take
+   (int8_matmul.routes): decode, stream, and at prefill M "wgmma" for
+   bf16 x where TMA can read both operands (K a multiple of 8, N of 16,
+   aligned bases) and the mma.sync tile ("mma") otherwise (f32 x, N 1000 and 1030,
+   K 70, the misaligned weight); the wgmma tile's edges (WGMMA_RAGGED:
+   ragged M, K not a multiple of 64, N not of 128 or 256, K 8) at each
+   tile of quant._WGMMA_TILES, and one planted fault that the check must
+   flag (a call on one K stage fewer, the kernel's last stage dropped).
    Tolerances: w8a8 exact; int8 with f32 output rtol 1e-4
    and atol 1e-3 (the JAX tests' bound); bf16 output that bound plus one
    bf16 ulp.  Then the same decode call (M 8) and prefill call (M 1536)
@@ -658,6 +666,11 @@ PREFILL_RAGGED = (  # (M, K, N, weight 16-byte aligned): the prefill tile's edge
     (129, 4096, 1030, True), (300, 4096, 1000, True), (1000, 4096, 1030, True),
     (200, 4096, 1024, False), (100, 70, 64, True), (40, 33, 100, True), (300, 9000, 200, True),
 )
+WGMMA_RAGGED = (  # (M, K, N, weight 16-byte aligned): the wgmma tile's edges (bf16 x):
+    # ragged M, K not a multiple of 64, N not of 128 or 256, K 8
+    (49, 4096, 1024, True), (65, 1032, 1040, True), (129, 4104, 208, True),
+    (1000, 4096, 1040, True), (300, 9000, 2064, True), (100, 8, 16, True),
+)
 PREFILL_M = 8 * MODEL["max_len"]  # rows of a B 8 prefill's products
 PER_FORWARD = 4 * MODEL["depth"] + 1  # kernel launches per prefill or step
 REQUESTS = (  # (batch, prompt, new tokens, sampling)
@@ -790,6 +803,30 @@ def misaligned(torch, wq):
     return torch.empty(K * N + 1, dtype=torch.int8, device=wq.device)[1:].view(K, N).copy_(wq)
 
 
+def int8_route_wanted(M, K, N, x_bf16, aligned):
+    """The route an int8_matmul call must take (quant._int8_route): the
+    decode kernel at most 8 rows with K up to 8192, the stream up to
+    quant.STREAM_M (48) rows, and above that the wgmma tile for bf16 x
+    that TMA can read (K a multiple of 8, N of 16, aligned bases), else
+    the mma.sync tile."""
+    if M <= 8 and K <= 8192:
+        return "decode"
+    if M <= 48:
+        return "stream"
+    return "wgmma" if x_bf16 and aligned and K % 8 == 0 and N % 16 == 0 else "mma"
+
+
+def compare_routed(torch, ops, x, wq, s, label, max_err, aligned=True):
+    """compare(), with int8_matmul's two calls held to their route."""
+    M, K = x.shape
+    want = int8_route_wanted(M, K, wq.shape[1], x.dtype == torch.bfloat16, aligned)
+    out, taken = routes_taken(ops.int8_matmul,
+                              lambda: compare(torch, ops, x, wq, s, label, max_err))
+    if taken != [want] * 2:
+        fail(f"int8_matmul {label}: took {taken}, not {want}")
+    return out
+
+
 def kernel_phase(torch, ops, report):
     """Every kernel against its plain twin at the slice's shapes, then at
     ragged shapes that take the kernels' masked edges; returns the largest
@@ -809,7 +846,8 @@ def kernel_phase(torch, ops, report):
                 x = torch.randn((M, K), generator=g, device=dev).to(xdt)
                 w = torch.randn((K, N), generator=g, device=dev) * 0.02
                 wq, s = ops.quantize_int8(w)
-                xq, sx = compare(torch, ops, x, wq, s, f"M={M} {name} x={xname}", max_err)
+                xq, sx = compare_routed(torch, ops, x, wq, s, f"M={M} {name} x={xname}",
+                                        max_err)
                 if M not in (8, PREFILL_M):
                     continue  # checked, not timed
                 xl, wl = int_mm_operands(torch, xq, wq)
@@ -843,17 +881,19 @@ def kernel_phase(torch, ops, report):
                 )
     # ragged M, K and N, one row (B 1 decode), and a weight whose address is
     # not 16-byte aligned, which takes the kernels' bytewise weight loads
-    for M, K, N, aligned in RAGGED + DECODE_RAGGED + PREFILL_RAGGED:
+    for M, K, N, aligned in RAGGED + DECODE_RAGGED + PREFILL_RAGGED + WGMMA_RAGGED:
         for xdt in (torch.bfloat16, torch.float32):
             x = torch.randn((M, K), generator=g, device=dev).to(xdt)
             wq, s = ops.quantize_int8(torch.randn((K, N), generator=g, device=dev) * 0.02)
             if not aligned:
                 wq = misaligned(torch, wq)
-            compare(torch, ops, x, wq, s, f"ragged M={M} K={K} N={N} aligned={aligned}"
-                    f" x={xdt}", max_err)
-    print(f"  ragged shapes agree: {[r[:3] for r in RAGGED + DECODE_RAGGED + PREFILL_RAGGED]}")
+            compare_routed(torch, ops, x, wq, s, f"ragged M={M} K={K} N={N} aligned={aligned}"
+                           f" x={xdt}", max_err, aligned)
+    print(f"  ragged shapes agree, each call on its route: "
+          f"{[r[:3] for r in RAGGED + DECODE_RAGGED + PREFILL_RAGGED + WGMMA_RAGGED]}")
     report["decode_repeats"] = decode_repeat_checks(torch, ops, g)
     prefill_repeat_checks(torch, ops, g)
+    report["wgmma_checks"] = wgmma_checks(torch, ops, g, max_err)
     report["kernel_shapes"] = rows
     return max_err
 
@@ -905,9 +945,10 @@ def decode_repeat_checks(torch, ops, g):
 
 
 def prefill_repeat_checks(torch, ops, g):
-    """The prefill tile is deterministic: the same M 1536 call twice gives
-    the same bits (int8 with bf16 x and f32 or bf16 output, f32 x, w8a8) at
-    the decoder's four prefill shapes."""
+    """The prefill tiles are deterministic: the same M 1536 call twice gives
+    the same bits (int8 with bf16 x and f32 or bf16 output on the wgmma
+    route, f32 x on the mma.sync tile, w8a8) at the decoder's four prefill
+    shapes."""
     dev = torch.device("cuda")
     for name in ("qkv", "o", "fc1", "fc2"):
         K, N = SHAPES[name]
@@ -916,12 +957,63 @@ def prefill_repeat_checks(torch, ops, g):
         xq, sx = ops.quantize_int8_rows(x)
         for xin, odt in ((x.bfloat16(), torch.float32), (x.bfloat16(), torch.bfloat16),
                          (x, torch.float32)):
-            a = ops.int8_matmul(xin, wq, s, out_dtype=odt)
-            if not torch.equal(a, ops.int8_matmul(xin, wq, s, out_dtype=odt)):
+            (a, b), taken = routes_taken(ops.int8_matmul, lambda: [
+                ops.int8_matmul(xin, wq, s, out_dtype=odt) for _ in range(2)])
+            want = "wgmma" if xin.dtype == torch.bfloat16 else "mma"
+            if taken != [want] * 2:
+                fail(f"int8_matmul M={PREFILL_M} {name} x={xin.dtype}: took {taken}, not {want}")
+            if not torch.equal(a, b):
                 fail(f"int8_matmul M={PREFILL_M} {name} x={xin.dtype} out={odt}: two calls differ")
         if not torch.equal(ops.w8a8_matmul(xq, sx, wq, s), ops.w8a8_matmul(xq, sx, wq, s)):
             fail(f"w8a8_matmul M={PREFILL_M} {name}: two calls differ")
-    print(f"  prefill calls deterministic: two calls bitwise equal at the 4 shapes, M {PREFILL_M}")
+    print(f"  prefill calls deterministic: two calls bitwise equal at the 4 shapes, M {PREFILL_M} "
+          "(bf16 x on wgmma, f32 x on the mma.sync tile)")
+
+
+def wgmma_checks(torch, ops, g, max_err):
+    """The wgmma tile at its edges (WGMMA_RAGGED) with each tile of
+    quant._WGMMA_TILES forced, f32 and bf16 output, against the plain twin;
+    then one planted fault the check must flag: the decoder's qkv product
+    at M 1536 run on K - 64 rows (the kernel's last K stage dropped) and
+    held against the whole product.  Returns the tiles checked and the
+    fault's error beside its limit."""
+    dev = torch.device("cuda")
+    plan = ops.quant._prefill_wgmma_plan
+    try:
+        for M, K, N, _ in WGMMA_RAGGED:
+            x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+            wq, s = ops.quantize_int8(torch.randn((K, N), generator=g, device=dev) * 0.02)
+            for tile in ops.quant._WGMMA_TILES:
+                ops.quant._prefill_wgmma_plan = lambda *a, tile=tile: tile
+                for odt in (torch.float32, torch.bfloat16):
+                    got, taken = routes_taken(ops.int8_matmul,
+                                              lambda: ops.int8_matmul(x, wq, s, out_dtype=odt))
+                    if taken != ["wgmma"]:
+                        fail(f"int8_matmul tile {tile} M={M} K={K} N={N}: took {taken}")
+                    e = check_int8(torch, got, ops.int8_matmul_plain(x, wq, s, out_dtype=odt),
+                                   f"wgmma tile {tile} M={M} K={K} N={N}")
+                    if odt == torch.float32:
+                        max_err["int8_matmul"] = max(max_err["int8_matmul"], e)
+    finally:
+        ops.quant._prefill_wgmma_plan = plan
+    K, N = SHAPES["qkv"]
+    x = torch.randn((PREFILL_M, K), generator=g, device=dev).bfloat16()
+    wq, s = ops.quantize_int8(torch.randn((K, N), generator=g, device=dev) * 0.02)
+    want = ops.int8_matmul_plain(x, wq, s, out_dtype=torch.float32)
+    cut, taken = routes_taken(ops.int8_matmul, lambda: ops.int8_matmul(
+        x[:, :K - 64].contiguous(), wq[:K - 64].contiguous(), s, out_dtype=torch.float32))
+    d = (cut - want).abs()
+    lim = 1e-3 + 1e-4 * want.abs()
+    fault = dict(max_abs_err=d.max().item(), outputs_past_limit=int((d > lim).sum()),
+                 route=taken)
+    if taken != ["wgmma"] or not fault["outputs_past_limit"]:
+        fail(f"int8 planted fault (the last K stage dropped) passed the check: {fault}")
+    print(f"  the wgmma tile agrees at its edges {[c[:3] for c in WGMMA_RAGGED]} with each of "
+          f"its tiles {list(ops.quant._WGMMA_TILES)}; planted fault flagged: the last K stage "
+          f"dropped gives max |d| {fault['max_abs_err']:.4g}, {fault['outputs_past_limit']} "
+          f"outputs past the limit")
+    return dict(tiles=[list(t) for t in ops.quant._WGMMA_TILES],
+                shapes=[list(c[:3]) for c in WGMMA_RAGGED], planted_fault=fault)
 
 
 def stream_ragged(stream_m):
@@ -1196,13 +1288,16 @@ def serve_all(decs, requests, prompts, per_forward, vocab, label):
     request's output must keep its prompt, stay in the vocabulary and, with
     beams, give finite scores best-first; a quantised decoder must launch
     its kernel ``per_forward`` times a prefill and a step, and no other
-    kernel.  Returns ({quant: [(tokens, scores), ...]}, the launch counts)."""
+    kernel, and an int8 decoder every prefill product on the wgmma route
+    (int8_path_routes).  Returns ({quant: [(tokens, scores), ...]}, the
+    launch counts)."""
     import numpy as np
 
     from deepflows_tpu_torch import ops
 
     kernel_of = {"int8": ops.int8_matmul, "w8a8": ops.w8a8_matmul}
     served = {q: [] for q in decs}
+    int8_before = dict(ops.int8_matmul.routes)
     ops.reset_launch_counts()  # the main path starts here
     for quant, dec in decs.items():
         for (b, p, new, kw), idx in zip(requests, prompts):
@@ -1229,7 +1324,26 @@ def serve_all(decs, requests, prompts, per_forward, vocab, label):
                          f"{k.launches - before[k]} times, expected {want}")
             print(f"  served {label}quant={str(quant):5s} B={b} prompt={p} +{new} "
                   f"{kw or 'greedy'} in {secs:.3f} s")
-    return served, {k.__name__: k.launches for k in ops.KERNELS}  # the main path ends here
+    counts = {k.__name__: k.launches for k in ops.KERNELS}  # the main path ends here
+    if "int8" in decs:
+        int8_path_routes(ops, int8_before, f"{label}serving")
+    return served, counts
+
+
+INT8_PATH_ROUTES = {}  # int8_matmul's launches by route on the serving paths
+
+
+def int8_path_routes(ops, before, path):
+    """int8_matmul's launches by route since ``before`` on a main path of
+    bf16 activations: every prefill launch must be on "wgmma" (none on
+    "mma") and there must be some.  Recorded in INT8_PATH_ROUTES."""
+    by_route = {k: n - before[k] for k, n in ops.int8_matmul.routes.items()}
+    if by_route["mma"] or not by_route["wgmma"]:
+        fail(f"{path}: int8_matmul launched by route {by_route}: every bf16 prefill launch "
+             "must take wgmma")
+    INT8_PATH_ROUTES[path] = by_route
+    print(f"  {path}: int8_matmul launches by route {by_route} (every prefill on wgmma)")
+    return by_route
 
 
 def slice_phase(torch, dt, report):
@@ -2692,7 +2806,7 @@ def family_kernel_phase(torch, ops, report, max_err):
         for name, (K, N) in MISTRAL_SHAPES.items():
             x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
             wq, s = ops.quantize_int8(torch.randn((K, N), generator=g, device=dev) * 0.02)
-            xq, sx = compare(torch, ops, x, wq, s, f"Mistral M={M} {name}", max_err)
+            xq, sx = compare_routed(torch, ops, x, wq, s, f"Mistral M={M} {name}", max_err)
             if M == 384:
                 continue  # checked, not timed
             r = dict(M=M, K=K, N=N, shape=name)
@@ -3693,7 +3807,7 @@ def ft_kernel_phase(torch, ops, report, max_err):
         for name, (K, N) in MISTRAL_SHAPES.items():
             x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
             wq, s = ops.quantize_int8(torch.randn((K, N), generator=g, device=dev) * 0.02)
-            compare(torch, ops, x, wq, s, f"merged Mistral M={M} {name}", max_err)
+            compare_routed(torch, ops, x, wq, s, f"merged Mistral M={M} {name}", max_err)
             del x, wq, s
         free_card(torch)
     print(f"  int8_matmul and w8a8_matmul agree with their plain twins at Mistral's "
@@ -4350,7 +4464,7 @@ def serving_kernel_phase(torch, ops, report, max_err):
         for name, (K, N) in MISTRAL_SHAPES.items():
             x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
             wq, s = ops.quantize_int8(torch.randn((K, N), generator=g, device=dev) * 0.02)
-            compare(torch, ops, x, wq, s, f"serving Mistral M={M} {name}", max_err)
+            compare_routed(torch, ops, x, wq, s, f"serving Mistral M={M} {name}", max_err)
             del x, wq, s
         free_card(torch)
     print(f"  int8_matmul and w8a8_matmul agree with their plain twins at Mistral's "
@@ -4604,10 +4718,13 @@ def engine_phase(torch, report, lm, sys_prompt, reqs):
                                  **SERVE_ENGINE, **kw)
             eng.register_prefix(sys_prompt)
             torch.cuda.synchronize()
+            int8_before = dict(ops.int8_matmul.routes)
             ops.reset_launch_counts()  # the main path starts here
             outs, lat, wall = engine_run(torch, eng, reqs, eos)
             counts = {k.__name__: k.launches for k in ops.KERNELS}  # and ends here
             paths[f"engine_{cache}_{mode}"] = counts
+            if quant == "int8":  # the admissions' prefills
+                int8_path_routes(ops, int8_before, label)
             replays = engine_checks(torch, eng, reqs, outs, eos, V, label)
             st = eng.stats
             forwards = st["admit_prefill"] + st["admit_suffix"] + st["chunks"] * eng.chunk
@@ -8154,7 +8271,8 @@ def main(argv=None) -> int:
              bound_ms=b_int8[0], bound_by=b_int8[1],
              library_ms=step_ms["int8_matmul_library"], at=at,
              prefill_ms=pre_ms["int8_matmul"], prefill_library_ms=pre_ms["int8_matmul_library"],
-             prefill_bound_ms=p_int8[0]),
+             prefill_bound_ms=p_int8[0], prefill_route="wgmma",
+             routes_by_serving_path=INT8_PATH_ROUTES),
         dict(name="w8a8_matmul", route="cuda",
              source="deepflows_tpu_torch/csrc/w8a8_matmul.cu",
              replaces="deepflows_tpu/ops/pallas_kernels.py:718",

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks: TMA tensor maps and loads, mbarriers,
 // wgmma from shared memory and from registers, and setmaxnreg.  Shared by
 // the kernels fed from a TMA ring: flash_attention.cu's bf16 forward and
-// backward, fused_linear_ce.cu's bf16 forward and backward (wgmma) and
-// linear_f32.cu's large f32 tile (TMA and mbarriers only).
+// backward, fused_linear_ce.cu's bf16 forward and backward and
+// int8_tile.cuh's bf16-x prefill (wgmma), and linear_f32.cu's large f32
+// tile (TMA and mbarriers only).
 //
 // Shared-memory tiles are in the layout a TMA load with the 128-byte swizzle
 // writes: rows of 64 bf16 (128 bytes), the 16-byte chunks of row r XOR-ed
@@ -301,6 +302,25 @@ inline bool encode_f32_2d(CUtensorMap* map, const void* base, long long inner, l
   const cuuint32_t box[2] = {32, (cuuint32_t)rows};
   const cuuint32_t step[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dim, stride, box,
+            step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A rank-2 uint8 tensor map with the 128-byte swizzle: rows of `inner`
+// bytes (unit stride), `outer` rows `row_bytes` apart (a multiple of 16),
+// boxes of 128 x `rows` (a box row is 128 bytes; the int8 weight of
+// int8_tile.cuh's wgmma prefill).  Returns false if cuTensorMapEncodeTiled
+// refuses it.
+inline bool encode_u8_2d(CUtensorMap* map, const void* base, long long inner, long long outer,
+                         long long row_bytes, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dim[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t stride[1] = {(cuuint64_t)row_bytes};
+  const cuuint32_t box[2] = {128, (cuuint32_t)rows};
+  const cuuint32_t step[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dim, stride, box,
             step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -3,8 +3,10 @@
 // int8 (K, N) row-major weight.  It replaces the K loops of the TPU kernels
 // _int8_matmul_kernel and _w8a8_kernel (deepflows_tpu/ops/pallas_kernels.py).
 // The int8 weight bytes are all that crosses device memory: it is widened
-// only on chip.  Three designs, chosen by the wrapper's plan
-// (ops/quant.py _route): decode, stream and prefill.
+// only on chip.  Four designs, chosen by the wrapper's plan
+// (ops/quant.py _route, and _prefill_route at prefill M): decode, stream,
+// and for prefill the wgmma tile (int8_matmul with bf16 x) or the mma.sync
+// tile (everything else).
 //
 // Decode (M <= 8, K <= 8192; int8_decode_kernel): a weight stream.  The
 // grid is (column tiles of 32, K splits) as the wrapper's plan
@@ -49,8 +51,39 @@
 // the stream lost to the prefill tile at one of Mistral's matrices, which
 // set its 48 (PERF.md section 6).
 //
-// Prefill and every other call (M > 48; int8_prefill_kernel): bound
-// by operations, not bytes.  At the decoder's
+// Prefill of int8_matmul with bf16 x (M > 48, K a multiple of 8, N of 16,
+// both bases 16-byte aligned; int8_prefill_wgmma, the "wgmma" route): bound
+// by operations (2 M K N = 3.2-12.9 GFLOP on 1-4 MB of weight at the
+// decoder's M 1536, 19-235 GFLOP at Mistral's widths), which only wgmma
+// brings near the card's 989 TFLOP/s.  wgmma reads B only from shared
+// memory and a 16-bit B must be K-major or MN-major there, while the
+// widened weight exists only in registers; so the product is out^T =
+// w^T x^T: the weight is the register A operand (a 4-row read of its
+// stage, one byte perm and two LOP3 and one bf16 FMA a pair: 0x4300 |
+// (b & 127) is 128 + (b & 127), minus 128 or 256 by the sign, exact) and
+// x's (BM, 64) slice, as TMA writes it (K-major, 128-byte swizzle), is B.
+// A block owns BM rows of x by 128 NH weight columns, the plan's tile
+// (128 x 256, 128 x 128 or 64 x 128: ops/quant.py _prefill_wgmma_plan,
+// from block times fitted to a sweep on the H100): a producer warp keeps
+// TMA loads of x's box and one or two (64 K rows, 128 bytes) weight boxes
+// (NH) in a ring of mbarriers (128-192 KB), and two consumer warpgroups
+// own 64 NH weight columns each, NH wgmma m64nBMk16 a 16-deep K step.  A step's A fragments
+// are widened while the two steps before it are on the tensor cores, into
+// spare registers, and copied in once the products that read the old ones
+// are done.  The 4-row reads hit distinct banks under TMA's swizzle.  The
+// accumulator rows are weight columns, so each thread stores 2 or 4
+// adjacent outputs of a row at once, after the column scale.  The blocks
+// go through the tiles in groups of row tiles whose x fits 24 MB, row tile
+// fastest, so the weight streams from device memory about once.  It
+// reaches 220-672 TFLOP/s at the decoder's and Mistral's shapes on the
+// H100 (PERF.md row 5p); what holds it there: the tiles' waves over the
+// 132 SMs and a block's fixed cost of about 5.6 us at the decoder's K
+// 1024, and, past those, about 60% of the tensor cores' rate a block.  One
+// block sums each output over all of K in a fixed order: two calls give
+// the same bits.
+//
+// Prefill and every other call (M > 48; int8_prefill_kernel, the "mma"
+// route of int8_matmul, and w8a8_matmul): bound by operations, not bytes.  At the decoder's
 // prefill shapes (M 1536) a call does 2 M K N = 3.2-12.9 GFLOP on 1-4 MB of
 // weight, 3.3-13 us at 989 TFLOP/s (bf16) or 1,979 TOPS (int8) against
 // 1-4 us of bytes, so only the tensor cores can approach the card's rate.
@@ -91,6 +124,7 @@
 
 #include <cooperative_groups.h>
 
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace dft {
@@ -679,6 +713,271 @@ int8_prefill_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w, int 
     }
 }
 
+// ------------------------------------------------------------------
+// The bf16-x prefill on Hopper's tensor cores (int8_matmul's "wgmma"
+// route): out^T = w^T x^T, so that the int8 weight, widened in registers,
+// is wgmma's register A operand and x's (BM, 64) slice, as TMA lays it
+// in shared memory (K-major, 128-byte swizzle), is B.  A block owns BM
+// rows of x by 128 NH weight columns: warpgroup 0 is the producer, whose
+// one thread keeps TMA loads of x's box and NH weight boxes (64 K rows,
+// 128 bytes each) in a ring of full and empty mbarriers; warpgroups 1 and
+// 2 are consumers of 64 NH weight columns each, NH wgmma m64nBMk16 a
+// 16-deep K step.  See the head of this file.
+namespace wgp {
+
+using namespace dft::hopper;
+constexpr int BK = 64;        // K rows a stage
+constexpr int THREADS = 384;  // the producer warpgroup and two consumers
+// 128 x 40 + 256 x 232 registers = 64,512, what 384 threads of 168 hold at launch
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+constexpr int W_BOX = BK * 128;  // one weight box, (K, N) bytes
+// the ring: as many stages as RING_BYTES holds, at most MAX_STAGES
+constexpr int RING_BYTES = 196608, MAX_STAGES = 8;
+// the rows of x a group of the launch order reads, at most (of the H100's 50 MB L2)
+constexpr long long GROUP_BYTES = 25165824;  // 24 MiB
+__host__ __device__ constexpr int stage_bytes(int bm, int nh) { return bm * BK * 2 + nh * W_BOX; }
+__host__ __device__ constexpr int stages(int bm, int nh) {
+  return RING_BYTES / stage_bytes(bm, nh) < MAX_STAGES ? RING_BYTES / stage_bytes(bm, nh)
+                                                       : MAX_STAGES;
+}
+__host__ __device__ constexpr int smem_bytes(int bm, int nh) {  // 1024-byte alignment, ring, barriers
+  return 1024 + stages(bm, nh) * stage_bytes(bm, nh) + 2 * stages(bm, nh) * 8;
+}
+
+struct Maps {  // x (K, M) in boxes of 64 x BM, the weight (N, K) in boxes of 128 x 64
+  CUtensorMap x, w;
+};
+
+template <class Epilogue>
+struct Args {
+  Maps maps;  // first: a CUtensorMap is 64-byte aligned in the parameter space
+  Epilogue epi;
+  int M, N, K, group;  // group: row tiles a group of the launch order (see the kernel)
+};
+
+// (a & b) | c in one LOP3 (the compiler splits it where b and c are both
+// constants)
+__device__ __forceinline__ uint32_t and_or(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// Two int8 values, bytes 0 and 2 of p, as two bf16 (byte 0 in the low
+// half), exactly: 0x4300 | (b & 127) is 128 + (b & 127), and the sign bit
+// picks 128 or 256 to subtract, -(128 + 128 s) being 0xC300 | (b & 128).
+__device__ __forceinline__ uint32_t bf16_pair(uint32_t p) {
+  const uint32_t v = and_or(p, 0x007F007Fu, 0x43004300u);
+  const uint32_t c = and_or(p, 0x00800080u, 0xC300C300u);
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(v), "r"(0x3F803F80u), "r"(c));
+  return d;
+}
+
+// Byte j of u and byte j of v at bytes 0 and 2 (bytes 1 and 3 are
+// bf16_pair's to ignore).
+template <int J>
+__device__ __forceinline__ uint32_t bytes_j(uint32_t u, uint32_t v) {
+  return __byte_perm(u, v, J | J << 4 | (4 + J) << 8 | (4 + J) << 12);
+}
+
+// One thread's A fragments of a 16-deep K step, NH of them: a[h][0..3]
+// hold the thread's rows g and g + 8 of product h at K rows 2 q, 2 q + 1
+// (a0, a1) and 2 q + 8, 2 q + 9 (a2, a3) of the step, widened to bf16.
+// `ws` is the step's first row in the consumer's weight box; o[0] and o[1]
+// are the offsets of the thread's bytes in rows 2 q and 2 q + 1, swizzled
+// as TMA wrote them (rows 2 q + 8 and 2 q + 9 are 1024 bytes on, with the
+// same swizzle).  NH 1: 2 bytes a row, columns col (row g) and col + 1
+// (row g + 8); NH 2: 4 bytes, columns col4 .. col4 + 3, product h taking
+// col4 + 2 h (row g) and col4 + 2 h + 1 (row g + 8).
+template <int NH>
+__device__ __forceinline__ void a_fragments(const unsigned char* ws, const int (&o)[2],
+                                            uint32_t (&a)[NH][4]) {
+  if constexpr (NH == 1) {
+    const uint32_t r0 = *reinterpret_cast<const uint16_t*>(ws + o[0]);
+    const uint32_t r1 = *reinterpret_cast<const uint16_t*>(ws + o[1]);
+    const uint32_t r2 = *reinterpret_cast<const uint16_t*>(ws + o[0] + 1024);
+    const uint32_t r3 = *reinterpret_cast<const uint16_t*>(ws + o[1] + 1024);
+    a[0][0] = bf16_pair(bytes_j<0>(r0, r1));
+    a[0][1] = bf16_pair(bytes_j<1>(r0, r1));
+    a[0][2] = bf16_pair(bytes_j<0>(r2, r3));
+    a[0][3] = bf16_pair(bytes_j<1>(r2, r3));
+  } else {
+    const uint32_t r0 = *reinterpret_cast<const uint32_t*>(ws + o[0]);
+    const uint32_t r1 = *reinterpret_cast<const uint32_t*>(ws + o[1]);
+    const uint32_t r2 = *reinterpret_cast<const uint32_t*>(ws + o[0] + 1024);
+    const uint32_t r3 = *reinterpret_cast<const uint32_t*>(ws + o[1] + 1024);
+    a[0][0] = bf16_pair(bytes_j<0>(r0, r1));
+    a[0][1] = bf16_pair(bytes_j<1>(r0, r1));
+    a[0][2] = bf16_pair(bytes_j<0>(r2, r3));
+    a[0][3] = bf16_pair(bytes_j<1>(r2, r3));
+    a[1][0] = bf16_pair(bytes_j<2>(r0, r1));
+    a[1][1] = bf16_pair(bytes_j<3>(r0, r1));
+    a[1][2] = bf16_pair(bytes_j<2>(r2, r3));
+    a[1][3] = bf16_pair(bytes_j<3>(r2, r3));
+  }
+}
+
+template <int BM, int NH, class Epilogue>
+__device__ __forceinline__ void produce(const Args<Epilogue>& a, unsigned char* ring,
+                                        uint64_t* full, uint64_t* empty, int m0, int n0,
+                                        int steps) {
+  constexpr int ST = stages(BM, NH), XB = BM * BK * 2, STAGE = stage_bytes(BM, NH);
+  tma_prefetch_map(&a.maps.x);
+  tma_prefetch_map(&a.maps.w);
+  for (int i = 0; i < steps; ++i) {
+    const int s = i % ST;
+    mbar_wait(empty + s, ((i / ST) & 1) ^ 1);  // the slot's first wait passes at once
+    mbar_expect_tx(full + s, STAGE);
+    unsigned char* dst = ring + s * STAGE;
+    tma_load_4d(dst, &a.maps.x, full + s, i * BK, m0, 0, 0);
+#pragma unroll
+    for (int h = 0; h < NH; ++h)
+      tma_load_2d(dst + XB + h * W_BOX, &a.maps.w, full + s, n0 + 128 * h, i * BK);
+  }
+}
+
+// Consumer c's 64 NH weight columns by the block's BM rows of x, over all
+// of K; then the column scales and the stores.  Step k + 1's fragments are
+// read and widened into spare registers while steps k - 1 and k are on the
+// tensor cores, and copied into the A registers of step k - 1 once its
+// products are done: a product in flight never has its A registers
+// rewritten, and the widening is off the products' path.
+template <int BM, int NH, class Epilogue>
+__device__ __forceinline__ void consume(const Args<Epilogue>& a, unsigned char* ring,
+                                        uint64_t* full, uint64_t* empty, int m0, int n0,
+                                        int steps) {
+  constexpr int ST = stages(BM, NH), XB = BM * BK * 2, STAGE = stage_bytes(BM, NH);
+  const int c = threadIdx.x / 128 - 1, w = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, q = lane % 4;
+  // this thread's first column in the consumer's box (the box of 128
+  // columns is the consumer's half at NH 1, its own at NH 2), and in the tile
+  const int col = NH == 1 ? 64 * c + 16 * w + 2 * g : 32 * w + 4 * g;
+  const int box = NH == 1 ? 0 : c;
+  // byte col of rows 2 q and 2 q + 1 of a box: its 16-byte chunk XOR-ed
+  // with the row's index mod 8.  A warp's 4 q lanes read 4 rows whose
+  // chunks differ: NH 1, one chunk of 4 banks a row (2 bytes a lane);
+  // NH 2, two chunks a row (4 bytes a lane), all 32 banks; no conflict.
+  const int o[2] = {2 * q * 128 + ((((col >> 4) ^ (2 * q)) << 4) | (col & 15)),
+                    (2 * q + 1) * 128 + ((((col >> 4) ^ (2 * q + 1)) << 4) | (col & 15))};
+  float acc[NH][BM / 2];
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int i = 0; i < BM / 2; ++i) acc[h][i] = 0.f;
+  // x: K-major, a step of 16 along K adds 32 bytes
+  const uint64_t dx = desc_b128(ring, 16, 1024);
+  unsigned char* wbox = ring + XB + box * W_BOX;
+  uint32_t f[2][NH][4];
+  mbar_wait(full, 0);
+  a_fragments<NH>(wbox, o, f[0]);
+  // The loop's body has no branch around a wgmma: ptxas serialises every
+  // wgmma of a path that diverges around one.
+  for (int i = 0; i < steps; ++i) {
+    const int s = i % ST;
+    const uint64_t xs = dx + ((s * STAGE) >> 4);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        fence_regs(acc[h]);
+        fence_regs(f[kk & 1][h]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+        wgmma_rs<BM, 0>(acc[h], f[kk & 1][h][0], f[kk & 1][h][1], f[kk & 1][h][2],
+                        f[kk & 1][h][3], xs + ((kk * 32) >> 4), 1);
+      wgmma_commit();
+      uint32_t next[NH][4] = {};  // step kk + 1's fragments
+      if (kk + 1 < BK / 16) {
+        a_fragments<NH>(wbox + s * STAGE + (kk + 1) * 16 * 128, o, next);
+      } else if (i + 1 < steps) {
+        const int sn = (i + 1) % ST;
+        mbar_wait(full + sn, ((i + 1) / ST) & 1);
+        a_fragments<NH>(wbox + sn * STAGE, o, next);
+      }
+      wgmma_wait<1>();  // step kk - 1's products are done: their registers are free
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        fence_regs(acc[h]);
+        fence_regs(f[(kk + 1) & 1][h]);
+      }
+      // the products of the last stage are done: release it
+      if (kk == 0 && i > 0 && lane == 0) mbar_arrive(empty + (i - 1) % ST);
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) f[(kk + 1) & 1][h][j] = next[h][j];
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int h = 0; h < NH; ++h) fence_regs(acc[h]);
+  // acc[h][4 j + e]: x row 8 j + 2 q + e by product h's row g, acc[h][4 j
+  // + 2 + e] by its row g + 8.  N is a multiple of 16 and a thread's 2 or
+  // 4 columns start at a multiple of their count, so they are all in or
+  // all past N.
+  const int n = n0 + 128 * box + col;
+  if (n >= a.N) return;
+  float sc[2 * NH];
+#pragma unroll
+  for (int i = 0; i < 2 * NH; ++i) sc[i] = a.epi.load(0, n + i);
+#pragma unroll
+  for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int m = m0 + 8 * j + 2 * q + e;
+      if (m >= a.M) continue;
+      float v[2 * NH];
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        v[2 * h] = acc[h][4 * j + e] * sc[2 * h];
+        v[2 * h + 1] = acc[h][4 * j + 2 + e] * sc[2 * h + 1];
+      }
+      a.epi.store_cols(m, n, v);
+    }
+}
+
+// Block b of the ceil(M / BM) ceil(N / (128 NH)) tiles, in an order that
+// keeps operands in L2: the row tiles go in groups of a.group, and within
+// a group the row tile changes fastest, so that the blocks on the card at
+// once share a few weight column tiles and the group's rows of x, where
+// the order by columns first streamed the whole weight from device memory
+// once per row tile (a weight past the 50 MB L2 at Mistral's widths).
+template <int BM, int NH, class Epilogue>
+__global__ void __launch_bounds__(THREADS, 1)
+    int8_prefill_wgmma(const __grid_constant__ Args<Epilogue> a) {
+  constexpr int ST = stages(BM, NH), STAGE = stage_bytes(BM, NH);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  unsigned char* ring = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + ST * STAGE);
+  uint64_t* empty = full + ST;
+  const int tiles_m = (a.M + BM - 1) / BM, tiles_n = (a.N + 128 * NH - 1) / (128 * NH);
+  const int first = blockIdx.x / (a.group * tiles_n) * a.group;  // the group's first row tile
+  const int rows = min(a.group, tiles_m - first), r = blockIdx.x % (a.group * tiles_n);
+  const int m0 = (first + r % rows) * BM, n0 = r / rows * 128 * NH;
+  const int steps = (a.K + BK - 1) / BK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 8);  // one arrival from each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) produce<BM, NH>(a, ring, full, empty, m0, n0, steps);
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    consume<BM, NH>(a, ring, full, empty, m0, n0, steps);
+  }
+}
+
+}  // namespace wgp
+
 namespace stream {
 constexpr int MAX_NT = 6;              // n8 tiles of x rows: at most 48 rows, quant.STREAM_M
 constexpr int MAX_SPLITS = 16;         // K splits of a column tile: the blocks of one cluster
@@ -998,6 +1297,52 @@ cudaError_t launch_prefill(const XT* x, const int8_t* w, int M, int N, int K, Ep
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   kernel<<<grid, THREADS, SMEM, stream>>>(x, w, M, N, K, wv, xv, epi);
   return cudaGetLastError();
+}
+
+template <int BM, int NH, class Epilogue>
+cudaError_t launch_prefill_wgmma_tile(const void* x, const void* w, int M, int N, int K,
+                                      Epilogue epi, cudaStream_t stream) {
+  using namespace wgp;
+  Args<Epilogue> a;
+  a.epi = epi;
+  a.M = M, a.N = N, a.K = K;
+  // as many row tiles a group as GROUP_BYTES of x holds, at least one
+  const int tiles_m = (M + BM - 1) / BM, tiles_n = (N + 128 * NH - 1) / (128 * NH);
+  const long long fit = GROUP_BYTES / (2ll * BM * K);
+  a.group = fit < 1 ? 1 : fit > tiles_m ? tiles_m : (int)fit;
+  // TMA fills x's rows past M and columns past K, and the weight's rows
+  // past K and columns past N, with zeros
+  const long long xd[4] = {K, M, 1, 1}, xs[3] = {2ll * K, 2ll * K * M, 2ll * K * M};
+  if (!encode_bf16_4d(&a.maps.x, x, xd, xs, BM) || !encode_u8_2d(&a.maps.w, w, N, K, N, BK))
+    return cudaErrorInvalidValue;
+  constexpr int SMEM = smem_bytes(BM, NH);
+  auto kernel = int8_prefill_wgmma<BM, NH, Epilogue>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(tiles_m * tiles_n);
+  kernel<<<grid, THREADS, SMEM, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The wgmma prefill of bf16 x (the "wgmma" route, ops/quant.py
+// _prefill_route) over tiles of tile_m rows by tile_n columns, 128 x 256,
+// 128 x 128 or 64 x 128, the plan _prefill_wgmma_plan's (64 x 256 was the
+// fastest at no shape of the tile sweep).  TMA must be able to read
+// both operands: K a multiple of 8 and N of 16, both bases 16-byte
+// aligned; a call that is not is refused, never sent elsewhere.
+template <class Epilogue>
+cudaError_t launch_prefill_wgmma(const void* x, const void* w, int M, int N, int K, int tile_m,
+                                 int tile_n, Epilogue epi, cudaStream_t stream) {
+  if (M < 1 || N < 1 || K < 1 || K % 8 || N % 16 || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16)
+    return cudaErrorInvalidValue;
+  switch (tile_m * 1000 + tile_n) {
+    case 128256: return launch_prefill_wgmma_tile<128, 2>(x, w, M, N, K, epi, stream);
+    case 128128: return launch_prefill_wgmma_tile<128, 1>(x, w, M, N, K, epi, stream);
+    case 64128: return launch_prefill_wgmma_tile<64, 1>(x, w, M, N, K, epi, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // Decode shapes (M <= 8, K <= 8192) take the decode kernel, as the plan

@@ -21,7 +21,10 @@ K up to 8192) both kernels split K across the blocks of a cluster as
 ``STREAM_M`` rows, and at most 8 rows with K above 8192, the stream does
 the same on 128-column tiles through a ring that each block refills
 (``_stream_plan``); at every other shape they run a tensor-core tile whose
-rows ``_prefill_plan`` chooses.
+rows ``_prefill_plan`` chooses.  ``int8_matmul`` with bf16 x takes the
+``wgmma`` tile there instead (``_prefill_route``, ``_prefill_wgmma_plan``)
+wherever TMA can read both operands, and counts its launches by route in
+``int8_matmul.routes``.
 """
 
 from __future__ import annotations
@@ -162,6 +165,56 @@ def _route(m, n, k):
     return "stream" if m <= STREAM_M else "prefill"
 
 
+# int8_matmul's launches are counted by these routes: "prefill" of _route
+# is "wgmma" or "mma" (_prefill_route)
+ROUTES = ("decode", "stream", "wgmma", "mma")
+# The wgmma tiles, (rows, columns), as csrc/int8_tile.cuh
+# launch_prefill_wgmma takes them, each with the microseconds one block
+# takes over K rows, a + b K: fitted to the tile sweep of
+# tools/int8_prefill_check.py on an H100 (PERF.md section 6)
+_WGMMA_TILES = {(128, 256): (7.02, 0.01092), (128, 128): (5.63, 0.00544),
+                (64, 128): (3.44, 0.00512)}
+
+
+def _prefill_route(x, wq):
+    """The design of an int8_matmul call that ``_route`` sends to
+    "prefill": "wgmma" (the int8 weight widened in registers as wgmma's A
+    operand, x's slices by TMA) where x is bf16 and TMA can read both
+    operands (K a multiple of 8, N of 16, both bases 16-byte aligned), else
+    "mma" (the mma.sync tile of ``_prefill_plan``: f32 x, ragged widths, a
+    misaligned weight)."""
+    k, n = wq.shape
+    tma = k % 8 == 0 and n % 16 == 0 and x.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0
+    return "wgmma" if x.dtype == torch.bfloat16 and tma else "mma"
+
+
+def _int8_route(x, wq):
+    """int8_matmul's route: ``_route``'s, with "prefill" refined by
+    ``_prefill_route``."""
+    route = _route(x.shape[0], wq.shape[1], wq.shape[0])
+    return _prefill_route(x, wq) if route == "prefill" else route
+
+
+def _prefill_wgmma_plan(m, n, k):
+    """The tile of the "wgmma" route: ``(tile_m, tile_n)``, the grid being
+    (ceil(n / tile_n), ceil(m / tile_m)) blocks of one tile each, over all
+    of K.
+
+    It takes the tile whose waves of 132 blocks (one an SM) take the least
+    time by ``_WGMMA_TILES``' block times; the first of a tie."""
+    if m <= STREAM_M or k < 1:
+        raise ValueError(
+            f"the wgmma prefill plan takes more than {STREAM_M} rows, not ({m}, {k})"
+        )
+
+    def cost(tile):
+        (tile_m, tile_n), (a, b) = tile, _WGMMA_TILES[tile]
+        blocks = -(-m // tile_m) * -(-n // tile_n)
+        return -(-blocks // _SMS) * (a + b * k)
+
+    return min(_WGMMA_TILES, key=cost)
+
+
 def _plan_args(m, n, k):
     """The C entry's (chunk, splits, tile_m): the decode or stream plan's
     split, or the prefill plan's tile rows, as ``_route`` says."""
@@ -188,21 +241,26 @@ def int8_matmul(x, wq, scale, out_dtype=None):
     if not on_card(x, wq, scale):
         return int8_matmul_plain(x, wq, scale, out_dtype)
     fn = _build.c_function(
-        "int8_matmul", "dft_int8_matmul", (P, I, P, P, P, I, I, I, I, I, I, I, P)
+        "int8_matmul", "dft_int8_matmul", (P, I, P, P, P, I, I, I, I, I, I, I, I, P)
     )
+    route = _int8_route(x, wq)
+    plan = ((0, 0, *_prefill_wgmma_plan(m, n, k)) if route == "wgmma"
+            else (*_plan_args(m, n, k), 0))
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     with on_device(x.device):
         rc = fn(
             x.data_ptr(), int(x.dtype == torch.bfloat16), wq.data_ptr(),
             scale.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16),
-            m, n, k, *_plan_args(m, n, k), stream(),
+            m, n, k, *plan, stream(),
         )
     _build.check(rc, "int8_matmul")
     int8_matmul.launches += 1
+    int8_matmul.routes[route] += 1
     return out
 
 
 int8_matmul.launches = 0
+int8_matmul.routes = dict.fromkeys(ROUTES, 0)  # launches by route, never reset
 
 
 def w8a8_matmul(xq, sx, wq, sw, out_dtype=torch.float32):

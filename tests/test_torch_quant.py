@@ -8,6 +8,9 @@ the same order); int8_matmul uses tests/test_pallas.py's rtol 1e-4 and atol
 take the plain twins and never count a launch.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -507,3 +510,180 @@ def test_f32_x_as_three_bf16_products_within_the_int8_bound(span):
     got, want = acc * s, quant.int8_matmul_plain(x, wq, s)
     row = torch.from_numpy(np.exp2(row_exp).astype(np.float32))
     torch.testing.assert_close(got / row, want / row, rtol=1e-4, atol=1e-3)
+
+
+# The "wgmma" route of bf16-x prefill calls (quant._prefill_route): TMA must
+# read both operands, so K a multiple of 8, N of 16 and both bases 16-byte
+# aligned; every other prefill call keeps the mma.sync tile ("mma").
+# (m, k, n, x dtype, x's offset in elements, the weight's in bytes, route)
+ROUTE_CASES = (
+    [(m, k, n, "bfloat16", 0, 0, "wgmma") for m in (1536, 192)
+     for name, (k, n) in DECODER.items() if name != "head"]
+    + [(m, k, n, "bfloat16", 0, 0, "wgmma") for m in (1536, 2048) for k, n in MISTRAL.values()]
+    + [(49, 4096, 1024, "bfloat16", 0, 0, "wgmma"), (65, 1032, 1040, "bfloat16", 0, 0, "wgmma"),
+       (129, 4104, 208, "bfloat16", 0, 0, "wgmma"), (300, 9000, 2064, "bfloat16", 0, 0, "wgmma"),
+       (100, 8, 16, "bfloat16", 0, 0, "wgmma")]
+    # chip_smoke.PREFILL_RAGGED's: N 1000 and 1030, K 70, a misaligned weight
+    + [(100, 4096, 1000, "bfloat16", 0, 0, "mma"), (300, 4096, 1000, "bfloat16", 0, 0, "mma"),
+       (129, 4096, 1030, "bfloat16", 0, 0, "mma"), (1000, 4096, 1030, "bfloat16", 0, 0, "mma"),
+       (100, 70, 64, "bfloat16", 0, 0, "mma"), (200, 4096, 1024, "bfloat16", 0, 1, "mma"),
+       (300, 9000, 200, "bfloat16", 0, 0, "mma")]
+    # f32 x, and x's base 2 bytes off
+    + [(1536, 1024, 3072, "float32", 0, 0, "mma"), (1536, 1024, 3072, "bfloat16", 1, 0, "mma")]
+    # the stream and the decode kernel, whatever the alignment
+    + [(40, 4096, 1024, "bfloat16", 0, 0, "stream"), (8, 1024, 1024, "bfloat16", 0, 0, "decode"),
+       (8, 1024, 1000, "float32", 0, 1, "decode")]
+)
+
+
+def _operands_at(m, k, n, dtype, x_off, w_off):
+    """x (m, k) and wq (k, n) whose bases lie x_off elements and w_off bytes
+    past an allocation's (aligned) start: one element each, expanded, since
+    the route reads only shapes, dtypes and addresses."""
+    x = torch.empty(x_off + 1, dtype=getattr(torch, dtype))[x_off:].expand(m, k)
+    wq = torch.empty(w_off + 1, dtype=torch.int8)[w_off:].expand(k, n)
+    return x, wq
+
+
+@pytest.mark.parametrize("case", ROUTE_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_each_prefill_call_takes_its_route(case):
+    """_int8_route refines _route's "prefill" into "wgmma" or "mma" by x's
+    dtype, K % 8, N % 16 and each base's offset, and leaves the other
+    routes as they are."""
+    m, k, n, dtype, x_off, w_off, want = case
+    x, wq = _operands_at(m, k, n, dtype, x_off, w_off)
+    assert quant._int8_route(x, wq) == want
+    if want in ("wgmma", "mma"):
+        assert quant._route(m, n, k) == "prefill"
+        assert quant._prefill_route(x, wq) == want
+        tile_m, tile_n = quant._prefill_wgmma_plan(m, n, k)
+        assert (tile_m, tile_n) in quant._WGMMA_TILES
+    else:
+        assert quant._route(m, n, k) == want
+
+
+_TILE_SRC = (Path(quant.__file__).resolve().parent.parent / "csrc" / "int8_tile.cuh").read_text()
+_WGP_SRC = _TILE_SRC[_TILE_SRC.index("namespace wgp {"):_TILE_SRC.index("}  // namespace wgp")]
+
+
+def _wgp_constant(name):
+    return int(re.search(rf"{name} = (\d+)", _WGP_SRC).group(1))
+
+
+def _wgmma_smem(tile_m, tile_n):
+    """Shared memory of a wgmma tile's block, by csrc/int8_tile.cuh
+    wgp::smem_bytes with the constants read from the source: 1024 bytes of
+    alignment, the ring's stages and two mbarriers a stage."""
+    ring, most = _wgp_constant("RING_BYTES"), _wgp_constant("MAX_STAGES")
+    stage = tile_m * 64 * 2 + tile_n // 128 * 64 * 128
+    stages = min(most, ring // stage)
+    return 1024 + stages * stage + 2 * stages * 8, stages
+
+
+def test_wgmma_tiles_are_the_kernels():
+    """The plan's tiles are those launch_prefill_wgmma takes, each 128
+    columns a weight box, and each block's ring fits the H100's 227 KB of
+    shared memory with at least 4 stages."""
+    cases = re.findall(r"case (\d+)(\d{3}): return launch_prefill_wgmma_tile<(\d+), (\d)>",
+                       _TILE_SRC)
+    tiles = {(int(a), int(b)) for a, b, _, _ in cases}
+    assert tiles == set(quant._WGMMA_TILES)
+    for a, b, bm, nh in cases:
+        assert int(a) == int(bm) and int(b) == 128 * int(nh)
+    for tile in quant._WGMMA_TILES:
+        smem, stages = _wgmma_smem(*tile)
+        assert smem <= 232448 and stages >= 4
+
+
+WGMMA_PLAN_SHAPES = (
+    [(m, *DECODER[name]) for m in (1536, 192) for name in ("qkv", "o", "fc1", "fc2")]
+    + [(m, k, n) for m in (1536, 2048) for k, n in MISTRAL.values()]
+    + [(m, 4096, 1024) for m in (49, 65, 129, 1000)]
+)
+
+
+def _wgmma_block_tiles(m, n, k, tile_m, tile_n):
+    """(row tile, column tile) of each block of the wgmma kernel's 1-D
+    grid, as int8_prefill_wgmma orders them: row tiles in groups of as many
+    as GROUP_BYTES of x holds (launch_prefill_wgmma_tile), the row tile
+    fastest within a group."""
+    tiles_m, tiles_n = -(-m // tile_m), -(-n // tile_n)
+    group = min(max(_wgp_constant("GROUP_BYTES") // (2 * tile_m * k), 1), tiles_m)
+    b = np.arange(tiles_m * tiles_n)
+    first = b // (group * tiles_n) * group
+    rows = np.minimum(group, tiles_m - first)
+    r = b % (group * tiles_n)
+    return first + r % rows, r // rows
+
+
+@pytest.mark.parametrize("m,k,n", WGMMA_PLAN_SHAPES)
+def test_wgmma_plan_covers_every_output_once(m, k, n):
+    """The wgmma plan's grid covers every row and column exactly once, with
+    no empty block (the kernel sums each output over all of K): its blocks
+    take every (row tile, column tile) once, and the tiles cover the rows
+    and the columns; it takes the tile whose waves of 132 blocks cost
+    least by the fitted block times."""
+    tile_m, tile_n = quant._prefill_wgmma_plan(m, n, k)
+    tm, tn = _wgmma_block_tiles(m, n, k, tile_m, tile_n)
+    tiles_m, tiles_n = -(-m // tile_m), -(-n // tile_n)
+    assert sorted(zip(tm.tolist(), tn.tolist())) == [
+        (i, j) for i in range(tiles_m) for j in range(tiles_n)]
+    for size, tile in ((m, tile_m), (n, tile_n)):
+        blocks = -(-size // tile)
+        cover = np.zeros(blocks * tile, np.int64)
+        for b in range(blocks):
+            cover[b * tile:(b + 1) * tile] += 1
+        assert (cover[:size] == 1).all() and (blocks - 1) * tile < size
+    costs = {t: -(-(-(-m // t[0]) * -(-n // t[1])) // 132) * (a + b * k)
+             for t, (a, b) in quant._WGMMA_TILES.items()}
+    assert costs[(tile_m, tile_n)] == min(costs.values())
+
+
+def _wgmma_model(x, wq, s, tile_m, tile_n, out_dtype):
+    """The wgmma tile's order of sums in torch: each output tile (tile_m
+    rows by tile_n columns, zero-padded past M, N and K) sums f32 products
+    of 16-deep K steps in order from zero, the int8 weight widened exactly;
+    the column scale multiplies each sum once, after the whole K sum."""
+    m, k = x.shape
+    n = wq.shape[1]
+    kp = -(-k // 64) * 64  # whole stages of 64 rows, zeros past K
+    mp, np_ = -(-m // tile_m) * tile_m, -(-n // tile_n) * tile_n
+    xp = torch.zeros((mp, kp))
+    xp[:m, :k] = x.float()
+    wp = torch.zeros((kp, np_))
+    wp[:k, :n] = wq.float()
+    sp = torch.zeros(np_)
+    sp[:n] = s
+    out = torch.empty((mp, np_), dtype=out_dtype)
+    for r0 in range(0, mp, tile_m):
+        for c0 in range(0, np_, tile_n):
+            acc = torch.zeros((tile_m, tile_n))
+            for k0 in range(0, kp, 16):
+                acc = acc + xp[r0:r0 + tile_m, k0:k0 + 16] @ wp[k0:k0 + 16, c0:c0 + tile_n]
+            out[r0:r0 + tile_m, c0:c0 + tile_n] = (acc * sp[c0:c0 + tile_n]).to(out_dtype)
+    return out[:m, :n]
+
+
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+def test_wgmma_order_of_sums_matches_jax(out):
+    """M 100, K 200, N 144: a partial last K step (200 = 12 x 16 + 8), a
+    partial last row and column tile, on the wgmma route; the model of
+    the kernel's sums at each of its tiles against the JAX kernel in
+    interpret mode, within test_int8_matmul_plain_matches_jax_at_a_
+    prefill_shape's bound (rtol 1e-4 for f32 out, one bf16 ulp for bf16;
+    atol 1e-3), and against the plain twin."""
+    m, k, n = 100, 200, 144
+    x = RNG.standard_normal((m, k)).astype(np.float32)
+    w = RNG.standard_normal((k, n)).astype(np.float32) * 0.1
+    jq, js = pk.quantize_int8(jnp.asarray(w))
+    tq, ts = quant.quantize_int8(torch.from_numpy(w))
+    xb = torch.from_numpy(x).bfloat16()
+    assert quant._int8_route(xb, tq) == "wgmma"
+    want = np.asarray(pk.int8_matmul(jnp.asarray(x).astype(jnp.bfloat16), jq, js,
+                                     out_dtype=getattr(jnp, out)), np.float32)
+    plain = quant.int8_matmul_plain(xb, tq, ts, getattr(torch, out)).float().numpy()
+    rtol = 1e-4 if out == "float32" else 2**-7
+    for tile in quant._WGMMA_TILES:
+        got = _wgmma_model(xb, tq, ts, *tile, getattr(torch, out)).float().numpy()
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=1e-3)
+        np.testing.assert_allclose(got, plain, rtol=rtol, atol=1e-3)

@@ -2,7 +2,17 @@
 """Check and time flash_attention's bf16 backward on one CUDA card.
 
     python3 tools/flash_bwd_ab.py --check
+    python3 tools/flash_bwd_ab.py --family
     python3 tools/flash_bwd_ab.py PARENT_TREE CHANGE_TREE [--report PATH]
+
+``--family`` times, in this tree, the backward at the family's training
+shapes as chip_smoke.family_flash_case makes them ((1, 32, 8192, 128)
+with window 4096 and (1, 32, 2048, 128) causal; q and dout (B, L, H, D)
+head views, K and V contiguous) beside the backward of
+scaled_dot_product_attention on the same operands, its band as a boolean
+mask where there is a window, as that case times SDPA's forward; CUDA
+events, L2 flushed; and each shape's bound (chip_smoke.cost_bound), all
+printed, the last line as JSON.
 
 ``--check`` builds the kernels of this tree, prints ptxas's report of the
 wgmma backward (registers, spills, warnings) and refuses to launch it unless
@@ -397,17 +407,70 @@ def child(tree):
     print(json.dumps(dict(tree=tree, flash=out, host_us=host, train=train_runs(torch, cs))))
 
 
+def family():
+    """--family: the kernel's and SDPA's backward at the family's shapes."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("flash_bwd_ab: needs a CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    cs = load_chip_smoke()
+    from deepflows_tpu_torch import ops
+    from deepflows_tpu_torch.ops import _build
+
+    _build.build_all()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(12)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev).zero_
+    out = {}
+    for L, window in ((cs.LLAMA_TRAIN["max_len"], cs.LLAMA_TRAIN["window"]),
+                      (cs.MIXTRAL_TRAIN["max_len"], None)):
+        q, do = (cs.flash_operand(torch, g, 1, 32, L, 128, torch.bfloat16, "heads")
+                 for _ in range(2))
+        k, v = (cs.flash_operand(torch, g, 1, 32, L, 128, torch.bfloat16, "contiguous")
+                for _ in range(2))
+        o, lse = ops.flash_attention_fwd(q, k, v, True, None, window)
+        mask = None
+        if window:
+            i = torch.arange(L, device=dev)
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        qr, kr, vr = (a.detach().requires_grad_() for a in (q, k, v))
+        ref = torch.nn.functional.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask,
+                                                               is_causal=mask is None)
+        r = dict(kernel_ms=cs.event_ms(lambda: ops.flash_attention_bwd(
+                     q, k, v, o, lse, do, True, None, window), 5, flush),
+                 library_ms=cs.event_ms(lambda: torch.autograd.grad(
+                     ref, (qr, kr, vr), do, retain_graph=True), 5, flush))
+        r["bound_ms"], r["bound_by"] = cs.cost_bound(ops.flash_attention_bwd, q, k, v, o, lse,
+                                                     do, True, None, window)
+        out[f"(1, 32, {L}, 128) window {window}"] = r
+        print(f"(1, 32, {L}, 128) window {window}: backward {r['kernel_ms']:.4f} ms, the "
+              f"backward of scaled_dot_product_attention {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+        del q, k, v, do, o, lse, mask, qr, kr, vr, ref
+        cs.free_card(torch)
+    card = cs.card_line()
+    print(card)
+    print(json.dumps({"family_backward": out, "card": card}))
+    return 0
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("trees", nargs="*")
     parser.add_argument("--check", action="store_true",
                         help="build and check this tree's kernel and its sweep; no A/B")
+    parser.add_argument("--family", action="store_true",
+                        help="time this tree's backward and SDPA's at the family's shapes")
     parser.add_argument("--child", metavar="TREE", help=argparse.SUPPRESS)
     parser.add_argument("--report", metavar="PATH",
                         help="also write every run to PATH as JSON")
     args = parser.parse_args()
     if args.check:
         return check()
+    if args.family:
+        return family()
     if args.child:
         return child(args.child)
     import torch
