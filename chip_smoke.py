@@ -29,6 +29,14 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
    ragged M, K not a multiple of 64, N not of 128 or 256, K 8) at each
    tile of quant._WGMMA_TILES, and one planted fault that the check must
    flag (a call on one K stage fewer, the kernel's last stage dropped).
+   Every w8a8_matmul call is held to its route likewise
+   (w8a8_matmul.routes, w8a8_route_wanted): at prefill M "wgmma" (s8 x)
+   where TMA can read both operands (K and N multiples of 16, aligned
+   bases), else "mma"; the s8 wgmma tile's edges (W8A8_RAGGED: ragged M,
+   K a multiple of 16 but not of 128, N not of 128 or 256, K 16) with each
+   tile of quant._W8A8_TILES forced and with "mma" forced, all bitwise
+   equal to the plain twin, two calls bitwise equal, and one planted fault
+   (the last K stage of 128 dropped).
    Tolerances: w8a8 exact; int8 with f32 output rtol 1e-4
    and atol 1e-3 (the JAX tests' bound); bf16 output that bound plus one
    bf16 ulp.  Then the same decode call (M 8) and prefill call (M 1536)
@@ -52,7 +60,9 @@ CPU instead.  It imports nothing of JAX or of the JAX package.
    graph.  Launch counts are zeroed just before and read just after; a
    quantised generate() must launch its kernel 49 times per prefill and
    per decode step (49 x (1 + new)), a generate_beam() 49 x new (one
-   prefill, new - 1 steps), every output must be in the vocabulary, beam
+   prefill, new - 1 steps), the int8 and w8a8 decoders every prefill
+   launch on the "wgmma" route (path_routes; the kernels line prints them
+   by serving path), every output must be in the vocabulary, beam
    scores finite and best-first, and every loop must have its graph.  Then,
    outside the count: each request again through a decoder that runs the
    eager loop on the card must give the same tokens and scores;
@@ -671,6 +681,11 @@ WGMMA_RAGGED = (  # (M, K, N, weight 16-byte aligned): the wgmma tile's edges (b
     (49, 4096, 1024, True), (65, 1032, 1040, True), (129, 4104, 208, True),
     (1000, 4096, 1040, True), (300, 9000, 2064, True), (100, 8, 16, True),
 )
+W8A8_RAGGED = (  # (M, K, N, weight 16-byte aligned): the s8 wgmma tile's edges (w8a8):
+    # ragged M, K a multiple of 16 but not of 128, N not of 128 or 256, K 16
+    (49, 4096, 1024, True), (65, 1040, 1040, True), (129, 4112, 208, True),
+    (1000, 4096, 1040, True), (300, 9008, 2064, True), (100, 16, 16, True),
+)
 PREFILL_M = 8 * MODEL["max_len"]  # rows of a B 8 prefill's products
 PER_FORWARD = 4 * MODEL["depth"] + 1  # kernel launches per prefill or step
 REQUESTS = (  # (batch, prompt, new tokens, sampling)
@@ -808,7 +823,7 @@ def int8_route_wanted(M, K, N, x_bf16, aligned):
     decode kernel at most 8 rows with K up to 8192, the stream up to
     quant.STREAM_M (48) rows, and above that the wgmma tile for bf16 x
     that TMA can read (K a multiple of 8, N of 16, aligned bases), else
-    the mma.sync tile."""
+    the mma.sync tile.  w8a8_matmul's rule is w8a8_route_wanted."""
     if M <= 8 and K <= 8192:
         return "decode"
     if M <= 48:
@@ -816,14 +831,32 @@ def int8_route_wanted(M, K, N, x_bf16, aligned):
     return "wgmma" if x_bf16 and aligned and K % 8 == 0 and N % 16 == 0 else "mma"
 
 
+def w8a8_route_wanted(M, K, N, aligned):
+    """The route a w8a8_matmul call on a fresh (aligned) xq must take
+    (quant._w8a8_route): decode and stream as int8_route_wanted, and above
+    quant.STREAM_M (48) rows the s8 wgmma tile where TMA can read both
+    operands (K a multiple of 16, N of 16, aligned bases), else the
+    mma.sync tile."""
+    if M <= 8 and K <= 8192:
+        return "decode"
+    if M <= 48:
+        return "stream"
+    return "wgmma" if aligned and K % 16 == 0 and N % 16 == 0 else "mma"
+
+
 def compare_routed(torch, ops, x, wq, s, label, max_err, aligned=True):
-    """compare(), with int8_matmul's two calls held to their route."""
+    """compare(), with int8_matmul's two calls and w8a8_matmul's two each
+    held to their own route."""
     M, K = x.shape
-    want = int8_route_wanted(M, K, wq.shape[1], x.dtype == torch.bfloat16, aligned)
-    out, taken = routes_taken(ops.int8_matmul,
-                              lambda: compare(torch, ops, x, wq, s, label, max_err))
+    N = wq.shape[1]
+    want = int8_route_wanted(M, K, N, x.dtype == torch.bfloat16, aligned)
+    want8 = w8a8_route_wanted(M, K, N, aligned)
+    (out, taken), taken8 = routes_taken(ops.w8a8_matmul, lambda: routes_taken(
+        ops.int8_matmul, lambda: compare(torch, ops, x, wq, s, label, max_err)))
     if taken != [want] * 2:
         fail(f"int8_matmul {label}: took {taken}, not {want}")
+    if taken8 != [want8] * 2:
+        fail(f"w8a8_matmul {label}: took {taken8}, not {want8}")
     return out
 
 
@@ -881,7 +914,7 @@ def kernel_phase(torch, ops, report):
                 )
     # ragged M, K and N, one row (B 1 decode), and a weight whose address is
     # not 16-byte aligned, which takes the kernels' bytewise weight loads
-    for M, K, N, aligned in RAGGED + DECODE_RAGGED + PREFILL_RAGGED + WGMMA_RAGGED:
+    for M, K, N, aligned in RAGGED + DECODE_RAGGED + PREFILL_RAGGED + WGMMA_RAGGED + W8A8_RAGGED:
         for xdt in (torch.bfloat16, torch.float32):
             x = torch.randn((M, K), generator=g, device=dev).to(xdt)
             wq, s = ops.quantize_int8(torch.randn((K, N), generator=g, device=dev) * 0.02)
@@ -890,10 +923,12 @@ def kernel_phase(torch, ops, report):
             compare_routed(torch, ops, x, wq, s, f"ragged M={M} K={K} N={N} aligned={aligned}"
                            f" x={xdt}", max_err, aligned)
     print(f"  ragged shapes agree, each call on its route: "
-          f"{[r[:3] for r in RAGGED + DECODE_RAGGED + PREFILL_RAGGED + WGMMA_RAGGED]}")
+          f"{[r[:3] for r in RAGGED + DECODE_RAGGED + PREFILL_RAGGED + WGMMA_RAGGED]}"
+          f" + {[r[:3] for r in W8A8_RAGGED]}")
     report["decode_repeats"] = decode_repeat_checks(torch, ops, g)
     prefill_repeat_checks(torch, ops, g)
     report["wgmma_checks"] = wgmma_checks(torch, ops, g, max_err)
+    report["w8a8_wgmma_checks"] = w8a8_wgmma_checks(torch, ops, g)
     report["kernel_shapes"] = rows
     return max_err
 
@@ -947,8 +982,8 @@ def decode_repeat_checks(torch, ops, g):
 def prefill_repeat_checks(torch, ops, g):
     """The prefill tiles are deterministic: the same M 1536 call twice gives
     the same bits (int8 with bf16 x and f32 or bf16 output on the wgmma
-    route, f32 x on the mma.sync tile, w8a8) at the decoder's four prefill
-    shapes."""
+    route, f32 x on the mma.sync tile, w8a8 on the s8 wgmma route) at the
+    decoder's four prefill shapes."""
     dev = torch.device("cuda")
     for name in ("qkv", "o", "fc1", "fc2"):
         K, N = SHAPES[name]
@@ -964,10 +999,14 @@ def prefill_repeat_checks(torch, ops, g):
                 fail(f"int8_matmul M={PREFILL_M} {name} x={xin.dtype}: took {taken}, not {want}")
             if not torch.equal(a, b):
                 fail(f"int8_matmul M={PREFILL_M} {name} x={xin.dtype} out={odt}: two calls differ")
-        if not torch.equal(ops.w8a8_matmul(xq, sx, wq, s), ops.w8a8_matmul(xq, sx, wq, s)):
+        (a, b), taken = routes_taken(ops.w8a8_matmul, lambda: [
+            ops.w8a8_matmul(xq, sx, wq, s) for _ in range(2)])
+        if taken != ["wgmma"] * 2:
+            fail(f"w8a8_matmul M={PREFILL_M} {name}: took {taken}, not wgmma")
+        if not torch.equal(a, b):
             fail(f"w8a8_matmul M={PREFILL_M} {name}: two calls differ")
     print(f"  prefill calls deterministic: two calls bitwise equal at the 4 shapes, M {PREFILL_M} "
-          "(bf16 x on wgmma, f32 x on the mma.sync tile)")
+          "(bf16 x and w8a8 on wgmma, f32 x on the mma.sync tile)")
 
 
 def wgmma_checks(torch, ops, g, max_err):
@@ -1014,6 +1053,70 @@ def wgmma_checks(torch, ops, g, max_err):
           f"outputs past the limit")
     return dict(tiles=[list(t) for t in ops.quant._WGMMA_TILES],
                 shapes=[list(c[:3]) for c in WGMMA_RAGGED], planted_fault=fault)
+
+
+def forced_w8a8(ops, tile):
+    """A context in which every w8a8 prefill call takes ``tile`` of
+    quant._W8A8_TILES, or, for tile "mma", the mma.sync route."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        q = ops.quant
+        saved = q._w8a8_wgmma_plan, q._w8a8_prefill_route
+        if tile == "mma":
+            q._w8a8_prefill_route = lambda *a: "mma"
+        else:
+            q._w8a8_wgmma_plan = lambda *a: tile
+        try:
+            yield
+        finally:
+            q._w8a8_wgmma_plan, q._w8a8_prefill_route = saved
+
+    return ctx()
+
+
+def w8a8_wgmma_checks(torch, ops, g):
+    """The s8 wgmma tile at its edges (W8A8_RAGGED) with each tile of
+    quant._W8A8_TILES forced and with the "mma" route forced, f32 and bf16
+    output, each bitwise equal to the plain twin (the sums are exact) and
+    held to its route; the same call twice bitwise equal; then one planted
+    fault the check must flag: the decoder's qkv product at M 1536 run on
+    K - 128 rows (the kernel's last K stage dropped) and held against the
+    whole product.  Returns the tiles checked and the fault's outputs that
+    differ."""
+    dev = torch.device("cuda")
+    tiles = list(ops.quant._W8A8_TILES) + ["mma"]
+    for M, K, N, _ in W8A8_RAGGED:
+        xq, sx = ops.quantize_int8_rows(torch.randn((M, K), generator=g, device=dev))
+        wq, s = ops.quantize_int8(torch.randn((K, N), generator=g, device=dev) * 0.02)
+        for odt in (torch.float32, torch.bfloat16):
+            want = ops.w8a8_matmul_plain(xq, sx, wq, s, out_dtype=odt)
+            for tile in tiles:
+                with forced_w8a8(ops, tile):
+                    (a, b), taken = routes_taken(ops.w8a8_matmul, lambda: [
+                        ops.w8a8_matmul(xq, sx, wq, s, out_dtype=odt) for _ in range(2)])
+                route = "mma" if tile == "mma" else "wgmma"
+                if taken != [route] * 2:
+                    fail(f"w8a8_matmul tile {tile} M={M} K={K} N={N}: took {taken}")
+                check_w8a8(torch, a, want, f"tile {tile} M={M} K={K} N={N}")
+                if not torch.equal(a, b):
+                    fail(f"w8a8_matmul tile {tile} M={M} K={K} N={N}: two calls differ")
+    K, N = SHAPES["qkv"]
+    xq, sx = ops.quantize_int8_rows(torch.randn((PREFILL_M, K), generator=g, device=dev))
+    wq, s = ops.quantize_int8(torch.randn((K, N), generator=g, device=dev) * 0.02)
+    want = ops.w8a8_matmul_plain(xq, sx, wq, s)
+    cut, taken = routes_taken(ops.w8a8_matmul, lambda: ops.w8a8_matmul(
+        xq[:, :K - 128].contiguous(), sx, wq[:K - 128].contiguous(), s))
+    fault = dict(outputs_that_differ=int((cut != want).sum()), route=taken,
+                 max_abs_err=(cut - want).abs().max().item())
+    if taken != ["wgmma"] or not fault["outputs_that_differ"]:
+        fail(f"w8a8 planted fault (the last K stage dropped) passed the check: {fault}")
+    print(f"  the s8 wgmma tile agrees bitwise at its edges {[c[:3] for c in W8A8_RAGGED]} with "
+          f"each of {tiles} forced, two calls bitwise equal; planted fault flagged: the last K "
+          f"stage dropped changes {fault['outputs_that_differ']} outputs")
+    return dict(tiles=[list(t) if t != "mma" else t for t in tiles],
+                shapes=[list(c[:3]) for c in W8A8_RAGGED], planted_fault=fault)
 
 
 def stream_ragged(stream_m):
@@ -1288,8 +1391,8 @@ def serve_all(decs, requests, prompts, per_forward, vocab, label):
     request's output must keep its prompt, stay in the vocabulary and, with
     beams, give finite scores best-first; a quantised decoder must launch
     its kernel ``per_forward`` times a prefill and a step, and no other
-    kernel, and an int8 decoder every prefill product on the wgmma route
-    (int8_path_routes).  Returns ({quant: [(tokens, scores), ...]}, the
+    kernel, and an int8 or w8a8 decoder every prefill product on the wgmma
+    route (path_routes).  Returns ({quant: [(tokens, scores), ...]}, the
     launch counts)."""
     import numpy as np
 
@@ -1297,7 +1400,7 @@ def serve_all(decs, requests, prompts, per_forward, vocab, label):
 
     kernel_of = {"int8": ops.int8_matmul, "w8a8": ops.w8a8_matmul}
     served = {q: [] for q in decs}
-    int8_before = dict(ops.int8_matmul.routes)
+    before_routes = {q: dict(kernel_of[q].routes) for q in decs if q in kernel_of}
     ops.reset_launch_counts()  # the main path starts here
     for quant, dec in decs.items():
         for (b, p, new, kw), idx in zip(requests, prompts):
@@ -1325,24 +1428,27 @@ def serve_all(decs, requests, prompts, per_forward, vocab, label):
             print(f"  served {label}quant={str(quant):5s} B={b} prompt={p} +{new} "
                   f"{kw or 'greedy'} in {secs:.3f} s")
     counts = {k.__name__: k.launches for k in ops.KERNELS}  # the main path ends here
-    if "int8" in decs:
-        int8_path_routes(ops, int8_before, f"{label}serving")
+    for quant, before in before_routes.items():
+        path_routes(kernel_of[quant], before, f"{label}serving")
     return served, counts
 
 
-INT8_PATH_ROUTES = {}  # int8_matmul's launches by route on the serving paths
+# int8_matmul's and w8a8_matmul's launches by route on the serving paths
+PATH_ROUTES = {"int8_matmul": {}, "w8a8_matmul": {}}
 
 
-def int8_path_routes(ops, before, path):
-    """int8_matmul's launches by route since ``before`` on a main path of
-    bf16 activations: every prefill launch must be on "wgmma" (none on
-    "mma") and there must be some.  Recorded in INT8_PATH_ROUTES."""
-    by_route = {k: n - before[k] for k, n in ops.int8_matmul.routes.items()}
+def path_routes(wrapper, before, path):
+    """``wrapper``'s (int8_matmul's or w8a8_matmul's) launches by route
+    since ``before`` on a main path of bf16 activations: every prefill
+    launch must be on "wgmma" (none on "mma") and there must be some.
+    Recorded in PATH_ROUTES."""
+    name = wrapper.__name__
+    by_route = {k: n - before[k] for k, n in wrapper.routes.items()}
     if by_route["mma"] or not by_route["wgmma"]:
-        fail(f"{path}: int8_matmul launched by route {by_route}: every bf16 prefill launch "
-             "must take wgmma")
-    INT8_PATH_ROUTES[path] = by_route
-    print(f"  {path}: int8_matmul launches by route {by_route} (every prefill on wgmma)")
+        fail(f"{path}: {name} launched by route {by_route}: every prefill launch must take "
+             "wgmma")
+    PATH_ROUTES[name][path] = by_route
+    print(f"  {path}: {name} launches by route {by_route} (every prefill on wgmma)")
     return by_route
 
 
@@ -4718,13 +4824,13 @@ def engine_phase(torch, report, lm, sys_prompt, reqs):
                                  **SERVE_ENGINE, **kw)
             eng.register_prefix(sys_prompt)
             torch.cuda.synchronize()
-            int8_before = dict(ops.int8_matmul.routes)
+            before_routes = dict(kernel_of[quant].routes) if quant in kernel_of else None
             ops.reset_launch_counts()  # the main path starts here
             outs, lat, wall = engine_run(torch, eng, reqs, eos)
             counts = {k.__name__: k.launches for k in ops.KERNELS}  # and ends here
             paths[f"engine_{cache}_{mode}"] = counts
-            if quant == "int8":  # the admissions' prefills
-                int8_path_routes(ops, int8_before, label)
+            if quant in kernel_of:  # the admissions' prefills
+                path_routes(kernel_of[quant], before_routes, label)
             replays = engine_checks(torch, eng, reqs, outs, eos, V, label)
             st = eng.stats
             forwards = st["admit_prefill"] + st["admit_suffix"] + st["chunks"] * eng.chunk
@@ -8272,7 +8378,7 @@ def main(argv=None) -> int:
              library_ms=step_ms["int8_matmul_library"], at=at,
              prefill_ms=pre_ms["int8_matmul"], prefill_library_ms=pre_ms["int8_matmul_library"],
              prefill_bound_ms=p_int8[0], prefill_route="wgmma",
-             routes_by_serving_path=INT8_PATH_ROUTES),
+             routes_by_serving_path=PATH_ROUTES["int8_matmul"]),
         dict(name="w8a8_matmul", route="cuda",
              source="deepflows_tpu_torch/csrc/w8a8_matmul.cu",
              replaces="deepflows_tpu/ops/pallas_kernels.py:718",
@@ -8281,7 +8387,8 @@ def main(argv=None) -> int:
              bound_ms=b_w8a8[0], bound_by=b_w8a8[1],
              library_ms=step_ms["w8a8_matmul_library"], at=at,
              prefill_ms=pre_ms["w8a8_matmul"], prefill_library_ms=pre_ms["w8a8_matmul_library"],
-             prefill_bound_ms=p_w8a8[0]),
+             prefill_bound_ms=p_w8a8[0], prefill_route="wgmma",
+             routes_by_serving_path=PATH_ROUTES["w8a8_matmul"]),
     ]
 
     phase("training kernel phase (kernel vs plain twin; times at the slice's bf16 shapes, "

@@ -2,8 +2,8 @@
 // wgmma from shared memory and from registers, and setmaxnreg.  Shared by
 // the kernels fed from a TMA ring: flash_attention.cu's bf16 forward and
 // backward, fused_linear_ce.cu's bf16 forward and backward and
-// int8_tile.cuh's bf16-x prefill (wgmma), and linear_f32.cu's large f32
-// tile (TMA and mbarriers only).
+// int8_tile.cuh's wgmma prefill (bf16 x, and s8 x for w8a8), and
+// linear_f32.cu's large f32 tile (TMA and mbarriers only).
 //
 // Shared-memory tiles are in the layout a TMA load with the 128-byte swizzle
 // writes: rows of 64 bf16 (128 bytes), the 16-byte chunks of row r XOR-ed
@@ -22,12 +22,19 @@
 //   64-wide column block (the next 64 output columns); a step of 16 along
 //   K adds 16 rows (2048 bytes).  wgmma reads it with the transpose-B bit.
 //
-// Accumulator layout of wgmma m64nNk16 (f32): thread t of the warpgroup,
-// warp w = t / 32, lane l = 4 g + q, holds d[4 j + 0..1] at row 16 w + g,
-// columns 8 j + 2 q and + 1, and d[4 j + 2..3] at row 16 w + g + 8.  A
-// register A operand (m64k16, bf16) has mma.m16n8k16's A layout per warp,
-// so accumulator n-blocks 2 kk and 2 kk + 1, rounded and packed in pairs,
-// are the A operand of K step kk of the next product.
+// Accumulator layout of wgmma m64nNk16 (f32) and m64nNk32 (s32): thread t
+// of the warpgroup, warp w = t / 32, lane l = 4 g + q, holds d[4 j + 0..1]
+// at row 16 w + g, columns 8 j + 2 q and + 1, and d[4 j + 2..3] at row
+// 16 w + g + 8.  A register A operand (m64k16, bf16) has mma.m16n8k16's A
+// layout per warp, so accumulator n-blocks 2 kk and 2 kk + 1, rounded and
+// packed in pairs, are the A operand of K step kk of the next product.  An
+// 8-bit register A operand (m64k32, s8) has mma.m16n8k32's: a0 holds row
+// 16 w + g at k 4 q .. 4 q + 3 (byte 0 the lowest k), a1 row 16 w + g + 8
+// there, a2 and a3 the same rows at k 16 + 4 q .. 16 + 4 q + 3 (CUTLASS's
+// ALayout_64x32 of SM90_64xNx32_S32S8S8_RS_TN).  8-bit wgmma takes both
+// operands K-major only; a K-major 8-bit tile under the 128-byte swizzle
+// has rows of 128 elements, and a step of 32 along K adds 32 bytes, as a
+// bf16 step of 16 does.
 #pragma once
 
 #include <cuda.h>
@@ -170,12 +177,22 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
 
 #define DFT_D8(i)                                                                       \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
 #define DFT_D32 DFT_D8(0), DFT_D8(8), DFT_D8(16), DFT_D8(24)
 #define DFT_D64 DFT_D32, DFT_D8(32), DFT_D8(40), DFT_D8(48), DFT_D8(56)
+#define DFT_I8(i)                                                                       \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]), "+r"(d[i + 5]), \
+      "+r"(d[i + 6]), "+r"(d[i + 7])
+#define DFT_I32 DFT_I8(0), DFT_I8(8), DFT_I8(16), DFT_I8(24)
+#define DFT_I64 DFT_I32, DFT_I8(32), DFT_I8(40), DFT_I8(48), DFT_I8(56)
 #define DFT_R32                                                                           \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
   "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
@@ -232,9 +249,37 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], uint32_t a0, uint32_
   }
 }
 
+// the same for 8-bit operands: d (64 x N, s32, exact) = A (64 x 32, s8,
+// registers, a0..a3 as the head of this file says) B (32 x N, s8, shared
+// memory, K-major: 8-bit wgmma takes no transpose) + (scale_d ? d : 0)
+template <int N, int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(int (&d)[N / 2], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t db, int scale_d) {
+  static_assert(N == 64 || N == 128, "wgmma_rs: N is 64 or 128");
+  static_assert(TRANS_B == 0, "8-bit wgmma reads B K-major only");
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " DFT_R32
+        ", {%32, %33, %34, %35}, %36, p;\n}\n"
+        : DFT_I32
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " DFT_R64
+        ", {%64, %65, %66, %67}, %68, p;\n}\n"
+        : DFT_I64
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
+  }
+}
+
 #undef DFT_D8
 #undef DFT_D32
 #undef DFT_D64
+#undef DFT_I8
+#undef DFT_I32
+#undef DFT_I64
 #undef DFT_R32
 #undef DFT_R64
 
@@ -309,9 +354,9 @@ inline bool encode_f32_2d(CUtensorMap* map, const void* base, long long inner, l
 
 // A rank-2 uint8 tensor map with the 128-byte swizzle: rows of `inner`
 // bytes (unit stride), `outer` rows `row_bytes` apart (a multiple of 16),
-// boxes of 128 x `rows` (a box row is 128 bytes; the int8 weight of
-// int8_tile.cuh's wgmma prefill).  Returns false if cuTensorMapEncodeTiled
-// refuses it.
+// boxes of 128 x `rows` (a box row is 128 bytes; the int8 weight, and
+// w8a8's int8 x, of int8_tile.cuh's wgmma prefill).  Returns false if
+// cuTensorMapEncodeTiled refuses it.
 inline bool encode_u8_2d(CUtensorMap* map, const void* base, long long inner, long long outer,
                          long long row_bytes, int rows) {
   const EncodeTiled fn = encode_tiled();

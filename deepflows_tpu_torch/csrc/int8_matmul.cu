@@ -57,21 +57,13 @@ struct ScaleColumns {
       v[j] = dft::from_float<OT>(n + j < N ? acc[j] * __ldg(scale + n + j) : 0.f);
     dft::store_row8(out + (size_t)m * N, n, N, v);
   }
-  // out[m, n .. n + C - 1] in one store (the wgmma tile: C 2 or 4, n a
-  // multiple of C, N of 16)
+  // the wgmma tile: the column scales (col_scale), applied by the kernel;
+  // then out[m, n .. n + C - 1] in one store (C 2 or 4, n a multiple of C,
+  // N of 16)
+  __device__ __forceinline__ float col_scale(int n) const { return scale[n]; }
   template <int C>
   __device__ __forceinline__ void store_cols(int m, int n, const float (&acc)[C]) const {
-    OT* dst = out + (size_t)m * N + n;
-    if constexpr (std::is_same<OT, float>::value) {
-      if constexpr (C == 2) *reinterpret_cast<float2*>(dst) = make_float2(acc[0], acc[1]);
-      else *reinterpret_cast<float4*>(dst) = make_float4(acc[0], acc[1], acc[2], acc[3]);
-    } else {
-      __nv_bfloat162 v[C / 2];
-#pragma unroll
-      for (int i = 0; i < C / 2; ++i) v[i] = __floats2bfloat162_rn(acc[2 * i], acc[2 * i + 1]);
-      if constexpr (C == 2) *reinterpret_cast<__nv_bfloat162*>(dst) = v[0];
-      else *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(v);
-    }
+    dft::store_vec<OT, C>(out + (size_t)m * N + n, acc);
   }
 };
 
@@ -80,9 +72,11 @@ cudaError_t run(const void* x, const void* wq, const void* scale, void* out, int
                 int K, const dft::Plan& plan, int wgmma, cudaStream_t stream) {
   const ScaleColumns<OT> epi{static_cast<const float*>(scale), static_cast<OT*>(out), N};
   if (wgmma) {  // bf16 x only, chunk and splits 0; wgmma is the tile's columns
-    if (!std::is_same<XT, __nv_bfloat16>::value || plan.chunk != 0 || plan.splits != 0)
-      return cudaErrorInvalidValue;
-    return dft::launch_prefill_wgmma(x, wq, M, N, K, plan.tile_m, wgmma, epi, stream);
+    if constexpr (std::is_same<XT, __nv_bfloat16>::value) {
+      if (plan.chunk != 0 || plan.splits != 0) return cudaErrorInvalidValue;
+      return dft::launch_prefill_wgmma<XT>(x, wq, M, N, K, plan.tile_m, wgmma, epi, stream);
+    }
+    return cudaErrorInvalidValue;
   }
   return dft::launch_int8_product<XT, float>(x, wq, M, N, K, plan, epi, stream);
 }

@@ -4,8 +4,10 @@
 // _int8_matmul_kernel and _w8a8_kernel (deepflows_tpu/ops/pallas_kernels.py).
 // The int8 weight bytes are all that crosses device memory: it is widened
 // only on chip.  Four designs, chosen by the wrapper's plan
-// (ops/quant.py _route, and _prefill_route at prefill M): decode, stream,
-// and for prefill the wgmma tile (int8_matmul with bf16 x) or the mma.sync
+// (ops/quant.py _route, and at prefill M each wrapper's own rule,
+// _prefill_route for int8_matmul, _w8a8_prefill_route for w8a8_matmul):
+// decode, stream, and for prefill the wgmma tile (int8_matmul with bf16 x,
+// w8a8_matmul with s8 x, wherever TMA reads both operands) or the mma.sync
 // tile (everything else).
 //
 // Decode (M <= 8, K <= 8192; int8_decode_kernel): a weight stream.  The
@@ -82,8 +84,33 @@
 // block sums each output over all of K in a fixed order: two calls give
 // the same bits.
 //
+// Prefill of w8a8_matmul (M > 48, K and N multiples of 16, both bases
+// 16-byte aligned; the same int8_prefill_wgmma with s8 x, the "wgmma" route
+// of _w8a8_prefill_route): bound by operations, 2 M K N over the card's
+// 1,979 int8 TOPS, twice the bf16 rate (0.23 ms a prefill's 49 products at
+// the decoder's shapes).  The same swap serves it, with no widening: 8-bit
+// wgmma (m64nBMk32, s32 sums, exact) takes both operands K-major only,
+// which xq's (BM, 128) slice is as TMA writes it, and which the weight
+// becomes as the register A operand (the register form of 8-bit wgmma,
+// CUTLASS's SM90_64xNx32_S32S8S8_RS_TN, which ptxas takes for sm_90a, so no
+// transposed copy of the weight is staged for the shared-memory form): a
+// thread reads one word (4 columns) from each of 4 K rows of the staged
+// (128 K rows, 128 bytes) weight box and a 4 x 4 byte transpose gives each
+// column's 4 K-consecutive bytes.  At the 128-column tiles the rows a
+// warp's lanes read at once are staggered (lane q's load i takes row 4 q +
+// ((i + q) & 3), the transpose's selectors rotated to match), so they fall
+// on distinct chunks of the swizzle: no bank conflict; at 256 columns the
+// plain order, with its 2-way conflict, timed faster (wgp::Fragments).  x's
+// box rows are 128 bytes at BK 128, as bf16's at 64, so the ring, the
+// descriptor (a k32 step adds 32 bytes), the producer, the launch order (a
+// group holds twice the rows) and the epilogue's shape are shared; the
+// epilogue computes float(acc) * sx[m] * sw[n] in that order, so the result
+// is the plain twin's bit for bit.  Its times beside the bound are in
+// PERF.md row 7p.
+//
 // Prefill and every other call (M > 48; int8_prefill_kernel, the "mma"
-// route of int8_matmul, and w8a8_matmul): bound by operations, not bytes.  At the decoder's
+// route of both wrappers: f32 x, ragged widths, a misaligned operand):
+// bound by operations, not bytes.  At the decoder's
 // prefill shapes (M 1536) a call does 2 M K N = 3.2-12.9 GFLOP on 1-4 MB of
 // weight, 3.3-13 us at 989 TFLOP/s (bf16) or 1,979 TOPS (int8) against
 // 1-4 us of bytes, so only the tensor cores can approach the card's rate.
@@ -147,6 +174,22 @@ __device__ __forceinline__ void store_row8(OT* row, int n, int N, const OT (&v)[
       reinterpret_cast<int4*>(dst)[q] = reinterpret_cast<const int4*>(v)[q];
   } else {
     for (int j = 0; j < 8 && n + j < N; ++j) dst[j] = v[j];
+  }
+}
+
+// v[0 .. C - 1] to dst in one store (the wgmma tile's epilogue: C 2 or 4,
+// dst C-element aligned)
+template <typename OT, int C>
+__device__ __forceinline__ void store_vec(OT* dst, const float (&v)[C]) {
+  if constexpr (std::is_same<OT, float>::value) {
+    if constexpr (C == 2) *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+    else *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    __nv_bfloat162 b[C / 2];
+#pragma unroll
+    for (int i = 0; i < C / 2; ++i) b[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    if constexpr (C == 2) *reinterpret_cast<__nv_bfloat162*>(dst) = b[0];
+    else *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(b);
   }
 }
 
@@ -714,37 +757,54 @@ int8_prefill_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w, int 
 }
 
 // ------------------------------------------------------------------
-// The bf16-x prefill on Hopper's tensor cores (int8_matmul's "wgmma"
-// route): out^T = w^T x^T, so that the int8 weight, widened in registers,
-// is wgmma's register A operand and x's (BM, 64) slice, as TMA lays it
-// in shared memory (K-major, 128-byte swizzle), is B.  A block owns BM
-// rows of x by 128 NH weight columns: warpgroup 0 is the producer, whose
-// one thread keeps TMA loads of x's box and NH weight boxes (64 K rows,
-// 128 bytes each) in a ring of full and empty mbarriers; warpgroups 1 and
-// 2 are consumers of 64 NH weight columns each, NH wgmma m64nBMk16 a
-// 16-deep K step.  See the head of this file.
+// The prefill on Hopper's tensor cores (the "wgmma" route of int8_matmul
+// with bf16 x and of w8a8_matmul with s8 x): out^T = w^T x^T, so that the
+// int8 weight is wgmma's register A operand (widened to bf16 for bf16 x,
+// as it is for s8 x) and x's (BM, BK) slice, as TMA lays it in shared
+// memory (K-major, 128-byte swizzle; BK is 64 bf16 or 128 s8, one 128-byte
+// row of the box either way), is B.  A block owns BM rows of x by 128 NH
+// weight columns: warpgroup 0 is the producer, whose one thread keeps TMA
+// loads of x's box and NH weight boxes (BK K rows, 128 bytes each) in a
+// ring of full and empty mbarriers; warpgroups 1 and 2 are consumers of
+// 64 NH weight columns each, NH wgmma m64nBMk16 (bf16, f32 sums) or
+// m64nBMk32 (s8, exact s32 sums) a K step of 32 bytes of x.  The two x
+// types share the ring, the producer, the launch order and the epilogue's
+// shape; only the fragment read, the wgmma and the accumulator type
+// differ.  See the head of this file.
 namespace wgp {
 
 using namespace dft::hopper;
-constexpr int BK = 64;        // K rows a stage
+// K rows a stage: one 128-byte row of x's box, 64 bf16 or 128 s8
+template <typename XT>
+__host__ __device__ constexpr int bk() { return 128 / (int)sizeof(XT); }
+// K rows a wgmma: 32 bytes of x, 16 bf16 or 32 s8
+template <typename XT>
+__host__ __device__ constexpr int kstep() { return 32 / (int)sizeof(XT); }
 constexpr int THREADS = 384;  // the producer warpgroup and two consumers
 // 128 x 40 + 256 x 232 registers = 64,512, what 384 threads of 168 hold at launch
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
-constexpr int W_BOX = BK * 128;  // one weight box, (K, N) bytes
+// one weight box, (K, N) bytes: BK K rows of 128 columns
+template <typename XT>
+__host__ __device__ constexpr int w_box() { return bk<XT>() * 128; }
 // the ring: as many stages as RING_BYTES holds, at most MAX_STAGES
 constexpr int RING_BYTES = 196608, MAX_STAGES = 8;
 // the rows of x a group of the launch order reads, at most (of the H100's 50 MB L2)
 constexpr long long GROUP_BYTES = 25165824;  // 24 MiB
-__host__ __device__ constexpr int stage_bytes(int bm, int nh) { return bm * BK * 2 + nh * W_BOX; }
-__host__ __device__ constexpr int stages(int bm, int nh) {
-  return RING_BYTES / stage_bytes(bm, nh) < MAX_STAGES ? RING_BYTES / stage_bytes(bm, nh)
-                                                       : MAX_STAGES;
+template <typename XT>
+__host__ __device__ constexpr int stage_bytes(int bm, int nh) {
+  return bm * 128 + nh * w_box<XT>();
 }
+template <typename XT>
+__host__ __device__ constexpr int stages(int bm, int nh) {
+  return RING_BYTES / stage_bytes<XT>(bm, nh) < MAX_STAGES ? RING_BYTES / stage_bytes<XT>(bm, nh)
+                                                           : MAX_STAGES;
+}
+template <typename XT>
 __host__ __device__ constexpr int smem_bytes(int bm, int nh) {  // 1024-byte alignment, ring, barriers
-  return 1024 + stages(bm, nh) * stage_bytes(bm, nh) + 2 * stages(bm, nh) * 8;
+  return 1024 + stages<XT>(bm, nh) * stage_bytes<XT>(bm, nh) + 2 * stages<XT>(bm, nh) * 8;
 }
 
-struct Maps {  // x (K, M) in boxes of 64 x BM, the weight (N, K) in boxes of 128 x 64
+struct Maps {  // x (K, M) in boxes of BK x BM, the weight (N, K) in boxes of 128 x BK
   CUtensorMap x, w;
 };
 
@@ -818,11 +878,112 @@ __device__ __forceinline__ void a_fragments(const unsigned char* ws, const int (
   }
 }
 
-template <int BM, int NH, class Epilogue>
+// The offset of byte `col` of row r of a 128-byte-swizzled box: its
+// 16-byte chunk XOR-ed with r % 8.
+__device__ __forceinline__ int swizzled(int r, int col) {
+  return r * 128 + ((((col >> 4) ^ (r & 7)) << 4) | (col & 15));
+}
+
+// The selector of transpose4_rotated's column c' (0 or 1 of a pair) for
+// lane q: byte j of the column is row (j - q) & 3 of the block, which is
+// byte 2 c' + row of the first word (rows 0, 1) or of the second (rows 2,
+// 3, index 4 on).  At q 0 these are transpose4's 0x5410 and 0x7632.
+__device__ __forceinline__ uint32_t rotated_sel(int q, int c) {
+  uint32_t s = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int i = (j - q) & 3;
+    s |= (uint32_t)((i < 2 ? 0 : 4) + 2 * c + (i & 1)) << (4 * j);
+  }
+  return s;
+}
+
+// transpose4 of a 4 x 4 byte block whose rows came in a rotated order,
+// r[i] being row (i + q) & 3: sel (rotated_sel(q, 0 and 1)) puts each
+// column's bytes back in row order, so col[j] is column j's 4 bytes, row 0
+// lowest, as transpose4 gives them, in as many byte perms.
+__device__ __forceinline__ void transpose4_rotated(const uint32_t (&r)[4],
+                                                   const uint32_t (&sel)[2],
+                                                   uint32_t (&col)[4]) {
+  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[0], r[1], 0x7362);
+  const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140), t3 = __byte_perm(r[2], r[3], 0x7362);
+  col[0] = __byte_perm(t0, t2, sel[0]), col[1] = __byte_perm(t0, t2, sel[1]);
+  col[2] = __byte_perm(t1, t3, sel[0]), col[3] = __byte_perm(t1, t3, sel[1]);
+}
+
+// A consumer thread's A fragments of one K step: where its bytes lie in
+// the consumer's weight box and how they become registers.  `col` is the
+// thread's first column in the box (NH 1: columns col and col + 1, the
+// rows g and g + 8 of the product; NH 2: col .. col + 3, product h taking
+// col + 2 h (row g) and col + 2 h + 1 (row g + 8)).
+template <typename XT, int NH>
+struct Fragments;
+
+// bf16 x: a_fragments, rows 2 q and 2 q + 1 (and 8 on) of a 16-deep step.
+// A warp's 4 q lanes read 4 rows whose chunks differ under the swizzle:
+// NH 1, one chunk of 4 banks a row (2 bytes a lane); NH 2, two chunks a row
+// (4 bytes a lane), all 32 banks; no conflict.
+template <int NH>
+struct Fragments<__nv_bfloat16, NH> {
+  int o[2];
+  __device__ __forceinline__ Fragments(int col, int q)
+      : o{2 * q * 128 + ((((col >> 4) ^ (2 * q)) << 4) | (col & 15)),
+          (2 * q + 1) * 128 + ((((col >> 4) ^ (2 * q + 1)) << 4) | (col & 15))} {}
+  __device__ __forceinline__ void read(const unsigned char* ws, uint32_t (&a)[NH][4]) const {
+    a_fragments<NH>(ws, o, a);
+  }
+};
+
+// s8 x: the register A operand of m64nNk32 as it is.  A thread's a0 .. a3
+// are 4 K-consecutive bytes of one A row (a weight column) at K 4 q ..
+// 4 q + 3 (a0 row g, a1 row g + 8) and 16 + 4 q .. (a2, a3): a read of one
+// word (4 columns; NH 1: a half word, 2 columns) from each of K rows 4 q ..
+// 4 q + 3 and a 4 x 4 byte transpose give them, with no widening.  In the
+// plain order (lane q's load i reads row 4 q + i) the 4 q lanes of one
+// load read rows i, 4 + i, 8 + i and 12 + i, and rows i and 8 + i share a
+// swizzle phase: a 2-way bank conflict.  STAGGER makes lane q's load i read
+// row 4 q + ((i + q) & 3), whose rows % 8 differ across q in their upper
+// two bits, and rotates the transpose's selectors to put the rows back in
+// order: NH 1, 4 distinct chunks; NH 2, 8 chunks, all 32 banks; no
+// conflict.  Timed both ways on the H100 (tools/int8_prefill_check.py
+// --orders, PERF.md section 6), the stagger made the NH 1 tiles 1.6-7.7%
+// faster and the NH 2 tile 1.8-4.1% slower, so it staggers at NH 1 only.
+// Rows 16 on are 2048 bytes further, with the same swizzle.
+template <int NH>
+struct Fragments<int8_t, NH> {
+  static constexpr bool STAGGER = NH == 1;
+  int o[4];
+  uint32_t sel[2];
+  __device__ __forceinline__ Fragments(int col, int q) {
+    const int rot = STAGGER ? q : 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[i] = swizzled(4 * q + ((i + rot) & 3), col);
+    sel[0] = rotated_sel(rot, 0), sel[1] = rotated_sel(rot, 1);
+  }
+  __device__ __forceinline__ void read(const unsigned char* ws, uint32_t (&a)[NH][4]) const {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {  // K rows 4 q .. 4 q + 3, then 16 + 4 q ..
+      uint32_t r[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const unsigned char* p = ws + o[i] + 2048 * half;
+        if constexpr (NH == 1) r[i] = *reinterpret_cast<const uint16_t*>(p);
+        else r[i] = *reinterpret_cast<const uint32_t*>(p);
+      }
+      uint32_t col[4];
+      transpose4_rotated(r, sel, col);
+#pragma unroll
+      for (int h = 0; h < NH; ++h) a[h][2 * half] = col[2 * h], a[h][2 * half + 1] = col[2 * h + 1];
+    }
+  }
+};
+
+template <typename XT, int BM, int NH, class Epilogue>
 __device__ __forceinline__ void produce(const Args<Epilogue>& a, unsigned char* ring,
                                         uint64_t* full, uint64_t* empty, int m0, int n0,
                                         int steps) {
-  constexpr int ST = stages(BM, NH), XB = BM * BK * 2, STAGE = stage_bytes(BM, NH);
+  constexpr int ST = stages<XT>(BM, NH), XB = BM * 128, STAGE = stage_bytes<XT>(BM, NH);
+  constexpr int BK = bk<XT>();
   tma_prefetch_map(&a.maps.x);
   tma_prefetch_map(&a.maps.w);
   for (int i = 0; i < steps; ++i) {
@@ -830,54 +991,56 @@ __device__ __forceinline__ void produce(const Args<Epilogue>& a, unsigned char* 
     mbar_wait(empty + s, ((i / ST) & 1) ^ 1);  // the slot's first wait passes at once
     mbar_expect_tx(full + s, STAGE);
     unsigned char* dst = ring + s * STAGE;
-    tma_load_4d(dst, &a.maps.x, full + s, i * BK, m0, 0, 0);
+    if constexpr (std::is_same<XT, int8_t>::value)
+      tma_load_2d(dst, &a.maps.x, full + s, i * BK, m0);
+    else
+      tma_load_4d(dst, &a.maps.x, full + s, i * BK, m0, 0, 0);
 #pragma unroll
     for (int h = 0; h < NH; ++h)
-      tma_load_2d(dst + XB + h * W_BOX, &a.maps.w, full + s, n0 + 128 * h, i * BK);
+      tma_load_2d(dst + XB + h * w_box<XT>(), &a.maps.w, full + s, n0 + 128 * h, i * BK);
   }
 }
 
 // Consumer c's 64 NH weight columns by the block's BM rows of x, over all
-// of K; then the column scales and the stores.  Step k + 1's fragments are
-// read and widened into spare registers while steps k - 1 and k are on the
-// tensor cores, and copied into the A registers of step k - 1 once its
-// products are done: a product in flight never has its A registers
-// rewritten, and the widening is off the products' path.
-template <int BM, int NH, class Epilogue>
+// of K; then the scales and the stores.  Step k + 1's fragments are read
+// (and, for bf16 x, widened) into spare registers while steps k - 1 and k
+// are on the tensor cores, and copied into the A registers of step k - 1
+// once its products are done: a product in flight never has its A
+// registers rewritten, and the fragment work is off the products' path.
+// The accumulators are zeroed once and every wgmma adds to them (scale_d
+// 1), so nothing else writes them while products are in flight.
+template <typename XT, int BM, int NH, class Epilogue>
 __device__ __forceinline__ void consume(const Args<Epilogue>& a, unsigned char* ring,
                                         uint64_t* full, uint64_t* empty, int m0, int n0,
                                         int steps) {
-  constexpr int ST = stages(BM, NH), XB = BM * BK * 2, STAGE = stage_bytes(BM, NH);
+  using Acc = typename std::conditional<std::is_same<XT, int8_t>::value, int, float>::type;
+  constexpr int ST = stages<XT>(BM, NH), XB = BM * 128, STAGE = stage_bytes<XT>(BM, NH);
+  constexpr int KSTEPS = bk<XT>() / kstep<XT>();  // wgmma K steps a stage: 4
   const int c = threadIdx.x / 128 - 1, w = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
   const int g = lane / 4, q = lane % 4;
   // this thread's first column in the consumer's box (the box of 128
   // columns is the consumer's half at NH 1, its own at NH 2), and in the tile
   const int col = NH == 1 ? 64 * c + 16 * w + 2 * g : 32 * w + 4 * g;
   const int box = NH == 1 ? 0 : c;
-  // byte col of rows 2 q and 2 q + 1 of a box: its 16-byte chunk XOR-ed
-  // with the row's index mod 8.  A warp's 4 q lanes read 4 rows whose
-  // chunks differ: NH 1, one chunk of 4 banks a row (2 bytes a lane);
-  // NH 2, two chunks a row (4 bytes a lane), all 32 banks; no conflict.
-  const int o[2] = {2 * q * 128 + ((((col >> 4) ^ (2 * q)) << 4) | (col & 15)),
-                    (2 * q + 1) * 128 + ((((col >> 4) ^ (2 * q + 1)) << 4) | (col & 15))};
-  float acc[NH][BM / 2];
+  const Fragments<XT, NH> frag(col, q);
+  Acc acc[NH][BM / 2];
 #pragma unroll
   for (int h = 0; h < NH; ++h)
 #pragma unroll
-    for (int i = 0; i < BM / 2; ++i) acc[h][i] = 0.f;
-  // x: K-major, a step of 16 along K adds 32 bytes
+    for (int i = 0; i < BM / 2; ++i) acc[h][i] = Acc(0);
+  // x: K-major, a K step (32 bytes of x) adds 32 bytes
   const uint64_t dx = desc_b128(ring, 16, 1024);
-  unsigned char* wbox = ring + XB + box * W_BOX;
+  unsigned char* wbox = ring + XB + box * w_box<XT>();
   uint32_t f[2][NH][4];
   mbar_wait(full, 0);
-  a_fragments<NH>(wbox, o, f[0]);
+  frag.read(wbox, f[0]);
   // The loop's body has no branch around a wgmma: ptxas serialises every
   // wgmma of a path that diverges around one.
   for (int i = 0; i < steps; ++i) {
     const int s = i % ST;
     const uint64_t xs = dx + ((s * STAGE) >> 4);
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
+    for (int kk = 0; kk < KSTEPS; ++kk) {
 #pragma unroll
       for (int h = 0; h < NH; ++h) {
         fence_regs(acc[h]);
@@ -890,12 +1053,12 @@ __device__ __forceinline__ void consume(const Args<Epilogue>& a, unsigned char* 
                         f[kk & 1][h][3], xs + ((kk * 32) >> 4), 1);
       wgmma_commit();
       uint32_t next[NH][4] = {};  // step kk + 1's fragments
-      if (kk + 1 < BK / 16) {
-        a_fragments<NH>(wbox + s * STAGE + (kk + 1) * 16 * 128, o, next);
+      if (kk + 1 < KSTEPS) {
+        frag.read(wbox + s * STAGE + (kk + 1) * kstep<XT>() * 128, next);
       } else if (i + 1 < steps) {
         const int sn = (i + 1) % ST;
         mbar_wait(full + sn, ((i + 1) / ST) & 1);
-        a_fragments<NH>(wbox + sn * STAGE, o, next);
+        frag.read(wbox + sn * STAGE, next);
       }
       wgmma_wait<1>();  // step kk - 1's products are done: their registers are free
 #pragma unroll
@@ -917,25 +1080,37 @@ __device__ __forceinline__ void consume(const Args<Epilogue>& a, unsigned char* 
   // acc[h][4 j + e]: x row 8 j + 2 q + e by product h's row g, acc[h][4 j
   // + 2 + e] by its row g + 8.  N is a multiple of 16 and a thread's 2 or
   // 4 columns start at a multiple of their count, so they are all in or
-  // all past N.
+  // all past N.  bf16 x: the column scale here, then the epilogue stores
+  // the columns at once; s8 x: the epilogue takes the sums and the column
+  // scales, and applies the row's scale, then the column's.
   const int n = n0 + 128 * box + col;
   if (n >= a.N) return;
   float sc[2 * NH];
 #pragma unroll
-  for (int i = 0; i < 2 * NH; ++i) sc[i] = a.epi.load(0, n + i);
+  for (int i = 0; i < 2 * NH; ++i) sc[i] = a.epi.col_scale(n + i);
 #pragma unroll
   for (int j = 0; j < BM / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int m = m0 + 8 * j + 2 * q + e;
       if (m >= a.M) continue;
-      float v[2 * NH];
+      if constexpr (std::is_same<Acc, float>::value) {
+        float v[2 * NH];
 #pragma unroll
-      for (int h = 0; h < NH; ++h) {
-        v[2 * h] = acc[h][4 * j + e] * sc[2 * h];
-        v[2 * h + 1] = acc[h][4 * j + 2 + e] * sc[2 * h + 1];
+        for (int h = 0; h < NH; ++h) {
+          v[2 * h] = acc[h][4 * j + e] * sc[2 * h];
+          v[2 * h + 1] = acc[h][4 * j + 2 + e] * sc[2 * h + 1];
+        }
+        a.epi.store_cols(m, n, v);
+      } else {
+        int v[2 * NH];
+#pragma unroll
+        for (int h = 0; h < NH; ++h) {
+          v[2 * h] = acc[h][4 * j + e];
+          v[2 * h + 1] = acc[h][4 * j + 2 + e];
+        }
+        a.epi.store_cols(m, n, v, sc);
       }
-      a.epi.store_cols(m, n, v);
     }
 }
 
@@ -945,10 +1120,10 @@ __device__ __forceinline__ void consume(const Args<Epilogue>& a, unsigned char* 
 // once share a few weight column tiles and the group's rows of x, where
 // the order by columns first streamed the whole weight from device memory
 // once per row tile (a weight past the 50 MB L2 at Mistral's widths).
-template <int BM, int NH, class Epilogue>
+template <typename XT, int BM, int NH, class Epilogue>
 __global__ void __launch_bounds__(THREADS, 1)
     int8_prefill_wgmma(const __grid_constant__ Args<Epilogue> a) {
-  constexpr int ST = stages(BM, NH), STAGE = stage_bytes(BM, NH);
+  constexpr int ST = stages<XT>(BM, NH), STAGE = stage_bytes<XT>(BM, NH);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   unsigned char* ring = smem_raw + (((raw + 1023) & ~1023u) - raw);
@@ -958,7 +1133,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int first = blockIdx.x / (a.group * tiles_n) * a.group;  // the group's first row tile
   const int rows = min(a.group, tiles_m - first), r = blockIdx.x % (a.group * tiles_n);
   const int m0 = (first + r % rows) * BM, n0 = r / rows * 128 * NH;
-  const int steps = (a.K + BK - 1) / BK;
+  const int steps = (a.K + bk<XT>() - 1) / bk<XT>();
   if (threadIdx.x == 0) {
     for (int s = 0; s < ST; ++s) {
       mbar_init(full + s, 1);
@@ -969,10 +1144,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   __syncthreads();
   if (threadIdx.x < 128) {
     setmaxnreg_dec<PRODUCER_REGS>();
-    if (threadIdx.x == 0) produce<BM, NH>(a, ring, full, empty, m0, n0, steps);
+    if (threadIdx.x == 0) produce<XT, BM, NH>(a, ring, full, empty, m0, n0, steps);
   } else {
     setmaxnreg_inc<CONSUMER_REGS>();
-    consume<BM, NH>(a, ring, full, empty, m0, n0, steps);
+    consume<XT, BM, NH>(a, ring, full, empty, m0, n0, steps);
   }
 }
 
@@ -1299,8 +1474,8 @@ cudaError_t launch_prefill(const XT* x, const int8_t* w, int M, int N, int K, Ep
   return cudaGetLastError();
 }
 
-template <int BM, int NH, class Epilogue>
-cudaError_t launch_prefill_wgmma_tile(const void* x, const void* w, int M, int N, int K,
+template <int BM, int NH, typename XT, class Epilogue>
+cudaError_t launch_prefill_wgmma_tile(const XT* x, const void* w, int M, int N, int K,
                                       Epilogue epi, cudaStream_t stream) {
   using namespace wgp;
   Args<Epilogue> a;
@@ -1308,15 +1483,20 @@ cudaError_t launch_prefill_wgmma_tile(const void* x, const void* w, int M, int N
   a.M = M, a.N = N, a.K = K;
   // as many row tiles a group as GROUP_BYTES of x holds, at least one
   const int tiles_m = (M + BM - 1) / BM, tiles_n = (N + 128 * NH - 1) / (128 * NH);
-  const long long fit = GROUP_BYTES / (2ll * BM * K);
+  const long long fit = GROUP_BYTES / ((long long)sizeof(XT) * BM * K);
   a.group = fit < 1 ? 1 : fit > tiles_m ? tiles_m : (int)fit;
   // TMA fills x's rows past M and columns past K, and the weight's rows
   // past K and columns past N, with zeros
-  const long long xd[4] = {K, M, 1, 1}, xs[3] = {2ll * K, 2ll * K * M, 2ll * K * M};
-  if (!encode_bf16_4d(&a.maps.x, x, xd, xs, BM) || !encode_u8_2d(&a.maps.w, w, N, K, N, BK))
-    return cudaErrorInvalidValue;
-  constexpr int SMEM = smem_bytes(BM, NH);
-  auto kernel = int8_prefill_wgmma<BM, NH, Epilogue>;
+  bool x_map;
+  if constexpr (std::is_same<XT, int8_t>::value) {
+    x_map = encode_u8_2d(&a.maps.x, x, K, M, K, BM);
+  } else {
+    const long long xd[4] = {K, M, 1, 1}, xs[3] = {2ll * K, 2ll * K * M, 2ll * K * M};
+    x_map = encode_bf16_4d(&a.maps.x, x, xd, xs, BM);
+  }
+  if (!x_map || !encode_u8_2d(&a.maps.w, w, N, K, N, bk<XT>())) return cudaErrorInvalidValue;
+  constexpr int SMEM = smem_bytes<XT>(BM, NH);
+  auto kernel = int8_prefill_wgmma<XT, BM, NH, Epilogue>;
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (e != cudaSuccess) return e;
@@ -1325,22 +1505,25 @@ cudaError_t launch_prefill_wgmma_tile(const void* x, const void* w, int M, int N
   return cudaGetLastError();
 }
 
-// The wgmma prefill of bf16 x (the "wgmma" route, ops/quant.py
-// _prefill_route) over tiles of tile_m rows by tile_n columns, 128 x 256,
-// 128 x 128 or 64 x 128, the plan _prefill_wgmma_plan's (64 x 256 was the
-// fastest at no shape of the tile sweep).  TMA must be able to read
-// both operands: K a multiple of 8 and N of 16, both bases 16-byte
-// aligned; a call that is not is refused, never sent elsewhere.
-template <class Epilogue>
+// The wgmma prefill (the "wgmma" route, ops/quant.py _prefill_route for
+// int8_matmul's bf16 x, _w8a8_prefill_route for w8a8_matmul's s8 x) over
+// tiles of tile_m rows by tile_n columns, 128 x 256, 128 x 128 or 64 x 128,
+// the plan's (_prefill_wgmma_plan, _w8a8_wgmma_plan; 64 x 256 was the
+// fastest at no shape of the bf16 tile sweep).  TMA must be able to read
+// both operands: x's rows a multiple of 16 bytes (K a multiple of 8 for
+// bf16, of 16 for s8), N a multiple of 16, both bases 16-byte aligned; a
+// call that is not is refused, never sent elsewhere.
+template <typename XT, class Epilogue>
 cudaError_t launch_prefill_wgmma(const void* x, const void* w, int M, int N, int K, int tile_m,
                                  int tile_n, Epilogue epi, cudaStream_t stream) {
-  if (M < 1 || N < 1 || K < 1 || K % 8 || N % 16 || reinterpret_cast<uintptr_t>(x) % 16 ||
-      reinterpret_cast<uintptr_t>(w) % 16)
+  const XT* xp = static_cast<const XT*>(x);
+  if (M < 1 || N < 1 || K < 1 || (K * sizeof(XT)) % 16 || N % 16 ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16)
     return cudaErrorInvalidValue;
   switch (tile_m * 1000 + tile_n) {
-    case 128256: return launch_prefill_wgmma_tile<128, 2>(x, w, M, N, K, epi, stream);
-    case 128128: return launch_prefill_wgmma_tile<128, 1>(x, w, M, N, K, epi, stream);
-    case 64128: return launch_prefill_wgmma_tile<64, 1>(x, w, M, N, K, epi, stream);
+    case 128256: return launch_prefill_wgmma_tile<128, 2>(xp, w, M, N, K, epi, stream);
+    case 128128: return launch_prefill_wgmma_tile<128, 1>(xp, w, M, N, K, epi, stream);
+    case 64128: return launch_prefill_wgmma_tile<64, 1>(xp, w, M, N, K, epi, stream);
     default: return cudaErrorInvalidValue;
   }
 }

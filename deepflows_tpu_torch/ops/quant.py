@@ -20,11 +20,15 @@ K up to 8192) both kernels split K across the blocks of a cluster as
 ``_decode_plan`` says, in one launch that needs no workspace; at up to
 ``STREAM_M`` rows, and at most 8 rows with K above 8192, the stream does
 the same on 128-column tiles through a ring that each block refills
-(``_stream_plan``); at every other shape they run a tensor-core tile whose
-rows ``_prefill_plan`` chooses.  ``int8_matmul`` with bf16 x takes the
-``wgmma`` tile there instead (``_prefill_route``, ``_prefill_wgmma_plan``)
-wherever TMA can read both operands, and counts its launches by route in
-``int8_matmul.routes``.
+(``_stream_plan``); at every other shape, prefill, each wrapper's own rule
+picks the design: ``_prefill_route`` for ``int8_matmul`` (bf16 x that TMA
+can read: the ``wgmma`` tile of ``_prefill_wgmma_plan``) and
+``_w8a8_prefill_route`` for ``w8a8_matmul`` (s8 x and weight that TMA can
+read: the same ``wgmma`` tile on 8-bit ``wgmma``, ``_w8a8_wgmma_plan``),
+and the mma.sync tile of ``_prefill_plan`` for the rest ("mma").  Both
+count their launches by route in ``<wrapper>.routes``.  The wgmma tile is
+bound by operations, 2 M K N over 989 TFLOP/s (bf16) or 1,979 TOPS (s8);
+PERF.md rows 5p and 7p hold its times beside those bounds.
 """
 
 from __future__ import annotations
@@ -165,15 +169,28 @@ def _route(m, n, k):
     return "stream" if m <= STREAM_M else "prefill"
 
 
-# int8_matmul's launches are counted by these routes: "prefill" of _route
-# is "wgmma" or "mma" (_prefill_route)
+# both wrappers' launches are counted by these routes: "prefill" of _route
+# is "wgmma" or "mma" (int8_matmul: _prefill_route; w8a8_matmul:
+# _w8a8_prefill_route)
 ROUTES = ("decode", "stream", "wgmma", "mma")
 # The wgmma tiles, (rows, columns), as csrc/int8_tile.cuh
 # launch_prefill_wgmma takes them, each with the microseconds one block
 # takes over K rows, a + b K: fitted to the tile sweep of
-# tools/int8_prefill_check.py on an H100 (PERF.md section 6)
+# tools/int8_prefill_check.py on an H100 (PERF.md section 6), bf16 x for
+# int8_matmul and s8 x for w8a8_matmul (its own sweep: s8's K rows run at
+# twice bf16's tensor rate, but not at twice its speed a block)
 _WGMMA_TILES = {(128, 256): (7.02, 0.01092), (128, 128): (5.63, 0.00544),
                 (64, 128): (3.44, 0.00512)}
+_W8A8_TILES = {(128, 256): (6.8, 0.00647), (128, 128): (3.25, 0.00422),
+               (64, 128): (2.64, 0.00353)}
+
+
+def _tma_reads(x, wq):
+    """Whether TMA can read both operands of a prefill call: x's rows a
+    multiple of 16 bytes, N a multiple of 16, both bases 16-byte aligned."""
+    k, n = wq.shape
+    return (k * x.element_size() % 16 == 0 and n % 16 == 0 and x.data_ptr() % 16 == 0
+            and wq.data_ptr() % 16 == 0)
 
 
 def _prefill_route(x, wq):
@@ -182,10 +199,8 @@ def _prefill_route(x, wq):
     operand, x's slices by TMA) where x is bf16 and TMA can read both
     operands (K a multiple of 8, N of 16, both bases 16-byte aligned), else
     "mma" (the mma.sync tile of ``_prefill_plan``: f32 x, ragged widths, a
-    misaligned weight)."""
-    k, n = wq.shape
-    tma = k % 8 == 0 and n % 16 == 0 and x.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0
-    return "wgmma" if x.dtype == torch.bfloat16 and tma else "mma"
+    misaligned weight).  w8a8_matmul's calls follow ``_w8a8_prefill_route``."""
+    return "wgmma" if x.dtype == torch.bfloat16 and _tma_reads(x, wq) else "mma"
 
 
 def _int8_route(x, wq):
@@ -195,34 +210,76 @@ def _int8_route(x, wq):
     return _prefill_route(x, wq) if route == "prefill" else route
 
 
-def _prefill_wgmma_plan(m, n, k):
-    """The tile of the "wgmma" route: ``(tile_m, tile_n)``, the grid being
+def _w8a8_prefill_route(xq, wq):
+    """The design of a w8a8_matmul call that ``_route`` sends to
+    "prefill": "wgmma" (8-bit wgmma with exact s32 sums, the int8 weight as
+    it is the register A operand, xq's slices by TMA) where TMA can read
+    both operands (K a multiple of 16, xq's row stride in bytes; N of 16;
+    both bases 16-byte aligned), else "mma" (the mma.sync tile of
+    ``_prefill_plan``).  int8_matmul's calls follow ``_prefill_route``."""
+    return "wgmma" if _tma_reads(xq, wq) else "mma"
+
+
+def _w8a8_route(xq, wq):
+    """w8a8_matmul's route: ``_route``'s, with "prefill" refined by
+    ``_w8a8_prefill_route``."""
+    route = _route(xq.shape[0], wq.shape[1], wq.shape[0])
+    return _w8a8_prefill_route(xq, wq) if route == "prefill" else route
+
+
+def _wgmma_plan(tiles, m, n, k):
+    """The tile of a "wgmma" call: ``(tile_m, tile_n)``, the grid being
     (ceil(n / tile_n), ceil(m / tile_m)) blocks of one tile each, over all
     of K.
 
-    It takes the tile whose waves of 132 blocks (one an SM) take the least
-    time by ``_WGMMA_TILES``' block times; the first of a tie."""
+    It takes the tile of ``tiles`` (``_WGMMA_TILES`` or ``_W8A8_TILES``)
+    whose waves of 132 blocks (one an SM) take the least time by its block
+    times; the first of a tie."""
     if m <= STREAM_M or k < 1:
         raise ValueError(
             f"the wgmma prefill plan takes more than {STREAM_M} rows, not ({m}, {k})"
         )
 
     def cost(tile):
-        (tile_m, tile_n), (a, b) = tile, _WGMMA_TILES[tile]
+        (tile_m, tile_n), (a, b) = tile, tiles[tile]
         blocks = -(-m // tile_m) * -(-n // tile_n)
         return -(-blocks // _SMS) * (a + b * k)
 
-    return min(_WGMMA_TILES, key=cost)
+    return min(tiles, key=cost)
+
+
+def _prefill_wgmma_plan(m, n, k):
+    """int8_matmul's wgmma tile (bf16 x), by ``_WGMMA_TILES``."""
+    return _wgmma_plan(_WGMMA_TILES, m, n, k)
+
+
+def _w8a8_wgmma_plan(m, n, k):
+    """w8a8_matmul's wgmma tile (s8 x), by ``_W8A8_TILES``."""
+    return _wgmma_plan(_W8A8_TILES, m, n, k)
 
 
 def _plan_args(m, n, k):
-    """The C entry's (chunk, splits, tile_m): the decode or stream plan's
-    split, or the prefill plan's tile rows, as ``_route`` says."""
+    """The C entry's (chunk, splits, tile_m) of a call off the wgmma route,
+    in either wrapper: the decode or stream plan's split, or the mma.sync
+    tile's rows (``_prefill_plan``), as ``_route`` says.  Which prefill
+    calls take the wgmma tile instead is each wrapper's own rule
+    (``_launch_plan``)."""
     route = _route(m, n, k)
     if route == "prefill":
         return 0, 0, _prefill_plan(m, n, k)[0]
     plan = _decode_plan if route == "decode" else _stream_plan
     return (*plan(m, n, k)[1:], 0)
+
+
+def _launch_plan(route, m, n, k, wgmma_plan):
+    """A C entry's (chunk, splits, tile_m, tile_n) for a call on ``route``,
+    as the calling wrapper's own rule chose it (``_int8_route`` or
+    ``_w8a8_route``): on "wgmma" the wrapper's own tile (``wgmma_plan``:
+    ``_prefill_wgmma_plan`` or ``_w8a8_wgmma_plan``), else
+    ``_plan_args``' with tile_n 0."""
+    if route == "wgmma":
+        return (0, 0, *wgmma_plan(m, n, k))
+    return (*_plan_args(m, n, k), 0)
 
 
 def int8_matmul(x, wq, scale, out_dtype=None):
@@ -244,8 +301,7 @@ def int8_matmul(x, wq, scale, out_dtype=None):
         "int8_matmul", "dft_int8_matmul", (P, I, P, P, P, I, I, I, I, I, I, I, I, P)
     )
     route = _int8_route(x, wq)
-    plan = ((0, 0, *_prefill_wgmma_plan(m, n, k)) if route == "wgmma"
-            else (*_plan_args(m, n, k), 0))
+    plan = _launch_plan(route, m, n, k, _prefill_wgmma_plan)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     with on_device(x.device):
         rc = fn(
@@ -284,18 +340,21 @@ def w8a8_matmul(xq, sx, wq, sw, out_dtype=torch.float32):
     if not on_card(xq, sx, wq, sw):
         return w8a8_matmul_plain(xq, sx, wq, sw, out_dtype)
     fn = _build.c_function(
-        "w8a8_matmul", "dft_w8a8_matmul", (P, P, P, P, P, I, I, I, I, I, I, I, P)
+        "w8a8_matmul", "dft_w8a8_matmul", (P, P, P, P, P, I, I, I, I, I, I, I, I, P)
     )
+    route = _w8a8_route(xq, wq)
+    plan = _launch_plan(route, m, n, k, _w8a8_wgmma_plan)
     out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
     with on_device(xq.device):
         rc = fn(
             xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), sw.data_ptr(),
-            out.data_ptr(), int(out_dtype == torch.bfloat16), m, n, k,
-            *_plan_args(m, n, k), stream(),
+            out.data_ptr(), int(out_dtype == torch.bfloat16), m, n, k, *plan, stream(),
         )
     _build.check(rc, "w8a8_matmul")
     w8a8_matmul.launches += 1
+    w8a8_matmul.routes[route] += 1
     return out
 
 
 w8a8_matmul.launches = 0
+w8a8_matmul.routes = dict.fromkeys(ROUTES, 0)  # launches by route, never reset

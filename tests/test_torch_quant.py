@@ -602,13 +602,13 @@ WGMMA_PLAN_SHAPES = (
 )
 
 
-def _wgmma_block_tiles(m, n, k, tile_m, tile_n):
+def _wgmma_block_tiles(m, n, k, tile_m, tile_n, x_bytes=2):
     """(row tile, column tile) of each block of the wgmma kernel's 1-D
     grid, as int8_prefill_wgmma orders them: row tiles in groups of as many
-    as GROUP_BYTES of x holds (launch_prefill_wgmma_tile), the row tile
-    fastest within a group."""
+    as GROUP_BYTES of x (x_bytes an element) holds
+    (launch_prefill_wgmma_tile), the row tile fastest within a group."""
     tiles_m, tiles_n = -(-m // tile_m), -(-n // tile_n)
-    group = min(max(_wgp_constant("GROUP_BYTES") // (2 * tile_m * k), 1), tiles_m)
+    group = min(max(_wgp_constant("GROUP_BYTES") // (x_bytes * tile_m * k), 1), tiles_m)
     b = np.arange(tiles_m * tiles_n)
     first = b // (group * tiles_n) * group
     rows = np.minimum(group, tiles_m - first)
@@ -687,3 +687,285 @@ def test_wgmma_order_of_sums_matches_jax(out):
         got = _wgmma_model(xb, tq, ts, *tile, getattr(torch, out)).float().numpy()
         np.testing.assert_allclose(got, want, rtol=rtol, atol=1e-3)
         np.testing.assert_allclose(got, plain, rtol=rtol, atol=1e-3)
+
+
+# w8a8_matmul's prefill routes (quant._w8a8_prefill_route): the s8 wgmma
+# tile where TMA can read both operands (K a multiple of 16, xq's row
+# stride in bytes; N of 16; both bases 16-byte aligned), else the mma.sync
+# tile.  (m, k, n, xq's offset in bytes, the weight's, w8a8's route, the
+# route int8_matmul's own rule gives bf16 x at that shape and offset)
+W8A8_ROUTE_CASES = (
+    [(m, k, n, 0, 0, "wgmma", "wgmma") for m in (1536, 192)
+     for name, (k, n) in DECODER.items() if name != "head"]
+    + [(m, k, n, 0, 0, "wgmma", "wgmma") for m in (1536, 2048) for k, n in MISTRAL.values()]
+    # chip_smoke.W8A8_RAGGED: ragged M, K a multiple of 16 but not of 128,
+    # N not of 128 or 256, K 16
+    + [(49, 4096, 1024, 0, 0, "wgmma", "wgmma"), (65, 1040, 1040, 0, 0, "wgmma", "wgmma"),
+       (129, 4112, 208, 0, 0, "wgmma", "wgmma"), (1000, 4096, 1040, 0, 0, "wgmma", "wgmma"),
+       (300, 9008, 2064, 0, 0, "wgmma", "wgmma"), (100, 16, 16, 0, 0, "wgmma", "wgmma")]
+    # K a multiple of 8 but not of 16: int8's bf16 rows are whole 16 bytes,
+    # xq's are not
+    + [(65, 1032, 1040, 0, 0, "mma", "wgmma"), (100, 8, 16, 0, 0, "mma", "wgmma"),
+       (300, 9000, 2064, 0, 0, "mma", "wgmma")]
+    # N not a multiple of 16; bases off a 16-byte boundary
+    + [(300, 4096, 1000, 0, 0, "mma", "mma"), (129, 4096, 1030, 0, 0, "mma", "mma"),
+       (200, 4096, 1024, 0, 1, "mma", "mma"), (200, 4096, 1024, 8, 0, "mma", "mma"),
+       (200, 4096, 1024, 1, 0, "mma", "mma"), (200, 4096, 1024, 16, 16, "wgmma", "wgmma")]
+    # M at and past STREAM_M, and decode rows, whatever the widths
+    + [(48, 4096, 1024, 0, 0, "stream", "stream"), (49, 4096, 1024, 0, 0, "wgmma", "wgmma"),
+       (48, 1032, 1000, 0, 1, "stream", "stream"), (8, 1024, 1024, 0, 0, "decode", "decode"),
+       (8, 14336, 4096, 0, 0, "stream", "stream")]
+)
+
+
+@pytest.mark.parametrize("case", W8A8_ROUTE_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_each_w8a8_prefill_call_takes_its_route(case):
+    """_w8a8_route refines _route's "prefill" by w8a8's own rule (K % 16,
+    N % 16, each base's offset), and int8_matmul's _int8_route by its own
+    (bf16 x: K % 8): neither wrapper's route is read from the other's."""
+    m, k, n, x_off, w_off, want, want_int8 = case
+    xq = torch.empty(x_off + 1, dtype=torch.int8)[x_off:].expand(m, k)
+    wq = torch.empty(w_off + 1, dtype=torch.int8)[w_off:].expand(k, n)
+    assert quant._w8a8_route(xq, wq) == want
+    x = torch.empty(x_off // 2 + 1, dtype=torch.bfloat16)[x_off // 2:].expand(m, k)
+    if x_off % 2 == 0:
+        assert quant._int8_route(x, wq) == want_int8
+    if want in ("wgmma", "mma"):
+        assert quant._route(m, n, k) == "prefill"
+        assert quant._w8a8_prefill_route(xq, wq) == want
+        assert quant._w8a8_wgmma_plan(m, n, k) in quant._W8A8_TILES
+        plan = quant._launch_plan(want, m, n, k, quant._w8a8_wgmma_plan)
+        assert plan == ((0, 0, *quant._w8a8_wgmma_plan(m, n, k)) if want == "wgmma"
+                        else (0, 0, quant._prefill_plan(m, n, k)[0], 0))
+    else:
+        assert quant._route(m, n, k) == want
+
+
+def _s8_stage(tile_m, tile_n):
+    """A w8a8 wgmma block's stage bytes and stages, by csrc/int8_tile.cuh
+    wgp:: with the constants read from the source: x's box (tile_m rows of
+    128 bytes) and tile_n / 128 weight boxes of bk() K rows of 128 bytes
+    (bk() is 128 s8 rows), as many stages as RING_BYTES holds, at most
+    MAX_STAGES."""
+    bk = int(re.search(r"bk\(\) \{ return (\d+) / \(int\)sizeof\(XT\)", _WGP_SRC).group(1))
+    stage = tile_m * 128 + tile_n // 128 * bk * 128
+    return stage, min(_wgp_constant("MAX_STAGES"), _wgp_constant("RING_BYTES") // stage)
+
+
+def test_w8a8_wgmma_tiles_are_the_kernels():
+    """w8a8's plan takes only tiles that launch_prefill_wgmma takes, the
+    tiles int8's plan takes, and each block's ring of s8 stages (128 K rows
+    a stage) fits the H100's 227 KB of shared memory with at least 4
+    stages; a block of s8 costs less a K row than one of bf16."""
+    cases = re.findall(r"case (\d+)(\d{3}): return launch_prefill_wgmma_tile<(\d+), (\d)>",
+                       _TILE_SRC)
+    assert {(int(a), int(b)) for a, b, _, _ in cases} == set(quant._W8A8_TILES)
+    assert set(quant._W8A8_TILES) == set(quant._WGMMA_TILES)
+    for tile, (a, b) in quant._W8A8_TILES.items():
+        stage, stages = _s8_stage(*tile)
+        assert 1024 + stages * stage + 2 * stages * 8 <= 232448 and stages >= 4
+        assert a > 0 and 0 < b < quant._WGMMA_TILES[tile][1]
+
+
+W8A8_PLAN_SHAPES = (
+    [(m, *DECODER[name]) for m in (1536, 192) for name in ("qkv", "o", "fc1", "fc2")]
+    + [(m, k, n) for m in (1536, 2048) for k, n in MISTRAL.values()]
+    + [(49, 4096, 1024), (65, 1040, 1040), (129, 4112, 208), (1000, 4096, 1040),
+       (300, 9008, 2064), (100, 16, 16)]
+)
+
+
+@pytest.mark.parametrize("m,k,n", W8A8_PLAN_SHAPES)
+def test_w8a8_wgmma_plan_covers_every_output_once(m, k, n):
+    """The w8a8 plan's grid, in the kernel's launch order (a group holds
+    twice bf16's rows: x is one byte an element), takes every (row tile,
+    column tile) once, its tiles cover the rows and columns once, and it
+    takes the tile whose waves of 132 blocks cost least by _W8A8_TILES."""
+    tile_m, tile_n = quant._w8a8_wgmma_plan(m, n, k)
+    tm, tn = _wgmma_block_tiles(m, n, k, tile_m, tile_n, x_bytes=1)
+    tiles_m, tiles_n = -(-m // tile_m), -(-n // tile_n)
+    assert sorted(zip(tm.tolist(), tn.tolist())) == [
+        (i, j) for i in range(tiles_m) for j in range(tiles_n)]
+    for size, tile in ((m, tile_m), (n, tile_n)):
+        assert (-(-size // tile) - 1) * tile < size <= -(-size // tile) * tile
+    costs = {t: -(-(-(-m // t[0]) * -(-n // t[1])) // 132) * (a + b * k)
+             for t, (a, b) in quant._W8A8_TILES.items()}
+    assert costs[(tile_m, tile_n)] == min(costs.values())
+
+
+def _byte_perm(x, y, sel):
+    """CUDA's __byte_perm on uint32 arrays: byte j of the result is byte
+    (sel >> 4 j) & 7 of the 8 bytes (x low, y high)."""
+    b = np.stack([(x >> (8 * i)) & 0xFF for i in range(4)]
+                 + [(y >> (8 * i)) & 0xFF for i in range(4)])
+    sel = np.broadcast_to(np.asarray(sel, np.uint32), x.shape)
+    cols = np.arange(x.shape[0])
+    out = np.zeros_like(x)
+    for j in range(4):
+        out |= b[(sel >> (4 * j)) & 7, cols] << (8 * j)
+    return out
+
+
+def _swizzled(r, col):
+    """Byte col of row r of a 128-byte-swizzled box: csrc/int8_tile.cuh
+    wgp::swizzled."""
+    return r * 128 + ((((col >> 4) ^ (r & 7)) << 4) | (col & 15))
+
+
+def _rotated_sel(q, c):
+    """wgp::rotated_sel: byte j of column c' is row (j - q) & 3."""
+    s = np.zeros_like(q, dtype=np.uint32)
+    for j in range(4):
+        i = (j - q) & 3
+        s |= (np.where(i < 2, 0, 4) + 2 * c + (i & 1)).astype(np.uint32) << (4 * j)
+    return s
+
+
+def _tma_box(src, r0, c0, rows, cols=128):
+    """The bytes a 2-D TMA load of a (rows, 128) box at (r0, c0) writes
+    under the 128-byte swizzle, zeros outside src: row r's 16-byte chunk c
+    at chunk c ^ (r % 8)."""
+    box = np.zeros((rows, cols), np.uint8)
+    part = src[r0:r0 + rows, c0:c0 + cols]
+    box[:part.shape[0], :part.shape[1]] = part
+    out = np.zeros(rows * 128, np.uint8)
+    r = np.arange(rows)[:, None]
+    b = np.arange(128)[None, :]
+    out[_swizzled(r, b)] = box
+    return out
+
+
+def _w8a8_wgmma_model(xq, sx, wq, sw, tile_m, tile_n, out_dtype):
+    """w8a8's s8 wgmma tile, thread by thread, in numpy: each block's
+    stages as TMA writes them (x's (tile_m, 128) box and tile_n / 128
+    weight boxes of 128 K rows, swizzled, zeros past M, N and K); each
+    consumer thread's A fragments as the kernel reads them (wgp::Fragments
+    <int8_t, NH>: rows staggered at NH 1 and in plain order at NH 2, the
+    transpose's selectors rotated to match); the register A
+    operand assembled by PTX's m64nNk32 s8 layout and B read through the
+    descriptor's swizzle; exact sums; each thread's accumulators by PTX's
+    layout, stored where the kernel's epilogue stores them, as float(acc) *
+    sx[m] * sw[n] in f32.  Fails unless every output is stored once."""
+    m, k = xq.shape
+    n = wq.shape[1]
+    nh = tile_n // 128
+    x8, w8 = xq.numpy().view(np.uint8), wq.numpy().view(np.uint8)
+    out = np.zeros((m, n), np.float64)
+    stored = np.zeros((m, n), np.int64)
+    t = np.arange(256)  # the two consumer warpgroups' threads
+    c, w, g, q = t // 128, t // 32 % 4, t % 32 // 4, t % 4
+    col = 64 * c + 16 * w + 2 * g if nh == 1 else 32 * w + 4 * g
+    box = np.zeros_like(c) if nh == 1 else c
+    rot = q if nh == 1 else np.zeros_like(q)  # Fragments::STAGGER: NH 1 only
+    offs = [_swizzled(4 * q + ((i + rot) & 3), col) for i in range(4)]
+    sel = [_rotated_sel(rot, 0), _rotated_sel(rot, 1)]
+    width = 2 if nh == 1 else 4  # bytes a thread reads a row
+    for m0 in range(0, m, tile_m):
+        for n0 in range(0, n, tile_n):
+            acc = np.zeros((2, nh, 64, tile_m), np.int64)  # consumer, product, A row, x row
+            for k0 in range(0, k, 128):
+                xbox = _tma_box(x8, m0, k0, tile_m)
+                wboxes = [_tma_box(w8, k0, n0 + 128 * h, 128) for h in range(nh)]
+                wsrc = np.stack([wboxes[b] for b in box])  # each thread's box
+                for kk in range(4):  # k32 steps
+                    a = np.zeros((nh, 4, 256), np.uint32)
+                    for half in range(2):
+                        r = []
+                        for i in range(4):
+                            o = offs[i] + 2048 * half + 4096 * kk
+                            r.append(sum(wsrc[t, o + j].astype(np.uint32) << (8 * j)
+                                         for j in range(width)))
+                        t0, t1 = _byte_perm(r[0], r[1], 0x5140), _byte_perm(r[0], r[1], 0x7362)
+                        t2, t3 = _byte_perm(r[2], r[3], 0x5140), _byte_perm(r[2], r[3], 0x7362)
+                        cols = [_byte_perm(t0, t2, sel[0]), _byte_perm(t0, t2, sel[1]),
+                                _byte_perm(t1, t3, sel[0]), _byte_perm(t1, t3, sel[1])]
+                        for h in range(nh):
+                            a[h, 2 * half], a[h, 2 * half + 1] = cols[2 * h], cols[2 * h + 1]
+                    # B (x rows, 32 K) through the K-major 128-byte-swizzle descriptor
+                    rr = np.arange(tile_m)[:, None]
+                    kb = 32 * kk + np.arange(32)[None, :]
+                    b = xbox[rr * 128 + (((kb >> 4) ^ (rr & 7)) << 4) + (kb & 15)]
+                    b = b.view(np.int8).astype(np.int64)
+                    for cc in range(2):
+                        th = t[c == cc]
+                        for h in range(nh):
+                            amat = np.zeros((64, 32), np.int64)
+                            for reg in range(4):
+                                for byte in range(4):
+                                    v = ((a[h, reg, th] >> (8 * byte)) & 0xFF).astype(np.uint8)
+                                    amat[16 * w[th] + g[th] + 8 * (reg & 1),
+                                         4 * q[th] + byte + 16 * (reg >> 1)] = v.view(np.int8)
+                            acc[cc, h] += amat @ b.T
+            for cc in range(2):
+                th = t[c == cc]
+                for h in range(nh):
+                    for j in range(tile_m // 8):
+                        for e in range(2):
+                            rows = m0 + 8 * j + 2 * q[th] + e
+                            for half in range(2):  # A rows g and g + 8: columns 2 h, 2 h + 1
+                                v = acc[cc, h, 16 * w[th] + g[th] + 8 * half, 8 * j + 2 * q[th] + e]
+                                cols = n0 + 128 * box[th] + col[th] + 2 * h + half
+                                ok = (rows < m) & (n0 + 128 * box[th] + col[th] < n)
+                                out[rows[ok], cols[ok]] = v[ok]
+                                stored[rows[ok], cols[ok]] += 1
+    assert (stored == 1).all()
+    acc32 = torch.from_numpy(out).float()  # |sums| < 2^24 here: exact
+    return (acc32 * sx[:, None] * sw).to(out_dtype)
+
+
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+def test_w8a8_wgmma_model_bitwise_jax_and_twin(out):
+    """M 100, K 272, N 144: a partial last K stage (272 = 2 x 128 + 16), a
+    partial last row and column tile, on w8a8's wgmma route; the model of
+    the kernel's data movement (w8a8_wgmma_model) at each of its tiles (NH
+    1 and 2) bitwise equal to the JAX kernel in interpret mode and to the
+    plain twin."""
+    m, k, n = 100, 272, 144
+    x = RNG.standard_normal((m, k)).astype(np.float32)
+    w = RNG.standard_normal((k, n)).astype(np.float32)
+    jxq, jsx = pk.quantize_int8_rows(jnp.asarray(x))
+    jwq, jsw = pk.quantize_int8(jnp.asarray(w))
+    want = np.asarray(pk.w8a8_matmul(jxq, jsx, jwq, jsw, out_dtype=getattr(jnp, out)),
+                      np.float32)
+    xq, sx = quant.quantize_int8_rows(torch.from_numpy(x))
+    wq, sw = quant.quantize_int8(torch.from_numpy(w))
+    assert quant._w8a8_route(xq, wq) == "wgmma"
+    odt = getattr(torch, out)
+    plain = quant.w8a8_matmul_plain(xq, sx, wq, sw, odt).float().numpy()
+    np.testing.assert_array_equal(plain, want)
+    for tile in quant._W8A8_TILES:
+        got = _w8a8_wgmma_model(xq, sx, wq, sw, *tile, odt)
+        assert got.dtype == odt
+        np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def test_rotated_transpose_is_transpose4():
+    """At every lane q, the rotated reads and selectors give transpose4's
+    columns; at q 0 the selectors are transpose4's own."""
+    rows = RNG.integers(0, 2**32, (4, 64), dtype=np.uint64).astype(np.uint32)
+    assert _rotated_sel(np.zeros(1, np.int64), 0)[0] == 0x5410
+    assert _rotated_sel(np.zeros(1, np.int64), 1)[0] == 0x7632
+    for lane_q in range(4):
+        qq = np.full(64, lane_q)
+        r = [rows[(i + lane_q) & 3] for i in range(4)]
+        t0, t1 = _byte_perm(r[0], r[1], 0x5140), _byte_perm(r[0], r[1], 0x7362)
+        t2, t3 = _byte_perm(r[2], r[3], 0x5140), _byte_perm(r[2], r[3], 0x7362)
+        s0, s1 = _rotated_sel(qq, 0), _rotated_sel(qq, 1)
+        got = [_byte_perm(t0, t2, s0), _byte_perm(t0, t2, s1),
+               _byte_perm(t1, t3, s0), _byte_perm(t1, t3, s1)]
+        for j in range(4):  # column j: byte j of each row, row 0 lowest
+            want = sum(((rows[i] >> (8 * j)) & 0xFF) << (8 * i) for i in range(4))
+            np.testing.assert_array_equal(got[j], want)
+
+
+def test_w8a8_on_the_cpu_takes_the_twin_and_counts_no_route():
+    """On CPU tensors w8a8_matmul at a prefill shape its wgmma route would
+    take returns the plain twin's bits and counts no launch and no route."""
+    xq, sx = quant.quantize_int8_rows(torch.from_numpy(
+        RNG.standard_normal((64, 32)).astype(np.float32)))
+    wq, sw = quant.quantize_int8(torch.from_numpy(RNG.standard_normal((32, 16)).astype(np.float32)))
+    assert quant._w8a8_route(xq, wq) == "wgmma"
+    before = dict(ops.w8a8_matmul.routes)
+    got = ops.w8a8_matmul(xq, sx, wq, sw, out_dtype=torch.bfloat16)
+    assert torch.equal(got, quant.w8a8_matmul_plain(xq, sx, wq, sw, torch.bfloat16))
+    assert ops.w8a8_matmul.routes == before and ops.w8a8_matmul.launches == 0

@@ -21,7 +21,9 @@ flushed between launches), on inputs from the same seeds:
 - for a tree with the wgmma route (ops/quant.py _prefill_wgmma_plan), the
   bf16-x call at each of those shapes with each wgmma tile forced in turn
   (the sweep the plan's block times are fitted to) and with the "mma"
-  route forced (the mma.sync tile);
+  route forced (the mma.sync tile); for a tree with w8a8's wgmma route
+  (_w8a8_wgmma_plan), the w8a8 call likewise, beside torch._int_mm and
+  the call's bound (2 M K N over 1,979 TOPS);
 - for a tree with the mma.sync tile (ops/quant.py _prefill_plan), each of
   its tile heights forced in turn at the decoder's shapes (int8 with bf16
   and f32 x, w8a8);
@@ -36,7 +38,9 @@ flushed between launches), on inputs from the same seeds:
   at the stream's shapes (Mistral's five matrices at M 16 to 48, the down
   projection at M 1 and 8, chip_smoke.stream_ragged) for int8_matmul with
   bf16 and f32 x and w8a8_matmul, and at the prefill shapes above for
-  w8a8_matmul and int8_matmul with f32 x (the mma.sync tile).
+  w8a8_matmul (its exact sums give the same bits on any route) and
+  int8_matmul with f32 x (the mma.sync tile) and with bf16 x (the wgmma
+  route).
 
 Prints the card's name and power limit and a table of the median of each
 tree's runs; with ``--report PATH`` it also writes every run to PATH as
@@ -95,7 +99,8 @@ def fixed_hashes(torch, ops, cs):
     """{route: {shape: SHA-256}} of the outputs the wgmma route must leave
     as they were: the decode shapes (int8_decode_ab.decode_hashes), the
     stream's shapes (int8_matmul with bf16 x, f32 and bf16 out, and f32 x;
-    w8a8_matmul) and the prefill shapes' w8a8_matmul and f32-x int8_matmul."""
+    w8a8_matmul) and the prefill shapes' w8a8_matmul and int8_matmul with
+    f32 and bf16 x."""
     dev = torch.device("cuda")
     stream = [(M, K, N) for M in (16, 24, 32, 40, 48) for K, N in cs.MISTRAL_SHAPES.values()]
     stream += [(M, *cs.MISTRAL_SHAPES["down"]) for M in (1, 8)]
@@ -110,6 +115,8 @@ def fixed_hashes(torch, ops, cs):
             xq, sx = ops.quantize_int8_rows(x)
             outs = [ops.int8_matmul(x, wq, s, out_dtype=torch.float32),
                     ops.w8a8_matmul(xq, sx, wq, s, out_dtype=torch.bfloat16)]
+            if kind == "prefill":
+                outs.append(ops.int8_matmul(x.bfloat16(), wq, s, out_dtype=torch.bfloat16))
             if kind == "stream":
                 outs += [ops.int8_matmul(x.bfloat16(), wq, s, out_dtype=torch.float32),
                          ops.int8_matmul(x.bfloat16(), wq, s, out_dtype=torch.bfloat16)]
@@ -149,8 +156,9 @@ def child(tree):
     def ms(fn):
         return cs.event_ms(fn, 20, flush_buf.zero_)
 
-    shapes, tiles, wgmma = {}, {}, {}
+    shapes, tiles, wgmma, w8a8 = {}, {}, {}, {}
     has_wgmma = hasattr(quant, "_prefill_wgmma_plan")
+    has_w8a8 = hasattr(quant, "_w8a8_wgmma_plan")
     for key, M, K, N in prefill_shapes(cs):
         x = torch.randn((M, K), generator=g, device=dev)
         wq, s = ops.quantize_int8(torch.randn((K, N), generator=g, device=dev) * 0.02)
@@ -163,6 +171,15 @@ def child(tree):
                                            lambda *a, t=tile: t, lambda: ms(runs["int8_bf16"]))
             w["mma"] = forced(quant, "_prefill_route", lambda *a: "mma",
                               lambda: ms(runs["int8_bf16"]))
+        if has_w8a8:
+            w = w8a8[key] = {"plan": "%dx%d" % quant._w8a8_wgmma_plan(M, N, K),
+                             "bound": cs.bound_ms(M * K + 4 * M + K * N + 4 * N + 2 * M * N,
+                                                  2 * M * K * N, "int8")[0]}
+            for tile in quant._W8A8_TILES:
+                w["%dx%d" % tile] = forced(quant, "_w8a8_wgmma_plan",
+                                           lambda *a, t=tile: t, lambda: ms(runs["w8a8"]))
+            w["mma"] = forced(quant, "_w8a8_prefill_route", lambda *a: "mma",
+                              lambda: ms(runs["w8a8"]))
         if "Mistral" not in key and hasattr(quant, "_prefill_plan"):
             t = tiles[key] = {"plan": quant._prefill_plan(M, N, K)[0]}
             for tile_m in quant._PREFILL_MS:
@@ -182,7 +199,7 @@ def child(tree):
         t, b_int8, b_w8a8, _ = cs.forward_timing(torch, ops, *args)
         forwards[key] = dict(t, int8_bound_ms=b_int8[0], w8a8_bound_ms=b_w8a8[0])
         cs.free_card(torch)
-    print(json.dumps(dict(tree=tree, shapes=shapes, wgmma=wgmma, tiles=tiles,
+    print(json.dumps(dict(tree=tree, shapes=shapes, wgmma=wgmma, w8a8=w8a8, tiles=tiles,
                           forwards=forwards, hashes=fixed_hashes(torch, ops, cs))))
 
 
@@ -236,6 +253,18 @@ def main():
                          for t in w if t not in ("plan", "mma")]
                 print(f"  {key:18s} " + "; ".join(cells)
                       + f"; mma {med(tree, lambda r: r['wgmma'][key]['mma']) * 1e3:.2f}")
+        sweep = by_tree[tree][0].get("w8a8")
+        if sweep:
+            print(f"w8a8 wgmma tiles of {tree}, us a call (* the plan's), the mma route forced, "
+                  "torch._int_mm and the bound:")
+            for key, w in sweep.items():
+                cells = [("*" if w["plan"] == t else " ") + f"{t} "
+                         f"{med(tree, lambda r: r['w8a8'][key][t]) * 1e3:.2f}"
+                         for t in w if t not in ("plan", "mma", "bound")]
+                print(f"  {key:18s} " + "; ".join(cells)
+                      + f"; mma {med(tree, lambda r: r['w8a8'][key]['mma']) * 1e3:.2f}"
+                      + f"; _int_mm {med(tree, lambda r: r['shapes'][key]['int_mm']) * 1e3:.2f}"
+                      + f"; bound {w['bound'] * 1e3:.2f}")
         tiles = by_tree[tree][0]["tiles"]
         if tiles:
             print(f"mma.sync tile sweep of {tree}, us a call (int8 bf16 x / int8 f32 x / "
